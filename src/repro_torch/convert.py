@@ -1,0 +1,64 @@
+"""Carry a problem and a config across from the JAX reference.
+
+``jax.random`` and ``torch.Generator`` give different numbers from the same
+seed, so a comparison of the two packages starts both from the same
+factors: build the problem with the reference (``repro.core.dcf_pca.
+make_problem`` or ``cf_pca.make_problem``), then hand it here.  Fields are
+read by name and converted through numpy; nothing of the reference is
+imported.
+"""
+from __future__ import annotations
+
+from dataclasses import fields
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.cf_pca import CFProblem
+from repro_torch.core.dcf_pca import DCFProblem
+from repro_torch.core.factorized import DCFConfig
+
+
+def config_from_reference(ref_cfg: Any) -> DCFConfig:
+    """The port's :class:`DCFConfig` with every field read from
+    ``ref_cfg`` by name (the reference's ``impl="pallas"`` becomes
+    ``"cuda"``)."""
+    kw = {f.name: getattr(ref_cfg, f.name) for f in fields(DCFConfig)}
+    if kw["impl"] == "pallas":
+        kw["impl"] = "cuda"
+    return DCFConfig(**kw)
+
+
+def _tensor(x: Any, device: torch.device | str,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor | None:
+    if x is None:
+        return None
+    arr = np.array(x)  # a writable, contiguous copy
+    if arr.dtype == np.uint8:
+        raise NotImplementedError(
+            "bit-packed masks wait for a later slice of the port "
+            "(ROADMAP.md)")
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+def problem_from_reference(ref_problem: Any, device: torch.device | str
+                           ) -> DCFProblem | CFProblem:
+    """The port's problem from a reference ``DCFProblem`` (it has
+    ``blocks``) or ``CFProblem`` (it has ``m_obs``), on ``device``."""
+    common = dict(
+        u_init=_tensor(ref_problem.u_init, device),
+        v_init=_tensor(ref_problem.v_init, device),
+        lam0=_tensor(ref_problem.lam0, device),
+        t0=_tensor(ref_problem.t0, device, torch.int32),
+        mask=_tensor(ref_problem.mask, device),
+    )
+    if not hasattr(ref_problem, "blocks"):
+        return CFProblem(m_obs=_tensor(ref_problem.m_obs, device), **common)
+    if (getattr(ref_problem, "participation", None) is not None
+            or getattr(ref_problem, "faults", None) is not None):
+        raise NotImplementedError(
+            "participation schedules and fault injection wait for a later "
+            "slice of the port (ROADMAP.md)")
+    return DCFProblem(blocks=_tensor(ref_problem.blocks, device),
+                      n_cols=_tensor(ref_problem.n_cols, device), **common)

@@ -1,0 +1,179 @@
+"""CF-PCA: the centralized consensus-factorization baseline (Fig. 1), the
+counterpart of ``repro.core.cf_pca`` for a single problem.
+
+The same math as DCF-PCA with one client: each round is K iterations of
+{inner (V, S) solve, U gradient step} on the whole matrix, run through the
+batched kernels with E = 1.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import factorized as fz
+from repro_torch.core import problems as prob
+from repro_torch.core import runtime as rt
+from repro_torch.core import validate
+from repro_torch.device import resolve_device
+
+Tensor = torch.Tensor
+
+
+class CFResult(NamedTuple):
+    l: Tensor  # recovered low-rank matrix (m, n)
+    s: Tensor  # recovered sparse matrix (m, n)
+    u: Tensor  # left factor (m, r)
+    v: Tensor  # right factor (n, r)
+    stats: rt.SolveStats
+
+
+class CFProblem(NamedTuple):
+    """Data, initial factors, threshold and schedule offset, on one device."""
+
+    m_obs: Tensor  # (m, n), contiguous fp32
+    u_init: Tensor  # (m, r)
+    v_init: Tensor  # (n, r)
+    lam0: Tensor  # () base threshold
+    t0: Tensor  # () int32 schedule offset
+    mask: Tensor | None = None  # (m, n) observation mask
+
+
+class _Carry(NamedTuple):
+    u: Tensor
+    v: Tensor
+    diag: rt.Diag
+
+
+def make_solver(cfg: fz.DCFConfig, *, with_objective: bool = False) -> rt.Solver:
+    """The runtime Solver for centralized CF-PCA under ``cfg``."""
+    fz.check_supported(cfg)
+    track = cfg.track_objective or with_objective
+
+    def init(p: CFProblem) -> _Carry:
+        inf = torch.full((), float("inf"), device=p.m_obs.device)
+        return _Carry(u=p.u_init, v=p.v_init, diag=rt.Diag(inf, inf))
+
+    def step(p: CFProblem, c: _Carry, t: Tensor) -> _Carry:
+        t = t + p.t0
+        lam_t = cfg.lam_at(p.lam0, t)
+        u, v, diag = fz.local_round(
+            c.u, c.v[None], p.m_obs[None], cfg=cfg, lam=lam_t[None],
+            n_frac=1.0, eta=cfg.lr(t),
+            w=None if p.mask is None else p.mask[None],
+        )
+        u, v = u[0], v[0]
+        if not track:
+            obj = torch.zeros((), device=u.device)
+        elif diag is not None:
+            obj = diag[0].sum() + fz.reg_terms(u, v, cfg.rho, 1.0)
+        else:
+            obj = fz.local_objective(u, v, p.m_obs, cfg.rho, lam_t, 1.0,
+                                     w=p.mask)
+        resid = torch.linalg.norm(u - c.u) / (torch.linalg.norm(c.u) + 1e-30)
+        return _Carry(u=u, v=v, diag=rt.Diag(obj, resid))
+
+    def diagnostics(p: CFProblem, c: _Carry) -> rt.Diag:
+        return c.diag
+
+    def finalize(p: CFProblem, c: _Carry):
+        lam = cfg.final_lam(p.lam0)[None]
+        w = None if p.mask is None else p.mask[None]
+        l, s = fz.finalize(c.u[None], c.v[None], p.m_obs[None], lam, cfg.impl,
+                           w=w)
+        return l[0], s[0], c.u, c.v
+
+    return rt.Solver(init, step, diagnostics, finalize)
+
+
+def _float_on(x, device: torch.device) -> Tensor:
+    x = torch.as_tensor(x)
+    if x.dtype not in (torch.float32, torch.float64, torch.bool):
+        raise NotImplementedError(
+            f"data of dtype {x.dtype}: this slice of the port runs fp32 data "
+            f"only (a bf16 data plane waits for a later slice, ROADMAP.md)")
+    return x.to(device=device, dtype=torch.float32).contiguous()
+
+
+def prepare_data(m_obs, cfg: fz.DCFConfig, mask, device: torch.device):
+    """Shared set-up of both engines: checks, the data and mask on
+    ``device`` (hidden entries zero-filled) and the calibrated ``lam0``
+    (on the unpadded data)."""
+    fz.check_supported(cfg, device)
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError(
+            "TF32 matmuls are on (torch.backends.cuda.matmul.allow_tf32); "
+            "the solvers need full fp32 products to meet their recovery "
+            "bar: set it to False")
+    m_obs = _float_on(m_obs, device)
+    if mask is not None:
+        validate.check_mask(mask, tuple(m_obs.shape))
+        mask = _float_on(mask, device)
+        m_obs = mask * m_obs
+    if cfg.lam is not None:
+        lam0 = torch.full((), float(cfg.lam), device=device)
+    else:
+        lam0 = fz.robust_lam(m_obs, mask=mask, sample=cfg.lam_sample)
+    return m_obs, mask, lam0
+
+
+def make_problem(
+    m_obs,
+    cfg: fz.DCFConfig,
+    generator: int | torch.Generator | None = None,
+    warm: tuple[Tensor, Tensor] | None = None,
+    t0: int | None = None,
+    mask=None,
+    *,
+    device: torch.device | str | None = None,
+) -> CFProblem:
+    """Assemble the problem on ``device`` (the card unless ``"cpu"``): random
+    factors from ``generator`` (a seed, default 0) or ``warm=(U, V)``;
+    ``t0`` offsets the schedules (a warm start continues them)."""
+    device = resolve_device(device)
+    m_obs, mask, lam0 = prepare_data(m_obs, cfg, mask, device)
+    m, n = m_obs.shape
+    if warm is None:
+        state = fz.init_state(prob.generator(generator), m, n, cfg.rank,
+                              device)
+        u0, v0 = state.u, state.v
+    else:
+        u0, v0 = validate.check_warm_shapes(
+            warm, ("U", "V"), ((m, cfg.rank), (n, cfg.rank)),
+            ("(m, rank)", "(n, rank)"),
+        )
+        u0, v0 = _float_on(u0, device), _float_on(v0, device)
+    if t0 is None:
+        t0 = 0 if warm is None else cfg.outer_iters
+    return CFProblem(
+        m_obs=m_obs, u_init=u0, v_init=v0, lam0=lam0,
+        t0=torch.full((), t0, dtype=torch.int32, device=device), mask=mask,
+    )
+
+
+def solve_problem(problem: CFProblem, cfg: fz.DCFConfig,
+                  run: rt.RunConfig | str | None = None) -> CFResult:
+    """Run the solver on an assembled problem and finalize."""
+    run = rt.resolve_run(run)
+    solver = make_solver(cfg, with_objective=run.needs_objective)
+    carry, stats = rt.run(solver, problem, cfg.outer_iters, run)
+    l, s, u, v = solver.finalize(problem, carry)
+    return CFResult(l=l, s=s, u=u, v=v, stats=stats)
+
+
+def cf_pca(
+    m_obs,
+    cfg: fz.DCFConfig,
+    generator: int | torch.Generator | None = None,
+    *,
+    run: rt.RunConfig | str | None = None,
+    warm: tuple[Tensor, Tensor] | None = None,
+    mask=None,
+    device: torch.device | str | None = None,
+) -> CFResult:
+    """Centralized CF-PCA for ``cfg.outer_iters`` rounds on ``device`` (the
+    card unless ``"cpu"``); ``mask`` restricts the residual to observed
+    entries."""
+    problem = make_problem(m_obs, cfg, generator, warm, mask=mask,
+                           device=device)
+    return solve_problem(problem, cfg, run)

@@ -1,0 +1,198 @@
+"""DCF-PCA, Algorithm 1: distributed RPCA by consensus factorization, in the
+simulated-client engine (counterpart of ``repro.core.dcf_pca`` :54-270 and
+:490-599).
+
+The E column blocks live on a leading axis of one device.  Each round the
+server broadcasts U, every client runs K local iterations (all clients in
+the same batched kernel launches), and the consensus (Eq. 9) is the mean of
+the client factors over that axis, weighted by true column counts when
+``n % E != 0``.  A ragged ``n`` is zero-padded into equal blocks and the
+padding is excluded through a mask-zero plane, so a ragged problem always
+carries a mask.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import factorized as fz
+from repro_torch.core import problems as prob
+from repro_torch.core import runtime as rt
+from repro_torch.core import validate
+from repro_torch.core.cf_pca import prepare_data
+from repro_torch.device import resolve_device
+
+Tensor = torch.Tensor
+
+
+class DCFResult(NamedTuple):
+    l: Tensor  # recovered low-rank matrix (m, n)
+    s: Tensor  # recovered sparse matrix (m, n)
+    u: Tensor  # consensus left factor (m, r)
+    v: Tensor  # per-client right factors (E, n_i, r)
+    stats: rt.SolveStats
+
+
+class DCFProblem(NamedTuple):
+    """Client blocks and initial factors on one device.  ``n_cols`` holds
+    the true per-client column counts of a ragged split (``None`` = equal
+    blocks); a ragged split always carries ``mask``."""
+
+    blocks: Tensor  # (E, m, n_i), contiguous
+    u_init: Tensor  # (m, r) server broadcast
+    v_init: Tensor  # (E, n_i, r)
+    lam0: Tensor  # () base threshold
+    t0: Tensor  # () int32 schedule offset
+    mask: Tensor | None = None  # (E, m, n_i) blocked observation mask
+    n_cols: Tensor | None = None  # (E,) true column counts
+
+
+class _Carry(NamedTuple):
+    u: Tensor
+    v: Tensor
+    diag: rt.Diag
+
+
+def _sim_local_rounds(cfg: fz.DCFConfig, p: DCFProblem, u: Tensor,
+                      v: Tensor, eta: Tensor, lam_t: Tensor):
+    """Broadcast U; all clients run their K local iterations in the same
+    batched launches.  Returns ``(u_i, v_new, diag_i, n_frac)``."""
+    e = p.blocks.shape[0]
+    n_frac = 1.0 / e if p.n_cols is None else p.n_cols / p.n_cols.sum()
+    lam_e = lam_t.expand(e).contiguous()
+    u_i, v_new, diag_i = fz.local_round(u, v, p.blocks, cfg=cfg, lam=lam_e,
+                                        n_frac=n_frac, eta=eta, w=p.mask)
+    return u_i, v_new, diag_i, n_frac
+
+
+def make_solver(cfg: fz.DCFConfig, *, with_objective: bool = False) -> rt.Solver:
+    """Runtime Solver for the simulated-client engine."""
+    fz.check_supported(cfg)
+    track = cfg.track_objective or with_objective
+
+    def init(p: DCFProblem) -> _Carry:
+        inf = torch.full((), float("inf"), device=p.blocks.device)
+        return _Carry(u=p.u_init, v=p.v_init, diag=rt.Diag(inf, inf))
+
+    def step(p: DCFProblem, c: _Carry, t: Tensor) -> _Carry:
+        t = t + p.t0
+        lam_t = cfg.lam_at(p.lam0, t)
+        u_i, v, diag_i, n_frac = _sim_local_rounds(cfg, p, c.u, c.v,
+                                                   cfg.lr(t), lam_t)
+        u = fz.aggregate_stacked(cfg, u_i, n_cols=p.n_cols)
+        if not track:
+            obj = torch.zeros((), device=u.device)
+        elif diag_i is not None:
+            # Data terms from the U-step epilogues plus the regularizer
+            # (sum_i n_frac_i == 1, so U and the stacked V take full weight).
+            obj = diag_i[0].sum() + fz.reg_terms(u, v, cfg.rho, 1.0)
+        else:
+            obj = fz.local_objective(u, v, p.blocks, cfg.rho, lam_t, n_frac,
+                                     w=p.mask).sum()
+        resid = torch.linalg.norm(u - c.u) / (torch.linalg.norm(c.u) + 1e-30)
+        return _Carry(u=u, v=v, diag=rt.Diag(obj, resid))
+
+    def diagnostics(p: DCFProblem, c: _Carry) -> rt.Diag:
+        return c.diag
+
+    def finalize(p: DCFProblem, c: _Carry):
+        e = p.blocks.shape[0]
+        lam = cfg.final_lam(p.lam0).expand(e).contiguous()
+        l_blocks, s_blocks = fz.finalize(c.u, c.v, p.blocks, lam, cfg.impl,
+                                         w=p.mask)
+        return (prob.merge_columns(l_blocks), prob.merge_columns(s_blocks),
+                c.u, c.v)
+
+    return rt.Solver(init, step, diagnostics, finalize)
+
+
+def make_problem(
+    m_obs,
+    cfg: fz.DCFConfig,
+    num_clients: int,
+    generator: int | torch.Generator | None = None,
+    warm: tuple[Tensor, Tensor] | None = None,
+    t0: int | None = None,
+    mask=None,
+    participation=None,
+    faults=None,
+    *,
+    device: torch.device | str | None = None,
+) -> DCFProblem:
+    """Assemble the simulated-engine problem on ``device`` (the card unless
+    ``"cpu"``).  The blocks are made contiguous here, once; ``lam0`` is
+    calibrated on the unpadded data."""
+    if participation is not None or faults is not None:
+        raise NotImplementedError(
+            "participation schedules and fault injection wait for a later "
+            "slice of the port (ROADMAP.md)")
+    device = resolve_device(device)
+    m_obs, mask, lam0 = prepare_data(m_obs, cfg, mask, device)
+    m, n = m_obs.shape
+    blocks = prob.split_columns(m_obs, num_clients).contiguous()
+    n_i = blocks.shape[-1]
+    n_cols = None
+    if n % num_clients:
+        if mask is None:
+            mask = torch.ones_like(m_obs)
+        n_cols = torch.tensor(prob.client_column_counts(n, num_clients),
+                              dtype=torch.float32, device=device)
+    if mask is not None:
+        mask = prob.split_columns(mask, num_clients).contiguous()
+    if warm is None:
+        state = fz.init_state(prob.generator(generator), m, n_i, cfg.rank,
+                              device, clients=num_clients)
+        u0, v0 = state.u, state.v
+    else:
+        u0, v0 = validate.check_warm_shapes(
+            warm, ("U", "V"),
+            ((m, cfg.rank), (num_clients, n_i, cfg.rank)),
+            ("(m, rank)", "(E, n_i, rank)"),
+            suffixes=("", f" for num_clients={num_clients}, n={n}"),
+        )
+        u0 = torch.as_tensor(u0).to(device, torch.float32).contiguous()
+        v0 = torch.as_tensor(v0).to(device, torch.float32).contiguous()
+    if t0 is None:
+        t0 = 0 if warm is None else cfg.outer_iters
+    return DCFProblem(
+        blocks=blocks, u_init=u0, v_init=v0, lam0=lam0,
+        t0=torch.full((), t0, dtype=torch.int32, device=device), mask=mask,
+        n_cols=n_cols,
+    )
+
+
+def solve_problem(problem: DCFProblem, cfg: fz.DCFConfig,
+                  run: rt.RunConfig | str | None = None,
+                  n: int | None = None) -> DCFResult:
+    """Run the solver on an assembled problem and finalize; ``n`` trims the
+    padding columns of a ragged split."""
+    run = rt.resolve_run(run)
+    solver = make_solver(cfg, with_objective=run.needs_objective)
+    carry, stats = rt.run(solver, problem, cfg.outer_iters, run)
+    l, s, u, v = solver.finalize(problem, carry)
+    if n is not None:
+        l, s = l[:, :n], s[:, :n]
+    return DCFResult(l=l, s=s, u=u, v=v, stats=stats)
+
+
+def dcf_pca(
+    m_obs,
+    cfg: fz.DCFConfig,
+    num_clients: int,
+    generator: int | torch.Generator | None = None,
+    *,
+    run: rt.RunConfig | str | None = None,
+    warm: tuple[Tensor, Tensor] | None = None,
+    mask=None,
+    participation=None,
+    faults=None,
+    device: torch.device | str | None = None,
+) -> DCFResult:
+    """DCF-PCA with ``num_clients`` simulated clients on ``device`` (the card
+    unless ``"cpu"``).  ``n % num_clients != 0`` is allowed (padded blocks,
+    count-weighted consensus)."""
+    problem = make_problem(m_obs, cfg, num_clients, generator, warm,
+                           mask=mask, participation=participation,
+                           faults=faults, device=device)
+    return solve_problem(problem, cfg, run, n=m_obs.shape[-1])

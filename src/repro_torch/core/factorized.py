@@ -1,0 +1,395 @@
+"""Shared machinery of consensus-factorization RPCA (Sec. 2.2): the local
+computation of Algorithm 1, batched over a leading client axis E.
+
+The counterpart of ``repro.core.factorized``.  Where the reference vmaps one
+client's round, every function here takes the stacked client blocks
+``(E, m, n_i)`` at once, so each kernel launch serves all clients:
+
+``local_round``  K local iterations of {J inner (V, S) sweeps, one U-step}:
+                 every inner sweep is one batched
+                 ``huber_contract_v`` launch plus an r x r ridge
+                 back-substitution; every U-step is one batched
+                 ``huber_contract_u_diag`` launch, which also measures the
+                 round's Huber objective and ``||Psi||_F^2``.
+``finalize``     ``L = U V^T`` (``torch.matmul``) and ``S`` from one
+                 ``residual_shrink`` launch.
+
+Inner solvers: ``altmin`` (exact block-coordinate descent on the (V, S)
+subproblem, Eqs. 15-16, with ``U^T (M - S) = G V^T + U^T Psi``) and
+``huber_gd`` (gradient descent on the eliminated objective, Lemma 1).  The
+r x r Gram matrix ``G + rho I`` is Cholesky-factored once per local
+iteration (``cholesky_ex``, which does not wait for the device) and
+back-substituted per sweep.
+
+Everything in the loop stays on the device: ``lam`` and ``eta`` are device
+tensors and nothing is read back to the host.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Literal
+
+import torch
+
+from repro_torch.core import ops as core_ops
+from repro_torch.kernels import bitmask
+from repro_torch.kernels import ops as kops
+
+Tensor = torch.Tensor
+
+
+@dataclass(frozen=True)
+class DCFConfig:
+    """Hyperparameters of (D)CF-PCA: the fields, defaults and presets of
+    ``repro.core.factorized.DCFConfig`` (see there for each field).
+
+    ``impl`` is ``"auto"`` (kernel on CUDA tensors, plain version on CPU
+    tensors), ``"cuda"`` or ``"ref"``.  This slice of the port runs
+    ``fused="diag"`` (and ``"off"`` on the CPU), dense masks, fp32 data and
+    the weighted-mean consensus; the other options raise
+    ``NotImplementedError`` when a problem is built (``check_supported``).
+    """
+
+    rank: int
+    outer_iters: int = 50  # T, consensus rounds
+    local_iters: int = 2  # K, local U-steps per round
+    inner_sweeps: int = 3  # J, (V, S) sweeps per local U-step
+    rho: float = 1e-2
+    lam: float | None = None  # None => robust_lam(M)
+    lam_decay: float = 1.0
+    lam_min_frac: float = 1e-3
+    eta0: float = 0.05
+    lr_schedule: Literal["decay", "fixed", "theory"] = "decay"
+    inner: Literal["altmin", "huber_gd"] = "altmin"
+    precondition: Literal["lipschitz", "newton", "raw"] = "lipschitz"
+    impl: Literal["auto", "cuda", "ref"] = "auto"
+    track_objective: bool = False
+    fused: Literal["off", "diag", "dual"] = "diag"
+    pack_mask: bool = False
+    lam_sample: int | None = None
+    consensus_compress: Any = None
+    consensus_delay: int = 0
+    stale_guard: float = 4.0
+    aggregator: Literal[
+        "weighted_mean", "trimmed_mean", "coordinate_median"
+    ] = "weighted_mean"
+    trim_frac: float = 0.25
+    divergence_screen: float | None = None
+
+    def lr(self, t: Tensor) -> Tensor:
+        """Learning rate at round ``t`` (a device tensor), fp32."""
+        t = t.to(torch.float32)
+        if self.lr_schedule == "decay":
+            return self.eta0 / (1.0 + t)
+        if self.lr_schedule == "theory":
+            kt = torch.full_like(t, float(self.local_iters * self.outer_iters))
+            return self.eta0 / torch.sqrt(kt)
+        return torch.full_like(t, self.eta0)
+
+    def lam_at(self, lam0: Tensor, t: Tensor) -> Tensor:
+        """Annealed threshold ``lam0 * max(lam_decay^t, lam_min_frac)``."""
+        lam0 = lam0.to(torch.float32)
+        if self.lam_decay >= 1.0:
+            return lam0
+        frac = torch.clamp_min(self.lam_decay ** t.to(torch.float32),
+                               self.lam_min_frac)
+        return lam0 * frac
+
+    def final_lam(self, lam0: Tensor) -> Tensor:
+        t = torch.full((), self.outer_iters - 1, dtype=torch.float32,
+                       device=lam0.device)
+        return self.lam_at(lam0, t)
+
+    @classmethod
+    def paper(cls, rank: int, **overrides) -> "DCFConfig":
+        """Paper-faithful preset: fixed lam, decaying eta0=0.05, K=2."""
+        kw = dict(rank=rank, outer_iters=50, local_iters=2, inner_sweeps=3,
+                  rho=1e-2, eta0=0.05, lr_schedule="decay", lam_decay=1.0,
+                  precondition="lipschitz")
+        kw.update(overrides)
+        return cls(**kw)
+
+    @classmethod
+    def tuned(cls, rank: int, **overrides) -> "DCFConfig":
+        """Annealed threshold, fixed eta with Lipschitz conditioning."""
+        kw = dict(rank=rank, outer_iters=100, local_iters=2, inner_sweeps=3,
+                  rho=1e-2, eta0=0.5, lr_schedule="fixed", lam_decay=0.9,
+                  lam_min_frac=1e-3, precondition="lipschitz")
+        kw.update(overrides)
+        return cls(**kw)
+
+    @classmethod
+    def tuned_hard(cls, rank: int, **overrides) -> "DCFConfig":
+        """Slow-anneal preset for hard corners of the phase plane."""
+        kw = dict(rank=rank, outer_iters=300, local_iters=2, inner_sweeps=3,
+                  rho=1e-2, eta0=0.5, lr_schedule="fixed", lam_decay=0.97,
+                  lam_min_frac=1e-3, precondition="lipschitz")
+        kw.update(overrides)
+        return cls(**kw)
+
+    @classmethod
+    def elastic(cls, rank: int, participation: float = 1.0,
+                **overrides) -> "DCFConfig":
+        """Partial participation: the masked preset at ``participation``."""
+        return cls.masked(rank, observed_frac=participation, **overrides)
+
+    @classmethod
+    def masked(cls, rank: int, observed_frac: float = 0.7,
+               **overrides) -> "DCFConfig":
+        """Partial observation: slow anneal, budget stretched by
+        ``1/observed_frac``."""
+        iters = int(round(300 / max(observed_frac, 0.3)))
+        kw = dict(rank=rank, outer_iters=iters, local_iters=2,
+                  inner_sweeps=3, rho=1e-2, eta0=0.5, lr_schedule="fixed",
+                  lam_decay=0.97, lam_min_frac=1e-3,
+                  precondition="lipschitz")
+        kw.update(overrides)
+        return cls(**kw)
+
+
+def check_supported(cfg: DCFConfig,
+                    device: torch.device | None = None) -> None:
+    """Raise ``NotImplementedError`` for options this slice of the port does
+    not run yet (they wait in ``ROADMAP.md``), before any solve starts.
+    ``device`` adds the checks that depend on where the solve runs."""
+    later = "waits for a later slice of the port (ROADMAP.md)"
+    if cfg.consensus_compress is not None or cfg.consensus_delay:
+        raise NotImplementedError(
+            f"consensus_compress / consensus_delay {later}")
+    if cfg.aggregator != "weighted_mean" or cfg.divergence_screen is not None:
+        raise NotImplementedError(
+            f"robust aggregators and the divergence screen {later}")
+    if cfg.fused == "dual":
+        raise NotImplementedError(f"fused='dual' {later}")
+    if cfg.pack_mask:
+        raise NotImplementedError(f"pack_mask {later}")
+    if device is None:
+        return
+    if device.type == "cuda" and cfg.fused == "off" and cfg.impl != "ref":
+        raise NotImplementedError(
+            f"fused='off' needs the huber_contract_u kernel, which {later}")
+    if cfg.impl == "cuda" and device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
+
+
+def _median(xs: Tensor, count) -> Tensor:
+    """Median of the first ``count`` entries of sorted ``xs``; the mean of
+    the two middle values for an even count (as ``jnp.median``)."""
+    return 0.5 * (xs[(count - 1) // 2] + xs[count // 2])
+
+
+def robust_lam(m_obs: Tensor, mult: float = 2.0, mask: Tensor | None = None,
+               sample: int | None = None) -> Tensor:
+    """Data-driven soft-threshold level ``mult * 1.4826 * MAD(M)``, as a
+    0-d device tensor.
+
+    ``mask`` restricts both medians to the observed entries; ``sample``
+    caps the entries fed to the medians with a stride made coprime with the
+    column count (so the subsample sweeps every column).
+    """
+    if mask is not None and bitmask.is_packed(mask):
+        mask = bitmask.unpack_mask(mask, m_obs.shape[-1])
+    n_cols = m_obs.shape[-1] if m_obs.ndim >= 2 else 1
+    x = m_obs.reshape(-1).to(torch.float32)
+    keep = None if mask is None else mask.reshape(-1) > 0
+    if sample is not None and x.numel() > sample:
+        stride = -(-x.numel() // sample)
+        while n_cols > 1 and math.gcd(stride, n_cols) > 1:
+            stride += 1
+        x = x[::stride]
+        keep = None if keep is None else keep[::stride]
+    if keep is None:
+        c = x.numel()
+        med = _median(torch.sort(x).values, c)
+        return mult * 1.4826 * _median(torch.sort((x - med).abs()).values, c)
+    inf = torch.full((), float("inf"), device=x.device)
+    count = torch.clamp_min(keep.sum(), 1)
+    med = _median(torch.sort(torch.where(keep, x, inf)).values, count)
+    dev = torch.where(keep, (x - med).abs(), inf)
+    return mult * 1.4826 * _median(torch.sort(dev).values, count)
+
+
+def consensus_weights(n_cols: Tensor | None, num_clients: int,
+                      device: torch.device) -> Tensor:
+    """Normalized consensus weights ``w_i = n_i / sum_j n_j``
+    (``n_cols=None`` means equal blocks)."""
+    raw = torch.ones(num_clients, dtype=torch.float32, device=device)
+    if n_cols is not None:
+        raw = raw * n_cols
+    return raw / torch.clamp_min(raw.sum(), 1e-30)
+
+
+def aggregate_stacked(cfg: DCFConfig, u_i: Tensor, *,
+                      n_cols: Tensor | None = None) -> Tensor:
+    """Consensus (Eq. 9) over the stacked ``(E, m, r)`` client factors: the
+    plain mean for equal blocks, the column-count-weighted mean for ragged
+    ones.  Only the weighted mean is ported (``check_supported``)."""
+    if n_cols is None:
+        return u_i.mean(dim=0)
+    w = consensus_weights(n_cols, u_i.shape[0], u_i.device)
+    return (w[:, None, None] * u_i).sum(dim=0)
+
+
+@dataclass(frozen=True)
+class DCFState:
+    """Factors: ``u`` (m, r) global, ``v`` (n_i, r) or (E, n_i, r)."""
+
+    u: Tensor
+    v: Tensor
+
+
+def init_state(generator: torch.Generator, m: int, n_local: int, rank: int,
+               device: torch.device, clients: int | None = None) -> DCFState:
+    """Random init, ``U, V ~ N(0, 1/sqrt(r))``, drawn on the CPU from
+    ``generator`` (so a seed gives the same factors on every device).
+    ``clients`` stacks independent V blocks ``(clients, n_local, r)``."""
+    scale = 1.0 / math.sqrt(rank)
+    v_shape = (n_local, rank) if clients is None else (clients, n_local, rank)
+    u = torch.randn(m, rank, generator=generator) * scale
+    v = torch.randn(v_shape, generator=generator) * scale
+    return DCFState(u=u.to(device), v=v.to(device))
+
+
+# ---------------------------------------------------------------------------
+# Inner solvers for Eq. (7): argmin_{V,S} given U, batched over clients
+# ---------------------------------------------------------------------------
+def _gram(u: Tensor) -> Tensor:
+    return u.transpose(-1, -2) @ u
+
+
+def _altmin_update(u: Tensor, rho: float):
+    """The ridge update ``V^T <- (G + rho I)^{-1} (G V^T + U^T Psi)`` with
+    ``G = U^T U``, factored once per U.
+
+    The back-substitution is two triangular solves: batched over clients
+    on the card, ``torch.cholesky_solve`` takes a path that synchronises
+    with the host and allocates on every call (see PERF.md), while
+    ``solve_triangular`` stays one asynchronous batched launch each."""
+    g = _gram(u)
+    eye = torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)
+    chol, _ = torch.linalg.cholesky_ex(g + rho * eye)
+    chol_t = chol.transpose(-1, -2)
+
+    def update(v: Tensor, contr: Tensor) -> Tensor:
+        rhs = g @ v.transpose(-1, -2) + contr.transpose(-1, -2)
+        y = torch.linalg.solve_triangular(chol, rhs, upper=False)
+        x = torch.linalg.solve_triangular(chol_t, y, upper=True)
+        return x.transpose(-1, -2).contiguous()
+
+    return update
+
+
+def _gd_update(u: Tensor, rho: float):
+    """One Lemma-1 step ``V <- V - (rho V - Psi^T U) /
+    (rho + sigma_max(U)^2)``."""
+    g = _gram(u)
+    step = (1.0 / (rho + core_ops.spectral_norm_ub_gram(g)))[..., None, None]
+
+    def update(v: Tensor, contr: Tensor) -> Tensor:
+        return v - step * (rho * v - contr)
+
+    return update
+
+
+def _inner_solve(make_update, u, v, m_blk, rho, lam, sweeps, impl, w):
+    update = make_update(u, rho)
+    for _ in range(sweeps):
+        v = update(v, kops.huber_contract_v(u, v, m_blk, lam, w=w, impl=impl))
+    return v
+
+
+def inner_solve_altmin(u, v, m_blk, rho: float, lam, sweeps: int, impl: str,
+                       w=None) -> Tensor:
+    """Block-coordinate descent on the jointly convex (V, S) subproblem:
+    one ``huber_contract_v`` and one ridge back-substitution per sweep."""
+    return _inner_solve(_altmin_update, u, v, m_blk, rho, lam, sweeps, impl, w)
+
+
+def inner_solve_huber_gd(u, v, m_blk, rho: float, lam, sweeps: int,
+                         impl: str, w=None) -> Tensor:
+    """Gradient descent on ``rho/2 ||V||^2 + H_lam(P_Omega(M - U V^T))``."""
+    return _inner_solve(_gd_update, u, v, m_blk, rho, lam, sweeps, impl, w)
+
+
+def _per_client(x) -> Any:
+    """A per-client (E,) tensor as (E, 1, 1); scalars pass through."""
+    if isinstance(x, Tensor) and x.ndim == 1:
+        return x[:, None, None]
+    return x
+
+
+def _u_step(cfg: DCFConfig, u_i: Tensor, v_i: Tensor, psi_v: Tensor,
+            n_frac, eta: Tensor) -> Tensor:
+    """One gradient step on the local U copies from ``Psi V``:
+    ``grad = -Psi V + (n_i/n) rho U``, raw, Lipschitz-scaled or Newton."""
+    grad_u = -psi_v + _per_client(n_frac) * cfg.rho * u_i
+    if cfg.precondition == "raw":
+        upd = eta * grad_u
+    else:
+        gram_v = _gram(v_i)
+        if cfg.precondition == "newton":
+            eye = torch.eye(gram_v.shape[-1], dtype=gram_v.dtype,
+                            device=gram_v.device)
+            h = gram_v + _per_client(n_frac) * cfg.rho * eye
+            sol, _ = torch.linalg.solve_ex(h, grad_u.transpose(-1, -2))
+            upd = eta * sol.transpose(-1, -2)
+        else:
+            lip = core_ops.spectral_norm_ub_gram(gram_v) + n_frac * cfg.rho
+            upd = _per_client(eta / lip) * grad_u
+    return u_i - upd
+
+
+def local_round(u_global: Tensor, v: Tensor, m_blk: Tensor, *,
+                cfg: DCFConfig, lam, n_frac, eta: Tensor, w=None):
+    """Every client's work in one consensus round (Alg. 1): K local
+    iterations of {inner (V, S) solve; one gradient step on the local U}.
+
+    ``u_global`` is the (m, r) broadcast (or an (E, m, r) stack), ``v`` and
+    ``m_blk`` are (E, n_i, r) and (E, m, n_i), ``lam`` is one threshold per
+    client (E,) or a scalar, ``n_frac`` the clients' regularizer shares.
+    Returns ``(U_i (E, m, r), V_i, diag)``; ``diag`` is ``(H_lam(R_W),
+    ||Psi||_F^2)`` per client from the last U-step pass (``None`` under
+    ``fused="off"``).
+    """
+    e = m_blk.shape[0]
+    u_i = u_global.expand(e, *u_global.shape[-2:]).contiguous()
+    inner = inner_solve_altmin if cfg.inner == "altmin" else inner_solve_huber_gd
+    diag = None
+    for _ in range(cfg.local_iters):
+        v = inner(u_i, v, m_blk, cfg.rho, lam, cfg.inner_sweeps, cfg.impl, w)
+        if cfg.fused == "diag":
+            psi_v, obj, psi2 = kops.huber_contract_u_diag(
+                u_i, v, m_blk, lam, w=w, impl=cfg.impl)
+            diag = (obj, psi2)
+        else:
+            psi_v = kops.huber_contract_u(u_i, v, m_blk, lam, w=w,
+                                          impl=cfg.impl)
+        u_i = _u_step(cfg, u_i, v, psi_v, n_frac, eta)
+    return u_i, v, diag
+
+
+def finalize(u: Tensor, v: Tensor, m_blk: Tensor, lam, impl: str,
+             w=None) -> tuple[Tensor, Tensor]:
+    """Recovered ``(L, S)``: ``L = U V^T`` dense, ``S`` on observed entries."""
+    l_blk = u @ v.transpose(-1, -2)
+    u_full = u if m_blk.ndim == u.ndim else (
+        u.expand(m_blk.shape[0], *u.shape).contiguous())
+    s_blk = kops.residual_shrink(u_full, v, m_blk, lam, w=w, impl=impl)
+    return l_blk, s_blk
+
+
+def local_objective(u, v, m_blk, rho: float, lam, n_frac, w=None) -> Tensor:
+    """Per-client ``g_i(U)``: the eliminated objective (Eq. 17) plus the
+    client's share of the U regularizer; shape ``m_blk.shape[:-2]``."""
+    resid = m_blk.to(torch.float32) - u @ v.transpose(-1, -2)
+    if w is not None:
+        resid = bitmask.resolve_mask(w, m_blk.shape[-1]) * resid
+    data = core_ops.huber_loss(resid, _per_client(lam), dim=(-2, -1))
+    return data + 0.5 * rho * ((v * v).sum(dim=(-2, -1))
+                               + n_frac * (u * u).sum(dim=(-2, -1)))
+
+
+def reg_terms(u: Tensor, v: Tensor, rho: float, n_frac) -> Tensor:
+    """The rho/2 regularizer share added to an epilogue-measured data term."""
+    return 0.5 * rho * ((v * v).sum() + n_frac * (u * u).sum())

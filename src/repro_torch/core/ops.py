@@ -1,0 +1,71 @@
+"""Elementary RPCA operators (PyTorch counterparts of ``repro.core.ops``).
+
+Plain functions on tensors; the kernels in ``repro_torch.kernels`` fuse the
+hot paths (the soft threshold of a low-rank residual, the Huber-clipped
+contractions) and these are the semantics they match.  Functions that take
+a Gram matrix accept any number of leading batch axes.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def soft_threshold(x: Tensor, lam) -> Tensor:
+    """``sign(x) * max(|x| - lam, 0)``: the prox of ``lam ||.||_1`` (Eq. 16)."""
+    return torch.sign(x) * torch.clamp_min(x.abs() - lam, 0.0)
+
+
+def huber_clip(x: Tensor, lam) -> Tensor:
+    """Derivative of the Huber loss (Eq. 32): clip to ``[-lam, lam]``."""
+    lam = torch.as_tensor(lam, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, -lam), lam)
+
+
+def huber_loss(x: Tensor, lam, dim=None) -> Tensor:
+    """Huber loss ``H_lam`` (Eq. 32) summed over all entries, or over
+    ``dim`` (e.g. ``(-2, -1)`` for one sum per client block)."""
+    a = x.abs()
+    h = torch.where(a <= lam, 0.5 * x * x, lam * a - 0.5 * lam * lam)
+    return h.sum() if dim is None else h.sum(dim=dim)
+
+
+def masked_huber_loss(x: Tensor, lam, w: Tensor) -> Tensor:
+    """Huber loss over observed entries only (``H_lam(0) == 0``)."""
+    return huber_loss(w * x, lam)
+
+
+def factored_objective(u, v, s, m, rho: float, lam: float, w=None) -> Tensor:
+    """The nonconvex objective, Eq. (4):
+    ``1/2 ||U V^T + S - M||_F^2 + rho/2 (||U||_F^2 + ||V||_F^2) + lam ||S||_1``
+    (data-fit and l1 terms over observed entries when ``w`` is given)."""
+    resid = u @ v.T + s - m
+    if w is not None:
+        resid = w * resid
+        s = w * s
+    return (0.5 * (resid * resid).sum()
+            + 0.5 * rho * ((u * u).sum() + (v * v).sum())
+            + lam * s.abs().sum())
+
+
+def eliminated_objective(u, v, m, rho: float, lam: float, w=None) -> Tensor:
+    """Objective with S eliminated (Eq. 17), plus ``rho/2 ||U||_F^2``."""
+    resid = m - u @ v.T
+    if w is not None:
+        resid = w * resid
+    return huber_loss(resid, lam) + 0.5 * rho * ((v * v).sum() + (u * u).sum())
+
+
+def spectral_norm_ub_gram(g: Tensor, iters: int = 8) -> Tensor:
+    """``sigma_max^2`` estimate from Gram matrices ``g`` (..., r, r) by power
+    iteration, with a 1.01 safety factor; returns shape ``g.shape[:-2]``."""
+    r = g.shape[-1]
+    x = torch.ones(g.shape[:-1], dtype=g.dtype, device=g.device) / math.sqrt(r)
+    for _ in range(iters):
+        y = (g @ x[..., None])[..., 0]
+        x = y / (torch.linalg.vector_norm(y, dim=-1, keepdim=True) + 1e-30)
+    gx = (g @ x[..., None])[..., 0]
+    return 1.01 * (x * gx).sum(-1) / (x * x).sum(-1)

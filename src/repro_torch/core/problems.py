@@ -1,0 +1,93 @@
+"""Synthetic RPCA problems and the column split of the distributed data
+model (counterpart of ``repro.core.problems``, Sec. 4.1).
+
+``L0 = U0 V0^T`` with standard-Gaussian factors plus a sparse corruption
+``S0`` with ``round(s m n)`` nonzeros of magnitude ``sqrt(m n)``.  Random
+numbers are drawn on the CPU from a ``torch.Generator`` seeded by the
+caller, then moved to ``device``: a seed gives the same problem on every
+device (but not the numbers of ``jax.random``).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.device import resolve_device
+
+Tensor = torch.Tensor
+
+
+@dataclass(frozen=True)
+class RPCAProblem:
+    """A generated RPCA instance and its ground truth."""
+
+    m_obs: Tensor  # observed matrix M = L0 + S0, (m, n)
+    l0: Tensor  # ground-truth low-rank component, (m, n)
+    s0: Tensor  # ground-truth sparse component, (m, n)
+    rank: int
+    sparsity: float
+
+
+def generator(seed: int | torch.Generator | None) -> torch.Generator:
+    """A CPU generator: ``seed`` (default 0) or the generator itself."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    return torch.Generator().manual_seed(0 if seed is None else int(seed))
+
+
+def generate_problem(
+    seed: int | torch.Generator | None,
+    m: int,
+    n: int,
+    rank: int,
+    sparsity: float,
+    *,
+    device: torch.device | str | None = None,
+) -> RPCAProblem:
+    """Generate a problem per Sec. 4.1 on ``device`` (the card unless
+    ``"cpu"`` is asked for):
+    ``L0 = U0 V0^T`` with U0, V0 ~ N(0, 1) and ``round(s m n)`` corrupted
+    entries, placed uniformly without replacement, each ``+-sqrt(m n)``."""
+    device = resolve_device(device)
+    gen = generator(seed)
+    u0 = torch.randn(m, rank, generator=gen)
+    v0 = torch.randn(n, rank, generator=gen)
+    nnz = int(round(sparsity * m * n))
+    flat_idx = torch.randperm(m * n, generator=gen)[:nnz]
+    signs = torch.randint(0, 2, (nnz,), generator=gen).to(torch.float32) * 2 - 1
+    mag = math.sqrt(float(m) * float(n))
+    s0 = torch.zeros(m * n)
+    s0[flat_idx] = signs * mag
+    l0 = u0.to(device) @ v0.to(device).T
+    s0 = s0.reshape(m, n).to(device)
+    return RPCAProblem(m_obs=l0 + s0, l0=l0, s0=s0, rank=rank,
+                       sparsity=sparsity)
+
+
+def client_column_counts(n: int, num_clients: int) -> tuple[int, ...]:
+    """True per-client column counts under the padded contiguous split:
+    blocks of ``ceil(n/E)`` columns, the zero padding on the last client(s)."""
+    ni = -(-n // num_clients)
+    return tuple(min(ni, max(0, n - i * ni)) for i in range(num_clients))
+
+
+def split_columns(mat: Tensor, num_clients: int) -> Tensor:
+    """Split ``(m, n)`` into column blocks stacked as ``(E, m, ceil(n/E))``,
+    zero-padding a ragged tail.  Returns a view (not contiguous for E > 1):
+    callers that feed kernels make it contiguous once."""
+    m, n = mat.shape
+    ni = -(-n // num_clients)
+    pad = ni * num_clients - n
+    if pad:
+        mat = torch.nn.functional.pad(mat, (0, pad))
+    return mat.reshape(m, num_clients, ni).movedim(1, 0)
+
+
+def merge_columns(blocks: Tensor, n: int | None = None) -> Tensor:
+    """Inverse of :func:`split_columns`: ``(E, m, ni) -> (m, n)``, trimming
+    the padding to ``n`` columns when given."""
+    e, m, ni = blocks.shape
+    merged = blocks.movedim(0, 1).reshape(m, e * ni)
+    return merged if n is None else merged[:, :n]

@@ -1,0 +1,137 @@
+"""Dispatch layer: the solvers call these; ``impl`` picks the backend.
+
+``impl='cuda'``  the hand-written kernels (CUDA tensors only).
+``impl='ref'``   the plain PyTorch oracles of ``kernels.ref``, any device.
+``impl='auto'``  by the tensors' device: the kernel for CUDA tensors, the
+                 plain version for CPU tensors.
+
+Signatures follow ``repro.kernels.ops``.  Operands are one problem
+(``m`` is (m, n), factors (m, r) and (n, r)) or a stack of client blocks
+with a leading axis E (``m`` is (E, m, n), ``u`` (E, m, r), ``v`` (E, n, r));
+``lam`` is a float, a 0-d tensor or one threshold per client (E,).  ``w``
+is an optional dense 0/1 mask shaped like ``m``.
+
+Functions whose kernel is not ported yet (``huber_contract_u``,
+``huber_dual_contract``, ``residual_shrink_psi``) and bit-packed masks raise
+``NotImplementedError`` on CUDA tensors unless ``impl='ref'`` is asked for.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import bitmask, ref
+from repro_torch.kernels import huber_contract as _hc
+from repro_torch.kernels import shrinkage as _sh
+
+IMPLS = ("auto", "cuda", "ref")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} has no CUDA kernel yet: it waits for a later slice of the "
+        f"port (ROADMAP.md, Queue 2); pass impl='ref' or CPU tensors"
+    )
+
+
+def _use_kernel(impl: str, m: torch.Tensor) -> bool:
+    """True when the call goes to a kernel wrapper (which itself takes the
+    plain version for CPU tensors)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "cuda" and m.device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got {m.device}")
+    return impl != "ref"
+
+
+def _kernel_args(u, v, m, lam, w):
+    """Stack a single problem as E=1 and give ``lam`` one entry per client."""
+    single = m.ndim == 2
+    if single:
+        u, v, m = u[None], v[None], m[None]
+        w = None if w is None else w[None]
+    if w is not None and bitmask.is_packed(w):
+        if m.device.type == "cuda":
+            raise _not_ported("a bit-packed mask")
+        w = bitmask.unpack_mask(w, m.shape[-1])
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=m.device)
+    if lam.ndim == 0:
+        lam = lam.expand(m.shape[0])
+    return single, u, v, m, lam.contiguous(), w
+
+
+def _refuse_cuda(impl: str, m: torch.Tensor, what: str) -> None:
+    _use_kernel(impl, m)
+    if impl != "ref" and m.device.type == "cuda":
+        raise _not_ported(what)
+
+
+def huber_contract_v(u, v, m, lam, *, w=None, impl: str = "auto"):
+    """(n, r) = Psi^T U, Psi = clip(M - U V^T, +-lam); W * clip when ``w``."""
+    if not _use_kernel(impl, m):
+        if w is not None:
+            return ref.huber_contract_v_masked(u, v, m, w, lam)
+        return ref.huber_contract_v(u, v, m, lam)
+    single, u, v, m, lam, w = _kernel_args(u, v, m, lam, w)
+    out = _hc.huber_contract_v(u, v, m, lam, w)
+    return out[0] if single else out
+
+
+def huber_contract_u_diag(u, v, m, lam, *, w=None, impl: str = "auto"):
+    """(Psi V, H_lam(R_W), ||Psi||_F^2) in one pass; Psi = clip(W R) when
+    ``w``."""
+    if not _use_kernel(impl, m):
+        if w is not None:
+            return ref.huber_contract_u_diag_masked(u, v, m, w, lam)
+        return ref.huber_contract_u_diag(u, v, m, lam)
+    single, u, v, m, lam, w = _kernel_args(u, v, m, lam, w)
+    out_u, obj, psi2 = _hc.huber_contract_u_diag(u, v, m, lam, w)
+    return (out_u[0], obj[0], psi2[0]) if single else (out_u, obj, psi2)
+
+
+def residual_shrink(u, v, m, lam, *, w=None, impl: str = "auto"):
+    """(m, n) = soft_threshold(M - U V^T, lam); W * S when ``w``."""
+    if not _use_kernel(impl, m):
+        if w is not None:
+            return ref.residual_shrink_masked(u, v, m, w, lam)
+        return ref.residual_shrink(u, v, m, lam)
+    single, u, v, m, lam, w = _kernel_args(u, v, m, lam, w)
+    s = _sh.residual_shrink(u, v, m, lam, w)
+    return s[0] if single else s
+
+
+def huber_contract_u(u, v, m, lam, *, w=None, impl: str = "auto"):
+    """(m, r) = Psi V; masked when ``w``.  Plain version only so far."""
+    _refuse_cuda(impl, m, "huber_contract_u")
+    if w is not None:
+        return ref.huber_contract_u_masked(u, v, m, w, lam)
+    return ref.huber_contract_u(u, v, m, lam)
+
+
+def huber_dual_contract(u, v, m, lam, *, w=None, impl: str = "auto"):
+    """(Psi^T U, Psi V, H_lam(R_W), ||Psi||_F^2) in one pass.  Plain version
+    only so far."""
+    _refuse_cuda(impl, m, "huber_dual_contract")
+    if w is not None:
+        return ref.huber_dual_contract_masked(u, v, m, w, lam)
+    return ref.huber_dual_contract(u, v, m, lam)
+
+
+def residual_shrink_psi(u, v, m, lam, *, w=None, impl: str = "auto"):
+    """((m, n) S, (m, n) Psi) in one pass; masked when ``w``.  Plain version
+    only so far."""
+    _refuse_cuda(impl, m, "residual_shrink_psi")
+    if w is not None:
+        return (ref.residual_shrink_masked(u, v, m, w, lam),
+                ref.residual_clip_masked(u, v, m, w, lam))
+    return ref.residual_shrink(u, v, m, lam), ref.residual_clip(u, v, m, lam)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches so far, per function."""
+    return {**_hc.launches, **_sh.launches}
+
+
+def reset_launch_counts() -> None:
+    for table in (_hc.launches, _sh.launches):
+        for name in table:
+            table[name] = 0

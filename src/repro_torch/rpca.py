@@ -1,0 +1,147 @@
+"""The front door for the ported solvers (counterpart of ``repro.rpca``):
+methods ``"cf"`` and ``"dcf"``.
+
+    from repro_torch import rpca
+    res = rpca.solve(m_obs, method="dcf", cfg=DCFConfig.tuned(150),
+                     num_clients=10)            # on the card
+    res = rpca.solve(m_obs, method="cf", rank=8, device="cpu")
+
+A solve runs on the CUDA card unless ``device="cpu"`` is passed; with no
+card and no device named it raises.  The other methods of the reference
+(the convex solvers, the sharded engine), batched problems, participation
+schedules, fault injection and low-precision data wait for later slices
+(``ROADMAP.md``) and raise.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+from repro_torch.core import cf_pca, dcf_pca
+from repro_torch.core import runtime as rt
+from repro_torch.core import validate
+from repro_torch.core.factorized import DCFConfig
+from repro_torch.device import resolve_device
+
+METHODS = ("cf", "dcf")
+
+
+@dataclass(frozen=True)
+class RPCASpec:
+    """One RPCA problem: ``m_obs`` (m, n), an optional 0/1 ``mask``, the
+    target ``rank`` (when no cfg is passed), the client count
+    ``num_clients`` for ``"dcf"``, warm factors ``(U, V)``, and ``key``,
+    the seed (or ``torch.Generator``) of the random factor init (default
+    0).  ``participation``, ``faults`` and a non-fp32 ``dtype`` are not
+    ported yet."""
+
+    m_obs: Any
+    mask: Any = None
+    rank: int | None = None
+    num_clients: int | None = None
+    participation: Any = None
+    warm: tuple[Any, Any] | None = None
+    key: int | torch.Generator | None = None
+    dtype: torch.dtype | None = None
+    faults: Any = None
+
+    @property
+    def batched(self) -> bool:
+        return len(self.m_obs.shape) == 3
+
+    def validate(self) -> None:
+        nd = len(self.m_obs.shape)
+        if nd not in (2, 3):
+            raise ValueError(
+                f"m_obs must be (m, n) or (B, m, n); got ndim={nd}"
+            )
+        validate.check_mask(self.mask, tuple(self.m_obs.shape))
+        if self.warm is not None:
+            validate.check_warm_pair(self.warm)
+
+
+@dataclass(frozen=True)
+class RPCAResult:
+    """Uniform solve result: components, factors, stats, the method."""
+
+    l: torch.Tensor
+    s: torch.Tensor
+    u: torch.Tensor | None
+    v: torch.Tensor | None
+    stats: rt.SolveStats
+    method: str
+    spec: RPCASpec = field(repr=False)
+
+    @property
+    def factors(self) -> tuple[torch.Tensor, torch.Tensor] | None:
+        return None if self.u is None else (self.u, self.v)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} waits for a later slice of the port (ROADMAP.md)")
+
+
+def solve(spec_or_matrix: RPCASpec | Any, method: str = "auto", *,
+          run: rt.RunConfig | str | None = None, cfg: DCFConfig | None = None,
+          device: torch.device | str | None = None,
+          **spec_kwargs: Any) -> RPCAResult:
+    """Solve one RPCA problem with ``"cf"`` or ``"dcf"`` (``"auto"`` picks
+    ``"dcf"`` when ``num_clients`` is set, else ``"cf"``) on ``device``."""
+    if isinstance(spec_or_matrix, RPCASpec):
+        if spec_kwargs:
+            raise ValueError(
+                "pass spec fields either in the RPCASpec or as keywords, "
+                f"not both: {sorted(spec_kwargs)}"
+            )
+        spec = spec_or_matrix
+    else:
+        spec = RPCASpec(spec_or_matrix, **spec_kwargs)
+    spec.validate()
+    device = resolve_device(device)
+    if spec.batched:
+        raise _not_ported("batched solves")
+    if spec.dtype not in (None, torch.float32):
+        raise _not_ported(f"a {spec.dtype} data plane")
+    run_cfg = rt.resolve_run(run)
+    if method == "auto":
+        method = "dcf" if spec.num_clients is not None else "cf"
+    if method not in METHODS:
+        raise _not_ported(f"method {method!r} (ported: {', '.join(METHODS)})")
+    if cfg is None:
+        if spec.rank is None:
+            raise ValueError(
+                f"method {method!r} needs a target rank: set RPCASpec.rank "
+                f"or pass cfg=DCFConfig(...)"
+            )
+        cfg = (DCFConfig.masked(spec.rank) if spec.mask is not None
+               else DCFConfig.tuned(spec.rank))
+    if not isinstance(cfg, DCFConfig):
+        raise ValueError(
+            f"method {method!r} takes a DCFConfig, got {type(cfg).__name__}"
+        )
+    if method == "cf":
+        if spec.num_clients is not None or spec.participation is not None:
+            raise ValueError(
+                "method 'cf' does not support simulated client topologies "
+                "(num_clients); use method 'dcf'"
+            )
+        if spec.faults is not None:
+            raise ValueError("method 'cf' has no consensus boundary to "
+                             "inject faults at")
+        res = cf_pca.cf_pca(spec.m_obs, cfg, spec.key, run=run_cfg,
+                            warm=spec.warm, mask=spec.mask, device=device)
+    else:
+        if spec.num_clients is None:
+            raise ValueError(
+                "method 'dcf' needs a client count: set RPCASpec.num_clients"
+            )
+        res = dcf_pca.dcf_pca(
+            spec.m_obs, cfg, spec.num_clients, spec.key, run=run_cfg,
+            warm=spec.warm, mask=spec.mask, participation=spec.participation,
+            faults=spec.faults, device=device,
+        )
+    return RPCAResult(l=res.l, s=res.s, u=res.u, v=res.v, stats=res.stats,
+                      method=method, spec=spec)

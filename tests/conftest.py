@@ -34,6 +34,10 @@ def pytest_configure(config):
         "NaN/divergence or asserts compile counts that jax_debug_nans "
         "perturbs; skipped when RPCA_SANITIZE is active",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's kernels); skipped without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
