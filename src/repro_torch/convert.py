@@ -5,7 +5,7 @@ seed, so a comparison of the two packages starts both from the same
 factors: build the problem with the reference (``repro.core.dcf_pca.
 make_problem`` or ``cf_pca.make_problem``), then hand it here.  Fields are
 read by name and converted through numpy; nothing of the reference is
-imported.
+imported.  A bf16 data plane stays bf16 and a bit-packed mask stays uint8.
 """
 from __future__ import annotations
 
@@ -31,15 +31,21 @@ def config_from_reference(ref_cfg: Any) -> DCFConfig:
 
 
 def _tensor(x: Any, device: torch.device | str,
-            dtype: torch.dtype = torch.float32) -> torch.Tensor | None:
+            dtype: torch.dtype | None = torch.float32) -> torch.Tensor | None:
+    """``x`` through numpy onto ``device``, cast to ``dtype``; with
+    ``dtype=None`` a bf16 array stays bf16 (numpy has no bf16: JAX gives
+    ``ml_dtypes.bfloat16``, carried as its uint16 bits), a uint8 one
+    (a bit-packed mask) stays uint8, and anything else becomes fp32."""
     if x is None:
         return None
     arr = np.array(x)  # a writable, contiguous copy
-    if arr.dtype == np.uint8:
-        raise NotImplementedError(
-            "bit-packed masks wait for a later slice of the port "
-            "(ROADMAP.md)")
-    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+    if dtype is None and arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(arr.view(np.uint16))
+        return bits.view(torch.bfloat16).to(device)
+    if dtype is None and arr.dtype == np.uint8:
+        return torch.from_numpy(arr).to(device)
+    return torch.from_numpy(arr).to(device=device,
+                                    dtype=dtype or torch.float32)
 
 
 def problem_from_reference(ref_problem: Any, device: torch.device | str
@@ -51,14 +57,15 @@ def problem_from_reference(ref_problem: Any, device: torch.device | str
         v_init=_tensor(ref_problem.v_init, device),
         lam0=_tensor(ref_problem.lam0, device),
         t0=_tensor(ref_problem.t0, device, torch.int32),
-        mask=_tensor(ref_problem.mask, device),
+        mask=_tensor(ref_problem.mask, device, None),
     )
     if not hasattr(ref_problem, "blocks"):
-        return CFProblem(m_obs=_tensor(ref_problem.m_obs, device), **common)
+        return CFProblem(m_obs=_tensor(ref_problem.m_obs, device, None),
+                         **common)
     if (getattr(ref_problem, "participation", None) is not None
             or getattr(ref_problem, "faults", None) is not None):
         raise NotImplementedError(
             "participation schedules and fault injection wait for a later "
             "slice of the port (ROADMAP.md)")
-    return DCFProblem(blocks=_tensor(ref_problem.blocks, device),
+    return DCFProblem(blocks=_tensor(ref_problem.blocks, device, None),
                       n_cols=_tensor(ref_problem.n_cols, device), **common)

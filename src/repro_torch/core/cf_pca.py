@@ -16,6 +16,7 @@ from repro_torch.core import problems as prob
 from repro_torch.core import runtime as rt
 from repro_torch.core import validate
 from repro_torch.device import resolve_device
+from repro_torch.kernels import bitmask
 
 Tensor = torch.Tensor
 
@@ -31,12 +32,12 @@ class CFResult(NamedTuple):
 class CFProblem(NamedTuple):
     """Data, initial factors, threshold and schedule offset, on one device."""
 
-    m_obs: Tensor  # (m, n), contiguous fp32
+    m_obs: Tensor  # (m, n), contiguous fp32 or bf16
     u_init: Tensor  # (m, r)
     v_init: Tensor  # (n, r)
     lam0: Tensor  # () base threshold
     t0: Tensor  # () int32 schedule offset
-    mask: Tensor | None = None  # (m, n) observation mask
+    mask: Tensor | None = None  # (m, n) 0/1 fp32, or packed uint8
 
 
 class _Carry(NamedTuple):
@@ -87,29 +88,39 @@ def make_solver(cfg: fz.DCFConfig, *, with_objective: bool = False) -> rt.Solver
 
 
 def _float_on(x, device: torch.device) -> Tensor:
+    return torch.as_tensor(x).to(device=device,
+                                 dtype=torch.float32).contiguous()
+
+
+def _data_on(x, device: torch.device) -> Tensor:
+    """The data plane on ``device``: bf16 stays bf16 (the compact plane),
+    every other float type becomes fp32."""
     x = torch.as_tensor(x)
-    if x.dtype not in (torch.float32, torch.float64, torch.bool):
+    if x.dtype == torch.bfloat16:
+        return x.to(device=device).contiguous()
+    if x.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
-            f"data of dtype {x.dtype}: this slice of the port runs fp32 data "
-            f"only (a bf16 data plane waits for a later slice, ROADMAP.md)")
-    return x.to(device=device, dtype=torch.float32).contiguous()
+            f"data of dtype {x.dtype}: the port runs fp32 or bf16 data")
+    return _float_on(x, device)
 
 
 def prepare_data(m_obs, cfg: fz.DCFConfig, mask, device: torch.device):
-    """Shared set-up of both engines: checks, the data and mask on
-    ``device`` (hidden entries zero-filled) and the calibrated ``lam0``
-    (on the unpadded data)."""
+    """Shared set-up of both engines: checks, the data (fp32 or bf16) and
+    the dense fp32 mask on ``device`` (hidden entries zero-filled in fp32
+    and cast back) and the calibrated ``lam0`` (on the unpadded data,
+    ``cfg.lam_sample`` entries at most).  Packing the mask is the engine's
+    step: after its column split."""
     fz.check_supported(cfg, device)
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise ValueError(
             "TF32 matmuls are on (torch.backends.cuda.matmul.allow_tf32); "
             "the solvers need full fp32 products to meet their recovery "
             "bar: set it to False")
-    m_obs = _float_on(m_obs, device)
+    m_obs = _data_on(m_obs, device)
     if mask is not None:
         validate.check_mask(mask, tuple(m_obs.shape))
         mask = _float_on(mask, device)
-        m_obs = mask * m_obs
+        m_obs = (mask * m_obs.to(torch.float32)).to(m_obs.dtype)
     if cfg.lam is not None:
         lam0 = torch.full((), float(cfg.lam), device=device)
     else:
@@ -129,9 +140,12 @@ def make_problem(
 ) -> CFProblem:
     """Assemble the problem on ``device`` (the card unless ``"cpu"``): random
     factors from ``generator`` (a seed, default 0) or ``warm=(U, V)``;
-    ``t0`` offsets the schedules (a warm start continues them)."""
+    ``t0`` offsets the schedules (a warm start continues them).  A bf16
+    ``m_obs`` stays bf16; ``cfg.pack_mask`` stores the mask bit-packed."""
     device = resolve_device(device)
     m_obs, mask, lam0 = prepare_data(m_obs, cfg, mask, device)
+    if mask is not None and cfg.pack_mask:
+        mask = bitmask.pack_mask(mask)
     m, n = m_obs.shape
     if warm is None:
         state = fz.init_state(prob.generator(generator), m, n, cfg.rank,
@@ -173,7 +187,7 @@ def cf_pca(
 ) -> CFResult:
     """Centralized CF-PCA for ``cfg.outer_iters`` rounds on ``device`` (the
     card unless ``"cpu"``); ``mask`` restricts the residual to observed
-    entries."""
+    entries.  ``m_obs`` may be bf16; L, S and the factors are fp32."""
     problem = make_problem(m_obs, cfg, generator, warm, mask=mask,
                            device=device)
     return solve_problem(problem, cfg, run)

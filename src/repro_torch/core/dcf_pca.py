@@ -22,6 +22,7 @@ from repro_torch.core import runtime as rt
 from repro_torch.core import validate
 from repro_torch.core.cf_pca import prepare_data
 from repro_torch.device import resolve_device
+from repro_torch.kernels import bitmask
 
 Tensor = torch.Tensor
 
@@ -39,12 +40,13 @@ class DCFProblem(NamedTuple):
     the true per-client column counts of a ragged split (``None`` = equal
     blocks); a ragged split always carries ``mask``."""
 
-    blocks: Tensor  # (E, m, n_i), contiguous
+    blocks: Tensor  # (E, m, n_i), contiguous fp32 or bf16
     u_init: Tensor  # (m, r) server broadcast
     v_init: Tensor  # (E, n_i, r)
     lam0: Tensor  # () base threshold
     t0: Tensor  # () int32 schedule offset
-    mask: Tensor | None = None  # (E, m, n_i) blocked observation mask
+    # (E, m, n_i) fp32, or (E, m, ceil(n_i / 8)) uint8 when packed
+    mask: Tensor | None = None
     n_cols: Tensor | None = None  # (E,) true column counts
 
 
@@ -122,7 +124,9 @@ def make_problem(
 ) -> DCFProblem:
     """Assemble the simulated-engine problem on ``device`` (the card unless
     ``"cpu"``).  The blocks are made contiguous here, once; ``lam0`` is
-    calibrated on the unpadded data."""
+    calibrated on the unpadded data.  A bf16 ``m_obs`` stays bf16, and
+    ``cfg.pack_mask`` packs each client's mask slice after the split (a
+    ragged split packs its all-ones base plane too, the padding's bits 0)."""
     if participation is not None or faults is not None:
         raise NotImplementedError(
             "participation schedules and fault injection wait for a later "
@@ -135,11 +139,13 @@ def make_problem(
     n_cols = None
     if n % num_clients:
         if mask is None:
-            mask = torch.ones_like(m_obs)
+            mask = torch.ones(m_obs.shape, device=device)
         n_cols = torch.tensor(prob.client_column_counts(n, num_clients),
                               dtype=torch.float32, device=device)
     if mask is not None:
         mask = prob.split_columns(mask, num_clients).contiguous()
+        if cfg.pack_mask:
+            mask = bitmask.pack_mask(mask)
     if warm is None:
         state = fz.init_state(prob.generator(generator), m, n_i, cfg.rank,
                               device, clients=num_clients)

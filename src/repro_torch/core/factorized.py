@@ -6,11 +6,15 @@ client's round, every function here takes the stacked client blocks
 ``(E, m, n_i)`` at once, so each kernel launch serves all clients:
 
 ``local_round``  K local iterations of {J inner (V, S) sweeps, one U-step}:
-                 every inner sweep is one batched
-                 ``huber_contract_v`` launch plus an r x r ridge
-                 back-substitution; every U-step is one batched
-                 ``huber_contract_u_diag`` launch, which also measures the
-                 round's Huber objective and ``||Psi||_F^2``.
+                 every inner sweep is one batched ``huber_contract_v``
+                 launch plus an r x r ridge back-substitution; the U-step
+                 takes ``Psi V`` from one batched ``huber_contract_u_diag``
+                 launch (``fused="diag"``, which also measures the round's
+                 Huber objective and ``||Psi||_F^2``) or
+                 ``huber_contract_u`` (``"off"``).  Under ``"dual"`` the
+                 J-th sweep is one ``huber_dual_contract`` launch whose
+                 ``Psi^T U`` makes the last V update and whose ``Psi V``
+                 (one sweep stale) makes the U-step.
 ``finalize``     ``L = U V^T`` (``torch.matmul``) and ``S`` from one
                  ``residual_shrink`` launch.
 
@@ -45,10 +49,11 @@ class DCFConfig:
     ``repro.core.factorized.DCFConfig`` (see there for each field).
 
     ``impl`` is ``"auto"`` (kernel on CUDA tensors, plain version on CPU
-    tensors), ``"cuda"`` or ``"ref"``.  This slice of the port runs
-    ``fused="diag"`` (and ``"off"`` on the CPU), dense masks, fp32 data and
-    the weighted-mean consensus; the other options raise
-    ``NotImplementedError`` when a problem is built (``check_supported``).
+    tensors), ``"cuda"`` or ``"ref"``.  The port runs every ``fused`` mode,
+    dense and bit-packed masks (``pack_mask``), fp32 and bf16 data,
+    ``lam_sample`` and the weighted-mean consensus; the wire and robust
+    consensus options raise ``NotImplementedError`` when a problem is built
+    (``check_supported``).
     """
 
     rank: int
@@ -160,16 +165,7 @@ def check_supported(cfg: DCFConfig,
     if cfg.aggregator != "weighted_mean" or cfg.divergence_screen is not None:
         raise NotImplementedError(
             f"robust aggregators and the divergence screen {later}")
-    if cfg.fused == "dual":
-        raise NotImplementedError(f"fused='dual' {later}")
-    if cfg.pack_mask:
-        raise NotImplementedError(f"pack_mask {later}")
-    if device is None:
-        return
-    if device.type == "cuda" and cfg.fused == "off" and cfg.impl != "ref":
-        raise NotImplementedError(
-            f"fused='off' needs the huber_contract_u kernel, which {later}")
-    if cfg.impl == "cuda" and device.type != "cuda":
+    if device is not None and cfg.impl == "cuda" and device.type != "cuda":
         raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
 
 
@@ -292,24 +288,13 @@ def _gd_update(u: Tensor, rho: float):
     return update
 
 
-def _inner_solve(make_update, u, v, m_blk, rho, lam, sweeps, impl, w):
-    update = make_update(u, rho)
+def _sweeps(update, u, v, m_blk, lam, sweeps, impl, w):
+    """``sweeps`` inner (V, S) sweeps against a fixed U: one batched
+    ``huber_contract_v`` launch and one ``update`` (altmin or huber_gd)
+    each."""
     for _ in range(sweeps):
         v = update(v, kops.huber_contract_v(u, v, m_blk, lam, w=w, impl=impl))
     return v
-
-
-def inner_solve_altmin(u, v, m_blk, rho: float, lam, sweeps: int, impl: str,
-                       w=None) -> Tensor:
-    """Block-coordinate descent on the jointly convex (V, S) subproblem:
-    one ``huber_contract_v`` and one ridge back-substitution per sweep."""
-    return _inner_solve(_altmin_update, u, v, m_blk, rho, lam, sweeps, impl, w)
-
-
-def inner_solve_huber_gd(u, v, m_blk, rho: float, lam, sweeps: int,
-                         impl: str, w=None) -> Tensor:
-    """Gradient descent on ``rho/2 ||V||^2 + H_lam(P_Omega(M - U V^T))``."""
-    return _inner_solve(_gd_update, u, v, m_blk, rho, lam, sweeps, impl, w)
 
 
 def _per_client(x) -> Any:
@@ -348,23 +333,36 @@ def local_round(u_global: Tensor, v: Tensor, m_blk: Tensor, *,
     ``u_global`` is the (m, r) broadcast (or an (E, m, r) stack), ``v`` and
     ``m_blk`` are (E, n_i, r) and (E, m, n_i), ``lam`` is one threshold per
     client (E,) or a scalar, ``n_frac`` the clients' regularizer shares.
-    Returns ``(U_i (E, m, r), V_i, diag)``; ``diag`` is ``(H_lam(R_W),
-    ||Psi||_F^2)`` per client from the last U-step pass (``None`` under
-    ``fused="off"``).
+    ``m_blk`` may be bf16 and ``w`` dense or bit-packed (the kernels take
+    both as they are).  Returns ``(U_i (E, m, r), V_i, diag)``; ``diag`` is
+    ``(H_lam(R_W), ||Psi||_F^2)`` per client from the last fused pass
+    (``None`` under ``fused="off"``): under ``"diag"`` at (U_i before its
+    step, V_i final), under ``"dual"`` one sweep earlier, as the reference.
     """
     e = m_blk.shape[0]
     u_i = u_global.expand(e, *u_global.shape[-2:]).contiguous()
-    inner = inner_solve_altmin if cfg.inner == "altmin" else inner_solve_huber_gd
+    make_update = _altmin_update if cfg.inner == "altmin" else _gd_update
     diag = None
     for _ in range(cfg.local_iters):
-        v = inner(u_i, v, m_blk, cfg.rho, lam, cfg.inner_sweeps, cfg.impl, w)
-        if cfg.fused == "diag":
-            psi_v, obj, psi2 = kops.huber_contract_u_diag(
+        # One inner-solver context (Gram, factorization) per U.
+        update = make_update(u_i, cfg.rho)
+        if cfg.fused == "dual":
+            v = _sweeps(update, u_i, v, m_blk, lam, cfg.inner_sweeps - 1,
+                        cfg.impl, w)
+            cv, psi_v, obj, psi2 = kops.huber_dual_contract(
                 u_i, v, m_blk, lam, w=w, impl=cfg.impl)
+            v = update(v, cv)
             diag = (obj, psi2)
         else:
-            psi_v = kops.huber_contract_u(u_i, v, m_blk, lam, w=w,
-                                          impl=cfg.impl)
+            v = _sweeps(update, u_i, v, m_blk, lam, cfg.inner_sweeps,
+                        cfg.impl, w)
+            if cfg.fused == "diag":
+                psi_v, obj, psi2 = kops.huber_contract_u_diag(
+                    u_i, v, m_blk, lam, w=w, impl=cfg.impl)
+                diag = (obj, psi2)
+            else:
+                psi_v = kops.huber_contract_u(u_i, v, m_blk, lam, w=w,
+                                              impl=cfg.impl)
         u_i = _u_step(cfg, u_i, v, psi_v, n_frac, eta)
     return u_i, v, diag
 

@@ -1,0 +1,33 @@
+// huber_contract_u: the U-step contraction of DCF-PCA under fused="off",
+// batched over a leading client axis E, fp32 on the CUDA cores.
+//
+//   out_u[e, i, :] = sum_j Psi[e, i, j] V[e, j, :],  Psi = clip(W * R, +-lam),
+//   R = M - U V^T  (W = 1 without a mask; M fp32 or bf16; W dense or packed)
+//
+//   replaces repro/kernels/huber_contract.py::_contract_u_kernel (:118),
+//   _contract_u_masked_kernel (:133) and, with a packed W,
+//   huber_contract_u_packed (:572, body _make_dual_kernel :341).
+//
+// What bounds it on an H100, and the design: stripe.cuh (the row-stripe
+// kernel without diagnostics and without out_v).  It is
+// huber_contract_u_diag with the diagnostics compiled out, so the two give
+// the same out_u bits and fused="off" and fused="diag" the same factors.
+// clip(W * R) equals the reference's W * clip(R) for a 0/1 W.
+#include "stripe.cuh"
+
+// Returns cudaGetLastError() of the launch (0 on success).  m is fp32 or
+// bf16 (dtype code), w null, dense or packed (mask code, tile.cuh).
+extern "C" int repro_huber_contract_u(const float* u, const float* v,
+                                      const void* m, const void* w,
+                                      const float* lam, float* out_u, int E,
+                                      int M, int N, int r, int dtype,
+                                      int mask, void* stream) {
+  return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
+    using TM = typename decltype(tm)::type;
+    return repro::launch_stripe<decltype(rq)::value, TM, decltype(mk)::value,
+                                false, false>(
+        u, v, static_cast<const TM*>(m), w, lam, out_u, nullptr, nullptr,
+        nullptr, nullptr, nullptr, E, M, N, r,
+        static_cast<cudaStream_t>(stream));
+  });
+}

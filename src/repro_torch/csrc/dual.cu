@@ -1,0 +1,41 @@
+// huber_dual_contract: both contractions of one DCF-PCA local iteration and
+// the round diagnostics from one pass over M, batched over a leading client
+// axis E, fp32 on the CUDA cores.
+//
+//   out_v[e] = Psi^T U (n, r),  out_u[e] = Psi V (m, r),
+//   obj[e] = sum H_lam(R_W),  psi2[e] = sum Psi^2,
+//   R_W = W * (M - U V^T),  Psi = clip(R_W, +-lam)
+//   (W = 1 without a mask; M fp32 or bf16; W dense or packed)
+//
+//   replaces _make_dual_kernel(with_v=True) (:341, via _dual_call :403)
+//   behind repro/kernels/huber_contract.py::huber_dual_contract (:481) and
+//   huber_dual_contract_masked (:502, dense or packed W).
+//
+// What bounds it on an H100: arithmetic, 6 E m n r FLOP (U V^T once per
+// tile, then both contractions from the same Psi tile).  The TPU kernel
+// kept out_v resident in VMEM across a sequential grid; here blocks run in
+// no order, so out_u completes inside each row-stripe block and out_v goes
+// through per-stripe partials summed in index order by a second launch
+// (stripe.cuh, reduce.cuh).  One launch sequence always: there is no
+// two-pass route.
+#include "stripe.cuh"
+
+// Returns cudaGetLastError() of the launches (0 on success).  diag_partial
+// holds 2 * E * ceil(M / 32) floats, v_partial ceil(M / 32) * E * N * r.
+extern "C" int repro_huber_dual_contract(const float* u, const float* v,
+                                         const void* m, const void* w,
+                                         const float* lam, float* out_v,
+                                         float* out_u, float* obj,
+                                         float* psi2, float* diag_partial,
+                                         float* v_partial, int E, int M,
+                                         int N, int r, int dtype, int mask,
+                                         void* stream) {
+  return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
+    using TM = typename decltype(tm)::type;
+    return repro::launch_stripe<decltype(rq)::value, TM, decltype(mk)::value,
+                                true, true>(
+        u, v, static_cast<const TM*>(m), w, lam, out_u, out_v, obj, psi2,
+        diag_partial, v_partial, E, M, N, r,
+        static_cast<cudaStream_t>(stream));
+  });
+}

@@ -6,22 +6,26 @@
 //       replaces repro/kernels/shrinkage.py::_shrink_kernel (:41) and
 //       _shrink_masked_kernel (:57).
 //
-// What bounds it on an H100: arithmetic.  Each output entry costs 2r FLOP of
-// U V^T against 8 bytes (read M, write S; 12 with a mask), ~37 FLOP/byte at
-// r = 150, right of the fp32 ridge (~20 FLOP/byte).  One block computes one
-// 32 x 32 output tile from staged 32-row slices of U and V; the residual
-// lives only in registers, and M and S each cross device memory once.  It
-// runs once per solve (the finalize step), so it is kept simple.
+// M is fp32 or bf16 (upcast on load); W is absent or a dense fp32 plane: a
+// packed mask is unpacked once by the dispatch (kernels/ops.py), as the
+// reference does, since this runs once per solve.
+//
+// What bounds it on an H100: it depends on r.  Each output entry costs 2r
+// FLOP of U V^T against 8-12 bytes (read M, write S, read W; 6-10 with bf16
+// M): ~37 FLOP/byte at r = 150, right of the fp32 ridge (~20 FLOP/byte), but
+// ~11-16 at r = 64, left of it, where the bytes bound it.  One block computes
+// one 32 x 32 output tile from staged 32-row slices of U and V; the residual
+// lives only in registers, and M and S each cross device memory once.
 #include "tile.cuh"
 
 namespace repro {
 namespace {
 
 // Grid (n tiles, m tiles, E).
-template <int RQ, bool MASKED>
+template <int RQ, typename TM, int MASK>
 __global__ void __launch_bounds__(kThreads)
 shrink_kernel(const float* __restrict__ u, const float* __restrict__ v,
-              const float* __restrict__ m, const float* __restrict__ w,
+              const TM* __restrict__ m, const void* __restrict__ w,
               const float* __restrict__ lam, float* __restrict__ s, int M,
               int N, int r) {
   constexpr int LD = factor_ld<RQ>();
@@ -32,7 +36,8 @@ shrink_kernel(const float* __restrict__ u, const float* __restrict__ v,
   const int e = blockIdx.z;
   const int i0 = blockIdx.y * kTile;
   const int j0 = blockIdx.x * kTile;
-  const size_t plane = static_cast<size_t>(e) * M * N;
+  const ClientPlanes<TM, MASK> planes(m, w, e, M, N);
+  float* se = s + static_cast<size_t>(e) * M * N;
   const float lam_e = lam[e];
 
   stage_rows<RQ>(Us, u + static_cast<size_t>(e) * M * r, i0, M, r);
@@ -48,20 +53,20 @@ shrink_kernel(const float* __restrict__ u, const float* __restrict__ v,
     for (int b = 0; b < 2; ++b) {
       const int i = i0 + 2 * ti + a, j = j0 + 2 * tj + b;
       if (i >= M || j >= N) continue;
-      const size_t at = plane + static_cast<size_t>(i) * N + j;
-      const float res = m[at] - low[a][b];
+      float x, wt;
+      planes.load(i, j, x, wt);
+      const float res = x - low[a][b];
       const float mag = fmaxf(fabsf(res) - lam_e, 0.f);
-      float out = res > 0.f ? mag : (res < 0.f ? -mag : 0.f);
-      if (MASKED) out = __fmul_rn(w[at], out);
-      s[at] = out;
+      const float out = res > 0.f ? mag : (res < 0.f ? -mag : 0.f);
+      se[static_cast<size_t>(i) * N + j] = apply_mask<MASK>(wt, out);
     }
 }
 
-template <int RQ, bool MASKED>
-cudaError_t launch_shrink(const float* u, const float* v, const float* m,
-                          const float* w, const float* lam, float* s, int E,
+template <int RQ, typename TM, int MASK>
+cudaError_t launch_shrink(const float* u, const float* v, const TM* m,
+                          const void* w, const float* lam, float* s, int E,
                           int M, int N, int r, cudaStream_t stream) {
-  auto kernel = shrink_kernel<RQ, MASKED>;
+  auto kernel = shrink_kernel<RQ, TM, MASK>;
   const size_t smem = sizeof(float) * 2 * kTile * factor_ld<RQ>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -74,11 +79,18 @@ cudaError_t launch_shrink(const float* u, const float* v, const float* m,
 }  // namespace
 }  // namespace repro
 
-// Returns cudaGetLastError() of the launch (0 on success).  w may be null.
+// Returns cudaGetLastError() of the launch (0 on success).  m is fp32 or
+// bf16 (dtype code), w null or dense (mask code 0 or 1, tile.cuh).
 extern "C" int repro_residual_shrink(const float* u, const float* v,
-                                     const float* m, const float* w,
+                                     const void* m, const void* w,
                                      const float* lam, float* s, int E, int M,
-                                     int N, int r, void* stream) {
-  REPRO_RQ_DISPATCH(repro::launch_shrink, u, v, m, w, lam, s, E, M, N, r,
-                    static_cast<cudaStream_t>(stream))
+                                     int N, int r, int dtype, int mask,
+                                     void* stream) {
+  return repro::dispatch<false>(r, dtype, mask, [&](auto rq, auto tm,
+                                                    auto mk) {
+    using TM = typename decltype(tm)::type;
+    return repro::launch_shrink<decltype(rq)::value, TM, decltype(mk)::value>(
+        u, v, static_cast<const TM*>(m), w, lam, s, E, M, N, r,
+        static_cast<cudaStream_t>(stream));
+  });
 }

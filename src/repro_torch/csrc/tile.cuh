@@ -11,15 +11,36 @@
 //      the contractions, a second small product against the staged factor.
 // Zero-padding is exact: a padded row of U or V gives U V^T = 0 and a padded
 // entry of M reads as 0, so every padded residual, Psi and S is 0.
+//
+// The data plane M is fp32 or bf16 (upcast on load with __bfloat162float;
+// everything after the load is fp32).  The mask W is absent, a dense fp32
+// 0/1 plane shaped like M, or bit-packed: uint8 (m, ceil(n/8)), column j of
+// row i in bit j % 8 of byte j / 8, the tail byte's high bits zero.  A packed
+// bit unpacks to exactly the 0.0f / 1.0f a dense plane holds, and the mask
+// multiply is __fmul_rn (never contracted into an FMA), so a packed mask
+// gives the bits of the dense mask it packs and an all-ones mask the bits of
+// no mask.  Both choices are template parameters, picked at the C entry by
+// dispatch() from the codes the wrapper passes.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace repro {
 
 constexpr int kTile = 32;      // rows and columns of one residual tile
 constexpr int kThreads = 256;  // threads per block (8 warps)
-constexpr int kMaxRank = 256;  // largest r the kernels take (RQ <= 8)
+
+// Codes of the data type of M and of the mask mode, as the C entries take
+// them (kernels/_launch.py passes the same numbers).
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum MaskMode : int { kNoMask = 0, kDenseMask = 1, kPackedMask = 2 };
+
+// Bytes per row of a packed mask with n columns.
+__host__ __device__ constexpr int packed_width(int n) { return (n + 7) / 8; }
 
 // Row stride (in floats) of a staged factor slice: r padded to 32 * RQ, plus
 // one so that the 2 x 2 patches of neighbouring threads fall in different
@@ -80,19 +101,111 @@ __device__ __forceinline__ float clip(float x, float lam) {
   return fminf(fmaxf(x, -lam), lam);
 }
 
-}  // namespace repro
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
-// Return LAUNCH<RQ, MASKED>(...) for RQ = ceil(r / 32) in 1..8, masked iff
-// the mask pointer w is not null; r and w must be in scope.
-#define REPRO_RQ_DISPATCH(LAUNCH, ...)                                   \
-  switch ((r + 31) / 32) {                                               \
-    case 1: return w ? LAUNCH<1, true>(__VA_ARGS__) : LAUNCH<1, false>(__VA_ARGS__); \
-    case 2: return w ? LAUNCH<2, true>(__VA_ARGS__) : LAUNCH<2, false>(__VA_ARGS__); \
-    case 3: return w ? LAUNCH<3, true>(__VA_ARGS__) : LAUNCH<3, false>(__VA_ARGS__); \
-    case 4: return w ? LAUNCH<4, true>(__VA_ARGS__) : LAUNCH<4, false>(__VA_ARGS__); \
-    case 5: return w ? LAUNCH<5, true>(__VA_ARGS__) : LAUNCH<5, false>(__VA_ARGS__); \
-    case 6: return w ? LAUNCH<6, true>(__VA_ARGS__) : LAUNCH<6, false>(__VA_ARGS__); \
-    case 7: return w ? LAUNCH<7, true>(__VA_ARGS__) : LAUNCH<7, false>(__VA_ARGS__); \
-    case 8: return w ? LAUNCH<8, true>(__VA_ARGS__) : LAUNCH<8, false>(__VA_ARGS__); \
-    default: return static_cast<int>(cudaErrorInvalidValue);             \
+// One client's (m, n) data plane and its mask.
+template <typename TM, int MASK>
+struct ClientPlanes {
+  const TM* m;
+  const void* w;
+  int rows, cols;
+
+  __device__ ClientPlanes(const TM* m_all, const void* w_all, int e, int M,
+                          int N)
+      : m(m_all + static_cast<size_t>(e) * M * N), w(nullptr), rows(M),
+        cols(N) {
+    if (MASK == kDenseMask)
+      w = static_cast<const float*>(w_all) + static_cast<size_t>(e) * M * N;
+    if (MASK == kPackedMask)
+      w = static_cast<const uint8_t*>(w_all) +
+          static_cast<size_t>(e) * M * packed_width(N);
   }
+
+  // x = M[i, j] upcast to fp32 and wt = W[i, j] (1 without a mask); both 0
+  // outside the plane.
+  __device__ __forceinline__ void load(int i, int j, float& x,
+                                       float& wt) const {
+    x = 0.f;
+    wt = 0.f;
+    if (i >= rows || j >= cols) return;
+    const size_t at = static_cast<size_t>(i) * cols + j;
+    x = to_float(m[at]);
+    if (MASK == kNoMask) wt = 1.f;
+    if (MASK == kDenseMask) wt = static_cast<const float*>(w)[at];
+    if (MASK == kPackedMask) {
+      const uint8_t byte = static_cast<const uint8_t*>(
+          w)[static_cast<size_t>(i) * packed_width(cols) + (j >> 3)];
+      wt = ((byte >> (j & 7)) & 1) ? 1.f : 0.f;
+    }
+  }
+};
+
+// W * x, exactly (no FMA contraction); x itself without a mask.
+template <int MASK>
+__device__ __forceinline__ float apply_mask(float wt, float x) {
+  return MASK == kNoMask ? x : __fmul_rn(wt, x);
+}
+
+// ---------------------------------------------------------------------------
+// Host-side dispatch from the runtime codes to the template instantiations.
+// ---------------------------------------------------------------------------
+template <typename T>
+struct TypeTag {
+  using type = T;
+};
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// RQ = 1 .. 8 covers r <= 256 (MAX_RANK in kernels/_launch.py).
+template <typename F>
+cudaError_t by_rank(int r, F&& f) {
+  switch ((r + 31) / 32) {
+    case 1: return f(Int<1>{});
+    case 2: return f(Int<2>{});
+    case 3: return f(Int<3>{});
+    case 4: return f(Int<4>{});
+    case 5: return f(Int<5>{});
+    case 6: return f(Int<6>{});
+    case 7: return f(Int<7>{});
+    case 8: return f(Int<8>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename F>
+cudaError_t by_dtype(int dtype, F&& f) {
+  switch (dtype) {
+    case kFloat32: return f(TypeTag<float>{});
+    case kBFloat16: return f(TypeTag<__nv_bfloat16>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// kPacked: whether this kernel takes packed masks at all (the shrink does
+// not; its dispatch unpacks first).
+template <bool kPacked, typename F>
+cudaError_t by_mask(int mask, F&& f) {
+  if (mask == kNoMask) return f(Int<kNoMask>{});
+  if (mask == kDenseMask) return f(Int<kDenseMask>{});
+  if constexpr (kPacked) {
+    if (mask == kPackedMask) return f(Int<kPackedMask>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// f(Int<RQ>, TypeTag<TM>, Int<MASK>) for RQ = ceil(r / 32), the type of M
+// and the mask mode; returns f's cudaError_t as an int (cudaErrorInvalidValue
+// for a code or rank no instantiation covers).
+template <bool kPacked = true, typename F>
+int dispatch(int r, int dtype, int mask, F&& f) {
+  return static_cast<int>(by_dtype(dtype, [&](auto tm) {
+    return by_mask<kPacked>(mask, [&](auto mk) {
+      return by_rank(r, [&](auto rq) { return f(rq, tm, mk); });
+    });
+  }));
+}
+
+}  // namespace repro

@@ -3,11 +3,14 @@ ctypes call plumbing.
 
 A wrapper asks :func:`on_cpu` first: CPU tensors go to its plain version,
 CUDA tensors to its kernel (anything else raises).  Before a launch it
-validates the operands with :func:`check_operands`, passes each pointer as
-:func:`ptr` and the current stream as :func:`stream`, and hands the C
-entry's return code to :func:`check`.
+validates the operands with :func:`check_operands`, which also gives the
+codes of M's data type and of the mask mode that every C entry takes, and
+calls the entry through :func:`launch`.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -15,6 +18,29 @@ import torch
 MAX_RANK = 256
 #: Rows and columns of one kernel tile (``kTile`` in ``csrc/tile.cuh``).
 TILE = 32
+#: Codes of M's data type and of the mask mode (``DType`` and ``MaskMode``
+#: in ``csrc/tile.cuh``).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+NO_MASK, DENSE_MASK, PACKED_MASK = 0, 1, 2
+#: Launch-count suffix of each mask mode.
+MASK_SUFFIX = {NO_MASK: "", DENSE_MASK: "_masked", PACKED_MASK: "_packed"}
+
+P, I = ctypes.c_void_p, ctypes.c_int
+
+
+class Operands(NamedTuple):
+    """Sizes and codes of validated kernel operands."""
+
+    e: int
+    m: int
+    n: int
+    r: int
+    dtype: int  # DTYPE_CODES of M
+    mask: int  # NO_MASK, DENSE_MASK or PACKED_MASK
+
+    @property
+    def suffix(self) -> str:
+        return MASK_SUFFIX[self.mask]
 
 
 def on_cpu(u: torch.Tensor) -> bool:
@@ -27,11 +53,13 @@ def on_cpu(u: torch.Tensor) -> bool:
     return False
 
 
-def check_operands(u, v, m, lam, w=None) -> tuple[int, int, int, int]:
-    """Validate kernel operands; returns ``(E, m, n, r)``.
+def check_operands(u, v, m, lam, w=None, *, packed: bool = True) -> Operands:
+    """Validate kernel operands.
 
-    All must be contiguous fp32 tensors on one CUDA device: ``u`` (E, m, r),
-    ``v`` (E, n, r), ``m`` and a dense 0/1 ``w`` (E, m, n), ``lam`` (E,).
+    All must be contiguous tensors on one CUDA device: fp32 ``u`` (E, m, r),
+    ``v`` (E, n, r) and ``lam`` (E,); ``m`` (E, m, n) fp32 or bf16; ``w``
+    absent, a dense fp32 0/1 plane shaped like ``m``, or (when ``packed``)
+    a bit-packed uint8 plane (E, m, ceil(n/8)).  Anything else raises.
     """
     named = {"u": u, "v": v, "m": m, "lam": lam}
     if w is not None:
@@ -44,14 +72,15 @@ def check_operands(u, v, m, lam, w=None) -> tuple[int, int, int, int]:
                 f"{name} is on {t.device}; the CUDA kernel needs every "
                 f"operand on the device of u ({u.device})"
             )
-        if t.dtype != torch.float32:
-            raise TypeError(
-                f"{name} has dtype {t.dtype}; the CUDA kernels take float32 "
-                f"only (a bf16 data plane and bit-packed masks wait for a "
-                f"later slice, see ROADMAP.md)"
-            )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name in ("u", "v", "lam"):
+        if named[name].dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {named[name].dtype}; the CUDA "
+                            f"kernels take float32 factors and thresholds")
+    if m.dtype not in DTYPE_CODES:
+        raise TypeError(f"m has dtype {m.dtype}; the CUDA kernels take "
+                        f"float32 or bfloat16 data")
     if u.ndim != 3 or v.ndim != 3 or m.ndim != 3:
         raise ValueError(
             f"expected u (E, m, r), v (E, n, r), m (E, m, n); got "
@@ -66,30 +95,49 @@ def check_operands(u, v, m, lam, w=None) -> tuple[int, int, int, int]:
         )
     if tuple(lam.shape) != (e,):
         raise ValueError(f"lam must have shape ({e},), got {tuple(lam.shape)}")
-    if w is not None and w.shape != m.shape:
-        raise ValueError(
-            f"mask shape {tuple(w.shape)} != data shape {tuple(m.shape)}"
-        )
+    mask = NO_MASK
+    if w is not None:
+        if w.dtype == torch.float32:
+            mask, want = DENSE_MASK, (e, mm, n)
+        elif w.dtype == torch.uint8 and packed:
+            mask, want = PACKED_MASK, (e, mm, -(-n // 8))
+        else:
+            raise TypeError(
+                f"w has dtype {w.dtype}; this kernel takes a dense float32 "
+                f"mask{' or a bit-packed uint8 one' if packed else ''}")
+        if tuple(w.shape) != want:
+            raise ValueError(
+                f"mask shape {tuple(w.shape)} != {want} for data "
+                f"{tuple(m.shape)}"
+            )
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"rank {r} outside the kernels' range 1..{MAX_RANK}")
     if min(e, mm, n) < 1 or e > 65535 or -(-mm // TILE) > 65535:
         raise ValueError(f"unsupported sizes E={e}, m={mm}, n={n}")
-    return e, mm, n, r
+    return Operands(e, mm, n, r, DTYPE_CODES[m.dtype], mask)
 
 
-def ptr(t: torch.Tensor | None) -> int | None:
-    """The device address of ``t`` (``None`` -> a null pointer)."""
-    return None if t is None else t.data_ptr()
+def signature(pointers: int, ints: int = 0) -> tuple:
+    """ctypes argument types of a C entry: ``u, v, m, w, lam`` and
+    ``pointers`` more device pointers, then ``E, M, N, r, dtype, mask``,
+    ``ints`` more ints, and the stream."""
+    return (P,) * (5 + pointers) + (I,) * (6 + ints) + (P,)
 
 
-def stream(device: torch.device) -> int:
-    """The current CUDA stream of ``device``, as a handle for ctypes."""
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def check(status: int, name: str) -> None:
-    """Raise if a C entry reported a CUDA error."""
+def launch(lib: ctypes.CDLL, entry: str, name: str, counts: dict[str, int],
+           op: Operands, u, v, m, w, lam, *outputs, ints: tuple = ()) -> None:
+    """Call C entry ``entry`` of ``lib`` (see :func:`signature`) on the
+    current stream of ``u``'s device, raise if it reports a CUDA error, and
+    count one launch of ``name``."""
+    with torch.cuda.device(u.device):
+        status = getattr(lib, entry)(
+            *(None if t is None else t.data_ptr()
+              for t in (u, v, m, w, lam, *outputs)),
+            op.e, op.m, op.n, op.r, op.dtype, op.mask, *ints,
+            torch.cuda.current_stream(u.device).cuda_stream,
+        )
     if status != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError_t {status}"
         )
+    counts[name] += 1

@@ -2,10 +2,10 @@
 
 ``packed[..., i, jb]`` holds columns ``8*jb .. 8*jb+7`` of row ``i``, least
 significant bit first; the tail byte's high bits are zero when
-``n % 8 != 0``.  Byte-identical with ``repro.kernels.bitmask``.  No CUDA
-kernel consumes a packed plane yet (``ROADMAP.md`` Queue 2), so the solvers
-reject ``DCFConfig.pack_mask``; these helpers serve the reference path and
-the tests.
+``n % 8 != 0``.  Byte-identical with ``repro.kernels.bitmask``.  The CUDA
+contraction kernels read packed planes as they are (``csrc/tile.cuh``);
+these helpers pack them (``DCFConfig.pack_mask``) and unpack them for the
+plain versions and the shrink.
 """
 from __future__ import annotations
 

@@ -1,65 +1,85 @@
 """Huber-residual contractions: CUDA kernels and their plain versions.
 
-Two functions, each batched over a leading client axis E (U is (E, m, r):
-after the first U-step every client holds its own copy):
+Four functions, each batched over a leading client axis E (U is (E, m, r):
+after the first U-step every client holds its own copy), with
+``R = M - U V^T``:
 
-``huber_contract_v``       ``Psi^T U`` -> (E, n, r), with
-                           ``Psi = clip(M - U V^T, +-lam)``, masked
-                           ``Psi = W * clip(M - U V^T, +-lam)``.  Replaces
-                           ``repro/kernels/huber_contract.py::huber_contract_v``
-                           (:159, kernel :82) and ``huber_contract_v_masked``
-                           (:239, kernel :97).
+``huber_contract_v``       ``Psi^T U`` -> (E, n, r), ``Psi = W * clip(R,
+                           +-lam)``.  Replaces ``repro/kernels/
+                           huber_contract.py::huber_contract_v`` (:159,
+                           kernel :82), ``huber_contract_v_masked`` (:239,
+                           kernel :97) and ``huber_contract_v_packed`` (:553).
+``huber_contract_u``       ``Psi V`` -> (E, m, r).  Replaces
+                           ``huber_contract_u`` (:200, kernel :118),
+                           ``huber_contract_u_masked`` (:286, kernel :133)
+                           and ``huber_contract_u_packed`` (:572).
 ``huber_contract_u_diag``  ``(Psi V, H_lam(R_W), ||Psi||_F^2)`` ->
                            (E, m, r), (E,), (E,), with ``R_W = W * R`` and
                            ``Psi = clip(R_W, +-lam)``.  Replaces
                            ``huber_contract_u_diag`` (:521) and
-                           ``huber_contract_u_diag_masked`` (:537), both the
-                           body ``_make_dual_kernel(with_v=False)`` (:341).
+                           ``huber_contract_u_diag_masked`` (:537).
+``huber_dual_contract``    ``(Psi^T U, Psi V, H_lam(R_W), ||Psi||_F^2)`` from
+                           one pass over M.  Replaces ``huber_dual_contract``
+                           (:481) and ``huber_dual_contract_masked`` (:502).
 
-The kernels (``csrc/contract.cu``) are bound by fp32 arithmetic on an H100,
-not by device memory: each residual entry costs 4r FLOP against 4 bytes of
-M, ~150 FLOP/byte at r = 150 against a ridge of ~20.  They read M once,
-keep each residual tile in shared memory, and spend the rest on register-
-blocked FMA loops; see the source for the layout.  ``lam`` is a device
-tensor of shape (E,), so the solver loop never reads a value back to the
-host.  The launches are deterministic (no atomics): ``huber_contract_v``
-splits its m reduction into a number of row ranges fixed by the shape and
-the card's SM count, then sums them in order.
+(:341, ``_make_dual_kernel``, is the body of every TPU wrapper from :481
+on.)  ``M`` is fp32 or bf16 (upcast on load; factors, sums and outputs stay
+fp32).  ``w`` is absent, a dense 0/1 fp32 plane, or a bit-packed uint8 plane
+(``kernels.bitmask``) that the kernel reads as it is: a packed plane gives
+the bits of the dense plane it packs, and an all-ones plane the bits of no
+mask.  ``launches`` counts each function per mask mode (``_masked`` dense,
+``_packed`` packed).
+
+The kernels (``csrc/contract_v.cu``; ``csrc/stripe.cuh`` through
+``contract_u.cu``, ``contract_u_diag.cu`` and ``dual.cu``) are bound by fp32
+arithmetic on an H100, not by device memory: each residual entry costs 4r
+FLOP (6r in the dual) against at most 8 bytes.  They read M once, keep each
+residual tile in shared memory, and spend the rest on register-blocked FMA
+loops.  ``lam`` is a device tensor of shape (E,), so the solver loop never
+reads a value back to the host.  The launches are deterministic (no
+atomics): sums across blocks go through partials added in index order.
+``huber_contract_u`` is ``huber_contract_u_diag`` with the diagnostics
+compiled out (the same ``Psi V`` bits), and ``huber_dual_contract`` always
+runs its one fused pass: there is no two-pass route.
 
 A wrapper given CPU tensors returns its plain version (``*_plain``, the
 ``kernels.ref`` oracles); given CUDA tensors it launches its kernel or
-raises.  ``launches`` counts kernel launches per function.
+raises.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._launch import (
-    TILE, check, check_operands, on_cpu, ptr, stream,
+    MASK_SUFFIX, TILE, check_operands, launch, on_cpu, signature,
 )
 
-#: Kernel launches per function (CUDA tensors only).
+#: Kernel launches per function and mask mode (CUDA tensors only).
 launches = {
-    "huber_contract_v": 0,
-    "huber_contract_v_masked": 0,
-    "huber_contract_u_diag": 0,
-    "huber_contract_u_diag_masked": 0,
+    base + suffix: 0
+    for base in ("huber_contract_v", "huber_contract_u",
+                 "huber_contract_u_diag", "huber_dual_contract")
+    for suffix in MASK_SUFFIX.values()
 }
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    # u, v, m, w, lam, out, partial, E, M, N, r, splits, rows, stream
-    "repro_huber_contract_v": (_P,) * 7 + (_I,) * 6 + (_P,),
-    # u, v, m, w, lam, out_u, obj, psi2, partial, E, M, N, r, stream
-    "repro_huber_contract_u_diag": (_P,) * 9 + (_I,) * 4 + (_P,),
+# source stem -> (C entry, extra pointers, extra ints): the pointers after
+# u, v, m, w, lam are the outputs and scratch; contract_v's ints are
+# (splits, rows per split).
+_ENTRIES = {
+    "contract_v": ("repro_huber_contract_v", 2, 2),
+    "contract_u": ("repro_huber_contract_u", 1, 0),
+    "contract_u_diag": ("repro_huber_contract_u_diag", 4, 0),
+    "dual": ("repro_huber_dual_contract", 6, 0),
 }
 
 
-def _lib() -> ctypes.CDLL:
-    return _build.library("contract", _SIGNATURES)
+def _call(stem: str, base: str, op, u, v, m, w, lam, *outputs,
+          ints: tuple = ()) -> None:
+    entry, pointers, extra = _ENTRIES[stem]
+    lib = _build.library(stem, {entry: signature(pointers, extra)})
+    launch(lib, entry, base + op.suffix, launches, op, u, v, m, w, lam,
+           *outputs, ints=ints)
 
 
 def v_splits(e: int, m: int, n: int, device: torch.device) -> tuple[int, int]:
@@ -75,6 +95,10 @@ def v_splits(e: int, m: int, n: int, device: torch.device) -> tuple[int, int]:
     return -(-m_tiles // per), per * TILE
 
 
+def _f32(*shape, device) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
 def huber_contract_v_plain(u, v, m, lam, w=None) -> torch.Tensor:
     if w is None:
         return ref.huber_contract_v(u, v, m, lam)
@@ -85,20 +109,30 @@ def huber_contract_v(u, v, m, lam, w=None) -> torch.Tensor:
     """``Psi^T U`` (E, n, r); masked when ``w`` is given."""
     if on_cpu(u):
         return huber_contract_v_plain(u, v, m, lam, w)
-    e, mm, n, r = check_operands(u, v, m, lam, w)
-    out = torch.empty((e, n, r), dtype=torch.float32, device=u.device)
-    splits, rows = v_splits(e, mm, n, u.device)
-    partial = out if splits == 1 else torch.empty(
-        (splits, e, n, r), dtype=torch.float32, device=u.device)
-    with torch.cuda.device(u.device):
-        status = _lib().repro_huber_contract_v(
-            ptr(u), ptr(v), ptr(m), ptr(w), ptr(lam), ptr(out),
-            ptr(partial), e, mm, n, r, splits, rows, stream(u.device),
-        )
-    name = "huber_contract_v" if w is None else "huber_contract_v_masked"
-    check(status, name)
-    launches[name] += 1
+    op = check_operands(u, v, m, lam, w)
+    out = _f32(op.e, op.n, op.r, device=u.device)
+    splits, rows = v_splits(op.e, op.m, op.n, u.device)
+    partial = out if splits == 1 else _f32(splits, op.e, op.n, op.r,
+                                           device=u.device)
+    _call("contract_v", "huber_contract_v", op, u, v, m, w, lam, out, partial,
+          ints=(splits, rows))
     return out
+
+
+def huber_contract_u_plain(u, v, m, lam, w=None) -> torch.Tensor:
+    if w is None:
+        return ref.huber_contract_u(u, v, m, lam)
+    return ref.huber_contract_u_masked(u, v, m, w, lam)
+
+
+def huber_contract_u(u, v, m, lam, w=None) -> torch.Tensor:
+    """``Psi V`` (E, m, r); masked when ``w`` is given."""
+    if on_cpu(u):
+        return huber_contract_u_plain(u, v, m, lam, w)
+    op = check_operands(u, v, m, lam, w)
+    out_u = _f32(op.e, op.m, op.r, device=u.device)
+    _call("contract_u", "huber_contract_u", op, u, v, m, w, lam, out_u)
+    return out_u
 
 
 def huber_contract_u_diag_plain(u, v, m, lam, w=None):
@@ -112,20 +146,41 @@ def huber_contract_u_diag(u, v, m, lam, w=None):
     when ``w`` is given."""
     if on_cpu(u):
         return huber_contract_u_diag_plain(u, v, m, lam, w)
-    e, mm, n, r = check_operands(u, v, m, lam, w)
+    op = check_operands(u, v, m, lam, w)
     dev = u.device
-    out_u = torch.empty((e, mm, r), dtype=torch.float32, device=dev)
-    diag = torch.empty((2, e), dtype=torch.float32, device=dev)
-    partial = torch.empty(2 * e * -(-mm // TILE), dtype=torch.float32,
-                          device=dev)
-    with torch.cuda.device(dev):
-        status = _lib().repro_huber_contract_u_diag(
-            ptr(u), ptr(v), ptr(m), ptr(w), ptr(lam), ptr(out_u),
-            ptr(diag[0]), ptr(diag[1]), ptr(partial), e, mm, n, r,
-            stream(dev),
-        )
-    name = ("huber_contract_u_diag" if w is None
-            else "huber_contract_u_diag_masked")
-    check(status, name)
-    launches[name] += 1
+    out_u = _f32(op.e, op.m, op.r, device=dev)
+    diag = _f32(2, op.e, device=dev)
+    partial = _f32(2 * op.e * -(-op.m // TILE), device=dev)
+    _call("contract_u_diag", "huber_contract_u_diag", op, u, v, m, w, lam,
+          out_u, diag[0], diag[1], partial)
     return out_u, diag[0], diag[1]
+
+
+def huber_dual_contract_plain(u, v, m, lam, w=None):
+    if w is None:
+        return ref.huber_dual_contract(u, v, m, lam)
+    return ref.huber_dual_contract_masked(u, v, m, w, lam)
+
+
+def dual_partial_shape(e: int, m: int, n: int, r: int) -> tuple[int, ...]:
+    """The (stripes, E, n, r) fp32 scratch of ``huber_dual_contract``'s
+    out_v partials: one (n, r) plane per client and 32-row stripe."""
+    return (-(-m // TILE), e, n, r)
+
+
+def huber_dual_contract(u, v, m, lam, w=None):
+    """``(Psi^T U (E, n, r), Psi V (E, m, r), H_lam(R_W) (E,),
+    ||Psi||_F^2 (E,))`` from one pass; masked when ``w`` is given."""
+    if on_cpu(u):
+        return huber_dual_contract_plain(u, v, m, lam, w)
+    op = check_operands(u, v, m, lam, w)
+    dev = u.device
+    out_v = _f32(op.e, op.n, op.r, device=dev)
+    out_u = _f32(op.e, op.m, op.r, device=dev)
+    diag = _f32(2, op.e, device=dev)
+    diag_partial = _f32(2 * op.e * -(-op.m // TILE), device=dev)
+    v_partial = _f32(*dual_partial_shape(op.e, op.m, op.n, op.r),
+                     device=dev)
+    _call("dual", "huber_dual_contract", op, u, v, m, w, lam, out_v, out_u,
+          diag[0], diag[1], diag_partial, v_partial)
+    return out_v, out_u, diag[0], diag[1]

@@ -8,11 +8,13 @@
 Signatures follow ``repro.kernels.ops``.  Operands are one problem
 (``m`` is (m, n), factors (m, r) and (n, r)) or a stack of client blocks
 with a leading axis E (``m`` is (E, m, n), ``u`` (E, m, r), ``v`` (E, n, r));
-``lam`` is a float, a 0-d tensor or one threshold per client (E,).  ``w``
-is an optional dense 0/1 mask shaped like ``m``.
+``m`` is fp32 or bf16; ``lam`` is a float, a 0-d tensor or one threshold per
+client (E,).  ``w`` is an optional 0/1 mask: dense (shaped like ``m``) or
+bit-packed uint8 (``kernels.bitmask``).  The contraction kernels read a
+packed plane as it is; the shrink, which runs once per solve, takes it
+unpacked here, as the reference does.
 
-Functions whose kernel is not ported yet (``huber_contract_u``,
-``huber_dual_contract``, ``residual_shrink_psi``) and bit-packed masks raise
+Only ``residual_shrink_psi`` has no kernel yet: it raises
 ``NotImplementedError`` on CUDA tensors unless ``impl='ref'`` is asked for.
 """
 from __future__ import annotations
@@ -49,10 +51,6 @@ def _kernel_args(u, v, m, lam, w):
     if single:
         u, v, m = u[None], v[None], m[None]
         w = None if w is None else w[None]
-    if w is not None and bitmask.is_packed(w):
-        if m.device.type == "cuda":
-            raise _not_ported("a bit-packed mask")
-        w = bitmask.unpack_mask(w, m.shape[-1])
     lam = torch.as_tensor(lam, dtype=torch.float32, device=m.device)
     if lam.ndim == 0:
         lam = lam.expand(m.shape[0])
@@ -95,30 +93,37 @@ def residual_shrink(u, v, m, lam, *, w=None, impl: str = "auto"):
             return ref.residual_shrink_masked(u, v, m, w, lam)
         return ref.residual_shrink(u, v, m, lam)
     single, u, v, m, lam, w = _kernel_args(u, v, m, lam, w)
-    s = _sh.residual_shrink(u, v, m, lam, w)
+    s = _sh.residual_shrink(u, v, m, lam,
+                            bitmask.resolve_mask(w, m.shape[-1]))
     return s[0] if single else s
 
 
 def huber_contract_u(u, v, m, lam, *, w=None, impl: str = "auto"):
-    """(m, r) = Psi V; masked when ``w``.  Plain version only so far."""
-    _refuse_cuda(impl, m, "huber_contract_u")
-    if w is not None:
-        return ref.huber_contract_u_masked(u, v, m, w, lam)
-    return ref.huber_contract_u(u, v, m, lam)
+    """(m, r) = Psi V; masked when ``w``."""
+    if not _use_kernel(impl, m):
+        if w is not None:
+            return ref.huber_contract_u_masked(u, v, m, w, lam)
+        return ref.huber_contract_u(u, v, m, lam)
+    single, u, v, m, lam, w = _kernel_args(u, v, m, lam, w)
+    out = _hc.huber_contract_u(u, v, m, lam, w)
+    return out[0] if single else out
 
 
 def huber_dual_contract(u, v, m, lam, *, w=None, impl: str = "auto"):
-    """(Psi^T U, Psi V, H_lam(R_W), ||Psi||_F^2) in one pass.  Plain version
-    only so far."""
-    _refuse_cuda(impl, m, "huber_dual_contract")
-    if w is not None:
-        return ref.huber_dual_contract_masked(u, v, m, w, lam)
-    return ref.huber_dual_contract(u, v, m, lam)
+    """(Psi^T U, Psi V, H_lam(R_W), ||Psi||_F^2) in one pass over M; Psi =
+    clip(W R) when ``w``.  Always the one fused kernel on CUDA tensors."""
+    if not _use_kernel(impl, m):
+        if w is not None:
+            return ref.huber_dual_contract_masked(u, v, m, w, lam)
+        return ref.huber_dual_contract(u, v, m, lam)
+    single, u, v, m, lam, w = _kernel_args(u, v, m, lam, w)
+    outs = _hc.huber_dual_contract(u, v, m, lam, w)
+    return tuple(x[0] for x in outs) if single else outs
 
 
 def residual_shrink_psi(u, v, m, lam, *, w=None, impl: str = "auto"):
     """((m, n) S, (m, n) Psi) in one pass; masked when ``w``.  Plain version
-    only so far."""
+    only so far (ROADMAP.md Queue 2)."""
     _refuse_cuda(impl, m, "residual_shrink_psi")
     if w is not None:
         return (ref.residual_shrink_masked(u, v, m, w, lam),

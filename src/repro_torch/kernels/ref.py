@@ -1,7 +1,8 @@
 """Plain PyTorch versions of every kernel function (the oracles).
 
-The same semantics as ``repro.kernels.ref``, in fp32, for any number of
-leading batch axes (the client axis E of the simulated engine):
+The same semantics as ``repro.kernels.ref``, in fp32 (a bf16 ``M`` is
+upcast before anything else), for any number of leading batch axes (the
+client axis E of the simulated engine):
 
     R   = M - U V^T
     S   = sign(R) * max(|R| - lam, 0)

@@ -6,34 +6,30 @@
                      (:97, kernel ``_shrink_kernel`` :41) and
                      ``residual_shrink_masked`` (:167, kernel :57).
 
-The kernel (``csrc/shrink.cu``) is bound by fp32 arithmetic on an H100:
-2r FLOP of U V^T per entry against 8 bytes (M in, S out), ~37 FLOP/byte at
-r = 150 against a ridge of ~20.  Each block computes a 32 x 32 tile of S
-from staged rows of U and V; the residual never reaches device memory.  It
-runs once per solve.
+``M`` is fp32 or bf16 (upcast on load); ``S`` is fp32.  The kernel takes no
+mask or a dense fp32 one: it runs once per solve, so a bit-packed mask is
+unpacked by the dispatch (``kernels.ops``), as the reference does.  The
+kernel (``csrc/shrink.cu``) computes each 32 x 32 tile of S from staged
+rows of U and V, and M and S each cross device memory once: 2r FLOP per
+entry against 6-12 bytes, so fp32 arithmetic bounds it at r = 150 and the
+bytes at r = 64.
 
 On CPU tensors the wrapper returns the plain version; on CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._launch import (
-    check, check_operands, on_cpu, ptr, stream,
+    check_operands, launch, on_cpu, signature,
 )
 
 #: Kernel launches per function (CUDA tensors only).
 launches = {"residual_shrink": 0, "residual_shrink_masked": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    # u, v, m, w, lam, s, E, M, N, r, stream
-    "repro_residual_shrink": (_P,) * 6 + (_I,) * 4 + (_P,),
-}
+_ENTRY = "repro_residual_shrink"
 
 
 def residual_shrink_plain(u, v, m, lam, w=None) -> torch.Tensor:
@@ -43,17 +39,12 @@ def residual_shrink_plain(u, v, m, lam, w=None) -> torch.Tensor:
 
 
 def residual_shrink(u, v, m, lam, w=None) -> torch.Tensor:
-    """``S`` (E, m, n); ``W * S`` when ``w`` is given."""
+    """``S`` (E, m, n); ``W * S`` when ``w`` (dense) is given."""
     if on_cpu(u):
         return residual_shrink_plain(u, v, m, lam, w)
-    e, mm, n, r = check_operands(u, v, m, lam, w)
-    s = torch.empty((e, mm, n), dtype=torch.float32, device=u.device)
-    with torch.cuda.device(u.device):
-        status = _build.library("shrink", _SIGNATURES).repro_residual_shrink(
-            ptr(u), ptr(v), ptr(m), ptr(w), ptr(lam), ptr(s),
-            e, mm, n, r, stream(u.device),
-        )
-    name = "residual_shrink" if w is None else "residual_shrink_masked"
-    check(status, name)
-    launches[name] += 1
+    op = check_operands(u, v, m, lam, w, packed=False)
+    s = torch.empty((op.e, op.m, op.n), dtype=torch.float32, device=u.device)
+    lib = _build.library("shrink", {_ENTRY: signature(1)})
+    launch(lib, _ENTRY, "residual_shrink" + op.suffix, launches, op,
+           u, v, m, w, lam, s)
     return s

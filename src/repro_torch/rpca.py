@@ -7,14 +7,16 @@ methods ``"cf"`` and ``"dcf"``.
     res = rpca.solve(m_obs, method="cf", rank=8, device="cpu")
 
 A solve runs on the CUDA card unless ``device="cpu"`` is passed; with no
-card and no device named it raises.  The other methods of the reference
-(the convex solvers, the sharded engine), batched problems, participation
-schedules, fault injection and low-precision data wait for later slices
+card and no device named it raises.  ``dtype=torch.bfloat16`` stores M as
+the compact bf16 plane (results stay fp32); with ``DCFConfig(pack_mask=True,
+fused="dual")`` it is the compact data plane of the reference.  The other
+methods of the reference (the convex solvers, the sharded engine), batched
+problems, participation schedules and fault injection wait for later slices
 (``ROADMAP.md``) and raise.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any
 
 import torch
@@ -34,8 +36,8 @@ class RPCASpec:
     target ``rank`` (when no cfg is passed), the client count
     ``num_clients`` for ``"dcf"``, warm factors ``(U, V)``, and ``key``,
     the seed (or ``torch.Generator``) of the random factor init (default
-    0).  ``participation``, ``faults`` and a non-fp32 ``dtype`` are not
-    ported yet."""
+    0).  ``dtype`` casts ``m_obs`` (fp32 or bf16).  ``participation`` and
+    ``faults`` are not ported yet."""
 
     m_obs: Any
     mask: Any = None
@@ -99,12 +101,12 @@ def solve(spec_or_matrix: RPCASpec | Any, method: str = "auto", *,
         spec = spec_or_matrix
     else:
         spec = RPCASpec(spec_or_matrix, **spec_kwargs)
+    if spec.dtype is not None and spec.m_obs.dtype != spec.dtype:
+        spec = replace(spec, m_obs=torch.as_tensor(spec.m_obs).to(spec.dtype))
     spec.validate()
     device = resolve_device(device)
     if spec.batched:
         raise _not_ported("batched solves")
-    if spec.dtype not in (None, torch.float32):
-        raise _not_ported(f"a {spec.dtype} data plane")
     run_cfg = rt.resolve_run(run)
     if method == "auto":
         method = "dcf" if spec.num_clients is not None else "cf"

@@ -18,11 +18,13 @@ from repro.core import metrics as jmetrics
 from repro.core import ops as jops
 from repro.core import problems as jprob
 from repro.core import validate as jval
+from repro.kernels import bitmask as jbitmask
 from repro_torch.core import factorized as fz
 from repro_torch.core import metrics
 from repro_torch.core import ops
 from repro_torch.core import problems as prob
 from repro_torch.core import validate as val
+from repro_torch.kernels import bitmask
 
 ROUND_TOL = 1e-5
 
@@ -139,6 +141,66 @@ def test_local_round_matches_reference(inner, precondition, masked):
                                        rtol=ROUND_TOL)
 
 
+# (fused, masked, packed, bf16): the dual and off rounds, the packed mask
+# and the bf16 data plane, alone and together.
+FLAVOURS = [("dual", False, False, False), ("dual", True, False, False),
+            ("off", False, False, False), ("off", True, False, False),
+            ("diag", True, True, False), ("dual", True, True, False),
+            ("off", True, True, False), ("diag", False, False, True),
+            ("dual", True, True, True), ("off", False, False, True)]
+
+
+@pytest.mark.parametrize("fused,masked,packed,bf16", FLAVOURS)
+def test_local_round_flavours_match_reference(fused, masked, packed, bf16):
+    """One local round under each round flavour and data plane, from
+    identical inputs; bf16 M is cast on each side from the same fp32
+    array."""
+    u, v, blocks, w = _round_inputs(seed=5)
+    e = blocks.shape[0]
+    lam, n_frac, eta = 1.5, 1.0 / e, 0.5
+    mine_cfg = fz.DCFConfig.tuned(5, fused=fused, pack_mask=packed)
+    ref_cfg = jfz.DCFConfig.tuned(5, fused=fused, pack_mask=packed)
+    m_port, m_ref = _t(blocks), jnp.asarray(blocks)
+    if bf16:
+        m_port, m_ref = m_port.to(torch.bfloat16), m_ref.astype(jnp.bfloat16)
+    w_port = _t(w) if masked else None
+    if masked and packed:
+        w_port = bitmask.pack_mask(w_port)
+    u_i, v_i, diag = fz.local_round(
+        _t(u), _t(v), m_port, cfg=mine_cfg, lam=torch.full((e,), lam),
+        n_frac=n_frac, eta=torch.tensor(eta), w=w_port)
+    assert (diag is None) == (fused == "off")
+    for k in range(e):
+        w_ref = jnp.asarray(w[k]) if masked else None
+        if masked and packed:
+            w_ref = jbitmask.pack_mask(w_ref)
+        ru, rv, rdiag = jfz.local_round(
+            jnp.asarray(u), jnp.asarray(v[k]), m_ref[k], cfg=ref_cfg,
+            lam=lam, n_frac=n_frac, eta=jnp.float32(eta), w=w_ref)
+        np.testing.assert_allclose(u_i[k].numpy(), np.asarray(ru),
+                                   rtol=ROUND_TOL, atol=ROUND_TOL)
+        np.testing.assert_allclose(v_i[k].numpy(), np.asarray(rv),
+                                   rtol=ROUND_TOL, atol=ROUND_TOL)
+        for got, want in zip(diag or (), rdiag or ()):
+            np.testing.assert_allclose(float(got[k]), float(want),
+                                       rtol=ROUND_TOL)
+
+
+@pytest.mark.parametrize("sample", [None, 300])
+def test_robust_lam_bf16_data_matches_reference(sample):
+    """The threshold calibrated on a bf16 data plane (masked, and from a
+    strided sample), cast on each side from the same fp32 array."""
+    rng = np.random.default_rng(11)
+    m = (rng.standard_normal((40, 30)) * 3).astype(np.float32)
+    m[rng.random(m.shape) < 0.05] = 40.0
+    mask = (rng.random(m.shape) < 0.7).astype(np.float32)
+    want = float(jfz.robust_lam(jnp.asarray(m).astype(jnp.bfloat16),
+                                mask=jnp.asarray(mask), sample=sample))
+    got = float(fz.robust_lam(_t(m).to(torch.bfloat16), mask=_t(mask),
+                              sample=sample))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
 def test_consensus_matches_reference():
     rng = np.random.default_rng(1)
     u_i = rng.standard_normal((8, 12, 3)).astype(np.float32)
@@ -159,6 +221,14 @@ def test_local_objective_and_finalize_match_reference():
     lam = 1.5
     got = fz.local_objective(_t(u), _t(v), _t(blocks), 0.01, lam, 0.25,
                              w=_t(w))
+    # A packed mask and a bf16 plane of the same (bf16-exact) data give
+    # the same objective.
+    exact = _t(blocks).to(torch.bfloat16)
+    assert torch.equal(
+        fz.local_objective(_t(u), _t(v), exact, 0.01, lam, 0.25,
+                           w=bitmask.pack_mask(_t(w))),
+        fz.local_objective(_t(u), _t(v), exact.float(), 0.01, lam, 0.25,
+                           w=_t(w)))
     l, s = fz.finalize(_t(u), _t(v), _t(blocks), lam, "auto", w=_t(w))
     for k in range(blocks.shape[0]):
         want = jfz.local_objective(jnp.asarray(u), jnp.asarray(v[k]),

@@ -9,18 +9,25 @@ conftest, which imports JAX:
 
 Tolerances: max|kernel - plain| <= 1e-4 * max|plain| for the planes (fp32
 sums of up to 3000 products, taken in another order than cuBLAS) and
-rtol 1e-5 for the scalar diagnostics (sums over every entry).
+rtol 1e-5 for the scalar diagnostics (sums over every entry).  A bf16 M is
+upcast exactly on both sides, so it keeps the same tolerances.  Masks:
+``dense`` a 0/1 fp32 plane, ``packed`` the same plane bit-packed.
 """
 import pytest
 import torch
 
+from repro_torch.kernels import bitmask, ops
 from repro_torch.kernels import huber_contract as hc
-from repro_torch.kernels import ops
 from repro_torch.kernels import shrinkage as sh
 
-NAMES = ["huber_contract_u_diag", "huber_contract_u_diag_masked",
-         "huber_contract_v", "huber_contract_v_masked", "residual_shrink",
-         "residual_shrink_masked"]
+CONTRACTIONS = ["huber_contract_v", "huber_contract_u",
+                "huber_contract_u_diag", "huber_dual_contract"]
+# (function, mask mode) pairs: every contraction in all three modes, the
+# shrink without a mask and with a dense one.
+CASES = ([(f, mode) for f in CONTRACTIONS
+          for mode in ("none", "dense", "packed")]
+         + [("residual_shrink", "none"), ("residual_shrink", "dense")])
+IDS = [f"{f}-{mode}" for f, mode in CASES]
 SCALAR_RTOL = 1e-5
 
 
@@ -37,7 +44,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _card_inputs(device, e, m, n, r, seed=0):
+def _card_inputs(device, e, m, n, r, seed=0, dtype=torch.float32):
     g = torch.Generator().manual_seed(seed)
     scale = 1.0 / r ** 0.5
     u = torch.randn(e, m, r, generator=g) * scale
@@ -46,20 +53,24 @@ def _card_inputs(device, e, m, n, r, seed=0):
     mat[torch.rand(e, m, n, generator=g) < 0.05] = 3000.0
     w = (torch.rand(e, m, n, generator=g) < 0.7).to(torch.float32)
     lam = torch.linspace(0.5, 2.0, e)
-    return [x.to(device) for x in (u, v, mat, w, lam)]
+    return [x.to(device) for x in (u, v, mat.to(dtype), w, lam)]
 
 
-def _kernel_and_plain(name, u, v, mat, w, lam):
-    masked = name.endswith("_masked")
-    base = name.removesuffix("_masked")
-    module = sh if base == "residual_shrink" else hc
-    kernel, plain = getattr(module, base), getattr(module, base + "_plain")
-    args = (u, v, mat, lam, w if masked else None)
+def _mask(w, mode):
+    return {"none": None, "dense": w, "packed": bitmask.pack_mask(w)}[mode]
+
+
+def _kernel_and_plain(fn, mode, u, v, mat, w, lam):
+    module = sh if fn == "residual_shrink" else hc
+    kernel, plain = getattr(module, fn), getattr(module, fn + "_plain")
+    args = (u, v, mat, lam, _mask(w, mode))
     return _as_tuple(kernel(*args)), _as_tuple(plain(*args))
 
 
 def _assert_card_close(got, want):
+    assert len(got) == len(want)
     for g, p in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == p.shape
         if g.ndim == 1:
             torch.testing.assert_close(g, p, rtol=SCALAR_RTOL, atol=0.0)
         else:
@@ -67,40 +78,91 @@ def _assert_card_close(got, want):
             assert err <= 1e-4 * p.abs().max().item(), err
 
 
-# The shapes the solves give the kernels: dcf's client blocks and cf's one
-# block (other grids: fewer column tiles per block row, no client axis).
-SLICE_SHAPES = [(10, 3000, 300, 150), (1, 3000, 3000, 150)]
+# The shapes the solves give the kernels: dcf's and off's client blocks,
+# cf's one block (other grids: fewer column tiles per block row, no client
+# axis), and the dual and compact phases' blocks.
+SLICE_SHAPES = [(10, 3000, 300, 150), (1, 3000, 3000, 150),
+                (4, 2048, 512, 64)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", SLICE_SHAPES, ids=["dcf", "cf"])
-@pytest.mark.parametrize("name", NAMES)
-def test_kernel_matches_plain_at_slice_shape(cuda, name, shape):
-    got, want = _kernel_and_plain(name, *_card_inputs(cuda, *shape))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SLICE_SHAPES, ids=["dcf", "cf", "dual"])
+@pytest.mark.parametrize("fn,mode", CASES, ids=IDS)
+def test_kernel_matches_plain_at_slice_shape(cuda, fn, mode, shape, dtype):
+    got, want = _kernel_and_plain(fn, mode,
+                                  *_card_inputs(cuda, *shape, dtype=dtype))
     torch.cuda.synchronize()
     _assert_card_close(got, want)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(3, 40, 24, 5), (2, 33, 70, 1),
                                    (1, 65, 31, 256), (4, 100, 7, 33)])
-@pytest.mark.parametrize("name", NAMES)
-def test_kernel_matches_plain_ragged(cuda, name, shape):
-    got, want = _kernel_and_plain(name, *_card_inputs(cuda, *shape))
+@pytest.mark.parametrize("fn,mode", CASES, ids=IDS)
+def test_kernel_matches_plain_ragged(cuda, fn, mode, shape, dtype):
+    """Ragged m, n (n % 8 != 0: a packed tail byte) and r (not a multiple
+    of 32)."""
+    got, want = _kernel_and_plain(fn, mode,
+                                  *_card_inputs(cuda, *shape, dtype=dtype))
     _assert_card_close(got, want)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["huber_contract_v", "huber_contract_u_diag",
-                                  "residual_shrink"])
-def test_kernel_all_ones_mask_and_reruns_are_bit_exact(cuda, name):
-    u, v, mat, _, lam = _card_inputs(cuda, 10, 3000, 300, 150)
-    fn = getattr(ops, name)
-    first = _as_tuple(fn(u, v, mat, lam))
-    again = _as_tuple(fn(u, v, mat, lam))
-    masked = _as_tuple(fn(u, v, mat, lam, w=torch.ones_like(mat)))
-    for a, b, c in zip(first, again, masked):
+@pytest.mark.parametrize("shape", [(10, 3000, 300, 150), (4, 2048, 512, 64),
+                                   (2, 33, 70, 5)])
+@pytest.mark.parametrize("fn", CONTRACTIONS + ["residual_shrink"])
+def test_masks_are_bit_exact(cuda, fn, shape):
+    """Reruns, an all-ones mask and no mask give the same bits; a packed
+    mask gives the bits of the dense mask it packs."""
+    u, v, mat, w, lam = _card_inputs(cuda, *shape)
+    f = getattr(ops, fn)
+    first = _as_tuple(f(u, v, mat, lam))
+    again = _as_tuple(f(u, v, mat, lam))
+    ones = _as_tuple(f(u, v, mat, lam, w=torch.ones_like(mat)))
+    dense = _as_tuple(f(u, v, mat, lam, w=w))
+    packed = _as_tuple(f(u, v, mat, lam, w=bitmask.pack_mask(w)))
+    for a, b, c in zip(first, again, ones):
         assert torch.equal(a, b) and torch.equal(a, c)
+    for a, b in zip(dense, packed):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["none", "dense", "packed"])
+def test_u_kernels_share_their_bits(cuda, mode):
+    """huber_contract_u is u_diag without the diagnostics, and the dual
+    kernel's Psi V and scalars are u_diag's, bit for bit."""
+    u, v, mat, w, lam = _card_inputs(cuda, 4, 2048, 512, 64,
+                                     dtype=torch.bfloat16)
+    w = _mask(w, mode)
+    out_u, obj, psi2 = hc.huber_contract_u_diag(u, v, mat, lam, w)
+    assert torch.equal(hc.huber_contract_u(u, v, mat, lam, w), out_u)
+    _, dual_u, dual_obj, dual_psi2 = hc.huber_dual_contract(u, v, mat, lam, w)
+    assert torch.equal(dual_u, out_u)
+    assert torch.equal(dual_obj, obj) and torch.equal(dual_psi2, psi2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,masked", [(256, False), (253, True)])
+def test_off_and_diag_give_the_same_factors(cuda, n, masked):
+    """fused="off" and "diag" differ only in the U-step kernel, which gives
+    the same Psi V bits: whole solves agree bit for bit."""
+    from repro_torch.core import dcf_pca
+    from repro_torch.core import problems as prob
+    from repro_torch.core.factorized import DCFConfig
+
+    p = prob.generate_problem(3, 256, n, 8, 0.05, device=cuda,
+                              observed_frac=0.8 if masked else 1.0)
+    results = [dcf_pca.dcf_pca(p.m_obs, DCFConfig.tuned(8, outer_iters=20,
+                                                        fused=fused), 4,
+                               mask=p.mask, device=cuda)
+               for fused in ("diag", "off")]
+    for a, b in zip(results[0][:4], results[1][:4]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -111,12 +173,21 @@ def test_kernel_wrappers_refuse_bad_operands(cuda):
                             mat, lam)
     with pytest.raises(TypeError, match="float32"):
         hc.huber_contract_v(u.double(), v, mat, lam)
+    with pytest.raises(TypeError, match="float32"):
+        hc.huber_dual_contract(u.to(torch.bfloat16), v, mat, lam)
+    with pytest.raises(TypeError, match="bfloat16"):
+        hc.huber_contract_u(u, v, mat.half(), lam)
+    with pytest.raises(ValueError, match="mask shape"):
+        hc.huber_contract_u(u, v, mat, lam,
+                            bitmask.pack_mask(w)[..., :-1].contiguous())
+    with pytest.raises(TypeError, match="dense float32"):
+        sh.residual_shrink(u, v, mat, lam, bitmask.pack_mask(w))
     with pytest.raises(ValueError, match="rank"):
         big = torch.zeros(2, 40, 257, device=cuda)
         hc.huber_contract_v(big, torch.zeros(2, 24, 257, device=cuda), mat,
                             lam)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.huber_contract_u(u, v, mat, lam)
+        ops.residual_shrink_psi(u, v, mat, lam)
 
 
 @pytest.mark.gpu

@@ -9,7 +9,10 @@ held against their plain versions on the card in tests/test_torch_gpu.py.
 Tolerances: contractions and S use rtol = atol = 2e-5 (as
 tests/test_kernels.py: fp32 sums in another order); the scalar diagnostics
 use rtol 1e-5 (a sum over every entry, taken in another order by each
-framework).
+framework).  A bf16 M is cast on each side from the same fp32 numpy array
+(both round to nearest even) and upcast exactly, so it keeps the same
+tolerances.  ``*_packed`` families take the bit-packed mask on both sides;
+their jnp oracle takes the dense plane it packs.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -63,6 +66,53 @@ FAMILIES = {
             u, v, m, w, lam, interpret=True),
         lambda u, v, m, lam, w: jref.huber_dual_contract_masked(
             u, v, m, w, lam)[1:]),
+    "huber_contract_v_packed": (
+        lambda u, v, m, lam, w: hc.huber_contract_v(u, v, m, lam,
+                                                    bitmask.pack_mask(w)),
+        lambda u, v, m, lam, w: jhc.huber_contract_v_packed(
+            u, v, m, jbitmask.pack_mask(w), lam, interpret=True),
+        lambda u, v, m, lam, w: jref.huber_contract_v_masked(u, v, m, w, lam)),
+    "huber_contract_u": (
+        lambda u, v, m, lam, w: hc.huber_contract_u(u, v, m, lam),
+        lambda u, v, m, lam, w: jhc.huber_contract_u(u, v, m, lam,
+                                                     interpret=True),
+        lambda u, v, m, lam, w: jref.huber_contract_u(u, v, m, lam)),
+    "huber_contract_u_masked": (
+        lambda u, v, m, lam, w: hc.huber_contract_u(u, v, m, lam, w),
+        lambda u, v, m, lam, w: jhc.huber_contract_u_masked(
+            u, v, m, w, lam, interpret=True),
+        lambda u, v, m, lam, w: jref.huber_contract_u_masked(u, v, m, w, lam)),
+    "huber_contract_u_packed": (
+        lambda u, v, m, lam, w: hc.huber_contract_u(u, v, m, lam,
+                                                    bitmask.pack_mask(w)),
+        lambda u, v, m, lam, w: jhc.huber_contract_u_packed(
+            u, v, m, jbitmask.pack_mask(w), lam, interpret=True),
+        lambda u, v, m, lam, w: jref.huber_contract_u_masked(u, v, m, w, lam)),
+    "huber_contract_u_diag_packed": (
+        lambda u, v, m, lam, w: hc.huber_contract_u_diag(
+            u, v, m, lam, bitmask.pack_mask(w)),
+        lambda u, v, m, lam, w: jhc.huber_contract_u_diag_masked(
+            u, v, m, jbitmask.pack_mask(w), lam, interpret=True),
+        lambda u, v, m, lam, w: jref.huber_dual_contract_masked(
+            u, v, m, w, lam)[1:]),
+    "huber_dual_contract": (
+        lambda u, v, m, lam, w: hc.huber_dual_contract(u, v, m, lam),
+        lambda u, v, m, lam, w: jhc.huber_dual_contract(u, v, m, lam,
+                                                        interpret=True),
+        lambda u, v, m, lam, w: jref.huber_dual_contract(u, v, m, lam)),
+    "huber_dual_contract_masked": (
+        lambda u, v, m, lam, w: hc.huber_dual_contract(u, v, m, lam, w),
+        lambda u, v, m, lam, w: jhc.huber_dual_contract_masked(
+            u, v, m, w, lam, interpret=True),
+        lambda u, v, m, lam, w: jref.huber_dual_contract_masked(
+            u, v, m, w, lam)),
+    "huber_dual_contract_packed": (
+        lambda u, v, m, lam, w: hc.huber_dual_contract(
+            u, v, m, lam, bitmask.pack_mask(w)),
+        lambda u, v, m, lam, w: jhc.huber_dual_contract_masked(
+            u, v, m, jbitmask.pack_mask(w), lam, interpret=True),
+        lambda u, v, m, lam, w: jref.huber_dual_contract_masked(
+            u, v, m, w, lam)),
     "residual_shrink": (
         lambda u, v, m, lam, w: sh.residual_shrink(u, v, m, lam),
         lambda u, v, m, lam, w: jsh.residual_shrink(u, v, m, lam,
@@ -80,18 +130,19 @@ def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-@pytest.mark.parametrize("against", ["pallas", "ref"])
-@pytest.mark.parametrize("r", [5, 7])
-@pytest.mark.parametrize("name", sorted(FAMILIES))
-def test_plain_matches_reference(name, r, against):
+def _check_against_reference(name, r, against, bf16):
     port_fn, pallas_fn, ref_fn = FAMILIES[name]
     jax_fn = pallas_fn if against == "pallas" else ref_fn
     u, v, m, w = _inputs(r)
-    got = _as_tuple(port_fn(*(torch.from_numpy(x) for x in (u, v, m)),
+    m_port = torch.from_numpy(m)
+    m_ref = jnp.asarray(m)
+    if bf16:
+        m_port, m_ref = m_port.to(torch.bfloat16), m_ref.astype(jnp.bfloat16)
+    got = _as_tuple(port_fn(torch.from_numpy(u), torch.from_numpy(v), m_port,
                             torch.from_numpy(LAMS), torch.from_numpy(w)))
     for e in range(E):
         want = _as_tuple(jax_fn(jnp.asarray(u[e]), jnp.asarray(v[e]),
-                                jnp.asarray(m[e]), float(LAMS[e]),
+                                m_ref[e], float(LAMS[e]),
                                 jnp.asarray(w[e])))
         assert len(got) == len(want)
         for g, ww in zip(got, want):
@@ -103,8 +154,23 @@ def test_plain_matches_reference(name, r, against):
                                            atol=PLANE_TOL)
 
 
+@pytest.mark.parametrize("against", ["pallas", "ref"])
+@pytest.mark.parametrize("r", [5, 7])
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_plain_matches_reference(name, r, against):
+    _check_against_reference(name, r, against, bf16=False)
+
+
+@pytest.mark.parametrize("against", ["pallas", "ref"])
+@pytest.mark.parametrize("name", sorted(FAMILIES))
+def test_plain_matches_reference_bf16_data(name, against):
+    """Every family with M stored in bf16 (the compact data plane)."""
+    _check_against_reference(name, 7, against, bf16=True)
+
+
 @pytest.mark.parametrize("name", ["huber_contract_v", "huber_contract_u_diag",
-                                  "residual_shrink"])
+                                  "residual_shrink", "huber_contract_u",
+                                  "huber_dual_contract"])
 def test_all_ones_mask_is_bit_exact(name):
     """Within the port, an all-ones mask gives the bits of no mask."""
     u, v, m, _ = (torch.from_numpy(x) for x in _inputs(7, seed=3))
@@ -114,6 +180,23 @@ def test_all_ones_mask_is_bit_exact(name):
     masked = _as_tuple(fn(u, v, m, lam, w=torch.ones_like(m)))
     for a, b in zip(plain, masked):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["huber_contract_v", "huber_contract_u",
+                                  "huber_contract_u_diag",
+                                  "huber_dual_contract", "residual_shrink"])
+def test_packed_mask_is_bit_exact(name, bf16):
+    """Within the port, a packed mask gives the bits of the dense one."""
+    u, v, m, w = (torch.from_numpy(x) for x in _inputs(7, seed=4))
+    if bf16:
+        m = m.to(torch.bfloat16)
+    fn = getattr(ops, name)
+    lam = torch.from_numpy(LAMS)
+    dense = _as_tuple(fn(u, v, m, lam, w=w))
+    packed = _as_tuple(fn(u, v, m, lam, w=bitmask.pack_mask(w)))
+    for a, b in zip(dense, packed):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n", [8, 13, 24])
