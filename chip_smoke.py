@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of DCF-PCA on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port (DCF-PCA and dense-LM serving) on one CUDA
+card and check it.
 
     python3 chip_smoke.py
 
@@ -18,8 +19,18 @@ CUDA toolkit.  Phases, one JSON line each:
             n_i=300, r=150; masked ones with 70% observed; the unmasked ones
             again at the cf phase's E=1, m=n=3000) and at the compact-plane
             shapes (E=4, m=2048, n_i=512, r=64, 70% observed; fp32 and bf16
-            M; dense and bit-packed masks).  Then ``bitexact``: a packed mask
+            M; dense and bit-packed masks); residual_shrink_psi at fig1
+            (none, f32), d32 (dense) and d16 (none, bf16); flash_attention
+            bf16 at the serve phase's shape (B=4, S=2048, H=32, d=128,
+            causal), f32 at the small_lm phase's shape (2, 33, 4, 32,
+            causal), at (1, 256, 4, 64, causal) and f32 cross (2, 64 x 200,
+            2, 64, full), each also beside PyTorch's SDPA on the same
+            tensors (``library_ms``), its error taken row by row.  Then ``bitexact``: a packed mask
             gives the bits of the dense one, an all-ones mask those of none.
+   psi      kernels.ops.residual_shrink_psi, its entry point, on the fig1,
+            d32 (dense mask) and d16 (bf16) operands: S + Psi == W R and
+            |Psi| <= lam, exactly 2 / 1 launches of residual_shrink_psi /
+            residual_shrink_psi_masked.
 3. small    5 rounds at 160 x 160 on the card against the same rounds of
             the plain versions on the CPU, from one seed, for fused="diag",
             "dual" with a mask, "off", and a packed mask with bf16 M.
@@ -45,11 +56,26 @@ CUDA toolkit.  Phases, one JSON line each:
             pack_mask=True and lam_sample=65536: 1716 / 858 / 1 launches of
             huber_contract_v_packed / huber_dual_contract_packed /
             residual_shrink_masked, observed error < max(5 x dual's, 2e-2).
+10. small_lm the llama3-8b smoke config in fp32 (2 layers, d_model 128,
+            head dim 32) with flash attention: 2 prompts of 33 tokens, 8
+            greedy new tokens through ``serving.engine.generate`` on the
+            card (the kernel) and on the CPU (plain versions): the same
+            tokens, prefill logits within 1e-4 of max|logits|, exactly 2
+            flash_attention launches.
+11. serve    Llama-3-8B (``configs/llama3_8b.py``) at full width and depth,
+            bf16, flash attention, random weights from a seeded card
+            generator: ``generate`` for 4 prompts of 2048 random tokens and
+            32 greedy new tokens (s_max 2080): set-up, prefill and decode
+            times, tokens/s, peak memory, exactly 32 flash_attention
+            launches (one per layer; decode launches none), and the last-
+            position logits of the same prefill with the plain attention
+            (the config's ``flash_attention`` off) within 5e-2 of
+            max|logits|.
 
-In each of phases 4-9 a first solve warms the libraries, the counts are
-zeroed just before the counted solve and read just after it, and one more
-solve runs under torch.profiler (``<phase>_profile``): the device busy time
-and its share of the counted solve's wall, the kernels that take the most
+In each of phases 4-9 and 11 a first run warms the libraries, the counts
+are zeroed just before the counted run and read just after it, and one more
+run goes under torch.profiler (``<phase>_profile``): the device busy time
+and its share of the counted run's wall, the kernels that take the most
 device time, and the host's CUDA runtime calls by count.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -83,8 +109,26 @@ LAM_SAMPLE = 1 << 16
 # cuBLAS), relative error for the per-client scalars.  A bf16 M is upcast
 # exactly on both sides, so it keeps the same tolerances.
 PLANE_TOL, SCALAR_TOL = 1e-4, 1e-5
-# Published H100 SXM peaks (fp32 on the CUDA cores, HBM3).
-PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# Published H100 SXM peaks (fp32 on the CUDA cores, bf16 dense on the
+# tensor cores, HBM3).
+PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# Flash attention vs its plain version in fp32, one query row (b, i) at a
+# time: max over (h, d) of |kernel - plain| over max over (h, d) of |plain|
+# (causal rows differ in scale ~50x between row 0 and row 2047, so a bar on
+# max|plain| of the whole call would not see late rows).  fp32: sums in
+# another order, base-2 exponentials.  bf16: the kernel rounds O to bf16
+# (at most 2^-8 = 3.9e-3 of the row's max) and P to bf16 for P V (at most
+# 2^-8 a weight, a random sum of ~1e-3 of the row's max); 1e-2 leaves about
+# twice the ~5e-3 they reach together.
+FLASH_TOL = {"f32": 2e-5, "bf16": 1e-2}
+# Serve: last-position logits through the kernel vs the plain attention,
+# relative to max|logits|.  Every activation is bf16 and the two attentions
+# round differently (P in bf16 against fp32 softmax), so the outputs of the
+# 32 layers drift apart by some bf16 ulps of the residual stream; 5e-2 is a
+# few percent of the logits' range, far below a wrong kernel's error.
+SERVE_LOGITS_BAR = 5e-2
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "llama3-8b", 4, 2048, 32
+SMALL_BATCH, SMALL_PROMPT, SMALL_NEW, SMALL_LOGITS_BAR = 2, 33, 8, 1e-4
 TIMED_LAUNCHES, WARMUP_LAUNCHES = 20, 3
 TOP_KERNELS = 8
 
@@ -104,6 +148,9 @@ REPLACES = {
     "huber_dual_contract_packed": TPU + "huber_contract.py:341",
     "residual_shrink": TPU + "shrinkage.py:41",
     "residual_shrink_masked": TPU + "shrinkage.py:57",
+    "residual_shrink_psi": TPU + "shrinkage.py:48",
+    "residual_shrink_psi_masked": TPU + "shrinkage.py:66",
+    "flash_attention": TPU + "flash_attention.py:37",
 }
 CSRC = "src/repro_torch/csrc/"
 SOURCES = {
@@ -112,6 +159,8 @@ SOURCES = {
     "huber_contract_u_diag": CSRC + "contract_u_diag.cu",
     "huber_dual_contract": CSRC + "dual.cu",
     "residual_shrink": CSRC + "shrink.cu",
+    "residual_shrink_psi": CSRC + "shrink.cu",
+    "flash_attention": CSRC + "flash_attention.cu",
 }
 SUFFIX = {"none": "", "dense": "_masked", "packed": "_packed"}
 
@@ -149,6 +198,21 @@ ROWS = [
     ("huber_contract_u_diag", "none", "d16", None),
     ("huber_contract_u_diag", "dense", "d16", None),
     ("residual_shrink", "none", "d16", None),
+    ("residual_shrink_psi", "none", "fig1", "psi"),
+    ("residual_shrink_psi", "dense", "d32", "psi"),
+    ("residual_shrink_psi", "none", "d16", "psi"),
+]
+# Flash rows: (row name, (B, S_q, S_kv, H, d), causal, dtype, phase whose
+# launches the row reports or None).
+FLASH_ROWS = [
+    ("flash_attention",
+     (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 128), True, "bf16",
+     "serve"),
+    ("flash_attention@f32_small_lm",
+     (SMALL_BATCH, SMALL_PROMPT, SMALL_PROMPT, 4, 32), True, "f32",
+     "small_lm"),
+    ("flash_attention@f32", (1, 256, 256, 4, 64), True, "f32", None),
+    ("flash_attention@f32_cross", (2, 64, 200, 2, 64), False, "f32", None),
 ]
 
 
@@ -198,6 +262,7 @@ def bound(fn: str, mode: str, m_bytes: int, e: int, m: int, n: int,
         "huber_dual_contract": (6 * e * m * n * r,
                                 e * n * r + e * m * r + 2 * e),
         "residual_shrink": (2 * e * m * n * r, e * m * n),
+        "residual_shrink_psi": (2 * e * m * n * r, 2 * e * m * n),
     }[fn]
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = (m_bytes * e * m * n + w_bytes + factors + 4 * out) \
@@ -209,7 +274,7 @@ def _kernel_fns(fn: str):
     from repro_torch.kernels import huber_contract as hc
     from repro_torch.kernels import shrinkage as sh
 
-    module = sh if fn == "residual_shrink" else hc
+    module = sh if fn.startswith("residual_shrink") else hc
     return getattr(module, fn), getattr(module, fn + "_plain")
 
 
@@ -326,6 +391,116 @@ def check_bit_exact(operands: dict) -> dict:
     return row
 
 
+def flash_bound(b: int, sq: int, skv: int, h: int, d: int, causal: bool,
+                dtype: str) -> tuple[float, str]:
+    """Least time (ms) for one attention call: 4 d FLOP per (query, key)
+    pair this call's mask keeps (row i sees keys j <= i when causal) at the
+    peak for the input type (bf16 tensor cores; fp32 CUDA cores, no TF32),
+    against Q, K, V read once and O written once at the HBM rate."""
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    elem = 2 if dtype == "bf16" else 4
+    peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_FP32_FLOPS
+    t_ops = 4 * b * h * d * pairs / peak * 1e3
+    t_bytes = elem * b * h * d * 2 * (sq + skv) / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_row_err(got, want) -> float:
+    """The largest error of one query row (b, i) relative to that row:
+    max over (h, d) of |got - want| over max over (h, d) of |want|."""
+    diff = (got.float() - want.float()).abs().amax(dim=(2, 3))
+    return (diff / want.float().abs().amax(dim=(2, 3)).clamp_min(1e-30)
+            ).max().item()
+
+
+def check_flash(name: str, shape: tuple, causal: bool, dtype: str,
+                path: str | None, device) -> dict:
+    """The flash kernel against its plain version on random (B, S, H, d)
+    tensors: the error row by row against the plain version in fp32 on the
+    same (exactly upcast) inputs, both times, PyTorch's SDPA on the same tensors in
+    (B, H, S, d) (``library_ms``; the port never calls it) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, skv, h, d = shape
+    g = torch.Generator(device=device).manual_seed(0)
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=device).to(tdt)
+               for s in (sq, skv, skv))
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=causal)
+    again = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    abs_err = (got.float() - want).abs().max().item()
+    row_err = flash_row_err(got, want)
+    same = bool(torch.equal(got, again))
+    ok = row_err <= FLASH_TOL[dtype] and same
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                        causal=causal))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal))
+    bound_ms, bound_by = flash_bound(b, sq, skv, h, d, causal, dtype)
+    row = dict(name=name, kernel="flash_attention", path=path, route="cuda",
+               source=SOURCES["flash_attention"],
+               replaces=REPLACES["flash_attention"], dtype=dtype,
+               causal=causal, max_abs_err=abs_err, max_row_err=row_err,
+               tol=FLASH_TOL[dtype], bit_identical_rerun=same, ok=ok, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms, shape=list(shape))
+    emit(phase="kernel", **row)
+    if not ok:
+        raise SystemExit(f"kernel {name} disagrees with its plain version: "
+                         f"row error {row_err:.3e}, rerun identical {same}")
+    return row
+
+
+def psi_phase(operands: dict) -> dict:
+    """``kernels.ops.residual_shrink_psi`` through its entry point on the
+    fig1 operands (no mask), the d32 ones (dense mask) and the d16 ones
+    (bf16 M): S + Psi == W R within 1e-4 of max|W R|, |Psi| <= lam up to
+    the rounding of |R| - lam, and exactly 2 / 1 launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cases = [("fig1", False), ("d32", True), ("d16", False)]
+    ops.reset_launch_counts()
+    outs = []
+    for key, masked in cases:
+        u, v, blocks, lam, w, _ = operands[key]
+        w = w if masked else None
+        outs.append((key, ops.residual_shrink_psi(u, v, blocks, lam, w=w)))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {"residual_shrink_psi": 2, "residual_shrink_psi_masked": 1}
+    checks = {}
+    for (key, masked), (_, (s_, psi)) in zip(cases, outs):
+        u, v, blocks, lam, w, _ = operands[key]
+        r = blocks.float() - u @ v.transpose(1, 2)
+        if masked:
+            r = w * r
+        err = ((s_ + psi - r).abs().max() / r.abs().max()).item()
+        within = bool((psi.abs() <= lam[:, None, None]
+                       + 1e-6 * r.abs()).all())
+        checks[key] = dict(identity_rel_err=err, psi_within_lam=within,
+                           ok=err <= 1e-4 and within)
+    ok = (all(c["ok"] for c in checks.values())
+          and counts == {k: want.get(k, 0) for k in counts})
+    row = dict(phase="psi", checks=checks,
+               launches={k: c for k, c in counts.items() if c or k in want},
+               expected_launches=want, ok=ok)
+    emit(**row)
+    if not ok:
+        raise SystemExit("phase psi failed")
+    row["launches"] = counts
+    return row
+
+
 def small_trajectory_check(device) -> dict:
     """5 DCF rounds at 160 x 160 (E=8, r=8) on the card against the same
     rounds of the plain versions on the CPU, from one seed, for each round
@@ -361,8 +536,8 @@ def small_trajectory_check(device) -> dict:
                 ok=all(d <= 1e-4 for d in diffs.values()))
 
 
-def profile_solve(solve) -> dict:
-    """Where one solve's time goes on the card: the solve once under
+def profile_run(run) -> dict:
+    """Where one run's time goes on the card: ``run()`` once under
     torch.profiler.  The device busy time is the sum of kernel times (one
     stream, so kernels do not overlap); beside it the kernels that take
     the most of it and the host's CUDA runtime calls, by count."""
@@ -373,7 +548,7 @@ def profile_solve(solve) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -432,7 +607,7 @@ def solve_phase(name: str, device, problem, spec_kw: dict, method: str,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ok=ok)
     emit(**row)
     # After the counts are read: one more solve, under the profiler.
-    profiled = profile_solve(solve)
+    profiled = profile_run(solve)
     emit(phase=f"{name}_profile", wall_ms=wall * 1e3,
          device_busy_share=profiled["device_busy_ms"] / (wall * 1e3),
          **profiled)
@@ -503,6 +678,167 @@ def solve_phases(device) -> list[dict]:
     return rows
 
 
+def small_lm_phase(device) -> dict:
+    """Phase 10: the llama3-8b smoke config in fp32 through ``generate`` on
+    the card and on the CPU, from the same weights and prompts."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServeConfig, generate
+
+    cfg = get_smoke_config(SERVE_ARCH).replace(
+        param_dtype="float32", compute_dtype="float32", flash_attention=True)
+    model = get_model(cfg)
+    params = model.init_params(seed=0, device="cpu")
+    card = copy.deepcopy(params).to(device)
+    prompt = torch.randint(0, cfg.vocab, (SMALL_BATCH, SMALL_PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    scfg = ServeConfig(max_new_tokens=SMALL_NEW)
+    want = generate(model, params, prompt, scfg)
+    ops.reset_launch_counts()
+    got = generate(model, card, prompt.to(device), scfg).cpu()
+    counts = ops.launch_counts()
+    cpu_logits, _ = model.prefill(params, prompt)
+    logits, _ = model.prefill(card, prompt.to(device))
+    rel = ((logits.cpu() - cpu_logits).abs().max()
+           / cpu_logits.abs().max()).item()
+    want_counts = {"flash_attention": cfg.n_layers}
+    ok = (bool(torch.equal(got, want)) and rel <= SMALL_LOGITS_BAR
+          and counts == {k: want_counts.get(k, 0) for k in counts})
+    row = dict(phase="small_lm", arch=cfg.name, dtype="float32",
+               batch=SMALL_BATCH, prompt=SMALL_PROMPT, new_tokens=SMALL_NEW,
+               tokens_equal=bool(torch.equal(got, want)),
+               logits_rel_diff_vs_cpu=rel, bar=SMALL_LOGITS_BAR,
+               launches={k: c for k, c in counts.items() if c},
+               expected_launches=want_counts, ok=ok)
+    emit(**row)
+    if not ok:
+        raise SystemExit("phase small_lm failed")
+    row["launches"] = counts
+    return row
+
+
+class _EventTimedModel:
+    """The model as ``generate`` calls it, with a CUDA event recorded before
+    and after the prefill and every decode step: the counted run itself
+    gives the prefill ms and the decode ms a step (sampling included)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.events = []
+        self.prefill_logits = None
+
+    def _event(self):
+        import torch
+
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.append(event)
+
+    def init_cache(self, *args):
+        self.events = []
+        return self.model.init_cache(*args)
+
+    def prefill(self, *args):
+        self._event()
+        self.prefill_logits, caches = self.model.prefill(*args)
+        self._event()
+        return self.prefill_logits, caches
+
+    def decode_step(self, *args):
+        out = self.model.decode_step(*args)
+        self._event()
+        return out
+
+    def split_ms(self) -> tuple[float, float]:
+        """(prefill ms, decode ms a step) of the last generate; call after a
+        synchronize."""
+        start, mid, *steps = self.events
+        return (start.elapsed_time(mid),
+                mid.elapsed_time(steps[-1]) / len(steps))
+
+
+def serve_phase(device) -> dict:
+    """Phase 11: Llama-3-8B at full width and depth through ``generate``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.serving.engine import ServeConfig, generate
+
+    cfg = get_config(SERVE_ARCH).replace(flash_attention=True)
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(seed=0, device=device)
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=torch.Generator(device=device)
+                           .manual_seed(1), device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    scfg = ServeConfig(max_new_tokens=SERVE_NEW)
+
+    timed = _EventTimedModel(model)
+
+    def serve():
+        return generate(timed, params, prompt, scfg)
+
+    # Warm the libraries (cuBLAS handles and heuristics) with a short run.
+    generate(model, params, prompt, ServeConfig(max_new_tokens=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefill_ms, decode_ms = timed.split_ms()
+    logits = timed.prefill_logits
+    # The same weights and prompt with the config's flash switch off: the
+    # plain (chunked, fp32 softmax) attention of every layer.
+    ref_logits, _ = get_model(cfg.replace(flash_attention=False)).prefill(
+        params, prompt)
+    rel = ((logits.float() - ref_logits.float()).abs().max()
+           / ref_logits.float().abs().max()).item()
+    finite = bool(torch.isfinite(logits.float()).all())
+    want = {"flash_attention": cfg.n_layers}
+    in_vocab = bool((tokens >= 0).all()
+                    and (tokens < padded_vocab(cfg.vocab)).all())
+    ok = (tuple(tokens.shape) == (SERVE_BATCH, SERVE_NEW) and in_vocab
+          and finite and rel <= SERVE_LOGITS_BAR
+          and counts == {k: want.get(k, 0) for k in counts})
+    row = dict(phase="serve", arch=cfg.name, layers=cfg.n_layers,
+               d_model=cfg.d_model, dtype=cfg.compute_dtype,
+               batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
+               setup_s=setup_s, weights_gb=weights_gb, wall_s=wall,
+               tokens_per_s=SERVE_BATCH * SERVE_NEW / wall,
+               prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+               peak_mem_gb=peak_gb, logits_rel_diff_vs_plain=rel,
+               bar=SERVE_LOGITS_BAR, finite=finite,
+               launches={k: c for k, c in counts.items() if c},
+               expected_launches=want, ok=ok)
+    emit(**row)
+    del ref_logits
+    profiled = profile_run(serve)
+    emit(phase="serve_profile", wall_ms=wall * 1e3,
+         device_busy_share=profiled["device_busy_ms"] / (wall * 1e3),
+         **profiled)
+    if not ok:
+        raise SystemExit("phase serve failed")
+    row["launches"] = counts
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -544,7 +880,10 @@ def main() -> int:
     operands = kernel_operands(device)
     rows = [check_kernel(fn, mode, key, path, operands)
             for fn, mode, key, path in ROWS]
+    rows += [check_flash(name, shape, causal, dtype, path, device)
+             for name, shape, causal, dtype, path in FLASH_ROWS]
     check_bit_exact(operands)
+    phases = [psi_phase(operands)]
     partial = hc.dual_partial_shape(D_CLIENTS, D_SIZE, D_SIZE // D_CLIENTS,
                                     D_RANK)
     emit(phase="dual_partials", shape=list(partial),
@@ -554,11 +893,13 @@ def main() -> int:
     emit(phase="small", **small)
     if not small["ok"]:
         raise SystemExit("the card and the CPU disagree at 160 x 160")
-    solves = solve_phases(device)
+    phases += solve_phases(device)
+    phases.append(small_lm_phase(device))
+    phases.append(serve_phase(device))
     # Launches on the main path, each row's from the phase that gives its
     # kernel that row's operands; null where no phase does.
     for row in rows:
-        phase = next((s for s in solves if s["phase"] == row["path"]), None)
+        phase = next((s for s in phases if s["phase"] == row["path"]), None)
         row["launches"] = None if phase is None \
             else phase["launches"][row["kernel"]]
     print(json.dumps({"kernels": rows}), flush=True)

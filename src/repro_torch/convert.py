@@ -1,4 +1,4 @@
-"""Carry a problem and a config across from the JAX reference.
+"""Carry a problem, a config or LM parameters across from the JAX reference.
 
 ``jax.random`` and ``torch.Generator`` give different numbers from the same
 seed, so a comparison of the two packages starts both from the same
@@ -6,6 +6,8 @@ factors: build the problem with the reference (``repro.core.dcf_pca.
 make_problem`` or ``cf_pca.make_problem``), then hand it here.  Fields are
 read by name and converted through numpy; nothing of the reference is
 imported.  A bf16 data plane stays bf16 and a bit-packed mask stays uint8.
+LM weights likewise: the reference materialises them, the port takes them
+(:func:`lm_params_from_reference`).
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import torch
 from repro_torch.core.cf_pca import CFProblem
 from repro_torch.core.dcf_pca import DCFProblem
 from repro_torch.core.factorized import DCFConfig
+from repro_torch.models import get_model
+from repro_torch.models.params import Params
 
 
 def config_from_reference(ref_cfg: Any) -> DCFConfig:
@@ -69,3 +73,33 @@ def problem_from_reference(ref_problem: Any, device: torch.device | str
             "slice of the port (ROADMAP.md)")
     return DCFProblem(blocks=_tensor(ref_problem.blocks, device, None),
                       n_cols=_tensor(ref_problem.n_cols, device), **common)
+
+
+@torch.no_grad()
+def lm_params_from_reference(params_np: Any, cfg: Any,
+                             device: torch.device | str = "cpu") -> Params:
+    """The port's parameters of the dense LM ``cfg`` (a port
+    ``ModelConfig``) from the reference's params tree, as numpy arrays:
+    ``embed`` (``table``, ``unembed``), ``segments[0]`` with every leaf
+    stacked (L, ...) over the layers, and ``ln_f``.  Layers are unstacked;
+    the port keeps the reference's (in, out) weight layout, so nothing is
+    transposed.  bf16 leaves cross as their bits."""
+    params = get_model(cfg).empty_params(device)
+    segment = params_np["segments"][0]
+    for name, p in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            node, index = segment, int(parts[1])
+            for part in parts[2:]:
+                node = node[part]
+            node = np.asarray(node)[index]
+        else:
+            node = params_np
+            for part in parts:
+                node = node[part]
+        t = _tensor(node, device, None)
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: reference shape {tuple(t.shape)}, "
+                             f"port {tuple(p.shape)}")
+        p.copy_(t.to(p.dtype))
+    return params

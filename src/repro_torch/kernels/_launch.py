@@ -5,7 +5,8 @@ A wrapper asks :func:`on_cpu` first: CPU tensors go to its plain version,
 CUDA tensors to its kernel (anything else raises).  Before a launch it
 validates the operands with :func:`check_operands`, which also gives the
 codes of M's data type and of the mask mode that every C entry takes, and
-calls the entry through :func:`launch`.
+calls the entry through :func:`launch` (or, for another operand layout,
+:func:`call`).
 """
 from __future__ import annotations
 
@@ -124,20 +125,26 @@ def signature(pointers: int, ints: int = 0) -> tuple:
     return (P,) * (5 + pointers) + (I,) * (6 + ints) + (P,)
 
 
-def launch(lib: ctypes.CDLL, entry: str, name: str, counts: dict[str, int],
-           op: Operands, u, v, m, w, lam, *outputs, ints: tuple = ()) -> None:
-    """Call C entry ``entry`` of ``lib`` (see :func:`signature`) on the
-    current stream of ``u``'s device, raise if it reports a CUDA error, and
-    count one launch of ``name``."""
-    with torch.cuda.device(u.device):
+def call(lib: ctypes.CDLL, entry: str, name: str, counts: dict[str, int],
+         device: torch.device, *args) -> None:
+    """Call C entry ``entry`` of ``lib`` with ``args`` and the current
+    stream of ``device``, raise if it reports a CUDA error, and count one
+    launch of ``name``."""
+    with torch.cuda.device(device):
         status = getattr(lib, entry)(
-            *(None if t is None else t.data_ptr()
-              for t in (u, v, m, w, lam, *outputs)),
-            op.e, op.m, op.n, op.r, op.dtype, op.mask, *ints,
-            torch.cuda.current_stream(u.device).cuda_stream,
-        )
+            *args, torch.cuda.current_stream(device).cuda_stream)
     if status != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError_t {status}"
         )
     counts[name] += 1
+
+
+def launch(lib: ctypes.CDLL, entry: str, name: str, counts: dict[str, int],
+           op: Operands, u, v, m, w, lam, *outputs, ints: tuple = ()) -> None:
+    """:func:`call` of an entry with the RPCA operand layout (see
+    :func:`signature`) on ``u``'s device."""
+    call(lib, entry, name, counts, u.device,
+         *(None if t is None else t.data_ptr()
+           for t in (u, v, m, w, lam, *outputs)),
+         op.e, op.m, op.n, op.r, op.dtype, op.mask, *ints)

@@ -1,0 +1,85 @@
+"""Flash attention (forward): CUDA kernel and its plain version.
+
+``flash_attention(q, k, v, causal=, scale=)``  softmax(scale Q K^T) V on
+(B, S, H, d) tensors with the GQA heads already expanded, causal or full,
+in ``q``'s type.  Replaces ``repro/kernels/flash_attention.py::
+flash_attention`` (:85, kernel ``_flash_kernel`` :37): the S_q x S_kv
+scores stay on chip, key tiles past the causal diagonal are skipped, and
+ragged edges are masked in the kernel (no padding copies).
+
+The kernel (``csrc/flash_attention.cu``) reads the (B, S, H, d) layout in
+place: no (B*H, S, d) copy.  bf16 runs on the tensor cores (mma.sync, fp32
+accumulation, P rounded to bf16 for P V); fp32 on the CUDA cores (no TF32).
+At the serving shape it is bound by operations (see the source note).
+
+On CPU tensors the wrapper returns the plain version; on CUDA tensors it
+launches the kernel or raises.  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels._launch import DTYPE_CODES, I, P, call, on_cpu
+
+#: Kernel launches (CUDA tensors only).
+launches = {"flash_attention": 0}
+
+#: Head dims the kernel is built for.
+HEAD_DIMS = (16, 32, 64, 128)
+
+_ENTRY = "repro_flash_attention"
+_SIGNATURE = (P,) * 4 + (I,) * 7 + (ctypes.c_float, P)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          scale: float | None = None) -> torch.Tensor:
+    return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+def _check(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, q {q.dtype}")
+        if t.ndim != 4:
+            raise ValueError(f"{name} must be (B, S, H, d), got "
+                             f"{tuple(t.shape)}")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"the flash kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    b, _, h, d = q.shape
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d)):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if min(q.shape[1], k.shape[1]) < 1 or b * h > 65535:
+        raise ValueError(f"unsupported sizes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """(B, S_q, H, d) in ``q``'s type; ``k``, ``v`` are (B, S_kv, H, d)."""
+    if on_cpu(q):
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    _check(q, k, v)
+    # The path's tensors are contiguous already; anything else is copied
+    # once here (and the copy counts in this call's time).
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    b, sq, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / d ** 0.5
+    out = torch.empty_like(q)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("the flash kernel needs 16-byte aligned tensors")
+    lib = _build.library("flash_attention", {_ENTRY: _SIGNATURE})
+    call(lib, _ENTRY, "flash_attention", launches, q.device,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+         b, h, sq, k.shape[1], d, DTYPE_CODES[q.dtype], int(causal),
+         float(scale))
+    return out

@@ -14,25 +14,19 @@ bit-packed uint8 (``kernels.bitmask``).  The contraction kernels read a
 packed plane as it is; the shrink, which runs once per solve, takes it
 unpacked here, as the reference does.
 
-Only ``residual_shrink_psi`` has no kernel yet: it raises
-``NotImplementedError`` on CUDA tensors unless ``impl='ref'`` is asked for.
+``launch_counts`` covers every kernel of the port, the attention kernel
+(``kernels.flash_attention``) included.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import bitmask, ref
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import huber_contract as _hc
 from repro_torch.kernels import shrinkage as _sh
 
 IMPLS = ("auto", "cuda", "ref")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} has no CUDA kernel yet: it waits for a later slice of the "
-        f"port (ROADMAP.md, Queue 2); pass impl='ref' or CPU tensors"
-    )
 
 
 def _use_kernel(impl: str, m: torch.Tensor) -> bool:
@@ -55,12 +49,6 @@ def _kernel_args(u, v, m, lam, w):
     if lam.ndim == 0:
         lam = lam.expand(m.shape[0])
     return single, u, v, m, lam.contiguous(), w
-
-
-def _refuse_cuda(impl: str, m: torch.Tensor, what: str) -> None:
-    _use_kernel(impl, m)
-    if impl != "ref" and m.device.type == "cuda":
-        raise _not_ported(what)
 
 
 def huber_contract_v(u, v, m, lam, *, w=None, impl: str = "auto"):
@@ -122,21 +110,24 @@ def huber_dual_contract(u, v, m, lam, *, w=None, impl: str = "auto"):
 
 
 def residual_shrink_psi(u, v, m, lam, *, w=None, impl: str = "auto"):
-    """((m, n) S, (m, n) Psi) in one pass; masked when ``w``.  Plain version
-    only so far (ROADMAP.md Queue 2)."""
-    _refuse_cuda(impl, m, "residual_shrink_psi")
-    if w is not None:
-        return (ref.residual_shrink_masked(u, v, m, w, lam),
-                ref.residual_clip_masked(u, v, m, w, lam))
-    return ref.residual_shrink(u, v, m, lam), ref.residual_clip(u, v, m, lam)
+    """((m, n) S, (m, n) Psi = R - S) in one pass; (W S, W R - W S) when
+    ``w``."""
+    if not _use_kernel(impl, m):
+        if w is not None:
+            return ref.residual_shrink_psi_masked(u, v, m, w, lam)
+        return ref.residual_shrink_psi(u, v, m, lam)
+    single, u, v, m, lam, w = _kernel_args(u, v, m, lam, w)
+    s, psi = _sh.residual_shrink_psi(u, v, m, lam,
+                                     bitmask.resolve_mask(w, m.shape[-1]))
+    return (s[0], psi[0]) if single else (s, psi)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, per function."""
-    return {**_hc.launches, **_sh.launches}
+    return {**_hc.launches, **_sh.launches, **_fa.launches}
 
 
 def reset_launch_counts() -> None:
-    for table in (_hc.launches, _sh.launches):
+    for table in (_hc.launches, _sh.launches, _fa.launches):
         for name in table:
             table[name] = 0

@@ -15,6 +15,8 @@ contractions and the shrink multiply after the clip/threshold, the fused
 diagnostics (``huber_dual_contract*``, ``huber_contract_u_diag*``) clip
 ``W * R``.  With an all-ones ``w`` every masked form equals its unmasked
 twin bit for bit (multiplying by 1.0 is exact).
+
+``flash_attention`` is the oracle of the attention kernel.
 """
 from __future__ import annotations
 
@@ -47,10 +49,21 @@ def _huber_sum(r: Tensor, lam: Tensor) -> Tensor:
     return h.sum(dim=(-2, -1))
 
 
+def _soft_threshold(r: Tensor, lam) -> Tensor:
+    return torch.sign(r) * torch.clamp_min(r.abs() - _lam(lam, r), 0.0)
+
+
 def residual_shrink(u, v, m, lam) -> Tensor:
     """S = soft_threshold(M - U V^T, lam)."""
+    return _soft_threshold(_residual(u, v, m), lam)
+
+
+def residual_shrink_psi(u, v, m, lam) -> tuple[Tensor, Tensor]:
+    """``(S, Psi)`` from one residual, ``Psi = R - S`` (the reference
+    kernel's formula; equal to ``clip(R)`` up to rounding)."""
     r = _residual(u, v, m)
-    return torch.sign(r) * torch.clamp_min(r.abs() - _lam(lam, r), 0.0)
+    s = _soft_threshold(r, lam)
+    return s, r - s
 
 
 def residual_clip(u, v, m, lam) -> Tensor:
@@ -96,6 +109,14 @@ def residual_shrink_masked(u, v, m, w, lam) -> Tensor:
     return _dense_w(w, m.shape[-1]) * residual_shrink(u, v, m, lam)
 
 
+def residual_shrink_psi_masked(u, v, m, w, lam) -> tuple[Tensor, Tensor]:
+    """``(W S, W R - W S)``, the reference kernel's masked formulas."""
+    w = _dense_w(w, m.shape[-1])
+    r = _residual(u, v, m)
+    s = w * _soft_threshold(r, lam)
+    return s, w * r - s
+
+
 def huber_contract_v_masked(u, v, m, w, lam) -> Tensor:
     """Psi_W^T U: the masked (n, r) inner-solve contraction."""
     return residual_clip_masked(u, v, m, w, lam).transpose(-1, -2) @ u
@@ -120,3 +141,23 @@ def huber_contract_u_diag_masked(u, v, m, w, lam):
     """Masked ``(Psi_W V, H_lam(W R), ||Psi_W||_F^2)``."""
     _, out_u, obj, psi2 = huber_dual_contract_masked(u, v, m, w, lam)
     return out_u, obj, psi2
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None) -> Tensor:
+    """Naive softmax attention in fp32 on (B, S, H, d) tensors (GQA heads
+    expanded): the oracle of the flash kernel, as
+    tests/test_flash_attention.py's ``naive``; rows and columns absolute
+    from 0, masked scores -1e30.  Returns ``q``'s type."""
+    sq, sk = q.shape[1], k.shape[1]
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    s = torch.einsum("bqhd,bshd->bhqs", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        mask = rows >= torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", p, v.to(torch.float32))
+    return out.to(q.dtype)

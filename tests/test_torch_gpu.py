@@ -12,11 +12,21 @@ sums of up to 3000 products, taken in another order than cuBLAS) and
 rtol 1e-5 for the scalar diagnostics (sums over every entry).  A bf16 M is
 upcast exactly on both sides, so it keeps the same tolerances.  Masks:
 ``dense`` a 0/1 fp32 plane, ``packed`` the same plane bit-packed.
+
+Flash attention against its plain version (fp32 softmax attention, not
+rounded to the inputs' type), one query row (b, i) at a time: max over
+(h, d) of |kernel - plain| <= tol * max over (h, d) of |plain|, tol 2e-5 in
+fp32 (the kernel sums in another order and exponentiates in base 2) and
+1e-2 in bf16 (the kernel rounds O to bf16, at most 2^-8 of the row's max,
+and P to bf16 for P V, at most 2^-8 a weight).
 """
+import copy
+
 import pytest
 import torch
 
-from repro_torch.kernels import bitmask, ops
+from repro_torch.kernels import bitmask, ops, ref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import huber_contract as hc
 from repro_torch.kernels import shrinkage as sh
 
@@ -26,7 +36,8 @@ CONTRACTIONS = ["huber_contract_v", "huber_contract_u",
 # shrink without a mask and with a dense one.
 CASES = ([(f, mode) for f in CONTRACTIONS
           for mode in ("none", "dense", "packed")]
-         + [("residual_shrink", "none"), ("residual_shrink", "dense")])
+         + [(f, mode) for f in ("residual_shrink", "residual_shrink_psi")
+            for mode in ("none", "dense")])
 IDS = [f"{f}-{mode}" for f, mode in CASES]
 SCALAR_RTOL = 1e-5
 
@@ -61,7 +72,7 @@ def _mask(w, mode):
 
 
 def _kernel_and_plain(fn, mode, u, v, mat, w, lam):
-    module = sh if fn == "residual_shrink" else hc
+    module = sh if fn.startswith("residual_shrink") else hc
     kernel, plain = getattr(module, fn), getattr(module, fn + "_plain")
     args = (u, v, mat, lam, _mask(w, mode))
     return _as_tuple(kernel(*args)), _as_tuple(plain(*args))
@@ -186,8 +197,10 @@ def test_kernel_wrappers_refuse_bad_operands(cuda):
         big = torch.zeros(2, 40, 257, device=cuda)
         hc.huber_contract_v(big, torch.zeros(2, 24, 257, device=cuda), mat,
                             lam)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.residual_shrink_psi(u, v, mat, lam)
+    s, psi = ops.residual_shrink_psi(u, v, mat, lam)
+    assert s.is_cuda and psi.is_cuda and s.shape == mat.shape
+    with pytest.raises(TypeError, match="dense float32"):
+        sh.residual_shrink_psi(u, v, mat, lam, bitmask.pack_mask(w))
 
 
 @pytest.mark.gpu
@@ -200,3 +213,121 @@ def test_solvers_refuse_tf32_matmuls(cuda):
             rpca.solve(torch.zeros(8, 8, device=cuda), rank=2)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(10, 3000, 300, 150), (4, 2048, 512, 64),
+                                   (2, 33, 70, 5)])
+@pytest.mark.parametrize("mode", ["none", "dense", "packed"])
+def test_psi_is_the_residual_and_s_is_the_shrink(cuda, mode, shape):
+    """S + Psi == W R (the reference's identity, test_kernels.py:44),
+    |Psi| <= lam, and the psi kernel's S is the shrink kernel's, bit for
+    bit."""
+    u, v, mat, w, lam = _card_inputs(cuda, *shape)
+    wm = _mask(w, mode)
+    s, psi = ops.residual_shrink_psi(u, v, mat, lam, w=wm)
+    assert torch.equal(s, ops.residual_shrink(u, v, mat, lam, w=wm))
+    r = mat - u @ v.transpose(1, 2)
+    if mode != "none":
+        r = w * r
+    err = (s + psi - r).abs().max().item()
+    assert err <= 1e-4 * r.abs().max().item(), err
+    # |R - S| = lam where |R| > lam, up to the rounding of |R| - lam.
+    assert (psi.abs() <= lam[:, None, None] + 1e-6 * r.abs()).all()
+
+
+FLASH_SHAPES = [  # (b, sq, skv, h, d, causal)
+    (2, 128, 128, 4, 64, True), (1, 100, 100, 2, 32, True),
+    (2, 64, 200, 2, 64, False), (1, 256, 256, 3, 128, True),
+    (1, 32, 96, 1, 16, False), (2, 77, 131, 3, 128, True),
+    (2, 131, 77, 3, 16, True), (1, 1, 50, 2, 32, False),
+    (1, 300, 300, 2, 64, False), (4, 2048, 2048, 2, 128, True),
+]
+# Error of each query row (b, i) against the plain version in fp32: max over
+# (h, d) of |kernel - plain| over max over (h, d) of |plain|.  Causal rows
+# differ in scale ~50x between the first and the last, so a bar on max|plain|
+# of the whole call would not see faults in late rows.  bf16: the kernel's
+# rounding of O (at most 2^-8 of the row's max) and of P for P V (at most
+# 2^-8 a weight), ~5e-3 together.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _flash_inputs(device, b, sq, skv, h, d, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, s, h, d, generator=g).to(dtype).to(device)
+            for s in (sq, skv, skv)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=["x".join(map(str, s)) for s in FLASH_SHAPES])
+def test_flash_matches_plain(cuda, shape, dtype):
+    """Every head dim the kernel takes, causal and full, ragged query and
+    key lengths (not multiples of the tiles), S_q > S_kv and S_q < S_kv;
+    each query row within its bar."""
+    *dims, causal = shape
+    q, k, v = _flash_inputs(cuda, *dims, dtype)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    diff = (got.float() - want).abs().amax(dim=(2, 3))
+    row_err = diff / want.abs().amax(dim=(2, 3))
+    assert row_err.max().item() <= FLASH_TOL[dtype], row_err.max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_is_deterministic_and_counts_launches(cuda, dtype):
+    q, k, v = _flash_inputs(cuda, 2, 300, 300, 4, 128, dtype, seed=1)
+    before = fa.launches["flash_attention"]
+    a = fa.flash_attention(q, k, v)
+    b = fa.flash_attention(q, k, v)
+    assert torch.equal(a, b)
+    assert fa.launches["flash_attention"] == before + 2
+    ref.flash_attention(q, k, v)  # the plain version launches no kernel
+    assert fa.launches["flash_attention"] == before + 2
+
+
+@pytest.mark.gpu
+def test_flash_takes_strided_inputs_and_refuses_bad_ones(cuda):
+    q, k, v = _flash_inputs(cuda, 1, 64, 64, 2, 32, torch.bfloat16)
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(fa.flash_attention(strided, k, v),
+                       fa.flash_attention(q, k, v))
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros(1, 8, 2, 48, device=cuda)
+        fa.flash_attention(x, x, x)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(q, k.float(), v)
+
+
+@pytest.mark.gpu
+def test_small_lm_on_the_card_matches_the_cpu(cuda):
+    """The llama3-8b smoke config in fp32 with the flash kernel: greedy
+    tokens equal to the CPU's (plain versions), logits within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServeConfig, generate
+
+    cfg = get_smoke_config("llama3-8b").replace(
+        param_dtype="float32", compute_dtype="float32", flash_attention=True)
+    model = get_model(cfg)
+    params = model.init_params(seed=0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab, (2, 33),
+                           generator=torch.Generator().manual_seed(1))
+    card = copy.deepcopy(params).to(cuda)
+    cpu_logits, _ = model.prefill(params, prompt)
+    kops.reset_launch_counts()
+    logits, _ = model.prefill(card, prompt.to(cuda))
+    assert kops.launch_counts()["flash_attention"] == cfg.n_layers
+    err = (logits.cpu() - cpu_logits).abs().max().item()
+    assert err <= 1e-4 * cpu_logits.abs().max().item(), err
+    want = generate(model, params, prompt, ServeConfig(max_new_tokens=8))
+    got = generate(model, card, prompt.to(cuda), ServeConfig(max_new_tokens=8))
+    assert torch.equal(got.cpu(), want)

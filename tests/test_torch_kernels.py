@@ -21,6 +21,7 @@ import torch
 
 from repro.kernels import bitmask as jbitmask
 from repro.kernels import huber_contract as jhc
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import shrinkage as jsh
 from repro_torch.kernels import bitmask, ops
@@ -216,7 +217,7 @@ def test_pack_mask_byte_identical(n):
 
 def test_ops_dispatch_single_problem_and_impls():
     """2-D operands run as one client; impl='ref' and 'auto' agree on the
-    CPU; 'cuda' refuses CPU tensors; unported ops name the roadmap."""
+    CPU; 'cuda' refuses CPU tensors; S + Psi is the residual."""
     u, v, m, w = (torch.from_numpy(x[0]) for x in _inputs(5))
     a = ops.huber_contract_v(u, v, m, 0.9, w=w)
     b = ops.huber_contract_v(u, v, m, 0.9, w=w, impl="ref")
@@ -234,3 +235,37 @@ def test_ops_dispatch_single_problem_and_impls():
     s, psi = ops.residual_shrink_psi(u, v, m, 0.9)
     np.testing.assert_allclose((s + psi).numpy(), (m - u @ v.T).numpy(),
                                rtol=PLANE_TOL, atol=PLANE_TOL)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("stacked", [False, True], ids=["single", "stacked"])
+@pytest.mark.parametrize("mask", ["none", "dense", "packed"])
+def test_residual_shrink_psi_matches_reference(mask, stacked, bf16):
+    """``ops.residual_shrink_psi`` (S, R - S; masked W S, W R - W S) against
+    the reference's Pallas kernels through its own entry point, one problem
+    (2-D operands, a float threshold) or E stacked clients."""
+    u, v, m, w = _inputs(7, seed=6)
+    m_port, m_ref = torch.from_numpy(m), jnp.asarray(m)
+    if bf16:
+        m_port, m_ref = m_port.to(torch.bfloat16), m_ref.astype(jnp.bfloat16)
+    w_port = {"none": None, "dense": torch.from_numpy(w),
+              "packed": bitmask.pack_mask(torch.from_numpy(w))}[mask]
+    w_ref = {"none": None, "dense": jnp.asarray(w),
+             "packed": jbitmask.pack_mask(jnp.asarray(w))}[mask]
+    if stacked:
+        got = ops.residual_shrink_psi(torch.from_numpy(u), torch.from_numpy(v),
+                                      m_port, torch.from_numpy(LAMS),
+                                      w=w_port)
+    else:
+        got = ops.residual_shrink_psi(
+            torch.from_numpy(u[0]), torch.from_numpy(v[0]), m_port[0],
+            float(LAMS[0]), w=None if w_port is None else w_port[0])
+        got = tuple(x[None] for x in got)
+    for e in range(E if stacked else 1):
+        want = jops.residual_shrink_psi(
+            jnp.asarray(u[e]), jnp.asarray(v[e]), m_ref[e], float(LAMS[e]),
+            w=None if w_ref is None else w_ref[e], impl="pallas")
+        for g, ww in zip(got, want):
+            assert g.dtype == torch.float32
+            np.testing.assert_allclose(g[e].numpy(), np.asarray(ww),
+                                       rtol=PLANE_TOL, atol=PLANE_TOL)
