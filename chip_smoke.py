@@ -11,7 +11,7 @@ CUDA toolkit.  Phases, one JSON line each:
             (TF32 off for matmuls and cuDNN).
 1. build    every kernel compiled from ``src/repro_torch/csrc`` (one nvcc
             per source, all started together), with the seconds it took
-            and the number of kernels that spill registers.
+            and the kernels that spill registers, by name.
 2. kernel   every kernel function, in each mask mode and data type a solve
             phase gives it, held against its plain PyTorch version on the
             card and timed with CUDA events beside its bound and the plain
@@ -25,8 +25,12 @@ CUDA toolkit.  Phases, one JSON line each:
             causal), f32 at the small_lm phase's shape (2, 33, 4, 32,
             causal), at (1, 256, 4, 64, causal) and f32 cross (2, 64 x 200,
             2, 64, full), each also beside PyTorch's SDPA on the same
-            tensors (``library_ms``), its error taken row by row.  Then ``bitexact``: a packed mask
-            gives the bits of the dense one, an all-ones mask those of none.
+            tensors (``library_ms``) and the profiler's device time of the
+            kernel alone (``kernel_device_ms``: the CUDA-event ``ms`` of
+            back-to-back calls also holds the wrapper's host work where
+            that is the longer), its error taken row by row.  Then
+            ``bitexact``: a packed mask gives the bits of the dense one, an
+            all-ones mask those of none.
    psi      kernels.ops.residual_shrink_psi, its entry point, on the fig1,
             d32 (dense mask) and d16 (bf16) operands: S + Psi == W R and
             |Psi| <= lam, exactly 2 / 1 launches of residual_shrink_psi /
@@ -245,6 +249,28 @@ def cuda_ms(fn, launches: int = TIMED_LAUNCHES) -> float:
     return start.elapsed_time(end) / launches
 
 
+def profiled_ms(fn, match: str, launches: int = TIMED_LAUNCHES) -> float:
+    """The profiler's device time per call of the kernels whose name holds
+    ``match``, over ``launches`` calls after a warm-up: the kernel alone,
+    without the host work that a CUDA-event time of back-to-back calls
+    includes when the host is the slower of the two."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(WARMUP_LAUNCHES):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and match in ev.key
+               ) / 1e3 / launches
+
+
 def bound(fn: str, mode: str, m_bytes: int, e: int, m: int, n: int,
           r: int) -> tuple[float, str]:
     """Least time (ms) the card needs for one call: the larger of the FLOP
@@ -439,6 +465,8 @@ def check_flash(name: str, shape: tuple, causal: bool, dtype: str,
     same = bool(torch.equal(got, again))
     ok = row_err <= FLASH_TOL[dtype] and same
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+    device_ms = profiled_ms(
+        lambda: fa.flash_attention(q, k, v, causal=causal), "flash")
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v,
                                                         causal=causal))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -450,7 +478,7 @@ def check_flash(name: str, shape: tuple, causal: bool, dtype: str,
                replaces=REPLACES["flash_attention"], dtype=dtype,
                causal=causal, max_abs_err=abs_err, max_row_err=row_err,
                tol=FLASH_TOL[dtype], bit_identical_rerun=same, ok=ok, ms=ms,
-               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               kernel_device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms, shape=list(shape))
     emit(phase="kernel", **row)
     if not ok:
@@ -867,15 +895,22 @@ def main() -> int:
          tf32=False)
 
     seconds = _build.build_all()
-    spills = sum("spill stores" in ln and " 0 bytes spill stores" not in ln
-                 for src in _build.sources()
-                 for ln in _build.build_log(src.stem).splitlines())
+    spilling = []
+    for src in _build.sources():
+        entry = None
+        for ln in _build.build_log(src.stem).splitlines():
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1] if "'" in ln else ln
+            elif ("spill stores" in ln
+                  and " 0 bytes spill stores" not in ln):
+                spilling.append(f"{src.name}:{entry}")
     kernels = sum("Compiling entry function" in ln
                   for src in _build.sources()
                   for ln in _build.build_log(src.stem).splitlines())
     emit(phase="build", seconds=seconds,
          sources=[src.name for src in _build.sources()],
-         kernels_compiled=kernels, kernels_with_spills=spills)
+         kernels_compiled=kernels, kernels_with_spills=len(spilling),
+         spilling=spilling)
 
     operands = kernel_operands(device)
     rows = [check_kernel(fn, mode, key, path, operands)

@@ -20,6 +20,7 @@ import torch
 from repro_torch.core.cf_pca import CFProblem
 from repro_torch.core.dcf_pca import DCFProblem
 from repro_torch.core.factorized import DCFConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import get_model
 from repro_torch.models.params import Params
 
@@ -77,13 +78,16 @@ def problem_from_reference(ref_problem: Any, device: torch.device | str
 
 @torch.no_grad()
 def lm_params_from_reference(params_np: Any, cfg: Any,
-                             device: torch.device | str = "cpu") -> Params:
+                             device: torch.device | str | None = None
+                             ) -> Params:
     """The port's parameters of the dense LM ``cfg`` (a port
     ``ModelConfig``) from the reference's params tree, as numpy arrays:
     ``embed`` (``table``, ``unembed``), ``segments[0]`` with every leaf
     stacked (L, ...) over the layers, and ``ln_f``.  Layers are unstacked;
     the port keeps the reference's (in, out) weight layout, so nothing is
-    transposed.  bf16 leaves cross as their bits."""
+    transposed.  bf16 leaves cross as their bits.  The parameters land on
+    the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     params = get_model(cfg).empty_params(device)
     segment = params_np["segments"][0]
     for name, p in params.named_parameters():

@@ -8,104 +8,254 @@
 //   _contract_v_masked_kernel (:97) and, with a packed W,
 //   huber_contract_v_packed (:553, body _make_dual_kernel :341).
 //
-// What bounds it on an H100: arithmetic.  Each residual entry costs 2r FLOP
-// for U V^T and 2r for the contraction against 4 bytes of M (2 in bf16, plus
-// 4 or 1/8 of W), so at r = 64 it sits at >= 64 FLOP/byte, right of the fp32
-// ridge (67 TFLOP/s / 3.35 TB/s ~ 20 FLOP/byte); bf16 M and a packed W
-// shrink the footprint, not the time.  The design reads M (and W) once,
-// keeps the residual tile in shared memory (it never reaches device memory)
-// and spends its effort on the FMA loops: a 2 x 2 register patch for U V^T
-// and a 4 x RQ register patch for the contraction, with the staged factor
-// rows read conflict-free.  No tensor cores and no TF32: the solver's
-// recovery bar needs full fp32.
+// What bounds it on an H100: fp32 arithmetic.  Each residual entry costs 2r
+// FLOP for U V^T and 2r for the contraction against 4 bytes of M (2 in bf16,
+// plus 4 or 1/8 of W), so at r = 64 it sits at >= 64 FLOP/byte, right of the
+// fp32 ridge (67 TFLOP/s / 3.35 TB/s ~ 20 FLOP/byte).  The CUDA cores take
+// one FMA instruction a clock per SM sub-partition, so the loops must issue
+// little else (16-byte shared loads, each feeding many FMAs), and the loads
+// and barriers of one block must sit under another block's FMAs.  No tensor
+// cores and no TF32: the solver's recovery bar needs full fp32.
 //
-// Determinism: no atomics.  The m reduction is split into a fixed number of
-// row ranges (chosen from the shape and SM count alone) that write partial
-// sums, then summed in index order (reduce.cuh).  Every mask mode and data
-// type shares one accumulation order (tile.cuh).
+// The design, one SIMT micro-kernel for each of the two products:
+//   - a block owns 64 columns (their V rows staged once) and walks its row
+//     range in 64 x 64 residual tiles; 256 threads; two blocks share an SM
+//     while both fit its shared memory (r <= 160);
+//   - U and V rows are staged row-major by cp.async in the widest pieces the
+//     rank allows (16 bytes when r % 4 == 0, 8 when r is even), the rank
+//     axis padded to 32 RQ and the row stride to 32 RQ + 4 floats (an odd
+//     number of 16-byte groups), so that both products read them as float4
+//     along the rank axis without bank conflicts, and one staged copy of U
+//     serves both;
+//   - U V^T: each thread owns a 4 x 4 patch (rows ti + 16 a, columns tj +
+//     16 b); per 4 ranks it loads 8 float4 for 64 FMAs, a warp's 4 x 8
+//     threads reading 4 distinct U rows and 8 distinct V rows;
+//   - each thread's M (and W) entries are loaded before the U V^T loop that
+//     hides their latency;
+//   - Psi^T U: each thread owns 2 columns x RQ rank groups of 4: per tile
+//     row one float2 of Psi and RQ float4 of U for 8 RQ FMAs, a warp reading
+//     one Psi row and 8 consecutive U groups.
+// The rank loop of U V^T stops at r rounded up to 4 (r = 150 pays for 152);
+// the contraction's register block covers 32 RQ ranks (160 at r = 150).
+//
+// Determinism: no atomics.  U V^T sums over k in order, the contraction over
+// the rows of a split in order; the m reduction is split into a fixed number
+// of row ranges (kernels/huber_contract.py::v_splits, from the shape and SM
+// count alone) that write partial sums, then summed in index order
+// (reduce.cuh).  Every mask mode and data type shares one accumulation order
+// (tile.cuh: a packed mask unpacks to the dense mask's 0.0f / 1.0f and the
+// mask multiply is __fmul_rn), so a packed mask gives the dense mask's bits
+// and an all-ones mask the bits of none.
 #include "reduce.cuh"
 #include "tile.cuh"
 
 namespace repro {
 namespace {
 
-// Grid (n tiles, row splits, E).  A block owns 32 columns, keeps their V
-// rows staged, and walks its row range 32 rows at a time.
+constexpr int kVRows = 64;      // rows of one residual tile (the m step)
+constexpr int kVCols = 64;      // columns of one residual tile (a block's)
+constexpr int kVThreads = 256;  // 8 warps
+constexpr int kPsiLd = kVCols + 8;  // Psi row stride: patch stores spread
+
+// Row stride (floats) of a staged factor slice.
+template <int RQ>
+__host__ __device__ constexpr int v_ld() { return 32 * RQ + 4; }
+
+// The U slice and the V slice, then the Psi tile.
+template <int RQ>
+__host__ __device__ constexpr size_t v_smem_bytes() {
+  return sizeof(float) * ((kVRows + kVCols) * v_ld<RQ>() + kVRows * kPsiLd);
+}
+
+// Two blocks share an SM (one's loads and barriers under the other's FMAs)
+// while both fit its 227 KB of shared memory: r <= 160.
+template <int RQ>
+__host__ __device__ constexpr int v_blocks_per_sm() {
+  return 2 * v_smem_bytes<RQ>() <= 232448 ? 2 : 1;
+}
+
+// BYTES (4, 8 or 16) global -> shared; zeros when !valid (src is then not
+// read).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stage rows [row0, row0 + 64) of a (nrows, r) row-major factor into dst
+// (64 x v_ld<RQ>()) asynchronously in pieces of BYTES (r a multiple of
+// BYTES / 4), zeros past nrows and past r.
+template <int RQ, int BYTES>
+__device__ __forceinline__ void stage_pieces(float* dst, const float* src,
+                                             int row0, int nrows, int r) {
+  constexpr int W = BYTES / 4;  // floats a piece
+  constexpr int RP = 32 * RQ / W;
+  constexpr int LD = v_ld<RQ>();
+  for (int idx = threadIdx.x; idx < kVRows * RP; idx += kVThreads) {
+    const int ii = idx / RP;
+    const int k = (idx - ii * RP) * W;
+    const int row = row0 + ii;
+    const bool ok = row < nrows && k < r;
+    cp_async<BYTES>(dst + ii * LD + k,
+                    ok ? src + static_cast<size_t>(row) * r + k : src, ok);
+  }
+}
+
+// The widest pieces that the rank and the factor's address allow: its rows
+// are 16-byte aligned when r % 4 == 0 (8-byte when r is even) and the
+// factor itself is.
+template <int RQ>
+__device__ __forceinline__ void stage_async(float* dst, const float* src,
+                                            int row0, int nrows, int r) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
+  if (r % 4 == 0 && at % 16 == 0)
+    stage_pieces<RQ, 16>(dst, src, row0, nrows, r);
+  else if (r % 2 == 0 && at % 8 == 0)
+    stage_pieces<RQ, 8>(dst, src, row0, nrows, r);
+  else
+    stage_pieces<RQ, 4>(dst, src, row0, nrows, r);
+}
+
+// Grid (column tiles, row splits, E).
 template <int RQ, typename TM, int MASK>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kVThreads, v_blocks_per_sm<RQ>())
 contract_v_kernel(const float* __restrict__ u, const float* __restrict__ v,
                   const TM* __restrict__ m, const void* __restrict__ w,
                   const float* __restrict__ lam, float* __restrict__ partial,
                   int E, int M, int N, int r, int rows_per_split) {
-  constexpr int LD = factor_ld<RQ>();
+  constexpr int LD = v_ld<RQ>();
   extern __shared__ float4 smem4[];
-  float* Ps = reinterpret_cast<float*>(smem4);  // 32 x 32, 16-byte aligned
-  float* Us = Ps + kTile * kTile;
-  float* Vs = Us + kTile * LD;
+  float* Us = reinterpret_cast<float*>(smem4);  // kVRows x LD
+  float* Vs = Us + kVRows * LD;                 // kVCols x LD
+  float* Ps = Vs + kVCols * LD;                 // kVRows x kPsiLd
 
   const int e = blockIdx.z;
-  const int j0 = blockIdx.x * kTile;
+  const int j0 = blockIdx.x * kVCols;
   const int split = blockIdx.y;
   const float* ue = u + static_cast<size_t>(e) * M * r;
   const float* ve = v + static_cast<size_t>(e) * N * r;
   const ClientPlanes<TM, MASK> planes(m, w, e, M, N);
   const float lam_e = lam[e];
 
-  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-
-  stage_rows<RQ>(Vs, ve, j0, N, r);
-  float acc[4][RQ];
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int q = 0; q < RQ; ++q) acc[c][q] = 0.f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // U V^T patch: rows ti + 16 a, columns tj + 16 b; a warp is 4 x 8 threads.
+  const int ti = (warp >> 1) * 4 + (lane >> 3);
+  const int tj = (warp & 1) * 8 + (lane & 7);
+  // Contraction block: columns 2 cj + c, rank groups ck + 8 q.
+  const int cj = warp * 4 + (lane >> 3);
+  const int ck = lane & 7;
+  const int r4 = (r + 3) / 4;
 
   const int row_begin = split * rows_per_split;
   const int row_end = min(M, row_begin + rows_per_split);
-  for (int i0 = row_begin; i0 < row_end; i0 += kTile) {
-    stage_rows<RQ>(Us, ue, i0, M, r);
+  stage_async<RQ>(Vs, ve, j0, N, r);
+  stage_async<RQ>(Us, ue, row_begin, M, r);
+  cp_async_commit();
+
+  float acc[2][RQ][4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) acc[c][q][s] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int i0 = row_begin; i0 < row_end; i0 += kVRows) {
+    // This thread's M (and W) entries, loaded before the FMAs that hide
+    // their latency.
+    float x[4][4], wt[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        planes.load(i0 + ti + 16 * a, j0 + tj + 16 * b, x[a][b], wt[a][b]);
+
+    float low[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) low[a][b] = 0.f;
+    for (int kq = 0; kq < r4; ++kq) {
+      float4 ua[4], vb[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        ua[a] = *reinterpret_cast<const float4*>(Us + (ti + 16 * a) * LD +
+                                                 4 * kq);
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        vb[b] = *reinterpret_cast<const float4*>(Vs + (tj + 16 * b) * LD +
+                                                 4 * kq);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          float l = low[a][b];
+          l = fmaf(ua[a].x, vb[b].x, l);
+          l = fmaf(ua[a].y, vb[b].y, l);
+          l = fmaf(ua[a].z, vb[b].z, l);
+          l = fmaf(ua[a].w, vb[b].w, l);
+          low[a][b] = l;
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        Ps[(ti + 16 * a) * kPsiLd + tj + 16 * b] =
+            apply_mask<MASK>(wt[a][b], clip(x[a][b] - low[a][b], lam_e));
     __syncthreads();
 
-    float low[2][2];
-    low_rank_patch<RQ>(Us, Vs, r, low);
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        float x, wt;
-        planes.load(i0 + 2 * ti + a, j0 + 2 * tj + b, x, wt);
-        Ps[(2 * ti + a) * kTile + 2 * tj + b] =
-            apply_mask<MASK>(wt, clip(x - low[a][b], lam_e));
-      }
-    __syncthreads();
-
-    // acc[c][q] += sum_ii Psi[ii, 4 ty + c] * U[ii, tx + 32 q]
-    for (int ii = 0; ii < kTile; ++ii) {
-      const float4 p = reinterpret_cast<const float4*>(Ps + ii * kTile)[ty];
+    // acc[c][q] += sum_ii Psi[ii, 2 cj + c] * U[ii, 4 (ck + 8 q) .. + 3]
+    for (int ii = 0; ii < kVRows; ++ii) {
+      const float2 p =
+          *reinterpret_cast<const float2*>(Ps + ii * kPsiLd + 2 * cj);
       const float* urow = Us + ii * LD;
 #pragma unroll
       for (int q = 0; q < RQ; ++q) {
-        const float uq = urow[tx + 32 * q];
-        acc[0][q] = fmaf(p.x, uq, acc[0][q]);
-        acc[1][q] = fmaf(p.y, uq, acc[1][q]);
-        acc[2][q] = fmaf(p.z, uq, acc[2][q]);
-        acc[3][q] = fmaf(p.w, uq, acc[3][q]);
+        const float4 uq =
+            *reinterpret_cast<const float4*>(urow + 4 * (ck + 8 * q));
+        acc[0][q][0] = fmaf(p.x, uq.x, acc[0][q][0]);
+        acc[0][q][1] = fmaf(p.x, uq.y, acc[0][q][1]);
+        acc[0][q][2] = fmaf(p.x, uq.z, acc[0][q][2]);
+        acc[0][q][3] = fmaf(p.x, uq.w, acc[0][q][3]);
+        acc[1][q][0] = fmaf(p.y, uq.x, acc[1][q][0]);
+        acc[1][q][1] = fmaf(p.y, uq.y, acc[1][q][1]);
+        acc[1][q][2] = fmaf(p.y, uq.z, acc[1][q][2]);
+        acc[1][q][3] = fmaf(p.y, uq.w, acc[1][q][3]);
       }
     }
-    __syncthreads();
+    __syncthreads();  // nobody reads this U slice or Psi any more
+    if (i0 + kVRows < row_end) {
+      stage_async<RQ>(Us, ue, i0 + kVRows, M, r);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+    }
   }
 
   float* dst = partial + (static_cast<size_t>(split) * E + e) * N * r;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int j = j0 + 4 * ty + c;
+  for (int c = 0; c < 2; ++c) {
+    const int j = j0 + 2 * cj + c;
     if (j >= N) continue;
 #pragma unroll
-    for (int q = 0; q < RQ; ++q) {
-      const int k = tx + 32 * q;
-      if (k < r) dst[static_cast<size_t>(j) * r + k] = acc[c][q];
-    }
+    for (int q = 0; q < RQ; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int k = 4 * (ck + 8 * q) + s;
+        if (k < r) dst[static_cast<size_t>(j) * r + k] = acc[c][q][s];
+      }
   }
 }
 
@@ -115,14 +265,14 @@ cudaError_t launch_v(const float* u, const float* v, const TM* m,
                      float* partial, int E, int M, int N, int r, int splits,
                      int rows_per_split, cudaStream_t stream) {
   auto kernel = contract_v_kernel<RQ, TM, MASK>;
-  const size_t smem = smem_bytes<RQ>();
+  const size_t smem = v_smem_bytes<RQ>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kTile - 1) / kTile, splits, E);
+  const dim3 grid((N + kVCols - 1) / kVCols, splits, E);
   float* dst = splits == 1 ? out : partial;
-  kernel<<<grid, kThreads, smem, stream>>>(u, v, m, w, lam, dst, E, M, N, r,
-                                           rows_per_split);
+  kernel<<<grid, kVThreads, smem, stream>>>(u, v, m, w, lam, dst, E, M, N, r,
+                                            rows_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   return launch_sum_splits(partial, out, static_cast<size_t>(E) * N * r,
@@ -133,14 +283,17 @@ cudaError_t launch_v(const float* u, const float* v, const TM* m,
 }  // namespace repro
 
 // Returns cudaGetLastError() of the launches (0 on success).  m is fp32 or
-// bf16 (dtype code), w null, dense or packed (mask code, tile.cuh); partial
-// holds splits * E * N * r floats when splits > 1 (unused otherwise).
+// bf16 (dtype code), w null, dense or packed (mask code, tile.cuh); the
+// splits' row ranges are whole 64-row tiles; partial holds splits * E * N * r
+// floats when splits > 1 (unused otherwise).
 extern "C" int repro_huber_contract_v(const float* u, const float* v,
                                       const void* m, const void* w,
                                       const float* lam, float* out,
                                       float* partial, int E, int M, int N,
                                       int r, int dtype, int mask, int splits,
                                       int rows_per_split, void* stream) {
+  if (splits < 1 || rows_per_split % repro::kVRows != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
     using TM = typename decltype(tm)::type;
     return repro::launch_v<decltype(rq)::value, TM, decltype(mk)::value>(

@@ -6,46 +6,63 @@
 // replaces repro/kernels/flash_attention.py::flash_attention (:85, kernel
 // _flash_kernel :37).  Layout as the reference's public function: Q, K, V and
 // O are (B, S, H, d) row-major with the GQA heads already expanded; the
-// kernel reads that strided layout in place (no (B*H, S, d) copy, no padding
+// kernels read that strided layout in place (no (B*H, S, d) copy, no padding
 // copies: ragged query rows and key columns are masked here).  Rows and
 // columns are absolute from 0: with `causal`, row i sees keys j <= i, and key
 // tiles wholly past the diagonal are skipped (the reference's block-
-// triangular skip).  Masked scores are -1e30 as in the reference.
+// triangular skip).  Masked scores are -1e30 as in the reference.  Blocks
+// take the heaviest query tiles of a head first.
 //
-// One block per (query tile, b * h); a loop over key/value tiles takes the
-// place of the TPU's sequential third grid axis.  The running max, the
-// running sum and the output accumulator stay in registers, in fp32.
+// What bounds it on an H100: at the serving shape (B=4, S=2048, H=32,
+// d=128, causal) 4 B H d S(S+1)/2 = 1.4e11 FLOP against 268 MB of Q, K, V
+// and O: 0.139 ms at the bf16 tensor-core peak against 0.080 ms of bytes,
+// so the tensor cores.  Only wgmma reaches their peak on Hopper, and only if
+// the loads and the softmax stay off their critical path.
 //
-// bf16 (the serving path): 4 warps, 64 query rows (16 a warp), 64-key tiles.
-// Q K^T and P V run on the tensor cores as mma.sync m16n8k16 bf16 x bf16 with
-// fp32 accumulation; a bf16 x bf16 product is exact in fp32, so Q K^T is the
-// reference's fp32 score up to summation order.  P is rounded to bf16 for
-// P V (the row sum l uses the fp32 P): each weight carries a relative error
-// of at most 2^-8, and O's rounding to bf16 at most 2^-8 of the row's
-// largest |O|; hence the card tolerance of 1e-2 of that largest |O|, held
-// one query row at a time against the fp32 plain version.  Tiles are staged with cp.async, the next K
-// tile loading during the softmax and P V and the next V tile during Q K^T;
-// fragments come from shared memory by ldmatrix (V transposed), rows padded
-// by 8 elements so that the 8 row addresses of one ldmatrix phase fall in
-// distinct banks.  Per block 3 x 64 x (d + 8) bf16 of shared memory (52 KB
-// at d = 128).
+// bf16 (the serving path), FlashAttention-3's shape.  A block owns a
+// 128-row query tile of one (b, h) and has three warpgroups:
+//   - a producer (one thread issues everything) that loads Q once and K and
+//     V tiles of 128 keys into a ring of two stages by TMA, through 4-D
+//     tensor maps over (d, H, S, B): rows past S arrive as zeros.  Each
+//     stage has a full barrier (TMA bytes landed) and an empty barrier (the
+//     consumers' 8 warps are done with it), K and V apart, so the next K
+//     tile loads while this tile's softmax and P V run;
+//   - two consumers of 64 query rows each.  Q K^T is wgmma m64n128k16 with
+//     Q and K from shared memory (both K-major); the online softmax runs in
+//     base 2 in the accumulator layout, in fp32 registers; P is rounded to
+//     bf16 in registers and is the A operand of P V (wgmma m64n{d}k16), V
+//     the B operand from shared memory, MN-major.  The consumers take turns
+//     (two named barriers) to issue Q K^T, so that one's softmax runs while
+//     the other's product holds the tensor cores.
+// The softmax, not the products, is what the tensor cores wait for: the
+// SM computes 16 exponentials a clock, so a block's 128 x 128 scores take
+// 1024 clocks against the 2048 of its two products.  It costs one FFMA, one ex2 and one FADD an element (the scale
+// folded into the exponent, masked scores set before it), with the row max
+// and row sum in 4 independent chains a row.  The query tiles of one head
+// run side by side, so its K and V are read from L2 after the first tile.
+// The tiles land in the swizzle that fits a row of d bf16: 32 B at d=16,
+// 64 B at d=32, 128 B at d=64, and d=128 as two 64-column atoms of 128 B;
+// the wgmma descriptors use the same mode.  setmaxnreg gives the producer's
+// registers to the consumers (24 / 240 a thread).  Shared memory: Q 128 x d,
+// two K and two V stages of 128 x d (160 KB at d = 128).  A bf16 x bf16
+// product is exact in fp32, so Q K^T is the reference's fp32 score up to
+// summation order; P carries a relative error of at most 2^-8 a weight and
+// O's rounding to bf16 at most 2^-8 of the row's largest |O| (the row sum
+// l uses the fp32 P).
 //
 // fp32 (no TF32): 128 threads, 32 query rows, 32-key tiles on the CUDA
 // cores; each thread owns 2 rows: 4 score columns and d/8 output columns of
 // each, so the row statistics never leave the thread's 8-lane group.
 //
-// What bounds it on an H100: at the serving shape (B=4, S=2048, H=32,
-// d=128, causal) 4 B H d S(S+1)/2 = 1.4e11 FLOP against 268 MB of Q, K, V
-// and O: 0.139 ms at the bf16 tensor-core peak against 0.080 ms of bytes,
-// so operations.  mma.sync reaches a fraction of the wgmma peak; wgmma, TMA
-// and warp specialisation are later work.
-//
 // No atomics: each output row is one thread group's fixed-order sums, so the
 // same call gives the same bits.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace repro {
 namespace {
@@ -55,261 +72,296 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores
-// ---------------------------------------------------------------------------
-constexpr int kWarps = 4;
-constexpr int kMmaThreads = 32 * kWarps;
-constexpr int kMmaBQ = 16 * kWarps;  // query rows per block
-constexpr int kMmaBK = 64;           // keys per tile
-
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: TMA ring, wgmma, warp-specialised
+// ---------------------------------------------------------------------------
+constexpr int kBQ = 128;       // query rows per block
+constexpr int kBK = 128;       // keys per tile
+constexpr int kStages = 2;     // K and V ring depth
+constexpr int kConsumers = 2;  // consumer warpgroups, 64 rows each
+constexpr int kWgThreads = 128;
+constexpr int kFlashThreads = kWgThreads * (kConsumers + 1);
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
-// 16 bytes global -> shared; zeros when !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b for one m16n8k16 tile (a row-major 16 x 16, b column-major 16 x 8).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Shared-memory geometry of one head dim.  A tile of R rows is stored as
+// kAtoms column atoms of R rows x kRowBytes each, in the TMA swizzle.
+template <int D>
+struct Bf16Tile {
+  static constexpr int kRowBytes = D < 64 ? 2 * D : 128;
+  static constexpr int kAtomCols = kRowBytes / 2;
+  static constexpr int kAtoms = D / kAtomCols;
+  static constexpr uint32_t kMode = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kKVBytes = kBK * D * 2;
+  static constexpr int kBarriers = 1 + 4 * kStages;
+  // + 1024: the swizzle atoms need 1024-byte alignment.
+  static constexpr int kSmem =
+      1024 + kQBytes + 2 * kStages * kKVBytes + 8 * kBarriers;
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Stage rows [row0, row0 + ROWS) of one head (row stride `stride` elements,
-// D contiguous elements each) into dst (ROWS x (D + 8)); zeros past nrows.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
-                                            int row0, int nrows,
-                                            int64_t stride) {
-  constexpr int LD = D + 8;
-  constexpr int CHUNKS = D / 8;  // 16-byte pieces of a row
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += kMmaThreads) {
-    const int r = idx / CHUNKS;
-    const int c = idx - r * CHUNKS;
-    const int row = row0 + r;
-    const bool ok = row < nrows;
-    cp_async16(dst + r * LD + c * 8,
-               ok ? src + static_cast<int64_t>(row) * stride + c * 8 : src,
-               ok);
-  }
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 16) wgmma_rs_n16(o, a, b);
+  if constexpr (D == 32) wgmma_rs_n32(o, a, b);
+  if constexpr (D == 64) wgmma_rs_n64(o, a, b);
+  if constexpr (D == 128) wgmma_rs_n128(o, a, b);
 }
 
-// Grid (query tiles, B * H), kMmaThreads threads.
+// Grid (query tiles, B * H), kFlashThreads threads.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                 int Sq, int Skv, float scale_log2, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int KSTEPS = D / 16;     // k-steps of Q K^T
-  constexpr int SN = kMmaBK / 8;     // n-tiles of one score row block
-  constexpr int ON = D / 8;          // n-tiles of one output row block
-  extern __shared__ uint4 smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kMmaBQ * LD;
-  bf16* Vs = Ks + kMmaBK * LD;
+__global__ void __launch_bounds__(kFlashThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   bf16* __restrict__ o, int H, int Sq, int Skv,
+                   float scale_log2, int causal) {
+  using T = Bf16Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* k_s = q_s + T::kQBytes;               // stage s at s * kKVBytes
+  uint8_t* v_s = k_s + kStages * T::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * T::kKVBytes);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
 
-  const int q_tiles = gridDim.x;
-  const int q0 = (q_tiles - 1 - blockIdx.x) * kMmaBQ;  // longest rows first
+  // The query tiles of one (b, h) run side by side (its K and V stay in
+  // L2), the heaviest first.
   const int b = blockIdx.y / H, h = blockIdx.y - b * H;
-  const int64_t stride = static_cast<int64_t>(H) * D;
-  const bf16* qg = q + static_cast<int64_t>(b) * Sq * stride + h * D;
-  const bf16* kg = k + static_cast<int64_t>(b) * Skv * stride + h * D;
-  const bf16* vg = v + static_cast<int64_t>(b) * Skv * stride + h * D;
-  bf16* og = o + static_cast<int64_t>(b) * Sq * stride + h * D;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  int kv_tiles = (Skv + kBK - 1) / kBK;
+  if (causal) kv_tiles = min(kv_tiles, (q0 + kBQ - 1) / kBK + 1);
+  const int wg = threadIdx.x / kWgThreads;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix matrix and row
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, 4 * kConsumers);
+      mbar_init(v_empty + s, 4 * kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  int kv_tiles = (Skv + kMmaBK - 1) / kMmaBK;
-  if (causal) kv_tiles = min(kv_tiles, (q0 + kMmaBQ - 1) / kMmaBK + 1);
-
-  // In flight at the top of every iteration: [K tile, V tile].
-  stage_async<D, kMmaBQ>(Qs, qg, q0, Sq, stride);
-  stage_async<D, kMmaBK>(Ks, kg, 0, Skv, stride);
-  cp_async_commit();
-  stage_async<D, kMmaBK>(Vs, vg, 0, Skv, stride);
-  cp_async_commit();
-
-  uint32_t qf[KSTEPS][4];
-  float acc[ON][4];
+  if (wg == kConsumers) {
+    // ---- producer ---------------------------------------------------------
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers * kWgThreads) {
+      prefetch_tensor_map(&tm_q);
+      prefetch_tensor_map(&tm_k);
+      prefetch_tensor_map(&tm_v);
+      mbar_arrive_expect_tx(q_full, T::kQBytes);
 #pragma unroll
-  for (int n = 0; n < ON; ++n)
+      for (int a = 0; a < T::kAtoms; ++a)
+        tma_load_4d(q_s + a * kBQ * T::kRowBytes, &tm_q, q_full,
+                    a * T::kAtomCols, h, q0, b);
+      for (int kt = 0; kt < kv_tiles; ++kt) {
+        const int s = kt % kStages;
+        const uint32_t parity = ((kt / kStages) & 1) ^ 1;  // round 0 passes
+        mbar_wait(k_empty + s, parity);
+        mbar_arrive_expect_tx(k_full + s, T::kKVBytes);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf};  // rows g and g + 8 of this warp
-  float l_run[2] = {0.f, 0.f};          // this thread's part of the row sums
-  const int row_lo = q0 + warp * 16 + g;
+        for (int a = 0; a < T::kAtoms; ++a)
+          tma_load_4d(k_s + s * T::kKVBytes + a * kBK * T::kRowBytes, &tm_k,
+                      k_full + s, a * T::kAtomCols, h, kt * kBK, b);
+        mbar_wait(v_empty + s, parity);
+        mbar_arrive_expect_tx(v_full + s, T::kKVBytes);
+#pragma unroll
+        for (int a = 0; a < T::kAtoms; ++a)
+          tma_load_4d(v_s + s * T::kKVBytes + a * kBK * T::kRowBytes, &tm_v,
+                      v_full + s, a * T::kAtomCols, h, kt * kBK, b);
+      }
+    }
+  } else {
+    // ---- consumers --------------------------------------------------------
+    regs_alloc<kConsumerRegs>();
+    constexpr int KSTEPS = D / 16;                  // k-steps of Q K^T
+    constexpr int ATOM_STEPS = T::kAtomCols / 16;   // k-steps per atom
+    constexpr uint32_t SBO = 8 * T::kRowBytes;      // next 8-row group
+    const int tid = threadIdx.x % kWgThreads;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int wrow0 = q0 + wg * 64;                 // this warpgroup's rows
+    const int row_lo = wrow0 + warp * 16 + g;       // and row_lo + 8
+    const uint32_t q_addr = smem_u32(q_s) + wg * 64 * T::kRowBytes;
 
-  for (int kt = 0; kt < kv_tiles; ++kt) {
-    const int k0 = kt * kMmaBK;
-    cp_async_wait_one();  // K (and at kt = 0 Q) has landed
-    __syncthreads();
-    if (kt == 0) {
+    float acc[D / 2];
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (mi & 1) * 8 + mr) * LD +
-                                kk * 16 + (mi >> 1) * 8);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float sc[kBK / 2];                    // S, then P in fp32, of one tile
+    uint32_t pa[kBK / 16][4];             // P in bf16: P V's A fragments
+    float m_run[2] = {kNegInf, kNegInf};  // rows row_lo and row_lo + 8
+    float l_run[2] = {0.f, 0.f};          // this thread's part of the sums
+    float alpha[2];
+
+    // Issue S = Q K^T of tile kt (64 x 128 per warpgroup, fp32).
+    auto issue_qk = [&](int kt) {
+      const int s = kt % kStages;
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+      mbar_wait(k_full + s, (kt / kStages) & 1);
+      const uint32_t k_addr = smem_u32(k_s + s * T::kKVBytes);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const int atom = kk / ATOM_STEPS, within = kk % ATOM_STEPS;
+        const uint64_t da = smem_desc(
+            q_addr + atom * kBQ * T::kRowBytes + within * 32, 16, SBO, T::kMode);
+        const uint64_t db = smem_desc(
+            k_addr + atom * kBK * T::kRowBytes + within * 32, 16, SBO, T::kMode);
+        wgmma_ss_n128(sc, da, db, 1);
+      }
+      wgmma_commit();
+    };
+    // Issue O += P V of tile kt.
+    auto issue_pv = [&](int kt) {
+      const int s = kt % kStages;
+      mbar_wait(v_full + s, (kt / kStages) & 1);
+      const uint32_t v_addr = smem_u32(v_s + s * T::kKVBytes);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_pv<D>(acc, pa[kk],
+                    smem_desc(v_addr + kk * 16 * T::kRowBytes,
+                              kBK * T::kRowBytes, SBO, T::kMode));
+      wgmma_commit();
+    };
+    auto release = [&](uint64_t* empty) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty);
+    };
+    // Fold S of tile kt into the running stats and overwrite it with
+    // P = 2^(scale log2(e) S - m) in fp32, m the running max in log2 units
+    // (masked scores are -1e30 before the scaling).  Accumulator element
+    // 4 j + e: row row_lo + 8 (e >> 1), key k0 + 8 j + 2 t + (e & 1).  The
+    // row max and row sum run as 4 chains a row, combined in a fixed order.
+    auto softmax = [&](int kt) {
+      const int k0 = kt * kBK;
+      if (k0 + kBK > Skv || (causal && k0 + kBK - 1 > wrow0)) {
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * j + 2 * t + (e & 1);
+            const int row = row_lo + (e >> 1) * 8;
+            if (col >= Skv || (causal && col > row)) sc[4 * j + e] = kNegInf;
+          }
+      }
+      float mc[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mc[i][c] = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mc[e >> 1][j & 3] = fmaxf(mc[e >> 1][j & 3], sc[4 * j + e]);
+      float m_new[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = fmaxf(fmaxf(mc[i][0], mc[i][1]), fmaxf(mc[i][2], mc[i][3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        m_new[i] = fmaxf(m_run[i], mx * scale_log2);
+        alpha[i] = exp2_approx(m_run[i] - m_new[i]);
+        m_run[i] = m_new[i];
+      }
+      float ls[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) ls[i][c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float p =
+              exp2_approx(fmaf(sc[4 * j + e], scale_log2, -m_new[i]));
+          sc[4 * j + e] = p;
+          ls[i][j & 3] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        l_run[i] = fmaf(l_run[i], alpha[i],
+                        (ls[i][0] + ls[i][1]) + (ls[i][2] + ls[i][3]));
+    };
+    // Rescale O by alpha and round P to bf16: the A fragment of P V's
+    // k-step kk is the elements of key chunks 2 kk and 2 kk + 1.
+    auto rescale_and_pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 0] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          pa[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+    };
+
+    // The two consumers take turns to issue Q K^T (named barriers 1 and 2,
+    // consumer 0 first), so that one's softmax runs while the other's
+    // product holds the tensor cores.  Each passes the turn once per tile
+    // but consumer 1 not after its last, so every arrival is waited for.
+    const int my_turn = 1 + wg, other_turn = 2 - wg;
+    if (wg == 1) named_arrive(1, 2 * kWgThreads);
+    mbar_wait(q_full, 0);
+    for (int kt = 0; kt < kv_tiles; ++kt) {
+      named_sync(my_turn, 2 * kWgThreads);
+      issue_qk(kt);
+      if (wg == 0 || kt + 1 < kv_tiles)
+        named_arrive(other_turn, 2 * kWgThreads);
+      wgmma_wait_all();
+      fence_regs(sc);
+      release(k_empty + kt % kStages);
+      softmax(kt);
+      rescale_and_pack();
+      issue_pv(kt);
+      wgmma_wait_all();
+      fence_regs(acc);
+      release(v_empty + kt % kStages);
     }
 
-    float s[SN][4];
-#pragma unroll
-    for (int n = 0; n < SN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
-#pragma unroll
-      for (int np = 0; np < SN / 2; ++np) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, Ks + (np * 16 + (mi >> 1) * 8 + mr) * LD + kk * 16 +
-                            (mi & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
-      }
-    __syncthreads();  // every warp is done with Ks
-    if (kt + 1 < kv_tiles)
-      stage_async<D, kMmaBK>(Ks, kg, k0 + kMmaBK, Skv, stride);
-    cp_async_commit();
-
-    // Scale to log2 units, mask, and fold the tile into the running stats.
-    const bool edge =
-        k0 + kMmaBK > Skv || (causal && k0 + kMmaBK - 1 > q0);
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int n = 0; n < SN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
-        if (edge) {
-          const int col = k0 + n * 8 + 2 * t + (e & 1);
-          const int row = row_lo + (e >> 1) * 8;
-          if (col >= Skv || (causal && col > row)) x = kNegInf;
-        }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
+    // Normalise in fp32, round to bf16, store the rows below S_q.
+    float inv[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = exp2f(m_run[i] - mx[i]);
-      m_run[i] = mx[i];
-      l_run[i] *= alpha[i];
+      float l = l_run[i];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[i] = 1.f / fmaxf(l, 1e-30f);
     }
+    const int64_t stride = static_cast<int64_t>(H) * D;
+    bf16* og = o + static_cast<int64_t>(b) * Sq * stride + h * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < SN; ++n)
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_lo + 8 * i;
+      if (row >= Sq) continue;
+      bf16* dst = og + row * stride;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - mx[e >> 1]);
-        s[n][e] = p;
-        l_run[e >> 1] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < ON; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * i] * inv[i], acc[4 * j + 2 * i + 1] * inv[i]);
     }
-
-    cp_async_wait_one();  // V has landed
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-      // The score accumulators of n-tiles 2kk and 2kk + 1 are exactly the
-      // A fragment of P's k-step kk.
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < ON / 2; ++np) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, Vs + (kk * 16 + (mi & 1) * 8 + mr) * LD +
-                                  np * 16 + (mi >> 1) * 8);
-        mma_bf16(acc[2 * np], pa, vb[0], vb[1]);
-        mma_bf16(acc[2 * np + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with Vs
-    if (kt + 1 < kv_tiles)
-      stage_async<D, kMmaBK>(Vs, vg, k0 + kMmaBK, Skv, stride);
-    cp_async_commit();
-  }
-
-  // Normalise, stage this warp's 16 rows in its own rows of Qs, and write
-  // them out 16 bytes a thread.
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_run[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[i] = 1.f / fmaxf(l, 1e-30f);
-  }
-  bf16* stage = Qs + warp * 16 * LD;
-#pragma unroll
-  for (int n = 0; n < ON; ++n) {
-    *reinterpret_cast<uint32_t*>(stage + g * LD + n * 8 + 2 * t) =
-        pack_bf16(acc[n][0] * inv[0], acc[n][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + n * 8 + 2 * t) =
-        pack_bf16(acc[n][2] * inv[1], acc[n][3] * inv[1]);
-  }
-  __syncwarp();
-  constexpr int CHUNKS = D / 8;
-  for (int idx = lane; idx < 16 * CHUNKS; idx += 32) {
-    const int r = idx / CHUNKS;
-    const int c = idx - r * CHUNKS;
-    const int row = q0 + warp * 16 + r;
-    if (row < Sq)
-      *reinterpret_cast<uint4*>(og + static_cast<int64_t>(row) * stride +
-                                c * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * LD + c * 8);
   }
 }
 
@@ -452,23 +504,75 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// (no link against libcuda); null if the driver does not have it.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 4-D map over a (B, S, H, D) bf16 tensor, dims innermost first (D, H, S,
+// B); one box is `rows` rows of one head and one column atom.
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+              int rows) {
+  using T = Bf16Tile<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * S};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(T::kAtomCols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : T::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int Sq, int Skv, int dtype, int causal,
                    float scale, cudaStream_t stream) {
   const float scale_log2 = scale * kLog2e;
   if (dtype == kBFloat16) {
-    auto kernel = flash_mma_kernel<D>;
-    const int smem = static_cast<int>(sizeof(bf16) * (kMmaBQ + 2 * kMmaBK) *
-                                      (D + 8));
+    CUtensorMap tq, tk, tv;
+    if (!make_map<D>(&tq, q, B, Sq, H, kBQ) ||
+        !make_map<D>(&tk, k, B, Skv, H, kBK) ||
+        !make_map<D>(&tv, v, B, Skv, H, kBK))
+      return cudaErrorInvalidValue;
+    auto kernel = flash_wgmma_kernel<D>;
+    constexpr int smem = Bf16Tile<D>::kSmem;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((Sq + kMmaBQ - 1) / kMmaBQ, B * H);
-    kernel<<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), H, Sq, Skv,
-        scale_log2, causal);
+    const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+    kernel<<<grid, kFlashThreads, smem, stream>>>(
+        tq, tk, tv, static_cast<bf16*>(o), H, Sq, Skv, scale_log2, causal);
     return cudaGetLastError();
   }
   if (dtype == kFloat32) {
@@ -492,9 +596,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 }  // namespace repro
 
-// Returns cudaGetLastError() of the launch (0 on success).  q, o are
-// (B, Sq, H, d) and k, v (B, Skv, H, d), contiguous, 16-byte aligned, all of
-// one type: dtype 0 fp32, 1 bf16; d in {16, 32, 64, 128}.
+// Returns cudaGetLastError() of the launch (0 on success; an invalid value
+// when a tensor map cannot be made).  q, o are (B, Sq, H, d) and k, v
+// (B, Skv, H, d), contiguous, 16-byte aligned, all of one type: dtype 0
+// fp32, 1 bf16; d in {16, 32, 64, 128}; B * H and the query tiles each at
+// most 65535.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int H,
                                      int Sq, int Skv, int d, int dtype,

@@ -129,10 +129,15 @@ def call(lib: ctypes.CDLL, entry: str, name: str, counts: dict[str, int],
          device: torch.device, *args) -> None:
     """Call C entry ``entry`` of ``lib`` with ``args`` and the current
     stream of ``device``, raise if it reports a CUDA error, and count one
-    launch of ``name``."""
-    with torch.cuda.device(device):
-        status = getattr(lib, entry)(
-            *args, torch.cuda.current_stream(device).cuda_stream)
+    launch of ``name``.  The device context is entered only when
+    ``device`` is not the current device already (the usual case skips
+    its cost on every launch)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        status = getattr(lib, entry)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            status = getattr(lib, entry)(*args, stream)
     if status != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError_t {status}"

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import resolve_device
+
 #: Columns packed per byte.
 PACK = 8
 
@@ -47,12 +49,12 @@ def unpack_mask(packed: torch.Tensor, n: int,
 
 
 def packed_ones(dense_shape: tuple[int, ...],
-                device: torch.device | str = "cpu") -> torch.Tensor:
+                device: torch.device | str | None = None) -> torch.Tensor:
     """Packed plane equal to ``pack_mask(torch.ones(dense_shape))``, built
-    without the dense plane."""
+    without the dense plane, on the card unless ``device`` says otherwise."""
     n = dense_shape[-1]
     out = torch.full((*dense_shape[:-1], packed_width(n)), 0xFF,
-                     dtype=torch.uint8, device=device)
+                     dtype=torch.uint8, device=resolve_device(device))
     rem = n % PACK
     if rem:
         out[..., -1] = (1 << rem) - 1

@@ -8,9 +8,11 @@ scores stay on chip, key tiles past the causal diagonal are skipped, and
 ragged edges are masked in the kernel (no padding copies).
 
 The kernel (``csrc/flash_attention.cu``) reads the (B, S, H, d) layout in
-place: no (B*H, S, d) copy.  bf16 runs on the tensor cores (mma.sync, fp32
-accumulation, P rounded to bf16 for P V); fp32 on the CUDA cores (no TF32).
-At the serving shape it is bound by operations (see the source note).
+place: no (B*H, S, d) copy.  bf16 runs on the tensor cores in Hopper's own
+form (TMA loads through tensor maps into a ring of K/V stages, wgmma with
+fp32 accumulation, one producer and two consumer warpgroups, P rounded to
+bf16 for P V); fp32 on the CUDA cores (no TF32).  At the serving shape it
+is bound by operations (see the source note).
 
 On CPU tensors the wrapper returns the plain version; on CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches.
@@ -40,24 +42,29 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 
 def _check(q, k, v) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} has dtype {t.dtype}, q {q.dtype}")
-        if t.ndim != 4:
-            raise ValueError(f"{name} must be (B, S, H, d), got "
-                             f"{tuple(t.shape)}")
-    if q.dtype not in DTYPE_CODES:
+    dev, dt = q.device, q.dtype
+    if not (k.device == dev and v.device == dev and k.dtype == dt
+            and v.dtype == dt and q.ndim == k.ndim == v.ndim == 4):
+        for name, t in (("k", k), ("v", v), ("q", q)):
+            if t.device != dev:
+                raise ValueError(f"{name} is on {t.device}, q on {dev}")
+            if t.dtype != dt:
+                raise TypeError(f"{name} has dtype {t.dtype}, q {dt}")
+            if t.ndim != 4:
+                raise ValueError(f"{name} must be (B, S, H, d), got "
+                                 f"{tuple(t.shape)}")
+    if dt not in DTYPE_CODES:
         raise TypeError(f"the flash kernel takes float32 or bfloat16, got "
-                        f"{q.dtype}")
-    b, _, h, d = q.shape
-    if (k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d)):
+                        f"{dt}")
+    b, sq, h, d = q.shape
+    kshape = k.shape
+    if (kshape != v.shape or kshape[0] != b or kshape[2] != h
+            or kshape[3] != d):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if min(q.shape[1], k.shape[1]) < 1 or b * h > 65535:
+    if sq < 1 or kshape[1] < 1 or b * h > 65535:
         raise ValueError(f"unsupported sizes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
 
@@ -70,7 +77,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check(q, k, v)
     # The path's tensors are contiguous already; anything else is copied
     # once here (and the copy counts in this call's time).
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, sq, h, d = q.shape
     if scale is None:
         scale = 1.0 / d ** 0.5

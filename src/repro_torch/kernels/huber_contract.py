@@ -48,6 +48,8 @@ raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -82,17 +84,39 @@ def _call(stem: str, base: str, op, u, v, m, w, lam, *outputs,
            *outputs, ints=ints)
 
 
-def v_splits(e: int, m: int, n: int, device: torch.device) -> tuple[int, int]:
+#: Rows and columns of one ``huber_contract_v`` residual tile (``kVRows``
+#: and ``kVCols`` in ``csrc/contract_v.cu``).
+V_TILE_ROWS = V_TILE_COLS = 64
+
+
+@functools.lru_cache(maxsize=1024)
+def v_splits(e: int, m: int, n: int, sms: int) -> tuple[int, int]:
     """``(splits, rows_per_split)`` of the m reduction in
-    ``huber_contract_v``: enough row ranges that the (column tile x split x
-    client) grid holds about two blocks per SM, each range a whole number of
-    32-row tiles and none empty."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    m_tiles = -(-m // TILE)
-    n_tiles = -(-n // TILE)
-    splits = min(m_tiles, max(1, -(-2 * sms // (e * n_tiles))))
-    per = -(-m_tiles // splits)
-    return -(-m_tiles // per), per * TILE
+    ``huber_contract_v`` on a card with ``sms`` SMs: every range a whole
+    number of 64-row tiles, none empty, together exactly the m rows.
+
+    The grid is (column tiles x splits x clients) blocks, two resident on
+    an SM (``csrc/contract_v.cu`` at r <= 160).  A split count is costed as
+    ``ceil(blocks / (2 sms))`` waves, each as long as a block's tiles plus
+    one (staging V, writing the partials); the cheapest wins, and among
+    equals the fewest splits (the least partial traffic).  A pure function
+    of the shape and the SM count, so a launch is the same on every run of
+    one card."""
+    m_tiles = -(-m // V_TILE_ROWS)
+    blocks = e * -(-n // V_TILE_COLS)
+    best = None
+    for want in range(1, m_tiles + 1):
+        per = -(-m_tiles // want)
+        splits = -(-m_tiles // per)
+        cost = -(-blocks * splits // (2 * sms)) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2] * V_TILE_ROWS
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _f32(*shape, device) -> torch.Tensor:
@@ -111,7 +135,7 @@ def huber_contract_v(u, v, m, lam, w=None) -> torch.Tensor:
         return huber_contract_v_plain(u, v, m, lam, w)
     op = check_operands(u, v, m, lam, w)
     out = _f32(op.e, op.n, op.r, device=u.device)
-    splits, rows = v_splits(op.e, op.m, op.n, u.device)
+    splits, rows = v_splits(op.e, op.m, op.n, _sm_count(u.device))
     partial = out if splits == 1 else _f32(splits, op.e, op.n, op.r,
                                            device=u.device)
     _call("contract_v", "huber_contract_v", op, u, v, m, w, lam, out, partial,

@@ -331,3 +331,69 @@ def test_small_lm_on_the_card_matches_the_cpu(cuda):
     want = generate(model, params, prompt, ServeConfig(max_new_tokens=8))
     got = generate(model, card, prompt.to(cuda), ServeConfig(max_new_tokens=8))
     assert torch.equal(got.cpu(), want)
+
+
+# The bf16 kernel's tiles: 128 query rows a block, 128-key tiles in a ring of
+# two stages.  Shapes with more key tiles than stages, lengths that are not
+# multiples of 128, S_q != S_kv both ways, a single query row, and more
+# (b, h) pairs than the card has SMs (the grid wraps).
+WGMMA_SHAPES = [  # (b, sq, skv, h)
+    (1, 700, 700, 2), (2, 129, 385, 3), (1, 385, 129, 2), (1, 1, 300, 4),
+    (1, 1, 1, 1), (3, 200, 257, 50),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("shape", WGMMA_SHAPES,
+                         ids=["x".join(map(str, s)) for s in WGMMA_SHAPES])
+def test_flash_bf16_tiles_ring_and_edges(cuda, shape, d, causal):
+    """The bf16 kernel at every head dim (each its own swizzle), causal and
+    full: each query row within FLASH_TOL of the fp32 plain version, and a
+    rerun gives the same bits."""
+    q, k, v = _flash_inputs(cuda, *shape, d, torch.bfloat16, seed=d)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    again = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.equal(got, again)
+    diff = (got.float() - want).abs().amax(dim=(2, 3))
+    row_err = diff / want.abs().amax(dim=(2, 3))
+    assert row_err.max().item() <= FLASH_TOL[torch.bfloat16], \
+        row_err.max().item()
+
+
+# huber_contract_v's tiles are 64 x 64; (E, m, n) with m not a multiple of
+# 64, in one row range and in several (v_splits decides from the shape).
+V_SHAPES = [(1, 60, 200, False), (10, 50, 70, False), (1, 4000, 100, True),
+            (10, 3001, 90, True)]  # (E, m, n, several row ranges)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [1, 33, 150, 256])
+@pytest.mark.parametrize("shape", V_SHAPES,
+                         ids=["x".join(map(str, s[:3])) for s in V_SHAPES])
+def test_contract_v_ranks_splits_and_masks(cuda, shape, r, dtype):
+    """huber_contract_v at ranks that fill 1, 2, 5 and 8 register groups,
+    with one row range and with several, in every mask mode: within
+    PLANE_TOL of the plain version; packed == dense and all-ones == none bit
+    for bit."""
+    e, m, n, several = shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits, rows = hc.v_splits(e, m, n, sms)
+    assert (splits > 1) == several and rows % hc.V_TILE_ROWS == 0
+    u, v, mat, w, lam = _card_inputs(cuda, e, m, n, r, seed=r, dtype=dtype)
+    outs = {}
+    for mode in ("none", "dense", "packed"):
+        got, want = _kernel_and_plain("huber_contract_v", mode, u, v, mat, w,
+                                      lam)
+        _assert_card_close(got, want)
+        outs[mode] = got[0]
+    ones = hc.huber_contract_v(u, v, mat, lam, torch.ones_like(w))
+    assert torch.equal(outs["dense"], outs["packed"])
+    assert torch.equal(outs["none"], ones)

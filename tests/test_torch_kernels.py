@@ -210,7 +210,7 @@ def test_pack_mask_byte_identical(n):
     assert mine.tobytes() == theirs.tobytes()
     back = bitmask.unpack_mask(torch.from_numpy(mine), n).numpy()
     assert np.array_equal(back, w)
-    ones = bitmask.packed_ones((2, 5, n)).numpy()
+    ones = bitmask.packed_ones((2, 5, n), device="cpu").numpy()
     assert ones.tobytes() == np.asarray(
         jbitmask.packed_ones((2, 5, n))).tobytes()
 
@@ -269,3 +269,23 @@ def test_residual_shrink_psi_matches_reference(mask, stacked, bf16):
             assert g.dtype == torch.float32
             np.testing.assert_allclose(g[e].numpy(), np.asarray(ww),
                                        rtol=PLANE_TOL, atol=PLANE_TOL)
+
+
+@pytest.mark.parametrize("sms", [1, 78, 114, 132])
+@pytest.mark.parametrize("e,m,n", [(1, 1, 1), (10, 3000, 300), (1, 3000, 3000),
+                                   (4, 2048, 512), (3, 40, 24), (2, 64, 65),
+                                   (1, 129, 7), (7, 4097, 1000),
+                                   (1, 100000, 64)])
+def test_v_splits_cover_m_in_whole_tiles(e, m, n, sms):
+    """``huber_contract_v``'s row ranges: each a whole number of the
+    kernel's 64-row tiles, none empty, together exactly the m rows; a pure
+    function of (E, m, n, SM count)."""
+    splits, rows = hc.v_splits(e, m, n, sms)
+    assert splits >= 1 and rows >= hc.V_TILE_ROWS
+    assert rows % hc.V_TILE_ROWS == 0
+    starts = [s * rows for s in range(splits)]
+    assert all(start < m for start in starts)  # no empty range
+    assert splits * rows >= m  # the ranges reach the last row
+    covered = sum(min(m, start + rows) - start for start in starts)
+    assert covered == m
+    assert hc.v_splits(e, m, n, sms) == (splits, rows)
