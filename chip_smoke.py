@@ -30,7 +30,8 @@ CUDA toolkit.  Phases, one JSON line each:
             back-to-back calls also holds the wrapper's host work where
             that is the longer), its error taken row by row.  Then
             ``bitexact``: a packed mask gives the bits of the dense one, an
-            all-ones mask those of none.
+            all-ones mask those of none, and the three row-stripe kernels
+            share out_u, obj and psi2.
    psi      kernels.ops.residual_shrink_psi, its entry point, on the fig1,
             d32 (dense mask) and d16 (bf16) operands: S + Psi == W R and
             |Psi| <= lam, exactly 2 / 1 launches of residual_shrink_psi /
@@ -390,10 +391,26 @@ def kernel_operands(device) -> dict:
 def check_bit_exact(operands: dict) -> dict:
     """At the compact-plane shapes: a packed mask gives the bits of the
     dense one (dual, u_diag, v, u), and an all-ones mask the bits of none
-    (u, dual), in fp32 and bf16."""
+    (u, dual), in fp32 and bf16.  At every operand set (one column range at
+    fig1, several at cf, d32 and d16) and mask mode: huber_contract_u's
+    out_u, and the dual's out_u, obj and psi2, are u_diag's bit for bit."""
     import torch
 
+    from repro_torch.kernels import huber_contract as hc
+
     checks = {}
+    for key, modes in (("fig1", ("none",)), ("cf", ("none",)),
+                       ("d32", ("none", "dense", "packed")),
+                       ("d16", ("none", "dense", "packed"))):
+        u, v, blocks, lam, w, packed = operands[key]
+        for mode in modes:
+            wm = {"none": None, "dense": w, "packed": packed}[mode]
+            diag = hc.huber_contract_u_diag(u, v, blocks, lam, wm)
+            dual = hc.huber_dual_contract(u, v, blocks, lam, wm)
+            checks[f"u==u_diag@{key}:{mode}"] = torch.equal(
+                hc.huber_contract_u(u, v, blocks, lam, wm), diag[0])
+            checks[f"dual==u_diag@{key}:{mode}"] = all(
+                torch.equal(a, b) for a, b in zip(dual[1:], diag))
     for key in ("d32", "d16"):
         u, v, blocks, lam, w, packed = operands[key]
         for fn in ("huber_dual_contract", "huber_contract_u_diag",

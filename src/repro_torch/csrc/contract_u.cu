@@ -8,26 +8,33 @@
 //   _contract_u_masked_kernel (:133) and, with a packed W,
 //   huber_contract_u_packed (:572, body _make_dual_kernel :341).
 //
-// What bounds it on an H100, and the design: stripe.cuh (the row-stripe
-// kernel without diagnostics and without out_v).  It is
-// huber_contract_u_diag with the diagnostics compiled out, so the two give
-// the same out_u bits and fused="off" and fused="diag" the same factors.
+// What bounds it on an H100: fp32 arithmetic, 4r FLOP per residual entry
+// (2r of U V^T, 2r of Psi V) against 2-4 bytes of M.  The design is
+// stripe.cuh's without diagnostics and without out_v: 64-row stripes on a
+// grid whose column splits fill the card at E = 1, 4 x 4 U V^T patches and
+// 2-row x RQ Psi V blocks read as float4, a cp.async ring of V tiles.  It
+// is huber_contract_u_diag with the diagnostics compiled out (the same
+// splits and sums), so the two give the same out_u bits and fused="off"
+// and fused="diag" the same factors.
 // clip(W * R) equals the reference's W * clip(R) for a 0/1 W.
 #include "stripe.cuh"
 
-// Returns cudaGetLastError() of the launch (0 on success).  m is fp32 or
-// bf16 (dtype code), w null, dense or packed (mask code, tile.cuh).
+// Returns cudaGetLastError() of the launches (0 on success).  m is fp32 or
+// bf16 (dtype code), w null, dense or packed (mask code, tile.cuh); the
+// splits' column ranges are whole 64-column tiles; u_partial holds
+// splits * E * M * r floats when splits > 1 (unused otherwise).
 extern "C" int repro_huber_contract_u(const float* u, const float* v,
                                       const void* m, const void* w,
-                                      const float* lam, float* out_u, int E,
-                                      int M, int N, int r, int dtype,
-                                      int mask, void* stream) {
+                                      const float* lam, float* out_u,
+                                      float* u_partial, int E, int M, int N,
+                                      int r, int dtype, int mask, int splits,
+                                      int cols_per_split, void* stream) {
   return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
     using TM = typename decltype(tm)::type;
     return repro::launch_stripe<decltype(rq)::value, TM, decltype(mk)::value,
                                 false, false>(
         u, v, static_cast<const TM*>(m), w, lam, out_u, nullptr, nullptr,
-        nullptr, nullptr, nullptr, E, M, N, r,
-        static_cast<cudaStream_t>(stream));
+        nullptr, nullptr, u_partial, nullptr, E, M, N, r, splits,
+        cols_per_split, static_cast<cudaStream_t>(stream));
   });
 }

@@ -10,25 +10,33 @@
 //   repro/kernels/huber_contract.py::huber_contract_u_diag (:521) and
 //   huber_contract_u_diag_masked (:537, dense or packed W).
 //
-// What bounds it on an H100, and the design: stripe.cuh (the row-stripe
-// kernel with diagnostics, without out_v).  The two scalars go through
-// per-block partials and a fixed-order second launch (reduce.cuh).
+// What bounds it on an H100: fp32 arithmetic, 4r FLOP per residual entry
+// (2r of U V^T, 2r of Psi V) against 2-4 bytes of M.  The design is
+// stripe.cuh's with diagnostics, without out_v: 64-row stripes on a grid
+// whose column splits fill the card at E = 1 (one client's 47 stripes were
+// 94 blocks of 32 rows on 132 SMs before), 4 x 4 U V^T patches and 2-row x
+// RQ Psi V blocks read as float4, a cp.async ring of V tiles.  The two
+// scalars go through per-block partials and a fixed-order second launch
+// (reduce.cuh), and so does out_u when the columns are split.
 #include "stripe.cuh"
 
 // Returns cudaGetLastError() of the launches (0 on success).  partial holds
-// 2 * E * ceil(M / 32) floats.
+// 2 * E * ceil(M / 64) * splits floats, u_partial splits * E * M * r when
+// splits > 1.
 extern "C" int repro_huber_contract_u_diag(const float* u, const float* v,
                                            const void* m, const void* w,
                                            const float* lam, float* out_u,
                                            float* obj, float* psi2,
-                                           float* partial, int E, int M,
-                                           int N, int r, int dtype, int mask,
-                                           void* stream) {
+                                           float* partial, float* u_partial,
+                                           int E, int M, int N, int r,
+                                           int dtype, int mask, int splits,
+                                           int cols_per_split, void* stream) {
   return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
     using TM = typename decltype(tm)::type;
     return repro::launch_stripe<decltype(rq)::value, TM, decltype(mk)::value,
                                 true, false>(
         u, v, static_cast<const TM*>(m), w, lam, out_u, nullptr, obj, psi2,
-        partial, nullptr, E, M, N, r, static_cast<cudaStream_t>(stream));
+        partial, u_partial, nullptr, E, M, N, r, splits, cols_per_split,
+        static_cast<cudaStream_t>(stream));
   });
 }

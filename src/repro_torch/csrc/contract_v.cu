@@ -29,7 +29,8 @@
 //     serves both;
 //   - U V^T: each thread owns a 4 x 4 patch (rows ti + 16 a, columns tj +
 //     16 b); per 4 ranks it loads 8 float4 for 64 FMAs, a warp's 4 x 8
-//     threads reading 4 distinct U rows and 8 distinct V rows;
+//     threads reading 4 distinct U rows and 8 distinct V rows (the staging
+//     and this patch are tile64.cuh's, shared with stripe.cuh);
 //   - each thread's M (and W) entries are loaded before the U V^T loop that
 //     hides their latency;
 //   - Psi^T U: each thread owns 2 columns x RQ rank groups of 4: per tile
@@ -48,23 +49,19 @@
 // and an all-ones mask the bits of none.
 #include "reduce.cuh"
 #include "tile.cuh"
+#include "tile64.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kVRows = 64;      // rows of one residual tile (the m step)
-constexpr int kVCols = 64;      // columns of one residual tile (a block's)
-constexpr int kVThreads = 256;  // 8 warps
+constexpr int kVRows = kT64;    // rows of one residual tile (the m step)
+constexpr int kVCols = kT64;    // columns of one residual tile (a block's)
 constexpr int kPsiLd = kVCols + 8;  // Psi row stride: patch stores spread
-
-// Row stride (floats) of a staged factor slice.
-template <int RQ>
-__host__ __device__ constexpr int v_ld() { return 32 * RQ + 4; }
 
 // The U slice and the V slice, then the Psi tile.
 template <int RQ>
 __host__ __device__ constexpr size_t v_smem_bytes() {
-  return sizeof(float) * ((kVRows + kVCols) * v_ld<RQ>() + kVRows * kPsiLd);
+  return sizeof(float) * ((kVRows + kVCols) * ld64<RQ>() + kVRows * kPsiLd);
 }
 
 // Two blocks share an SM (one's loads and barriers under the other's FMAs)
@@ -74,65 +71,14 @@ __host__ __device__ constexpr int v_blocks_per_sm() {
   return 2 * v_smem_bytes<RQ>() <= 232448 ? 2 : 1;
 }
 
-// BYTES (4, 8 or 16) global -> shared; zeros when !valid (src is then not
-// read).
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Stage rows [row0, row0 + 64) of a (nrows, r) row-major factor into dst
-// (64 x v_ld<RQ>()) asynchronously in pieces of BYTES (r a multiple of
-// BYTES / 4), zeros past nrows and past r.
-template <int RQ, int BYTES>
-__device__ __forceinline__ void stage_pieces(float* dst, const float* src,
-                                             int row0, int nrows, int r) {
-  constexpr int W = BYTES / 4;  // floats a piece
-  constexpr int RP = 32 * RQ / W;
-  constexpr int LD = v_ld<RQ>();
-  for (int idx = threadIdx.x; idx < kVRows * RP; idx += kVThreads) {
-    const int ii = idx / RP;
-    const int k = (idx - ii * RP) * W;
-    const int row = row0 + ii;
-    const bool ok = row < nrows && k < r;
-    cp_async<BYTES>(dst + ii * LD + k,
-                    ok ? src + static_cast<size_t>(row) * r + k : src, ok);
-  }
-}
-
-// The widest pieces that the rank and the factor's address allow: its rows
-// are 16-byte aligned when r % 4 == 0 (8-byte when r is even) and the
-// factor itself is.
-template <int RQ>
-__device__ __forceinline__ void stage_async(float* dst, const float* src,
-                                            int row0, int nrows, int r) {
-  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
-  if (r % 4 == 0 && at % 16 == 0)
-    stage_pieces<RQ, 16>(dst, src, row0, nrows, r);
-  else if (r % 2 == 0 && at % 8 == 0)
-    stage_pieces<RQ, 8>(dst, src, row0, nrows, r);
-  else
-    stage_pieces<RQ, 4>(dst, src, row0, nrows, r);
-}
-
 // Grid (column tiles, row splits, E).
 template <int RQ, typename TM, int MASK>
-__global__ void __launch_bounds__(kVThreads, v_blocks_per_sm<RQ>())
+__global__ void __launch_bounds__(kT64Threads, v_blocks_per_sm<RQ>())
 contract_v_kernel(const float* __restrict__ u, const float* __restrict__ v,
                   const TM* __restrict__ m, const void* __restrict__ w,
                   const float* __restrict__ lam, float* __restrict__ partial,
                   int E, int M, int N, int r, int rows_per_split) {
-  constexpr int LD = v_ld<RQ>();
+  constexpr int LD = ld64<RQ>();
   extern __shared__ float4 smem4[];
   float* Us = reinterpret_cast<float*>(smem4);  // kVRows x LD
   float* Vs = Us + kVRows * LD;                 // kVCols x LD
@@ -182,32 +128,7 @@ contract_v_kernel(const float* __restrict__ u, const float* __restrict__ v,
         planes.load(i0 + ti + 16 * a, j0 + tj + 16 * b, x[a][b], wt[a][b]);
 
     float low[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) low[a][b] = 0.f;
-    for (int kq = 0; kq < r4; ++kq) {
-      float4 ua[4], vb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        ua[a] = *reinterpret_cast<const float4*>(Us + (ti + 16 * a) * LD +
-                                                 4 * kq);
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        vb[b] = *reinterpret_cast<const float4*>(Vs + (tj + 16 * b) * LD +
-                                                 4 * kq);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          float l = low[a][b];
-          l = fmaf(ua[a].x, vb[b].x, l);
-          l = fmaf(ua[a].y, vb[b].y, l);
-          l = fmaf(ua[a].z, vb[b].z, l);
-          l = fmaf(ua[a].w, vb[b].w, l);
-          low[a][b] = l;
-        }
-    }
+    patch44<RQ>(Us, Vs, ti, tj, r4, low);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -271,7 +192,7 @@ cudaError_t launch_v(const float* u, const float* v, const TM* m,
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kVCols - 1) / kVCols, splits, E);
   float* dst = splits == 1 ? out : partial;
-  kernel<<<grid, kVThreads, smem, stream>>>(u, v, m, w, lam, dst, E, M, N, r,
+  kernel<<<grid, kT64Threads, smem, stream>>>(u, v, m, w, lam, dst, E, M, N, r,
                                             rows_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;

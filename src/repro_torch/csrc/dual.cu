@@ -11,31 +11,36 @@
 //   behind repro/kernels/huber_contract.py::huber_dual_contract (:481) and
 //   huber_dual_contract_masked (:502, dense or packed W).
 //
-// What bounds it on an H100: arithmetic, 6 E m n r FLOP (U V^T once per
-// tile, then both contractions from the same Psi tile).  The TPU kernel
-// kept out_v resident in VMEM across a sequential grid; here blocks run in
-// no order, so out_u completes inside each row-stripe block and out_v goes
-// through per-stripe partials summed in index order by a second launch
-// (stripe.cuh, reduce.cuh).  One launch sequence always: there is no
-// two-pass route.
+// What bounds it on an H100: fp32 arithmetic, 6r FLOP per residual entry
+// (U V^T once per tile, then both contractions from the same Psi tile),
+// 6 E m n r in all.  The TPU kernel kept out_v resident in VMEM across a
+// sequential grid; here blocks run in no order, so out_u completes inside
+// each row-stripe block's column range (summed over the column splits) and
+// out_v goes through one partial plane per 64-row stripe, summed in index
+// order by a second launch (stripe.cuh, reduce.cuh).  The design is
+// stripe.cuh's with both: 4 x 4 U V^T patches, 2-row (Psi V) and 2-column
+// (Psi^T U) x RQ contraction blocks read as float4, a cp.async ring of V
+// tiles.  One launch sequence always: there is no two-pass route.
 #include "stripe.cuh"
 
 // Returns cudaGetLastError() of the launches (0 on success).  diag_partial
-// holds 2 * E * ceil(M / 32) floats, v_partial ceil(M / 32) * E * N * r.
+// holds 2 * E * ceil(M / 64) * splits floats, u_partial splits * E * M * r
+// when splits > 1, v_partial ceil(M / 64) * E * N * r.
 extern "C" int repro_huber_dual_contract(const float* u, const float* v,
                                          const void* m, const void* w,
                                          const float* lam, float* out_v,
                                          float* out_u, float* obj,
                                          float* psi2, float* diag_partial,
-                                         float* v_partial, int E, int M,
-                                         int N, int r, int dtype, int mask,
-                                         void* stream) {
+                                         float* u_partial, float* v_partial,
+                                         int E, int M, int N, int r,
+                                         int dtype, int mask, int splits,
+                                         int cols_per_split, void* stream) {
   return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
     using TM = typename decltype(tm)::type;
     return repro::launch_stripe<decltype(rq)::value, TM, decltype(mk)::value,
                                 true, true>(
         u, v, static_cast<const TM*>(m), w, lam, out_u, out_v, obj, psi2,
-        diag_partial, v_partial, E, M, N, r,
-        static_cast<cudaStream_t>(stream));
+        diag_partial, u_partial, v_partial, E, M, N, r, splits,
+        cols_per_split, static_cast<cudaStream_t>(stream));
   });
 }

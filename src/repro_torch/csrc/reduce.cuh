@@ -2,7 +2,7 @@
 // run in no order, so a sum that spans blocks is written as partials by the
 // first launch and added here in index order: the result is the same bits
 // on every run, with no atomics.  Each source that includes this header is
-// its own library, so the kernels are defined here once per library.
+// its own library, so the kernel is defined here once per library.
 #pragma once
 
 #include <algorithm>
@@ -11,48 +11,59 @@
 
 namespace repro {
 
-// out[idx] = sum_s partial[s, idx], s = 0 .. splits-1 in order.
-__global__ void sum_splits_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ out, size_t count,
-                                  int splits) {
+// out[idx] = sum_k partial[idx * istride + k * kstride], k = 0 .. terms-1
+// in order, for idx < count.
+struct SumJob {
+  const float* partial;
+  float* out;
+  size_t count, istride, kstride;
+  int terms;
+};
+
+// Up to four sums in one launch: grid (blocks, jobs), blockIdx.y the job.
+constexpr int kMaxSumJobs = 4;
+struct SumJobs {
+  SumJob job[kMaxSumJobs];
+  int n;
+};
+
+__global__ void sum_partials_kernel(SumJobs jobs) {
+  const int y = blockIdx.y;
+  const SumJob jb = y == 0 ? jobs.job[0]
+                  : y == 1 ? jobs.job[1]
+                  : y == 2 ? jobs.job[2]
+                           : jobs.job[3];
   for (size_t idx = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       idx < count; idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
+       idx < jb.count; idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const float* p = jb.partial + idx * jb.istride;
     float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += partial[k * count + idx];
-    out[idx] = s;
+    for (int k = 0; k < jb.terms; ++k) s += p[k * jb.kstride];
+    jb.out[idx] = s;
   }
+}
+
+inline cudaError_t launch_sums(const SumJobs& jobs, cudaStream_t stream) {
+  if (jobs.n < 1 || jobs.n > kMaxSumJobs) return cudaErrorInvalidValue;
+  size_t most = 0;
+  for (int j = 0; j < jobs.n; ++j) most = std::max(most, jobs.job[j].count);
+  const int blocks = static_cast<int>(std::min<size_t>((most + 255) / 256, 4096));
+  sum_partials_kernel<<<dim3(blocks, jobs.n), 256, 0, stream>>>(jobs);
+  return cudaGetLastError();
+}
+
+// The job out[idx] = sum_s partial[s, idx] over a (splits, count) plane.
+inline SumJob sum_over_splits(const float* partial, float* out, size_t count,
+                              int splits) {
+  return SumJob{partial, out, count, 1, count, splits};
 }
 
 inline cudaError_t launch_sum_splits(const float* partial, float* out,
                                      size_t count, int splits,
                                      cudaStream_t stream) {
-  const int blocks =
-      static_cast<int>(std::min<size_t>((count + 255) / 256, 4096));
-  sum_splits_kernel<<<blocks, 256, 0, stream>>>(partial, out, count, splits);
-  return cudaGetLastError();
-}
-
-// obj[e] = sum_t partial[e, t], psi2[e] = sum_t partial[E + e, t], in order.
-__global__ void sum_diag_kernel(const float* __restrict__ partial,
-                                float* __restrict__ obj,
-                                float* __restrict__ psi2, int E, int tiles) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float a = 0.f, b = 0.f;
-  for (int t = 0; t < tiles; ++t) {
-    a += partial[static_cast<size_t>(e) * tiles + t];
-    b += partial[static_cast<size_t>(E + e) * tiles + t];
-  }
-  obj[e] = a;
-  psi2[e] = b;
-}
-
-inline cudaError_t launch_sum_diag(const float* partial, float* obj,
-                                   float* psi2, int E, int tiles,
-                                   cudaStream_t stream) {
-  sum_diag_kernel<<<(E + 127) / 128, 128, 0, stream>>>(partial, obj, psi2, E,
-                                                        tiles);
-  return cudaGetLastError();
+  SumJobs jobs{};
+  jobs.job[0] = sum_over_splits(partial, out, count, splits);
+  jobs.n = 1;
+  return launch_sums(jobs, stream);
 }
 
 }  // namespace repro

@@ -2,203 +2,343 @@
 // huber_dual_contract (contract_u.cu, contract_u_diag.cu, dual.cu each
 // instantiate one flavour, so the three build in parallel).
 //
-// Grid (m tiles, E).  A block owns one 32-row stripe of one client, keeps
-// its U rows staged, and walks all n columns 32 at a time.  From each
-// residual tile, with R_W = W * R and Psi = clip(R_W, +-lam):
-//   out_u[e, i, :] = sum_j Psi[i, j] V[j, :]    completes in the block's
-//                                               registers (always);
+// Grid (m stripes, column splits, E).  A block owns one 64-row stripe of one
+// client, stages its U rows once, and walks its range of columns in 64 x 64
+// residual tiles.  From each tile, with R_W = W * R and Psi = clip(R_W,
+// +-lam):
+//   out_u[e, i, :] = sum_j Psi[i, j] V[j, :]   over the block's columns, in
+//                                              its registers (always);
 //   WITH_DIAG  the block's share of H_lam(R_W) and ||Psi||^2, written as
-//              per-block partials and summed in order by a second launch;
-//   WITH_V     the stripe's (32-column x r) share of Psi^T U for each column
-//              tile, written to a partial plane (stripes, E, n, r) and
-//              summed over the stripes in index order by a second launch.
-// The three flavours share every accumulation of out_u, so huber_contract_u
-// (fused="off") and huber_contract_u_diag (fused="diag") give the same bits,
-// and huber_dual_contract's out_u, obj and psi2 are those of u_diag.
+//              per-block partials;
+//   WITH_V     the stripe's (64-column x r) share of Psi^T U for each column
+//              tile, written to a partial plane (stripes, E, n, r).
+// One second launch adds the partials in index order (reduce.cuh): out_u
+// over the column splits (none with one split: out_u is written directly),
+// out_v over the stripes, the scalars over the blocks.  No atomics.  The three
+// flavours share the splits (kernels/huber_contract.py::u_splits, from the
+// shape and SM count alone) and every accumulation of out_u, obj and psi2,
+// so huber_contract_u (fused="off") and huber_contract_u_diag
+// (fused="diag") give the same bits, and huber_dual_contract's out_u, obj
+// and psi2 are those of u_diag.
 //
-// What bounds them on an H100: arithmetic (4r FLOP per entry, 6r for the
-// dual, against 2-4 bytes of M and 1/8-4 of W).  The dual kernel computes
-// U V^T once per tile for both contractions, 6 E m n r FLOP against 8 for a
-// v pass plus a u_diag pass; its price is the partial plane, (m / 32) E n r
-// floats written once and read once (33.5 MB at E = 4, m = 2048, n = 512,
-// r = 64), since blocks on the card run in no order and no fp32 atomics are
-// used.
+// What bounds them on an H100: fp32 arithmetic, 4r FLOP per residual entry
+// (6r in the dual) against 2-4 bytes of M and 1/8-4 of W, far right of the
+// fp32 ridge (~20 FLOP/byte).  The CUDA cores issue one FMA instruction a
+// clock per SM sub-partition, so the loops must issue little else and the
+// card must be full.  No tensor cores and no TF32: the solver's recovery
+// bar needs full fp32.  The design:
+//   - the column axis is split into ranges of whole 64-column tiles, so
+//     that (stripes x splits x E) blocks fill 132 SMs even at E = 1;
+//   - U V^T is tile64.cuh's 4 x 4 patch a thread (8 float4 loads for 64
+//     FMAs per 4 ranks, shared with contract_v.cu); each thread's M (and W)
+//     entries are loaded before it, so their latency hides under it;
+//   - Psi is stored transposed (Psi^T, row stride 68: the patch stores and
+//     both contractions' float2 reads are free of bank conflicts);
+//   - Psi V: each thread owns 2 rows x RQ rank groups of 4: per tile column
+//     one float2 of Psi^T and RQ float4 of V for 8 RQ FMAs;
+//   - Psi^T U (WITH_V): each thread owns 2 columns x RQ rank groups of 4:
+//     per two tile rows two float2 of Psi^T and 2 RQ float4 of U for 16 RQ
+//     FMAs;
+//   - V tiles come through a two-stage cp.async ring (the next tile loads
+//     under this tile's FMAs) and two blocks share an SM where shared
+//     memory and registers allow both (r <= 96); at 96 < r <= 160 the u
+//     flavours run two blocks with one V stage (the next tile loads behind
+//     a barrier, under the other block's FMAs: faster than one block with
+//     two stages); elsewhere one block with two stages.
+// The rank loop of U V^T stops at r rounded up to 4; the contractions'
+// register blocks cover 32 RQ ranks.  The dual's out_v partial plane is
+// (m / 64) E n r floats, written once and read once.
 #pragma once
 
 #include "reduce.cuh"
 #include "tile.cuh"
+#include "tile64.cuh"
 
 namespace repro {
 
+constexpr int kPsiTLd = kT64 + 4;  // row stride of Psi^T
+
+// Dynamic shared memory of a stripe block: the U stripe, STAGES V tiles,
+// Psi^T.
+template <int RQ, int STAGES>
+__host__ __device__ constexpr size_t stripe_smem_bytes() {
+  return sizeof(float) *
+         ((1 + STAGES) * kT64 * ld64<RQ>() + kT64 * kPsiTLd);
+}
+
+// Two blocks share an SM where both fit its shared memory with one V stage
+// (r <= 160) and its registers (128 a thread): the dual's two register
+// blocks of 8 RQ floats fit beside the rest only up to RQ = 3 (r <= 96).
+template <int RQ, bool WITH_V>
+__host__ __device__ constexpr bool stripe_two_blocks() {
+  return two_blocks_fit(stripe_smem_bytes<RQ, 1>()) && (!WITH_V || RQ <= 3);
+}
+
+// Two V stages wherever they fit beside the blocks an SM holds; one where a
+// second stage would cost the second block (r 97-160 without out_v).
+template <int RQ, bool WITH_V>
+__host__ __device__ constexpr int stripe_stages() {
+  return (!stripe_two_blocks<RQ, WITH_V>() ||
+          two_blocks_fit(stripe_smem_bytes<RQ, 2>()))
+             ? 2
+             : 1;
+}
+
 template <int RQ, typename TM, int MASK, bool WITH_DIAG, bool WITH_V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kT64Threads,
+                                  stripe_two_blocks<RQ, WITH_V>() ? 2 : 1)
 stripe_kernel(const float* __restrict__ u, const float* __restrict__ v,
               const TM* __restrict__ m, const void* __restrict__ w,
               const float* __restrict__ lam, float* __restrict__ out_u,
               float* __restrict__ diag_partial,
-              float* __restrict__ v_partial, int E, int M, int N, int r) {
-  constexpr int LD = factor_ld<RQ>();
+              float* __restrict__ v_partial, int E, int M, int N, int r,
+              int cols_per_split) {
+  constexpr int LD = ld64<RQ>();
+  constexpr int STAGES = stripe_stages<RQ, WITH_V>();
   extern __shared__ float4 smem4[];
-  float* Ps = reinterpret_cast<float*>(smem4);  // 32 x 32, 16-byte aligned
-  float* Us = Ps + kTile * kTile;
-  float* Vs = Us + kTile * LD;
+  float* Us = reinterpret_cast<float*>(smem4);  // kT64 x LD
+  float* Vring = Us + kT64 * LD;                // STAGES x kT64 x LD
+  float* PsT = Vring + STAGES * kT64 * LD;      // kT64 x kPsiTLd
 
-  const int e = blockIdx.y;
-  const int i0 = blockIdx.x * kTile;
+  const int stripe = blockIdx.x, split = blockIdx.y, e = blockIdx.z;
+  const int i0 = stripe * kT64;
+  const int col_begin = split * cols_per_split;
+  const int col_end = min(N, col_begin + cols_per_split);
   const float* ue = u + static_cast<size_t>(e) * M * r;
   const float* ve = v + static_cast<size_t>(e) * N * r;
   const ClientPlanes<TM, MASK> planes(m, w, e, M, N);
   const float lam_e = lam[e];
   const float half_lam2 = 0.5f * lam_e * lam_e;
 
-  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // U V^T patch: rows ti + 16 a, columns tj + 16 b; a warp is 4 x 8 threads.
+  const int ti = (warp >> 1) * 4 + (lane >> 3);
+  const int tj = (warp & 1) * 8 + (lane & 7);
+  // Contraction blocks: rows (Psi V) or columns (Psi^T U) 2 cr + c, rank
+  // groups ck + 8 q.
+  const int cr = warp * 4 + (lane >> 3);
+  const int ck = lane & 7;
+  const int r4 = (r + 3) / 4;
 
-  stage_rows<RQ>(Us, ue, i0, M, r);
-  float acc[4][RQ];
+  stage_async<RQ>(Us, ue, i0, M, r);
+  stage_async<RQ>(Vring, ve, col_begin, N, r);
+  cp_async_commit();
+
+  float acc[2][RQ][4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < 2; ++c)
 #pragma unroll
-    for (int q = 0; q < RQ; ++q) acc[c][q] = 0.f;
+    for (int q = 0; q < RQ; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) acc[c][q][s] = 0.f;
   float obj = 0.f, psi2 = 0.f;
 
-  for (int j0 = 0; j0 < N; j0 += kTile) {
-    stage_rows<RQ>(Vs, ve, j0, N, r);
+  int t = 0;
+  for (int j0 = col_begin; j0 < col_end; j0 += kT64, ++t) {
+    float* Vs = Vring + (STAGES == 2 ? (t & 1) : 0) * kT64 * LD;
+    const bool more = j0 + kT64 < col_end;
+    // This thread's M (and W) entries, loaded before the wait and the FMAs
+    // that hide their latency.
+    float x[4][4], wt[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        planes.load(i0 + ti + 16 * a, j0 + tj + 16 * b, x[a][b], wt[a][b]);
+    // The only copies in flight are this tile's V (and, on the first tile,
+    // U).  The barrier also ends the last tile: nobody reads its Psi^T or
+    // its V stage any more.
+    cp_async_wait_all();
     __syncthreads();
+    if (STAGES == 2 && more) {
+      stage_async<RQ>(Vring + ((t + 1) & 1) * kT64 * LD, ve, j0 + kT64, N,
+                      r);
+      cp_async_commit();
+    }
 
-    float low[2][2];
-    low_rank_patch<RQ>(Us, Vs, r, low);
+    float low[4][4];
+    patch44<RQ>(Us, Vs, ti, tj, r4, low);
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
+    for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        float x, wt;
-        planes.load(i0 + 2 * ti + a, j0 + 2 * tj + b, x, wt);
-        const float rw = apply_mask<MASK>(wt, x - low[a][b]);
+      for (int b = 0; b < 4; ++b) {
+        const float rw = apply_mask<MASK>(wt[a][b], x[a][b] - low[a][b]);
         const float psi = clip(rw, lam_e);
         if (WITH_DIAG) {
           const float ab = fabsf(rw);
           obj += (ab <= lam_e) ? 0.5f * rw * rw : lam_e * ab - half_lam2;
           psi2 = fmaf(psi, psi, psi2);
         }
-        Ps[(2 * ti + a) * kTile + 2 * tj + b] = psi;
+        PsT[(tj + 16 * b) * kPsiTLd + ti + 16 * a] = psi;
       }
     __syncthreads();
 
-    // acc[c][q] += sum_jj Psi[4 ty + c, jj] * V[jj, tx + 32 q]
-    for (int jj = 0; jj < kTile; ++jj) {
-      const float p0 = Ps[(4 * ty + 0) * kTile + jj];
-      const float p1 = Ps[(4 * ty + 1) * kTile + jj];
-      const float p2 = Ps[(4 * ty + 2) * kTile + jj];
-      const float p3 = Ps[(4 * ty + 3) * kTile + jj];
+    // acc[c][q] += sum_jj Psi[2 cr + c, jj] * V[jj, 4 (ck + 8 q) .. + 3]
+    for (int jj = 0; jj < kT64; ++jj) {
+      const float2 p =
+          *reinterpret_cast<const float2*>(PsT + jj * kPsiTLd + 2 * cr);
       const float* vrow = Vs + jj * LD;
 #pragma unroll
       for (int q = 0; q < RQ; ++q) {
-        const float vq = vrow[tx + 32 * q];
-        acc[0][q] = fmaf(p0, vq, acc[0][q]);
-        acc[1][q] = fmaf(p1, vq, acc[1][q]);
-        acc[2][q] = fmaf(p2, vq, acc[2][q]);
-        acc[3][q] = fmaf(p3, vq, acc[3][q]);
+        const float4 vq =
+            *reinterpret_cast<const float4*>(vrow + 4 * (ck + 8 * q));
+        acc[0][q][0] = fmaf(p.x, vq.x, acc[0][q][0]);
+        acc[0][q][1] = fmaf(p.x, vq.y, acc[0][q][1]);
+        acc[0][q][2] = fmaf(p.x, vq.z, acc[0][q][2]);
+        acc[0][q][3] = fmaf(p.x, vq.w, acc[0][q][3]);
+        acc[1][q][0] = fmaf(p.y, vq.x, acc[1][q][0]);
+        acc[1][q][1] = fmaf(p.y, vq.y, acc[1][q][1]);
+        acc[1][q][2] = fmaf(p.y, vq.z, acc[1][q][2]);
+        acc[1][q][3] = fmaf(p.y, vq.w, acc[1][q][3]);
       }
+    }
+    if (STAGES == 1 && more) {
+      __syncthreads();  // nobody reads this V tile any more
+      stage_async<RQ>(Vs, ve, j0 + kT64, N, r);
+      cp_async_commit();
     }
 
     if (WITH_V) {
-      // pv[c][q] = sum_ii Psi[ii, 4 ty + c] * U[ii, tx + 32 q]: this
-      // stripe's share of out_v for the tile's 32 columns.
-      float pv[4][RQ];
+      // pv[c][q] = sum_ii Psi[ii, 2 cr + c] * U[ii, 4 (ck + 8 q) .. + 3]:
+      // this stripe's share of out_v for the tile's 64 columns.
+      float pv[2][RQ][4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < 2; ++c)
 #pragma unroll
-        for (int q = 0; q < RQ; ++q) pv[c][q] = 0.f;
-      for (int ii = 0; ii < kTile; ++ii) {
-        const float4 p = reinterpret_cast<const float4*>(Ps + ii * kTile)[ty];
-        const float* urow = Us + ii * LD;
+        for (int q = 0; q < RQ; ++q)
 #pragma unroll
-        for (int q = 0; q < RQ; ++q) {
-          const float uq = urow[tx + 32 * q];
-          pv[0][q] = fmaf(p.x, uq, pv[0][q]);
-          pv[1][q] = fmaf(p.y, uq, pv[1][q]);
-          pv[2][q] = fmaf(p.z, uq, pv[2][q]);
-          pv[3][q] = fmaf(p.w, uq, pv[3][q]);
+          for (int s = 0; s < 4; ++s) pv[c][q][s] = 0.f;
+      const float* p0row = PsT + (2 * cr) * kPsiTLd;
+      const float* p1row = p0row + kPsiTLd;
+      for (int ii = 0; ii < kT64; ii += 2) {
+        const float2 p0 = *reinterpret_cast<const float2*>(p0row + ii);
+        const float2 p1 = *reinterpret_cast<const float2*>(p1row + ii);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float a0 = h ? p0.y : p0.x;
+          const float a1 = h ? p1.y : p1.x;
+          const float* urow = Us + (ii + h) * LD;
+#pragma unroll
+          for (int q = 0; q < RQ; ++q) {
+            const float4 uq =
+                *reinterpret_cast<const float4*>(urow + 4 * (ck + 8 * q));
+            pv[0][q][0] = fmaf(a0, uq.x, pv[0][q][0]);
+            pv[0][q][1] = fmaf(a0, uq.y, pv[0][q][1]);
+            pv[0][q][2] = fmaf(a0, uq.z, pv[0][q][2]);
+            pv[0][q][3] = fmaf(a0, uq.w, pv[0][q][3]);
+            pv[1][q][0] = fmaf(a1, uq.x, pv[1][q][0]);
+            pv[1][q][1] = fmaf(a1, uq.y, pv[1][q][1]);
+            pv[1][q][2] = fmaf(a1, uq.z, pv[1][q][2]);
+            pv[1][q][3] = fmaf(a1, uq.w, pv[1][q][3]);
+          }
         }
       }
-      float* dst = v_partial + (static_cast<size_t>(blockIdx.x) * E + e) * N * r;
+      float* dst = v_partial + (static_cast<size_t>(stripe) * E + e) * N * r;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = j0 + 4 * ty + c;
+      for (int c = 0; c < 2; ++c) {
+        const int j = j0 + 2 * cr + c;
         if (j >= N) continue;
 #pragma unroll
-        for (int q = 0; q < RQ; ++q) {
-          const int k = tx + 32 * q;
-          if (k < r) dst[static_cast<size_t>(j) * r + k] = pv[c][q];
-        }
+        for (int q = 0; q < RQ; ++q)
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int k = 4 * (ck + 8 * q) + s;
+            if (k < r) dst[static_cast<size_t>(j) * r + k] = pv[c][q][s];
+          }
       }
     }
-    __syncthreads();
   }
 
-  float* dst = out_u + static_cast<size_t>(e) * M * r;
+  // out_u itself with one split, else this split's partial plane.
+  float* dst = out_u + (static_cast<size_t>(split) * E + e) * M * r;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int i = i0 + 4 * ty + c;
+  for (int c = 0; c < 2; ++c) {
+    const int i = i0 + 2 * cr + c;
     if (i >= M) continue;
 #pragma unroll
-    for (int q = 0; q < RQ; ++q) {
-      const int k = tx + 32 * q;
-      if (k < r) dst[static_cast<size_t>(i) * r + k] = acc[c][q];
-    }
+    for (int q = 0; q < RQ; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int k = 4 * (ck + 8 * q) + s;
+        if (k < r) dst[static_cast<size_t>(i) * r + k] = acc[c][q][s];
+      }
   }
 
   if (WITH_DIAG) {
-    // Block sum of the two scalars: a fixed tree over the 256 threads.
-    __shared__ float red[2][kThreads];
-    red[0][threadIdx.x] = obj;
-    red[1][threadIdx.x] = psi2;
+    // Block sum of the two scalars: a fixed tree over the 256 threads, in
+    // the Psi^T tile once every thread is done with it.
+    float* red = PsT;
     __syncthreads();
-    for (int s = kThreads / 2; s > 0; s >>= 1) {
+    red[threadIdx.x] = obj;
+    red[kT64Threads + threadIdx.x] = psi2;
+    __syncthreads();
+    for (int s = kT64Threads / 2; s > 0; s >>= 1) {
       if (threadIdx.x < s) {
-        red[0][threadIdx.x] += red[0][threadIdx.x + s];
-        red[1][threadIdx.x] += red[1][threadIdx.x + s];
+        red[threadIdx.x] += red[threadIdx.x + s];
+        red[kT64Threads + threadIdx.x] += red[kT64Threads + threadIdx.x + s];
       }
       __syncthreads();
     }
     if (threadIdx.x == 0) {
-      const int tiles = gridDim.x;
-      diag_partial[static_cast<size_t>(e) * tiles + blockIdx.x] = red[0][0];
-      diag_partial[static_cast<size_t>(E + e) * tiles + blockIdx.x] = red[1][0];
+      const int blocks = gridDim.x * gridDim.y;  // per client
+      const int b = stripe * gridDim.y + split;
+      diag_partial[static_cast<size_t>(e) * blocks + b] = red[0];
+      diag_partial[static_cast<size_t>(E + e) * blocks + b] =
+          red[kT64Threads];
     }
   }
 }
 
-// Number of 32-row stripes: the grid's x extent and the number of partials
-// per client (diag_partial holds 2 * E * stripes floats, v_partial
-// stripes * E * N * r).
-inline int stripes(int M) { return (M + kTile - 1) / kTile; }
+// Number of 64-row stripes: the grid's x extent.  diag_partial holds
+// 2 E stripes splits floats, u_partial splits E M r (when splits > 1),
+// v_partial stripes E N r.
+inline int stripes(int M) { return (M + kT64 - 1) / kT64; }
 
-// The stripe kernel, then the fixed-order sums of its partials: out_v from
-// v_partial (WITH_V), obj and psi2 from diag_partial (WITH_DIAG).
+// The stripe kernel, then one launch of the fixed-order sums of its
+// partials: out_u from u_partial (splits > 1), out_v from v_partial
+// (WITH_V), obj and psi2 from diag_partial (WITH_DIAG).  The splits'
+// column ranges are whole 64-column tiles, none empty.
 template <int RQ, typename TM, int MASK, bool WITH_DIAG, bool WITH_V>
 cudaError_t launch_stripe(const float* u, const float* v, const TM* m,
                           const void* w, const float* lam, float* out_u,
                           float* out_v, float* obj, float* psi2,
-                          float* diag_partial, float* v_partial, int E, int M,
-                          int N, int r, cudaStream_t stream) {
+                          float* diag_partial, float* u_partial,
+                          float* v_partial, int E, int M, int N, int r,
+                          int splits, int cols_per_split,
+                          cudaStream_t stream) {
+  if (splits < 1 || cols_per_split % kT64 != 0 ||
+      (splits - 1) * cols_per_split >= N ||
+      static_cast<long long>(splits) * cols_per_split < N)
+    return cudaErrorInvalidValue;
   auto kernel = stripe_kernel<RQ, TM, MASK, WITH_DIAG, WITH_V>;
-  const size_t smem = smem_bytes<RQ>();
+  const size_t smem = stripe_smem_bytes<RQ, stripe_stages<RQ, WITH_V>()>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int tiles = stripes(M);
-  kernel<<<dim3(tiles, E), kThreads, smem, stream>>>(
-      u, v, m, w, lam, out_u, diag_partial, v_partial, E, M, N, r);
+  kernel<<<dim3(tiles, splits, E), kT64Threads, smem, stream>>>(
+      u, v, m, w, lam, splits == 1 ? out_u : u_partial, diag_partial,
+      v_partial, E, M, N, r, cols_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (WITH_V) {
-    err = launch_sum_splits(v_partial, out_v, static_cast<size_t>(E) * N * r,
-                            tiles, stream);
-    if (err != cudaSuccess) return err;
+  // One launch of the fixed-order sums that this flavour needs.
+  SumJobs jobs{};
+  if (splits > 1)
+    jobs.job[jobs.n++] = sum_over_splits(
+        u_partial, out_u, static_cast<size_t>(E) * M * r, splits);
+  if (WITH_V)
+    jobs.job[jobs.n++] = sum_over_splits(
+        v_partial, out_v, static_cast<size_t>(E) * N * r, tiles);
+  if (WITH_DIAG) {
+    // diag_partial: (2, E, blocks) with blocks = tiles * splits a client.
+    const size_t blocks = static_cast<size_t>(tiles) * splits;
+    jobs.job[jobs.n++] = SumJob{diag_partial, obj, static_cast<size_t>(E),
+                                blocks, 1, static_cast<int>(blocks)};
+    jobs.job[jobs.n++] = SumJob{diag_partial + E * blocks, psi2,
+                                static_cast<size_t>(E), blocks, 1,
+                                static_cast<int>(blocks)};
   }
-  if (WITH_DIAG) err = launch_sum_diag(diag_partial, obj, psi2, E, tiles, stream);
+  if (jobs.n > 0) err = launch_sums(jobs, stream);
   return err;
 }
 

@@ -1,14 +1,16 @@
-// Shared pieces of the Huber-residual kernels: one 32 x 32 residual tile
-// R = M - U V^T computed on the CUDA cores in full fp32.
+// Shared pieces of the Huber-residual kernels: how M and W are read, the
+// mask modes and the dispatch from runtime codes to template instances,
+// for every kernel in this directory; and the 32 x 32 residual tile
+// R = M - U V^T of the shrink (shrink.cu), computed on the CUDA cores in
+// full fp32 (the contractions take 64 x 64 tiles: tile64.cuh).
 //
-// Every kernel in this directory is built from the same three steps:
+// The shrink's tile is built in three steps:
 //   1. stage a 32-row slice of U and of V (all r columns, zero-padded up to
 //      a multiple of 32) in shared memory;
 //   2. each of the 256 threads computes a 2 x 2 patch of U V^T with fp32 FMAs
 //      over k = 0 .. r-1 in order, and reads its M (and W) entries from
 //      device memory;
-//   3. a kernel-specific epilogue (clip, Huber loss, soft threshold) and, for
-//      the contractions, a second small product against the staged factor.
+//   3. the epilogue (soft threshold, and Psi in the psi mode).
 // Zero-padding is exact: a padded row of U or V gives U V^T = 0 and a padded
 // entry of M reads as 0, so every padded residual, Psi and S is 0.
 //
@@ -47,13 +49,6 @@ __host__ __device__ constexpr int packed_width(int n) { return (n + 7) / 8; }
 // shared-memory banks.
 template <int RQ>
 __host__ __device__ constexpr int factor_ld() { return 32 * RQ + 1; }
-
-// Dynamic shared memory of one contraction block: the Psi tile, then the
-// staged U slice and the staged V slice.
-template <int RQ>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(float) * (kTile * kTile + 2 * kTile * factor_ld<RQ>());
-}
 
 // Stage rows [row0, row0 + 32) of a (nrows, r) row-major factor into dst
 // (32 x factor_ld<RQ>()), writing zeros past nrows and past r.

@@ -1,0 +1,121 @@
+// Shared pieces of the 64 x 64 fp32 residual-tile kernels on the CUDA cores
+// (contract_v.cu and stripe.cuh): factor slices staged by cp.async, and the
+// 4 x 4 U V^T patch each of a block's 256 threads computes.
+//
+// A staged slice holds 64 factor rows row-major, the rank axis padded with
+// zeros to 32 RQ and the row stride 32 RQ + 4 floats (an odd number of
+// 16-byte groups), so that the products read it as float4 along the rank
+// axis without bank conflicts.  Zero padding is exact: a padded row or rank
+// adds nothing to U V^T.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace repro {
+
+constexpr int kT64 = 64;          // rows and columns of one residual tile
+constexpr int kT64Threads = 256;  // threads a block (8 warps)
+
+// Row stride (floats) of a staged factor slice.
+template <int RQ>
+__host__ __device__ constexpr int ld64() { return 32 * RQ + 4; }
+
+// Whether two blocks of `bytes` dynamic shared memory each fit one SM
+// (228 KB, of which every block reserves 1 KB).
+__host__ __device__ constexpr bool two_blocks_fit(size_t bytes) {
+  return 2 * (bytes + 1024) <= 233472;
+}
+
+// BYTES (4, 8 or 16) global -> shared; zeros when !valid (src is then not
+// read).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stage rows [row0, row0 + 64) of a (nrows, r) row-major factor into dst
+// (64 x ld64<RQ>()) asynchronously in pieces of BYTES (r a multiple of
+// BYTES / 4), zeros past nrows and past r.
+template <int RQ, int BYTES>
+__device__ __forceinline__ void stage_pieces(float* dst, const float* src,
+                                             int row0, int nrows, int r) {
+  constexpr int W = BYTES / 4;  // floats a piece
+  constexpr int RP = 32 * RQ / W;
+  constexpr int LD = ld64<RQ>();
+  for (int idx = threadIdx.x; idx < kT64 * RP; idx += kT64Threads) {
+    const int ii = idx / RP;
+    const int k = (idx - ii * RP) * W;
+    const int row = row0 + ii;
+    const bool ok = row < nrows && k < r;
+    cp_async<BYTES>(dst + ii * LD + k,
+                    ok ? src + static_cast<size_t>(row) * r + k : src, ok);
+  }
+}
+
+// The widest pieces that the rank and the factor's address allow: its rows
+// are 16-byte aligned when r % 4 == 0 (8-byte when r is even) and the
+// factor itself is.
+template <int RQ>
+__device__ __forceinline__ void stage_async(float* dst, const float* src,
+                                            int row0, int nrows, int r) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
+  if (r % 4 == 0 && at % 16 == 0)
+    stage_pieces<RQ, 16>(dst, src, row0, nrows, r);
+  else if (r % 2 == 0 && at % 8 == 0)
+    stage_pieces<RQ, 8>(dst, src, row0, nrows, r);
+  else
+    stage_pieces<RQ, 4>(dst, src, row0, nrows, r);
+}
+
+// This thread's 4 x 4 patch of Us Vs^T: rows ti + 16 a of the U slice
+// against rows tj + 16 b of the V slice, summed over k = 0 .. 4 r4 - 1 in
+// order.  Per 4 ranks 8 float4 loads feed 64 FMAs; with ti = (warp / 2) * 4
+// + lane / 8 and tj = (warp % 2) * 8 + lane % 8, a warp reads 4 distinct U
+// rows and 8 distinct V rows.
+template <int RQ>
+__device__ __forceinline__ void patch44(const float* Us, const float* Vs,
+                                        int ti, int tj, int r4,
+                                        float low[4][4]) {
+  constexpr int LD = ld64<RQ>();
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) low[a][b] = 0.f;
+  for (int kq = 0; kq < r4; ++kq) {
+    float4 ua[4], vb[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      ua[a] = *reinterpret_cast<const float4*>(Us + (ti + 16 * a) * LD +
+                                               4 * kq);
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      vb[b] = *reinterpret_cast<const float4*>(Vs + (tj + 16 * b) * LD +
+                                               4 * kq);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        float l = low[a][b];
+        l = fmaf(ua[a].x, vb[b].x, l);
+        l = fmaf(ua[a].y, vb[b].y, l);
+        l = fmaf(ua[a].z, vb[b].z, l);
+        l = fmaf(ua[a].w, vb[b].w, l);
+        low[a][b] = l;
+      }
+  }
+}
+
+}  // namespace repro

@@ -17,7 +17,8 @@ import torch
 
 #: Largest factor rank the kernels take (r <= 32 * 8).
 MAX_RANK = 256
-#: Rows and columns of one kernel tile (``kTile`` in ``csrc/tile.cuh``).
+#: Rows and columns of one shrink tile (``kTile`` in ``csrc/tile.cuh``;
+#: the contractions take 64 x 64 tiles).
 TILE = 32
 #: Codes of M's data type and of the mask mode (``DType`` and ``MaskMode``
 #: in ``csrc/tile.cuh``).

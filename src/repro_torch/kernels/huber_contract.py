@@ -37,7 +37,9 @@ FLOP (6r in the dual) against at most 8 bytes.  They read M once, keep each
 residual tile in shared memory, and spend the rest on register-blocked FMA
 loops.  ``lam`` is a device tensor of shape (E,), so the solver loop never
 reads a value back to the host.  The launches are deterministic (no
-atomics): sums across blocks go through partials added in index order.
+atomics): sums across blocks go through partials added in index order,
+and the splits of a reduction across blocks (``v_splits``, ``u_splits``)
+are pure functions of the shape and the SM count.
 ``huber_contract_u`` is ``huber_contract_u_diag`` with the diagnostics
 compiled out (the same ``Psi V`` bits), and ``huber_dual_contract`` always
 runs its one fused pass: there is no two-pass route.
@@ -54,7 +56,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._launch import (
-    MASK_SUFFIX, TILE, check_operands, launch, on_cpu, signature,
+    MASK_SUFFIX, check_operands, launch, on_cpu, signature,
 )
 
 #: Kernel launches per function and mask mode (CUDA tensors only).
@@ -66,13 +68,13 @@ launches = {
 }
 
 # source stem -> (C entry, extra pointers, extra ints): the pointers after
-# u, v, m, w, lam are the outputs and scratch; contract_v's ints are
-# (splits, rows per split).
+# u, v, m, w, lam are the outputs and scratch; the ints are (splits, rows
+# per split) for contract_v, (splits, columns per split) for the others.
 _ENTRIES = {
     "contract_v": ("repro_huber_contract_v", 2, 2),
-    "contract_u": ("repro_huber_contract_u", 1, 0),
-    "contract_u_diag": ("repro_huber_contract_u_diag", 4, 0),
-    "dual": ("repro_huber_dual_contract", 6, 0),
+    "contract_u": ("repro_huber_contract_u", 2, 2),
+    "contract_u_diag": ("repro_huber_contract_u_diag", 5, 2),
+    "dual": ("repro_huber_dual_contract", 7, 2),
 }
 
 
@@ -87,6 +89,27 @@ def _call(stem: str, base: str, op, u, v, m, w, lam, *outputs,
 #: Rows and columns of one ``huber_contract_v`` residual tile (``kVRows``
 #: and ``kVCols`` in ``csrc/contract_v.cu``).
 V_TILE_ROWS = V_TILE_COLS = 64
+#: Rows of one stripe and columns of one residual tile of the row-stripe
+#: kernels ``huber_contract_u``, ``huber_contract_u_diag`` and
+#: ``huber_dual_contract`` (``kT64`` in ``csrc/stripe.cuh``).
+U_TILE_ROWS = U_TILE_COLS = 64
+
+
+def _splits(blocks: int, tiles: int, sms: int) -> tuple[int, int]:
+    """``(splits, tiles_per_split)`` of a reduction over ``tiles`` tiles
+    for a grid of ``blocks`` x splits blocks, two resident on an SM.  A
+    split count is costed as ``ceil(blocks * splits / (2 sms))`` waves,
+    each as long as a block's tiles plus one (staging, writing the
+    partials); the cheapest wins, and among equals the fewest splits (the
+    least partial traffic)."""
+    best = None
+    for want in range(1, tiles + 1):
+        per = -(-tiles // want)
+        splits = -(-tiles // per)
+        cost = -(-blocks * splits // (2 * sms)) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
 
 
 @functools.lru_cache(maxsize=1024)
@@ -96,22 +119,30 @@ def v_splits(e: int, m: int, n: int, sms: int) -> tuple[int, int]:
     number of 64-row tiles, none empty, together exactly the m rows.
 
     The grid is (column tiles x splits x clients) blocks, two resident on
-    an SM (``csrc/contract_v.cu`` at r <= 160).  A split count is costed as
-    ``ceil(blocks / (2 sms))`` waves, each as long as a block's tiles plus
-    one (staging V, writing the partials); the cheapest wins, and among
-    equals the fewest splits (the least partial traffic).  A pure function
-    of the shape and the SM count, so a launch is the same on every run of
-    one card."""
-    m_tiles = -(-m // V_TILE_ROWS)
-    blocks = e * -(-n // V_TILE_COLS)
-    best = None
-    for want in range(1, m_tiles + 1):
-        per = -(-m_tiles // want)
-        splits = -(-m_tiles // per)
-        cost = -(-blocks * splits // (2 * sms)) * (per + 1)
-        if best is None or cost < best[0]:
-            best = (cost, splits, per)
-    return best[1], best[2] * V_TILE_ROWS
+    an SM (``csrc/contract_v.cu`` at r <= 160), costed by :func:`_splits`.
+    A pure function of the shape and the SM count, so a launch is the same
+    on every run of one card."""
+    splits, per = _splits(e * -(-n // V_TILE_COLS), -(-m // V_TILE_ROWS),
+                          sms)
+    return splits, per * V_TILE_ROWS
+
+
+@functools.lru_cache(maxsize=1024)
+def u_splits(e: int, m: int, n: int, sms: int) -> tuple[int, int]:
+    """``(splits, cols_per_split)`` of the n reduction in the row-stripe
+    kernels (``huber_contract_u``, ``huber_contract_u_diag``,
+    ``huber_dual_contract``) on a card with ``sms`` SMs: every range a
+    whole number of 64-column tiles, none empty, together exactly the n
+    columns.
+
+    The grid is (64-row stripes x splits x clients) blocks, costed by
+    :func:`_splits`; at E = 1 the splits fill the card (one client's
+    3000 rows are 47 stripes).  A pure function of the shape and the SM
+    count, and the three kernels take the same splits, so they share every
+    sum of ``Psi V`` and of the diagnostics bit for bit."""
+    splits, per = _splits(e * -(-m // U_TILE_ROWS), -(-n // U_TILE_COLS),
+                          sms)
+    return splits, per * U_TILE_COLS
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,13 +180,30 @@ def huber_contract_u_plain(u, v, m, lam, w=None) -> torch.Tensor:
     return ref.huber_contract_u_masked(u, v, m, w, lam)
 
 
+def _u_scratch(op, device) -> tuple[tuple[int, int], torch.Tensor | None]:
+    """The column splits of a row-stripe launch and the (splits, E, m, r)
+    partial planes of out_u they need (none with one split)."""
+    splits, cols = u_splits(op.e, op.m, op.n, _sm_count(device))
+    partial = None if splits == 1 else _f32(splits, op.e, op.m, op.r,
+                                            device=device)
+    return (splits, cols), partial
+
+
+def _diag_partial(op, splits: int, device) -> torch.Tensor:
+    """Per-block partials of the two diagnostics: 2 x E x stripes x
+    splits."""
+    return _f32(2 * op.e * -(-op.m // U_TILE_ROWS) * splits, device=device)
+
+
 def huber_contract_u(u, v, m, lam, w=None) -> torch.Tensor:
     """``Psi V`` (E, m, r); masked when ``w`` is given."""
     if on_cpu(u):
         return huber_contract_u_plain(u, v, m, lam, w)
     op = check_operands(u, v, m, lam, w)
     out_u = _f32(op.e, op.m, op.r, device=u.device)
-    _call("contract_u", "huber_contract_u", op, u, v, m, w, lam, out_u)
+    ints, u_partial = _u_scratch(op, u.device)
+    _call("contract_u", "huber_contract_u", op, u, v, m, w, lam, out_u,
+          u_partial, ints=ints)
     return out_u
 
 
@@ -174,9 +222,10 @@ def huber_contract_u_diag(u, v, m, lam, w=None):
     dev = u.device
     out_u = _f32(op.e, op.m, op.r, device=dev)
     diag = _f32(2, op.e, device=dev)
-    partial = _f32(2 * op.e * -(-op.m // TILE), device=dev)
+    ints, u_partial = _u_scratch(op, dev)
     _call("contract_u_diag", "huber_contract_u_diag", op, u, v, m, w, lam,
-          out_u, diag[0], diag[1], partial)
+          out_u, diag[0], diag[1], _diag_partial(op, ints[0], dev),
+          u_partial, ints=ints)
     return out_u, diag[0], diag[1]
 
 
@@ -188,8 +237,8 @@ def huber_dual_contract_plain(u, v, m, lam, w=None):
 
 def dual_partial_shape(e: int, m: int, n: int, r: int) -> tuple[int, ...]:
     """The (stripes, E, n, r) fp32 scratch of ``huber_dual_contract``'s
-    out_v partials: one (n, r) plane per client and 32-row stripe."""
-    return (-(-m // TILE), e, n, r)
+    out_v partials: one (n, r) plane per client and 64-row stripe."""
+    return (-(-m // U_TILE_ROWS), e, n, r)
 
 
 def huber_dual_contract(u, v, m, lam, w=None):
@@ -202,9 +251,10 @@ def huber_dual_contract(u, v, m, lam, w=None):
     out_v = _f32(op.e, op.n, op.r, device=dev)
     out_u = _f32(op.e, op.m, op.r, device=dev)
     diag = _f32(2, op.e, device=dev)
-    diag_partial = _f32(2 * op.e * -(-op.m // TILE), device=dev)
+    ints, u_partial = _u_scratch(op, dev)
     v_partial = _f32(*dual_partial_shape(op.e, op.m, op.n, op.r),
                      device=dev)
     _call("dual", "huber_dual_contract", op, u, v, m, w, lam, out_v, out_u,
-          diag[0], diag[1], diag_partial, v_partial)
+          diag[0], diag[1], _diag_partial(op, ints[0], dev), u_partial,
+          v_partial, ints=ints)
     return out_v, out_u, diag[0], diag[1]

@@ -9,10 +9,14 @@ the two trees in turns in one session on one card to compare them.  Rows:
 ``flash_attention`` bf16 at the serving shape (A) and fp32 at three small
 shapes (s, a, x); ``huber_contract_v`` at the Fig. 1 client blocks (F), the
 one-client plane (C), the compact-plane blocks in fp32 with a dense mask
-(D) and in bf16 with a packed mask (D16).  Each row gives the CUDA-event
+(D) and in bf16 with a packed mask (D16); the row-stripe kernels
+``huber_contract_u_diag`` at F, C and D16, ``huber_dual_contract`` at D and
+D16, and ``huber_contract_u`` at F.  Each row gives the CUDA-event
 time per call over 20 calls after 3 of warm-up (``ms``: what a caller
-waits, the wrapper's host work included when it exceeds the kernel) and
-the profiler's device time of the kernels per call (``device_ms``).
+waits, the wrapper's host work included when it exceeds the kernel), the
+profiler's device time of the kernels per call (``device_ms``, and by
+kernel name: ``kernels``) and the host's time to enqueue a call
+(``host_us``).
 Operands are random from a fixed seed (the kernels' time does not depend
 on the values).  Needs a CUDA card; exits 2 without one.
 """
@@ -21,6 +25,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -30,12 +35,19 @@ FLASH_ROWS = {  # (B, S_q, S_kv, H, d, causal, dtype)
     "a": (1, 256, 256, 4, 64, True, torch.float32),
     "x": (2, 64, 200, 2, 64, False, torch.float32),
 }
-V_ROWS = {  # (E, m, n_i, r, dtype, mask)
+SHAPES = {  # (E, m, n_i, r, dtype, mask)
     "F": (10, 3000, 300, 150, torch.float32, "none"),
     "C": (1, 3000, 3000, 150, torch.float32, "none"),
     "D": (4, 2048, 512, 64, torch.float32, "dense"),
     "D16": (4, 2048, 512, 64, torch.bfloat16, "packed"),
 }
+CONTRACT_ROWS = [  # (function, shape)
+    ("huber_contract_v", "F"), ("huber_contract_v", "C"),
+    ("huber_contract_v", "D"), ("huber_contract_v", "D16"),
+    ("huber_contract_u_diag", "F"), ("huber_contract_u_diag", "C"),
+    ("huber_contract_u_diag", "D16"), ("huber_dual_contract", "D"),
+    ("huber_dual_contract", "D16"), ("huber_contract_u", "F"),
+]
 CALLS, WARMUP = 20, 3
 
 
@@ -52,8 +64,24 @@ def event_ms(fn) -> float:
     return start.elapsed_time(end) / CALLS
 
 
-def device_ms(fn) -> float:
-    """Summed device time of every kernel the calls launch, per call."""
+def host_us(fn) -> float:
+    """Microseconds the host takes to enqueue one call (the device's time
+    where that is the longer): the median of 5 runs of 20 calls, each
+    started on an idle card and not synchronised until it is timed."""
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            fn()
+        runs.append((time.perf_counter() - t0) / CALLS * 1e6)
+    torch.cuda.synchronize()
+    return sorted(runs)[2]
+
+
+def device_ms(fn) -> tuple[float, dict[str, float]]:
+    """Summed device time of every kernel the calls launch, per call, and
+    the same by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -64,8 +92,18 @@ def device_ms(fn) -> float:
         for _ in range(CALLS):
             fn()
         torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA) / 1e3 / CALLS
+    by_name = {ev.key[:80]: ev.self_device_time_total / 1e3 / CALLS
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA}
+    return sum(by_name.values()), by_name
+
+
+def emit(tree: str, row: str, run, smi: str) -> None:
+    ms = event_ms(run)
+    total, by_name = device_ms(run)
+    print(json.dumps(dict(tree=tree, row=row, ms=ms, device_ms=total,
+                          host_us=host_us(run), kernels=by_name, card=smi)),
+          flush=True)
 
 
 def main() -> int:
@@ -91,10 +129,9 @@ def main() -> int:
         def run():
             return fa.flash_attention(q, k, v, causal=causal)
 
-        print(json.dumps(dict(tree=tree, row=f"flash_attention/{name}",
-                              ms=event_ms(run), device_ms=device_ms(run),
-                              card=smi)), flush=True)
-    for name, (e, m, n, r, dtype, mode) in V_ROWS.items():
+        emit(tree, f"flash_attention/{name}", run, smi)
+    for fn, name in CONTRACT_ROWS:
+        e, m, n, r, dtype, mode = SHAPES[name]
         u = torch.randn(e, m, r, generator=gen, device=dev) / r ** 0.5
         v = torch.randn(e, n, r, generator=gen, device=dev) / r ** 0.5
         mat = (2 * torch.randn(e, m, n, generator=gen, device=dev)).to(dtype)
@@ -103,11 +140,10 @@ def main() -> int:
         lam = torch.ones(e, device=dev)
 
         def run():
-            return hc.huber_contract_v(u, v, mat, lam, w)
+            return getattr(hc, fn)(u, v, mat, lam, w)
 
-        print(json.dumps(dict(tree=tree, row=f"huber_contract_v/{name}",
-                              ms=event_ms(run), device_ms=device_ms(run),
-                              card=smi)), flush=True)
+        emit(tree, f"{fn}/{name}", run, smi)
+        del u, v, mat, w
     return 0
 
 

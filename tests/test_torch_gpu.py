@@ -397,3 +397,53 @@ def test_contract_v_ranks_splits_and_masks(cuda, shape, r, dtype):
     ones = hc.huber_contract_v(u, v, mat, lam, torch.ones_like(w))
     assert torch.equal(outs["dense"], outs["packed"])
     assert torch.equal(outs["none"], ones)
+
+
+# The row-stripe kernels (huber_contract_u, huber_contract_u_diag,
+# huber_dual_contract) take 64-row stripes and walk 64-column tiles; (E, m,
+# n) with m and n not multiples of 64 (n not of 8: a packed tail byte), E=1
+# with several column ranges, and a shape in one range (u_splits decides
+# from the shape).
+STRIPE_SHAPES = [(1, 3001, 1000, True), (1, 200, 517, True),
+                 (2, 1000, 77, True), (3, 130, 61, False)]
+STRIPE_FNS = ["huber_contract_u", "huber_contract_u_diag",
+              "huber_dual_contract"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [1, 31, 64, 150, 256])
+@pytest.mark.parametrize("shape", STRIPE_SHAPES,
+                         ids=["x".join(map(str, s[:3])) for s in STRIPE_SHAPES])
+def test_stripe_kernels_ranks_splits_and_masks(cuda, shape, r, dtype):
+    """The three row-stripe flavours at ranks that fill 1, 2, 5 and 8
+    register groups, with one column range and with several, in every mask
+    mode: within the plane and scalar tolerances of the plain versions;
+    packed == dense, all-ones == none and a rerun bit for bit; and
+    huber_contract_u, huber_contract_u_diag and huber_dual_contract share
+    out_u, obj and psi2 bit for bit."""
+    e, m, n, several = shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits, cols = hc.u_splits(e, m, n, sms)
+    assert (splits > 1) == several and cols % hc.U_TILE_COLS == 0
+    u, v, mat, w, lam = _card_inputs(cuda, e, m, n, r, seed=r, dtype=dtype)
+    outs = {}
+    for fn in STRIPE_FNS:
+        for mode in ("none", "dense", "packed"):
+            got, want = _kernel_and_plain(fn, mode, u, v, mat, w, lam)
+            _assert_card_close(got, want)
+            outs[fn, mode] = got
+        kernel = getattr(hc, fn)
+        again = _as_tuple(kernel(u, v, mat, lam))
+        ones = _as_tuple(kernel(u, v, mat, lam, torch.ones_like(w)))
+        for a, b, c in zip(outs[fn, "none"], again, ones):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        for a, b in zip(outs[fn, "dense"], outs[fn, "packed"]):
+            assert torch.equal(a, b)
+    for mode in ("none", "dense", "packed"):
+        out_u, obj, psi2 = outs["huber_contract_u_diag", mode]
+        assert torch.equal(outs["huber_contract_u", mode][0], out_u)
+        _, dual_u, dual_obj, dual_psi2 = outs["huber_dual_contract", mode]
+        assert torch.equal(dual_u, out_u)
+        assert torch.equal(dual_obj, obj) and torch.equal(dual_psi2, psi2)

@@ -289,3 +289,32 @@ def test_v_splits_cover_m_in_whole_tiles(e, m, n, sms):
     covered = sum(min(m, start + rows) - start for start in starts)
     assert covered == m
     assert hc.v_splits(e, m, n, sms) == (splits, rows)
+
+
+@pytest.mark.parametrize("sms", [1, 78, 114, 132])
+@pytest.mark.parametrize("e,m,n", [(1, 1, 1), (10, 3000, 300), (1, 3000, 3000),
+                                   (4, 2048, 512), (3, 40, 24), (2, 65, 64),
+                                   (1, 7, 129), (7, 1000, 4097),
+                                   (1, 64, 100000)])
+def test_u_splits_cover_n_in_whole_tiles(e, m, n, sms):
+    """The row-stripe kernels' column ranges: each a whole number of the
+    kernels' 64-column tiles, none empty, together exactly the n columns;
+    a pure function of (E, m, n, SM count)."""
+    splits, cols = hc.u_splits(e, m, n, sms)
+    assert splits >= 1 and cols >= hc.U_TILE_COLS
+    assert cols % hc.U_TILE_COLS == 0
+    starts = [s * cols for s in range(splits)]
+    assert all(start < n for start in starts)  # no empty range
+    covered = sum(min(n, start + cols) - start for start in starts)
+    assert covered == n
+    hc.u_splits.cache_clear()
+    assert hc.u_splits(e, m, n, sms) == (splits, cols)
+
+
+@pytest.mark.parametrize("e,m,n,r", [(4, 2048, 512, 64), (1, 3000, 3000, 150),
+                                     (2, 65, 7, 1), (3, 64, 24, 256),
+                                     (1, 1, 1, 5)])
+def test_dual_partial_shape_counts_64_row_stripes(e, m, n, r):
+    """One (n, r) out_v partial plane per client and 64-row stripe."""
+    assert hc.U_TILE_ROWS == 64
+    assert hc.dual_partial_shape(e, m, n, r) == (-(-m // 64), e, n, r)
