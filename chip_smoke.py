@@ -23,12 +23,14 @@ CUDA toolkit.  Phases, one JSON line each:
             (none, f32), d32 (dense) and d16 (none, bf16); flash_attention
             bf16 at the serve phase's shape (B=4, S=2048, H=32, d=128,
             causal), f32 at the small_lm phase's shape (2, 33, 4, 32,
-            causal), at (1, 256, 4, 64, causal) and f32 cross (2, 64 x 200,
-            2, 64, full), each also beside PyTorch's SDPA on the same
+            causal), at (1, 256, 4, 64, causal), f32 cross (2, 64 x 200,
+            2, 64, full) and f32 at the serve_f32 phase's shape (4, 2048,
+            32, 64, causal; row T), each also beside PyTorch's SDPA on the same
             tensors (``library_ms``) and the profiler's device time of the
             kernel alone (``kernel_device_ms``: the CUDA-event ``ms`` of
             back-to-back calls also holds the wrapper's host work where
-            that is the longer), its error taken row by row.  Then
+            that is the longer), its error taken row by row; the fp32 rows
+            also state the 3xTF32 tensor-core bound.  Then
             ``bitexact``: a packed mask gives the bits of the dense one, an
             all-ones mask those of none, and the three row-stripe kernels
             share out_u, obj and psi2.
@@ -36,6 +38,9 @@ CUDA toolkit.  Phases, one JSON line each:
             d32 (dense mask) and d16 (bf16) operands: S + Psi == W R and
             |Psi| <= lam, exactly 2 / 1 launches of residual_shrink_psi /
             residual_shrink_psi_masked.
+   dual_scratch  the dual's out_v scratch at the compact-plane shapes (its
+            shape and MiB, at most 4) and its row groups (clusters of
+            stripes).
 3. small    5 rounds at 160 x 160 on the card against the same rounds of
             the plain versions on the CPU, from one seed, for fused="diag",
             "dual" with a mask, "off", and a packed mask with bf16 M.
@@ -60,14 +65,20 @@ CUDA toolkit.  Phases, one JSON line each:
 9. compact  the dual problem with M in bf16 (``RPCASpec.dtype``),
             pack_mask=True and lam_sample=65536: 1716 / 858 / 1 launches of
             huber_contract_v_packed / huber_dual_contract_packed /
-            residual_shrink_masked, observed error < max(5 x dual's, 2e-2).
+            residual_shrink_packed, observed error < max(5 x dual's, 2e-2).
 10. small_lm the llama3-8b smoke config in fp32 (2 layers, d_model 128,
             head dim 32) with flash attention: 2 prompts of 33 tokens, 8
             greedy new tokens through ``serving.engine.generate`` on the
             card (the kernel) and on the CPU (plain versions): the same
             tokens, prefill logits within 1e-4 of max|logits|, exactly 2
             flash_attention launches.
-11. serve    Llama-3-8B (``configs/llama3_8b.py``) at full width and depth,
+11. serve_f32 TinyLlama-1.1B (``configs/tinyllama_1_1b.py``,
+            arXiv:2401.02385) at full width and depth (22 layers, d_model
+            2048, 32 / 4 heads), fp32, flash attention (its fp32 path),
+            random weights from seed 0: ``generate`` for 4 prompts of 2048
+            tokens and 16 greedy new tokens, with the gates and numbers of
+            serve below (exactly 22 flash_attention launches).
+12. serve    Llama-3-8B (``configs/llama3_8b.py``) at full width and depth,
             bf16, flash attention, random weights from a seeded card
             generator: ``generate`` for 4 prompts of 2048 random tokens and
             32 greedy new tokens (s_max 2080): set-up, prefill and decode
@@ -77,7 +88,7 @@ CUDA toolkit.  Phases, one JSON line each:
             (the config's ``flash_attention`` off) within 5e-2 of
             max|logits|.
 
-In each of phases 4-9 and 11 a first run warms the libraries, the counts
+In each of phases 4-9, 11 and 12 a first run warms the libraries, the counts
 are zeroed just before the counted run and read just after it, and one more
 run goes under torch.profiler (``<phase>_profile``): the device busy time
 and its share of the counted run's wall, the kernels that take the most
@@ -91,6 +102,7 @@ exits with 2.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -117,6 +129,9 @@ PLANE_TOL, SCALAR_TOL = 1e-4, 1e-5
 # Published H100 SXM peaks (fp32 on the CUDA cores, bf16 dense on the
 # tensor cores, HBM3).
 PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# Dense TF32 on the tensor cores (H100 SXM): the bound of a 3xTF32 kernel
+# is three TF32 products at this rate.
+PEAK_TF32_FLOPS = 494.7e12
 # Flash attention vs its plain version in fp32, one query row (b, i) at a
 # time: max over (h, d) of |kernel - plain| over max over (h, d) of |plain|
 # (causal rows differ in scale ~50x between row 0 and row 2047, so a bar on
@@ -133,6 +148,9 @@ FLASH_TOL = {"f32": 2e-5, "bf16": 1e-2}
 # few percent of the logits' range, far below a wrong kernel's error.
 SERVE_LOGITS_BAR = 5e-2
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "llama3-8b", 4, 2048, 32
+# The fp32 serving path: TinyLlama-1.1B's prefill at 4 x 2048 (arXiv:
+# 2401.02385), the fp32 flash kernel's full-width shape.
+F32_ARCH, F32_NEW = "tinyllama-1.1b", 16
 SMALL_BATCH, SMALL_PROMPT, SMALL_NEW, SMALL_LOGITS_BAR = 2, 33, 8, 1e-4
 TIMED_LAUNCHES, WARMUP_LAUNCHES = 20, 3
 TOP_KERNELS = 8
@@ -153,8 +171,10 @@ REPLACES = {
     "huber_dual_contract_packed": TPU + "huber_contract.py:341",
     "residual_shrink": TPU + "shrinkage.py:41",
     "residual_shrink_masked": TPU + "shrinkage.py:57",
+    "residual_shrink_packed": TPU + "shrinkage.py:57",
     "residual_shrink_psi": TPU + "shrinkage.py:48",
     "residual_shrink_psi_masked": TPU + "shrinkage.py:66",
+    "residual_shrink_psi_packed": TPU + "shrinkage.py:66",
     "flash_attention": TPU + "flash_attention.py:37",
 }
 CSRC = "src/repro_torch/csrc/"
@@ -197,7 +217,7 @@ ROWS = [
     ("huber_contract_u_diag", "packed", "d32", None),
     ("huber_contract_v", "packed", "d16", "compact"),
     ("huber_dual_contract", "packed", "d16", "compact"),
-    ("residual_shrink", "dense", "d16", "compact"),
+    ("residual_shrink", "packed", "d16", "compact"),
     ("huber_contract_v", "none", "d16", None),
     ("huber_contract_v", "dense", "d16", None),
     ("huber_contract_u_diag", "none", "d16", None),
@@ -218,6 +238,9 @@ FLASH_ROWS = [
      "small_lm"),
     ("flash_attention@f32", (1, 256, 256, 4, 64), True, "f32", None),
     ("flash_attention@f32_cross", (2, 64, 200, 2, 64), False, "f32", None),
+    ("flash_attention@f32_T",
+     (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 64), True, "f32",
+     "serve_f32"),
 ]
 
 
@@ -435,15 +458,18 @@ def check_bit_exact(operands: dict) -> dict:
 
 
 def flash_bound(b: int, sq: int, skv: int, h: int, d: int, causal: bool,
-                dtype: str) -> tuple[float, str]:
+                dtype: str, peak: float | None = None,
+                products: int = 1) -> tuple[float, str]:
     """Least time (ms) for one attention call: 4 d FLOP per (query, key)
-    pair this call's mask keeps (row i sees keys j <= i when causal) at the
-    peak for the input type (bf16 tensor cores; fp32 CUDA cores, no TF32),
-    against Q, K, V read once and O written once at the HBM rate."""
+    pair this call's mask keeps (row i sees keys j <= i when causal), times
+    ``products``, at ``peak`` (default: the input type's, bf16 tensor cores
+    or fp32 CUDA cores), against Q, K, V read once and O written once at
+    the HBM rate."""
     pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
     elem = 2 if dtype == "bf16" else 4
-    peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_FP32_FLOPS
-    t_ops = 4 * b * h * d * pairs / peak * 1e3
+    if peak is None:
+        peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_FP32_FLOPS
+    t_ops = products * 4 * b * h * d * pairs / peak * 1e3
     t_bytes = elem * b * h * d * 2 * (sq + skv) / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -490,13 +516,19 @@ def check_flash(name: str, shape: tuple, causal: bool, dtype: str,
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal))
     bound_ms, bound_by = flash_bound(b, sq, skv, h, d, causal, dtype)
+    # The fp32 kernel runs three TF32 products on the tensor cores: its
+    # bound there, beside the CUDA-core one of the same fp32 function.
+    tc_bound = flash_bound(b, sq, skv, h, d, causal, dtype, PEAK_TF32_FLOPS,
+                           3)[0] if dtype == "f32" else None
     row = dict(name=name, kernel="flash_attention", path=path, route="cuda",
                source=SOURCES["flash_attention"],
                replaces=REPLACES["flash_attention"], dtype=dtype,
                causal=causal, max_abs_err=abs_err, max_row_err=row_err,
                tol=FLASH_TOL[dtype], bit_identical_rerun=same, ok=ok, ms=ms,
-               kernel_device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=library_ms, shape=list(shape))
+               kernel_device_ms=device_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_3xtf32_ms=tc_bound, library_ms=library_ms,
+               shape=list(shape))
     emit(phase="kernel", **row)
     if not ok:
         raise SystemExit(f"kernel {name} disagrees with its plain version: "
@@ -691,7 +723,7 @@ def solve_phases(device) -> list[dict]:
         suffix = "_packed" if cfg.pack_mask else "_masked"
         want = {f"huber_contract_v{suffix}": local * (cfg.inner_sweeps - 1),
                 f"huber_dual_contract{suffix}": local,
-                "residual_shrink_masked": 1}
+                f"residual_shrink{suffix}": 1}
         kw = dict(num_clients=D_CLIENTS, mask=problem.mask,
                   dtype=torch.bfloat16 if cfg.pack_mask else None)
         return solve_phase(
@@ -807,8 +839,11 @@ class _EventTimedModel:
                 mid.elapsed_time(steps[-1]) / len(steps))
 
 
-def serve_phase(device) -> dict:
-    """Phase 11: Llama-3-8B at full width and depth through ``generate``."""
+def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
+                new_tokens: int = SERVE_NEW, fp32: bool = False) -> dict:
+    """Phases 11 and 12: ``arch`` at full width and depth through
+    ``generate`` (in fp32 when ``fp32``, else its bf16), 4 prompts of 2048
+    tokens and ``new_tokens`` greedy tokens."""
     import torch
 
     from repro_torch.configs import get_config
@@ -817,7 +852,9 @@ def serve_phase(device) -> dict:
     from repro_torch.models.layers import padded_vocab
     from repro_torch.serving.engine import ServeConfig, generate
 
-    cfg = get_config(SERVE_ARCH).replace(flash_attention=True)
+    cfg = get_config(arch).replace(flash_attention=True)
+    if fp32:
+        cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
     model = get_model(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -829,7 +866,7 @@ def serve_phase(device) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9
-    scfg = ServeConfig(max_new_tokens=SERVE_NEW)
+    scfg = ServeConfig(max_new_tokens=new_tokens)
 
     timed = _EventTimedModel(model)
 
@@ -859,14 +896,14 @@ def serve_phase(device) -> dict:
     want = {"flash_attention": cfg.n_layers}
     in_vocab = bool((tokens >= 0).all()
                     and (tokens < padded_vocab(cfg.vocab)).all())
-    ok = (tuple(tokens.shape) == (SERVE_BATCH, SERVE_NEW) and in_vocab
+    ok = (tuple(tokens.shape) == (SERVE_BATCH, new_tokens) and in_vocab
           and finite and rel <= SERVE_LOGITS_BAR
           and counts == {k: want.get(k, 0) for k in counts})
-    row = dict(phase="serve", arch=cfg.name, layers=cfg.n_layers,
+    row = dict(phase=name, arch=cfg.name, layers=cfg.n_layers,
                d_model=cfg.d_model, dtype=cfg.compute_dtype,
-               batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
+               batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=new_tokens,
                setup_s=setup_s, weights_gb=weights_gb, wall_s=wall,
-               tokens_per_s=SERVE_BATCH * SERVE_NEW / wall,
+               tokens_per_s=SERVE_BATCH * new_tokens / wall,
                prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
                peak_mem_gb=peak_gb, logits_rel_diff_vs_plain=rel,
                bar=SERVE_LOGITS_BAR, finite=finite,
@@ -875,11 +912,11 @@ def serve_phase(device) -> dict:
     emit(**row)
     del ref_logits
     profiled = profile_run(serve)
-    emit(phase="serve_profile", wall_ms=wall * 1e3,
+    emit(phase=f"{name}_profile", wall_ms=wall * 1e3,
          device_busy_share=profiled["device_busy_ms"] / (wall * 1e3),
          **profiled)
     if not ok:
-        raise SystemExit("phase serve failed")
+        raise SystemExit(f"phase {name} failed")
     row["launches"] = counts
     return row
 
@@ -936,10 +973,15 @@ def main() -> int:
              for name, shape, causal, dtype, path in FLASH_ROWS]
     check_bit_exact(operands)
     phases = [psi_phase(operands)]
-    partial = hc.dual_partial_shape(D_CLIENTS, D_SIZE, D_SIZE // D_CLIENTS,
-                                    D_RANK)
-    emit(phase="dual_partials", shape=list(partial),
-         mb=4 * partial[0] * partial[1] * partial[2] * partial[3] / 1e6)
+    d_cols = D_SIZE // D_CLIENTS
+    scratch = hc.dual_scratch_shape(D_CLIENTS, d_cols, D_RANK)
+    mib = 0 if scratch is None else 4 * math.prod(scratch) / 2 ** 20
+    plan = hc.dual_plan(D_CLIENTS, D_SIZE, d_cols, D_RANK)
+    emit(phase="dual_scratch", shape=scratch, mib=mib,
+         plan=None if plan is None else dict(zip(("cluster", "groups"),
+                                                 plan)), ok=mib <= 4)
+    if mib > 4:
+        raise SystemExit("the dual's out_v scratch passes 4 MiB")
     del operands
     small = small_trajectory_check(device)
     emit(phase="small", **small)
@@ -947,6 +989,9 @@ def main() -> int:
         raise SystemExit("the card and the CPU disagree at 160 x 160")
     phases += solve_phases(device)
     phases.append(small_lm_phase(device))
+    phases.append(serve_phase(device, "serve_f32", F32_ARCH, F32_NEW,
+                              fp32=True))
+    torch.cuda.empty_cache()
     phases.append(serve_phase(device))
     # Launches on the main path, each row's from the phase that gives its
     # kernel that row's operands; null where no phase does.

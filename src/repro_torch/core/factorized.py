@@ -39,6 +39,7 @@ import torch
 from repro_torch.core import ops as core_ops
 from repro_torch.kernels import bitmask
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels._launch import MAX_RANK as MAX_KERNEL_RANK
 
 Tensor = torch.Tensor
 
@@ -157,7 +158,10 @@ def check_supported(cfg: DCFConfig,
                     device: torch.device | None = None) -> None:
     """Raise ``NotImplementedError`` for options this slice of the port does
     not run yet (they wait in ``ROADMAP.md``), before any solve starts.
-    ``device`` adds the checks that depend on where the solve runs."""
+    ``device`` adds the checks that depend on where the solve runs: on a
+    CUDA device, an ``impl`` the port does not know (such as the
+    reference's ``"pallas"``) and, on the kernel route, a rank above the
+    kernels' 256."""
     later = "waits for a later slice of the port (ROADMAP.md)"
     if cfg.consensus_compress is not None or cfg.consensus_delay:
         raise NotImplementedError(
@@ -165,6 +169,15 @@ def check_supported(cfg: DCFConfig,
     if cfg.aggregator != "weighted_mean" or cfg.divergence_screen is not None:
         raise NotImplementedError(
             f"robust aggregators and the divergence screen {later}")
+    if device is not None and device.type == "cuda":
+        if cfg.impl not in kops.IMPLS:
+            raise NotImplementedError(
+                f"impl={cfg.impl!r} on the card {later} (the port runs "
+                f"{', '.join(kops.IMPLS)})")
+        if cfg.impl != "ref" and cfg.rank > MAX_KERNEL_RANK:
+            raise NotImplementedError(
+                f"rank {cfg.rank} > {MAX_KERNEL_RANK} on the card's kernels "
+                f"{later}")
     if device is not None and cfg.impl == "cuda" and device.type != "cuda":
         raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
 

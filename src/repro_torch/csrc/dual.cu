@@ -14,18 +14,24 @@
 // What bounds it on an H100: fp32 arithmetic, 6r FLOP per residual entry
 // (U V^T once per tile, then both contractions from the same Psi tile),
 // 6 E m n r in all.  The TPU kernel kept out_v resident in VMEM across a
-// sequential grid; here blocks run in no order, so out_u completes inside
-// each row-stripe block's column range (summed over the column splits) and
-// out_v goes through one partial plane per 64-row stripe, summed in index
-// order by a second launch (stripe.cuh, reduce.cuh).  The design is
-// stripe.cuh's with both: 4 x 4 U V^T patches, 2-row (Psi V) and 2-column
+// sequential grid (two passes past 4 MiB of it); here blocks run in no
+// order, so out_u completes inside each row-stripe block's column range
+// (summed over the column splits) and out_v inside a row group: a
+// thread-block cluster of up to 8 stripes whose blocks add their shares in
+// distributed shared memory (stripe.cuh), the groups' planes within 4 MiB
+// (kernels/huber_contract.py::dual_plan; past that the wrapper takes the
+// reference's two passes, huber_contract_v and huber_contract_u_diag); a
+// second launch adds the groups' planes in index order (reduce.cuh).  The design is stripe.cuh's with
+// both contractions: 4 x 4 U V^T patches, 2-row (Psi V) and 2-column
 // (Psi^T U) x RQ contraction blocks read as float4, a cp.async ring of V
 // tiles.  One launch sequence always: there is no two-pass route.
 #include "stripe.cuh"
 
 // Returns cudaGetLastError() of the launches (0 on success).  diag_partial
 // holds 2 * E * ceil(M / 64) * splits floats, u_partial splits * E * M * r
-// when splits > 1, v_partial ceil(M / 64) * E * N * r.
+// when splits > 1, v_partial groups * E * N * r when groups > 1 (unused
+// otherwise: out_v is written directly); the row groups are `groups`
+// clusters of `cluster` stripes.
 extern "C" int repro_huber_dual_contract(const float* u, const float* v,
                                          const void* m, const void* w,
                                          const float* lam, float* out_v,
@@ -34,13 +40,14 @@ extern "C" int repro_huber_dual_contract(const float* u, const float* v,
                                          float* u_partial, float* v_partial,
                                          int E, int M, int N, int r,
                                          int dtype, int mask, int splits,
-                                         int cols_per_split, void* stream) {
+                                         int cols_per_split, int cluster,
+                                         int groups, void* stream) {
   return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
     using TM = typename decltype(tm)::type;
     return repro::launch_stripe<decltype(rq)::value, TM, decltype(mk)::value,
                                 true, true>(
         u, v, static_cast<const TM*>(m), w, lam, out_u, out_v, obj, psi2,
         diag_partial, u_partial, v_partial, E, M, N, r, splits,
-        cols_per_split, static_cast<cudaStream_t>(stream));
+        cols_per_split, static_cast<cudaStream_t>(stream), cluster, groups);
   });
 }

@@ -50,12 +50,32 @@
 // O's rounding to bf16 at most 2^-8 of the row's largest |O| (the row sum
 // l uses the fp32 P).
 //
-// fp32 (no TF32): 128 threads, 32 query rows, 32-key tiles on the CUDA
-// cores; each thread owns 2 rows: 4 score columns and d/8 output columns of
-// each, so the row statistics never leave the thread's 8-lane group.
+// fp32 on the tensor cores in 3xTF32: each operand is split into its TF32
+// rounding (hi) and the TF32 rounding of the remainder (lo), and fp32
+// accumulators take hi lo + lo hi + hi hi, within ~2^-21 of the fp32
+// product (lo lo is left out).  The tensor cores' fp32 accumulation
+// truncates, and one accumulator over a 2048-key row drifted past the 2e-5
+// row bar; so hi hi and the cross terms have accumulators of their own,
+// and each tile's P V starts from zero and joins O with one rounding.
+// At the fp32 rows' shapes the CUDA cores' 67 TFLOP/s would bound it (4 d
+// FLOP a kept score); three TF32 products at 495 TFLOP/s cost less than
+// half that.  mma.sync m16n8k8 (it takes V row-major for P V, where
+// wgmma's TF32 form wants both operands K-major): 128 threads, 64 query
+// rows (16 a warp), 64-key tiles of K and V in a two-stage cp.async ring,
+// Q split once into shared memory.  P stays in
+// registers: the accumulator layout of Q K^T holds keys 2t, 2t + 1 of each
+// 8, which P V takes as A columns t and t + 4, with V's rows read in the
+// same order.  The online softmax runs in base 2 (exp2f), the row
+// statistics within the 4 lanes of a row.  Where the query tiles alone
+// leave the card idle (few (b, h) pairs, short queries), a thread-block
+// cluster of 2-8 blocks splits the key tiles of one query tile
+// (kernels/flash_attention.py::f32_split, a pure function of the shape and
+// the SM count), and its blocks combine their (m, l, O) in distributed
+// shared memory in rank order: still one launch.
 //
-// No atomics: each output row is one thread group's fixed-order sums, so the
-// same call gives the same bits.
+// No atomics: each output row is one thread group's fixed-order sums (and
+// the cluster's combination one fixed order), so the same call gives the
+// same bits.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +83,7 @@
 #include <cstdint>
 
 #include "hopper.cuh"
+#include "tile64.cuh"
 
 namespace repro {
 namespace {
@@ -366,141 +387,298 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 on the CUDA cores
+// fp32 on the tensor cores: 3xTF32 mma.sync, keys split over a cluster
 // ---------------------------------------------------------------------------
-constexpr int kF32Threads = 128;
-constexpr int kF32BQ = 32;  // query rows per block: 16 row pairs
-constexpr int kF32BK = 32;  // keys per tile
+constexpr int kF32Threads = 128;  // 4 warps, 16 query rows each
+constexpr int kF32BQ = 64;        // query rows per block
+constexpr int kF32BK = 64;        // keys per tile
+constexpr int kMaxSplit = 8;      // blocks of a cluster (portable)
 
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src,
-                                          int row0, int nrows,
-                                          int64_t stride) {
-  constexpr int LD = D + 1;
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += kF32Threads) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    const int row = row0 + r;
-    dst[r * LD + c] =
-        row < nrows ? src[static_cast<int64_t>(row) * stride + c] : 0.f;
+// Shared memory of one head dim: Q as TF32 high and low parts, and two
+// stages of K and of V, each 64 rows of stride D + 4 floats (fragment
+// loads free of bank conflicts: a row stride of 4 mod 32 banks).
+template <int D>
+struct F32Tile {
+  static constexpr int kLd = D + 4;
+  static constexpr int kTile = kF32BQ * kLd;  // floats of one 64-row tile
+  static constexpr int kSmem = 6 * kTile * static_cast<int>(sizeof(float));
+};
+
+// Round to TF32 (10 mantissa bits), to nearest, ties away.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+// x = hi + lo + O(2^-22 |x|): hi its TF32 rounding, lo the remainder's.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+// d += a b, one m16n8k8 TF32 product with fp32 accumulation.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// Stage rows [row0, row0 + 64) of one head of K or V ((S, H, D) rows of
+// stride H D) into dst (64 x kLd) by cp.async; zeros past nrows.
+template <int D>
+__device__ __forceinline__ void stage_kv_f32(float* dst, const float* src,
+                                             int row0, int nrows,
+                                             int64_t stride) {
+  constexpr int kPieces = D / 4;
+  for (int idx = threadIdx.x; idx < kF32BK * kPieces; idx += kF32Threads) {
+    const int rr = idx / kPieces, c = (idx - rr * kPieces) * 4;
+    const int row = row0 + rr;
+    const bool ok = row < nrows;
+    cp_async<16>(dst + rr * F32Tile<D>::kLd + c,
+                 ok ? src + row * stride + c : src, ok);
   }
 }
 
-// Grid (query tiles, B * H), kF32Threads threads.  Thread (tr, tc) =
-// (tid / 8, tid % 8) owns rows 2 tr and 2 tr + 1 of the tile, score columns
-// tc + 8 c (c < 4) and output columns tc + 8 j (j < D / 8).
+// Grid (query tiles x split, B * H), kF32Threads threads, clusters of
+// `split` blocks along x.  Block (tile, c) takes the key tiles c, c +
+// split, ... of its query tile; warp w owns query rows 16 w .. 16 w + 15,
+// lane (g, t) = (lane / 4, lane % 4) rows g and g + 8 of them in the mma
+// accumulator layout.  With split > 1 the cluster combines its blocks'
+// (m, l, O) in distributed shared memory, in rank order.
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(kF32Threads, D == 128 ? 1 : 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int H,
-                 int Sq, int Skv, float scale_log2, int causal) {
-  constexpr int LD = D + 1;
-  constexpr int PLD = kF32BK + 1;
-  constexpr int OJ = D / 8;
-  extern __shared__ float smem_f[];
-  float* Qs = smem_f;
-  float* Ks = Qs + kF32BQ * LD;
-  float* Vs = Ks + kF32BK * LD;
-  float* Ps = Vs + kF32BK * LD;
+                 int Sq, int Skv, float scale_log2, int causal, int split) {
+  using T = F32Tile<D>;
+  constexpr int LD = T::kLd;
+  constexpr int NT = D / 8;  // 8-column tiles of O
+  extern __shared__ float4 smem_f4[];
+  uint32_t* Qhi = reinterpret_cast<uint32_t*>(smem_f4);
+  uint32_t* Qlo = Qhi + T::kTile;
+  float* Kst = reinterpret_cast<float*>(Qlo + T::kTile);  // 2 stages
+  float* Vst = Kst + 2 * T::kTile;                         // 2 stages
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kF32BQ;
+  const int rank = blockIdx.x % split;
+  const int q0 = (gridDim.x / split - 1 - blockIdx.x / split) * kF32BQ;
   const int b = blockIdx.y / H, h = blockIdx.y - b * H;
   const int64_t stride = static_cast<int64_t>(H) * D;
   const float* qg = q + static_cast<int64_t>(b) * Sq * stride + h * D;
   const float* kg = k + static_cast<int64_t>(b) * Skv * stride + h * D;
   const float* vg = v + static_cast<int64_t>(b) * Skv * stride + h * D;
   float* og = o + static_cast<int64_t>(b) * Sq * stride + h * D;
-  const int tr = threadIdx.x / 8, tc = threadIdx.x % 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow0 = q0 + 16 * warp;  // this warp's first row
+  const int row_lo = wrow0 + g;      // and row_lo + 8
 
   int kv_tiles = (Skv + kF32BK - 1) / kF32BK;
   if (causal) kv_tiles = min(kv_tiles, (q0 + kF32BQ - 1) / kF32BK + 1);
+  const int mine = kv_tiles > rank ? (kv_tiles - rank + split - 1) / split : 0;
 
-  stage_f32<D, kF32BQ>(Qs, qg, q0, Sq, stride);
-  float acc[2][OJ];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < OJ; ++j) acc[i][j] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < kv_tiles; ++kt) {
-    const int k0 = kt * kF32BK;
-    __syncthreads();  // the previous tile's K and V are no longer read
-    stage_f32<D, kF32BK>(Ks, kg, k0, Skv, stride);
-    stage_f32<D, kF32BK>(Vs, vg, k0, Skv, stride);
-    __syncthreads();
-
-    float s[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-    const float* qa = Qs + (2 * tr) * LD;
-    for (int d = 0; d < D; ++d) {
-      const float a0 = qa[d], a1 = qa[LD + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float kv = Ks[(tc + 8 * c) * LD + d];
-        s[0][c] = fmaf(a0, kv, s[0][c]);
-        s[1][c] = fmaf(a1, kv, s[1][c]);
-      }
-    }
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + 2 * tr + i;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = k0 + tc + 8 * c;
-        float x = s[i][c] * scale_log2;
-        if (col >= Skv || (causal && col > row)) x = kNegInf;
-        s[i][c] = x;
-        mx[i] = fmaxf(mx[i], x);
-      }
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 4));
-      const float alpha = exp2f(m_run[i] - mx[i]);
-      m_run[i] = mx[i];
-      l_run[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) acc[i][j] *= alpha;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = exp2f(s[i][c] - mx[i]);
-        l_run[i] += p;
-        Ps[(2 * tr + i) * PLD + tc + 8 * c] = p;
-      }
-    }
-    __syncwarp();  // this row pair's P is written by its own 8 lanes
-    for (int kk = 0; kk < kF32BK; ++kk) {
-      const float p0 = Ps[(2 * tr) * PLD + kk];
-      const float p1 = Ps[(2 * tr + 1) * PLD + kk];
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) {
-        const float x = Vs[kk * LD + tc + 8 * j];
-        acc[0][j] = fmaf(p0, x, acc[0][j]);
-        acc[1][j] = fmaf(p1, x, acc[1][j]);
-      }
-    }
-    __syncwarp();  // P is read before the next tile overwrites it
+  if (mine > 0) {
+    stage_kv_f32<D>(Kst, kg, rank * kF32BK, Skv, stride);
+    stage_kv_f32<D>(Vst, vg, rank * kF32BK, Skv, stride);
+    cp_async_commit();
+  }
+  // Q, split into TF32 parts once: zeros past S_q.
+  for (int idx = threadIdx.x; idx < kF32BQ * D / 4; idx += kF32Threads) {
+    const int rr = idx / (D / 4), c = (idx - rr * (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + rr < Sq)
+      x = *reinterpret_cast<const float4*>(qg + (q0 + rr) * stride + c);
+    uint4 hi, lo;
+    split_tf32(x.x, hi.x, lo.x);
+    split_tf32(x.y, hi.y, lo.y);
+    split_tf32(x.z, hi.z, lo.z);
+    split_tf32(x.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(Qhi + rr * LD + c) = hi;
+    *reinterpret_cast<uint4*>(Qlo + rr * LD + c) = lo;
   }
 
+  float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_run[i];
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};  // rows row_lo, row_lo + 8
+  float l_run[2] = {0.f, 0.f};          // this thread's part of the sums
+  const uint32_t* qh = Qhi + (16 * warp + g) * LD;
+  const uint32_t* ql = Qlo + (16 * warp + g) * LD;
+
+  for (int i = 0; i < mine; ++i) {
+    const int kt = rank + i * split, k0 = kt * kF32BK;
+    const float* Ks = Kst + (i & 1) * T::kTile;
+    const float* Vs = Vst + (i & 1) * T::kTile;
+    // Tile i has landed and every warp is done with tile i - 1, whose
+    // stage the next tile takes.
+    cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < mine) {
+      const int next = (kt + split) * kF32BK;
+      stage_kv_f32<D>(Kst + ((i + 1) & 1) * T::kTile, kg, next, Skv, stride);
+      stage_kv_f32<D>(Vst + ((i + 1) & 1) * T::kTile, vg, next, Skv, stride);
+      cp_async_commit();
+    }
+
+    // S = Q K^T (16 x 64 a warp): element (j, e) is row row_lo + 8 (e / 2),
+    // key k0 + 8 j + 2 t + e % 2.  The tensor cores add into an fp32
+    // accumulator with truncation, so the large products (hi hi) and the
+    // small cross terms go to accumulators of their own, added once with
+    // rounding: each takes D / 8 truncated additions, not 3 D / 8.
+    float sc[8][4], sx[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = sx[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int c0 = 8 * kk + t;
+      const uint32_t a_hi[4] = {qh[c0], qh[8 * LD + c0], qh[c0 + 4],
+                                qh[8 * LD + c0 + 4]};
+      const uint32_t a_lo[4] = {ql[c0], ql[8 * LD + c0], ql[c0 + 4],
+                                ql[8 * LD + c0 + 4]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float* krow = Ks + (8 * j + g) * LD + 8 * kk;
+        uint32_t h0, l0, h1, l1;
+        split_tf32(krow[t], h0, l0);
+        split_tf32(krow[t + 4], h1, l1);
+        mma_tf32(sx[j], a_lo, h0, h1);
+        mma_tf32(sx[j], a_hi, l0, l1);
+        mma_tf32(sc[j], a_hi, h0, h1);
+      }
+    }
+
+    // Scale to base 2; mask keys past S_kv and, causal, past the row.
+    const bool edge = k0 + kF32BK > Skv ||
+                      (causal && k0 + kF32BK - 1 > wrow0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = (sc[j][e] + sx[j][e]) * scale_log2;
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = row_lo + 8 * (e >> 1);
+          if (col >= Skv || (causal && col > row)) x = kNegInf;
+        }
+        sc[j][e] = x;
+      }
+    // Online softmax: the 4 lanes of a row hold its 64 scores.
+    float alpha[2];
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) {
+      float mx = m_run[r2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[j][2 * r2], sc[j][2 * r2 + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[r2] = exp2f(m_run[r2] - mx);
+      m_run[r2] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p0 = exp2f(sc[j][2 * r2] - mx);
+        const float p1 = exp2f(sc[j][2 * r2 + 1] - mx);
+        sc[j][2 * r2] = p0;
+        sc[j][2 * r2 + 1] = p1;
+        sum += p0 + p1;
+      }
+      l_run[r2] = fmaf(l_run[r2], alpha[r2], sum);
+    }
+
+    // O = alpha O + P V.  P's accumulator layout holds keys 2 t, 2 t + 1 of
+    // each 8; as the A operand they stand at columns t and t + 4, so V's
+    // rows are read in the same order: B's rows t and t + 4 are keys 2 t,
+    // 2 t + 1.  Each 8-column block of this tile's P V starts from zero
+    // (8 truncated additions a term) and joins O with one rounding.
+    uint32_t p_hi[8][4], p_lo[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      split_tf32(sc[kk][0], p_hi[kk][0], p_lo[kk][0]);
+      split_tf32(sc[kk][2], p_hi[kk][1], p_lo[kk][1]);
+      split_tf32(sc[kk][1], p_hi[kk][2], p_lo[kk][2]);
+      split_tf32(sc[kk][3], p_hi[kk][3], p_lo[kk][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f}, cx[4] = {0.f, 0.f, 0.f, 0.f};
+      const float* vcol = Vs + 2 * t * LD + 8 * j + g;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        uint32_t h0, l0, h1, l1;
+        split_tf32(vcol[8 * kk * LD], h0, l0);
+        split_tf32(vcol[(8 * kk + 1) * LD], h1, l1);
+        mma_tf32(cx, p_lo[kk], h0, h1);
+        mma_tf32(cx, p_hi[kk], l0, l1);
+        mma_tf32(c, p_hi[kk], h0, h1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = fmaf(acc[j][e], alpha[e >> 1], c[e] + cx[e]);
+    }
+  }
+
+  float l_row[2];
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    float l = l_run[r2];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l += __shfl_xor_sync(0xffffffffu, l, 4);
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    const int row = q0 + 2 * tr + i;
-    if (row < Sq) {
+    l_row[r2] = l;
+  }
+  if (split == 1) {
 #pragma unroll
-      for (int j = 0; j < OJ; ++j)
-        og[static_cast<int64_t>(row) * stride + tc + 8 * j] = acc[i][j] * inv;
+    for (int r2 = 0; r2 < 2; ++r2) {
+      const int row = row_lo + 8 * r2;
+      if (row >= Sq) continue;
+      const float inv = 1.f / fmaxf(l_row[r2], 1e-30f);
+      float* dst = og + row * stride + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(acc[j][2 * r2] * inv, acc[j][2 * r2 + 1] * inv);
+    }
+    return;
+  }
+
+  // The cluster's blocks each hold (m, l, O) of all 64 rows over their key
+  // tiles; block c finishes rows c * 64 / split onwards from all of them.
+  float* Ob = reinterpret_cast<float*>(Qhi);  // 64 x LD, unnormalised O
+  float* mb = reinterpret_cast<float*>(Qlo);  // row maxima
+  float* lb = mb + kF32BQ;                    // row sums
+  __syncthreads();  // every warp is done with Q
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    const int rr = 16 * warp + g + 8 * r2;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<float2*>(Ob + rr * LD + 8 * j + 2 * t) =
+          make_float2(acc[j][2 * r2], acc[j][2 * r2 + 1]);
+    if (t == 0) {
+      mb[rr] = m_run[r2];
+      lb[rr] = l_row[r2];
     }
   }
+  cluster_sync();
+  const int rows = kF32BQ / split;
+  for (int idx = threadIdx.x; idx < rows * D; idx += kF32Threads) {
+    const int rr = rank * rows + idx / D, c = idx % D;
+    float mx = kNegInf;
+    for (int src = 0; src < split; ++src)
+      mx = fmaxf(mx, ld_cluster(cluster_addr(mb + rr, src)));
+    float l = 0.f, out = 0.f;
+    for (int src = 0; src < split; ++src) {
+      const float wgt = exp2f(ld_cluster(cluster_addr(mb + rr, src)) - mx);
+      l = fmaf(wgt, ld_cluster(cluster_addr(lb + rr, src)), l);
+      out = fmaf(wgt, ld_cluster(cluster_addr(Ob + rr * LD + c, src)), out);
+    }
+    if (q0 + rr < Sq) og[(q0 + rr) * stride + c] = out / fmaxf(l, 1e-30f);
+  }
+  cluster_sync();  // no block leaves while another reads its memory
 }
 
 // ---------------------------------------------------------------------------
@@ -554,12 +732,30 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// cudaFuncSetAttribute(kernel, max dynamic shared memory, bytes) once per
+// kernel and device: `done` is the caller's flag table (one per kernel).
+// A launch with too much shared memory is refused, not run, so a device
+// whose flag is set has the attribute.
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && done[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && device < kMaxDevices) done[device] = true;
+  return err;
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int Sq, int Skv, int dtype, int causal,
-                   float scale, cudaStream_t stream) {
+                   float scale, int split, cudaStream_t stream) {
   const float scale_log2 = scale * kLog2e;
   if (dtype == kBFloat16) {
+    if (split != 1) return cudaErrorInvalidValue;
     CUtensorMap tq, tk, tv;
     if (!make_map<D>(&tq, q, B, Sq, H, kBQ) ||
         !make_map<D>(&tk, k, B, Skv, H, kBK) ||
@@ -567,8 +763,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       return cudaErrorInvalidValue;
     auto kernel = flash_wgmma_kernel<D>;
     constexpr int smem = Bf16Tile<D>::kSmem;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    static bool done[kMaxDevices] = {};
+    cudaError_t err = allow_smem(kernel, smem, done);
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
     kernel<<<grid, kFlashThreads, smem, stream>>>(
@@ -576,18 +772,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     return cudaGetLastError();
   }
   if (dtype == kFloat32) {
+    if (split < 1 || split > kMaxSplit || (split & (split - 1)) != 0)
+      return cudaErrorInvalidValue;
     auto kernel = flash_f32_kernel<D>;
-    const int smem = static_cast<int>(
-        sizeof(float) * ((kF32BQ + 2 * kF32BK) * (D + 1) +
-                         kF32BQ * (kF32BK + 1)));
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    constexpr int smem = F32Tile<D>::kSmem;
+    static bool done[kMaxDevices] = {};
+    cudaError_t err = allow_smem(kernel, smem, done);
     if (err != cudaSuccess) return err;
-    const dim3 grid((Sq + kF32BQ - 1) / kF32BQ, B * H);
-    kernel<<<grid, kF32Threads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), H, Sq, Skv,
-        scale_log2, causal);
+    const dim3 grid((Sq + kF32BQ - 1) / kF32BQ * split, B * H);
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    float* of = static_cast<float*>(o);
+    if (split == 1) {
+      kernel<<<grid, kF32Threads, smem, stream>>>(qf, kf, vf, of, H, Sq, Skv,
+                                                  scale_log2, causal, split);
+      return cudaGetLastError();
+    }
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = dim3(kF32Threads);
+    config.dynamicSmemBytes = smem;
+    config.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, kernel, qf, kf, vf, of, H, Sq, Skv,
+                             scale_log2, causal, split);
+    if (err != cudaSuccess) return err;
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
@@ -600,18 +816,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // when a tensor map cannot be made).  q, o are (B, Sq, H, d) and k, v
 // (B, Skv, H, d), contiguous, 16-byte aligned, all of one type: dtype 0
 // fp32, 1 bf16; d in {16, 32, 64, 128}; B * H and the query tiles each at
-// most 65535.
+// most 65535.  split: the fp32 kernel's blocks a query tile (1, 2, 4 or 8,
+// kernels/flash_attention.py::f32_split); 1 for bf16.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int H,
                                      int Sq, int Skv, int d, int dtype,
-                                     int causal, float scale, void* stream) {
+                                     int causal, float scale, int split,
+                                     void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {
-    case 16: err = repro::launch<16>(q, k, v, o, B, H, Sq, Skv, dtype, causal, scale, s); break;
-    case 32: err = repro::launch<32>(q, k, v, o, B, H, Sq, Skv, dtype, causal, scale, s); break;
-    case 64: err = repro::launch<64>(q, k, v, o, B, H, Sq, Skv, dtype, causal, scale, s); break;
-    case 128: err = repro::launch<128>(q, k, v, o, B, H, Sq, Skv, dtype, causal, scale, s); break;
+    case 16: err = repro::launch<16>(q, k, v, o, B, H, Sq, Skv, dtype, causal, scale, split, s); break;
+    case 32: err = repro::launch<32>(q, k, v, o, B, H, Sq, Skv, dtype, causal, scale, split, s); break;
+    case 64: err = repro::launch<64>(q, k, v, o, B, H, Sq, Skv, dtype, causal, scale, split, s); break;
+    case 128: err = repro::launch<128>(q, k, v, o, B, H, Sq, Skv, dtype, causal, scale, split, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

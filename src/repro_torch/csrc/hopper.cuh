@@ -1,6 +1,7 @@
 // Hopper primitives in raw PTX for the sm_90a kernels: mbarriers, TMA tile
-// loads through a tensor map, and warpgroup MMAs (wgmma) with their shared-
-// memory descriptors.  Only the forms the kernels of this directory use.
+// loads through a tensor map, warpgroup MMAs (wgmma) with their shared-
+// memory descriptors, and thread-block cluster barriers and distributed
+// shared memory.  Only the forms the kernels of this directory use.
 #pragma once
 
 #include <cuda.h>
@@ -282,6 +283,48 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// --------------------------------------------------------------------------
+// Thread-block clusters
+// --------------------------------------------------------------------------
+// Split-phase barrier of the cluster: arrive (releasing this thread's
+// earlier stores, distributed shared memory included), later wait
+// (acquiring everyone's).  Every thread of every block of the cluster
+// takes part; a launch without clusters is a cluster of one block.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+// The shared::cluster address of `smem` (this block's shared memory) in
+// block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* smem,
+                                                 uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_u32(smem)), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 x) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
+               : "memory");
+}
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(x)
+               : "r"(addr)
+               : "memory");
+  return x;
 }
 
 }  // namespace hopper

@@ -12,64 +12,97 @@
 //       them only up to rounding).  WITH_PSI is a template flag on the one
 //       tile, so S is the shrink's S bit for bit.
 //
-// M is fp32 or bf16 (upcast on load); W is absent or a dense fp32 plane: a
-// packed mask is unpacked once by the dispatch (kernels/ops.py), as the
-// reference does, since this runs once per solve.
+// M is fp32 or bf16 (upcast on load); W is absent, a dense fp32 plane or a
+// bit-packed one, read as it is (the reference unpacks a packed plane
+// first; here its bits cost 1/8 byte an entry instead of 4).
 //
 // What bounds it on an H100: it depends on r.  Each output entry costs 2r
-// FLOP of U V^T against 8-12 bytes (read M, write S, read W; 6-10 with bf16
-// M): ~37 FLOP/byte at r = 150, right of the fp32 ridge (~20 FLOP/byte), but
-// ~11-16 at r = 64, left of it, where the bytes bound it (with Psi, 4 more
-// bytes an entry: ~27 FLOP/byte at r = 150).  One block computes one 32 x 32
-// output tile from staged 32-row slices of U and V; the residual lives only
-// in registers, and M, S (and Psi) each cross device memory once.
+// FLOP of U V^T against 6-16 bytes (read M and W, write S; Psi adds 4):
+// ~37 FLOP/byte at r = 150, right of the fp32 ridge (~20 FLOP/byte), so
+// the FMAs bound it there; at r = 64 ~11 with fp32 M and a dense mask (the
+// bytes bound it) and ~21 with bf16 M and a packed mask (near the ridge).
+// The design is tile64.cuh's, shared with the contractions: one block
+// computes one 64 x 64 output tile from 64-row slices of U and V staged by
+// cp.async, each of its 256 threads a 4 x 4 patch of U V^T read as float4
+// along the rank axis (8 shared loads for 64 FMAs per 4 ranks); the rank
+// sum runs in one fixed order whatever the mask, so an all-ones mask gives
+// the bits of none and a packed mask those of the dense plane it packs.  A thread's M (and W)
+// entries load before the staging wait, so their latency hides under it.
+// A warp's loads of M and stores of S and Psi cover 4 rows x 8 adjacent
+// columns: whole 32-byte sectors.  Two blocks share an SM up to r = 192, so
+// one block's staging runs under the other's FMAs.  The residual lives only
+// in registers, and M, W, S (and Psi) each cross device memory once.
 #include "tile.cuh"
+#include "tile64.cuh"
 
 namespace repro {
 namespace {
 
+template <int RQ>
+__host__ __device__ constexpr size_t shrink_smem_bytes() {
+  return sizeof(float) * 2 * kT64 * ld64<RQ>();
+}
+
 // Grid (n tiles, m tiles, E).
 template <int RQ, typename TM, int MASK, bool WITH_PSI>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(
+    kT64Threads, two_blocks_fit(shrink_smem_bytes<RQ>()) ? 2 : 1)
 shrink_kernel(const float* __restrict__ u, const float* __restrict__ v,
               const TM* __restrict__ m, const void* __restrict__ w,
               const float* __restrict__ lam, float* __restrict__ s,
               float* __restrict__ psi, int M, int N, int r) {
-  constexpr int LD = factor_ld<RQ>();
+  constexpr int LD = ld64<RQ>();
   extern __shared__ float4 smem4[];
-  float* Us = reinterpret_cast<float*>(smem4);
-  float* Vs = Us + kTile * LD;
+  float* Us = reinterpret_cast<float*>(smem4);  // kT64 x LD
+  float* Vs = Us + kT64 * LD;                   // kT64 x LD
 
   const int e = blockIdx.z;
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
+  const int i0 = blockIdx.y * kT64;
+  const int j0 = blockIdx.x * kT64;
   const ClientPlanes<TM, MASK> planes(m, w, e, M, N);
   const float lam_e = lam[e];
 
-  stage_rows<RQ>(Us, u + static_cast<size_t>(e) * M * r, i0, M, r);
-  stage_rows<RQ>(Vs, v + static_cast<size_t>(e) * N * r, j0, N, r);
+  stage_async<RQ>(Us, u + static_cast<size_t>(e) * M * r, i0, M, r);
+  stage_async<RQ>(Vs, v + static_cast<size_t>(e) * N * r, j0, N, r);
+  cp_async_commit();
+
+  // Patch rows ti + 16 a, columns tj + 16 b; a warp is 4 x 8 threads.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ti = (warp >> 1) * 4 + (lane >> 3);
+  const int tj = (warp & 1) * 8 + (lane & 7);
+  float x[4][4], wt[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      planes.load(i0 + ti + 16 * a, j0 + tj + 16 * b, x[a][b], wt[a][b]);
+  cp_async_wait_all();
   __syncthreads();
 
-  float low[2][2];
-  low_rank_patch<RQ>(Us, Vs, r, low);
-  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
+  // The rank loop unrolled by 2 (3-4% at r = 150 on an H100; the
+  // contractions, which share it, keep theirs).
+  float low[4][4];
+  patch44<RQ, 2>(Us, Vs, ti, tj, (r + 3) / 4, low);
+  float* s_e = s + static_cast<size_t>(e) * M * N;
+  float* psi_e = WITH_PSI ? psi + static_cast<size_t>(e) * M * N : nullptr;
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int a = 0; a < 4; ++a) {
+    const int i = i0 + ti + 16 * a;
+    if (i >= M) continue;
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int i = i0 + 2 * ti + a, j = j0 + 2 * tj + b;
-      if (i >= M || j >= N) continue;
-      float x, wt;
-      planes.load(i, j, x, wt);
-      const float res = x - low[a][b];
+    for (int b = 0; b < 4; ++b) {
+      const int j = j0 + tj + 16 * b;
+      if (j >= N) continue;
+      const float res = x[a][b] - low[a][b];
       const float mag = fmaxf(fabsf(res) - lam_e, 0.f);
       const float out = res > 0.f ? mag : (res < 0.f ? -mag : 0.f);
-      const size_t at = static_cast<size_t>(e) * M * N +
-                        static_cast<size_t>(i) * N + j;
-      const float s_ij = apply_mask<MASK>(wt, out);
-      s[at] = s_ij;
-      if constexpr (WITH_PSI) psi[at] = apply_mask<MASK>(wt, res) - s_ij;
+      const float s_ij = apply_mask<MASK>(wt[a][b], out);
+      const size_t at = static_cast<size_t>(i) * N + j;
+      s_e[at] = s_ij;
+      if constexpr (WITH_PSI)
+        psi_e[at] = apply_mask<MASK>(wt[a][b], res) - s_ij;
     }
+  }
 }
 
 template <int RQ, typename TM, int MASK, bool WITH_PSI>
@@ -78,12 +111,13 @@ cudaError_t launch_shrink(const float* u, const float* v, const TM* m,
                           float* psi, int E, int M, int N, int r,
                           cudaStream_t stream) {
   auto kernel = shrink_kernel<RQ, TM, MASK, WITH_PSI>;
-  const size_t smem = sizeof(float) * 2 * kTile * factor_ld<RQ>();
+  constexpr size_t smem = shrink_smem_bytes<RQ>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, E);
-  kernel<<<grid, kThreads, smem, stream>>>(u, v, m, w, lam, s, psi, M, N, r);
+  const dim3 grid((N + kT64 - 1) / kT64, (M + kT64 - 1) / kT64, E);
+  kernel<<<grid, kT64Threads, smem, stream>>>(u, v, m, w, lam, s, psi, M, N,
+                                              r);
   return cudaGetLastError();
 }
 
@@ -91,7 +125,7 @@ template <bool WITH_PSI>
 int shrink_entry(const float* u, const float* v, const void* m, const void* w,
                  const float* lam, float* s, float* psi, int E, int M, int N,
                  int r, int dtype, int mask, void* stream) {
-  return dispatch<false>(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
+  return dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
     using TM = typename decltype(tm)::type;
     return launch_shrink<decltype(rq)::value, TM, decltype(mk)::value,
                          WITH_PSI>(u, v, static_cast<const TM*>(m), w, lam, s,
@@ -104,7 +138,8 @@ int shrink_entry(const float* u, const float* v, const void* m, const void* w,
 }  // namespace repro
 
 // Both entries return cudaGetLastError() of the launch (0 on success).  m is
-// fp32 or bf16 (dtype code), w null or dense (mask code 0 or 1, tile.cuh).
+// fp32 or bf16 (dtype code), w null, dense or bit-packed (mask code 0, 1 or
+// 2, tile.cuh).
 extern "C" int repro_residual_shrink(const float* u, const float* v,
                                      const void* m, const void* w,
                                      const float* lam, float* s, int E, int M,

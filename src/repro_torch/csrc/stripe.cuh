@@ -11,10 +11,12 @@
 //   WITH_DIAG  the block's share of H_lam(R_W) and ||Psi||^2, written as
 //              per-block partials;
 //   WITH_V     the stripe's (64-column x r) share of Psi^T U for each column
-//              tile, written to a partial plane (stripes, E, n, r).
+//              tile, summed over its row group into one of the group
+//              partial planes (groups, E, n, r) (below).
 // One second launch adds the partials in index order (reduce.cuh): out_u
 // over the column splits (none with one split: out_u is written directly),
-// out_v over the stripes, the scalars over the blocks.  No atomics.  The three
+// out_v over the row groups (none with one group), the scalars over the
+// blocks.  No atomics.  The three
 // flavours share the splits (kernels/huber_contract.py::u_splits, from the
 // shape and SM count alone) and every accumulation of out_u, obj and psi2,
 // so huber_contract_u (fused="off") and huber_contract_u_diag
@@ -41,15 +43,32 @@
 //     FMAs;
 //   - V tiles come through a two-stage cp.async ring (the next tile loads
 //     under this tile's FMAs) and two blocks share an SM where shared
-//     memory and registers allow both (r <= 96); at 96 < r <= 160 the u
-//     flavours run two blocks with one V stage (the next tile loads behind
-//     a barrier, under the other block's FMAs: faster than one block with
-//     two stages); elsewhere one block with two stages.
+//     memory and registers allow both (r <= 96, the dual r <= 64); at
+//     96 < r <= 160 the u flavours run two blocks with one V stage (the
+//     next tile loads behind a barrier, under the other block's FMAs:
+//     faster than one block with two stages); elsewhere one block with
+//     two stages.
 // The rank loop of U V^T stops at r rounded up to 4; the contractions'
-// register blocks cover 32 RQ ranks.  The dual's out_v partial plane is
-// (m / 64) E n r floats, written once and read once.
+// register blocks cover 32 RQ ranks.
+//
+// The dual's out_v scratch does not grow with m: its stripes form row
+// groups (kernels/huber_contract.py::dual_plan), each a thread-block
+// cluster of `cluster` consecutive stripes (1, 2, 4 or 8), and a group adds
+// its stripes' shares into one partial plane, so the planes are at most the
+// 4 MiB the reference bounds its resident out_v by.  For every column tile
+// each block pushes its share into the receive buffer (distributed shared
+// memory) of the block that owns those columns, and that block adds its
+// 64 / cluster columns over the cluster's blocks in rank order: the same
+// order on every run.  The buffers alternate between two parities and the
+// cluster barrier is split: a block arrives after its push and waits (then
+// sums) after the next tile's U V^T, Psi and Psi V, so the blocks need not
+// run in lockstep.  Clusters are placed by load balancing (at D, 66
+// clusters of 4 fit an H100 at once, 62 by default: one wave, not two).
+// With cluster 1 (the u flavours, and the dual where every stripe may have
+// a plane) a block writes its plane directly.
 #pragma once
 
+#include "hopper.cuh"
 #include "reduce.cuh"
 #include "tile.cuh"
 #include "tile64.cuh"
@@ -57,6 +76,39 @@
 namespace repro {
 
 constexpr int kPsiTLd = kT64 + 4;  // row stride of Psi^T
+
+// Floats of the dual's receive buffer when its row groups are clusters:
+// two parities x 64 columns x 32 RQ ranks.
+template <int RQ>
+__host__ __device__ constexpr size_t recv_floats() {
+  return 2 * kT64 * 32 * RQ;
+}
+
+// This block's columns [c, c + 1) * 64 / cluster of the column tile at
+// j0, c its rank in the cluster: its receive buffer (parity par) holds the
+// cluster's blocks' shares, added here in rank order and written to its
+// group's plane of v_target (groups, E, N, r).  Not inlined: the dual holds
+// 128 registers a thread for two blocks an SM, and a call once a tile
+// costs less than the spills its inlined loop caused in the tile loop
+// (0.093 -> 0.080 ms at D16 on an H100).
+template <int RQ>
+__device__ __noinline__ void cluster_sum(const float* recv, int par,
+                                            float* v_target, int j0, int E,
+                                            int N, int r, int cluster) {
+  constexpr int RP = 32 * RQ;
+  const int width = kT64 / cluster;
+  const int crank = blockIdx.x % cluster, group = blockIdx.x / cluster;
+  float* dst =
+      v_target + (static_cast<size_t>(group) * E + blockIdx.z) * N * r;
+  const float* buf = recv + static_cast<size_t>(par) * kT64 * RP;
+  for (int idx = threadIdx.x; idx < width * RP; idx += kT64Threads) {
+    const int cc = idx / RP, k = idx - cc * RP;
+    float sum = 0.f;
+    for (int b = 0; b < cluster; ++b) sum += buf[(b * width + cc) * RP + k];
+    const int j = j0 + crank * width + cc;
+    if (j < N && k < r) dst[static_cast<size_t>(j) * r + k] = sum;
+  }
+}
 
 // Dynamic shared memory of a stripe block: the U stripe, STAGES V tiles,
 // Psi^T.
@@ -68,10 +120,12 @@ __host__ __device__ constexpr size_t stripe_smem_bytes() {
 
 // Two blocks share an SM where both fit its shared memory with one V stage
 // (r <= 160) and its registers (128 a thread): the dual's two register
-// blocks of 8 RQ floats fit beside the rest only up to RQ = 3 (r <= 96).
+// blocks of 8 RQ floats and its row-group exchange fit beside the rest
+// only up to RQ = 2 (r <= 64; at RQ = 3 they spilled, and its clusters'
+// receive buffers leave room for one block anyway).
 template <int RQ, bool WITH_V>
 __host__ __device__ constexpr bool stripe_two_blocks() {
-  return two_blocks_fit(stripe_smem_bytes<RQ, 1>()) && (!WITH_V || RQ <= 3);
+  return two_blocks_fit(stripe_smem_bytes<RQ, 1>()) && (!WITH_V || RQ <= 2);
 }
 
 // Two V stages wherever they fit beside the blocks an SM holds; one where a
@@ -91,14 +145,15 @@ stripe_kernel(const float* __restrict__ u, const float* __restrict__ v,
               const TM* __restrict__ m, const void* __restrict__ w,
               const float* __restrict__ lam, float* __restrict__ out_u,
               float* __restrict__ diag_partial,
-              float* __restrict__ v_partial, int E, int M, int N, int r,
-              int cols_per_split) {
+              float* __restrict__ v_target, int E, int M, int N, int r,
+              int cols_per_split, int cluster) {
   constexpr int LD = ld64<RQ>();
   constexpr int STAGES = stripe_stages<RQ, WITH_V>();
   extern __shared__ float4 smem4[];
   float* Us = reinterpret_cast<float*>(smem4);  // kT64 x LD
   float* Vring = Us + kT64 * LD;                // STAGES x kT64 x LD
   float* PsT = Vring + STAGES * kT64 * LD;      // kT64 x kPsiTLd
+  float* recv = PsT + kT64 * kPsiTLd;  // the dual's, with cluster > 1
 
   const int stripe = blockIdx.x, split = blockIdx.y, e = blockIdx.z;
   const int i0 = stripe * kT64;
@@ -119,6 +174,10 @@ stripe_kernel(const float* __restrict__ u, const float* __restrict__ v,
   const int cr = warp * 4 + (lane >> 3);
   const int ck = lane & 7;
   const int r4 = (r + 3) / 4;
+  // The dual's row groups: clusters of `cluster` consecutive stripes.
+  // Their blocks push into each other's receive buffers, so all of them
+  // must be running before the first push.
+  if (WITH_V && cluster > 1) hopper::cluster_sync();
 
   stage_async<RQ>(Us, ue, i0, M, r);
   stage_async<RQ>(Vring, ve, col_begin, N, r);
@@ -197,8 +256,15 @@ stripe_kernel(const float* __restrict__ u, const float* __restrict__ v,
       stage_async<RQ>(Vs, ve, j0 + kT64, N, r);
       cp_async_commit();
     }
+    if (WITH_V && cluster > 1 && t > 0) {
+      // The last tile's pushes have landed everywhere: its sums, here where
+      // only acc is live, before this tile's push reuses the other parity.
+      hopper::cluster_wait();
+      cluster_sum<RQ>(recv, (t - 1) & 1, v_target, j0 - kT64, E, N, r,
+                      cluster);
+    }
 
-    if (WITH_V) {
+    if constexpr (WITH_V) {
       // pv[c][q] = sum_ii Psi[ii, 2 cr + c] * U[ii, 4 (ck + 8 q) .. + 3]:
       // this stripe's share of out_v for the tile's 64 columns.
       float pv[2][RQ][4];
@@ -233,20 +299,44 @@ stripe_kernel(const float* __restrict__ u, const float* __restrict__ v,
           }
         }
       }
-      float* dst = v_partial + (static_cast<size_t>(stripe) * E + e) * N * r;
+      if (cluster == 1) {
+        float* dst = v_target + (static_cast<size_t>(stripe) * E + e) * N * r;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int j = j0 + 2 * cr + c;
-        if (j >= N) continue;
+        for (int c = 0; c < 2; ++c) {
+          const int j = j0 + 2 * cr + c;
+          if (j >= N) continue;
 #pragma unroll
-        for (int q = 0; q < RQ; ++q)
+          for (int q = 0; q < RQ; ++q)
 #pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            const int k = 4 * (ck + 8 * q) + s;
-            if (k < r) dst[static_cast<size_t>(j) * r + k] = pv[c][q][s];
-          }
+            for (int s = 0; s < 4; ++s) {
+              const int k = 4 * (ck + 8 * q) + s;
+              if (k < r) dst[static_cast<size_t>(j) * r + k] = pv[c][q][s];
+            }
+        }
+      } else {
+        // Columns 2 cr, 2 cr + 1 go to block 2 cr / (64 / cluster), into
+        // its receive buffer of this tile's parity at this block's slot.
+        const int width = kT64 / cluster;
+        const int crank = stripe % cluster;
+        const uint32_t to = hopper::cluster_addr(
+            recv + ((static_cast<size_t>(t & 1) * cluster + crank) * width +
+                    (2 * cr) % width) * (32 * RQ) + 4 * ck,
+            (2 * cr) / width);
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int q = 0; q < RQ; ++q)
+            hopper::st_cluster(to + 4 * (c * 32 * RQ + 32 * q),
+                       make_float4(pv[c][q][0], pv[c][q][1], pv[c][q][2],
+                                   pv[c][q][3]));
+        hopper::cluster_arrive();
       }
     }
+  }
+  if (WITH_V && cluster > 1 && t > 0) {
+    hopper::cluster_wait();
+    cluster_sum<RQ>(recv, (t - 1) & 1, v_target, col_begin + (t - 1) * kT64,
+                    E, N, r, cluster);
   }
 
   // out_u itself with one split, else this split's partial plane.
@@ -279,8 +369,9 @@ stripe_kernel(const float* __restrict__ u, const float* __restrict__ v,
       }
       __syncthreads();
     }
-    if (threadIdx.x == 0) {
-      const int blocks = gridDim.x * gridDim.y;  // per client
+    const int n_stripes = (M + kT64 - 1) / kT64;  // past it: idle blocks
+    if (threadIdx.x == 0 && stripe < n_stripes) {
+      const int blocks = n_stripes * gridDim.y;  // per client
       const int b = stripe * gridDim.y + split;
       diag_partial[static_cast<size_t>(e) * blocks + b] = red[0];
       diag_partial[static_cast<size_t>(E + e) * blocks + b] =
@@ -289,15 +380,18 @@ stripe_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
-// Number of 64-row stripes: the grid's x extent.  diag_partial holds
-// 2 E stripes splits floats, u_partial splits E M r (when splits > 1),
-// v_partial stripes E N r.
+// Number of 64-row stripes.  diag_partial holds 2 E stripes splits floats,
+// u_partial splits E M r (when splits > 1), v_partial groups E N r (when
+// groups > 1).
 inline int stripes(int M) { return (M + kT64 - 1) / kT64; }
 
 // The stripe kernel, then one launch of the fixed-order sums of its
 // partials: out_u from u_partial (splits > 1), out_v from v_partial
-// (WITH_V), obj and psi2 from diag_partial (WITH_DIAG).  The splits'
-// column ranges are whole 64-column tiles, none empty.
+// (WITH_V, groups > 1), obj and psi2 from diag_partial (WITH_DIAG).  The
+// splits' column ranges are whole 64-column tiles, none empty.  WITH_V
+// takes kernels/huber_contract.py::dual_plan's row groups: `groups`
+// clusters of `cluster` stripes (1, 2, 4 or 8), together every stripe,
+// none empty; the u flavours one stripe a block.
 template <int RQ, typename TM, int MASK, bool WITH_DIAG, bool WITH_V>
 cudaError_t launch_stripe(const float* u, const float* v, const TM* m,
                           const void* w, const float* lam, float* out_u,
@@ -305,20 +399,55 @@ cudaError_t launch_stripe(const float* u, const float* v, const TM* m,
                           float* diag_partial, float* u_partial,
                           float* v_partial, int E, int M, int N, int r,
                           int splits, int cols_per_split,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, int cluster = 1,
+                          int groups = 0) {
+  const int tiles = stripes(M);
+  if (!WITH_V) {
+    cluster = 1;
+    groups = tiles;
+  }
   if (splits < 1 || cols_per_split % kT64 != 0 ||
       (splits - 1) * cols_per_split >= N ||
-      static_cast<long long>(splits) * cols_per_split < N)
+      static_cast<long long>(splits) * cols_per_split < N ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      groups < 1 || groups * cluster < tiles ||
+      (groups - 1) * cluster >= tiles)
     return cudaErrorInvalidValue;
   auto kernel = stripe_kernel<RQ, TM, MASK, WITH_DIAG, WITH_V>;
-  const size_t smem = stripe_smem_bytes<RQ, stripe_stages<RQ, WITH_V>()>();
+  const size_t smem =
+      stripe_smem_bytes<RQ, stripe_stages<RQ, WITH_V>()>() +
+      (cluster > 1 ? sizeof(float) * recv_floats<RQ>() : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int tiles = stripes(M);
-  kernel<<<dim3(tiles, splits, E), kT64Threads, smem, stream>>>(
-      u, v, m, w, lam, splits == 1 ? out_u : u_partial, diag_partial,
-      v_partial, E, M, N, r, cols_per_split);
+  float* u_dst = splits == 1 ? out_u : u_partial;
+  float* v_dst = groups > 1 ? v_partial : out_v;
+  const dim3 grid(groups * cluster, splits, E);
+  if (cluster == 1) {
+    kernel<<<grid, kT64Threads, smem, stream>>>(
+        u, v, m, w, lam, u_dst, diag_partial, v_dst, E, M, N, r,
+        cols_per_split, cluster);
+  } else {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = dim3(kT64Threads);
+    config.dynamicSmemBytes = smem;
+    config.stream = stream;
+    cudaLaunchAttribute attr[2];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeClusterSchedulingPolicyPreference;
+    attr[1].val.clusterSchedulingPolicyPreference =
+        cudaClusterSchedulingPolicyLoadBalancing;
+    config.attrs = attr;
+    config.numAttrs = 2;
+    err = cudaLaunchKernelEx(&config, kernel, u, v, m, w, lam, u_dst,
+                             diag_partial, v_dst, E, M, N, r,
+                             cols_per_split, cluster);
+    if (err != cudaSuccess) return err;
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // One launch of the fixed-order sums that this flavour needs.
@@ -326,9 +455,9 @@ cudaError_t launch_stripe(const float* u, const float* v, const TM* m,
   if (splits > 1)
     jobs.job[jobs.n++] = sum_over_splits(
         u_partial, out_u, static_cast<size_t>(E) * M * r, splits);
-  if (WITH_V)
+  if (WITH_V && groups > 1)
     jobs.job[jobs.n++] = sum_over_splits(
-        v_partial, out_v, static_cast<size_t>(E) * N * r, tiles);
+        v_partial, out_v, static_cast<size_t>(E) * N * r, groups);
   if (WITH_DIAG) {
     // diag_partial: (2, E, blocks) with blocks = tiles * splits a client.
     const size_t blocks = static_cast<size_t>(tiles) * splits;

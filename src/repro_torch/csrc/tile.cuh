@@ -1,18 +1,6 @@
 // Shared pieces of the Huber-residual kernels: how M and W are read, the
 // mask modes and the dispatch from runtime codes to template instances,
-// for every kernel in this directory; and the 32 x 32 residual tile
-// R = M - U V^T of the shrink (shrink.cu), computed on the CUDA cores in
-// full fp32 (the contractions take 64 x 64 tiles: tile64.cuh).
-//
-// The shrink's tile is built in three steps:
-//   1. stage a 32-row slice of U and of V (all r columns, zero-padded up to
-//      a multiple of 32) in shared memory;
-//   2. each of the 256 threads computes a 2 x 2 patch of U V^T with fp32 FMAs
-//      over k = 0 .. r-1 in order, and reads its M (and W) entries from
-//      device memory;
-//   3. the epilogue (soft threshold, and Psi in the psi mode).
-// Zero-padding is exact: a padded row of U or V gives U V^T = 0 and a padded
-// entry of M reads as 0, so every padded residual, Psi and S is 0.
+// for every kernel in this directory (their residual tiles: tile64.cuh).
 //
 // The data plane M is fp32 or bf16 (upcast on load with __bfloat162float;
 // everything after the load is fp32).  The mask W is absent, a dense fp32
@@ -33,9 +21,6 @@
 
 namespace repro {
 
-constexpr int kTile = 32;      // rows and columns of one residual tile
-constexpr int kThreads = 256;  // threads per block (8 warps)
-
 // Codes of the data type of M and of the mask mode, as the C entries take
 // them (kernels/_launch.py passes the same numbers).
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
@@ -43,54 +28,6 @@ enum MaskMode : int { kNoMask = 0, kDenseMask = 1, kPackedMask = 2 };
 
 // Bytes per row of a packed mask with n columns.
 __host__ __device__ constexpr int packed_width(int n) { return (n + 7) / 8; }
-
-// Row stride (in floats) of a staged factor slice: r padded to 32 * RQ, plus
-// one so that the 2 x 2 patches of neighbouring threads fall in different
-// shared-memory banks.
-template <int RQ>
-__host__ __device__ constexpr int factor_ld() { return 32 * RQ + 1; }
-
-// Stage rows [row0, row0 + 32) of a (nrows, r) row-major factor into dst
-// (32 x factor_ld<RQ>()), writing zeros past nrows and past r.
-template <int RQ>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int row0, int nrows, int r) {
-  constexpr int RP = 32 * RQ;
-  constexpr int LD = factor_ld<RQ>();
-  for (int idx = threadIdx.x; idx < kTile * RP; idx += kThreads) {
-    const int ii = idx / RP;
-    const int k = idx - ii * RP;
-    const int row = row0 + ii;
-    dst[ii * LD + k] =
-        (row < nrows && k < r) ? src[static_cast<size_t>(row) * r + k] : 0.f;
-  }
-}
-
-// This thread's 2 x 2 patch of Us Vs^T: rows 2*(t/16) + {0,1} of the U slice
-// against rows 2*(t%16) + {0,1} of the V slice, summed over k in order.
-template <int RQ>
-__device__ __forceinline__ void low_rank_patch(const float* Us, const float* Vs,
-                                               int r, float low[2][2]) {
-  constexpr int LD = factor_ld<RQ>();
-  const int ti = threadIdx.x / 16;
-  const int tj = threadIdx.x % 16;
-  const float* ua = Us + (2 * ti) * LD;
-  const float* ub = ua + LD;
-  const float* va = Vs + (2 * tj) * LD;
-  const float* vb = va + LD;
-  float l00 = 0.f, l01 = 0.f, l10 = 0.f, l11 = 0.f;
-  for (int k = 0; k < r; ++k) {
-    const float a0 = ua[k], a1 = ub[k], b0 = va[k], b1 = vb[k];
-    l00 = fmaf(a0, b0, l00);
-    l01 = fmaf(a0, b1, l01);
-    l10 = fmaf(a1, b0, l10);
-    l11 = fmaf(a1, b1, l11);
-  }
-  low[0][0] = l00;
-  low[0][1] = l01;
-  low[1][0] = l10;
-  low[1][1] = l11;
-}
 
 __device__ __forceinline__ float clip(float x, float lam) {
   return fminf(fmaxf(x, -lam), lam);
@@ -179,25 +116,23 @@ cudaError_t by_dtype(int dtype, F&& f) {
   }
 }
 
-// kPacked: whether this kernel takes packed masks at all (the shrink does
-// not; its dispatch unpacks first).
-template <bool kPacked, typename F>
+template <typename F>
 cudaError_t by_mask(int mask, F&& f) {
-  if (mask == kNoMask) return f(Int<kNoMask>{});
-  if (mask == kDenseMask) return f(Int<kDenseMask>{});
-  if constexpr (kPacked) {
-    if (mask == kPackedMask) return f(Int<kPackedMask>{});
+  switch (mask) {
+    case kNoMask: return f(Int<kNoMask>{});
+    case kDenseMask: return f(Int<kDenseMask>{});
+    case kPackedMask: return f(Int<kPackedMask>{});
+    default: return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 // f(Int<RQ>, TypeTag<TM>, Int<MASK>) for RQ = ceil(r / 32), the type of M
 // and the mask mode; returns f's cudaError_t as an int (cudaErrorInvalidValue
 // for a code or rank no instantiation covers).
-template <bool kPacked = true, typename F>
+template <typename F>
 int dispatch(int r, int dtype, int mask, F&& f) {
   return static_cast<int>(by_dtype(dtype, [&](auto tm) {
-    return by_mask<kPacked>(mask, [&](auto mk) {
+    return by_mask(mask, [&](auto mk) {
       return by_rank(r, [&](auto rq) { return f(rq, tm, mk); });
     });
   }));

@@ -80,41 +80,54 @@ __device__ __forceinline__ void stage_async(float* dst, const float* src,
     stage_pieces<RQ, 4>(dst, src, row0, nrows, r);
 }
 
-// This thread's 4 x 4 patch of Us Vs^T: rows ti + 16 a of the U slice
-// against rows tj + 16 b of the V slice, summed over k = 0 .. 4 r4 - 1 in
-// order.  Per 4 ranks 8 float4 loads feed 64 FMAs; with ti = (warp / 2) * 4
-// + lane / 8 and tj = (warp % 2) * 8 + lane % 8, a warp reads 4 distinct U
-// rows and 8 distinct V rows.
+// Adds ranks 4 kq .. 4 kq + 3 to this thread's 4 x 4 patch `low` of Us
+// Vs^T: rows ti + 16 a of the U slice against rows tj + 16 b of the V
+// slice.  8 float4 loads feed 64 FMAs; with ti = (warp / 2) * 4 + lane / 8
+// and tj = (warp % 2) * 8 + lane % 8, a warp reads 4 distinct U rows and 8
+// distinct V rows.
 template <int RQ>
+__device__ __forceinline__ void patch44_step(const float* Us, const float* Vs,
+                                             int ti, int tj, int kq,
+                                             float low[4][4]) {
+  constexpr int LD = ld64<RQ>();
+  float4 ua[4], vb[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    ua[a] = *reinterpret_cast<const float4*>(Us + (ti + 16 * a) * LD +
+                                             4 * kq);
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    vb[b] = *reinterpret_cast<const float4*>(Vs + (tj + 16 * b) * LD +
+                                             4 * kq);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      float l = low[a][b];
+      l = fmaf(ua[a].x, vb[b].x, l);
+      l = fmaf(ua[a].y, vb[b].y, l);
+      l = fmaf(ua[a].z, vb[b].z, l);
+      l = fmaf(ua[a].w, vb[b].w, l);
+      low[a][b] = l;
+    }
+}
+
+// This thread's 4 x 4 patch of Us Vs^T, summed over k = 0 .. 4 r4 - 1 in
+// order; UNROLL > 1 unrolls the rank loop that many times (1 leaves it to
+// the compiler).
+template <int RQ, int UNROLL = 1>
 __device__ __forceinline__ void patch44(const float* Us, const float* Vs,
                                         int ti, int tj, int r4,
                                         float low[4][4]) {
-  constexpr int LD = ld64<RQ>();
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = 0; b < 4; ++b) low[a][b] = 0.f;
-  for (int kq = 0; kq < r4; ++kq) {
-    float4 ua[4], vb[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      ua[a] = *reinterpret_cast<const float4*>(Us + (ti + 16 * a) * LD +
-                                               4 * kq);
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      vb[b] = *reinterpret_cast<const float4*>(Vs + (tj + 16 * b) * LD +
-                                               4 * kq);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        float l = low[a][b];
-        l = fmaf(ua[a].x, vb[b].x, l);
-        l = fmaf(ua[a].y, vb[b].y, l);
-        l = fmaf(ua[a].z, vb[b].z, l);
-        l = fmaf(ua[a].w, vb[b].w, l);
-        low[a][b] = l;
-      }
+  if constexpr (UNROLL == 1) {
+    for (int kq = 0; kq < r4; ++kq) patch44_step<RQ>(Us, Vs, ti, tj, kq, low);
+  } else {
+#pragma unroll UNROLL
+    for (int kq = 0; kq < r4; ++kq) patch44_step<RQ>(Us, Vs, ti, tj, kq, low);
   }
 }
 

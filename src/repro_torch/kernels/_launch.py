@@ -11,15 +11,15 @@ calls the entry through :func:`launch` (or, for another operand layout,
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
 #: Largest factor rank the kernels take (r <= 32 * 8).
 MAX_RANK = 256
-#: Rows and columns of one shrink tile (``kTile`` in ``csrc/tile.cuh``;
-#: the contractions take 64 x 64 tiles).
-TILE = 32
+#: Rows and columns of one residual tile (``kT64`` in ``csrc/tile64.cuh``).
+TILE = 64
 #: Codes of M's data type and of the mask mode (``DType`` and ``MaskMode``
 #: in ``csrc/tile.cuh``).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,13 +55,20 @@ def on_cpu(u: torch.Tensor) -> bool:
     return False
 
 
-def check_operands(u, v, m, lam, w=None, *, packed: bool = True) -> Operands:
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device`` (the kernels' grid splits
+    are pure functions of the shape and this)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def check_operands(u, v, m, lam, w=None) -> Operands:
     """Validate kernel operands.
 
     All must be contiguous tensors on one CUDA device: fp32 ``u`` (E, m, r),
     ``v`` (E, n, r) and ``lam`` (E,); ``m`` (E, m, n) fp32 or bf16; ``w``
-    absent, a dense fp32 0/1 plane shaped like ``m``, or (when ``packed``)
-    a bit-packed uint8 plane (E, m, ceil(n/8)).  Anything else raises.
+    absent, a dense fp32 0/1 plane shaped like ``m``, or a bit-packed uint8
+    plane (E, m, ceil(n/8)).  Anything else raises.
     """
     named = {"u": u, "v": v, "m": m, "lam": lam}
     if w is not None:
@@ -101,12 +108,12 @@ def check_operands(u, v, m, lam, w=None, *, packed: bool = True) -> Operands:
     if w is not None:
         if w.dtype == torch.float32:
             mask, want = DENSE_MASK, (e, mm, n)
-        elif w.dtype == torch.uint8 and packed:
+        elif w.dtype == torch.uint8:
             mask, want = PACKED_MASK, (e, mm, -(-n // 8))
         else:
             raise TypeError(
-                f"w has dtype {w.dtype}; this kernel takes a dense float32 "
-                f"mask{' or a bit-packed uint8 one' if packed else ''}")
+                f"w has dtype {w.dtype}; the kernels take a dense float32 "
+                f"mask or a bit-packed uint8 one")
         if tuple(w.shape) != want:
             raise ValueError(
                 f"mask shape {tuple(w.shape)} != {want} for data "
@@ -132,9 +139,14 @@ def call(lib: ctypes.CDLL, entry: str, name: str, counts: dict[str, int],
     stream of ``device``, raise if it reports a CUDA error, and count one
     launch of ``name``.  The device context is entered only when
     ``device`` is not the current device already (the usual case skips
-    its cost on every launch)."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if device.index is None or device.index == torch.cuda.current_device():
+    its cost on every launch).  The stream comes as the raw handle
+    (``torch._C._cuda_getCurrentRawStream``, as PyTorch's own generated
+    kernels take it): building a ``torch.cuda.Stream`` for it cost ~4 us a
+    launch on the H100's host, as much as a small kernel's device time."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
         status = getattr(lib, entry)(*args, stream)
     else:
         with torch.cuda.device(device):

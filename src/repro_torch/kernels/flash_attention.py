@@ -11,8 +11,11 @@ The kernel (``csrc/flash_attention.cu``) reads the (B, S, H, d) layout in
 place: no (B*H, S, d) copy.  bf16 runs on the tensor cores in Hopper's own
 form (TMA loads through tensor maps into a ring of K/V stages, wgmma with
 fp32 accumulation, one producer and two consumer warpgroups, P rounded to
-bf16 for P V); fp32 on the CUDA cores (no TF32).  At the serving shape it
-is bound by operations (see the source note).
+bf16 for P V); fp32 on the tensor cores in 3xTF32 (mma.sync, each operand
+split into two TF32 parts: fp32-level products), the key tiles of a query
+tile split over a thread-block cluster where the query tiles alone leave
+the card idle (:func:`f32_split`).  It is bound by operations (see the
+source note).
 
 On CPU tensors the wrapper returns the plain version; on CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches.
@@ -20,11 +23,14 @@ launches the kernel or raises.  ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._launch import DTYPE_CODES, I, P, call, on_cpu
+from repro_torch.kernels._launch import (
+    DTYPE_CODES, I, P, call, on_cpu, sm_count,
+)
 
 #: Kernel launches (CUDA tensors only).
 launches = {"flash_attention": 0}
@@ -33,7 +39,30 @@ launches = {"flash_attention": 0}
 HEAD_DIMS = (16, 32, 64, 128)
 
 _ENTRY = "repro_flash_attention"
-_SIGNATURE = (P,) * 4 + (I,) * 7 + (ctypes.c_float, P)
+_SIGNATURE = (P,) * 4 + (I,) * 7 + (ctypes.c_float, I, P)
+
+#: Query rows and keys of one tile of the fp32 kernel (``kF32BQ``,
+#: ``kF32BK`` in ``csrc/flash_attention.cu``).
+F32_TILE = 64
+#: Cluster sizes the fp32 kernel's key split takes (portable on Hopper).
+F32_SPLITS = (1, 2, 4, 8)
+
+
+@functools.lru_cache(maxsize=1024)
+def f32_split(b: int, sq: int, skv: int, h: int, d: int, sms: int) -> int:
+    """Blocks that share one query tile's key tiles in the fp32 kernel (a
+    thread-block cluster): the largest of :data:`F32_SPLITS` whose blocks
+    still fit the card's resident slots (two a SM, one at d = 128) and
+    get a key tile each.  1 wherever the query tiles fill the card.  A pure
+    function of the shape and the SM count."""
+    blocks = b * h * -(-sq // F32_TILE)
+    slots = sms * (1 if d == 128 else 2)
+    kv_tiles = -(-skv // F32_TILE)
+    split = 1
+    for more in F32_SPLITS[1:]:
+        if blocks * more <= slots and more <= kv_tiles:
+            split = more
+    return split
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -77,16 +106,19 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check(q, k, v)
     # The path's tensors are contiguous already; anything else is copied
     # once here (and the copy counts in this call's time).
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, sq, h, d = q.shape
     if scale is None:
         scale = 1.0 / d ** 0.5
     out = torch.empty_like(q)
-    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr() | out.data_ptr()) % 16:
         raise ValueError("the flash kernel needs 16-byte aligned tensors")
     lib = _build.library("flash_attention", {_ENTRY: _SIGNATURE})
+    split = 1 if q.dtype == torch.bfloat16 else f32_split(
+        b, sq, k.shape[1], h, d, sm_count(q.device))
     call(lib, _ENTRY, "flash_attention", launches, q.device,
          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
          b, h, sq, k.shape[1], d, DTYPE_CODES[q.dtype], int(causal),
-         float(scale))
+         float(scale), split)
     return out

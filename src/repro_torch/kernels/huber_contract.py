@@ -42,7 +42,10 @@ and the splits of a reduction across blocks (``v_splits``, ``u_splits``)
 are pure functions of the shape and the SM count.
 ``huber_contract_u`` is ``huber_contract_u_diag`` with the diagnostics
 compiled out (the same ``Psi V`` bits), and ``huber_dual_contract`` always
-runs its one fused pass: there is no two-pass route.
+runs its one fused pass where its out_v scratch fits 4 MiB
+(:func:`dual_plan`: row groups of up to 8 stripes that sum their shares in
+thread-block clusters, one partial plane a group), and the reference's two
+passes past it: the scratch never grows with m.
 
 A wrapper given CPU tensors returns its plain version (``*_plain``, the
 ``kernels.ref`` oracles); given CUDA tensors it launches its kernel or
@@ -56,7 +59,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._launch import (
-    MASK_SUFFIX, check_operands, launch, on_cpu, signature,
+    MASK_SUFFIX, check_operands, launch, on_cpu, signature, sm_count,
 )
 
 #: Kernel launches per function and mask mode (CUDA tensors only).
@@ -69,12 +72,13 @@ launches = {
 
 # source stem -> (C entry, extra pointers, extra ints): the pointers after
 # u, v, m, w, lam are the outputs and scratch; the ints are (splits, rows
-# per split) for contract_v, (splits, columns per split) for the others.
+# per split) for contract_v, (splits, columns per split) for the others,
+# and the dual's row groups (cluster, groups) after them.
 _ENTRIES = {
     "contract_v": ("repro_huber_contract_v", 2, 2),
     "contract_u": ("repro_huber_contract_u", 2, 2),
     "contract_u_diag": ("repro_huber_contract_u_diag", 5, 2),
-    "dual": ("repro_huber_dual_contract", 7, 2),
+    "dual": ("repro_huber_dual_contract", 7, 4),
 }
 
 
@@ -145,11 +149,6 @@ def u_splits(e: int, m: int, n: int, sms: int) -> tuple[int, int]:
     return splits, per * U_TILE_COLS
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _f32(*shape, device) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.float32, device=device)
 
@@ -166,7 +165,7 @@ def huber_contract_v(u, v, m, lam, w=None) -> torch.Tensor:
         return huber_contract_v_plain(u, v, m, lam, w)
     op = check_operands(u, v, m, lam, w)
     out = _f32(op.e, op.n, op.r, device=u.device)
-    splits, rows = v_splits(op.e, op.m, op.n, _sm_count(u.device))
+    splits, rows = v_splits(op.e, op.m, op.n, sm_count(u.device))
     partial = out if splits == 1 else _f32(splits, op.e, op.n, op.r,
                                            device=u.device)
     _call("contract_v", "huber_contract_v", op, u, v, m, w, lam, out, partial,
@@ -183,7 +182,7 @@ def huber_contract_u_plain(u, v, m, lam, w=None) -> torch.Tensor:
 def _u_scratch(op, device) -> tuple[tuple[int, int], torch.Tensor | None]:
     """The column splits of a row-stripe launch and the (splits, E, m, r)
     partial planes of out_u they need (none with one split)."""
-    splits, cols = u_splits(op.e, op.m, op.n, _sm_count(device))
+    splits, cols = u_splits(op.e, op.m, op.n, sm_count(device))
     partial = None if splits == 1 else _f32(splits, op.e, op.m, op.r,
                                             device=device)
     return (splits, cols), partial
@@ -235,26 +234,68 @@ def huber_dual_contract_plain(u, v, m, lam, w=None):
     return ref.huber_dual_contract_masked(u, v, m, w, lam)
 
 
-def dual_partial_shape(e: int, m: int, n: int, r: int) -> tuple[int, ...]:
-    """The (stripes, E, n, r) fp32 scratch of ``huber_dual_contract``'s
-    out_v partials: one (n, r) plane per client and 64-row stripe."""
-    return (-(-m // U_TILE_ROWS), e, n, r)
+#: Bytes of fp32 out_v partial planes ``huber_dual_contract`` may hold:
+#: the reference's bound on its resident out_v
+#: (``repro/kernels/ops.py::RESIDENT_OUT_V_BYTES``).
+DUAL_SCRATCH_BYTES = 4 << 20
+#: Cluster sizes a row group of the dual may take (portable on Hopper).
+DUAL_CLUSTERS = (1, 2, 4, 8)
+
+
+def dual_groups(e: int, n: int, r: int) -> int:
+    """The most (E, n, r) fp32 out_v partial planes that fit
+    :data:`DUAL_SCRATCH_BYTES` (at least one: out_v itself)."""
+    return max(1, DUAL_SCRATCH_BYTES // (4 * e * n * r))
+
+
+def dual_scratch_shape(e: int, n: int, r: int) -> tuple[int, ...] | None:
+    """The fp32 out_v scratch ``huber_dual_contract`` allocates: the
+    (:func:`dual_groups`, E, n, r) partial planes, ``None`` where one plane
+    (out_v itself) is all.  A function of (E, n, r) alone, so its bytes do
+    not grow with m; at most :data:`DUAL_SCRATCH_BYTES`."""
+    groups = dual_groups(e, n, r)
+    return None if groups == 1 else (groups, e, n, r)
+
+
+@functools.lru_cache(maxsize=1024)
+def dual_plan(e: int, m: int, n: int, r: int) -> tuple[int, int] | None:
+    """``(cluster, groups)`` of ``huber_dual_contract``'s row groups:
+    ``groups`` thread-block clusters of ``cluster`` consecutive 64-row
+    stripes cover every stripe, none empty, each adding its stripes'
+    shares of out_v into one partial plane (out_v itself when ``groups ==
+    1``) of :func:`dual_scratch_shape`.  The smallest cluster whose groups
+    fit it; ``None`` where even clusters of 8 do not (then the wrapper
+    takes the reference's two passes, as it does past its own 4 MiB)."""
+    stripes = -(-m // U_TILE_ROWS)
+    for cluster in DUAL_CLUSTERS:
+        groups = -(-stripes // cluster)
+        if groups <= dual_groups(e, n, r):
+            return cluster, groups
+    return None
 
 
 def huber_dual_contract(u, v, m, lam, w=None):
     """``(Psi^T U (E, n, r), Psi V (E, m, r), H_lam(R_W) (E,),
-    ||Psi||_F^2 (E,))`` from one pass; masked when ``w`` is given."""
+    ||Psi||_F^2 (E,))`` from one pass; masked when ``w`` is given.  Where
+    the row groups' planes would pass 4 MiB (:func:`dual_plan` is
+    ``None``), two passes instead: ``huber_contract_v`` and
+    ``huber_contract_u_diag`` (their launches count under their names)."""
     if on_cpu(u):
         return huber_dual_contract_plain(u, v, m, lam, w)
     op = check_operands(u, v, m, lam, w)
+    plan = dual_plan(op.e, op.m, op.n, op.r)
+    if plan is None:
+        return (huber_contract_v(u, v, m, lam, w),
+                *huber_contract_u_diag(u, v, m, lam, w))
     dev = u.device
     out_v = _f32(op.e, op.n, op.r, device=dev)
     out_u = _f32(op.e, op.m, op.r, device=dev)
     diag = _f32(2, op.e, device=dev)
     ints, u_partial = _u_scratch(op, dev)
-    v_partial = _f32(*dual_partial_shape(op.e, op.m, op.n, op.r),
-                     device=dev)
+    cluster, groups = plan
+    scratch = dual_scratch_shape(op.e, op.n, op.r)
+    v_partial = None if scratch is None else _f32(*scratch, device=dev)
     _call("dual", "huber_dual_contract", op, u, v, m, w, lam, out_v, out_u,
           diag[0], diag[1], _diag_partial(op, ints[0], dev), u_partial,
-          v_partial, ints=ints)
+          v_partial, ints=(*ints, cluster, groups))
     return out_v, out_u, diag[0], diag[1]

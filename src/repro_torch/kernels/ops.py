@@ -10,9 +10,9 @@ Signatures follow ``repro.kernels.ops``.  Operands are one problem
 with a leading axis E (``m`` is (E, m, n), ``u`` (E, m, r), ``v`` (E, n, r));
 ``m`` is fp32 or bf16; ``lam`` is a float, a 0-d tensor or one threshold per
 client (E,).  ``w`` is an optional 0/1 mask: dense (shaped like ``m``) or
-bit-packed uint8 (``kernels.bitmask``).  The contraction kernels read a
-packed plane as it is; the shrink, which runs once per solve, takes it
-unpacked here, as the reference does.
+bit-packed uint8 (``kernels.bitmask``); every kernel reads a packed plane
+as it is (the reference unpacks one for its shrink; the plain route here
+unpacks it inside ``kernels.ref``).
 
 ``launch_counts`` covers every kernel of the port, the attention kernel
 (``kernels.flash_attention``) included.
@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import bitmask, ref
+from repro_torch.kernels import ref
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import huber_contract as _hc
 from repro_torch.kernels import shrinkage as _sh
@@ -81,8 +81,7 @@ def residual_shrink(u, v, m, lam, *, w=None, impl: str = "auto"):
             return ref.residual_shrink_masked(u, v, m, w, lam)
         return ref.residual_shrink(u, v, m, lam)
     single, u, v, m, lam, w = _kernel_args(u, v, m, lam, w)
-    s = _sh.residual_shrink(u, v, m, lam,
-                            bitmask.resolve_mask(w, m.shape[-1]))
+    s = _sh.residual_shrink(u, v, m, lam, w)
     return s[0] if single else s
 
 
@@ -117,8 +116,7 @@ def residual_shrink_psi(u, v, m, lam, *, w=None, impl: str = "auto"):
             return ref.residual_shrink_psi_masked(u, v, m, w, lam)
         return ref.residual_shrink_psi(u, v, m, lam)
     single, u, v, m, lam, w = _kernel_args(u, v, m, lam, w)
-    s, psi = _sh.residual_shrink_psi(u, v, m, lam,
-                                     bitmask.resolve_mask(w, m.shape[-1]))
+    s, psi = _sh.residual_shrink_psi(u, v, m, lam, w)
     return (s[0], psi[0]) if single else (s, psi)
 
 

@@ -10,13 +10,15 @@
                      ``residual_shrink_psi`` (:129, kernel :48) and
                      ``residual_shrink_psi_masked`` (:202, kernel :66).
 
-``M`` is fp32 or bf16 (upcast on load); ``S`` is fp32.  The kernel takes no
-mask or a dense fp32 one: it runs once per solve, so a bit-packed mask is
-unpacked by the dispatch (``kernels.ops``), as the reference does.  The
-kernel (``csrc/shrink.cu``, Psi a template flag of the same tile) computes
-each 32 x 32 tile of S from staged rows of U and V, and M, S and Psi each
-cross device memory once: 2r FLOP per entry against 6-16 bytes, so fp32
-arithmetic bounds it at r = 150 and the bytes at r = 64.
+``M`` is fp32 or bf16 (upcast on load); ``S`` is fp32.  ``w`` is absent, a
+dense fp32 0/1 plane or a bit-packed uint8 one (``kernels.bitmask``), which
+the kernel reads as it is: a packed plane gives the bits of the dense plane
+it packs, and an all-ones plane the bits of no mask.  The kernel
+(``csrc/shrink.cu``, Psi a template flag of the same tile) computes each
+64 x 64 tile of S from cp.async-staged rows of U and V (``csrc/tile64.cuh``),
+and M, W, S and Psi each cross device memory once: 2r FLOP per entry
+against 4-16 bytes, so fp32 arithmetic bounds it at r = 150 and the bytes
+about as much at r = 64.
 
 On CPU tensors the wrapper returns the plain version; on CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches.
@@ -27,12 +29,13 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._launch import (
-    check_operands, launch, on_cpu, signature,
+    MASK_SUFFIX, check_operands, launch, on_cpu, signature,
 )
 
 #: Kernel launches per function (CUDA tensors only).
-launches = {"residual_shrink": 0, "residual_shrink_masked": 0,
-            "residual_shrink_psi": 0, "residual_shrink_psi_masked": 0}
+launches = {base + suffix: 0
+            for base in ("residual_shrink", "residual_shrink_psi")
+            for suffix in MASK_SUFFIX.values()}
 
 _ENTRY = "repro_residual_shrink"
 _PSI_ENTRY = "repro_residual_shrink_psi"
@@ -46,10 +49,10 @@ def residual_shrink_plain(u, v, m, lam, w=None) -> torch.Tensor:
 
 
 def residual_shrink(u, v, m, lam, w=None) -> torch.Tensor:
-    """``S`` (E, m, n); ``W * S`` when ``w`` (dense) is given."""
+    """``S`` (E, m, n); ``W * S`` when ``w`` (dense or packed) is given."""
     if on_cpu(u):
         return residual_shrink_plain(u, v, m, lam, w)
-    op = check_operands(u, v, m, lam, w, packed=False)
+    op = check_operands(u, v, m, lam, w)
     s = torch.empty((op.e, op.m, op.n), dtype=torch.float32, device=u.device)
     lib = _build.library("shrink", _SIGNATURES)
     launch(lib, _ENTRY, "residual_shrink" + op.suffix, launches, op,
@@ -65,10 +68,10 @@ def residual_shrink_psi_plain(u, v, m, lam, w=None):
 
 def residual_shrink_psi(u, v, m, lam, w=None):
     """``(S, Psi)``, each (E, m, n); ``(W * S, W * R - W * S)`` when ``w``
-    (dense) is given."""
+    (dense or packed) is given."""
     if on_cpu(u):
         return residual_shrink_psi_plain(u, v, m, lam, w)
-    op = check_operands(u, v, m, lam, w, packed=False)
+    op = check_operands(u, v, m, lam, w)
     s, psi = (torch.empty((op.e, op.m, op.n), dtype=torch.float32,
                           device=u.device) for _ in range(2))
     lib = _build.library("shrink", _SIGNATURES)

@@ -7,16 +7,22 @@ another checkout's kernels (for example the parent commit's, unpacked with
 ``git archive``) through the same public wrappers at the same shapes; run
 the two trees in turns in one session on one card to compare them.  Rows:
 ``flash_attention`` bf16 at the serving shape (A) and fp32 at three small
-shapes (s, a, x); ``huber_contract_v`` at the Fig. 1 client blocks (F), the
+shapes (s, a, x) and at TinyLlama-1.1B's prefill (T: B=4, S=2048, H=32,
+d=64, causal); ``huber_contract_v`` at the Fig. 1 client blocks (F), the
 one-client plane (C), the compact-plane blocks in fp32 with a dense mask
 (D) and in bf16 with a packed mask (D16); the row-stripe kernels
 ``huber_contract_u_diag`` at F, C and D16, ``huber_dual_contract`` at D and
-D16, and ``huber_contract_u`` at F.  Each row gives the CUDA-event
-time per call over 20 calls after 3 of warm-up (``ms``: what a caller
-waits, the wrapper's host work included when it exceeds the kernel), the
-profiler's device time of the kernels per call (``device_ms``, and by
-kernel name: ``kernels``) and the host's time to enqueue a call
-(``host_us``).
+D16, and ``huber_contract_u`` at F; the shrink through its entry point
+``kernels.ops.residual_shrink`` (what a solve calls: a tree whose kernel
+takes no packed mask unpacks it there) at F, C, D and D16, and
+``residual_shrink_psi`` at F and in bf16 without a mask (D16n).  With
+``--only`` a comma-separated list of row-name prefixes picks rows (for
+example ``--only residual_shrink,flash_attention/T``).  Each row gives the
+CUDA-event time per call over 20 calls after 3 of warm-up (``ms``: what a
+caller waits, the wrapper's host work included when it exceeds the
+kernel), the profiler's device time of the kernels per call
+(``device_ms``, and by kernel name: ``kernels``) and the host's time to
+enqueue a call (``host_us``).
 Operands are random from a fixed seed (the kernels' time does not depend
 on the values).  Needs a CUDA card; exits 2 without one.
 """
@@ -34,12 +40,14 @@ FLASH_ROWS = {  # (B, S_q, S_kv, H, d, causal, dtype)
     "s": (2, 33, 33, 4, 32, True, torch.float32),
     "a": (1, 256, 256, 4, 64, True, torch.float32),
     "x": (2, 64, 200, 2, 64, False, torch.float32),
+    "T": (4, 2048, 2048, 32, 64, True, torch.float32),
 }
 SHAPES = {  # (E, m, n_i, r, dtype, mask)
     "F": (10, 3000, 300, 150, torch.float32, "none"),
     "C": (1, 3000, 3000, 150, torch.float32, "none"),
     "D": (4, 2048, 512, 64, torch.float32, "dense"),
     "D16": (4, 2048, 512, 64, torch.bfloat16, "packed"),
+    "D16n": (4, 2048, 512, 64, torch.bfloat16, "none"),
 }
 CONTRACT_ROWS = [  # (function, shape)
     ("huber_contract_v", "F"), ("huber_contract_v", "C"),
@@ -47,6 +55,9 @@ CONTRACT_ROWS = [  # (function, shape)
     ("huber_contract_u_diag", "F"), ("huber_contract_u_diag", "C"),
     ("huber_contract_u_diag", "D16"), ("huber_dual_contract", "D"),
     ("huber_dual_contract", "D16"), ("huber_contract_u", "F"),
+    ("residual_shrink", "F"), ("residual_shrink", "C"),
+    ("residual_shrink", "D"), ("residual_shrink", "D16"),
+    ("residual_shrink_psi", "F"), ("residual_shrink_psi", "D16n"),
 ]
 CALLS, WARMUP = 20, 3
 
@@ -111,9 +122,16 @@ def main() -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch
-    from repro_torch.kernels import bitmask
+    from repro_torch.kernels import bitmask, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import huber_contract as hc
+
+    only = None
+    if "--only" in sys.argv:
+        only = sys.argv[sys.argv.index("--only") + 1].split(",")
+
+    def wanted(row: str) -> bool:
+        return only is None or any(row.startswith(p) for p in only)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -123,6 +141,8 @@ def main() -> int:
     tree = repro_torch.__file__
     gen = torch.Generator(device=dev).manual_seed(0)
     for name, (b, sq, skv, h, d, causal, dtype) in FLASH_ROWS.items():
+        if not wanted(f"flash_attention/{name}"):
+            continue
         q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
                    .to(dtype) for s in (sq, skv, skv))
 
@@ -131,6 +151,8 @@ def main() -> int:
 
         emit(tree, f"flash_attention/{name}", run, smi)
     for fn, name in CONTRACT_ROWS:
+        if not wanted(f"{fn}/{name}"):
+            continue
         e, m, n, r, dtype, mode = SHAPES[name]
         u = torch.randn(e, m, r, generator=gen, device=dev) / r ** 0.5
         v = torch.randn(e, n, r, generator=gen, device=dev) / r ** 0.5
@@ -140,6 +162,8 @@ def main() -> int:
         lam = torch.ones(e, device=dev)
 
         def run():
+            if fn.startswith("residual_shrink"):
+                return getattr(ops, fn)(u, v, mat, lam, w=w)
             return getattr(hc, fn)(u, v, mat, lam, w)
 
         emit(tree, f"{fn}/{name}", run, smi)

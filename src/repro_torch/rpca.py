@@ -1,5 +1,6 @@
 """The front door for the ported solvers (counterpart of ``repro.rpca``):
-methods ``"cf"`` and ``"dcf"``.
+methods ``"cf"`` and ``"dcf"``; ``method="auto"`` picks by the reference's
+rules (:func:`auto_method`).
 
     from repro_torch import rpca
     res = rpca.solve(m_obs, method="dcf", cfg=DCFConfig.tuned(150),
@@ -28,6 +29,17 @@ from repro_torch.core.factorized import DCFConfig
 from repro_torch.device import resolve_device
 
 METHODS = ("cf", "dcf")
+#: One SVD of an (m, n) problem costs about m n min(m, n) flops; past this,
+#: ``method="auto"`` picks the SVD-free ``"cf"`` when a rank is known (the
+#: reference's ``repro.rpca.SVD_COST_THRESHOLD``).
+SVD_COST_THRESHOLD = 1 << 26
+#: The reference's methods that take each feature (its ``methods_with``),
+#: named in the refusals so that they read as the reference's.
+_METHODS_WITH = {
+    "supports_clients": ("dcf",),
+    "supports_participation": ("dcf", "dcf_sharded"),
+    "supports_robust_agg": ("dcf", "dcf_sharded"),
+}
 
 
 @dataclass(frozen=True)
@@ -52,6 +64,11 @@ class RPCASpec:
     @property
     def batched(self) -> bool:
         return len(self.m_obs.shape) == 3
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        """The per-problem ``(m, n)`` shape (batch axis stripped)."""
+        return tuple(self.m_obs.shape[-2:])
 
     def validate(self) -> None:
         nd = len(self.m_obs.shape)
@@ -86,12 +103,60 @@ def _not_ported(what: str) -> NotImplementedError:
         f"{what} waits for a later slice of the port (ROADMAP.md)")
 
 
+def _unsupported(name: str, feature: str, flag: str) -> ValueError:
+    """The reference's refusal of a feature a method lacks (its
+    ``repro.rpca._unsupported``), word for word."""
+    return ValueError(
+        f"method {name!r} does not support {feature}; methods with "
+        f"{feature}: {', '.join(_METHODS_WITH[flag])}"
+    )
+
+
+def _is_lowp(dtype: Any) -> bool:
+    return dtype in (torch.bfloat16, torch.float16)
+
+
+def auto_method(spec: RPCASpec, cfg: Any = None) -> str:
+    """The method ``method="auto"`` picks, by the reference's rules
+    (``repro.rpca.auto_method``), in its order:
+
+    1. a device mesh -> ``"dcf_sharded"``;
+    2. a participation schedule or ``num_clients`` -> ``"dcf"``;
+    3. a cfg that carries a rank -> ``"cf"``;
+    4. a low-precision data plane -> ``"cf"`` (a rank is then required);
+    5. a known rank and one SVD costlier than :data:`SVD_COST_THRESHOLD`
+       flops -> ``"cf"``;
+    6. otherwise ``"ialm"``.
+
+    ``solve`` refuses ``"dcf_sharded"`` and ``"ialm"``: they wait for
+    later slices (ROADMAP.md)."""
+    if getattr(spec, "mesh", None) is not None:
+        return "dcf_sharded"
+    if spec.participation is not None or spec.num_clients is not None:
+        return "dcf"
+    if cfg is not None and getattr(cfg, "rank", None) is not None:
+        return "cf"
+    if _is_lowp(spec.m_obs.dtype):
+        if spec.rank is None:
+            raise ValueError(
+                "a low-precision (bf16/f16) data plane needs a factorized "
+                "method: set RPCASpec.rank (auto then picks 'cf') or cast "
+                "m_obs to float32 for the convex solvers"
+            )
+        return "cf"
+    m, n = spec.shape
+    if spec.rank is not None and m * n * min(m, n) > SVD_COST_THRESHOLD:
+        return "cf"
+    return "ialm"
+
+
 def solve(spec_or_matrix: RPCASpec | Any, method: str = "auto", *,
           run: rt.RunConfig | str | None = None, cfg: DCFConfig | None = None,
           device: torch.device | str | None = None,
           **spec_kwargs: Any) -> RPCAResult:
-    """Solve one RPCA problem with ``"cf"`` or ``"dcf"`` (``"auto"`` picks
-    ``"dcf"`` when ``num_clients`` is set, else ``"cf"``) on ``device``."""
+    """Solve one RPCA problem with ``"cf"`` or ``"dcf"`` on ``device``;
+    ``"auto"`` picks by :func:`auto_method` and refuses, before solving,
+    what it picks that is not ported."""
     if isinstance(spec_or_matrix, RPCASpec):
         if spec_kwargs:
             raise ValueError(
@@ -109,7 +174,7 @@ def solve(spec_or_matrix: RPCASpec | Any, method: str = "auto", *,
         raise _not_ported("batched solves")
     run_cfg = rt.resolve_run(run)
     if method == "auto":
-        method = "dcf" if spec.num_clients is not None else "cf"
+        method = auto_method(spec, cfg)
     if method not in METHODS:
         raise _not_ported(f"method {method!r} (ported: {', '.join(METHODS)})")
     if cfg is None:
@@ -125,14 +190,15 @@ def solve(spec_or_matrix: RPCASpec | Any, method: str = "auto", *,
             f"method {method!r} takes a DCFConfig, got {type(cfg).__name__}"
         )
     if method == "cf":
-        if spec.num_clients is not None or spec.participation is not None:
-            raise ValueError(
-                "method 'cf' does not support simulated client topologies "
-                "(num_clients); use method 'dcf'"
-            )
         if spec.faults is not None:
-            raise ValueError("method 'cf' has no consensus boundary to "
-                             "inject faults at")
+            raise _unsupported("cf", "fault injection (no consensus "
+                               "boundary)", "supports_robust_agg")
+        if spec.num_clients is not None:
+            raise _unsupported("cf", "simulated client topologies "
+                               "(num_clients)", "supports_clients")
+        if spec.participation is not None:
+            raise _unsupported("cf", "participation schedules",
+                               "supports_participation")
         res = cf_pca.cf_pca(spec.m_obs, cfg, spec.key, run=run_cfg,
                             warm=spec.warm, mask=spec.mask, device=device)
     else:

@@ -32,12 +32,10 @@ from repro_torch.kernels import shrinkage as sh
 
 CONTRACTIONS = ["huber_contract_v", "huber_contract_u",
                 "huber_contract_u_diag", "huber_dual_contract"]
-# (function, mask mode) pairs: every contraction in all three modes, the
-# shrink without a mask and with a dense one.
-CASES = ([(f, mode) for f in CONTRACTIONS
-          for mode in ("none", "dense", "packed")]
-         + [(f, mode) for f in ("residual_shrink", "residual_shrink_psi")
-            for mode in ("none", "dense")])
+# (function, mask mode) pairs: every kernel function in all three modes.
+CASES = [(f, mode)
+         for f in CONTRACTIONS + ["residual_shrink", "residual_shrink_psi"]
+         for mode in ("none", "dense", "packed")]
 IDS = [f"{f}-{mode}" for f, mode in CASES]
 SCALAR_RTOL = 1e-5
 
@@ -192,7 +190,7 @@ def test_kernel_wrappers_refuse_bad_operands(cuda):
         hc.huber_contract_u(u, v, mat, lam,
                             bitmask.pack_mask(w)[..., :-1].contiguous())
     with pytest.raises(TypeError, match="dense float32"):
-        sh.residual_shrink(u, v, mat, lam, bitmask.pack_mask(w))
+        sh.residual_shrink(u, v, mat, lam, w.half())
     with pytest.raises(ValueError, match="rank"):
         big = torch.zeros(2, 40, 257, device=cuda)
         hc.huber_contract_v(big, torch.zeros(2, 24, 257, device=cuda), mat,
@@ -200,7 +198,7 @@ def test_kernel_wrappers_refuse_bad_operands(cuda):
     s, psi = ops.residual_shrink_psi(u, v, mat, lam)
     assert s.is_cuda and psi.is_cuda and s.shape == mat.shape
     with pytest.raises(TypeError, match="dense float32"):
-        sh.residual_shrink_psi(u, v, mat, lam, bitmask.pack_mask(w))
+        sh.residual_shrink_psi(u, v, mat, lam, w.half())
 
 
 @pytest.mark.gpu
@@ -210,7 +208,7 @@ def test_solvers_refuse_tf32_matmuls(cuda):
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         with pytest.raises(ValueError, match="TF32"):
-            rpca.solve(torch.zeros(8, 8, device=cuda), rank=2)
+            rpca.solve(torch.zeros(8, 8, device=cuda), method="cf", rank=2)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -447,3 +445,140 @@ def test_stripe_kernels_ranks_splits_and_masks(cuda, shape, r, dtype):
         _, dual_u, dual_obj, dual_psi2 = outs["huber_dual_contract", mode]
         assert torch.equal(dual_u, out_u)
         assert torch.equal(dual_obj, obj) and torch.equal(dual_psi2, psi2)
+
+
+# The shrink's 64 x 64 tiles: m and n not multiples of 64 (n not of 8: a
+# packed tail byte), one tile and many, several clients.
+SHRINK_SHAPES = [(2, 130, 77), (1, 200, 517), (3, 65, 61), (1, 64, 64)]
+# The new kernels against their plain versions: planes within 2e-5 of
+# max|plain|, scalars within rtol 1e-5.
+NEW_PLANE_TOL = 2e-5
+
+
+def _assert_close_new(got, want):
+    assert len(got) == len(want)
+    for g, p in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == p.shape
+        if g.ndim == 1:
+            torch.testing.assert_close(g, p, rtol=SCALAR_RTOL, atol=0.0)
+        else:
+            err = (g - p).abs().max().item()
+            assert err <= NEW_PLANE_TOL * p.abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [1, 31, 33, 64, 150, 256])
+@pytest.mark.parametrize("shape", SHRINK_SHAPES,
+                         ids=["x".join(map(str, s)) for s in SHRINK_SHAPES])
+def test_shrink_tiles_ranks_and_masks(cuda, shape, r, dtype):
+    """The shrink and its psi mode at ranks that fill 1, 2, 5 and 8 register
+    groups (and 1 and 33: a ragged rank), ragged m and n, fp32 and bf16 M,
+    in every mask mode: within 2e-5 of the plain versions; packed == dense,
+    all-ones == none and a rerun bit for bit; and the psi mode's S is the
+    shrink's S bit for bit."""
+    u, v, mat, w, lam = _card_inputs(cuda, *shape, r, seed=r, dtype=dtype)
+    outs = {}
+    for fn in ("residual_shrink", "residual_shrink_psi"):
+        for mode in ("none", "dense", "packed"):
+            got, want = _kernel_and_plain(fn, mode, u, v, mat, w, lam)
+            _assert_close_new(got, want)
+            outs[fn, mode] = got
+        kernel = getattr(sh, fn)
+        again = _as_tuple(kernel(u, v, mat, lam))
+        ones = _as_tuple(kernel(u, v, mat, lam, torch.ones_like(w)))
+        for a, b, c in zip(outs[fn, "none"], again, ones):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        for a, b in zip(outs[fn, "dense"], outs[fn, "packed"]):
+            assert torch.equal(a, b)
+    for mode in ("none", "dense", "packed"):
+        assert torch.equal(outs["residual_shrink_psi", mode][0],
+                           outs["residual_shrink", mode][0])
+
+
+@pytest.mark.gpu
+def test_shrink_reads_packed_masks_itself(cuda):
+    """ops.residual_shrink hands a packed mask to the kernel as it is (one
+    launch of residual_shrink_packed) and gives the dense mask's bits."""
+    u, v, mat, w, lam = _card_inputs(cuda, 4, 2048, 512, 64,
+                                     dtype=torch.bfloat16)
+    packed = bitmask.pack_mask(w)
+    ops.reset_launch_counts()
+    s = ops.residual_shrink(u, v, mat, lam, w=packed)
+    counts = ops.launch_counts()
+    assert counts["residual_shrink_packed"] == 1
+    assert sum(counts.values()) == 1
+    assert torch.equal(s, ops.residual_shrink(u, v, mat, lam, w=w))
+
+
+# fp32 flash on the tensor cores: the grids of chip_smoke's rows a (1, 256,
+# 256, 4), x (2, 64 x 200, 2) and T (4, 2048, 2048, 32; d = 64 causal
+# only), S_q != S_kv both ways, a single query row, and a ragged tail.
+F32_SHAPES = [(1, 256, 256, 4), (2, 64, 200, 2), (1, 100, 300, 3),
+              (2, 300, 77, 2), (1, 1, 50, 2), (3, 130, 130, 5)]
+
+
+def _f32_flash_check(cuda, b, sq, skv, h, d, causal, seed):
+    q, k, v = _flash_inputs(cuda, b, sq, skv, h, d, torch.float32, seed=seed)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    again = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.equal(got, again)
+    diff = (got - want).abs().amax(dim=(2, 3))
+    row_err = diff / want.abs().amax(dim=(2, 3))
+    assert row_err.max().item() <= FLASH_TOL[torch.float32], \
+        row_err.max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("shape", F32_SHAPES,
+                         ids=["x".join(map(str, s)) for s in F32_SHAPES])
+def test_flash_f32_tensor_cores_and_key_split(cuda, shape, d, causal):
+    """The 3xTF32 kernel at every head dim, causal and full, with and
+    without a key split over a cluster (rows a and x split 4 ways): each
+    query row within 2e-5 of the fp32 plain version, reruns bit for
+    bit."""
+    b, sq, skv, h = shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if shape in [(1, 256, 256, 4), (2, 64, 200, 2)] and d == 64:
+        assert fa.f32_split(b, sq, skv, h, d, sms) == 4
+    _f32_flash_check(cuda, b, sq, skv, h, d, causal, seed=d)
+
+
+@pytest.mark.gpu
+def test_flash_f32_full_width_row(cuda):
+    """Row T (TinyLlama-1.1B's prefill, GQA expanded: B=4, S=2048, H=32,
+    d=64, causal), one block a query tile."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fa.f32_split(4, 2048, 2048, 32, 64, sms) == 1
+    _f32_flash_check(cuda, 4, 2048, 2048, 32, 64, True, seed=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [64, 256])
+def test_dual_bounded_scratch_keeps_u_diag_bits(cuda, r, dtype):
+    """The dual at D's blocks (E=4, 2048 x 512) with its scratch within
+    4 MiB: row groups of 4 stripes (clusters) at r = 64, the two passes at
+    r = 256 (clusters of 8 would need 4 planes of 2 MiB).  out_v within
+    2e-5 of the plain version, and out_u, obj and psi2 those of
+    huber_contract_u_diag bit for bit, in every mask mode."""
+    e, m, n = 4, 2048, 512
+    plan = hc.dual_plan(e, m, n, r)
+    assert plan == ((4, 8) if r == 64 else None)
+    shape = hc.dual_scratch_shape(e, n, r)
+    assert 4 * shape[0] * e * n * r <= 4 << 20
+    u, v, mat, w, lam = _card_inputs(cuda, e, m, n, r, seed=r, dtype=dtype)
+    for mode in ("none", "dense", "packed"):
+        got, want = _kernel_and_plain("huber_dual_contract", mode, u, v, mat,
+                                      w, lam)
+        _assert_close_new(got[:1], want[:1])
+        diag = hc.huber_contract_u_diag(u, v, mat, lam, _mask(w, mode))
+        for a, b in zip(got[1:], diag):
+            assert torch.equal(a, b)

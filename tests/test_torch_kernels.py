@@ -315,6 +315,41 @@ def test_u_splits_cover_n_in_whole_tiles(e, m, n, sms):
                                      (2, 65, 7, 1), (3, 64, 24, 256),
                                      (1, 1, 1, 5)])
 def test_dual_partial_shape_counts_64_row_stripes(e, m, n, r):
-    """One (n, r) out_v partial plane per client and 64-row stripe."""
+    """The dual's row groups cover the 64-row stripes: ``groups`` clusters
+    of ``cluster`` stripes reach every stripe, no group is empty, and the
+    groups fit the scratch's planes (``None``: the two-pass route)."""
     assert hc.U_TILE_ROWS == 64
-    assert hc.dual_partial_shape(e, m, n, r) == (-(-m // 64), e, n, r)
+    stripes = -(-m // 64)
+    plan = hc.dual_plan(e, m, n, r)
+    if plan is None:
+        assert -(-stripes // 8) > hc.dual_groups(e, n, r)
+        return
+    cluster, groups = plan
+    assert cluster in (1, 2, 4, 8) and groups >= 1
+    assert groups * cluster >= stripes > (groups - 1) * cluster
+    assert groups <= hc.dual_groups(e, n, r)
+
+
+# (E, n, r): the compact-plane blocks at D in fp32 and at r = 256, the
+# Fig. 1 blocks, one client's 3000 columns, and planes too large for two.
+SCRATCH_SHAPES = [(4, 512, 64), (4, 512, 256), (10, 300, 150),
+                  (1, 3000, 150), (10, 3000, 256), (3, 24, 5)]
+
+
+@pytest.mark.parametrize("e,n,r", SCRATCH_SHAPES)
+def test_dual_scratch_is_bounded_whatever_m(e, n, r):
+    """huber_dual_contract's out_v scratch: a function of (E, n, r) alone
+    (its bytes cannot grow with m), at most 4 MiB, with room for the row
+    groups of every m that takes the one-pass route; 4 MiB exactly at D in
+    fp32 (8 planes of 512 KB, where one plane a 64-row stripe took
+    16.8 MB)."""
+    shape = hc.dual_scratch_shape(e, n, r)
+    planes = 1 if shape is None else shape[0]
+    nbytes = 0 if shape is None else 4 * int(np.prod(shape))
+    assert nbytes <= 4 << 20
+    for m in (1, 64, 65, 700, 2048, 3000, 4096, 65536, 10 ** 6):
+        plan = hc.dual_plan(e, m, n, r)
+        assert plan is None or plan[1] <= planes
+    if (e, n, r) == (4, 512, 64):
+        assert shape == (8, 4, 512, 64) and nbytes == 4 << 20
+        assert hc.dual_plan(4, 2048, 512, 64) == (4, 8)

@@ -17,6 +17,7 @@ import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,6 +26,7 @@ from repro.core import DCFConfig as JConfig
 from repro.core import generate_problem as jgenerate
 from repro.core import completion_errors as jcompletion
 from repro.core import runtime as jrt
+from repro import rpca as jrpca
 from repro_torch import convert, rpca
 from repro_torch.core import cf_pca, dcf_pca, metrics
 from repro_torch.core import problems as prob
@@ -271,8 +273,12 @@ def test_front_door_on_the_cpu():
                      num_clients=8, device="cpu")
     assert res.method == "dcf" and res.v.shape == (8, M // 8, RANK)
     assert float(metrics.relative_error(res.l, res.s, p.l0, p.s0)) < 1e-4
-    auto = rpca.solve(p.m_obs, rank=RANK, device="cpu")
+    # "auto" follows the reference: a cfg with a rank pins "cf"; the rank
+    # alone, at this size, picks the convex "ialm" (not ported yet).
+    auto = rpca.solve(p.m_obs, cfg=DCFConfig.tuned(RANK), device="cpu")
     assert auto.method == "cf" and auto.factors[0].shape == (M, RANK)
+    with pytest.raises(NotImplementedError, match="'ialm'.*ROADMAP"):
+        rpca.solve(p.m_obs, rank=RANK, device="cpu")
 
 
 @pytest.mark.parametrize("what", ["participation", "faults", "compress",
@@ -294,6 +300,111 @@ def test_later_slices_raise_before_solving(what):
     method = "ialm" if what == "ialm" else "dcf"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rpca.solve(m, method=method, cfg=cfg, device="cpu", **kw)
+
+
+def _auto_specs(case):
+    """The same problem as a reference spec and a port spec."""
+    size, dtype, kw, with_cfg = {
+        "160_rank8": (160, "f32", {"rank": 8}, False),
+        "160_rank8_mask": (160, "f32", {"rank": 8, "mask": True}, False),
+        "160_norank": (160, "f32", {}, False),
+        "3000_rank150": (3000, "f32", {"rank": 150}, False),
+        "3000_norank": (3000, "f32", {}, False),
+        "bf16_rank8": (160, "bf16", {"rank": 8}, False),
+        "bf16_norank": (160, "bf16", {}, False),
+        "clients": (160, "f32", {"rank": 8, "num_clients": 4}, False),
+        "participation": (160, "f32", {"rank": 8, "participation": 0.5},
+                          False),
+        "cfg_rank": (160, "f32", {}, True),
+        "bf16_cfg_rank": (160, "bf16", {}, True),
+    }[case]
+    # Broadcast views: the shape and dtype of a full plane, no memory.
+    base = np.broadcast_to(np.zeros((), np.float32), (size, size))
+    mask = np.broadcast_to(np.ones((), np.float32), (size, size))
+    jkw = {k: (mask if k == "mask" else v) for k, v in kw.items()}
+    tkw = {k: (torch.ones(()).expand(size, size) if k == "mask" else v)
+           for k, v in kw.items()}
+    jm, tm = base, torch.zeros(()).expand(size, size)
+    if dtype == "bf16":
+        jm = jnp.zeros((size, size), jnp.bfloat16)
+        tm = tm.to(torch.bfloat16)
+    jcfg, tcfg = (JConfig.tuned(8), DCFConfig.tuned(8)) if with_cfg \
+        else (None, None)
+    return jrpca.RPCASpec(jm, **jkw), jcfg, rpca.RPCASpec(tm, **tkw), tcfg
+
+
+AUTO_CASES = ["160_rank8", "160_rank8_mask", "160_norank", "3000_rank150",
+              "3000_norank", "bf16_rank8", "bf16_norank", "clients",
+              "participation", "cfg_rank", "bf16_cfg_rank"]
+
+
+@pytest.mark.parametrize("case", AUTO_CASES)
+def test_auto_method_follows_the_reference(case):
+    """repro_torch.rpca.auto_method picks the reference's method, or raises
+    the reference's error with its text."""
+    jspec, jcfg, tspec, tcfg = _auto_specs(case)
+    try:
+        want = jrpca.auto_method(jspec, jcfg)
+    except ValueError as exc:
+        with pytest.raises(ValueError) as got:
+            rpca.auto_method(tspec, tcfg)
+        assert str(got.value) == str(exc)
+        return
+    assert rpca.auto_method(tspec, tcfg) == want
+
+
+def test_auto_refuses_unported_methods_before_solving(monkeypatch):
+    """method="auto" on a small fp32 problem with no cfg picks "ialm", as
+    the reference does, and the port refuses it before any solve starts."""
+    def no_solve(*a, **k):
+        raise AssertionError("a solve started")
+
+    monkeypatch.setattr(rpca.cf_pca, "cf_pca", no_solve)
+    monkeypatch.setattr(rpca.dcf_pca, "dcf_pca", no_solve)
+    m = torch.zeros(M, M)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rpca.solve(m, rank=RANK, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rpca.solve(m, device="cpu")
+
+
+@pytest.mark.parametrize("what", ["num_clients", "participation", "faults"])
+def test_cf_refusals_read_as_the_reference(what):
+    """Where the port and the reference refuse the same "cf" case, they say
+    the same words (the reference's ``_unsupported``)."""
+    value = {"num_clients": 2, "participation": 0.5,
+             "faults": np.zeros((3, 2), np.int32)}[what]
+    m = np.zeros((8, 8), np.float32)
+    with pytest.raises(ValueError) as want:
+        jrpca.solve(jnp.asarray(m), method="cf", cfg=JConfig.tuned(2),
+                    **{what: value})
+    with pytest.raises(ValueError) as got:
+        rpca.solve(torch.zeros(8, 8), method="cf", cfg=DCFConfig.tuned(2),
+                   device="cpu", **{what: value})
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("cfg,refused", [
+    (DCFConfig.tuned(257), True),
+    (DCFConfig.tuned(8, impl="pallas"), True),
+    (DCFConfig.tuned(256), False),
+    (DCFConfig.tuned(257, impl="ref"), False),
+], ids=["rank257", "pallas", "rank256", "rank257_ref"])
+def test_check_supported_refuses_what_the_card_cannot_run(cfg, refused):
+    """On a CUDA device (no card needed: nothing is copied), a rank above
+    the kernels' 256 and an impl the port does not know are refused with
+    NotImplementedError naming ROADMAP.md; the CPU's plain route takes any
+    rank."""
+    from repro_torch.core import factorized as fz
+
+    cuda = torch.device("cuda")
+    if refused:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fz.check_supported(cfg, cuda)
+    else:
+        fz.check_supported(cfg, cuda)
+    if cfg.impl != "pallas":
+        fz.check_supported(cfg, torch.device("cpu"))
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
