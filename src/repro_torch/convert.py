@@ -3,7 +3,8 @@
 ``jax.random`` and ``torch.Generator`` give different numbers from the same
 seed, so a comparison of the two packages starts both from the same
 factors: build the problem with the reference (``repro.core.dcf_pca.
-make_problem`` or ``cf_pca.make_problem``), then hand it here.  Fields are
+make_problem``, ``cf_pca.make_problem``, or the convex solvers'
+``_problem``), then hand it here.  Fields are
 read by name and converted through numpy; nothing of the reference is
 imported.  A bf16 data plane stays bf16 and a bit-packed mask stays uint8.
 LM weights likewise: the reference materialises them, the port takes them
@@ -17,9 +18,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.apgm import APGMProblem
 from repro_torch.core.cf_pca import CFProblem
 from repro_torch.core.dcf_pca import DCFProblem
 from repro_torch.core.factorized import DCFConfig
+from repro_torch.core.ialm import IALMProblem
 from repro_torch.device import resolve_device
 from repro_torch.models import get_model
 from repro_torch.models.params import Params
@@ -53,10 +56,23 @@ def _tensor(x: Any, device: torch.device | str,
                                     dtype=dtype or torch.float32)
 
 
+_CONVEX = {"APGMProblem": APGMProblem, "IALMProblem": IALMProblem}
+
+
 def problem_from_reference(ref_problem: Any, device: torch.device | str
-                           ) -> DCFProblem | CFProblem:
+                           ) -> DCFProblem | CFProblem | APGMProblem | IALMProblem:
     """The port's problem from a reference ``DCFProblem`` (it has
-    ``blocks``) or ``CFProblem`` (it has ``m_obs``), on ``device``."""
+    ``blocks``), ``CFProblem`` (it has ``m_obs``), ``APGMProblem`` or
+    ``IALMProblem`` (they have ``l_init``; the class of the same name), on
+    ``device``."""
+    if hasattr(ref_problem, "l_init"):
+        return _CONVEX[type(ref_problem).__name__](
+            m_obs=_tensor(ref_problem.m_obs, device),
+            l_init=_tensor(ref_problem.l_init, device),
+            s_init=_tensor(ref_problem.s_init, device),
+            mask=_tensor(ref_problem.mask, device),
+            lam0=_tensor(ref_problem.lam0, device),
+        )
     common = dict(
         u_init=_tensor(ref_problem.u_init, device),
         v_init=_tensor(ref_problem.v_init, device),

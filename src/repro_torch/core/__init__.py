@@ -1,1 +1,84 @@
-"""Solvers of the port: runtime, factorized machinery, CF-PCA, DCF-PCA."""
+"""Solvers of the port (counterpart of ``repro.core``): the paper's DCF-PCA
+and the baselines it is compared with (CF-PCA, APGM, IALM), all on the
+solver runtime (``repro_torch.core.runtime``) and registered with the
+``repro_torch.rpca`` front door (re-exported here as ``rpca`` /
+``RPCASpec`` / ``RPCAResult`` / ``solve``).  The reference's names that
+are not ported yet (the ``*_batch`` solvers, the sharded engine, the
+compile cache, participation schedules) are not exported (ROADMAP.md)."""
+from repro_torch import rpca
+from repro_torch.core.apgm import APGMConfig, ConvexResult, apgm
+from repro_torch.core.cf_pca import CFResult, cf_pca
+from repro_torch.core.dcf_pca import DCFResult, dcf_pca
+from repro_torch.core.factorized import DCFConfig
+from repro_torch.core.ialm import IALMConfig, ialm
+from repro_torch.core.metrics import (
+    CompletionErrors,
+    completion_errors,
+    low_rank_relative_error,
+    rank_gap,
+    relative_error,
+    singular_value_error,
+)
+from repro_torch.core.problems import (
+    RPCAProblem,
+    client_column_counts,
+    generate_mask,
+    generate_problem,
+    merge_columns,
+    pack_mask,
+    split_columns,
+    unpack_mask,
+)
+from repro_torch.core.validate import CapacityError, QueueFull
+from repro_torch.core.runtime import (
+    CHUNKED,
+    EARLY,
+    FIXED,
+    RUN_PRESETS,
+    RunConfig,
+    SolveStats,
+    Solver,
+    resolve_run,
+)
+from repro_torch.rpca import RPCAResult, RPCASpec, solve
+
+__all__ = [
+    "rpca",
+    "RPCAResult",
+    "RPCASpec",
+    "solve",
+    "CHUNKED",
+    "EARLY",
+    "FIXED",
+    "RUN_PRESETS",
+    "resolve_run",
+    "APGMConfig",
+    "ConvexResult",
+    "apgm",
+    "CFResult",
+    "cf_pca",
+    "DCFConfig",
+    "DCFResult",
+    "dcf_pca",
+    "IALMConfig",
+    "ialm",
+    "RunConfig",
+    "SolveStats",
+    "Solver",
+    "CapacityError",
+    "QueueFull",
+    "CompletionErrors",
+    "completion_errors",
+    "low_rank_relative_error",
+    "rank_gap",
+    "relative_error",
+    "singular_value_error",
+    "RPCAProblem",
+    "client_column_counts",
+    "generate_mask",
+    "generate_problem",
+    "merge_columns",
+    "pack_mask",
+    "split_columns",
+    "unpack_mask",
+]

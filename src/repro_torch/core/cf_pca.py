@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import rpca as _rpca
 from repro_torch.core import factorized as fz
 from repro_torch.core import problems as prob
 from repro_torch.core import runtime as rt
@@ -191,3 +192,30 @@ def cf_pca(
     problem = make_problem(m_obs, cfg, generator, warm, mask=mask,
                            device=device)
     return solve_problem(problem, cfg, run)
+
+
+# ---------------------------------------------------------------------------
+# Registry adapter (repro_torch.rpca front door)
+# ---------------------------------------------------------------------------
+def _default_cfg(spec) -> fz.DCFConfig:
+    rank = _rpca.require_rank("cf", spec)
+    if spec.mask is not None:
+        return fz.DCFConfig.masked(rank)
+    return fz.DCFConfig.tuned(rank)
+
+
+def _registry_make(spec, cfg, run_cfg, device):
+    cfg = cfg if cfg is not None else _default_cfg(spec)
+    _rpca.require_cfg_type("cf", cfg, fz.DCFConfig)
+    res = cf_pca(spec.m_obs, cfg, _rpca.default_key(spec), run=run_cfg,
+                 warm=spec.warm, mask=spec.mask, device=device)
+    return res.l, res.s, res.u, res.v, res.stats
+
+
+_rpca.register_solver(
+    "cf",
+    _rpca.SolverCaps(supports_mask=True, supports_factors=True,
+                     batchable=True, needs_rank=True,
+                     supports_service=True, supports_lowp=True),
+    _registry_make,
+)

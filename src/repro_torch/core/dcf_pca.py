@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import rpca as _rpca
 from repro_torch.core import factorized as fz
 from repro_torch.core import problems as prob
 from repro_torch.core import runtime as rt
@@ -202,3 +203,68 @@ def dcf_pca(
                            mask=mask, participation=participation,
                            faults=faults, device=device)
     return solve_problem(problem, cfg, run, n=m_obs.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Registry adapters (repro_torch.rpca front door)
+# ---------------------------------------------------------------------------
+def _resolve_num_clients(spec) -> int:
+    """E from the spec, or inferred from a 2-D participation schedule."""
+    if spec.num_clients is not None:
+        return spec.num_clients
+    part = spec.participation
+    if part is not None and len(getattr(part, "shape", ())) == 2:
+        return part.shape[1]
+    raise ValueError(
+        "method 'dcf' needs a client count: set RPCASpec.num_clients "
+        "(or pass a (T, E) participation schedule to infer E from)"
+    )
+
+
+def _default_cfg(spec, name: str) -> fz.DCFConfig:
+    """The reference's default (its elastic preset for a participation
+    schedule is left out: schedules are refused until they are ported)."""
+    rank = _rpca.require_rank(name, spec)
+    if spec.mask is not None:
+        return fz.DCFConfig.masked(rank)
+    return fz.DCFConfig.tuned(rank)
+
+
+def _registry_make(spec, cfg, run_cfg, device):
+    cfg = cfg if cfg is not None else _default_cfg(spec, "dcf")
+    _rpca.require_cfg_type("dcf", cfg, fz.DCFConfig)
+    num_clients = _resolve_num_clients(spec)
+    validate.check_fault_plan(cfg, spec.faults, num_clients)
+    res = dcf_pca(spec.m_obs, cfg, num_clients, _rpca.default_key(spec),
+                  run=run_cfg, warm=spec.warm, mask=spec.mask,
+                  participation=spec.participation, faults=spec.faults,
+                  device=device)
+    return res.l, res.s, res.u, res.v, res.stats
+
+
+def _registry_make_sharded(spec, cfg, run_cfg, device):
+    raise NotImplementedError(
+        "method 'dcf_sharded' (the SPMD engine over a device mesh) waits "
+        "for a later slice of the port (ROADMAP.md)")
+
+
+_rpca.register_solver(
+    "dcf",
+    _rpca.SolverCaps(supports_mask=True, supports_factors=True,
+                     supports_clients=True, supports_participation=True,
+                     batchable=True, needs_rank=True, supports_lowp=True,
+                     supports_robust_agg=True, supports_checkpoint=True),
+    _registry_make,
+)
+
+# The reference's caps, so that every refusal lists its methods; solving
+# raises until the sharded engine is ported.
+_rpca.register_solver(
+    "dcf_sharded",
+    _rpca.SolverCaps(supports_mask=True, supports_factors=True,
+                     supports_participation=True, supports_sharding=True,
+                     batchable=False, needs_rank=True, supports_lowp=True,
+                     supports_multiprocess=True, supports_robust_agg=True,
+                     supports_checkpoint=True),
+    _registry_make_sharded,
+)

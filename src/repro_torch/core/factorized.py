@@ -161,7 +161,7 @@ def check_supported(cfg: DCFConfig,
     ``device`` adds the checks that depend on where the solve runs: on a
     CUDA device, an ``impl`` the port does not know (such as the
     reference's ``"pallas"``) and, on the kernel route, a rank above the
-    kernels' 256."""
+    kernels' 512 (``kernels._launch.MAX_RANK``; the reference takes any)."""
     later = "waits for a later slice of the port (ROADMAP.md)"
     if cfg.consensus_compress is not None or cfg.consensus_delay:
         raise NotImplementedError(

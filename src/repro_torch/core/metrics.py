@@ -1,10 +1,13 @@
-"""Evaluation metrics (counterpart of ``repro.core.metrics``): Eq. (30)
-and the observed / unobserved split of the low-rank error."""
+"""Evaluation metrics (counterpart of ``repro.core.metrics``): Eq. (30),
+the observed / unobserved split of the low-rank error, and paper Table 1's
+spectrum metrics."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core.ops import svd_driver
 
 Tensor = torch.Tensor
 
@@ -45,3 +48,18 @@ def completion_errors(l: Tensor, l0: Tensor,
     obs = _rel_norm(mask * (l - l0), mask * l0)
     hid = _rel_norm((1.0 - mask) * (l - l0), (1.0 - mask) * l0)
     return CompletionErrors(observed=obs, unobserved=hid, overall=overall)
+
+
+def singular_value_error(l: Tensor, l0: Tensor, rank: int) -> Tensor:
+    """Table 1: ``max_i |sigma_i(L) - sigma_i(L0)| / sigma_r(L0)``, the
+    spectra of the recovered and true matrices compared."""
+    sv = torch.linalg.svdvals(l, driver=svd_driver(l))
+    sv0 = torch.linalg.svdvals(l0, driver=svd_driver(l0))
+    k = min(sv.shape[-1], sv0.shape[-1])
+    return (sv[..., :k] - sv0[..., :k]).abs().amax(-1) / sv0[..., rank - 1]
+
+
+def rank_gap(l: Tensor, rank: int) -> Tensor:
+    """``sigma_{r+1}(L) / sigma_r(L)``: how sharply L has rank r."""
+    sv = torch.linalg.svdvals(l, driver=svd_driver(l))
+    return sv[..., rank] / sv[..., rank - 1]

@@ -17,6 +17,7 @@ from typing import Literal
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.bitmask import pack_mask, unpack_mask  # noqa: F401
 
 Tensor = torch.Tensor
 

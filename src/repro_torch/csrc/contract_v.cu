@@ -38,6 +38,10 @@
 //     one Psi row and 8 consecutive U groups.
 // The rank loop of U V^T stops at r rounded up to 4 (r = 150 pays for 152);
 // the contraction's register block covers 32 RQ ranks (160 at r = 150).
+// Ranks 257-512 (contract_v_wide_kernel) take the rank axis in two halves
+// (tile64.cuh): a grid axis over the output's rank halves, each block
+// forming the tile's whole Psi (U V^T over both halves, staged one after
+// the other) and contracting it against its half of U.
 //
 // Determinism: no atomics.  U V^T sums over k in order, the contraction over
 // the rows of a split in order; the m reduction is split into a fixed number
@@ -180,17 +184,152 @@ contract_v_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
+// Ranks 257 .. 512 in two halves (tile64.cuh): V's two halves, one half of
+// U, Psi.  218 KB at RQH = 8: one block an SM.
+template <int RQH>
+__host__ __device__ constexpr size_t v_wide_smem_bytes() {
+  return sizeof(float) *
+         ((kVRows + 2 * kVCols) * ld64<RQH>() + kVRows * kPsiLd);
+}
+
+// Grid (column tiles, row splits, 2 E): block z = 2 e + h writes the rank
+// half h of out[e] (ranks [h k0, ...), k0 = 32 RQH).  Each of the two
+// blocks of a column tile forms the tile's whole Psi (U V^T over both
+// halves: its only redundant work) and contracts it against its half of U.
+// Per row tile: U's other half is staged (under the previous tile's end),
+// its patch summed; then U's own half, its patch, Psi, and Psi^T U_h, which
+// needs U_h still staged.  V's halves stay staged for the whole range.
+template <int RQH, typename TM, int MASK>
+__global__ void __launch_bounds__(kT64Threads, 1)
+contract_v_wide_kernel(const float* __restrict__ u,
+                       const float* __restrict__ v, const TM* __restrict__ m,
+                       const void* __restrict__ w,
+                       const float* __restrict__ lam,
+                       float* __restrict__ partial, int E, int M, int N,
+                       int r, int rows_per_split) {
+  constexpr int LD = ld64<RQH>();
+  constexpr int K0 = wide_half(RQH);
+  extern __shared__ float4 smem4[];
+  float* Us = reinterpret_cast<float*>(smem4);  // kVRows x LD, one half
+  float* Va = Us + kVRows * LD;                 // kVCols x LD, ranks < K0
+  float* Vb = Va + kVCols * LD;                 // kVCols x LD, ranks >= K0
+  float* Ps = Vb + kVCols * LD;                 // kVRows x kPsiLd
+
+  const int e = blockIdx.z >> 1, h = blockIdx.z & 1;
+  const int j0 = blockIdx.x * kVCols;
+  const int split = blockIdx.y;
+  const float* ue = u + static_cast<size_t>(e) * M * r;
+  const float* ve = v + static_cast<size_t>(e) * N * r;
+  const ClientPlanes<TM, MASK> planes(m, w, e, M, N);
+  const float lam_e = lam[e];
+  // This block's rank half [hk, hk + hw) and the other one [ok, ok + ow).
+  const int hk = h ? K0 : 0, hw = h ? r - K0 : K0;
+  const int ok = h ? 0 : K0, ow = h ? K0 : r - K0;
+  const float* v_own = h ? Vb : Va;
+  const float* v_other = h ? Va : Vb;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ti = (warp >> 1) * 4 + (lane >> 3);
+  const int tj = (warp & 1) * 8 + (lane & 7);
+  const int cj = warp * 4 + (lane >> 3);
+  const int ck = lane & 7;
+
+  const int row_begin = split * rows_per_split;
+  const int row_end = min(M, row_begin + rows_per_split);
+  stage_window<RQH>(Va, ve, j0, N, r, 0, K0);
+  stage_window<RQH>(Vb, ve, j0, N, r, K0, r - K0);
+  stage_window<RQH>(Us, ue, row_begin, M, r, ok, ow);
+  cp_async_commit();
+
+  float acc[2][RQH][4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int q = 0; q < RQH; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) acc[c][q][s] = 0.f;
+
+  for (int i0 = row_begin; i0 < row_end; i0 += kVRows) {
+    float x[4][4], wt[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        planes.load(i0 + ti + 16 * a, j0 + tj + 16 * b, x[a][b], wt[a][b]);
+    cp_async_wait_all();
+    __syncthreads();  // U's other half of this tile (and V) staged
+    float lo[4][4], lh[4][4];
+    patch44<RQH>(Us, v_other, ti, tj, (ow + 3) / 4, lo);
+    __syncthreads();  // nobody reads U's other half any more
+    stage_window<RQH>(Us, ue, i0, M, r, hk, hw);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    patch44<RQH>(Us, v_own, ti, tj, (hw + 3) / 4, lh);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        Ps[(ti + 16 * a) * kPsiLd + tj + 16 * b] = apply_mask<MASK>(
+            wt[a][b], clip(x[a][b] - (lo[a][b] + lh[a][b]), lam_e));
+    __syncthreads();
+
+    // acc[c][q] += sum_ii Psi[ii, 2 cj + c] * U[ii, hk + 4 (ck + 8 q) ..]
+    for (int ii = 0; ii < kVRows; ++ii) {
+      const float2 p =
+          *reinterpret_cast<const float2*>(Ps + ii * kPsiLd + 2 * cj);
+      const float* urow = Us + ii * LD;
+#pragma unroll
+      for (int q = 0; q < RQH; ++q) {
+        const float4 uq =
+            *reinterpret_cast<const float4*>(urow + 4 * (ck + 8 * q));
+        acc[0][q][0] = fmaf(p.x, uq.x, acc[0][q][0]);
+        acc[0][q][1] = fmaf(p.x, uq.y, acc[0][q][1]);
+        acc[0][q][2] = fmaf(p.x, uq.z, acc[0][q][2]);
+        acc[0][q][3] = fmaf(p.x, uq.w, acc[0][q][3]);
+        acc[1][q][0] = fmaf(p.y, uq.x, acc[1][q][0]);
+        acc[1][q][1] = fmaf(p.y, uq.y, acc[1][q][1]);
+        acc[1][q][2] = fmaf(p.y, uq.z, acc[1][q][2]);
+        acc[1][q][3] = fmaf(p.y, uq.w, acc[1][q][3]);
+      }
+    }
+    __syncthreads();  // nobody reads this U half or Psi any more
+    if (i0 + kVRows < row_end) {
+      stage_window<RQH>(Us, ue, i0 + kVRows, M, r, ok, ow);
+      cp_async_commit();
+    }
+  }
+
+  float* dst = partial + (static_cast<size_t>(split) * E + e) * N * r + hk;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int j = j0 + 2 * cj + c;
+    if (j >= N) continue;
+#pragma unroll
+    for (int q = 0; q < RQH; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int k = 4 * (ck + 8 * q) + s;
+        if (k < hw) dst[static_cast<size_t>(j) * r + k] = acc[c][q][s];
+      }
+  }
+}
+
 template <int RQ, typename TM, int MASK>
 cudaError_t launch_v(const float* u, const float* v, const TM* m,
                      const void* w, const float* lam, float* out,
                      float* partial, int E, int M, int N, int r, int splits,
                      int rows_per_split, cudaStream_t stream) {
-  auto kernel = contract_v_kernel<RQ, TM, MASK>;
-  const size_t smem = v_smem_bytes<RQ>();
+  // RQ > 8: two rank halves of RQ / 2 register groups (tile.cuh's by_rank).
+  constexpr bool kWide = RQ > 8;
+  auto kernel = contract_v_kernel<kWide ? 1 : RQ, TM, MASK>;
+  if constexpr (kWide) kernel = contract_v_wide_kernel<RQ / 2, TM, MASK>;
+  const size_t smem =
+      kWide ? v_wide_smem_bytes<RQ / 2>() : v_smem_bytes<RQ>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kVCols - 1) / kVCols, splits, E);
+  const dim3 grid((N + kVCols - 1) / kVCols, splits, kWide ? 2 * E : E);
   float* dst = splits == 1 ? out : partial;
   kernel<<<grid, kT64Threads, smem, stream>>>(u, v, m, w, lam, dst, E, M, N, r,
                                             rows_per_split);

@@ -32,6 +32,8 @@
 // columns: whole 32-byte sectors.  Two blocks share an SM up to r = 192, so
 // one block's staging runs under the other's FMAs.  The residual lives only
 // in registers, and M, W, S (and Psi) each cross device memory once.
+// Ranks 257-512 (shrink_wide_kernel) stage and sum the rank axis in two
+// halves (tile64.cuh), one block an SM.
 #include "tile.cuh"
 #include "tile64.cuh"
 
@@ -105,13 +107,89 @@ shrink_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
+// Ranks 257 .. 512 in two halves (tile64.cuh): the tile's U and V slices of
+// one half at a time, 133 KB at RQH = 8 (one block an SM).  Half 0 is
+// staged and its patch summed, then half 1 into the same slices, and the
+// residual is M - (low(half 0) + low(half 1)); the epilogue is
+// shrink_kernel's.
+
+template <int RQH, typename TM, int MASK, bool WITH_PSI>
+__global__ void __launch_bounds__(kT64Threads, 1)
+shrink_wide_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                   const TM* __restrict__ m, const void* __restrict__ w,
+                   const float* __restrict__ lam, float* __restrict__ s,
+                   float* __restrict__ psi, int M, int N, int r) {
+  constexpr int K0 = wide_half(RQH);
+  extern __shared__ float4 smem4[];
+  float* Us = reinterpret_cast<float*>(smem4);  // kT64 x ld64<RQH>()
+  float* Vs = Us + kT64 * ld64<RQH>();          // kT64 x ld64<RQH>()
+
+  const int e = blockIdx.z;
+  const int i0 = blockIdx.y * kT64;
+  const int j0 = blockIdx.x * kT64;
+  const ClientPlanes<TM, MASK> planes(m, w, e, M, N);
+  const float lam_e = lam[e];
+  const float* ue = u + static_cast<size_t>(e) * M * r;
+  const float* ve = v + static_cast<size_t>(e) * N * r;
+
+  stage_window<RQH>(Us, ue, i0, M, r, 0, K0);
+  stage_window<RQH>(Vs, ve, j0, N, r, 0, K0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ti = (warp >> 1) * 4 + (lane >> 3);
+  const int tj = (warp & 1) * 8 + (lane & 7);
+  float x[4][4], wt[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      planes.load(i0 + ti + 16 * a, j0 + tj + 16 * b, x[a][b], wt[a][b]);
+  cp_async_wait_all();
+  __syncthreads();
+  float la[4][4], lb[4][4];
+  patch44<RQH, 2>(Us, Vs, ti, tj, K0 / 4, la);
+  __syncthreads();  // nobody reads half 0 any more
+  stage_window<RQH>(Us, ue, i0, M, r, K0, r - K0);
+  stage_window<RQH>(Vs, ve, j0, N, r, K0, r - K0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  patch44<RQH, 2>(Us, Vs, ti, tj, (r - K0 + 3) / 4, lb);
+
+  float* s_e = s + static_cast<size_t>(e) * M * N;
+  float* psi_e = WITH_PSI ? psi + static_cast<size_t>(e) * M * N : nullptr;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = i0 + ti + 16 * a;
+    if (i >= M) continue;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int j = j0 + tj + 16 * b;
+      if (j >= N) continue;
+      const float res = x[a][b] - (la[a][b] + lb[a][b]);
+      const float mag = fmaxf(fabsf(res) - lam_e, 0.f);
+      const float out = res > 0.f ? mag : (res < 0.f ? -mag : 0.f);
+      const float s_ij = apply_mask<MASK>(wt[a][b], out);
+      const size_t at = static_cast<size_t>(i) * N + j;
+      s_e[at] = s_ij;
+      if constexpr (WITH_PSI)
+        psi_e[at] = apply_mask<MASK>(wt[a][b], res) - s_ij;
+    }
+  }
+}
+
 template <int RQ, typename TM, int MASK, bool WITH_PSI>
 cudaError_t launch_shrink(const float* u, const float* v, const TM* m,
                           const void* w, const float* lam, float* s,
                           float* psi, int E, int M, int N, int r,
                           cudaStream_t stream) {
-  auto kernel = shrink_kernel<RQ, TM, MASK, WITH_PSI>;
-  constexpr size_t smem = shrink_smem_bytes<RQ>();
+  // RQ > 8: two rank halves of RQ / 2 register groups (tile.cuh's by_rank).
+  constexpr bool kWide = RQ > 8;
+  auto kernel = shrink_kernel<kWide ? 1 : RQ, TM, MASK, WITH_PSI>;
+  if constexpr (kWide) kernel = shrink_wide_kernel<RQ / 2, TM, MASK, WITH_PSI>;
+  constexpr size_t smem =
+      shrink_smem_bytes<kWide ? RQ / 2 : RQ>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;

@@ -49,7 +49,10 @@
 //     faster than one block with two stages); elsewhere one block with
 //     two stages.
 // The rank loop of U V^T stops at r rounded up to 4; the contractions'
-// register blocks cover 32 RQ ranks.
+// register blocks cover 32 RQ ranks.  Ranks 257-512 (stripe_wide_kernel)
+// take the rank axis in two halves (tile64.cuh): a grid axis over the
+// output's rank halves, each block forming the tile's whole Psi and
+// contracting it against its half of V (and of U for out_v).
 //
 // The dual's out_v scratch does not grow with m: its stripes form row
 // groups (kernels/huber_contract.py::dual_plan), each a thread-block
@@ -380,6 +383,226 @@ stripe_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
+// Ranks 257 .. 512 in two halves (tile64.cuh): U's two halves (staged once),
+// one half of a V tile, Psi^T.  217 KB at RQH = 8: one block an SM.
+template <int RQH>
+__host__ __device__ constexpr size_t stripe_wide_smem_bytes() {
+  return sizeof(float) * (3 * kT64 * ld64<RQH>() + kT64 * kPsiTLd);
+}
+
+// Grid (stripes, column splits, 2 E): block z = 2 e + h writes the rank
+// half h of out_u[e] (and of its out_v plane), ranks [h k0, ...) with
+// k0 = 32 RQH.  Each of the two blocks of a stripe forms the whole Psi of a
+// tile (U V^T over both halves: its only redundant work) and contracts it
+// against its half of V (and of U).  Per column tile: V's other half is
+// staged (under the previous tile's end), its patch summed; then V's own
+// half, its patch, Psi^T, Psi V_h (and Psi^T U_h).  The scalars come from
+// the same Psi in both blocks; the h = 0 block writes them.  The dual's
+// row groups are single stripes here (no room for a cluster's receive
+// buffers: kernels/huber_contract.py::dual_plan).
+template <int RQH, typename TM, int MASK, bool WITH_DIAG, bool WITH_V>
+__global__ void __launch_bounds__(kT64Threads, 1)
+stripe_wide_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                   const TM* __restrict__ m, const void* __restrict__ w,
+                   const float* __restrict__ lam, float* __restrict__ out_u,
+                   float* __restrict__ diag_partial,
+                   float* __restrict__ v_target, int E, int M, int N, int r,
+                   int cols_per_split, int cluster) {
+  constexpr int LD = ld64<RQH>();
+  constexpr int K0 = wide_half(RQH);
+  extern __shared__ float4 smem4[];
+  float* Ua = reinterpret_cast<float*>(smem4);  // kT64 x LD, ranks < K0
+  float* Ub = Ua + kT64 * LD;                   // kT64 x LD, ranks >= K0
+  float* Vs = Ub + kT64 * LD;                   // kT64 x LD, one half
+  float* PsT = Vs + kT64 * LD;                  // kT64 x kPsiTLd
+
+  const int stripe = blockIdx.x, split = blockIdx.y;
+  const int e = blockIdx.z >> 1, h = blockIdx.z & 1;
+  const int i0 = stripe * kT64;
+  const int col_begin = split * cols_per_split;
+  const int col_end = min(N, col_begin + cols_per_split);
+  const float* ue = u + static_cast<size_t>(e) * M * r;
+  const float* ve = v + static_cast<size_t>(e) * N * r;
+  const ClientPlanes<TM, MASK> planes(m, w, e, M, N);
+  const float lam_e = lam[e];
+  const float half_lam2 = 0.5f * lam_e * lam_e;
+  // This block's rank half [hk, hk + hw) and the other one [ok, ok + ow).
+  const int hk = h ? K0 : 0, hw = h ? r - K0 : K0;
+  const int ok = h ? 0 : K0, ow = h ? K0 : r - K0;
+  const float* u_own = h ? Ub : Ua;
+  const float* u_other = h ? Ua : Ub;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ti = (warp >> 1) * 4 + (lane >> 3);
+  const int tj = (warp & 1) * 8 + (lane & 7);
+  const int cr = warp * 4 + (lane >> 3);
+  const int ck = lane & 7;
+
+  stage_window<RQH>(Ua, ue, i0, M, r, 0, K0);
+  stage_window<RQH>(Ub, ue, i0, M, r, K0, r - K0);
+  stage_window<RQH>(Vs, ve, col_begin, N, r, ok, ow);
+  cp_async_commit();
+
+  float acc[2][RQH][4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int q = 0; q < RQH; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) acc[c][q][s] = 0.f;
+  float obj = 0.f, psi2 = 0.f;
+
+  for (int j0 = col_begin; j0 < col_end; j0 += kT64) {
+    float x[4][4], wt[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        planes.load(i0 + ti + 16 * a, j0 + tj + 16 * b, x[a][b], wt[a][b]);
+    cp_async_wait_all();
+    __syncthreads();  // V's other half of this tile (and U) staged
+    float lo[4][4], lh[4][4];
+    patch44<RQH>(u_other, Vs, ti, tj, (ow + 3) / 4, lo);
+    __syncthreads();  // nobody reads V's other half any more
+    stage_window<RQH>(Vs, ve, j0, N, r, hk, hw);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    patch44<RQH>(u_own, Vs, ti, tj, (hw + 3) / 4, lh);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float rw = apply_mask<MASK>(
+            wt[a][b], x[a][b] - (lo[a][b] + lh[a][b]));
+        const float psi = clip(rw, lam_e);
+        if (WITH_DIAG) {
+          const float ab = fabsf(rw);
+          obj += (ab <= lam_e) ? 0.5f * rw * rw : lam_e * ab - half_lam2;
+          psi2 = fmaf(psi, psi, psi2);
+        }
+        PsT[(tj + 16 * b) * kPsiTLd + ti + 16 * a] = psi;
+      }
+    __syncthreads();
+
+    // acc[c][q] += sum_jj Psi[2 cr + c, jj] * V[jj, hk + 4 (ck + 8 q) ..]
+    for (int jj = 0; jj < kT64; ++jj) {
+      const float2 p =
+          *reinterpret_cast<const float2*>(PsT + jj * kPsiTLd + 2 * cr);
+      const float* vrow = Vs + jj * LD;
+#pragma unroll
+      for (int q = 0; q < RQH; ++q) {
+        const float4 vq =
+            *reinterpret_cast<const float4*>(vrow + 4 * (ck + 8 * q));
+        acc[0][q][0] = fmaf(p.x, vq.x, acc[0][q][0]);
+        acc[0][q][1] = fmaf(p.x, vq.y, acc[0][q][1]);
+        acc[0][q][2] = fmaf(p.x, vq.z, acc[0][q][2]);
+        acc[0][q][3] = fmaf(p.x, vq.w, acc[0][q][3]);
+        acc[1][q][0] = fmaf(p.y, vq.x, acc[1][q][0]);
+        acc[1][q][1] = fmaf(p.y, vq.y, acc[1][q][1]);
+        acc[1][q][2] = fmaf(p.y, vq.z, acc[1][q][2]);
+        acc[1][q][3] = fmaf(p.y, vq.w, acc[1][q][3]);
+      }
+    }
+
+    if constexpr (WITH_V) {
+      // This stripe's share of out_v[e] for the tile's 64 columns, ranks
+      // of half h, written to the stripe's own plane.
+      float pv[2][RQH][4];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int q = 0; q < RQH; ++q)
+#pragma unroll
+          for (int s = 0; s < 4; ++s) pv[c][q][s] = 0.f;
+      const float* p0row = PsT + (2 * cr) * kPsiTLd;
+      const float* p1row = p0row + kPsiTLd;
+      for (int ii = 0; ii < kT64; ii += 2) {
+        const float2 p0 = *reinterpret_cast<const float2*>(p0row + ii);
+        const float2 p1 = *reinterpret_cast<const float2*>(p1row + ii);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float a0 = hh ? p0.y : p0.x;
+          const float a1 = hh ? p1.y : p1.x;
+          const float* urow = u_own + (ii + hh) * LD;
+#pragma unroll
+          for (int q = 0; q < RQH; ++q) {
+            const float4 uq =
+                *reinterpret_cast<const float4*>(urow + 4 * (ck + 8 * q));
+            pv[0][q][0] = fmaf(a0, uq.x, pv[0][q][0]);
+            pv[0][q][1] = fmaf(a0, uq.y, pv[0][q][1]);
+            pv[0][q][2] = fmaf(a0, uq.z, pv[0][q][2]);
+            pv[0][q][3] = fmaf(a0, uq.w, pv[0][q][3]);
+            pv[1][q][0] = fmaf(a1, uq.x, pv[1][q][0]);
+            pv[1][q][1] = fmaf(a1, uq.y, pv[1][q][1]);
+            pv[1][q][2] = fmaf(a1, uq.z, pv[1][q][2]);
+            pv[1][q][3] = fmaf(a1, uq.w, pv[1][q][3]);
+          }
+        }
+      }
+      float* dst =
+          v_target + (static_cast<size_t>(stripe) * E + e) * N * r + hk;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = j0 + 2 * cr + c;
+        if (j >= N) continue;
+#pragma unroll
+        for (int q = 0; q < RQH; ++q)
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int k = 4 * (ck + 8 * q) + s;
+            if (k < hw) dst[static_cast<size_t>(j) * r + k] = pv[c][q][s];
+          }
+      }
+    }
+    __syncthreads();  // nobody reads this V half or Psi^T any more
+    if (j0 + kT64 < col_end) {
+      stage_window<RQH>(Vs, ve, j0 + kT64, N, r, ok, ow);
+      cp_async_commit();
+    }
+  }
+
+  // out_u itself with one split, else this split's partial plane.
+  float* dst =
+      out_u + (static_cast<size_t>(split) * E + e) * M * r + hk;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int i = i0 + 2 * cr + c;
+    if (i >= M) continue;
+#pragma unroll
+    for (int q = 0; q < RQH; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int k = 4 * (ck + 8 * q) + s;
+        if (k < hw) dst[static_cast<size_t>(i) * r + k] = acc[c][q][s];
+      }
+  }
+
+  if (WITH_DIAG && h == 0) {
+    // Block sum of the two scalars, as stripe_kernel's (after the last
+    // barrier of the tile loop, nobody reads Psi^T).
+    float* red = PsT;
+    red[threadIdx.x] = obj;
+    red[kT64Threads + threadIdx.x] = psi2;
+    __syncthreads();
+    for (int s = kT64Threads / 2; s > 0; s >>= 1) {
+      if (threadIdx.x < s) {
+        red[threadIdx.x] += red[threadIdx.x + s];
+        red[kT64Threads + threadIdx.x] += red[kT64Threads + threadIdx.x + s];
+      }
+      __syncthreads();
+    }
+    const int n_stripes = (M + kT64 - 1) / kT64;
+    if (threadIdx.x == 0 && stripe < n_stripes) {
+      const int blocks = n_stripes * gridDim.y;
+      const int b = stripe * gridDim.y + split;
+      diag_partial[static_cast<size_t>(e) * blocks + b] = red[0];
+      diag_partial[static_cast<size_t>(E + e) * blocks + b] =
+          red[kT64Threads];
+    }
+  }
+}
+
 // Number of 64-row stripes.  diag_partial holds 2 E stripes splits floats,
 // u_partial splits E M r (when splits > 1), v_partial groups E N r (when
 // groups > 1).
@@ -413,16 +636,23 @@ cudaError_t launch_stripe(const float* u, const float* v, const TM* m,
       groups < 1 || groups * cluster < tiles ||
       (groups - 1) * cluster >= tiles)
     return cudaErrorInvalidValue;
-  auto kernel = stripe_kernel<RQ, TM, MASK, WITH_DIAG, WITH_V>;
+  // RQ > 8: two rank halves of RQ / 2 register groups (tile.cuh's
+  // by_rank), one stripe a row group.
+  constexpr bool kWide = RQ > 8;
+  if (kWide && cluster != 1) return cudaErrorInvalidValue;
+  auto kernel = stripe_kernel<kWide ? 1 : RQ, TM, MASK, WITH_DIAG, WITH_V>;
+  if constexpr (kWide)
+    kernel = stripe_wide_kernel<RQ / 2, TM, MASK, WITH_DIAG, WITH_V>;
   const size_t smem =
-      stripe_smem_bytes<RQ, stripe_stages<RQ, WITH_V>()>() +
-      (cluster > 1 ? sizeof(float) * recv_floats<RQ>() : 0);
+      kWide ? stripe_wide_smem_bytes<RQ / 2>()
+            : stripe_smem_bytes<RQ, stripe_stages<RQ, WITH_V>()>() +
+                  (cluster > 1 ? sizeof(float) * recv_floats<RQ>() : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   float* u_dst = splits == 1 ? out_u : u_partial;
   float* v_dst = groups > 1 ? v_partial : out_v;
-  const dim3 grid(groups * cluster, splits, E);
+  const dim3 grid(groups * cluster, splits, kWide ? 2 * E : E);
   if (cluster == 1) {
     kernel<<<grid, kT64Threads, smem, stream>>>(
         u, v, m, w, lam, u_dst, diag_partial, v_dst, E, M, N, r,

@@ -91,9 +91,13 @@ struct TypeTag {
 template <int V>
 using Int = std::integral_constant<int, V>;
 
-// RQ = 1 .. 8 covers r <= 256 (MAX_RANK in kernels/_launch.py).
+// RQ = ceil(r / 32) = 1 .. 8 covers r <= 256 in one register block of 32 RQ
+// ranks; above, RQ = 2 RQH with RQH = ceil(r / 64) = 5 .. 8 (10, 12, 14, 16)
+// covers r <= 512 in two rank halves of 32 RQH (tile64.cuh's wide kernels;
+// MAX_RANK and HALF_RANK in kernels/_launch.py).
 template <typename F>
 cudaError_t by_rank(int r, F&& f) {
+  if (r < 1) return cudaErrorInvalidValue;
   switch ((r + 31) / 32) {
     case 1: return f(Int<1>{});
     case 2: return f(Int<2>{});
@@ -103,6 +107,13 @@ cudaError_t by_rank(int r, F&& f) {
     case 6: return f(Int<6>{});
     case 7: return f(Int<7>{});
     case 8: return f(Int<8>{});
+    default: break;
+  }
+  switch ((r + 63) / 64) {
+    case 5: return f(Int<10>{});
+    case 6: return f(Int<12>{});
+    case 7: return f(Int<14>{});
+    case 8: return f(Int<16>{});
     default: return cudaErrorInvalidValue;
   }
 }

@@ -80,6 +80,55 @@ __device__ __forceinline__ void stage_async(float* dst, const float* src,
     stage_pieces<RQ, 4>(dst, src, row0, nrows, r);
 }
 
+// Ranks 257 .. 512 (the "wide" kernels: contract_v.cu, stripe.cuh,
+// shrink.cu).  A 64-row slice of U and one of V at r = 512 take 132 KB each,
+// more than a block's 227 KB together, and a 32 RQ-rank register block of
+// the contractions would take 128 fp32 registers a thread.  So the rank
+// axis is taken in two halves: half 0 holds ranks [0, 32 RQH), half 1 ranks
+// [32 RQH, r), RQH = ceil(r / 64) <= 8, each staged into a slice of
+// ld64<RQH>() floats a row.  Every residual entry is summed as
+// low = low(half 0) + low(half 1), each half's patch in rank order from
+// zero: one fp32 add of two terms, which is commutative, so a block may
+// stage the halves in either order and still get the same bits.
+__host__ __device__ constexpr int wide_half(int rqh) { return 32 * rqh; }
+
+// Stage rows [row0, row0 + 64) of ranks [k0, k0 + kw) of a (nrows, r)
+// row-major factor into dst (64 x ld64<RQ>()) in pieces of BYTES (r and k0
+// multiples of BYTES / 4), zeros past nrows and past kw.
+template <int RQ, int BYTES>
+__device__ __forceinline__ void stage_window_pieces(float* dst,
+                                                    const float* src,
+                                                    int row0, int nrows,
+                                                    int r, int k0, int kw) {
+  constexpr int W = BYTES / 4;
+  constexpr int RP = 32 * RQ / W;
+  constexpr int LD = ld64<RQ>();
+  for (int idx = threadIdx.x; idx < kT64 * RP; idx += kT64Threads) {
+    const int ii = idx / RP;
+    const int k = (idx - ii * RP) * W;
+    const int row = row0 + ii;
+    const bool ok = row < nrows && k < kw;
+    cp_async<BYTES>(dst + ii * LD + k,
+                    ok ? src + static_cast<size_t>(row) * r + k0 + k : src,
+                    ok);
+  }
+}
+
+// stage_async for the rank window [k0, k0 + kw): k0 is a multiple of 32,
+// so the widest pieces are those of the whole rows.
+template <int RQ>
+__device__ __forceinline__ void stage_window(float* dst, const float* src,
+                                             int row0, int nrows, int r,
+                                             int k0, int kw) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
+  if (r % 4 == 0 && at % 16 == 0)
+    stage_window_pieces<RQ, 16>(dst, src, row0, nrows, r, k0, kw);
+  else if (r % 2 == 0 && at % 8 == 0)
+    stage_window_pieces<RQ, 8>(dst, src, row0, nrows, r, k0, kw);
+  else
+    stage_window_pieces<RQ, 4>(dst, src, row0, nrows, r, k0, kw);
+}
+
 // Adds ranks 4 kq .. 4 kq + 3 to this thread's 4 x 4 patch `low` of Us
 // Vs^T: rows ti + 16 a of the U slice against rows tj + 16 b of the V
 // slice.  8 float4 loads feed 64 FMAs; with ti = (warp / 2) * 4 + lane / 8

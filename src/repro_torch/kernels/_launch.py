@@ -16,8 +16,11 @@ from typing import NamedTuple
 
 import torch
 
-#: Largest factor rank the kernels take (r <= 32 * 8).
-MAX_RANK = 256
+#: Largest factor rank the kernels take.  Up to :data:`HALF_RANK` one
+#: register block covers the rank (r <= 32 * 8); above, the kernels take it
+#: in two halves of at most that many ranks (``csrc/tile64.cuh``).
+HALF_RANK = 256
+MAX_RANK = 2 * HALF_RANK
 #: Rows and columns of one residual tile (``kT64`` in ``csrc/tile64.cuh``).
 TILE = 64
 #: Codes of M's data type and of the mask mode (``DType`` and ``MaskMode``
@@ -43,6 +46,13 @@ class Operands(NamedTuple):
     @property
     def suffix(self) -> str:
         return MASK_SUFFIX[self.mask]
+
+
+def rank_halves(r: int) -> int:
+    """Rank halves a kernel takes at rank ``r``: 1 up to
+    :data:`HALF_RANK`, else 2 (the grid then holds two blocks a tile, one
+    for each half of the output's rank axis)."""
+    return 1 if r <= HALF_RANK else 2
 
 
 def on_cpu(u: torch.Tensor) -> bool:
@@ -121,7 +131,8 @@ def check_operands(u, v, m, lam, w=None) -> Operands:
             )
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"rank {r} outside the kernels' range 1..{MAX_RANK}")
-    if min(e, mm, n) < 1 or e > 65535 or -(-mm // TILE) > 65535:
+    if (min(e, mm, n) < 1 or e * rank_halves(r) > 65535
+            or -(-mm // TILE) > 65535):
         raise ValueError(f"unsupported sizes E={e}, m={mm}, n={n}")
     return Operands(e, mm, n, r, DTYPE_CODES[m.dtype], mask)
 

@@ -40,6 +40,9 @@ reads a value back to the host.  The launches are deterministic (no
 atomics): sums across blocks go through partials added in index order,
 and the splits of a reduction across blocks (``v_splits``, ``u_splits``)
 are pure functions of the shape and the SM count.
+Ranks 257-512 take two rank halves (``_launch.rank_halves``): the grid
+holds one block for each half of the output's rank axis, each forming the
+whole Psi of its tile.
 ``huber_contract_u`` is ``huber_contract_u_diag`` with the diagnostics
 compiled out (the same ``Psi V`` bits), and ``huber_dual_contract`` always
 runs its one fused pass where its out_v scratch fits 4 MiB
@@ -59,7 +62,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._launch import (
-    MASK_SUFFIX, check_operands, launch, on_cpu, signature, sm_count,
+    MASK_SUFFIX, check_operands, launch, on_cpu, rank_halves, signature,
+    sm_count,
 )
 
 #: Kernel launches per function and mask mode (CUDA tensors only).
@@ -99,40 +103,44 @@ V_TILE_ROWS = V_TILE_COLS = 64
 U_TILE_ROWS = U_TILE_COLS = 64
 
 
-def _splits(blocks: int, tiles: int, sms: int) -> tuple[int, int]:
+def _splits(blocks: int, tiles: int, sms: int,
+            per_sm: int = 2) -> tuple[int, int]:
     """``(splits, tiles_per_split)`` of a reduction over ``tiles`` tiles
-    for a grid of ``blocks`` x splits blocks, two resident on an SM.  A
-    split count is costed as ``ceil(blocks * splits / (2 sms))`` waves,
-    each as long as a block's tiles plus one (staging, writing the
+    for a grid of ``blocks`` x splits blocks, ``per_sm`` resident on an SM.
+    A split count is costed as ``ceil(blocks * splits / (per_sm sms))``
+    waves, each as long as a block's tiles plus one (staging, writing the
     partials); the cheapest wins, and among equals the fewest splits (the
     least partial traffic)."""
     best = None
     for want in range(1, tiles + 1):
         per = -(-tiles // want)
         splits = -(-tiles // per)
-        cost = -(-blocks * splits // (2 * sms)) * (per + 1)
+        cost = -(-blocks * splits // (per_sm * sms)) * (per + 1)
         if best is None or cost < best[0]:
             best = (cost, splits, per)
     return best[1], best[2]
 
 
 @functools.lru_cache(maxsize=1024)
-def v_splits(e: int, m: int, n: int, sms: int) -> tuple[int, int]:
+def v_splits(e: int, m: int, n: int, sms: int,
+             halves: int = 1) -> tuple[int, int]:
     """``(splits, rows_per_split)`` of the m reduction in
     ``huber_contract_v`` on a card with ``sms`` SMs: every range a whole
     number of 64-row tiles, none empty, together exactly the m rows.
 
     The grid is (column tiles x splits x clients) blocks, two resident on
-    an SM (``csrc/contract_v.cu`` at r <= 160), costed by :func:`_splits`.
-    A pure function of the shape and the SM count, so a launch is the same
-    on every run of one card."""
-    splits, per = _splits(e * -(-n // V_TILE_COLS), -(-m // V_TILE_ROWS),
-                          sms)
+    an SM (``csrc/contract_v.cu`` at r <= 160), costed by :func:`_splits`;
+    with two rank ``halves`` (r > 256, :func:`rank_halves`) twice the
+    blocks, one resident on an SM.  A pure function of the shape and the SM
+    count, so a launch is the same on every run of one card."""
+    splits, per = _splits(e * halves * -(-n // V_TILE_COLS),
+                          -(-m // V_TILE_ROWS), sms, 2 // halves)
     return splits, per * V_TILE_ROWS
 
 
 @functools.lru_cache(maxsize=1024)
-def u_splits(e: int, m: int, n: int, sms: int) -> tuple[int, int]:
+def u_splits(e: int, m: int, n: int, sms: int,
+             halves: int = 1) -> tuple[int, int]:
     """``(splits, cols_per_split)`` of the n reduction in the row-stripe
     kernels (``huber_contract_u``, ``huber_contract_u_diag``,
     ``huber_dual_contract``) on a card with ``sms`` SMs: every range a
@@ -143,9 +151,11 @@ def u_splits(e: int, m: int, n: int, sms: int) -> tuple[int, int]:
     :func:`_splits`; at E = 1 the splits fill the card (one client's
     3000 rows are 47 stripes).  A pure function of the shape and the SM
     count, and the three kernels take the same splits, so they share every
-    sum of ``Psi V`` and of the diagnostics bit for bit."""
-    splits, per = _splits(e * -(-m // U_TILE_ROWS), -(-n // U_TILE_COLS),
-                          sms)
+    sum of ``Psi V`` and of the diagnostics bit for bit.  With two rank
+    ``halves`` (r > 256) the grid holds twice the blocks, one resident on
+    an SM."""
+    splits, per = _splits(e * halves * -(-m // U_TILE_ROWS),
+                          -(-n // U_TILE_COLS), sms, 2 // halves)
     return splits, per * U_TILE_COLS
 
 
@@ -165,7 +175,8 @@ def huber_contract_v(u, v, m, lam, w=None) -> torch.Tensor:
         return huber_contract_v_plain(u, v, m, lam, w)
     op = check_operands(u, v, m, lam, w)
     out = _f32(op.e, op.n, op.r, device=u.device)
-    splits, rows = v_splits(op.e, op.m, op.n, sm_count(u.device))
+    splits, rows = v_splits(op.e, op.m, op.n, sm_count(u.device),
+                            rank_halves(op.r))
     partial = out if splits == 1 else _f32(splits, op.e, op.n, op.r,
                                            device=u.device)
     _call("contract_v", "huber_contract_v", op, u, v, m, w, lam, out, partial,
@@ -182,7 +193,8 @@ def huber_contract_u_plain(u, v, m, lam, w=None) -> torch.Tensor:
 def _u_scratch(op, device) -> tuple[tuple[int, int], torch.Tensor | None]:
     """The column splits of a row-stripe launch and the (splits, E, m, r)
     partial planes of out_u they need (none with one split)."""
-    splits, cols = u_splits(op.e, op.m, op.n, sm_count(device))
+    splits, cols = u_splits(op.e, op.m, op.n, sm_count(device),
+                            rank_halves(op.r))
     partial = None if splits == 1 else _f32(splits, op.e, op.m, op.r,
                                             device=device)
     return (splits, cols), partial
@@ -240,6 +252,12 @@ def huber_dual_contract_plain(u, v, m, lam, w=None):
 DUAL_SCRATCH_BYTES = 4 << 20
 #: Cluster sizes a row group of the dual may take (portable on Hopper).
 DUAL_CLUSTERS = (1, 2, 4, 8)
+#: Largest rank at which the dual's row groups may be clusters: a
+#: cluster's receive buffers (2 x 64 x 32 RQ floats) fit a block's shared
+#: memory beside its U stripe, two V stages and Psi^T only up to RQ = 5
+#: (225 KB of 227; 266 KB at RQ = 6), and not at all beside the two rank
+#: halves of r > 256.
+DUAL_CLUSTER_MAX_RANK = 160
 
 
 def dual_groups(e: int, n: int, r: int) -> int:
@@ -264,10 +282,12 @@ def dual_plan(e: int, m: int, n: int, r: int) -> tuple[int, int] | None:
     stripes cover every stripe, none empty, each adding its stripes'
     shares of out_v into one partial plane (out_v itself when ``groups ==
     1``) of :func:`dual_scratch_shape`.  The smallest cluster whose groups
-    fit it; ``None`` where even clusters of 8 do not (then the wrapper
-    takes the reference's two passes, as it does past its own 4 MiB)."""
+    fit it, clusters of 1 only above :data:`DUAL_CLUSTER_MAX_RANK`;
+    ``None`` where no allowed cluster does (then the wrapper takes the
+    reference's two passes, as it does past its own 4 MiB)."""
     stripes = -(-m // U_TILE_ROWS)
-    for cluster in DUAL_CLUSTERS:
+    clusters = DUAL_CLUSTERS if r <= DUAL_CLUSTER_MAX_RANK else (1,)
+    for cluster in clusters:
         groups = -(-stripes // cluster)
         if groups <= dual_groups(e, n, r):
             return cluster, groups

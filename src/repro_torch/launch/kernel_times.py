@@ -15,7 +15,9 @@ one-client plane (C), the compact-plane blocks in fp32 with a dense mask
 D16, and ``huber_contract_u`` at F; the shrink through its entry point
 ``kernels.ops.residual_shrink`` (what a solve calls: a tree whose kernel
 takes no packed mask unpacks it there) at F, C, D and D16, and
-``residual_shrink_psi`` at F and in bf16 without a mask (D16n).  With
+``residual_shrink_psi`` at F and in bf16 without a mask (D16n); and
+``huber_contract_v``, ``huber_contract_u_diag`` and the shrink at paper
+Table 1's n = 5000 blocks (T5: E=10, m=5000, n_i=500, r=500).  With
 ``--only`` a comma-separated list of row-name prefixes picks rows (for
 example ``--only residual_shrink,flash_attention/T``).  Each row gives the
 CUDA-event time per call over 20 calls after 3 of warm-up (``ms``: what a
@@ -48,6 +50,8 @@ SHAPES = {  # (E, m, n_i, r, dtype, mask)
     "D": (4, 2048, 512, 64, torch.float32, "dense"),
     "D16": (4, 2048, 512, 64, torch.bfloat16, "packed"),
     "D16n": (4, 2048, 512, 64, torch.bfloat16, "none"),
+    # Paper Table 1 at n = 5000 (p = 2r = 500), E = 10: two rank halves.
+    "T5": (10, 5000, 500, 500, torch.float32, "none"),
 }
 CONTRACT_ROWS = [  # (function, shape)
     ("huber_contract_v", "F"), ("huber_contract_v", "C"),
@@ -58,6 +62,8 @@ CONTRACT_ROWS = [  # (function, shape)
     ("residual_shrink", "F"), ("residual_shrink", "C"),
     ("residual_shrink", "D"), ("residual_shrink", "D16"),
     ("residual_shrink_psi", "F"), ("residual_shrink_psi", "D16n"),
+    ("huber_contract_v", "T5"), ("huber_contract_u_diag", "T5"),
+    ("residual_shrink", "T5"),
 ]
 CALLS, WARMUP = 20, 3
 

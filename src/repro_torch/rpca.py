@@ -1,55 +1,78 @@
-"""The front door for the ported solvers (counterpart of ``repro.rpca``):
-methods ``"cf"`` and ``"dcf"``; ``method="auto"`` picks by the reference's
-rules (:func:`auto_method`).
+"""The front door for the ported solvers (counterpart of ``repro.rpca``).
+
+A problem is an :class:`RPCASpec`, solved through one :func:`solve` call
+and returned as one :class:`RPCAResult` whichever solver ran:
 
     from repro_torch import rpca
+    res = rpca.solve(m_obs)                          # auto: ialm here
     res = rpca.solve(m_obs, method="dcf", cfg=DCFConfig.tuned(150),
-                     num_clients=10)            # on the card
+                     num_clients=10)                 # on the card
     res = rpca.solve(m_obs, method="cf", rank=8, device="cpu")
+
+Dispatch goes through the :data:`SOLVERS` registry, as in the reference:
+each solver module registers itself (:func:`register_solver`) with a
+:class:`SolverCaps` record, so a feature a method lacks is refused before
+any solve starts, with the reference's words.  ``"cf"``, ``"dcf"``,
+``"ialm"`` and ``"apgm"`` solve; ``"dcf_sharded"`` is registered with the
+reference's caps and raises ``NotImplementedError`` naming ROADMAP.md, so
+every refusal lists the reference's methods.
 
 A solve runs on the CUDA card unless ``device="cpu"`` is passed; with no
 card and no device named it raises.  ``dtype=torch.bfloat16`` stores M as
-the compact bf16 plane (results stay fp32); with ``DCFConfig(pack_mask=True,
-fused="dual")`` it is the compact data plane of the reference.  The other
-methods of the reference (the convex solvers, the sharded engine), batched
-problems, participation schedules and fault injection wait for later slices
-(``ROADMAP.md``) and raise.
+the compact bf16 plane for the factorized methods (results stay fp32).
+Batched problems, ``compile_policy``, participation schedules and fault
+injection wait for later slices (ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Any
+from typing import TYPE_CHECKING, Any, Callable
 
 import torch
 
-from repro_torch.core import cf_pca, dcf_pca
-from repro_torch.core import runtime as rt
-from repro_torch.core import validate
-from repro_torch.core.factorized import DCFConfig
 from repro_torch.device import resolve_device
 
-METHODS = ("cf", "dcf")
+if TYPE_CHECKING:  # annotations only: see the import note below
+    from repro_torch.core import runtime as rt
+
+# This module imports nothing of repro_torch.core at module level: the solver
+# modules there register themselves here when they are imported, so this
+# module must be whole before repro_torch.core's package init pulls them in
+# (the reference's rule, repro/rpca.py).  Runtime and validation helpers are
+# imported inside the functions that need them.
+
+
+def _rt():
+    from repro_torch.core import runtime as rt
+
+    return rt
+
+
+def _val():
+    from repro_torch.core import validate as val
+
+    return val
+
+
 #: One SVD of an (m, n) problem costs about m n min(m, n) flops; past this,
 #: ``method="auto"`` picks the SVD-free ``"cf"`` when a rank is known (the
 #: reference's ``repro.rpca.SVD_COST_THRESHOLD``).
 SVD_COST_THRESHOLD = 1 << 26
-#: The reference's methods that take each feature (its ``methods_with``),
-#: named in the refusals so that they read as the reference's.
-_METHODS_WITH = {
-    "supports_clients": ("dcf",),
-    "supports_participation": ("dcf", "dcf_sharded"),
-    "supports_robust_agg": ("dcf", "dcf_sharded"),
-}
 
 
+# ---------------------------------------------------------------------------
+# Problem spec and uniform result
+# ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class RPCASpec:
     """One RPCA problem: ``m_obs`` (m, n), an optional 0/1 ``mask``, the
-    target ``rank`` (when no cfg is passed), the client count
-    ``num_clients`` for ``"dcf"``, warm factors ``(U, V)``, and ``key``,
-    the seed (or ``torch.Generator``) of the random factor init (default
-    0).  ``dtype`` casts ``m_obs`` (fp32 or bf16).  ``participation`` and
-    ``faults`` are not ported yet."""
+    target ``rank`` (factorized methods, when no cfg is passed), the client
+    count ``num_clients`` for ``"dcf"``, a warm pair (``(L, S)`` for the
+    convex methods, ``(U, V)`` for the factorized ones), and ``key``, the
+    seed (or ``torch.Generator``) of the random factor init (default 0).
+    ``dtype`` casts ``m_obs`` (fp32 or bf16).  ``participation``,
+    ``faults`` and ``mesh`` are not ported yet: a method that takes them
+    raises when it solves."""
 
     m_obs: Any
     mask: Any = None
@@ -58,6 +81,7 @@ class RPCASpec:
     participation: Any = None
     warm: tuple[Any, Any] | None = None
     key: int | torch.Generator | None = None
+    mesh: Any = None
     dtype: torch.dtype | None = None
     faults: Any = None
 
@@ -71,19 +95,21 @@ class RPCASpec:
         return tuple(self.m_obs.shape[-2:])
 
     def validate(self) -> None:
+        val = _val()
         nd = len(self.m_obs.shape)
         if nd not in (2, 3):
             raise ValueError(
                 f"m_obs must be (m, n) or (B, m, n); got ndim={nd}"
             )
-        validate.check_mask(self.mask, tuple(self.m_obs.shape))
+        val.check_mask(self.mask, tuple(self.m_obs.shape))
         if self.warm is not None:
-            validate.check_warm_pair(self.warm)
+            val.check_warm_pair(self.warm)
 
 
 @dataclass(frozen=True)
 class RPCAResult:
-    """Uniform solve result: components, factors, stats, the method."""
+    """Uniform solve result: components, factors (``None`` for the convex
+    methods), stats, the method that ran, the spec."""
 
     l: torch.Tensor
     s: torch.Tensor
@@ -97,25 +123,164 @@ class RPCAResult:
     def factors(self) -> tuple[torch.Tensor, torch.Tensor] | None:
         return None if self.u is None else (self.u, self.v)
 
+    @property
+    def history(self) -> torch.Tensor:
+        """The per-iteration objective trace."""
+        return self.stats.objective
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class SolverCaps:
+    """What a registered solver supports; ``solve`` validates against this.
+    The fields and defaults of ``repro.rpca.SolverCaps`` (see there for
+    each flag)."""
+
+    supports_mask: bool = True
+    supports_factors: bool = False
+    supports_clients: bool = False
+    supports_participation: bool = False
+    supports_sharding: bool = False
+    batchable: bool = True
+    needs_rank: bool = False
+    supports_service: bool = False
+    supports_lowp: bool = False
+    supports_multiprocess: bool = False
+    supports_robust_agg: bool = False
+    supports_checkpoint: bool = False
+
+
+@dataclass(frozen=True)
+class SolverEntry:
+    """A registered solver.  ``make(spec, cfg, run_cfg, device)`` runs the
+    solve and returns ``(l, s, u, v, stats)``; ``service`` and ``aot`` (the
+    reference's slot-service and compile-cache hooks) stay ``None`` until
+    those slices land."""
+
+    name: str
+    caps: SolverCaps
+    make: Callable[[RPCASpec, Any, Any, torch.device], tuple]
+    service: Any = None
+    aot: Any = None
+
+
+#: The solver registry: filled by the solver modules when imported.
+SOLVERS: dict[str, SolverEntry] = {}
+
+
+def register_solver(name: str, caps: SolverCaps,
+                    make: Callable[[RPCASpec, Any, Any, torch.device], tuple],
+                    service: Any = None, aot: Any = None) -> None:
+    """Register (or re-register) a solver under ``name``.  ``cfg`` reaches
+    ``make`` as ``None`` when the caller passed none (the adapter picks its
+    default)."""
+    SOLVERS[name] = SolverEntry(name=name, caps=caps, make=make,
+                                service=service, aot=aot)
+
+
+def _ensure_registered() -> None:
+    """Import the solver modules (idempotent; they register themselves)."""
+    from repro_torch.core import apgm, cf_pca, dcf_pca, ialm  # noqa: F401
+
+
+def get_solver(name: str) -> SolverEntry:
+    """Resolve a registry entry; unknown names list the known methods."""
+    _ensure_registered()
+    try:
+        return SOLVERS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown method {name!r}; registered methods: "
+            f"{', '.join(sorted(SOLVERS))}"
+        ) from None
+
+
+def methods_with(feature: str) -> list[str]:
+    """Names of registered methods whose caps have ``feature`` True."""
+    _ensure_registered()
+    return sorted(
+        n for n, e in SOLVERS.items() if getattr(e.caps, feature)
+    )
+
+
+def _unsupported(name: str, feature: str, flag: str) -> ValueError:
+    return ValueError(
+        f"method {name!r} does not support {feature}; methods with "
+        f"{feature}: {', '.join(methods_with(flag)) or '(none)'}"
+    )
+
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} waits for a later slice of the port (ROADMAP.md)")
 
 
-def _unsupported(name: str, feature: str, flag: str) -> ValueError:
-    """The reference's refusal of a feature a method lacks (its
-    ``repro.rpca._unsupported``), word for word."""
-    return ValueError(
-        f"method {name!r} does not support {feature}; methods with "
-        f"{feature}: {', '.join(_METHODS_WITH[flag])}"
-    )
-
-
 def _is_lowp(dtype: Any) -> bool:
     return dtype in (torch.bfloat16, torch.float16)
 
 
+def _check_caps(entry: SolverEntry, spec: RPCASpec,
+                cfg: Any = None) -> None:
+    """Eager feature x method validation with the reference's messages
+    (``repro.rpca._check_caps``), in its order."""
+    caps = entry.caps
+    # getattr: the specs may be partial (as the reference's tests drive it).
+    if (getattr(spec, "faults", None) is not None
+            and not caps.supports_robust_agg):
+        raise _unsupported(
+            entry.name, "fault injection (no consensus boundary)",
+            "supports_robust_agg",
+        )
+    if cfg is not None and not caps.supports_robust_agg:
+        if (getattr(cfg, "aggregator", "weighted_mean") != "weighted_mean"
+                or getattr(cfg, "divergence_screen", None) is not None):
+            raise _unsupported(
+                entry.name, "robust consensus aggregation",
+                "supports_robust_agg",
+            )
+    if ((getattr(spec, "checkpoint_dir", None) is not None
+         or getattr(spec, "resume_from", None) is not None)
+            and not caps.supports_checkpoint):
+        raise _unsupported(
+            entry.name, "mid-solve checkpoint/resume",
+            "supports_checkpoint",
+        )
+    if _is_lowp(spec.m_obs.dtype) and not caps.supports_lowp:
+        raise _unsupported(
+            entry.name, "low-precision (bf16/f16) data planes",
+            "supports_lowp",
+        )
+    if spec.mask is not None and not caps.supports_mask:
+        raise _unsupported(entry.name, "observation masks", "supports_mask")
+    if spec.num_clients is not None and not caps.supports_clients:
+        raise _unsupported(
+            entry.name, "simulated client topologies (num_clients)",
+            "supports_clients",
+        )
+    if spec.participation is not None and not caps.supports_participation:
+        raise _unsupported(
+            entry.name, "participation schedules", "supports_participation"
+        )
+    mesh = getattr(spec, "mesh", None)
+    if mesh is not None and not caps.supports_sharding:
+        raise _unsupported(entry.name, "device meshes", "supports_sharding")
+    if spec.batched and not caps.batchable:
+        raise _unsupported(
+            entry.name, "batched problems (leading problem axis)",
+            "batchable",
+        )
+    if caps.supports_sharding and mesh is None:
+        raise ValueError(
+            f"method {entry.name!r} requires a device mesh: set "
+            f"RPCASpec.mesh"
+        )
+
+
+# ---------------------------------------------------------------------------
+# method="auto"
+# ---------------------------------------------------------------------------
 def auto_method(spec: RPCASpec, cfg: Any = None) -> str:
     """The method ``method="auto"`` picks, by the reference's rules
     (``repro.rpca.auto_method``), in its order:
@@ -128,8 +293,8 @@ def auto_method(spec: RPCASpec, cfg: Any = None) -> str:
        flops -> ``"cf"``;
     6. otherwise ``"ialm"``.
 
-    ``solve`` refuses ``"dcf_sharded"`` and ``"ialm"``: they wait for
-    later slices (ROADMAP.md)."""
+    ``solve`` refuses ``"dcf_sharded"``: it waits for a later slice
+    (ROADMAP.md)."""
     if getattr(spec, "mesh", None) is not None:
         return "dcf_sharded"
     if spec.participation is not None or spec.num_clients is not None:
@@ -150,13 +315,21 @@ def auto_method(spec: RPCASpec, cfg: Any = None) -> str:
     return "ialm"
 
 
+# ---------------------------------------------------------------------------
+# The front door
+# ---------------------------------------------------------------------------
 def solve(spec_or_matrix: RPCASpec | Any, method: str = "auto", *,
-          run: rt.RunConfig | str | None = None, cfg: DCFConfig | None = None,
+          run: rt.RunConfig | str | None = None, cfg: Any = None,
+          compile_policy: Any = None,
           device: torch.device | str | None = None,
           **spec_kwargs: Any) -> RPCAResult:
-    """Solve one RPCA problem with ``"cf"`` or ``"dcf"`` on ``device``;
-    ``"auto"`` picks by :func:`auto_method` and refuses, before solving,
-    what it picks that is not ported."""
+    """Solve one RPCA problem through the registry on ``device`` (the card
+    unless ``"cpu"``): ``method`` is a registered name or ``"auto"``
+    (:func:`auto_method`); ``run`` a ``RunConfig``, a preset name or
+    ``None`` (the fixed schedule); ``cfg`` the method's config
+    (``DCFConfig``, ``IALMConfig`` or ``APGMConfig``; ``None`` picks the
+    method's default).  Batched specs and any ``compile_policy`` raise
+    ``NotImplementedError`` (ROADMAP.md)."""
     if isinstance(spec_or_matrix, RPCASpec):
         if spec_kwargs:
             raise ValueError(
@@ -172,44 +345,56 @@ def solve(spec_or_matrix: RPCASpec | Any, method: str = "auto", *,
     device = resolve_device(device)
     if spec.batched:
         raise _not_ported("batched solves")
-    run_cfg = rt.resolve_run(run)
+    run_cfg = _rt().resolve_run(run)
     if method == "auto":
         method = auto_method(spec, cfg)
-    if method not in METHODS:
-        raise _not_ported(f"method {method!r} (ported: {', '.join(METHODS)})")
-    if cfg is None:
-        if spec.rank is None:
-            raise ValueError(
-                f"method {method!r} needs a target rank: set RPCASpec.rank "
-                f"or pass cfg=DCFConfig(...)"
-            )
-        cfg = (DCFConfig.masked(spec.rank) if spec.mask is not None
-               else DCFConfig.tuned(spec.rank))
-    if not isinstance(cfg, DCFConfig):
+    entry = get_solver(method)
+    _check_caps(entry, spec, cfg)
+    if compile_policy is not None:
+        raise _not_ported("compile_policy (the AOT compile cache)")
+    l, s, u, v, stats = entry.make(spec, cfg, run_cfg, device)
+    return RPCAResult(l=l, s=s, u=u, v=v, stats=stats, method=entry.name,
+                      spec=spec)
+
+
+# ---------------------------------------------------------------------------
+# Adapter helpers shared by the solver modules
+# ---------------------------------------------------------------------------
+def require_cfg_type(name: str, cfg: Any, cfg_type: type) -> None:
+    """Uniform config-type error for the registry adapters."""
+    if not isinstance(cfg, cfg_type):
         raise ValueError(
-            f"method {method!r} takes a DCFConfig, got {type(cfg).__name__}"
+            f"method {name!r} takes a {cfg_type.__name__}, got "
+            f"{type(cfg).__name__}"
         )
-    if method == "cf":
-        if spec.faults is not None:
-            raise _unsupported("cf", "fault injection (no consensus "
-                               "boundary)", "supports_robust_agg")
-        if spec.num_clients is not None:
-            raise _unsupported("cf", "simulated client topologies "
-                               "(num_clients)", "supports_clients")
-        if spec.participation is not None:
-            raise _unsupported("cf", "participation schedules",
-                               "supports_participation")
-        res = cf_pca.cf_pca(spec.m_obs, cfg, spec.key, run=run_cfg,
-                            warm=spec.warm, mask=spec.mask, device=device)
-    else:
-        if spec.num_clients is None:
-            raise ValueError(
-                "method 'dcf' needs a client count: set RPCASpec.num_clients"
-            )
-        res = dcf_pca.dcf_pca(
-            spec.m_obs, cfg, spec.num_clients, spec.key, run=run_cfg,
-            warm=spec.warm, mask=spec.mask, participation=spec.participation,
-            faults=spec.faults, device=device,
+
+
+def require_rank(name: str, spec: RPCASpec) -> int:
+    """Factorized methods need a rank when no cfg was passed."""
+    if spec.rank is None:
+        raise ValueError(
+            f"method {name!r} needs a target rank: set RPCASpec.rank or "
+            f"pass cfg=DCFConfig(...)"
         )
-    return RPCAResult(l=res.l, s=res.s, u=res.u, v=res.v, stats=res.stats,
-                      method=method, spec=spec)
+    return spec.rank
+
+
+def default_key(spec: RPCASpec) -> int | torch.Generator:
+    """The spec's seed or generator; 0 if unset (the port's seed of the
+    factor init: ``jax.random`` keys do not carry across)."""
+    return 0 if spec.key is None else spec.key
+
+
+__all__ = [
+    "RPCAResult",
+    "RPCASpec",
+    "SOLVERS",
+    "SolverCaps",
+    "SolverEntry",
+    "SVD_COST_THRESHOLD",
+    "auto_method",
+    "get_solver",
+    "methods_with",
+    "register_solver",
+    "solve",
+]

@@ -160,13 +160,13 @@ def test_u_kernels_share_their_bits(cuda, mode):
 def test_off_and_diag_give_the_same_factors(cuda, n, masked):
     """fused="off" and "diag" differ only in the U-step kernel, which gives
     the same Psi V bits: whole solves agree bit for bit."""
-    from repro_torch.core import dcf_pca
     from repro_torch.core import problems as prob
+    from repro_torch.core.dcf_pca import dcf_pca
     from repro_torch.core.factorized import DCFConfig
 
     p = prob.generate_problem(3, 256, n, 8, 0.05, device=cuda,
                               observed_frac=0.8 if masked else 1.0)
-    results = [dcf_pca.dcf_pca(p.m_obs, DCFConfig.tuned(8, outer_iters=20,
+    results = [dcf_pca(p.m_obs, DCFConfig.tuned(8, outer_iters=20,
                                                         fused=fused), 4,
                                mask=p.mask, device=cuda)
                for fused in ("diag", "off")]
@@ -192,8 +192,8 @@ def test_kernel_wrappers_refuse_bad_operands(cuda):
     with pytest.raises(TypeError, match="dense float32"):
         sh.residual_shrink(u, v, mat, lam, w.half())
     with pytest.raises(ValueError, match="rank"):
-        big = torch.zeros(2, 40, 257, device=cuda)
-        hc.huber_contract_v(big, torch.zeros(2, 24, 257, device=cuda), mat,
+        big = torch.zeros(2, 40, 513, device=cuda)
+        hc.huber_contract_v(big, torch.zeros(2, 24, 513, device=cuda), mat,
                             lam)
     s, psi = ops.residual_shrink_psi(u, v, mat, lam)
     assert s.is_cuda and psi.is_cuda and s.shape == mat.shape
@@ -582,3 +582,126 @@ def test_dual_bounded_scratch_keeps_u_diag_bits(cuda, r, dtype):
         diag = hc.huber_contract_u_diag(u, v, mat, lam, _mask(w, mode))
         for a, b in zip(got[1:], diag):
             assert torch.equal(a, b)
+
+
+# Ranks 257 .. 512: two rank halves (csrc/tile64.cuh), RQH = ceil(r / 64)
+# register groups each (5, 5, 6, 7, 8, 8), on a small grid and on one with
+# several row ranges (v_splits) and column ranges (u_splits) at E = 1.
+WIDE_RANKS = [257, 300, 384, 448, 500, 512]
+WIDE_SHAPES = [(2, 200, 133), (1, 700, 650)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", WIDE_RANKS)
+@pytest.mark.parametrize("shape", WIDE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in WIDE_SHAPES])
+@pytest.mark.parametrize("fn,mode", CASES, ids=IDS)
+def test_wide_ranks_match_plain(cuda, fn, mode, shape, r, dtype):
+    """Every RPCA kernel flavour at r > 256 (plain, dense and packed mask,
+    fp32 and bf16 M, the psi mode) within 2e-5 of its plain version."""
+    got, want = _kernel_and_plain(
+        fn, mode, *_card_inputs(cuda, *shape, r, seed=r, dtype=dtype))
+    torch.cuda.synchronize()
+    _assert_close_new(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WIDE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in WIDE_SHAPES])
+def test_wide_ranks_keep_the_bit_exact_pairs(cuda, shape):
+    """At r = 500: all-ones mask == no mask, packed == dense, reruns, u ==
+    u_diag (off == diag), the dual's out_u, obj and psi2 are u_diag's, and
+    the psi mode's S is the shrink's, bit for bit."""
+    u, v, mat, w, lam = _card_inputs(cuda, *shape, 500, seed=5)
+    packed = bitmask.pack_mask(w)
+    for fn in CONTRACTIONS + ["residual_shrink", "residual_shrink_psi"]:
+        f = getattr(ops, fn)
+        none = _as_tuple(f(u, v, mat, lam))
+        for a, b, c in zip(none, _as_tuple(f(u, v, mat, lam)),
+                           _as_tuple(f(u, v, mat, lam,
+                                       w=torch.ones_like(mat)))):
+            assert torch.equal(a, b) and torch.equal(a, c), fn
+        for a, b in zip(_as_tuple(f(u, v, mat, lam, w=w)),
+                        _as_tuple(f(u, v, mat, lam, w=packed))):
+            assert torch.equal(a, b), fn
+    for wm in (None, w, packed):
+        out_u, obj, psi2 = hc.huber_contract_u_diag(u, v, mat, lam, wm)
+        assert torch.equal(hc.huber_contract_u(u, v, mat, lam, wm), out_u)
+        _, dual_u, dual_obj, dual_psi2 = hc.huber_dual_contract(u, v, mat,
+                                                                lam, wm)
+        assert torch.equal(dual_u, out_u)
+        assert torch.equal(dual_obj, obj) and torch.equal(dual_psi2, psi2)
+        s, _ = sh.residual_shrink_psi(u, v, mat, lam, wm)
+        assert torch.equal(s, sh.residual_shrink(u, v, mat, lam, wm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,launched", [(640, True), (2048, False)])
+def test_dual_scratch_at_rank_512(cuda, m, launched):
+    """At r = 512 the dual's row groups are single stripes (no room for a
+    cluster's receive buffers): its out_v scratch stays within 4 MiB, the
+    kernel runs where every stripe has a plane (m = 640: 10 planes of
+    256 KB) and takes the two passes where not (m = 2048: 32 stripes, 16
+    planes fit 4 MiB)."""
+    e, n, r = 1, 128, 512
+    plan = hc.dual_plan(e, m, n, r)
+    assert (plan == (1, m // 64)) if launched else plan is None
+    shape = hc.dual_scratch_shape(e, n, r)
+    assert 4 * shape[0] * e * n * r <= 4 << 20
+    u, v, mat, w, lam = _card_inputs(cuda, e, m, n, r, seed=3)
+    hc.launches["huber_dual_contract_masked"] = 0
+    got, want = _kernel_and_plain("huber_dual_contract", "dense", u, v, mat,
+                                  w, lam)
+    assert hc.launches["huber_dual_contract_masked"] == int(launched)
+    _assert_close_new(got, want)
+
+
+@pytest.mark.gpu
+def test_dual_clusters_only_where_they_fit(cuda):
+    """Row groups are clusters only up to r = 160, where a cluster's
+    receive buffers fit beside the stripe (RQ = 6 would need 266 KB); at
+    r = 192 a shape that wanted clusters of 2 takes the two passes."""
+    assert hc.dual_plan(1, 1024, 512, 160)[0] == 2
+    assert hc.dual_plan(1, 1024, 512, 192) is None
+    u, v, mat, w, lam = _card_inputs(cuda, 1, 1024, 512, 192, seed=4)
+    got, want = _kernel_and_plain("huber_dual_contract", "none", u, v, mat,
+                                  w, lam)
+    _assert_close_new(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["ialm", "apgm"])
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
+def test_convex_solvers_on_the_card_match_the_cpu(cuda, method, masked):
+    """IALM (60 iterations) and APGM (200) through the front door on the
+    card and on the CPU from the same 160 x 160 problem: L and S within
+    1e-5 relative (one cuSOLVER and one LAPACK SVD an iteration)."""
+    from repro_torch import rpca
+    from repro_torch.core import APGMConfig, IALMConfig
+    from repro_torch.core import problems as prob
+
+    p = prob.generate_problem(7, 160, 160, 8, 0.05, device="cpu",
+                              observed_frac=0.8 if masked else 1.0)
+    cfg = IALMConfig(iters=60) if method == "ialm" else APGMConfig(iters=200)
+    cpu = rpca.solve(p.m_obs, method=method, cfg=cfg, mask=p.mask,
+                     device="cpu")
+    card = rpca.solve(p.m_obs.to(cuda), method=method, cfg=cfg,
+                      mask=None if p.mask is None else p.mask.to(cuda))
+    assert card.l.is_cuda and card.u is None
+    for a, b in ((card.l, cpu.l), (card.s, cpu.s)):
+        rel = (torch.linalg.norm(a.cpu() - b) / torch.linalg.norm(b)).item()
+        assert rel <= 1e-5, rel
+
+
+@pytest.mark.gpu
+def test_svt_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.core import ops as core_ops
+
+    x = torch.randn(160, 120, generator=torch.Generator().manual_seed(0))
+    want, sv_want = core_ops.svt(x, 3.0)
+    got, sv = core_ops.svt(x.to(cuda), torch.tensor(3.0, device=cuda))
+    torch.testing.assert_close(sv.cpu(), sv_want, rtol=1e-5, atol=1e-5)
+    assert (torch.linalg.norm(got.cpu() - want)
+            / torch.linalg.norm(want)).item() <= 1e-5

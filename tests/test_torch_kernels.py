@@ -162,6 +162,15 @@ def test_plain_matches_reference(name, r, against):
     _check_against_reference(name, r, against, bf16=False)
 
 
+@pytest.mark.parametrize("name", ["huber_contract_v", "huber_contract_u_diag",
+                                  "huber_dual_contract", "residual_shrink"])
+def test_plain_matches_reference_at_a_wide_rank(name):
+    """At r = 300 (two rank halves on the card) the plain versions against
+    the reference's Pallas kernels in interpret mode (r padded to 384
+    lanes there)."""
+    _check_against_reference(name, 300, "pallas", bf16=False)
+
+
 @pytest.mark.parametrize("against", ["pallas", "ref"])
 @pytest.mark.parametrize("name", sorted(FAMILIES))
 def test_plain_matches_reference_bf16_data(name, against):

@@ -28,11 +28,15 @@ from repro.core import completion_errors as jcompletion
 from repro.core import runtime as jrt
 from repro import rpca as jrpca
 from repro_torch import convert, rpca
-from repro_torch.core import cf_pca, dcf_pca, metrics
+from repro_torch.core import metrics
 from repro_torch.core import problems as prob
 from repro_torch.core import runtime as rt
 from repro_torch.core.factorized import DCFConfig
 
+# The modules, not the functions of the same names that repro_torch.core
+# exports (as repro.core does).
+cf_pca = importlib.import_module("repro_torch.core.cf_pca")
+dcf_pca = importlib.import_module("repro_torch.core.dcf_pca")
 jcf = importlib.import_module("repro.core.cf_pca")
 jdcf = importlib.import_module("repro.core.dcf_pca")
 
@@ -274,11 +278,13 @@ def test_front_door_on_the_cpu():
     assert res.method == "dcf" and res.v.shape == (8, M // 8, RANK)
     assert float(metrics.relative_error(res.l, res.s, p.l0, p.s0)) < 1e-4
     # "auto" follows the reference: a cfg with a rank pins "cf"; the rank
-    # alone, at this size, picks the convex "ialm" (not ported yet).
+    # alone, at this size, picks the convex "ialm", which solves.
     auto = rpca.solve(p.m_obs, cfg=DCFConfig.tuned(RANK), device="cpu")
     assert auto.method == "cf" and auto.factors[0].shape == (M, RANK)
-    with pytest.raises(NotImplementedError, match="'ialm'.*ROADMAP"):
-        rpca.solve(p.m_obs, rank=RANK, device="cpu")
+    convex = rpca.solve(p.m_obs, rank=RANK, device="cpu")
+    assert convex.method == "ialm" and convex.factors is None
+    assert float(metrics.relative_error(convex.l, convex.s, p.l0,
+                                        p.s0)) < 1e-6
 
 
 @pytest.mark.parametrize("what", ["participation", "faults", "compress",
@@ -297,6 +303,8 @@ def test_later_slices_raise_before_solving(what):
         cfg = DCFConfig.tuned(2, aggregator="trimmed_mean")
     elif what == "batched":
         m = torch.zeros(2, 8, 8)
+    elif what == "ialm":  # the convex solvers solve; batches of them wait
+        m, cfg, kw = torch.zeros(2, 8, 8), None, {}
     method = "ialm" if what == "ialm" else "dcf"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rpca.solve(m, method=method, cfg=cfg, device="cpu", **kw)
@@ -354,18 +362,20 @@ def test_auto_method_follows_the_reference(case):
 
 
 def test_auto_refuses_unported_methods_before_solving(monkeypatch):
-    """method="auto" on a small fp32 problem with no cfg picks "ialm", as
-    the reference does, and the port refuses it before any solve starts."""
+    """method="auto" with a device mesh picks "dcf_sharded", as the
+    reference does, and the port refuses it before any solve starts (the
+    only method left unported: "ialm" now solves)."""
     def no_solve(*a, **k):
         raise AssertionError("a solve started")
 
-    monkeypatch.setattr(rpca.cf_pca, "cf_pca", no_solve)
-    monkeypatch.setattr(rpca.dcf_pca, "dcf_pca", no_solve)
+    monkeypatch.setattr(cf_pca, "cf_pca", no_solve)
+    monkeypatch.setattr(dcf_pca, "dcf_pca", no_solve)
     m = torch.zeros(M, M)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rpca.solve(m, rank=RANK, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rpca.solve(m, device="cpu")
+    for kw in ({"rank": RANK}, {}):
+        spec = rpca.RPCASpec(m, mesh=object(), **kw)
+        assert rpca.auto_method(spec) == "dcf_sharded"
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rpca.solve(spec, device="cpu")
 
 
 @pytest.mark.parametrize("what", ["num_clients", "participation", "faults"])
@@ -385,16 +395,20 @@ def test_cf_refusals_read_as_the_reference(what):
 
 
 @pytest.mark.parametrize("cfg,refused", [
-    (DCFConfig.tuned(257), True),
+    (DCFConfig.tuned(257), False),
     (DCFConfig.tuned(8, impl="pallas"), True),
     (DCFConfig.tuned(256), False),
     (DCFConfig.tuned(257, impl="ref"), False),
-], ids=["rank257", "pallas", "rank256", "rank257_ref"])
+    (DCFConfig.tuned(512), False),
+    (DCFConfig.tuned(513), True),
+    (DCFConfig.tuned(513, impl="ref"), False),
+], ids=["rank257", "pallas", "rank256", "rank257_ref", "rank512", "rank513",
+        "rank513_ref"])
 def test_check_supported_refuses_what_the_card_cannot_run(cfg, refused):
     """On a CUDA device (no card needed: nothing is copied), a rank above
-    the kernels' 256 and an impl the port does not know are refused with
-    NotImplementedError naming ROADMAP.md; the CPU's plain route takes any
-    rank."""
+    the kernels' 512 (two rank halves of 256 above 256) and an impl the
+    port does not know are refused with NotImplementedError naming
+    ROADMAP.md; the CPU's plain route takes any rank."""
     from repro_torch.core import factorized as fz
 
     cuda = torch.device("cuda")
