@@ -44,7 +44,8 @@ CUDA toolkit.  Phases, one JSON line each:
    The kernel rows also hold huber_contract_v, huber_contract_u_diag and
    residual_shrink at paper Table 1's n = 5000 blocks (row "t5": E=10,
    m=5000, n_i=500, r=500, two rank halves), with the table1 phase's
-   launches.
+   launches, and at the wide phase's blocks (row "t6": E=10, m=4000,
+   n_i=400, r=600, three rank chunks), with its launches.
 3. small    5 rounds at 160 x 160 on the card against the same rounds of
             the plain versions on the CPU, from one seed, for fused="diag",
             "dual" with a mask, "off", and a packed mask with bf16 M; and
@@ -82,6 +83,22 @@ CUDA toolkit.  Phases, one JSON line each:
             again on the plain route (``impl="ref"``, the same algorithm
             without the kernels) on the card, whose error must agree within
             10%.
+   elastic  the fault-tolerant engine on the dcf phase's problem through
+            ``rpca.solve(method="dcf")``: DCFConfig.elastic(150,
+            participation=0.5) with a rate-0.5 schedule (relative error
+            <= 1e-2); FaultPlan.byzantine(T, 10, (1, 5), kind="nan") under
+            the weighted mean (L non-finite) and the coordinate median (and
+            again with track_objective); kind="corrupt" on client 2 under
+            the trimmed mean (both <= 3x the dcf phase's error); a
+            checkpointed solve (every 25 rounds) interrupted after its
+            first snapshot and resumed, bit-identical to the uninterrupted
+            one and to one unsegmented solve.  Exact T·K·J / T·K / 1
+            launches in each: dropped clients still run their round.
+   wide     ranks above 512: "dcf" with E=10 on the table1 generator at n =
+            4000 (r = 300) at p = 600, DCFConfig.tuned(600) (three rank
+            chunks; M is 64 MB): the singular-value error and rank_gap
+            (the paper gives no value here), exactly 600 / 200 / 1
+            launches, the plain route's error within 10%.
    convex   Fig. 1's baselines at n = 1000 (r = 50, 5%) on the card
             through ``rpca.solve``: IALM (60 iterations) and APGM (200)
             under the reference's recovery bars (1e-6, 1e-5), with the
@@ -110,7 +127,7 @@ CUDA toolkit.  Phases, one JSON line each:
             (the config's ``flash_attention`` off) within 5e-2 of
             max|logits|.
 
-In each of phases 4-9, table1, 11 and 12 a first run warms the libraries, the counts
+In each of phases 4-9, elastic, table1, wide, 11 and 12 a first run warms the libraries, the counts
 are zeroed just before the counted run and read just after it, and one more
 run goes under torch.profiler (``<phase>_profile``): the device busy time
 and its share of the counted run's wall, the kernels that take the most
@@ -184,6 +201,17 @@ TABLE1_CLIENTS, TABLE1_SPARSITY = 10, 0.05
 # The plain route (impl="ref") of the same solve: its singular-value error
 # within this fraction of the kernel route's.
 TABLE1_ROUTES_TOL = 0.10
+# Ranks above 512 end to end: Table 1's generator at n = 4000 with true rank
+# 300 solved at p = 600 (three rank chunks; M is 64 MB).  The paper states
+# no value for this size and rank (true rank 0.075 n, not Table 1's
+# 0.05 n), so the gate is the plain route's error, within
+# TABLE1_ROUTES_TOL, and finite factors; the error itself is reported.
+WIDE_N, WIDE_TRUE_RANK, WIDE_RANK = 4000, 300, 600
+# The fault-tolerant engine on the dcf phase's problem: the reference's
+# bars (tests/test_elastic.py:142-147: 1e-2 at participation 0.5;
+# tests/test_faults.py:78-133: robust consensus within 3x the fault-free
+# error), and the checkpoint cadence of the resumed solve.
+ELASTIC_BAR, CHECKPOINT_EVERY = 1e-2, 25
 # Fig. 1's convex baselines (benchmarks/fig1_convergence.py) at n = 1000:
 # the reference's recovery bars (tests/test_rpca_core.py:38-45), which the
 # reference meets at this size on the CPU (1.6e-15, 5.3e-11; printed by
@@ -233,7 +261,8 @@ SUFFIX = {"none": "", "dense": "_masked", "packed": "_packed"}
 # Kernel rows: (function, mask mode, operand set, solve phase that gives
 # the kernel these operands or None).  Operand sets: "fig1" (E=10, m=3000,
 # n_i=300, r=150), "cf" (E=1, m=n=3000), "d32" / "d16" (E=4, m=2048,
-# n_i=512, r=64, fp32 / bf16 M), "t5" (E=10, m=5000, n_i=500, r=500).
+# n_i=512, r=64, fp32 / bf16 M), "t5" (E=10, m=5000, n_i=500, r=500),
+# "t6" (E=10, m=4000, n_i=400, r=600: three rank chunks).
 ROWS = [
     ("huber_contract_v", "none", "fig1", "dcf"),
     ("huber_contract_v", "dense", "fig1", "ragged"),
@@ -270,6 +299,9 @@ ROWS = [
     ("huber_contract_v", "none", "t5", "table1@5000"),
     ("huber_contract_u_diag", "none", "t5", "table1@5000"),
     ("residual_shrink", "none", "t5", "table1@5000"),
+    ("huber_contract_v", "none", "t6", "wide"),
+    ("huber_contract_u_diag", "none", "t6", "wide"),
+    ("residual_shrink", "none", "t6", "wide"),
 ]
 # Flash rows: (row name, (B, S_q, S_kv, H, d), causal, dtype, phase whose
 # launches the row reports or None).
@@ -288,8 +320,13 @@ FLASH_ROWS = [
 ]
 
 
+T0 = time.perf_counter()
+
+
 def emit(**fields) -> None:
-    print(json.dumps(fields), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**fields, "t_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -458,6 +495,9 @@ def kernel_operands(device) -> dict:
     t5 = prob.generate_problem(0, n5, n5, n5 // 20, TABLE1_SPARSITY,
                                device=device)
     sets["t5"] = client_set(t5.m_obs, TABLE1_CLIENTS, n5 // 10, None)
+    t6 = prob.generate_problem(0, WIDE_N, WIDE_N, WIDE_TRUE_RANK,
+                               TABLE1_SPARSITY, device=device)
+    sets["t6"] = client_set(t6.m_obs, TABLE1_CLIENTS, WIDE_RANK, None)
     return sets
 
 
@@ -693,27 +733,39 @@ def profile_run(run) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    kernels = sorted((ev for ev in events if ev.device_type == DeviceType.CUDA),
-                     key=lambda ev: ev.self_device_time_total, reverse=True)
+    t1 = time.perf_counter()
+    # The raw trace, summed here: key_averages() builds an operator tree
+    # over every event first, ~100 us an event (tens of seconds a solve).
+    kernels: dict[str, list] = {}
+    runtime: dict[str, int] = {}
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() == DeviceType.CUDA:
+            entry = kernels.setdefault(name, [0, 0])
+            entry[0] += 1
+            entry[1] += ev.duration_ns()
+        elif name.startswith("cuda"):
+            runtime[name] = runtime.get(name, 0) + 1
+    top = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)
     return dict(
         wall_ms_profiled=wall * 1e3,
-        device_busy_ms=sum(ev.self_device_time_total for ev in kernels) / 1e3,
-        top_kernels=[{"name": ev.key[:96], "calls": ev.count,
-                      "device_ms": ev.self_device_time_total / 1e3}
-                     for ev in kernels[:TOP_KERNELS]],
-        runtime_calls={ev.key: ev.count for ev in events
-                       if ev.key.startswith("cuda")},
+        device_busy_ms=sum(ns for _, ns in kernels.values()) / 1e6,
+        top_kernels=[{"name": name[:96], "calls": calls, "device_ms": ns / 1e6}
+                     for name, (calls, ns) in top[:TOP_KERNELS]],
+        runtime_calls=runtime,
+        profile_read_s=time.perf_counter() - t1,
     )
 
 
 def solve_phase(name: str, device, problem, spec_kw: dict, method: str,
-                cfg, want: dict[str, int], error, bar: float, extra=None):
-    """Phases 4-9 and table1: one solve through the front door, its launch
-    counts (zeroed just before, read just after; every kernel not in
-    ``want`` must be launched 0 times) and ``error(result)`` against
-    ``bar``; ``extra(result)`` adds fields to the row.  Returns the phase's
-    row and its result."""
+                cfg, want: dict[str, int], error, bar: float, extra=None,
+                run=None, finite: bool = True):
+    """Phases 4-9, table1, wide and elastic: one solve through the front
+    door (with ``run``), its launch counts (zeroed just before, read just
+    after; every kernel not in ``want`` must be launched 0 times) and
+    ``error(result)`` against ``bar``; L and S must be finite (non-finite
+    with ``finite=False``); ``extra(result)`` adds fields to the row.
+    Returns the phase's row and its result."""
     import torch
 
     from repro_torch import rpca
@@ -721,7 +773,7 @@ def solve_phase(name: str, device, problem, spec_kw: dict, method: str,
 
     def solve():
         return rpca.solve(rpca.RPCASpec(problem.m_obs, **spec_kw),
-                          method=method, cfg=cfg, device=device)
+                          method=method, cfg=cfg, run=run, device=device)
 
     # A first solve warms the libraries (cuBLAS, cuSOLVER); the second is
     # the measured, counted run.
@@ -736,15 +788,17 @@ def solve_phase(name: str, device, problem, spec_kw: dict, method: str,
     counts = ops.launch_counts()
     expected = {k: want.get(k, 0) for k in counts}
     err = error(res)
-    finite = bool(torch.isfinite(res.l).all() and torch.isfinite(res.s).all())
+    is_finite = bool(torch.isfinite(res.l).all()
+                     and torch.isfinite(res.s).all())
     shape = tuple(problem.m_obs.shape)
-    ok = (err < bar and finite and counts == expected
+    ok = (err < bar and is_finite == finite and counts == expected
           and tuple(res.l.shape) == shape and res.l.dtype == torch.float32)
     row = dict(phase=name, method=method, m=shape[0], n=shape[1],
                rank=cfg.rank, clients=spec_kw.get("num_clients"),
                fused=cfg.fused, pack_mask=cfg.pack_mask,
                data_dtype=str(res.spec.m_obs.dtype).removeprefix("torch."),
-               error=err, bar=bar, finite=finite, wall_s=wall,
+               error=err, bar=None if math.isinf(bar) else bar,
+               finite=is_finite, wall_s=wall,
                launches={k: c for k, c in counts.items() if c or k in want},
                expected_launches=want,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ok=ok)
@@ -823,12 +877,15 @@ def solve_phases(device) -> list[dict]:
     return rows
 
 
-def table1_phase(device) -> list[dict]:
-    """Paper Table 1 on the card: for each n of :data:`TABLE1`, "dcf" with
-    E=10 at p = 2r through the front door (phase rows as solve_phase's,
-    the error being the singular-value error), then the same problem on
-    the plain route (``impl="ref"``); the two routes' errors within
-    :data:`TABLE1_ROUTES_TOL` of each other."""
+def upper_rank_phase(device, name: str, n: int, r: int, p_ub: int,
+                     bar: float) -> dict:
+    """"dcf" with E=10 at rank ``p_ub`` on the port's n x n problem (seed
+    0, true rank ``r``, 5% corruption) through the front door (a row as
+    solve_phase's, the error being the singular-value error, under
+    ``bar``, the paper's value or none), then the same problem on the
+    plain route (``impl="ref"``):
+    the two routes' errors within :data:`TABLE1_ROUTES_TOL` of each
+    other."""
     import torch
 
     from repro_torch import rpca
@@ -836,48 +893,187 @@ def table1_phase(device) -> list[dict]:
     from repro_torch.core import problems as prob
     from repro_torch.core.factorized import DCFConfig
 
+    problem = prob.generate_problem(0, n, n, r, TABLE1_SPARSITY,
+                                    device=device)
+    cfg = DCFConfig.tuned(p_ub)
+    rounds = cfg.outer_iters * cfg.local_iters
+    want = {"huber_contract_v": rounds * cfg.inner_sweeps,
+            "huber_contract_u_diag": rounds, "residual_shrink": 1}
+
+    def sv_err(res):
+        return metrics.singular_value_error(res.l, problem.l0, r).item()
+
+    row, _ = solve_phase(
+        name, device, problem, {"num_clients": TABLE1_CLIENTS},
+        "dcf", cfg, want, sv_err, bar,
+        extra=lambda res: dict(
+            paper_sv_err=None if math.isinf(bar) else bar,
+            upper_rank=p_ub, true_rank=r,
+            rank_gap=metrics.rank_gap(res.l, r).item()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = rpca.solve(problem.m_obs, method="dcf",
+                       cfg=DCFConfig.tuned(p_ub, impl="ref"),
+                       num_clients=TABLE1_CLIENTS, device=device)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    plain_err = sv_err(plain)
+    gap = abs(plain_err - row["error"]) / row["error"]
+    routes = dict(phase=f"{name}_routes", n=n, kernel_sv_err=row["error"],
+                  plain_sv_err=plain_err, rel_diff=gap,
+                  tol=TABLE1_ROUTES_TOL, plain_wall_s=plain_wall,
+                  plain_rank_gap=metrics.rank_gap(plain.l, r).item(),
+                  ok=gap <= TABLE1_ROUTES_TOL)
+    emit(**routes)
+    if not routes["ok"]:
+        raise SystemExit(f"{name} at n={n}: the kernel and plain routes "
+                         f"disagree ({gap:.3e})")
+    del problem, plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def table1_phase(device) -> list[dict]:
+    """Paper Table 1 on the card: for each n of :data:`TABLE1`, p = 2r
+    with r = 0.05 n, under the paper's value (:func:`upper_rank_phase`)."""
     rows = []
     for n, paper in TABLE1.items():
         r = max(2, n // 20)
-        p_ub = 2 * r
-        problem = prob.generate_problem(0, n, n, r, TABLE1_SPARSITY,
-                                        device=device)
-        cfg = DCFConfig.tuned(p_ub)
-        rounds = cfg.outer_iters * cfg.local_iters
-        want = {"huber_contract_v": rounds * cfg.inner_sweeps,
-                "huber_contract_u_diag": rounds, "residual_shrink": 1}
-
-        def sv_err(res):
-            return metrics.singular_value_error(res.l, problem.l0, r).item()
-
-        row, _ = solve_phase(
-            "table1", device, problem, {"num_clients": TABLE1_CLIENTS},
-            "dcf", cfg, want, sv_err, paper,
-            extra=lambda res: dict(
-                paper_sv_err=paper, upper_rank=p_ub, true_rank=r,
-                rank_gap=metrics.rank_gap(res.l, r).item()))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        plain = rpca.solve(problem.m_obs, method="dcf",
-                           cfg=DCFConfig.tuned(p_ub, impl="ref"),
-                           num_clients=TABLE1_CLIENTS, device=device)
-        torch.cuda.synchronize()
-        plain_wall = time.perf_counter() - t0
-        plain_err = sv_err(plain)
-        gap = abs(plain_err - row["error"]) / row["error"]
-        routes = dict(phase="table1_routes", n=n, kernel_sv_err=row["error"],
-                      plain_sv_err=plain_err, rel_diff=gap,
-                      tol=TABLE1_ROUTES_TOL, plain_wall_s=plain_wall,
-                      plain_rank_gap=metrics.rank_gap(plain.l, r).item(),
-                      ok=gap <= TABLE1_ROUTES_TOL)
-        emit(**routes)
-        if not routes["ok"]:
-            raise SystemExit(f"table1 at n={n}: the kernel and plain routes "
-                             f"disagree ({gap:.3e})")
+        row = upper_rank_phase(device, "table1", n, r, 2 * r, paper)
         row["phase"] = f"table1@{n}"
         rows.append(row)
-        del problem, plain
-        torch.cuda.empty_cache()
+    return rows
+
+
+def wide_phase(device) -> dict:
+    """Ranks above 512 end to end: "dcf" with E=10 at p = 600 (three rank
+    chunks) on the table1 generator's n = 4000, r = 300 problem, the plain
+    route's singular-value error within 10% (:func:`upper_rank_phase`;
+    no paper value bounds it)."""
+    return upper_rank_phase(device, "wide", WIDE_N, WIDE_TRUE_RANK,
+                            WIDE_RANK, math.inf)
+
+
+def elastic_phase(device, dcf_error: float) -> list[dict]:
+    """The fault-tolerant engine on the dcf phase's Fig. 1 problem (E=10)
+    through ``rpca.solve(method="dcf")``, each solve as a solve_phase row
+    (wall, busy share, peak memory, exact launch counts: dropped and
+    faulted clients still run their local round):
+
+    - ``elastic``: DCFConfig.elastic(150, participation=0.5) with a rate-0.5
+      schedule, relative error <= :data:`ELASTIC_BAR`;
+    - ``nan_mean``: FaultPlan.byzantine(T, 10, (1, 5), kind="nan") under
+      the weighted mean: L must come out non-finite (the payloads reach
+      the consensus); ``nan_median``: the same plan under the coordinate
+      median, within 3x the dcf phase's error (at least 1e-6);
+      ``nan_median_tracked``: that solve with track_objective (the
+      objective pass of every faulted round, plain PyTorch);
+    - ``corrupt_trimmed``: kind="corrupt" on client 2 under the trimmed
+      mean (0.25), within the same bar;
+    - ``checkpoint``: DCFConfig.tuned(150) with checkpoint_every=25 into a
+      temporary directory; the same solve interrupted after its first
+      snapshot and resumed gives its L, S, U, V and traces bit for bit,
+      and so does one unsegmented solve.
+    """
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch import rpca
+    from repro_torch.core import metrics
+    from repro_torch.core import problems as prob
+    from repro_torch.core import runtime as rt
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.distributed.faults import FaultPlan
+
+    p = prob.generate_problem(0, M_ROWS, N_COLS, RANK, SPARSITY,
+                              device=device)
+
+    def err(res):
+        return metrics.relative_error(res.l, res.s, p.l0, p.s0).item()
+
+    def want_for(cfg):
+        rounds = cfg.outer_iters * cfg.local_iters
+        return {"huber_contract_v": rounds * cfg.inner_sweeps,
+                "huber_contract_u_diag": rounds, "residual_shrink": 1}
+
+    rows = []
+    elastic = DCFConfig.elastic(RANK, participation=0.5)
+    rows.append(solve_phase(
+        "elastic", device, p, {"num_clients": CLIENTS, "participation": 0.5},
+        "dcf", elastic, want_for(elastic), err, ELASTIC_BAR)[0])
+    cfg = DCFConfig.tuned(RANK)
+    bar = 3.0 * max(dcf_error, 1e-6)
+    nan = FaultPlan.byzantine(cfg.outer_iters, CLIENTS, (1, 5), kind="nan")
+    rows.append(solve_phase(
+        "nan_mean", device, p, {"num_clients": CLIENTS, "faults": nan},
+        "dcf", cfg, want_for(cfg), lambda res: 0.0, math.inf,
+        finite=False)[0])
+    median = dataclasses.replace(cfg, aggregator="coordinate_median")
+    rows.append(solve_phase(
+        "nan_median", device, p, {"num_clients": CLIENTS, "faults": nan},
+        "dcf", median, want_for(cfg), err, bar)[0])
+    tracked = dataclasses.replace(median, track_objective=True)
+    rows.append(solve_phase(
+        "nan_median_tracked", device, p,
+        {"num_clients": CLIENTS, "faults": nan}, "dcf", tracked,
+        want_for(cfg), err, bar)[0])
+    corrupt = FaultPlan.byzantine(cfg.outer_iters, CLIENTS, (2,),
+                                  kind="corrupt")
+    trimmed = dataclasses.replace(cfg, aggregator="trimmed_mean",
+                                  trim_frac=0.25)
+    rows.append(solve_phase(
+        "corrupt_trimmed", device, p,
+        {"num_clients": CLIENTS, "faults": corrupt}, "dcf", trimmed,
+        want_for(cfg), err, bar)[0])
+
+    run = rt.RunConfig(mode="scan", checkpoint_every=CHECKPOINT_EVERY)
+    with tempfile.TemporaryDirectory() as tmp:
+        row, whole = solve_phase(
+            "checkpoint", device, p,
+            {"num_clients": CLIENTS, "checkpoint_dir": f"{tmp}/whole"},
+            "dcf", cfg, want_for(cfg), err, ERR_BAR, run=run)
+
+        class Interrupted(Exception):
+            """The solve dies after its first snapshot."""
+
+        def interrupt(t, carry):
+            raise Interrupted
+
+        segmented = rt.run_segmented
+        rt.run_segmented = lambda *a, **k: segmented(
+            *a, save_extra=interrupt, **k)
+        try:
+            rpca.solve(p.m_obs, method="dcf", cfg=cfg, run=run,
+                       num_clients=CLIENTS, checkpoint_dir=f"{tmp}/cut",
+                       device=device)
+            interrupted = False
+        except Interrupted:
+            interrupted = True
+        finally:
+            rt.run_segmented = segmented
+        resumed = rpca.solve(p.m_obs, method="dcf", cfg=cfg, run=run,
+                             num_clients=CLIENTS, resume_from=f"{tmp}/cut",
+                             device=device)
+        single = rpca.solve(p.m_obs, method="dcf", cfg=cfg,
+                            num_clients=CLIENTS, device=device)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            (a.l, a.s, a.u, a.v, a.stats.objective, a.stats.residual),
+            (b.l, b.s, b.u, b.v, b.stats.objective, b.stats.residual)))
+
+    check = dict(phase="checkpoint_resume", interrupted=interrupted,
+                 resumed_bit_identical=same(whole, resumed),
+                 single_scan_bit_identical=same(whole, single))
+    check["ok"] = all(check[k] for k in ("interrupted",
+                                         "resumed_bit_identical",
+                                         "single_scan_bit_identical"))
+    emit(**check)
+    if not check["ok"]:
+        raise SystemExit("a resumed solve differs from the uninterrupted one")
+    rows.append(row)
     return rows
 
 
@@ -1180,7 +1376,10 @@ def main() -> int:
     if not small["ok"]:
         raise SystemExit("the card and the CPU disagree at 160 x 160")
     phases += solve_phases(device)
+    dcf_error = next(ph["error"] for ph in phases if ph["phase"] == "dcf")
+    phases += elastic_phase(device, dcf_error)
     phases += table1_phase(device)
+    phases.append(wide_phase(device))
     phases.append(convex_phase(device))
     phases.append(small_lm_phase(device))
     phases.append(serve_phase(device, "serve_f32", F32_ARCH, F32_NEW,

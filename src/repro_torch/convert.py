@@ -64,7 +64,8 @@ def problem_from_reference(ref_problem: Any, device: torch.device | str
     """The port's problem from a reference ``DCFProblem`` (it has
     ``blocks``), ``CFProblem`` (it has ``m_obs``), ``APGMProblem`` or
     ``IALMProblem`` (they have ``l_init``; the class of the same name), on
-    ``device``."""
+    ``device``.  A ``DCFProblem``'s participation schedule crosses as fp32
+    and its fault table as int32."""
     if hasattr(ref_problem, "l_init"):
         return _CONVEX[type(ref_problem).__name__](
             m_obs=_tensor(ref_problem.m_obs, device),
@@ -83,13 +84,14 @@ def problem_from_reference(ref_problem: Any, device: torch.device | str
     if not hasattr(ref_problem, "blocks"):
         return CFProblem(m_obs=_tensor(ref_problem.m_obs, device, None),
                          **common)
-    if (getattr(ref_problem, "participation", None) is not None
-            or getattr(ref_problem, "faults", None) is not None):
-        raise NotImplementedError(
-            "participation schedules and fault injection wait for a later "
-            "slice of the port (ROADMAP.md)")
-    return DCFProblem(blocks=_tensor(ref_problem.blocks, device, None),
-                      n_cols=_tensor(ref_problem.n_cols, device), **common)
+    return DCFProblem(
+        blocks=_tensor(ref_problem.blocks, device, None),
+        n_cols=_tensor(ref_problem.n_cols, device),
+        participation=_tensor(getattr(ref_problem, "participation", None),
+                              device),
+        faults=_tensor(getattr(ref_problem, "faults", None), device,
+                       torch.int32),
+        **common)
 
 
 @torch.no_grad()

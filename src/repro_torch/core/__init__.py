@@ -4,7 +4,7 @@ solver runtime (``repro_torch.core.runtime``) and registered with the
 ``repro_torch.rpca`` front door (re-exported here as ``rpca`` /
 ``RPCASpec`` / ``RPCAResult`` / ``solve``).  The reference's names that
 are not ported yet (the ``*_batch`` solvers, the sharded engine, the
-compile cache, participation schedules) are not exported (ROADMAP.md)."""
+compile cache) are not exported (ROADMAP.md)."""
 from repro_torch import rpca
 from repro_torch.core.apgm import APGMConfig, ConvexResult, apgm
 from repro_torch.core.cf_pca import CFResult, cf_pca
@@ -26,6 +26,7 @@ from repro_torch.core.problems import (
     generate_problem,
     merge_columns,
     pack_mask,
+    participation_schedule,
     split_columns,
     unpack_mask,
 )
@@ -79,6 +80,7 @@ __all__ = [
     "generate_problem",
     "merge_columns",
     "pack_mask",
+    "participation_schedule",
     "split_columns",
     "unpack_mask",
 ]

@@ -148,6 +148,7 @@ def make_problem(
     if mask is not None and cfg.pack_mask:
         mask = bitmask.pack_mask(mask)
     m, n = m_obs.shape
+    fz.check_grid(cfg, 1, m, device)
     if warm is None:
         state = fz.init_state(prob.generator(generator), m, n, cfg.rank,
                               device)

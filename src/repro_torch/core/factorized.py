@@ -39,7 +39,7 @@ import torch
 from repro_torch.core import ops as core_ops
 from repro_torch.kernels import bitmask
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels._launch import MAX_RANK as MAX_KERNEL_RANK
+from repro_torch.kernels._launch import grid_limit_error
 
 Tensor = torch.Tensor
 
@@ -52,9 +52,9 @@ class DCFConfig:
     ``impl`` is ``"auto"`` (kernel on CUDA tensors, plain version on CPU
     tensors), ``"cuda"`` or ``"ref"``.  The port runs every ``fused`` mode,
     dense and bit-packed masks (``pack_mask``), fp32 and bf16 data,
-    ``lam_sample`` and the weighted-mean consensus; the wire and robust
-    consensus options raise ``NotImplementedError`` when a problem is built
-    (``check_supported``).
+    ``lam_sample``, every aggregator and the divergence screen; the wire
+    consensus (``consensus_compress``, ``consensus_delay``) raises
+    ``NotImplementedError`` when a problem is built (``check_supported``).
     """
 
     rank: int
@@ -157,29 +157,34 @@ class DCFConfig:
 def check_supported(cfg: DCFConfig,
                     device: torch.device | None = None) -> None:
     """Raise ``NotImplementedError`` for options this slice of the port does
-    not run yet (they wait in ``ROADMAP.md``), before any solve starts.
+    not run yet (they wait in ``ROADMAP.md``), before any solve starts: the
+    wire consensus (``consensus_compress`` / ``consensus_delay``).
     ``device`` adds the checks that depend on where the solve runs: on a
     CUDA device, an ``impl`` the port does not know (such as the
-    reference's ``"pallas"``) and, on the kernel route, a rank above the
-    kernels' 512 (``kernels._launch.MAX_RANK``; the reference takes any)."""
+    reference's ``"pallas"``).  The kernels take any rank."""
     later = "waits for a later slice of the port (ROADMAP.md)"
     if cfg.consensus_compress is not None or cfg.consensus_delay:
         raise NotImplementedError(
-            f"consensus_compress / consensus_delay {later}")
-    if cfg.aggregator != "weighted_mean" or cfg.divergence_screen is not None:
-        raise NotImplementedError(
-            f"robust aggregators and the divergence screen {later}")
+            f"consensus_compress / consensus_delay (the wire solver) {later}")
     if device is not None and device.type == "cuda":
         if cfg.impl not in kops.IMPLS:
             raise NotImplementedError(
                 f"impl={cfg.impl!r} on the card {later} (the port runs "
                 f"{', '.join(kops.IMPLS)})")
-        if cfg.impl != "ref" and cfg.rank > MAX_KERNEL_RANK:
-            raise NotImplementedError(
-                f"rank {cfg.rank} > {MAX_KERNEL_RANK} on the card's kernels "
-                f"{later}")
     if device is not None and cfg.impl == "cuda" and device.type != "cuda":
         raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
+
+
+def check_grid(cfg: DCFConfig, clients: int, m: int,
+               device: torch.device) -> None:
+    """Where the problem is built: on the kernel route, refuse a shape no
+    kernel grid holds (``kernels._launch.grid_limit_error``), with its
+    reason."""
+    if device.type != "cuda" or cfg.impl == "ref":
+        return
+    why = grid_limit_error(clients, m, cfg.rank)
+    if why is not None:
+        raise ValueError(f"the card's kernels cannot take this problem: {why}")
 
 
 def _median(xs: Tensor, count) -> Tensor:
@@ -219,25 +224,71 @@ def robust_lam(m_obs: Tensor, mult: float = 2.0, mask: Tensor | None = None,
     return mult * 1.4826 * _median(torch.sort(dev).values, count)
 
 
-def consensus_weights(n_cols: Tensor | None, num_clients: int,
-                      device: torch.device) -> Tensor:
-    """Normalized consensus weights ``w_i = n_i / sum_j n_j``
-    (``n_cols=None`` means equal blocks)."""
+def consensus_weights(n_cols: Tensor | None, part: Tensor | None,
+                      num_clients: int,
+                      device: torch.device) -> tuple[Tensor, Tensor]:
+    """Normalized consensus weights ``w_i = p_i n_i / sum_j p_j n_j`` and
+    their total ``wsum = sum_j p_j n_j`` (``n_cols=None``: equal blocks;
+    ``part=None``: every client).  Callers gate the consensus on
+    ``wsum > 0``.  Normalizing before the weighted sum keeps equal blocks
+    with everyone in bit-exact with the mean for a power-of-two E."""
     raw = torch.ones(num_clients, dtype=torch.float32, device=device)
     if n_cols is not None:
         raw = raw * n_cols
-    return raw / torch.clamp_min(raw.sum(), 1e-30)
+    if part is not None:
+        raw = raw * part
+    wsum = raw.sum()
+    return raw / torch.clamp_min(wsum, 1e-30), wsum
 
 
-def aggregate_stacked(cfg: DCFConfig, u_i: Tensor, *,
-                      n_cols: Tensor | None = None) -> Tensor:
-    """Consensus (Eq. 9) over the stacked ``(E, m, r)`` client factors: the
-    plain mean for equal blocks, the column-count-weighted mean for ragged
-    ones.  Only the weighted mean is ported (``check_supported``)."""
-    if n_cols is None:
-        return u_i.mean(dim=0)
-    w = consensus_weights(n_cols, u_i.shape[0], u_i.device)
-    return (w[:, None, None] * u_i).sum(dim=0)
+def _weighted(w: Tensor, u_i: Tensor, keep: Tensor, u_prev: Tensor,
+              wsum: Tensor) -> Tensor:
+    """``sum_i w_i u_i`` over the kept clients (the others count as
+    ``u_prev``), or ``u_prev`` itself when ``wsum == 0``."""
+    u_g = torch.where(keep[:, None, None] > 0, u_i, u_prev)
+    return torch.where(wsum > 0, (w[:, None, None] * u_g).sum(dim=0), u_prev)
+
+
+def aggregate_stacked(cfg: DCFConfig, u_i: Tensor, u_prev: Tensor, *,
+                      n_cols: Tensor | None = None,
+                      part: Tensor | None = None,
+                      num_clients: int) -> tuple[Tensor, Tensor | None]:
+    """Consensus (Eq. 9) over the stacked ``(E, m, r)`` client factors:
+    the reference's dispatch (``repro.core.factorized.aggregate_stacked``).
+
+    Returns ``(u_new, wsum)``.  ``wsum`` is ``None`` on the unconditional
+    path (everyone in, no screen, weighted mean: the plain mean for equal
+    blocks, bit for bit, the count-weighted mean for ragged ones);
+    otherwise it is the round's total weight (weighted mean) or the count
+    of surviving one-vote clients (robust aggregators), ``> 0`` where a
+    consensus step happened.  A dropped, screened or non-finite client
+    counts as ``u_prev`` (the weighted mean) or is left out (robust)."""
+    e = num_clients
+    robust = cfg.aggregator != "weighted_mean"
+    if not robust and cfg.divergence_screen is None:
+        if part is None:
+            if n_cols is None:
+                return u_i.mean(dim=0), None
+            w, _ = consensus_weights(n_cols, None, e, u_i.device)
+            return (w[:, None, None] * u_i).sum(dim=0), None
+        w, wsum = consensus_weights(n_cols, part, e, u_i.device)
+        return _weighted(w, u_i, part, u_prev, wsum), wsum
+    from repro_torch.distributed import grad_compress as gcomp
+
+    active = (torch.ones(e, dtype=torch.float32, device=u_i.device)
+              if part is None else part)
+    delta = (u_i - u_prev).to(torch.float32)
+    if cfg.divergence_screen is not None:
+        active = active * gcomp.divergence_screen_mask(
+            delta, active, cfg.divergence_screen)
+    if robust:
+        # One vote a client: the ragged column counts are left out.
+        agg, cnt = gcomp.robust_combine_stacked(delta, active, cfg.aggregator,
+                                                cfg.trim_frac)
+        u = torch.where(cnt > 0, u_prev + agg.to(u_prev.dtype), u_prev)
+        return u, cnt.to(torch.float32)
+    w, wsum = consensus_weights(n_cols, active, e, u_i.device)
+    return _weighted(w, u_i, active, u_prev, wsum), wsum
 
 
 @dataclass(frozen=True)

@@ -137,3 +137,27 @@ def merge_columns(blocks: Tensor, n: int | None = None) -> Tensor:
     e, m, ni = blocks.shape
     merged = blocks.movedim(0, 1).reshape(m, e * ni)
     return merged if n is None else merged[:, :n]
+
+
+def participation_schedule(
+    seed: int | torch.Generator | None,
+    rounds: int,
+    num_clients: int,
+    rate: float,
+    dtype: torch.dtype = torch.float32,
+) -> Tensor:
+    """A ``(rounds, E)`` 0/1 Bernoulli(``rate``) participation schedule, on
+    the CPU from ``seed`` (or a ``torch.Generator``).
+
+    Every round keeps at least one participant: in a round where every
+    client dropped out, one uniformly chosen client is forced on (an empty
+    round would freeze U and read as convergence to the early exits).  The
+    reference's rule; its ``jax.random`` draw is not reproduced.
+    """
+    gen = generator(seed)
+    draw = torch.rand(rounds, num_clients, generator=gen) < float(rate)
+    forced = torch.randint(0, num_clients, (rounds,), generator=gen)
+    empty = ~draw.any(dim=1, keepdim=True)
+    draw = draw | (empty & (torch.arange(num_clients)[None, :]
+                            == forced[:, None]))
+    return draw.to(dtype)

@@ -69,6 +69,9 @@ class RunConfig:
     criterion: Literal["rel_residual", "obj_plateau"] = "rel_residual"
     chunk_size: int = 8
     min_iters: int = 2
+    #: Rounds between the mid-solve snapshots of :func:`run_segmented`
+    #: (0: one segment, no snapshot before the end); scan mode only.
+    checkpoint_every: int = 0
 
     @property
     def needs_objective(self) -> bool:
@@ -117,6 +120,87 @@ def _converged(run: RunConfig, diag: Diag, prev_obj: Tensor) -> Tensor:
     delta_ok = (prev_obj - diag.objective).abs() <= run.tol * torch.clamp_min(
         prev_obj.abs(), 1.0)
     return delta_ok & torch.isfinite(prev_obj) & torch.isfinite(diag.objective)
+
+
+def scan_converged(run_cfg: RunConfig, obuf: Tensor, rbuf: Tensor) -> Tensor:
+    """The fixed scan's convergence verdict from whole diagnostics traces
+    (:func:`run`'s in scan mode), so an interrupted and resumed
+    :func:`run_segmented` solve reports the same flag."""
+    inf = torch.full((), float("inf"), device=obuf.device)
+    prev_obj = obuf[-2] if obuf.shape[0] > 1 else inf
+    return _converged(run_cfg, Diag(obuf[-1], rbuf[-1]), prev_obj)
+
+
+def segment_plan(max_iters: int, checkpoint_every: int) -> list[int]:
+    """``max_iters`` rounds as checkpoint segments: one segment when
+    ``checkpoint_every <= 0`` (or covers them all), else equal segments of
+    that length and a ragged tail."""
+    if checkpoint_every <= 0 or checkpoint_every >= max_iters:
+        return [max_iters] if max_iters > 0 else []
+    full, tail = divmod(max_iters, checkpoint_every)
+    return [checkpoint_every] * full + ([tail] if tail else [])
+
+
+def run_segmented(solver: Solver, problem: Any, max_iters: int,
+                  run_cfg: RunConfig = FIXED, *,
+                  checkpoint_dir: str | None = None,
+                  resume_from: str | None = None,
+                  save_extra: Callable[[int, Any], None] | None = None
+                  ) -> tuple[Any, SolveStats]:
+    """:func:`run` in scan mode, split into segments of
+    ``run_cfg.checkpoint_every`` rounds over the global round indices: the
+    same steps, so the same bits as one scan, boundaries included.
+
+    After every segment but the last, the whole carry and the diagnostics
+    traces so far are saved (``training.checkpoint``) under
+    ``checkpoint_dir``; ``resume_from`` restores the latest snapshot there
+    and finishes the remaining rounds, giving the uninterrupted solve's
+    bits.  ``save_extra(t, carry)`` runs after each save."""
+    if run_cfg.mode != "scan":
+        raise ValueError(
+            f"checkpointed solves require run mode 'scan' (the fixed "
+            f"paper schedule); got mode {run_cfg.mode!r}"
+        )
+    from repro_torch.training import checkpoint as ckpt
+
+    device = _device(problem)
+    t_done = 0
+    obuf = torch.zeros(0, device=device)
+    rbuf = torch.zeros(0, device=device)
+    carry = solver.init(problem)
+    if resume_from is not None:
+        template = {"carry": carry, "objective": obuf, "residual": rbuf}
+        restored, t_done = ckpt.restore(resume_from, template)
+        carry = restored["carry"]
+        obuf, rbuf = restored["objective"], restored["residual"]
+        if t_done > max_iters:
+            raise ValueError(
+                f"checkpoint at round {t_done} exceeds this solve's "
+                f"budget of {max_iters} rounds"
+            )
+    for seg in segment_plan(max_iters - t_done, run_cfg.checkpoint_every):
+        ts = torch.arange(t_done, t_done + seg, dtype=torch.int32,
+                          device=device)
+        objs, resids = [], []
+        for g in range(seg):
+            carry = solver.step(problem, carry, ts[g])
+            d = solver.diagnostics(problem, carry)
+            objs.append(d.objective.to(torch.float32))
+            resids.append(d.residual.to(torch.float32))
+        t_done += seg
+        obuf = torch.cat([obuf, torch.stack(objs)])
+        rbuf = torch.cat([rbuf, torch.stack(resids)])
+        if checkpoint_dir is not None and t_done < max_iters:
+            ckpt.save(checkpoint_dir, t_done,
+                      {"carry": carry, "objective": obuf, "residual": rbuf})
+            if save_extra is not None:
+                save_extra(t_done, carry)
+    stats = SolveStats(
+        objective=obuf, residual=rbuf,
+        rounds=torch.full((), max_iters, dtype=torch.int32, device=device),
+        converged=scan_converged(run_cfg, obuf, rbuf),
+    )
+    return carry, stats
 
 
 def _device(problem: Any) -> torch.device:

@@ -8,9 +8,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-#: Fault codes that drop a client from a round (``CRASH``, ``FLAKY`` of the
-#: reference's ``repro/distributed/faults.py``).
-FAULT_CRASH, FAULT_FLAKY = 1, 5
+from repro_torch.distributed import faults as flt
 
 
 class CapacityError(RuntimeError):
@@ -249,8 +247,9 @@ def check_fault_plan(cfg: Any, faults: Any, num_clients: int) -> None:
             f"(rounds, num_clients={num_clients})"
         )
     if getattr(cfg, "consensus_delay", 0):
-        arr = np.asarray(codes)
-        if bool(((arr == FAULT_CRASH) | (arr == FAULT_FLAKY)).any()):
+        arr = np.asarray(codes.cpu() if isinstance(codes, torch.Tensor)
+                         else codes)
+        if bool(((arr == flt.CRASH) | (arr == flt.FLAKY)).any()):
             raise ValueError(
                 "consensus_delay=1 does not compose with crash/flaky "
                 "fault injection: a stale delta from a since-crashed "

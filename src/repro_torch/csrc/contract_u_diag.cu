@@ -20,7 +20,8 @@
 // (reduce.cuh), and so does out_u when the columns are split.
 #include "stripe.cuh"
 
-// Returns cudaGetLastError() of the launches (0 on success).  partial holds
+// Returns cudaGetLastError() of the launches (0 on success); chunked != 0
+// takes r 257-512 in chunks of 256 too (tile.cuh's by_rank).  partial holds
 // 2 * E * ceil(M / 64) * splits floats, u_partial splits * E * M * r when
 // splits > 1.
 extern "C" int repro_huber_contract_u_diag(const float* u, const float* v,
@@ -30,7 +31,8 @@ extern "C" int repro_huber_contract_u_diag(const float* u, const float* v,
                                            float* partial, float* u_partial,
                                            int E, int M, int N, int r,
                                            int dtype, int mask, int splits,
-                                           int cols_per_split, void* stream) {
+                                           int cols_per_split, int chunked,
+                                           void* stream) {
   return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
     using TM = typename decltype(tm)::type;
     return repro::launch_stripe<decltype(rq)::value, TM, decltype(mk)::value,
@@ -38,5 +40,5 @@ extern "C" int repro_huber_contract_u_diag(const float* u, const float* v,
         u, v, static_cast<const TM*>(m), w, lam, out_u, nullptr, obj, psi2,
         partial, u_partial, nullptr, E, M, N, r, splits, cols_per_split,
         static_cast<cudaStream_t>(stream));
-  });
+  }, chunked != 0);
 }

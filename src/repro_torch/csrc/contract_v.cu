@@ -41,7 +41,9 @@
 // Ranks 257-512 (contract_v_wide_kernel) take the rank axis in two halves
 // (tile64.cuh): a grid axis over the output's rank halves, each block
 // forming the tile's whole Psi (U V^T over both halves, staged one after
-// the other) and contracting it against its half of U.
+// the other) and contracting it against its half of U.  Ranks above 512
+// (contract_v_chunk_kernel) take it in chunks of 256 the same way, the
+// chunk axis folded into the grid's x, each chunk's U and V staged in turn.
 //
 // Determinism: no atomics.  U V^T sums over k in order, the contraction over
 // the rows of a split in order; the m reduction is split into a fixed number
@@ -315,6 +317,145 @@ contract_v_wide_kernel(const float* __restrict__ u,
   }
 }
 
+// Ranks above 512 in chunks of 256 (tile64.cuh): one chunk of U and one of
+// V at a time, Psi.  151 KB: one block an SM.
+__host__ __device__ constexpr size_t v_chunk_smem_bytes() {
+  return sizeof(float) *
+         ((kVRows + kVCols) * ld64<kChunkRQ>() + kVRows * kPsiLd);
+}
+
+// Grid (column tiles x chunks, row splits, E): block x = C t + c writes the
+// rank chunk c of out[e] for column tile t (C = rank_chunks(r)).  Per row
+// tile each block forms the tile's whole Psi (U V^T over every chunk, in
+// chunk order: chunked_low), stages U's chunk c again unless it is the
+// last one (still staged), and contracts Psi against it.  The U V^T work is
+// C times one pass's; the contraction's is one pass's.
+template <typename TM, int MASK>
+__global__ void __launch_bounds__(kT64Threads, 1)
+contract_v_chunk_kernel(const float* __restrict__ u,
+                        const float* __restrict__ v, const TM* __restrict__ m,
+                        const void* __restrict__ w,
+                        const float* __restrict__ lam,
+                        float* __restrict__ partial, int E, int M, int N,
+                        int r, int rows_per_split) {
+  constexpr int RQ = kChunkRQ;
+  constexpr int LD = ld64<RQ>();
+  extern __shared__ float4 smem4[];
+  float* Us = reinterpret_cast<float*>(smem4);  // kVRows x LD, one chunk
+  float* Vs = Us + kVRows * LD;                 // kVCols x LD, one chunk
+  float* Ps = Vs + kVCols * LD;                 // kVRows x kPsiLd
+
+  const int chunks = rank_chunks(r);
+  const int c = blockIdx.x % chunks;
+  const int j0 = (blockIdx.x / chunks) * kVCols;
+  const int e = blockIdx.z;
+  const int split = blockIdx.y;
+  const float* ue = u + static_cast<size_t>(e) * M * r;
+  const float* ve = v + static_cast<size_t>(e) * N * r;
+  const ClientPlanes<TM, MASK> planes(m, w, e, M, N);
+  const float lam_e = lam[e];
+  // This block's output chunk [ck, ck + cw).
+  const int ck = c * kRankChunk, cw = min(kRankChunk, r - ck);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ti = (warp >> 1) * 4 + (lane >> 3);
+  const int tj = (warp & 1) * 8 + (lane & 7);
+  const int cj = warp * 4 + (lane >> 3);
+  const int ckq = lane & 7;
+
+  const int row_begin = split * rows_per_split;
+  const int row_end = min(M, row_begin + rows_per_split);
+
+  float acc[2][RQ][4];
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) acc[cc][q][s] = 0.f;
+
+  for (int i0 = row_begin; i0 < row_end; i0 += kVRows) {
+    float x[4][4], wt[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        planes.load(i0 + ti + 16 * a, j0 + tj + 16 * b, x[a][b], wt[a][b]);
+    float low[4][4];
+    chunked_low(Us, Vs, ue, ve, i0, M, j0, N, r, ti, tj, low);
+    if (c != chunks - 1) {
+      stage_window<RQ>(Us, ue, i0, M, r, ck, cw);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        Ps[(ti + 16 * a) * kPsiLd + tj + 16 * b] =
+            apply_mask<MASK>(wt[a][b], clip(x[a][b] - low[a][b], lam_e));
+    cp_async_wait_all();
+    __syncthreads();  // Psi written, U's chunk c staged
+
+    // acc[cc][q] += sum_ii Psi[ii, 2 cj + cc] * U[ii, ck + 4 (ckq + 8 q) ..]
+    for (int ii = 0; ii < kVRows; ++ii) {
+      const float2 p =
+          *reinterpret_cast<const float2*>(Ps + ii * kPsiLd + 2 * cj);
+      const float* urow = Us + ii * LD;
+#pragma unroll
+      for (int q = 0; q < RQ; ++q) {
+        const float4 uq =
+            *reinterpret_cast<const float4*>(urow + 4 * (ckq + 8 * q));
+        acc[0][q][0] = fmaf(p.x, uq.x, acc[0][q][0]);
+        acc[0][q][1] = fmaf(p.x, uq.y, acc[0][q][1]);
+        acc[0][q][2] = fmaf(p.x, uq.z, acc[0][q][2]);
+        acc[0][q][3] = fmaf(p.x, uq.w, acc[0][q][3]);
+        acc[1][q][0] = fmaf(p.y, uq.x, acc[1][q][0]);
+        acc[1][q][1] = fmaf(p.y, uq.y, acc[1][q][1]);
+        acc[1][q][2] = fmaf(p.y, uq.z, acc[1][q][2]);
+        acc[1][q][3] = fmaf(p.y, uq.w, acc[1][q][3]);
+      }
+    }
+    __syncthreads();  // nobody reads this U chunk or Psi any more
+  }
+
+  float* dst = partial + (static_cast<size_t>(split) * E + e) * N * r + ck;
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc) {
+    const int j = j0 + 2 * cj + cc;
+    if (j >= N) continue;
+#pragma unroll
+    for (int q = 0; q < RQ; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int k = 4 * (ckq + 8 * q) + s;
+        if (k < cw) dst[static_cast<size_t>(j) * r + k] = acc[cc][q][s];
+      }
+  }
+}
+
+template <typename TM, int MASK>
+cudaError_t launch_v_chunked(const float* u, const float* v, const TM* m,
+                             const void* w, const float* lam, float* out,
+                             float* partial, int E, int M, int N, int r,
+                             int splits, int rows_per_split,
+                             cudaStream_t stream) {
+  auto kernel = contract_v_chunk_kernel<TM, MASK>;
+  constexpr size_t smem = v_chunk_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long tiles = (N + kVCols - 1) / kVCols;
+  const dim3 grid(static_cast<unsigned>(tiles * rank_chunks(r)), splits, E);
+  float* dst = splits == 1 ? out : partial;
+  kernel<<<grid, kT64Threads, smem, stream>>>(u, v, m, w, lam, dst, E, M, N,
+                                              r, rows_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_sum_splits(partial, out, static_cast<size_t>(E) * N * r,
+                           splits, stream);
+}
+
 template <int RQ, typename TM, int MASK>
 cudaError_t launch_v(const float* u, const float* v, const TM* m,
                      const void* w, const float* lam, float* out,
@@ -345,19 +486,32 @@ cudaError_t launch_v(const float* u, const float* v, const TM* m,
 // Returns cudaGetLastError() of the launches (0 on success).  m is fp32 or
 // bf16 (dtype code), w null, dense or packed (mask code, tile.cuh); the
 // splits' row ranges are whole 64-row tiles; partial holds splits * E * N * r
-// floats when splits > 1 (unused otherwise).
+// floats when splits > 1 (unused otherwise); chunked != 0 takes r 257-512 in
+// chunks of 256 too (tile.cuh's by_rank).
 extern "C" int repro_huber_contract_v(const float* u, const float* v,
                                       const void* m, const void* w,
                                       const float* lam, float* out,
                                       float* partial, int E, int M, int N,
                                       int r, int dtype, int mask, int splits,
-                                      int rows_per_split, void* stream) {
+                                      int rows_per_split, int chunked,
+                                      void* stream) {
   if (splits < 1 || rows_per_split % repro::kVRows != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
-    using TM = typename decltype(tm)::type;
-    return repro::launch_v<decltype(rq)::value, TM, decltype(mk)::value>(
-        u, v, static_cast<const TM*>(m), w, lam, out, partial, E, M, N, r,
-        splits, rows_per_split, static_cast<cudaStream_t>(stream));
-  });
+  return repro::dispatch(
+      r, dtype, mask,
+      [&](auto rq, auto tm, auto mk) {
+        using TM = typename decltype(tm)::type;
+        constexpr int RQ = decltype(rq)::value;
+        constexpr int MASK = decltype(mk)::value;
+        const auto st = static_cast<cudaStream_t>(stream);
+        if constexpr (RQ == repro::kChunked)
+          return repro::launch_v_chunked<TM, MASK>(
+              u, v, static_cast<const TM*>(m), w, lam, out, partial, E, M, N,
+              r, splits, rows_per_split, st);
+        else
+          return repro::launch_v<RQ, TM, MASK>(
+              u, v, static_cast<const TM*>(m), w, lam, out, partial, E, M, N,
+              r, splits, rows_per_split, st);
+      },
+      chunked != 0);
 }

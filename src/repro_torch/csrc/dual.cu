@@ -27,7 +27,8 @@
 // tiles.  One launch sequence always: there is no two-pass route.
 #include "stripe.cuh"
 
-// Returns cudaGetLastError() of the launches (0 on success).  diag_partial
+// Returns cudaGetLastError() of the launches (0 on success); chunked != 0
+// takes r 257-512 in chunks of 256 too (tile.cuh's by_rank).  diag_partial
 // holds 2 * E * ceil(M / 64) * splits floats, u_partial splits * E * M * r
 // when splits > 1, v_partial groups * E * N * r when groups > 1 (unused
 // otherwise: out_v is written directly); the row groups are `groups`
@@ -41,7 +42,8 @@ extern "C" int repro_huber_dual_contract(const float* u, const float* v,
                                          int E, int M, int N, int r,
                                          int dtype, int mask, int splits,
                                          int cols_per_split, int cluster,
-                                         int groups, void* stream) {
+                                         int groups, int chunked,
+                                         void* stream) {
   return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
     using TM = typename decltype(tm)::type;
     return repro::launch_stripe<decltype(rq)::value, TM, decltype(mk)::value,
@@ -49,5 +51,5 @@ extern "C" int repro_huber_dual_contract(const float* u, const float* v,
         u, v, static_cast<const TM*>(m), w, lam, out_u, out_v, obj, psi2,
         diag_partial, u_partial, v_partial, E, M, N, r, splits,
         cols_per_split, static_cast<cudaStream_t>(stream), cluster, groups);
-  });
+  }, chunked != 0);
 }

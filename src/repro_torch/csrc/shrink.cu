@@ -33,12 +33,44 @@
 // one block's staging runs under the other's FMAs.  The residual lives only
 // in registers, and M, W, S (and Psi) each cross device memory once.
 // Ranks 257-512 (shrink_wide_kernel) stage and sum the rank axis in two
-// halves (tile64.cuh), one block an SM.
+// halves, above 512 (shrink_chunk_kernel) in chunks of 256, one after the
+// other (tile64.cuh), one block an SM.
 #include "tile.cuh"
 #include "tile64.cuh"
 
 namespace repro {
 namespace {
+
+// The epilogue of one thread's 4 x 4 patch: S = W sign(R) max(|R| - lam, 0)
+// (and Psi = W R - S) for R = x - low, stored where inside the plane.  A
+// NaN residual gives a NaN S (max_nan), as the plain versions' sign and
+// clamp do; R = 0 gives +0.
+template <int MASK, bool WITH_PSI>
+__device__ __forceinline__ void shrink_store(const float x[4][4],
+                                             const float wt[4][4],
+                                             const float low[4][4],
+                                             float lam_e, float* s_e,
+                                             float* psi_e, int i0, int j0,
+                                             int ti, int tj, int M, int N) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = i0 + ti + 16 * a;
+    if (i >= M) continue;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int j = j0 + tj + 16 * b;
+      if (j >= N) continue;
+      const float res = x[a][b] - low[a][b];
+      const float mag = max_nan(fabsf(res) - lam_e, 0.f);
+      const float out = res < 0.f ? -mag : (res == 0.f ? 0.f : mag);
+      const float s_ij = apply_mask<MASK>(wt[a][b], out);
+      const size_t at = static_cast<size_t>(i) * N + j;
+      s_e[at] = s_ij;
+      if constexpr (WITH_PSI)
+        psi_e[at] = apply_mask<MASK>(wt[a][b], res) - s_ij;
+    }
+  }
+}
 
 template <int RQ>
 __host__ __device__ constexpr size_t shrink_smem_bytes() {
@@ -85,26 +117,10 @@ shrink_kernel(const float* __restrict__ u, const float* __restrict__ v,
   // contractions, which share it, keep theirs).
   float low[4][4];
   patch44<RQ, 2>(Us, Vs, ti, tj, (r + 3) / 4, low);
-  float* s_e = s + static_cast<size_t>(e) * M * N;
-  float* psi_e = WITH_PSI ? psi + static_cast<size_t>(e) * M * N : nullptr;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ti + 16 * a;
-    if (i >= M) continue;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = j0 + tj + 16 * b;
-      if (j >= N) continue;
-      const float res = x[a][b] - low[a][b];
-      const float mag = fmaxf(fabsf(res) - lam_e, 0.f);
-      const float out = res > 0.f ? mag : (res < 0.f ? -mag : 0.f);
-      const float s_ij = apply_mask<MASK>(wt[a][b], out);
-      const size_t at = static_cast<size_t>(i) * N + j;
-      s_e[at] = s_ij;
-      if constexpr (WITH_PSI)
-        psi_e[at] = apply_mask<MASK>(wt[a][b], res) - s_ij;
-    }
-  }
+  shrink_store<MASK, WITH_PSI>(
+      x, wt, low, lam_e, s + static_cast<size_t>(e) * M * N,
+      WITH_PSI ? psi + static_cast<size_t>(e) * M * N : nullptr, i0, j0, ti,
+      tj, M, N);
 }
 
 // Ranks 257 .. 512 in two halves (tile64.cuh): the tile's U and V slices of
@@ -112,7 +128,6 @@ shrink_kernel(const float* __restrict__ u, const float* __restrict__ v,
 // staged and its patch summed, then half 1 into the same slices, and the
 // residual is M - (low(half 0) + low(half 1)); the epilogue is
 // shrink_kernel's.
-
 template <int RQH, typename TM, int MASK, bool WITH_PSI>
 __global__ void __launch_bounds__(kT64Threads, 1)
 shrink_wide_kernel(const float* __restrict__ u, const float* __restrict__ v,
@@ -156,27 +171,53 @@ shrink_wide_kernel(const float* __restrict__ u, const float* __restrict__ v,
   cp_async_wait_all();
   __syncthreads();
   patch44<RQH, 2>(Us, Vs, ti, tj, (r - K0 + 3) / 4, lb);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) la[a][b] += lb[a][b];
+  shrink_store<MASK, WITH_PSI>(
+      x, wt, la, lam_e, s + static_cast<size_t>(e) * M * N,
+      WITH_PSI ? psi + static_cast<size_t>(e) * M * N : nullptr, i0, j0, ti,
+      tj, M, N);
+}
 
-  float* s_e = s + static_cast<size_t>(e) * M * N;
-  float* psi_e = WITH_PSI ? psi + static_cast<size_t>(e) * M * N : nullptr;
+// Ranks above 512 in chunks of 256 (tile64.cuh's chunked_low), staged one
+// after the other into the same two slices (133 KB, one block an SM); the
+// residual is M - ((low(c0) + low(c1)) + ...), the epilogue
+// shrink_kernel's.
+template <typename TM, int MASK, bool WITH_PSI>
+__global__ void __launch_bounds__(kT64Threads, 1)
+shrink_chunk_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                    const TM* __restrict__ m, const void* __restrict__ w,
+                    const float* __restrict__ lam, float* __restrict__ s,
+                    float* __restrict__ psi, int M, int N, int r) {
+  extern __shared__ float4 smem4[];
+  float* Us = reinterpret_cast<float*>(smem4);  // kT64 x ld64<kChunkRQ>()
+  float* Vs = Us + kT64 * ld64<kChunkRQ>();     // kT64 x ld64<kChunkRQ>()
+
+  const int e = blockIdx.z;
+  const int i0 = blockIdx.y * kT64;
+  const int j0 = blockIdx.x * kT64;
+  const ClientPlanes<TM, MASK> planes(m, w, e, M, N);
+  const float lam_e = lam[e];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ti = (warp >> 1) * 4 + (lane >> 3);
+  const int tj = (warp & 1) * 8 + (lane & 7);
+  float x[4][4], wt[4][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ti + 16 * a;
-    if (i >= M) continue;
+  for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = j0 + tj + 16 * b;
-      if (j >= N) continue;
-      const float res = x[a][b] - (la[a][b] + lb[a][b]);
-      const float mag = fmaxf(fabsf(res) - lam_e, 0.f);
-      const float out = res > 0.f ? mag : (res < 0.f ? -mag : 0.f);
-      const float s_ij = apply_mask<MASK>(wt[a][b], out);
-      const size_t at = static_cast<size_t>(i) * N + j;
-      s_e[at] = s_ij;
-      if constexpr (WITH_PSI)
-        psi_e[at] = apply_mask<MASK>(wt[a][b], res) - s_ij;
-    }
-  }
+    for (int b = 0; b < 4; ++b)
+      planes.load(i0 + ti + 16 * a, j0 + tj + 16 * b, x[a][b], wt[a][b]);
+  float low[4][4];
+  chunked_low<2>(Us, Vs, u + static_cast<size_t>(e) * M * r,
+                           v + static_cast<size_t>(e) * N * r, i0, M, j0, N,
+                           r, ti, tj, low);
+  shrink_store<MASK, WITH_PSI>(
+      x, wt, low, lam_e, s + static_cast<size_t>(e) * M * N,
+      WITH_PSI ? psi + static_cast<size_t>(e) * M * N : nullptr, i0, j0, ti,
+      tj, M, N);
 }
 
 template <int RQ, typename TM, int MASK, bool WITH_PSI>
@@ -184,12 +225,15 @@ cudaError_t launch_shrink(const float* u, const float* v, const TM* m,
                           const void* w, const float* lam, float* s,
                           float* psi, int E, int M, int N, int r,
                           cudaStream_t stream) {
-  // RQ > 8: two rank halves of RQ / 2 register groups (tile.cuh's by_rank).
-  constexpr bool kWide = RQ > 8;
-  auto kernel = shrink_kernel<kWide ? 1 : RQ, TM, MASK, WITH_PSI>;
-  if constexpr (kWide) kernel = shrink_wide_kernel<RQ / 2, TM, MASK, WITH_PSI>;
-  constexpr size_t smem =
-      shrink_smem_bytes<kWide ? RQ / 2 : RQ>();
+  // RQ > 8: two rank halves of RQ / 2 register groups; kChunked: chunks of
+  // 256 (tile.cuh's by_rank).
+  constexpr int kRQ = RQ == kChunked ? kChunkRQ : RQ > 8 ? RQ / 2 : RQ;
+  auto kernel = shrink_chunk_kernel<TM, MASK, WITH_PSI>;
+  if constexpr (RQ > 8)
+    kernel = shrink_wide_kernel<RQ / 2, TM, MASK, WITH_PSI>;
+  else if constexpr (RQ != kChunked)
+    kernel = shrink_kernel<RQ, TM, MASK, WITH_PSI>;
+  constexpr size_t smem = shrink_smem_bytes<kRQ>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;

@@ -52,7 +52,9 @@
 // register blocks cover 32 RQ ranks.  Ranks 257-512 (stripe_wide_kernel)
 // take the rank axis in two halves (tile64.cuh): a grid axis over the
 // output's rank halves, each block forming the tile's whole Psi and
-// contracting it against its half of V (and of U for out_v).
+// contracting it against its half of V (and of U for out_v).  Ranks above
+// 512 (stripe_chunk_kernel) take it in chunks of 256 the same way, the
+// chunk axis folded into the grid's x, each chunk's U and V staged in turn.
 //
 // The dual's out_v scratch does not grow with m: its stripes form row
 // groups (kernels/huber_contract.py::dual_plan), each a thread-block
@@ -603,6 +605,209 @@ stripe_wide_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
+// Ranks above 512 in chunks of 256 (tile64.cuh): one chunk of U and one of
+// V at a time, Psi^T.  147 KB: one block an SM.
+__host__ __device__ constexpr size_t stripe_chunk_smem_bytes() {
+  return sizeof(float) * (2 * kT64 * ld64<kChunkRQ>() + kT64 * kPsiTLd);
+}
+
+// Grid (stripes x chunks, column splits, E): block x = C s + c writes the
+// rank chunk c of out_u[e] (and of its out_v plane) for stripe s (C =
+// rank_chunks(r)).  Per column tile each block forms the tile's whole Psi
+// (U V^T over every chunk, in chunk order: chunked_low), stages V's (and
+// for out_v U's) chunk c again unless it is the last one (still staged),
+// and contracts.  The scalars come from the same Psi in every block; the
+// c = 0 block writes them.  The dual's row groups are single stripes (as
+// in stripe_wide_kernel).
+template <typename TM, int MASK, bool WITH_DIAG, bool WITH_V>
+__global__ void __launch_bounds__(kT64Threads, 1)
+stripe_chunk_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                    const TM* __restrict__ m, const void* __restrict__ w,
+                    const float* __restrict__ lam, float* __restrict__ out_u,
+                    float* __restrict__ diag_partial,
+                    float* __restrict__ v_target, int E, int M, int N, int r,
+                    int cols_per_split, int cluster) {
+  constexpr int RQ = kChunkRQ;
+  constexpr int LD = ld64<RQ>();
+  extern __shared__ float4 smem4[];
+  float* Us = reinterpret_cast<float*>(smem4);  // kT64 x LD, one chunk
+  float* Vs = Us + kT64 * LD;                   // kT64 x LD, one chunk
+  float* PsT = Vs + kT64 * LD;                  // kT64 x kPsiTLd
+
+  const int chunks = rank_chunks(r);
+  const int c = blockIdx.x % chunks;
+  const int stripe = blockIdx.x / chunks;
+  const int split = blockIdx.y, e = blockIdx.z;
+  const int i0 = stripe * kT64;
+  const int col_begin = split * cols_per_split;
+  const int col_end = min(N, col_begin + cols_per_split);
+  const float* ue = u + static_cast<size_t>(e) * M * r;
+  const float* ve = v + static_cast<size_t>(e) * N * r;
+  const ClientPlanes<TM, MASK> planes(m, w, e, M, N);
+  const float lam_e = lam[e];
+  const float half_lam2 = 0.5f * lam_e * lam_e;
+  // This block's output chunk [ck, ck + cw).
+  const int ck = c * kRankChunk, cw = min(kRankChunk, r - ck);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ti = (warp >> 1) * 4 + (lane >> 3);
+  const int tj = (warp & 1) * 8 + (lane & 7);
+  const int cr = warp * 4 + (lane >> 3);
+  const int ckq = lane & 7;
+
+  float acc[2][RQ][4];
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) acc[cc][q][s] = 0.f;
+  float obj = 0.f, psi2 = 0.f;
+
+  for (int j0 = col_begin; j0 < col_end; j0 += kT64) {
+    float x[4][4], wt[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        planes.load(i0 + ti + 16 * a, j0 + tj + 16 * b, x[a][b], wt[a][b]);
+    float low[4][4];
+    chunked_low(Us, Vs, ue, ve, i0, M, j0, N, r, ti, tj, low);
+    if (c != chunks - 1) {
+      if (WITH_V) stage_window<RQ>(Us, ue, i0, M, r, ck, cw);
+      stage_window<RQ>(Vs, ve, j0, N, r, ck, cw);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float rw = apply_mask<MASK>(wt[a][b], x[a][b] - low[a][b]);
+        const float psi = clip(rw, lam_e);
+        if (WITH_DIAG) {
+          const float ab = fabsf(rw);
+          obj += (ab <= lam_e) ? 0.5f * rw * rw : lam_e * ab - half_lam2;
+          psi2 = fmaf(psi, psi, psi2);
+        }
+        PsT[(tj + 16 * b) * kPsiTLd + ti + 16 * a] = psi;
+      }
+    cp_async_wait_all();
+    __syncthreads();  // Psi^T written, the chunk c of V (and U) staged
+
+    // acc[cc][q] += sum_jj Psi[2 cr + cc, jj] * V[jj, ck + 4 (ckq + 8 q) ..]
+    for (int jj = 0; jj < kT64; ++jj) {
+      const float2 p =
+          *reinterpret_cast<const float2*>(PsT + jj * kPsiTLd + 2 * cr);
+      const float* vrow = Vs + jj * LD;
+#pragma unroll
+      for (int q = 0; q < RQ; ++q) {
+        const float4 vq =
+            *reinterpret_cast<const float4*>(vrow + 4 * (ckq + 8 * q));
+        acc[0][q][0] = fmaf(p.x, vq.x, acc[0][q][0]);
+        acc[0][q][1] = fmaf(p.x, vq.y, acc[0][q][1]);
+        acc[0][q][2] = fmaf(p.x, vq.z, acc[0][q][2]);
+        acc[0][q][3] = fmaf(p.x, vq.w, acc[0][q][3]);
+        acc[1][q][0] = fmaf(p.y, vq.x, acc[1][q][0]);
+        acc[1][q][1] = fmaf(p.y, vq.y, acc[1][q][1]);
+        acc[1][q][2] = fmaf(p.y, vq.z, acc[1][q][2]);
+        acc[1][q][3] = fmaf(p.y, vq.w, acc[1][q][3]);
+      }
+    }
+
+    if constexpr (WITH_V) {
+      // This stripe's share of out_v[e] for the tile's 64 columns, ranks
+      // of chunk c, written to the stripe's own plane.
+      float pv[2][RQ][4];
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+        for (int q = 0; q < RQ; ++q)
+#pragma unroll
+          for (int s = 0; s < 4; ++s) pv[cc][q][s] = 0.f;
+      const float* p0row = PsT + (2 * cr) * kPsiTLd;
+      const float* p1row = p0row + kPsiTLd;
+      for (int ii = 0; ii < kT64; ii += 2) {
+        const float2 p0 = *reinterpret_cast<const float2*>(p0row + ii);
+        const float2 p1 = *reinterpret_cast<const float2*>(p1row + ii);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float a0 = hh ? p0.y : p0.x;
+          const float a1 = hh ? p1.y : p1.x;
+          const float* urow = Us + (ii + hh) * LD;
+#pragma unroll
+          for (int q = 0; q < RQ; ++q) {
+            const float4 uq =
+                *reinterpret_cast<const float4*>(urow + 4 * (ckq + 8 * q));
+            pv[0][q][0] = fmaf(a0, uq.x, pv[0][q][0]);
+            pv[0][q][1] = fmaf(a0, uq.y, pv[0][q][1]);
+            pv[0][q][2] = fmaf(a0, uq.z, pv[0][q][2]);
+            pv[0][q][3] = fmaf(a0, uq.w, pv[0][q][3]);
+            pv[1][q][0] = fmaf(a1, uq.x, pv[1][q][0]);
+            pv[1][q][1] = fmaf(a1, uq.y, pv[1][q][1]);
+            pv[1][q][2] = fmaf(a1, uq.z, pv[1][q][2]);
+            pv[1][q][3] = fmaf(a1, uq.w, pv[1][q][3]);
+          }
+        }
+      }
+      float* dst =
+          v_target + (static_cast<size_t>(stripe) * E + e) * N * r + ck;
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int j = j0 + 2 * cr + cc;
+        if (j >= N) continue;
+#pragma unroll
+        for (int q = 0; q < RQ; ++q)
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int k = 4 * (ckq + 8 * q) + s;
+            if (k < cw) dst[static_cast<size_t>(j) * r + k] = pv[cc][q][s];
+          }
+      }
+    }
+    __syncthreads();  // nobody reads these chunks or Psi^T any more
+  }
+
+  // out_u itself with one split, else this split's partial plane.
+  float* dst =
+      out_u + (static_cast<size_t>(split) * E + e) * M * r + ck;
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc) {
+    const int i = i0 + 2 * cr + cc;
+    if (i >= M) continue;
+#pragma unroll
+    for (int q = 0; q < RQ; ++q)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int k = 4 * (ckq + 8 * q) + s;
+        if (k < cw) dst[static_cast<size_t>(i) * r + k] = acc[cc][q][s];
+      }
+  }
+
+  if (WITH_DIAG && c == 0) {
+    // Block sum of the two scalars, as stripe_kernel's (after the last
+    // barrier of the tile loop, nobody reads Psi^T).
+    float* red = PsT;
+    red[threadIdx.x] = obj;
+    red[kT64Threads + threadIdx.x] = psi2;
+    __syncthreads();
+    for (int s = kT64Threads / 2; s > 0; s >>= 1) {
+      if (threadIdx.x < s) {
+        red[threadIdx.x] += red[threadIdx.x + s];
+        red[kT64Threads + threadIdx.x] += red[kT64Threads + threadIdx.x + s];
+      }
+      __syncthreads();
+    }
+    const int n_stripes = (M + kT64 - 1) / kT64;
+    if (threadIdx.x == 0 && stripe < n_stripes) {
+      const int blocks = n_stripes * gridDim.y;
+      const int b = stripe * gridDim.y + split;
+      diag_partial[static_cast<size_t>(e) * blocks + b] = red[0];
+      diag_partial[static_cast<size_t>(E + e) * blocks + b] =
+          red[kT64Threads];
+    }
+  }
+}
+
 // Number of 64-row stripes.  diag_partial holds 2 E stripes splits floats,
 // u_partial splits E M r (when splits > 1), v_partial groups E N r (when
 // groups > 1).
@@ -636,23 +841,28 @@ cudaError_t launch_stripe(const float* u, const float* v, const TM* m,
       groups < 1 || groups * cluster < tiles ||
       (groups - 1) * cluster >= tiles)
     return cudaErrorInvalidValue;
-  // RQ > 8: two rank halves of RQ / 2 register groups (tile.cuh's
-  // by_rank), one stripe a row group.
+  // RQ > 8: two rank halves of RQ / 2 register groups; kChunked: chunks
+  // of 256 (tile.cuh's by_rank); either way one stripe a row group.
+  constexpr bool kChunks = RQ == kChunked;
   constexpr bool kWide = RQ > 8;
-  if (kWide && cluster != 1) return cudaErrorInvalidValue;
-  auto kernel = stripe_kernel<kWide ? 1 : RQ, TM, MASK, WITH_DIAG, WITH_V>;
-  if constexpr (kWide)
+  if ((kWide || kChunks) && cluster != 1) return cudaErrorInvalidValue;
+  auto kernel = stripe_chunk_kernel<TM, MASK, WITH_DIAG, WITH_V>;
+  size_t smem = stripe_chunk_smem_bytes();
+  if constexpr (kWide) {
     kernel = stripe_wide_kernel<RQ / 2, TM, MASK, WITH_DIAG, WITH_V>;
-  const size_t smem =
-      kWide ? stripe_wide_smem_bytes<RQ / 2>()
-            : stripe_smem_bytes<RQ, stripe_stages<RQ, WITH_V>()>() +
-                  (cluster > 1 ? sizeof(float) * recv_floats<RQ>() : 0);
+    smem = stripe_wide_smem_bytes<RQ / 2>();
+  } else if constexpr (!kChunks) {
+    kernel = stripe_kernel<RQ, TM, MASK, WITH_DIAG, WITH_V>;
+    smem = stripe_smem_bytes<RQ, stripe_stages<RQ, WITH_V>()>() +
+           (cluster > 1 ? sizeof(float) * recv_floats<RQ>() : 0);
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   float* u_dst = splits == 1 ? out_u : u_partial;
   float* v_dst = groups > 1 ? v_partial : out_v;
-  const dim3 grid(groups * cluster, splits, kWide ? 2 * E : E);
+  const dim3 grid(groups * cluster * (kChunks ? rank_chunks(r) : 1), splits,
+                  kWide ? 2 * E : E);
   if (cluster == 1) {
     kernel<<<grid, kT64Threads, smem, stream>>>(
         u, v, m, w, lam, u_dst, diag_partial, v_dst, E, M, N, r,

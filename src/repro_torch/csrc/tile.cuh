@@ -29,8 +29,23 @@ enum MaskMode : int { kNoMask = 0, kDenseMask = 1, kPackedMask = 2 };
 // Bytes per row of a packed mask with n columns.
 __host__ __device__ constexpr int packed_width(int n) { return (n + 7) / 8; }
 
+// fmaxf / fminf return the other operand for a NaN, so a NaN residual
+// would clip to -lam where the plain versions (torch.clamp) and the
+// reference (jnp.clip) give NaN.  max.NaN / min.NaN (sm_80 on) propagate
+// it at the same cost and equal fmaxf / fminf on every other input.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 __device__ __forceinline__ float clip(float x, float lam) {
-  return fminf(fmaxf(x, -lam), lam);
+  return min_nan(max_nan(x, -lam), lam);
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -93,11 +108,16 @@ using Int = std::integral_constant<int, V>;
 
 // RQ = ceil(r / 32) = 1 .. 8 covers r <= 256 in one register block of 32 RQ
 // ranks; above, RQ = 2 RQH with RQH = ceil(r / 64) = 5 .. 8 (10, 12, 14, 16)
-// covers r <= 512 in two rank halves of 32 RQH (tile64.cuh's wide kernels;
-// MAX_RANK and HALF_RANK in kernels/_launch.py).
+// covers r <= 512 in two rank halves of 32 RQH (tile64.cuh's wide kernels),
+// and RQ = kChunked any r > 512 in chunks of 256 (tile64.cuh's chunked
+// kernels; `chunked` sends r 257-512 there too, which at r 449-512 gives
+// the wide kernels' bits).  kernels/_launch.py passes the same choice.
+constexpr int kChunked = 0;
+
 template <typename F>
-cudaError_t by_rank(int r, F&& f) {
+cudaError_t by_rank(int r, bool chunked, F&& f) {
   if (r < 1) return cudaErrorInvalidValue;
+  if (r > 512 || (chunked && r > 256)) return f(Int<kChunked>{});
   switch ((r + 31) / 32) {
     case 1: return f(Int<1>{});
     case 2: return f(Int<2>{});
@@ -137,14 +157,14 @@ cudaError_t by_mask(int mask, F&& f) {
   }
 }
 
-// f(Int<RQ>, TypeTag<TM>, Int<MASK>) for RQ = ceil(r / 32), the type of M
-// and the mask mode; returns f's cudaError_t as an int (cudaErrorInvalidValue
+// f(Int<RQ>, TypeTag<TM>, Int<MASK>) for by_rank's RQ, the type of M and
+// the mask mode; returns f's cudaError_t as an int (cudaErrorInvalidValue
 // for a code or rank no instantiation covers).
 template <typename F>
-int dispatch(int r, int dtype, int mask, F&& f) {
+int dispatch(int r, int dtype, int mask, F&& f, bool chunked = false) {
   return static_cast<int>(by_dtype(dtype, [&](auto tm) {
     return by_mask(mask, [&](auto mk) {
-      return by_rank(r, [&](auto rq) { return f(rq, tm, mk); });
+      return by_rank(r, chunked, [&](auto rq) { return f(rq, tm, mk); });
     });
   }));
 }

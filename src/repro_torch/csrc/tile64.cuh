@@ -92,6 +92,23 @@ __device__ __forceinline__ void stage_async(float* dst, const float* src,
 // stage the halves in either order and still get the same bits.
 __host__ __device__ constexpr int wide_half(int rqh) { return 32 * rqh; }
 
+// Ranks above 512 (the "chunked" kernels): the rank axis in chunks of
+// kRankChunk, chunk c holding ranks
+// [256 c, min(256 (c + 1), r)), each staged into a slice of
+// ld64<kChunkRQ>() floats a row (the last one zero-padded).  Three slices of
+// 66.5 KB and a Psi tile pass a block's 227 KB, so a block no longer keeps
+// a factor's chunks staged side by side: it stages one chunk of U and one
+// of V at a time.  Every residual entry sums the chunks' patches in one
+// fixed order, low = ((low(c0) + low(c1)) + low(c2)) + ..., each patch in
+// rank order from zero (fp32 addition is not associative, so with three
+// terms no block may take its own chunk first).  At two chunks of 256 this
+// is the two-half order above, so r 449-512 give the same bits either way.
+constexpr int kRankChunk = 256;
+constexpr int kChunkRQ = kRankChunk / 32;
+__host__ __device__ constexpr int rank_chunks(int r) {
+  return (r + kRankChunk - 1) / kRankChunk;
+}
+
 // Stage rows [row0, row0 + 64) of ranks [k0, k0 + kw) of a (nrows, r)
 // row-major factor into dst (64 x ld64<RQ>()) in pieces of BYTES (r and k0
 // multiples of BYTES / 4), zeros past nrows and past kw.
@@ -178,6 +195,44 @@ __device__ __forceinline__ void patch44(const float* Us, const float* Vs,
 #pragma unroll UNROLL
     for (int kq = 0; kq < r4; ++kq) patch44_step<RQ>(Us, Vs, ti, tj, kq, low);
   }
+}
+
+
+// low = the residual tile's U V^T patch summed over the rank chunks of 256
+// in order (above): for each chunk, U's rows [i0, i0 + 64) and V's rows
+// [j0, j0 + 64) of that chunk are staged into Us and Vs (64 x
+// ld64<kChunkRQ>() each) and the chunk's patch added (its rank loop
+// unrolled UNROLL times, as patch44's).  Callers must have no copies in
+// flight and be done with Us and Vs (a barrier).  Ends after a barrier,
+// with the last chunk still staged and nobody reading it.
+template <int UNROLL = 1>
+__device__ __forceinline__ void chunked_low(float* Us, float* Vs,
+                                            const float* ue, const float* ve,
+                                            int i0, int M, int j0, int N,
+                                            int r, int ti, int tj,
+                                            float low[4][4]) {
+  const int chunks = rank_chunks(r);
+  for (int k = 0; k < chunks; ++k) {
+    const int k0 = k * kRankChunk;
+    const int kw = min(kRankChunk, r - k0);
+    if (k > 0) __syncthreads();  // nobody reads the last chunk any more
+    stage_window<kChunkRQ>(Us, ue, i0, M, r, k0, kw);
+    stage_window<kChunkRQ>(Vs, ve, j0, N, r, k0, kw);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    if (k == 0) {
+      patch44<kChunkRQ, UNROLL>(Us, Vs, ti, tj, (kw + 3) / 4, low);
+    } else {
+      float lk[4][4];
+      patch44<kChunkRQ, UNROLL>(Us, Vs, ti, tj, (kw + 3) / 4, lk);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) low[a][b] += lk[a][b];
+    }
+  }
+  __syncthreads();
 }
 
 }  // namespace repro

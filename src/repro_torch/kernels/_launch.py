@@ -16,11 +16,16 @@ from typing import NamedTuple
 
 import torch
 
-#: Largest factor rank the kernels take.  Up to :data:`HALF_RANK` one
-#: register block covers the rank (r <= 32 * 8); above, the kernels take it
-#: in two halves of at most that many ranks (``csrc/tile64.cuh``).
-HALF_RANK = 256
-MAX_RANK = 2 * HALF_RANK
+#: Ranks one register block of the kernels covers (r <= 32 * 8), and the
+#: width of a rank chunk above it (``kRankChunk`` in ``csrc/tile64.cuh``).
+RANK_CHUNK = 256
+#: Ranks up to which the contractions take r > :data:`RANK_CHUNK` in two
+#: halves staged side by side (their ``*_wide_kernel``); above, in chunks of
+#: :data:`RANK_CHUNK` staged in turn (their ``*_chunk_kernel``), at any
+#: rank.  At r 449-512 the two give the same bits (``csrc/tile64.cuh``).
+TWO_HALVES_MAX_RANK = 512
+#: The CUDA grid's limit on its y and z axes.
+GRID_YZ = 65535
 #: Rows and columns of one residual tile (``kT64`` in ``csrc/tile64.cuh``).
 TILE = 64
 #: Codes of M's data type and of the mask mode (``DType`` and ``MaskMode``
@@ -48,11 +53,36 @@ class Operands(NamedTuple):
         return MASK_SUFFIX[self.mask]
 
 
-def rank_halves(r: int) -> int:
-    """Rank halves a kernel takes at rank ``r``: 1 up to
-    :data:`HALF_RANK`, else 2 (the grid then holds two blocks a tile, one
-    for each half of the output's rank axis)."""
-    return 1 if r <= HALF_RANK else 2
+def rank_chunks(r: int) -> int:
+    """Rank chunks a contraction takes at rank ``r``: ``ceil(r / 256)``,
+    so 1 up to :data:`RANK_CHUNK` and 2 up to 512 (the two halves); the
+    grid holds that many blocks a tile, one for each chunk of the output's
+    rank axis."""
+    return -(-r // RANK_CHUNK)
+
+
+def chunked(r: int) -> bool:
+    """Whether the contractions take rank ``r`` in chunks staged in turn
+    (above :data:`TWO_HALVES_MAX_RANK`) rather than in one register block
+    or two halves staged side by side."""
+    return r > TWO_HALVES_MAX_RANK
+
+
+def grid_limit_error(e: int, m: int, r: int) -> str | None:
+    """Why no kernel grid holds E = ``e`` clients of ``m`` rows at rank
+    ``r``, or ``None`` when one does: the grids' y and z axes stop at
+    65535, and the shrink's y axis counts 64-row tiles, the z axes clients
+    (two a client for the two-half contractions at r 257-512).  The chunks
+    above 512 ride the grids' x axis, which sets no limit here."""
+    z = e * (2 if RANK_CHUNK < r <= TWO_HALVES_MAX_RANK else 1)
+    if z > GRID_YZ:
+        return (f"E={e} clients at rank {r} need a grid z axis of {z} "
+                f"blocks; CUDA allows {GRID_YZ}")
+    tiles = -(-m // TILE)
+    if tiles > GRID_YZ:
+        return (f"m={m} rows are {tiles} tiles of {TILE}; the CUDA grid's "
+                f"y axis allows {GRID_YZ}")
+    return None
 
 
 def on_cpu(u: torch.Tensor) -> bool:
@@ -129,11 +159,11 @@ def check_operands(u, v, m, lam, w=None) -> Operands:
                 f"mask shape {tuple(w.shape)} != {want} for data "
                 f"{tuple(m.shape)}"
             )
-    if not 1 <= r <= MAX_RANK:
-        raise ValueError(f"rank {r} outside the kernels' range 1..{MAX_RANK}")
-    if (min(e, mm, n) < 1 or e * rank_halves(r) > 65535
-            or -(-mm // TILE) > 65535):
-        raise ValueError(f"unsupported sizes E={e}, m={mm}, n={n}")
+    if min(e, mm, n, r) < 1:
+        raise ValueError(f"unsupported sizes E={e}, m={mm}, n={n}, r={r}")
+    limit = grid_limit_error(e, mm, r)
+    if limit is not None:
+        raise ValueError(limit)
     return Operands(e, mm, n, r, DTYPE_CODES[m.dtype], mask)
 
 

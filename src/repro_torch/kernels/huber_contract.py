@@ -40,9 +40,11 @@ reads a value back to the host.  The launches are deterministic (no
 atomics): sums across blocks go through partials added in index order,
 and the splits of a reduction across blocks (``v_splits``, ``u_splits``)
 are pure functions of the shape and the SM count.
-Ranks 257-512 take two rank halves (``_launch.rank_halves``): the grid
-holds one block for each half of the output's rank axis, each forming the
-whole Psi of its tile.
+Ranks above 256 take the rank in chunks of at most 256
+(``_launch.rank_chunks``): the grid holds one block for each chunk of the
+output's rank axis, each forming the whole Psi of its tile (two halves
+staged side by side up to r = 512, chunks staged in turn above:
+``_launch.chunked``).
 ``huber_contract_u`` is ``huber_contract_u_diag`` with the diagnostics
 compiled out (the same ``Psi V`` bits), and ``huber_dual_contract`` always
 runs its one fused pass where its out_v scratch fits 4 MiB
@@ -62,8 +64,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._launch import (
-    MASK_SUFFIX, check_operands, launch, on_cpu, rank_halves, signature,
-    sm_count,
+    MASK_SUFFIX, check_operands, chunked, launch, on_cpu, rank_chunks,
+    signature, sm_count,
 )
 
 #: Kernel launches per function and mask mode (CUDA tensors only).
@@ -77,12 +79,13 @@ launches = {
 # source stem -> (C entry, extra pointers, extra ints): the pointers after
 # u, v, m, w, lam are the outputs and scratch; the ints are (splits, rows
 # per split) for contract_v, (splits, columns per split) for the others,
-# and the dual's row groups (cluster, groups) after them.
+# and the dual's row groups (cluster, groups) after them; every entry then
+# takes the rank route (``_launch.chunked``).
 _ENTRIES = {
-    "contract_v": ("repro_huber_contract_v", 2, 2),
-    "contract_u": ("repro_huber_contract_u", 2, 2),
-    "contract_u_diag": ("repro_huber_contract_u_diag", 5, 2),
-    "dual": ("repro_huber_dual_contract", 7, 4),
+    "contract_v": ("repro_huber_contract_v", 2, 3),
+    "contract_u": ("repro_huber_contract_u", 2, 3),
+    "contract_u_diag": ("repro_huber_contract_u_diag", 5, 3),
+    "dual": ("repro_huber_dual_contract", 7, 5),
 }
 
 
@@ -91,7 +94,7 @@ def _call(stem: str, base: str, op, u, v, m, w, lam, *outputs,
     entry, pointers, extra = _ENTRIES[stem]
     lib = _build.library(stem, {entry: signature(pointers, extra)})
     launch(lib, entry, base + op.suffix, launches, op, u, v, m, w, lam,
-           *outputs, ints=ints)
+           *outputs, ints=(*ints, int(chunked(op.r))))
 
 
 #: Rows and columns of one ``huber_contract_v`` residual tile (``kVRows``
@@ -123,24 +126,24 @@ def _splits(blocks: int, tiles: int, sms: int,
 
 @functools.lru_cache(maxsize=1024)
 def v_splits(e: int, m: int, n: int, sms: int,
-             halves: int = 1) -> tuple[int, int]:
+             chunks: int = 1) -> tuple[int, int]:
     """``(splits, rows_per_split)`` of the m reduction in
     ``huber_contract_v`` on a card with ``sms`` SMs: every range a whole
     number of 64-row tiles, none empty, together exactly the m rows.
 
     The grid is (column tiles x splits x clients) blocks, two resident on
     an SM (``csrc/contract_v.cu`` at r <= 160), costed by :func:`_splits`;
-    with two rank ``halves`` (r > 256, :func:`rank_halves`) twice the
+    with rank ``chunks`` (r > 256, :func:`rank_chunks`) that many times the
     blocks, one resident on an SM.  A pure function of the shape and the SM
     count, so a launch is the same on every run of one card."""
-    splits, per = _splits(e * halves * -(-n // V_TILE_COLS),
-                          -(-m // V_TILE_ROWS), sms, 2 // halves)
+    splits, per = _splits(e * chunks * -(-n // V_TILE_COLS),
+                          -(-m // V_TILE_ROWS), sms, 2 if chunks == 1 else 1)
     return splits, per * V_TILE_ROWS
 
 
 @functools.lru_cache(maxsize=1024)
 def u_splits(e: int, m: int, n: int, sms: int,
-             halves: int = 1) -> tuple[int, int]:
+             chunks: int = 1) -> tuple[int, int]:
     """``(splits, cols_per_split)`` of the n reduction in the row-stripe
     kernels (``huber_contract_u``, ``huber_contract_u_diag``,
     ``huber_dual_contract``) on a card with ``sms`` SMs: every range a
@@ -151,11 +154,11 @@ def u_splits(e: int, m: int, n: int, sms: int,
     :func:`_splits`; at E = 1 the splits fill the card (one client's
     3000 rows are 47 stripes).  A pure function of the shape and the SM
     count, and the three kernels take the same splits, so they share every
-    sum of ``Psi V`` and of the diagnostics bit for bit.  With two rank
-    ``halves`` (r > 256) the grid holds twice the blocks, one resident on
-    an SM."""
-    splits, per = _splits(e * halves * -(-m // U_TILE_ROWS),
-                          -(-n // U_TILE_COLS), sms, 2 // halves)
+    sum of ``Psi V`` and of the diagnostics bit for bit.  With rank
+    ``chunks`` (r > 256) the grid holds that many times the blocks, one
+    resident on an SM."""
+    splits, per = _splits(e * chunks * -(-m // U_TILE_ROWS),
+                          -(-n // U_TILE_COLS), sms, 2 if chunks == 1 else 1)
     return splits, per * U_TILE_COLS
 
 
@@ -176,7 +179,7 @@ def huber_contract_v(u, v, m, lam, w=None) -> torch.Tensor:
     op = check_operands(u, v, m, lam, w)
     out = _f32(op.e, op.n, op.r, device=u.device)
     splits, rows = v_splits(op.e, op.m, op.n, sm_count(u.device),
-                            rank_halves(op.r))
+                            rank_chunks(op.r))
     partial = out if splits == 1 else _f32(splits, op.e, op.n, op.r,
                                            device=u.device)
     _call("contract_v", "huber_contract_v", op, u, v, m, w, lam, out, partial,
@@ -194,7 +197,7 @@ def _u_scratch(op, device) -> tuple[tuple[int, int], torch.Tensor | None]:
     """The column splits of a row-stripe launch and the (splits, E, m, r)
     partial planes of out_u they need (none with one split)."""
     splits, cols = u_splits(op.e, op.m, op.n, sm_count(device),
-                            rank_halves(op.r))
+                            rank_chunks(op.r))
     partial = None if splits == 1 else _f32(splits, op.e, op.m, op.r,
                                             device=device)
     return (splits, cols), partial
@@ -255,8 +258,8 @@ DUAL_CLUSTERS = (1, 2, 4, 8)
 #: Largest rank at which the dual's row groups may be clusters: a
 #: cluster's receive buffers (2 x 64 x 32 RQ floats) fit a block's shared
 #: memory beside its U stripe, two V stages and Psi^T only up to RQ = 5
-#: (225 KB of 227; 266 KB at RQ = 6), and not at all beside the two rank
-#: halves of r > 256.
+#: (225 KB of 227; 266 KB at RQ = 6), and not at all beside the rank
+#: chunks of r > 256.
 DUAL_CLUSTER_MAX_RANK = 160
 
 

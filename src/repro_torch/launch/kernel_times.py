@@ -17,7 +17,9 @@ D16, and ``huber_contract_u`` at F; the shrink through its entry point
 takes no packed mask unpacks it there) at F, C, D and D16, and
 ``residual_shrink_psi`` at F and in bf16 without a mask (D16n); and
 ``huber_contract_v``, ``huber_contract_u_diag`` and the shrink at paper
-Table 1's n = 5000 blocks (T5: E=10, m=5000, n_i=500, r=500).  With
+Table 1's n = 5000 blocks (T5: E=10, m=5000, n_i=500, r=500) and at
+``chip_smoke.py``'s wide blocks (T6: E=10, m=4000, n_i=400, r=600; a tree
+whose kernels refuse the rank prints the refusal instead).  With
 ``--only`` a comma-separated list of row-name prefixes picks rows (for
 example ``--only residual_shrink,flash_attention/T``).  Each row gives the
 CUDA-event time per call over 20 calls after 3 of warm-up (``ms``: what a
@@ -52,6 +54,8 @@ SHAPES = {  # (E, m, n_i, r, dtype, mask)
     "D16n": (4, 2048, 512, 64, torch.bfloat16, "none"),
     # Paper Table 1 at n = 5000 (p = 2r = 500), E = 10: two rank halves.
     "T5": (10, 5000, 500, 500, torch.float32, "none"),
+    # chip_smoke.py's wide phase (n = 4000, p = 600), E = 10: three chunks.
+    "T6": (10, 4000, 400, 600, torch.float32, "none"),
 }
 CONTRACT_ROWS = [  # (function, shape)
     ("huber_contract_v", "F"), ("huber_contract_v", "C"),
@@ -63,7 +67,8 @@ CONTRACT_ROWS = [  # (function, shape)
     ("residual_shrink", "D"), ("residual_shrink", "D16"),
     ("residual_shrink_psi", "F"), ("residual_shrink_psi", "D16n"),
     ("huber_contract_v", "T5"), ("huber_contract_u_diag", "T5"),
-    ("residual_shrink", "T5"),
+    ("residual_shrink", "T5"), ("huber_contract_v", "T6"),
+    ("huber_contract_u_diag", "T6"), ("residual_shrink", "T6"),
 ]
 CALLS, WARMUP = 20, 3
 
@@ -172,6 +177,12 @@ def main() -> int:
                 return getattr(ops, fn)(u, v, mat, lam, w=w)
             return getattr(hc, fn)(u, v, mat, lam, w)
 
+        try:
+            run()
+        except ValueError as exc:  # a tree whose kernels refuse this rank
+            print(json.dumps(dict(tree=tree, row=f"{fn}/{name}",
+                                  refused=str(exc), card=smi)), flush=True)
+            continue
         emit(tree, f"{fn}/{name}", run, smi)
         del u, v, mat, w
     return 0

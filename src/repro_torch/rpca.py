@@ -20,8 +20,17 @@ every refusal lists the reference's methods.
 A solve runs on the CUDA card unless ``device="cpu"`` is passed; with no
 card and no device named it raises.  ``dtype=torch.bfloat16`` stores M as
 the compact bf16 plane for the factorized methods (results stay fp32).
-Batched problems, ``compile_policy``, participation schedules and fault
-injection wait for later slices (ROADMAP.md) and raise.
+``"dcf"`` takes participation schedules, fault plans, the robust
+aggregators and mid-solve checkpoints::
+
+    res = rpca.solve(m_obs, method="dcf", num_clients=10,
+                     participation=0.5, faults=FaultPlan.byzantine(
+                         100, 10, (1, 5), kind="nan"),
+                     cfg=DCFConfig.tuned(150, aggregator="coordinate_median"),
+                     checkpoint_dir="ckpt", run=RunConfig(checkpoint_every=25))
+
+Batched problems and ``compile_policy`` wait for later slices (ROADMAP.md)
+and raise.
 """
 from __future__ import annotations
 
@@ -70,9 +79,14 @@ class RPCASpec:
     count ``num_clients`` for ``"dcf"``, a warm pair (``(L, S)`` for the
     convex methods, ``(U, V)`` for the factorized ones), and ``key``, the
     seed (or ``torch.Generator``) of the random factor init (default 0).
-    ``dtype`` casts ``m_obs`` (fp32 or bf16).  ``participation``,
-    ``faults`` and ``mesh`` are not ported yet: a method that takes them
-    raises when it solves."""
+    ``dtype`` casts ``m_obs`` (fp32 or bf16).  ``participation`` is a
+    (T, E) 0/1 round schedule or a Bernoulli rate, ``faults`` a
+    ``distributed.faults.FaultPlan`` or its (T_f, E) code table (both for
+    ``"dcf"``); ``checkpoint_dir`` takes a snapshot of the solve every
+    ``RunConfig.checkpoint_every`` rounds and ``resume_from`` finishes the
+    solve from the latest one there, bit-exact with an uninterrupted run.
+    ``mesh`` is not ported yet: a method that takes it raises when it
+    solves."""
 
     m_obs: Any
     mask: Any = None
@@ -84,6 +98,8 @@ class RPCASpec:
     mesh: Any = None
     dtype: torch.dtype | None = None
     faults: Any = None
+    checkpoint_dir: str | None = None
+    resume_from: str | None = None
 
     @property
     def batched(self) -> bool:

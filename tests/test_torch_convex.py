@@ -405,7 +405,7 @@ UNPORTED = {
               "RPCAServiceConfig"},
     "repro.core": {"apgm_batch", "cf_pca_batch", "dcf_pca_batch",
                    "ialm_batch", "dcf_pca_sharded", "driver", "solve_batch",
-                   "participation_schedule", "CacheStats", "CompileCache",
+                   "CacheStats", "CompileCache",
                    "CompilePolicy", "bucket_shape", "default_cache"},
     "repro.rpca": {"AOTHooks", "CompilePolicy", "ServiceHooks"},
 }

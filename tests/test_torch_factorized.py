@@ -207,8 +207,10 @@ def test_consensus_matches_reference():
     n_cols = np.array(prob.client_column_counts(157, 8), np.float32)
     cfg, jcfg = fz.DCFConfig(rank=3), jfz.DCFConfig(rank=3)
     for cols in (None, n_cols):
-        got = fz.aggregate_stacked(
-            cfg, _t(u_i), n_cols=None if cols is None else _t(cols))
+        got, wsum = fz.aggregate_stacked(
+            cfg, _t(u_i), _t(u_i[0]),
+            n_cols=None if cols is None else _t(cols), num_clients=8)
+        assert wsum is None
         want, _ = jfz.aggregate_stacked(
             jcfg, jnp.asarray(u_i), jnp.asarray(u_i[0]),
             n_cols=None if cols is None else jnp.asarray(cols), num_clients=8)

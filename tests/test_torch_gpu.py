@@ -191,10 +191,15 @@ def test_kernel_wrappers_refuse_bad_operands(cuda):
                             bitmask.pack_mask(w)[..., :-1].contiguous())
     with pytest.raises(TypeError, match="dense float32"):
         sh.residual_shrink(u, v, mat, lam, w.half())
-    with pytest.raises(ValueError, match="rank"):
-        big = torch.zeros(2, 40, 513, device=cuda)
-        hc.huber_contract_v(big, torch.zeros(2, 24, 513, device=cuda), mat,
-                            lam)
+    with pytest.raises(ValueError, match="unsupported sizes"):
+        hc.huber_contract_v(torch.zeros(2, 40, 0, device=cuda),
+                            torch.zeros(2, 24, 0, device=cuda), mat, lam)
+    with pytest.raises(ValueError, match="z axis"):  # two halves, 2 E > 65535
+        e = 40000
+        hc.huber_contract_v(torch.zeros(e, 1, 300, device=cuda),
+                            torch.zeros(e, 1, 300, device=cuda),
+                            torch.zeros(e, 1, 1, device=cuda),
+                            torch.ones(e, device=cuda))
     s, psi = ops.residual_shrink_psi(u, v, mat, lam)
     assert s.is_cuda and psi.is_cuda and s.shape == mat.shape
     with pytest.raises(TypeError, match="dense float32"):
@@ -705,3 +710,131 @@ def test_svt_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(sv.cpu(), sv_want, rtol=1e-5, atol=1e-5)
     assert (torch.linalg.norm(got.cpu() - want)
             / torch.linalg.norm(want)).item() <= 1e-5
+
+
+# Ranks above 512: chunks of 256 staged in turn (csrc/tile64.cuh), three
+# (513, 600, 768) and four (1024), the last one narrow but at 768 and 1024.
+CHUNK_RANKS = [513, 600, 768, 1024]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", CHUNK_RANKS)
+@pytest.mark.parametrize("shape", WIDE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in WIDE_SHAPES])
+@pytest.mark.parametrize("fn,mode", CASES, ids=IDS)
+def test_chunked_ranks_match_plain(cuda, fn, mode, shape, r, dtype):
+    """Every RPCA kernel flavour at r > 512 (plain, dense and packed mask,
+    fp32 and bf16 M, the psi mode) within 2e-5 of its plain version, and
+    launched (not passed to the plain version)."""
+    suffix = {"none": "", "dense": "_masked", "packed": "_packed"}[mode]
+    names = [fn + suffix]
+    if fn == "huber_dual_contract" and hc.dual_plan(*shape, r) is None:
+        # past its 4 MiB of scratch the dual takes the two passes
+        names = ["huber_contract_v" + suffix, "huber_contract_u_diag" + suffix]
+    before = ops.launch_counts()
+    got, want = _kernel_and_plain(
+        fn, mode, *_card_inputs(cuda, *shape, r, seed=r, dtype=dtype))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k in names) for k in after}
+    _assert_close_new(got, want)
+
+
+def _bit_exact_pairs(u, v, mat, w, lam):
+    """all-ones mask == no mask, packed == dense, reruns, u == u_diag, the
+    dual's out_u, obj and psi2 are u_diag's, the psi mode's S is the
+    shrink's, bit for bit."""
+    packed = bitmask.pack_mask(w)
+    for fn in CONTRACTIONS + ["residual_shrink", "residual_shrink_psi"]:
+        f = getattr(ops, fn)
+        none = _as_tuple(f(u, v, mat, lam))
+        for a, b, c in zip(none, _as_tuple(f(u, v, mat, lam)),
+                           _as_tuple(f(u, v, mat, lam,
+                                       w=torch.ones_like(mat)))):
+            assert torch.equal(a, b) and torch.equal(a, c), fn
+        for a, b in zip(_as_tuple(f(u, v, mat, lam, w=w)),
+                        _as_tuple(f(u, v, mat, lam, w=packed))):
+            assert torch.equal(a, b), fn
+    for wm in (None, w, packed):
+        out_u, obj, psi2 = hc.huber_contract_u_diag(u, v, mat, lam, wm)
+        assert torch.equal(hc.huber_contract_u(u, v, mat, lam, wm), out_u)
+        _, dual_u, dual_obj, dual_psi2 = hc.huber_dual_contract(u, v, mat,
+                                                                lam, wm)
+        assert torch.equal(dual_u, out_u)
+        assert torch.equal(dual_obj, obj) and torch.equal(dual_psi2, psi2)
+        s, _ = sh.residual_shrink_psi(u, v, mat, lam, wm)
+        assert torch.equal(s, sh.residual_shrink(u, v, mat, lam, wm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WIDE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in WIDE_SHAPES])
+def test_chunked_ranks_keep_the_bit_exact_pairs(cuda, shape):
+    """At r = 600 (three chunks) every bit-exact pair holds; the dual runs
+    its one pass at 2 x 200 x 133 (4 single-stripe planes within 4 MiB)
+    and the two passes at 1 x 700 x 650 (11 stripes, 2 planes fit)."""
+    e, m, n = shape
+    assert (hc.dual_plan(e, m, n, 600) is None) == (m == 700)
+    _bit_exact_pairs(*_card_inputs(cuda, *shape, 600, seed=6))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [460, 500])
+@pytest.mark.parametrize("shape", WIDE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in WIDE_SHAPES])
+@pytest.mark.parametrize("fn,mode", [c for c in CASES
+                                     if c[0] in CONTRACTIONS],
+                         ids=[i for c, i in zip(CASES, IDS)
+                              if c[0] in CONTRACTIONS])
+def test_chunk_order_is_the_two_half_order(cuda, monkeypatch, fn, mode,
+                                           shape, r):
+    """At r 449-512 the two halves are two chunks of 256: the chunked
+    kernels (forced by lowering the two-half limit) give the two-half
+    kernels' bits."""
+    from repro_torch.kernels import _launch
+
+    u, v, mat, w, lam = _card_inputs(cuda, *shape, r, seed=r)
+    args = (u, v, mat, lam, _mask(w, mode))
+    halves = _as_tuple(getattr(hc, fn)(*args))
+    monkeypatch.setattr(_launch, "TWO_HALVES_MAX_RANK", 256)
+    assert _launch.chunked(r)
+    chunks = _as_tuple(getattr(hc, fn)(*args))
+    for a, b in zip(halves, chunks):
+        assert torch.equal(a, b), fn
+
+
+def _assert_close_nan(got, want):
+    """NaN where the plain version has NaN, and within 2e-5 of it
+    elsewhere (planes relative to max|plain| over the finite entries)."""
+    assert len(got) == len(want)
+    for g, p in zip(got, want):
+        assert g.shape == p.shape
+        assert torch.equal(g.isnan(), p.isnan())
+        ok = ~p.isnan()
+        if g.ndim == 1:
+            torch.testing.assert_close(g[ok], p[ok], rtol=SCALAR_RTOL,
+                                       atol=0.0)
+        elif ok.any():
+            err = (g[ok] - p[ok]).abs().max().item()
+            assert err <= NEW_PLANE_TOL * p[ok].abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [64, 300, 600])
+@pytest.mark.parametrize("fn,mode", CASES, ids=IDS)
+def test_nan_inputs_give_the_plain_versions_nans(cuda, fn, mode, r):
+    """A NaN row of client 0's U (a poisoned consensus payload) and a NaN
+    entry of client 1's M: the kernels' Psi clip and shrink propagate NaN
+    as torch.clamp and torch.sign do, so every output is NaN exactly where
+    the plain version's is (client 0's obj and psi2, its out_v, one row of
+    its out_u, S and Psi), and equal to it elsewhere."""
+    u, v, mat, w, lam = _card_inputs(cuda, 2, 200, 133, r, seed=9)
+    u[0, 17] = float("nan")
+    mat[1, 5, 7] = float("nan")
+    got, want = _kernel_and_plain(fn, mode, u, v, mat, w, lam)
+    torch.cuda.synchronize()
+    assert any(t.isnan().any() for t in want)
+    _assert_close_nan(got, want)

@@ -290,17 +290,26 @@ def test_front_door_on_the_cpu():
 @pytest.mark.parametrize("what", ["participation", "faults", "compress",
                                   "trimmed", "batched", "ialm"])
 def test_later_slices_raise_before_solving(what):
+    """Batched solves and the wire solver (``consensus_compress`` /
+    ``consensus_delay``) raise NotImplementedError naming ROADMAP.md before
+    a solve starts, also beside the options that now solve (participation,
+    faults, the robust aggregators)."""
+    from types import SimpleNamespace
+
     m = torch.zeros(8, 8)
     cfg = DCFConfig.tuned(2)
     kw = {"num_clients": 2}
-    if what == "participation":
-        kw["participation"] = 0.5
+    wire = SimpleNamespace(topk_frac=0.5)  # a CompressConfig's one field
+    if what == "participation":  # a batch of schedule-driven solves
+        m, kw["participation"] = torch.zeros(2, 8, 8), 0.5
     elif what == "faults":
         kw["faults"] = np.zeros((3, 2), np.int32)
+        cfg = DCFConfig.tuned(2, consensus_delay=1)
     elif what == "compress":
         cfg = DCFConfig.tuned(2, consensus_delay=1)
     elif what == "trimmed":
-        cfg = DCFConfig.tuned(2, aggregator="trimmed_mean")
+        cfg = DCFConfig.tuned(2, aggregator="trimmed_mean",
+                              consensus_compress=wire)
     elif what == "batched":
         m = torch.zeros(2, 8, 8)
     elif what == "ialm":  # the convex solvers solve; batches of them wait
@@ -400,15 +409,18 @@ def test_cf_refusals_read_as_the_reference(what):
     (DCFConfig.tuned(256), False),
     (DCFConfig.tuned(257, impl="ref"), False),
     (DCFConfig.tuned(512), False),
-    (DCFConfig.tuned(513), True),
+    (DCFConfig.tuned(513), False),
     (DCFConfig.tuned(513, impl="ref"), False),
+    (DCFConfig.tuned(600), False),
+    (DCFConfig.tuned(2048), False),
+    (DCFConfig.tuned(600, impl="pallas"), True),
 ], ids=["rank257", "pallas", "rank256", "rank257_ref", "rank512", "rank513",
-        "rank513_ref"])
+        "rank513_ref", "rank600", "rank2048", "rank600_pallas"])
 def test_check_supported_refuses_what_the_card_cannot_run(cfg, refused):
-    """On a CUDA device (no card needed: nothing is copied), a rank above
-    the kernels' 512 (two rank halves of 256 above 256) and an impl the
-    port does not know are refused with NotImplementedError naming
-    ROADMAP.md; the CPU's plain route takes any rank."""
+    """On a CUDA device (no card needed: nothing is copied) an impl the
+    port does not know is refused with NotImplementedError naming
+    ROADMAP.md; every rank is taken (chunks of 256 above 512), on the
+    card as on the CPU's plain route."""
     from repro_torch.core import factorized as fz
 
     cuda = torch.device("cuda")
