@@ -105,6 +105,35 @@ CUDA toolkit.  Phases, one JSON line each:
             wall, the time of one SVD at this size and at Fig. 1's largest
             (3000 x 3000), and the host syncs of a solve (counted by
             ``torch.cuda.set_sync_debug_mode``).
+   batch    benchmarks/solver_runtime_bench.py's batch at its full setting
+            (:35, :122): 16 problems of 500 x 500, rank 8, 5% corruption,
+            E=8 (ragged: the masked kernels), DCFConfig.tuned(8), through
+            ``rpca.solve`` on a (16, 500, 500) spec: exactly 600 / 200 / 1
+            launches for the whole batch, the worst recovery error under
+            1e-3; ``batch_vs_serial``: the 16 serial solves' wall against
+            the batch's, problems/s of both, max |L_b - L_serial| <= 1e-3;
+            ``batch_early``: the benchmark's chunked early exit (tol 5e-4,
+            chunks of 10): each problem's rounds, its traces zero past
+            them, the launches of the rounds the batch ran.
+   batch_fig1 four Fig. 1 problems (seeds 0-3, E=10, DCFConfig.tuned(150))
+            in one batch: each under 1e-4, 600 / 200 / 1 launches, busy
+            time against 4x the dcf phase's, peak memory, max |L_b -
+            L_serial| <= 1e-3, and problem 0's bits unchanged when problems
+            1-3 are other seeds'.
+   batch_convex  IALM (60 iterations) and APGM (200) on a batch of 4 x
+            160 x 160 against the serial solves on the card: L and S within
+            1e-5, the walls, the host syncs an iteration.
+   wire     the dcf phase's problem under DCFConfig.tuned(150) with
+            consensus_delay=1, top-k compression at 0.1, both, and
+            topk_frac=1.0: 600 / 200 / 1 launches each, recovery error
+            (no bar: the reference states none at this size), wall, busy
+            share, the modelled traffic and whether the stale guard
+            tripped; ``wire_checks``: two compressed solves bit-identical,
+            topk_frac=1.0 against the dense solve, and within 1e-4 of it at
+            tests/test_multihost.py's problem.
+   The kernel rows also hold the batch phases' shapes: row "bn" (B·E =
+   128 clients, m=500, n_i=63, r=8, the padding mask) and row "b4" (40
+   clients of 3000 x 300, r=150), with those phases' launches.
 10. small_lm the llama3-8b smoke config in fp32 (2 layers, d_model 128,
             head dim 32) with flash attention: 2 prompts of 33 tokens, 8
             greedy new tokens through ``serving.engine.generate`` on the
@@ -127,7 +156,8 @@ CUDA toolkit.  Phases, one JSON line each:
             (the config's ``flash_attention`` off) within 5e-2 of
             max|logits|.
 
-In each of phases 4-9, elastic, table1, wide, 11 and 12 a first run warms the libraries, the counts
+In each of phases 4-9, elastic, table1, wide, batch, batch_fig1, wire, 11
+and 12 a first run warms the libraries, the counts
 are zeroed just before the counted run and read just after it, and one more
 run goes under torch.profiler (``<phase>_profile``): the device busy time
 and its share of the counted run's wall, the kernels that take the most
@@ -146,6 +176,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 SRC = Path(__file__).resolve().parent / "src"
 
@@ -212,6 +243,27 @@ WIDE_N, WIDE_TRUE_RANK, WIDE_RANK = 4000, 300, 600
 # tests/test_faults.py:78-133: robust consensus within 3x the fault-free
 # error), and the checkpoint cadence of the resumed solve.
 ELASTIC_BAR, CHECKPOINT_EVERY = 1e-2, 25
+# Batched solves, benchmarks/solver_runtime_bench.py's full setting (:35,
+# :122): B problems of n x n, rank 8, 5% corruption, E = 8 (n % E != 0: a
+# padded split behind a mask), DCFConfig.tuned(8), from seeds 1..B; the
+# batch against its B serial solves within the reference's batch tolerance
+# (tests/test_runtime.py:109-116), the worst recovery error under the
+# reference's bar for a batch (tests/test_runtime.py:142); then the
+# benchmark's early exit (tol 5e-4, chunks of 10).
+BATCH, BATCH_N, BATCH_RANK, BATCH_CLIENTS = 16, 500, 8, 8
+BATCH_TOL, BATCH_ERR_BAR, BATCH_KEY = 1e-3, 1e-3, 100
+BATCH_EARLY_TOL, BATCH_CHUNK = 5e-4, 10
+# Four Fig. 1 problems (seeds 0-3) in one batch, and the seeds that replace
+# problems 1-3 for the batch-mate check.
+FIG1_BATCH, FIG1_MATES = 4, (4, 5, 6)
+# The convex baselines batched: B problems at 160 x 160 (rank 8, 5%), the
+# batch against the card's serial solves within tests/test_masked.py:
+# 296-298's 1e-5.
+CONVEX_BATCH, CONVEX_BATCH_N, CONVEX_BATCH_TOL = 4, 160, 1e-5
+# The wire consensus on the dcf phase's problem (top-k fraction of each
+# delta); tests/test_multihost.py:124-135's problem (64^2, rank 3, tuned(4),
+# E = 4, 40 rounds, seed 1), where topk_frac=1.0 is within 1e-4 of dense.
+WIRE_TOPK, WIRE_SMALL, WIRE_SMALL_TOL = 0.1, (64, 3, 4, 4, 40), 1e-4
 # Fig. 1's convex baselines (benchmarks/fig1_convergence.py) at n = 1000:
 # the reference's recovery bars (tests/test_rpca_core.py:38-45), which the
 # reference meets at this size on the CPU (1.6e-15, 5.3e-11; printed by
@@ -262,7 +314,9 @@ SUFFIX = {"none": "", "dense": "_masked", "packed": "_packed"}
 # the kernel these operands or None).  Operand sets: "fig1" (E=10, m=3000,
 # n_i=300, r=150), "cf" (E=1, m=n=3000), "d32" / "d16" (E=4, m=2048,
 # n_i=512, r=64, fp32 / bf16 M), "t5" (E=10, m=5000, n_i=500, r=500),
-# "t6" (E=10, m=4000, n_i=400, r=600: three rank chunks).
+# "t6" (E=10, m=4000, n_i=400, r=600: three rank chunks), "bn" (the batch
+# phase's B·E = 128 clients, m=500, n_i=63, r=8, the padding mask) and "b4"
+# (batch_fig1's 4 x 10 = 40 clients, m=3000, n_i=300, r=150).
 ROWS = [
     ("huber_contract_v", "none", "fig1", "dcf"),
     ("huber_contract_v", "dense", "fig1", "ragged"),
@@ -302,6 +356,11 @@ ROWS = [
     ("huber_contract_v", "none", "t6", "wide"),
     ("huber_contract_u_diag", "none", "t6", "wide"),
     ("residual_shrink", "none", "t6", "wide"),
+    ("huber_contract_v", "dense", "bn", "batch"),
+    ("huber_contract_u_diag", "dense", "bn", "batch"),
+    ("residual_shrink", "dense", "bn", "batch"),
+    ("huber_contract_v", "none", "b4", "batch_fig1"),
+    ("huber_contract_u_diag", "none", "b4", "batch_fig1"),
 ]
 # Flash rows: (row name, (B, S_q, S_kv, H, d), causal, dtype, phase whose
 # launches the row reports or None).
@@ -498,6 +557,23 @@ def kernel_operands(device) -> dict:
     t6 = prob.generate_problem(0, WIDE_N, WIDE_N, WIDE_TRUE_RANK,
                                TABLE1_SPARSITY, device=device)
     sets["t6"] = client_set(t6.m_obs, TABLE1_CLIENTS, WIDE_RANK, None)
+    del t5, t6
+
+    def batch_set(seeds, n, clients, rank, ragged):
+        """A batch's operands: each problem's client set, the problems'
+        clients one after the other (the solver's fold)."""
+        parts = []
+        for seed in seeds:
+            q = prob.generate_problem(seed, n, n, rank, SPARSITY,
+                                      device=device)
+            w = torch.ones(n, n, device=device) if ragged else None
+            parts.append(client_set(q.m_obs, clients, rank, w))
+        return tuple(torch.cat(xs) for xs in zip(*parts))
+
+    sets["bn"] = batch_set(range(1, BATCH + 1), BATCH_N, BATCH_CLIENTS,
+                           BATCH_RANK, ragged=True)
+    sets["b4"] = batch_set(range(FIG1_BATCH), M_ROWS, CLIENTS, RANK,
+                           ragged=False)
     return sets
 
 
@@ -760,12 +836,14 @@ def profile_run(run) -> dict:
 def solve_phase(name: str, device, problem, spec_kw: dict, method: str,
                 cfg, want: dict[str, int], error, bar: float, extra=None,
                 run=None, finite: bool = True):
-    """Phases 4-9, table1, wide and elastic: one solve through the front
-    door (with ``run``), its launch counts (zeroed just before, read just
-    after; every kernel not in ``want`` must be launched 0 times) and
+    """Phases 4-9, table1, wide, elastic, the batch phases and wire: one
+    solve through the front door (with ``run``; ``problem.m_obs`` (m, n),
+    or (B, m, n) for a batch), its launch counts (zeroed just before, read
+    just after; every kernel not in ``want`` must be launched 0 times) and
     ``error(result)`` against ``bar``; L and S must be finite (non-finite
     with ``finite=False``); ``extra(result)`` adds fields to the row.
-    Returns the phase's row and its result."""
+    Returns the phase's row (with the profiled run's device busy ms) and
+    its result."""
     import torch
 
     from repro_torch import rpca
@@ -793,9 +871,12 @@ def solve_phase(name: str, device, problem, spec_kw: dict, method: str,
     shape = tuple(problem.m_obs.shape)
     ok = (err < bar and is_finite == finite and counts == expected
           and tuple(res.l.shape) == shape and res.l.dtype == torch.float32)
-    row = dict(phase=name, method=method, m=shape[0], n=shape[1],
-               rank=cfg.rank, clients=spec_kw.get("num_clients"),
-               fused=cfg.fused, pack_mask=cfg.pack_mask,
+    row = dict(phase=name, method=method, m=shape[-2], n=shape[-1],
+               batch=shape[0] if len(shape) == 3 else None,
+               rank=getattr(cfg, "rank", None),
+               clients=spec_kw.get("num_clients"),
+               fused=getattr(cfg, "fused", None),
+               pack_mask=getattr(cfg, "pack_mask", None),
                data_dtype=str(res.spec.m_obs.dtype).removeprefix("torch."),
                error=err, bar=None if math.isinf(bar) else bar,
                finite=is_finite, wall_s=wall,
@@ -813,6 +894,7 @@ def solve_phase(name: str, device, problem, spec_kw: dict, method: str,
     if not ok:
         raise SystemExit(f"phase {name} failed")
     row["launches"] = counts
+    row["device_busy_ms"] = profiled["device_busy_ms"]
     return row, res
 
 
@@ -1075,6 +1157,339 @@ def elastic_phase(device, dcf_error: float) -> list[dict]:
         raise SystemExit("a resumed solve differs from the uninterrupted one")
     rows.append(row)
     return rows
+
+
+def _stacked(problems):
+    """A batch spec's data: the problems' M on a leading axis."""
+    import torch
+
+    return SimpleNamespace(m_obs=torch.stack([p.m_obs for p in problems]))
+
+
+def _errors(res, problems) -> list[float]:
+    from repro_torch.core import metrics
+
+    return [metrics.relative_error(res.l[b], res.s[b], p.l0, p.s0).item()
+            for b, p in enumerate(problems)]
+
+
+def _serial(problems, cfg, method="dcf", **kw):
+    """Each problem of a batch solved alone (problem b from seed key + b,
+    as the batch draws it), timed after one warm-up solve: (results,
+    wall seconds)."""
+    import torch
+
+    from repro_torch import rpca
+
+    key = kw.pop("key", 0)
+
+    def one(b, p):
+        return rpca.solve(p.m_obs, method=method, cfg=cfg, key=key + b, **kw)
+
+    one(0, problems[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [one(b, p) for b, p in enumerate(problems)]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _want(cfg, rounds=None, suffix=""):
+    """Exact launches of a dcf/cf solve (or batch) of ``rounds`` rounds."""
+    local = (cfg.outer_iters if rounds is None else rounds) * cfg.local_iters
+    u_step = "huber_contract_u" if cfg.fused == "off" \
+        else "huber_contract_u_diag"
+    return {f"huber_contract_v{suffix}": local * cfg.inner_sweeps,
+            f"{u_step}{suffix}": local, f"residual_shrink{suffix}": 1}
+
+
+def batch_phase(device) -> list[dict]:
+    """benchmarks/solver_runtime_bench.py's batch at its full setting
+    (:data:`BATCH` problems of 500 x 500, rank 8, E = 8 ragged,
+    DCFConfig.tuned(8)) through ``rpca.solve`` on a (B, m, n) spec: one
+    launch of each masked kernel a sweep for the whole batch (T·K·J / T·K /
+    1), the wall and busy share against the B serial solves', problems/s,
+    the largest |L_b - L_serial| (<= 1e-3) and the worst recovery error;
+    then the benchmark's chunked early exit: each problem's rounds, its
+    traces zero past them, and the launches of the rounds the batch ran
+    (the host reads the done mask once a chunk)."""
+    import torch
+
+    from repro_torch import rpca
+    from repro_torch.core import problems as prob
+    from repro_torch.core import runtime as rt
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.kernels import ops
+
+    problems = [prob.generate_problem(1 + b, BATCH_N, BATCH_N, BATCH_RANK,
+                                      SPARSITY, device=device)
+                for b in range(BATCH)]
+    batch = _stacked(problems)
+    cfg = DCFConfig.tuned(BATCH_RANK)
+    kw = {"num_clients": BATCH_CLIENTS, "key": BATCH_KEY}
+    row, res = solve_phase("batch", device, batch, kw, "dcf", cfg,
+                           _want(cfg, suffix="_masked"),
+                           lambda r: max(_errors(r, problems)),
+                           BATCH_ERR_BAR)
+    serial, serial_wall = _serial(problems, cfg, device=device, **kw)
+    diff = max((res.l[b] - serial[b].l).abs().max().item()
+               for b in range(BATCH))
+    versus = dict(
+        phase="batch_vs_serial", batch=BATCH, n=BATCH_N,
+        batch_wall_s=row["wall_s"],
+        batch_busy_share=row["device_busy_ms"] / (row["wall_s"] * 1e3),
+        serial_wall_s=serial_wall,
+        batch_problems_per_s=BATCH / row["wall_s"],
+        serial_problems_per_s=BATCH / serial_wall,
+        speedup=serial_wall / row["wall_s"],
+        max_abs_diff_vs_serial=diff, tol=BATCH_TOL,
+        max_error=max(_errors(res, problems)),
+        max_serial_error=max(metrics_err(r, p)
+                             for r, p in zip(serial, problems)),
+        ok=diff <= BATCH_TOL)
+    emit(**versus)
+    if not versus["ok"]:
+        raise SystemExit("a batched solve differs from its serial solve")
+
+    run = rt.RunConfig(mode="chunk", tol=BATCH_EARLY_TOL,
+                       chunk_size=BATCH_CHUNK)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    early = rpca.solve(rpca.RPCASpec(batch.m_obs, **kw), method="dcf",
+                       cfg=cfg, run=run, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rounds = early.stats.rounds.tolist()
+    ran = min(cfg.outer_iters, -(-max(rounds) // BATCH_CHUNK) * BATCH_CHUNK)
+    want = _want(cfg, ran, "_masked")
+    resid = early.stats.residual
+    frozen = all(bool((resid[b, r:] == 0).all() and (resid[b, :r] > 0).all())
+                 for b, r in enumerate(rounds))
+    chunk = dict(phase="batch_early", tol=BATCH_EARLY_TOL, chunk=BATCH_CHUNK,
+                 rounds=rounds, rounds_run=ran,
+                 converged=early.stats.converged.tolist(),
+                 traces_zero_past_exit=frozen, wall_s=wall,
+                 max_error=max(_errors(early, problems)),
+                 launches={k: c for k, c in counts.items() if c or k in want},
+                 expected_launches=want,
+                 ok=frozen and counts == {k: want.get(k, 0) for k in counts})
+    emit(**chunk)
+    if not chunk["ok"]:
+        raise SystemExit("phase batch_early failed")
+    return [row]
+
+
+def batch_fig1_phase(device, dcf_busy_ms: float) -> list[dict]:
+    """Four Fig. 1 problems (3000 x 3000, r = 150, 5%, seeds 0-3, E = 10,
+    DCFConfig.tuned(150)) in one scan-mode batch: each under the 1e-4 bar,
+    600 / 200 / 1 launches for the batch, the busy time against four
+    times the dcf phase's, the peak memory, the largest difference from the
+    serial solves; and problem 0's bits unchanged when problems 1-3 are
+    other seeds' (its batch-mates)."""
+    import torch
+
+    from repro_torch import rpca
+    from repro_torch.core import problems as prob
+    from repro_torch.core.factorized import DCFConfig
+
+    def fig1(seed):
+        return prob.generate_problem(seed, M_ROWS, N_COLS, RANK, SPARSITY,
+                                     device=device)
+
+    problems = [fig1(seed) for seed in range(FIG1_BATCH)]
+    cfg = DCFConfig.tuned(RANK)
+    kw = {"num_clients": CLIENTS}
+    row, res = solve_phase("batch_fig1", device, _stacked(problems), kw,
+                           "dcf", cfg, _want(cfg),
+                           lambda r: max(_errors(r, problems)), ERR_BAR)
+    serial, serial_wall = _serial(problems, cfg, device=device, **kw)
+    diff = max((res.l[b] - serial[b].l).abs().max().item()
+               for b in range(FIG1_BATCH))
+    mates = _stacked(problems[:1] + [fig1(seed) for seed in FIG1_MATES])
+    other = rpca.solve(mates.m_obs, method="dcf", cfg=cfg, device=device,
+                       **kw)
+    same = all(torch.equal(x[0], y[0]) for x, y in (
+        (res.l, other.l), (res.s, other.s), (res.u, other.u),
+        (res.v, other.v), (res.stats.residual, other.stats.residual)))
+    versus = dict(phase="batch_fig1_vs_serial", batch=FIG1_BATCH,
+                  busy_ms=row["device_busy_ms"],
+                  dcf_busy_ms_x4=FIG1_BATCH * dcf_busy_ms,
+                  batch_wall_s=row["wall_s"], serial_wall_s=serial_wall,
+                  peak_mem_gb=row["peak_mem_gb"],
+                  errors=_errors(res, problems),
+                  max_abs_diff_vs_serial=diff, tol=BATCH_TOL,
+                  mates_leave_bits=same, ok=same and diff <= BATCH_TOL)
+    emit(**versus)
+    if not versus["ok"]:
+        raise SystemExit("phase batch_fig1 failed")
+    return [row]
+
+
+def _sync_count(fn):
+    """``fn()`` and the host syncs it made
+    (``torch.cuda.set_sync_debug_mode("warn")``), with its wall."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()  # not the solve's: counted off
+        wall = time.perf_counter() - t0
+    return out, sum("synchroniz" in str(w.message) for w in caught), wall
+
+
+def batch_convex_phase(device) -> dict:
+    """``apgm_batch`` and ``ialm_batch`` (the front door on a (B, m, n)
+    spec: one batched SVD an iteration) at :data:`CONVEX_BATCH` x 160^2
+    on the card against the card's serial solves: L and S within 1e-5
+    relative, the walls, and the host syncs an iteration of each."""
+    import torch
+
+    from repro_torch import rpca
+    from repro_torch.core import APGMConfig, IALMConfig
+    from repro_torch.core import problems as prob
+
+    problems = [prob.generate_problem(10 + b, CONVEX_BATCH_N, CONVEX_BATCH_N,
+                                      8, SPARSITY, device=device)
+                for b in range(CONVEX_BATCH)]
+    mb = _stacked(problems).m_obs
+    solves = {}
+    for method, cfg_t in (("ialm", IALMConfig), ("apgm", APGMConfig)):
+        iters = CONVEX_ITERS[method]
+        cfg = cfg_t(iters=iters)
+        rpca.solve(mb, method=method, cfg=cfg_t(iters=2), device=device)
+        res, syncs, wall = _sync_count(
+            lambda: rpca.solve(mb, method=method, cfg=cfg, device=device))
+        serial, serial_syncs, serial_wall = _sync_count(
+            lambda: [rpca.solve(p.m_obs, method=method, cfg=cfg,
+                                device=device) for p in problems])
+        rel = max((torch.linalg.norm(a[b] - x) / torch.linalg.norm(x)).item()
+                  for b, one in enumerate(serial)
+                  for a, x in ((res.l, one.l), (res.s, one.s)))
+        solves[method] = dict(
+            iters=iters, batch_wall_s=wall, serial_wall_s=serial_wall,
+            batch_syncs_per_iter=syncs / iters,
+            serial_syncs_per_iter=serial_syncs / (iters * CONVEX_BATCH),
+            max_rel_diff_vs_serial=rel, errors=_errors(res, problems),
+            ok=rel <= CONVEX_BATCH_TOL and bool(
+                torch.isfinite(res.l).all() and torch.isfinite(res.s).all()))
+    row = dict(phase="batch_convex", batch=CONVEX_BATCH, n=CONVEX_BATCH_N,
+               tol=CONVEX_BATCH_TOL, solves=solves,
+               ok=all(v["ok"] for v in solves.values()))
+    emit(**row)
+    if not row["ok"]:
+        raise SystemExit("phase batch_convex failed")
+    return row
+
+
+def wire_phase(device) -> list[dict]:
+    """The wire consensus on the dcf phase's problem (E = 10,
+    DCFConfig.tuned(150)) through ``rpca.solve``, each case a solve_phase
+    row (600 / 200 / 1 launches, recovery error, wall, busy share) with
+    the modelled traffic (``consensus_traffic``: bytes a client a round,
+    the dense / shipped ratio) and, for the stale cases, whether the guard
+    tripped: ``consensus_delay=1``, top-k at :data:`WIRE_TOPK`, both, and
+    ``topk_frac=1.0`` beside the dense solve (their difference printed);
+    two compressed solves give the same bits.  At tests/test_multihost.py's
+    problem, topk_frac=1.0 within 1e-4 of dense on the card."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from repro_torch import rpca
+    from repro_torch.core import problems as prob
+    from repro_torch.core import runtime as rt
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.distributed import multihost as mh
+    from repro_torch.distributed.grad_compress import CompressConfig
+
+    dcf_mod = importlib.import_module("repro_torch.core.dcf_pca")
+    p = prob.generate_problem(0, M_ROWS, N_COLS, RANK, SPARSITY,
+                              device=device)
+    base = DCFConfig.tuned(RANK)
+    cases = {
+        "wire_delay": dict(consensus_delay=1),
+        "wire_topk": dict(consensus_compress=CompressConfig(
+            topk_frac=WIRE_TOPK)),
+        "wire_topk_delay": dict(consensus_delay=1, consensus_compress=(
+            CompressConfig(topk_frac=WIRE_TOPK))),
+        "wire_topk_full": dict(consensus_compress=CompressConfig(
+            topk_frac=1.0)),
+    }
+    rows, results = [], {}
+    for name, kw in cases.items():
+        cfg = dataclasses.replace(base, **kw)
+        mh.consensus_traffic(reset=True)
+
+        def extra(res, cfg=cfg):
+            traffic = mh.consensus_traffic()
+            out = dict(bytes_per_round=traffic["bytes_per_round"],
+                       traffic_ratio=traffic["achieved_ratio"],
+                       model=mh.consensus_wire_model(
+                           M_ROWS, RANK, CLIENTS, cfg.consensus_compress))
+            if cfg.consensus_delay:
+                problem = dcf_mod.make_problem(p.m_obs, cfg, CLIENTS, 0,
+                                               device=device)
+                carry, _ = rt.run(dcf_mod.make_solver(cfg), problem,
+                                  cfg.outer_iters)
+                out["guard_tripped"] = bool(carry["sync"])
+                out["guard"] = float(carry["guard"])
+            return out
+
+        row, res = solve_phase(
+            name, device, p, {"num_clients": CLIENTS}, "dcf", cfg,
+            _want(cfg), lambda r: metrics_err(r, p), math.inf, extra=extra)
+        rows.append(row)
+        results[name] = res
+    again = rpca.solve(p.m_obs, method="dcf", num_clients=CLIENTS,
+                       cfg=dataclasses.replace(base, **cases["wire_topk"]),
+                       device=device)
+    first = results["wire_topk"]
+    same = all(torch.equal(x, y) for x, y in (
+        (first.l, again.l), (first.s, again.s), (first.u, again.u),
+        (first.stats.residual, again.stats.residual)))
+    dense = rpca.solve(p.m_obs, method="dcf", num_clients=CLIENTS, cfg=base,
+                       device=device)
+    full = results["wire_topk_full"]
+    full_diff = (full.l - dense.l).abs().max().item()
+    m, r_gen, r_fit, e, rounds = WIRE_SMALL
+    q = prob.generate_problem(0, m, m, r_gen, SPARSITY, device=device)
+    small_cfg = DCFConfig.tuned(r_fit, outer_iters=rounds)
+    small = [rpca.solve(q.m_obs, method="dcf", num_clients=e, key=1,
+                        device=device, cfg=c) for c in (
+        small_cfg, dataclasses.replace(small_cfg, consensus_compress=(
+            CompressConfig(topk_frac=1.0))))]
+    small_diff = (small[0].l - small[1].l).abs().max().item()
+    check = dict(phase="wire_checks", topk_runs_bit_identical=same,
+                 full_k_vs_dense_max_abs=full_diff,
+                 full_k_vs_dense_rel=(torch.linalg.norm(full.l - dense.l)
+                                      / torch.linalg.norm(dense.l)).item(),
+                 dense_error=metrics_err(dense, p),
+                 small_full_k_vs_dense_max_abs=small_diff,
+                 small_tol=WIRE_SMALL_TOL,
+                 ok=same and small_diff <= WIRE_SMALL_TOL)
+    emit(**check)
+    if not check["ok"]:
+        raise SystemExit("phase wire failed")
+    return rows
+
+
+def metrics_err(res, p) -> float:
+    """Relative recovery error (Eq. 30) of one solve."""
+    from repro_torch.core import metrics
+
+    return metrics.relative_error(res.l, res.s, p.l0, p.s0).item()
 
 
 def svd_ms(x) -> float:
@@ -1378,6 +1793,12 @@ def main() -> int:
     phases += solve_phases(device)
     dcf_error = next(ph["error"] for ph in phases if ph["phase"] == "dcf")
     phases += elastic_phase(device, dcf_error)
+    dcf_busy = next(ph["device_busy_ms"] for ph in phases
+                    if ph["phase"] == "dcf")
+    phases += batch_phase(device)
+    phases += batch_fig1_phase(device, dcf_busy)
+    phases.append(batch_convex_phase(device))
+    phases += wire_phase(device)
     phases += table1_phase(device)
     phases.append(wide_phase(device))
     phases.append(convex_phase(device))

@@ -6,7 +6,7 @@ passed.
                       the solver registry, with ``RPCASpec`` /
                       ``RPCAResult``.
 ``repro_torch.core``  the solvers (runtime, problems, metrics, CF-PCA,
-                      DCF-PCA, APGM, IALM).
+                      DCF-PCA, APGM, IALM), one problem or a batch.
 
 The reference's serving plane (``RPCAGateway``, ``RPCAService`` and their
 configs) is not ported yet (ROADMAP.md); its admission errors

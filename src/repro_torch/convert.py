@@ -24,6 +24,7 @@ from repro_torch.core.dcf_pca import DCFProblem
 from repro_torch.core.factorized import DCFConfig
 from repro_torch.core.ialm import IALMProblem
 from repro_torch.device import resolve_device
+from repro_torch.distributed.grad_compress import CompressConfig
 from repro_torch.models import get_model
 from repro_torch.models.params import Params
 
@@ -31,10 +32,14 @@ from repro_torch.models.params import Params
 def config_from_reference(ref_cfg: Any) -> DCFConfig:
     """The port's :class:`DCFConfig` with every field read from
     ``ref_cfg`` by name (the reference's ``impl="pallas"`` becomes
-    ``"cuda"``)."""
+    ``"cuda"``, its ``CompressConfig`` the port's)."""
     kw = {f.name: getattr(ref_cfg, f.name) for f in fields(DCFConfig)}
     if kw["impl"] == "pallas":
         kw["impl"] = "cuda"
+    if kw["consensus_compress"] is not None:
+        kw["consensus_compress"] = CompressConfig(**{
+            f.name: getattr(kw["consensus_compress"], f.name)
+            for f in fields(CompressConfig)})
     return DCFConfig(**kw)
 
 
@@ -65,7 +70,10 @@ def problem_from_reference(ref_problem: Any, device: torch.device | str
     ``blocks``), ``CFProblem`` (it has ``m_obs``), ``APGMProblem`` or
     ``IALMProblem`` (they have ``l_init``; the class of the same name), on
     ``device``.  A ``DCFProblem``'s participation schedule crosses as fp32
-    and its fault table as int32."""
+    and its fault table as int32.  A batch of reference problems (made by
+    ``jax.vmap`` of their ``make_problem``: a leading problem axis on every
+    field) crosses as the port's batch of the same shapes, which the
+    solvers' ``solve_problem`` and ``runtime.solve_batch`` take."""
     if hasattr(ref_problem, "l_init"):
         return _CONVEX[type(ref_problem).__name__](
             m_obs=_tensor(ref_problem.m_obs, device),

@@ -2,15 +2,16 @@
 and the baselines it is compared with (CF-PCA, APGM, IALM), all on the
 solver runtime (``repro_torch.core.runtime``) and registered with the
 ``repro_torch.rpca`` front door (re-exported here as ``rpca`` /
-``RPCASpec`` / ``RPCAResult`` / ``solve``).  The reference's names that
-are not ported yet (the ``*_batch`` solvers, the sharded engine, the
-compile cache) are not exported (ROADMAP.md)."""
+``RPCASpec`` / ``RPCAResult`` / ``solve``), with the batched solvers
+(``*_batch``, ``solve_batch``) and ``driver``.  The reference's names that
+are not ported yet (the sharded engine, the compile cache) are not
+exported (ROADMAP.md)."""
 from repro_torch import rpca
-from repro_torch.core.apgm import APGMConfig, ConvexResult, apgm
-from repro_torch.core.cf_pca import CFResult, cf_pca
-from repro_torch.core.dcf_pca import DCFResult, dcf_pca
+from repro_torch.core.apgm import APGMConfig, ConvexResult, apgm, apgm_batch
+from repro_torch.core.cf_pca import CFResult, cf_pca, cf_pca_batch
+from repro_torch.core.dcf_pca import DCFResult, dcf_pca, dcf_pca_batch
 from repro_torch.core.factorized import DCFConfig
-from repro_torch.core.ialm import IALMConfig, ialm
+from repro_torch.core.ialm import IALMConfig, ialm, ialm_batch
 from repro_torch.core.metrics import (
     CompletionErrors,
     completion_errors,
@@ -39,7 +40,9 @@ from repro_torch.core.runtime import (
     RunConfig,
     SolveStats,
     Solver,
+    driver,
     resolve_run,
+    solve_batch,
 )
 from repro_torch.rpca import RPCAResult, RPCASpec, solve
 
@@ -56,16 +59,22 @@ __all__ = [
     "APGMConfig",
     "ConvexResult",
     "apgm",
+    "apgm_batch",
     "CFResult",
     "cf_pca",
+    "cf_pca_batch",
     "DCFConfig",
     "DCFResult",
     "dcf_pca",
+    "dcf_pca_batch",
     "IALMConfig",
     "ialm",
+    "ialm_batch",
     "RunConfig",
     "SolveStats",
     "Solver",
+    "driver",
+    "solve_batch",
     "CapacityError",
     "QueueFull",
     "CompletionErrors",

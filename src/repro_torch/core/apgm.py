@@ -12,7 +12,8 @@ three modes) and registers itself as method ``"apgm"`` with the front door;
 only (the front door refuses bf16, as the reference's caps do).  On the
 card each SVD synchronises with the host (cuSOLVER's ``info``), so a
 scan-mode solve syncs once an iteration here, unlike the factorized
-solvers.
+solvers.  A batch (:func:`apgm_batch`: (B, m, n)) takes one batched SVD
+an iteration for all B problems.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from repro_torch import rpca as _rpca
 from repro_torch.core import runtime as rt
 from repro_torch.core import validate
 from repro_torch.core.ops import (
-    masked_soft_threshold, soft_threshold, spectral_norm, svt,
+    fro, masked_soft_threshold, per_problem as pp, soft_threshold,
+    spectral_norm, svt, total,
 )
 
 Tensor = torch.Tensor
@@ -83,14 +85,17 @@ class _Carry(NamedTuple):
 
 def default_lam(p, lam: float | None) -> Tensor:
     """The l1 weight: the problem's ``lam0`` operand, else ``lam``, else
-    ``1/sqrt(max(m, n))``, as a 0-d tensor of the data's type."""
-    m, n = p.m_obs.shape
+    ``1/sqrt(max(m, n))``, as a 0-d tensor of the data's type (one a
+    problem, (B,), for a batch)."""
+    m, n = p.m_obs.shape[-2:]
     like = dict(dtype=p.m_obs.dtype, device=p.m_obs.device)
     if p.lam0 is not None:
         return torch.as_tensor(p.lam0, **like)
     if lam is not None:
-        return torch.tensor(lam, **like)
-    return 1.0 / torch.sqrt(torch.tensor(float(max(m, n)), **like))
+        lam = torch.tensor(lam, **like)
+    else:
+        lam = 1.0 / torch.sqrt(torch.tensor(float(max(m, n)), **like))
+    return lam.expand(p.m_obs.shape[:-2])
 
 
 def make_solver(cfg: APGMConfig) -> rt.Solver:
@@ -102,19 +107,20 @@ def make_solver(cfg: APGMConfig) -> rt.Solver:
         # observed-entry norm.
         norm2 = spectral_norm(p.m_obs)
         mu0 = cfg.mu_scale * norm2
-        one = torch.ones((), device=p.m_obs.device)
-        inf = torch.full((), float("inf"), device=p.m_obs.device)
+        lead = p.m_obs.shape[:-2]  # () or (B,)
+        one = torch.ones(lead, device=p.m_obs.device)
+        inf = torch.full(lead, float("inf"), device=p.m_obs.device)
         return _Carry(
             l=p.l_init, s=p.s_init, l_prev=p.l_init, s_prev=p.s_init,
             t_nes=one, t_prev=one, mu=mu0,
             lam=lam, mu_bar=cfg.mu_bar_scale * mu0,
-            m_fro=torch.linalg.norm(p.m_obs) + 1e-30,
+            m_fro=fro(p.m_obs) + 1e-30,
             diag=rt.Diag(inf, inf),
         )
 
     def step(p: APGMProblem, c: _Carry, t: Tensor) -> _Carry:
         # Nesterov extrapolation points.
-        beta = (c.t_prev - 1.0) / c.t_nes
+        beta = pp((c.t_prev - 1.0) / c.t_nes)
         yl = c.l + beta * (c.l - c.l_prev)
         ys = c.s + beta * (c.s - c.s_prev)
         # Gradient of the coupling term (Lipschitz 2; a mask only shrinks
@@ -124,10 +130,10 @@ def make_solver(cfg: APGMConfig) -> rt.Solver:
             g = p.mask * g
         l_new, sv = svt(yl - 0.5 * g, c.mu / 2.0)
         if p.mask is None:
-            s_new = soft_threshold(ys - 0.5 * g, c.lam * c.mu / 2.0)
+            s_new = soft_threshold(ys - 0.5 * g, pp(c.lam * c.mu / 2.0))
         else:  # S lives on the observed support
-            s_new = masked_soft_threshold(ys - 0.5 * g, c.lam * c.mu / 2.0,
-                                          p.mask)
+            s_new = masked_soft_threshold(ys - 0.5 * g,
+                                          pp(c.lam * c.mu / 2.0), p.mask)
         t_new = (1.0 + torch.sqrt(1.0 + 4.0 * c.t_nes * c.t_nes)) / 2.0
         mu_new = torch.maximum(cfg.eta * c.mu, c.mu_bar)
         # The full relaxed objective at this iteration's mu; ||L||_* is
@@ -135,11 +141,10 @@ def make_solver(cfg: APGMConfig) -> rt.Solver:
         resid = l_new + s_new - p.m_obs
         if p.mask is not None:
             resid = p.mask * resid
-        coupling = 0.5 * (resid * resid).sum()
-        obj = c.mu * (sv.sum() + c.lam * s_new.abs().sum()) + coupling
+        coupling = 0.5 * total(resid * resid)
+        obj = c.mu * (sv.sum(-1) + c.lam * total(s_new.abs())) + coupling
         # Relative primal change: the standard APGM stopping measure.
-        resid = (torch.linalg.norm(l_new - c.l)
-                 + torch.linalg.norm(s_new - c.s)) / c.m_fro
+        resid = (fro(l_new - c.l) + fro(s_new - c.s)) / c.m_fro
         return _Carry(
             l=l_new, s=s_new, l_prev=c.l, s_prev=c.s,
             t_nes=t_new, t_prev=c.t_nes, mu=mu_new,
@@ -185,9 +190,20 @@ def _problem(m_obs: Tensor, warm, mask=None, lam0=None) -> APGMProblem:
 
 def solve_problem(problem: APGMProblem, cfg: APGMConfig,
                   run: rt.RunConfig | str | None = None) -> ConvexResult:
-    """Run the solver on an assembled problem and finalize."""
-    solver = make_solver(cfg)
-    carry, stats = rt.run(solver, problem, cfg.iters, rt.resolve_run(run))
+    """Run the solver on an assembled problem (or a batch (B, m, n):
+    ``runtime.solve_batch``) and finalize."""
+    return solve_convex(make_solver(cfg), problem, cfg.iters, run)
+
+
+def solve_convex(solver: rt.Solver, problem, iters: int,
+                 run: rt.RunConfig | str | None) -> ConvexResult:
+    """``solver`` on one problem (``runtime.run``) or a batch
+    (``runtime.solve_batch``), finalized."""
+    run = rt.resolve_run(run)
+    if problem.m_obs.ndim == 3:
+        (l, s), _, stats = rt.solve_batch(solver, problem, iters, run)
+        return ConvexResult(l=l, s=s, stats=stats)
+    carry, stats = rt.run(solver, problem, iters, run)
     l, s = solver.finalize(problem, carry)
     return ConvexResult(l=l, s=s, stats=stats)
 
@@ -230,3 +246,14 @@ def apgm(m_obs, cfg: APGMConfig = APGMConfig(), *,
     res = _rpca.solve(_rpca.RPCASpec(m_obs, mask=mask, warm=warm),
                       method="apgm", run=run, cfg=cfg, device=device)
     return ConvexResult(l=res.l, s=res.s, stats=res.stats)
+
+
+def apgm_batch(m_batch, cfg: APGMConfig = APGMConfig(), *,
+               run: rt.RunConfig | str | None = None,
+               warm: tuple[Any, Any] | None = None, mask=None,
+               device: torch.device | str | None = None) -> ConvexResult:
+    """Solve a stack of problems (``m_batch``, ``mask`` and each warm
+    component (B, m, n)) together, one batched SVD an iteration; under the
+    early-exit modes a finished problem freezes.  A shim over
+    ``repro_torch.rpca.solve`` (the leading axis selects the batch)."""
+    return apgm(m_batch, cfg, run=run, warm=warm, mask=mask, device=device)

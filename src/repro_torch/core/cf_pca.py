@@ -3,7 +3,8 @@ counterpart of ``repro.core.cf_pca`` for a single problem.
 
 The same math as DCF-PCA with one client: each round is K iterations of
 {inner (V, S) solve, U gradient step} on the whole matrix, run through the
-batched kernels with E = 1.
+batched kernels with E = 1.  A batch of B problems (:func:`cf_pca_batch`)
+is the kernels' leading axis: one launch a sweep for all B.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch import rpca as _rpca
 from repro_torch.core import factorized as fz
+from repro_torch.core import ops as core_ops
 from repro_torch.core import problems as prob
 from repro_torch.core import runtime as rt
 from repro_torch.core import validate
@@ -31,7 +33,9 @@ class CFResult(NamedTuple):
 
 
 class CFProblem(NamedTuple):
-    """Data, initial factors, threshold and schedule offset, on one device."""
+    """Data, initial factors, threshold and schedule offset, on one device;
+    a batch has a leading problem axis B on every field (m_obs (B, m, n),
+    lam0 and t0 (B,))."""
 
     m_obs: Tensor  # (m, n), contiguous fp32 or bf16
     u_init: Tensor  # (m, r)
@@ -49,40 +53,49 @@ class _Carry(NamedTuple):
 
 def make_solver(cfg: fz.DCFConfig, *, with_objective: bool = False) -> rt.Solver:
     """The runtime Solver for centralized CF-PCA under ``cfg``."""
-    fz.check_supported(cfg)
     track = cfg.track_objective or with_objective
 
     def init(p: CFProblem) -> _Carry:
-        inf = torch.full((), float("inf"), device=p.m_obs.device)
+        inf = torch.full(p.lam0.shape, float("inf"), device=p.m_obs.device)
         return _Carry(u=p.u_init, v=p.v_init, diag=rt.Diag(inf, inf))
 
     def step(p: CFProblem, c: _Carry, t: Tensor) -> _Carry:
         t = t + p.t0
         lam_t = cfg.lam_at(p.lam0, t)
-        u, v, diag = fz.local_round(
-            c.u, c.v[None], p.m_obs[None], cfg=cfg, lam=lam_t[None],
-            n_frac=1.0, eta=cfg.lr(t),
-            w=None if p.mask is None else p.mask[None],
-        )
-        u, v = u[0], v[0]
+        if p.m_obs.ndim == 3:  # a batch: the kernels' leading axis
+            u, v, diag = fz.local_round(c.u, c.v, p.m_obs, cfg=cfg,
+                                        lam=lam_t, n_frac=1.0,
+                                        eta=cfg.lr(t), w=p.mask)
+        else:
+            u, v, diag = fz.local_round(
+                c.u, c.v[None], p.m_obs[None], cfg=cfg, lam=lam_t[None],
+                n_frac=1.0, eta=cfg.lr(t),
+                w=None if p.mask is None else p.mask[None],
+            )
+            u, v = u[0], v[0]
+            diag = None if diag is None else (diag[0][0], diag[1][0])
         if not track:
-            obj = torch.zeros((), device=u.device)
+            obj = torch.zeros(p.lam0.shape, device=u.device)
         elif diag is not None:
-            obj = diag[0].sum() + fz.reg_terms(u, v, cfg.rho, 1.0)
+            obj = diag[0] + fz.reg_terms(u, v, cfg.rho, 1.0)
         else:
             obj = fz.local_objective(u, v, p.m_obs, cfg.rho, lam_t, 1.0,
                                      w=p.mask)
-        resid = torch.linalg.norm(u - c.u) / (torch.linalg.norm(c.u) + 1e-30)
+        resid = core_ops.fro(u - c.u) / (core_ops.fro(c.u) + 1e-30)
         return _Carry(u=u, v=v, diag=rt.Diag(obj, resid))
 
     def diagnostics(p: CFProblem, c: _Carry) -> rt.Diag:
         return c.diag
 
     def finalize(p: CFProblem, c: _Carry):
-        lam = cfg.final_lam(p.lam0)[None]
+        lam = cfg.final_lam(p.lam0)
+        if p.m_obs.ndim == 3:
+            l, s = fz.finalize(c.u, c.v, p.m_obs, lam.contiguous(),
+                               cfg.impl, w=p.mask)
+            return l, s, c.u, c.v
         w = None if p.mask is None else p.mask[None]
-        l, s = fz.finalize(c.u[None], c.v[None], p.m_obs[None], lam, cfg.impl,
-                           w=w)
+        l, s = fz.finalize(c.u[None], c.v[None], p.m_obs[None], lam[None],
+                           cfg.impl, w=w)
         return l[0], s[0], c.u, c.v
 
     return rt.Solver(init, step, diagnostics, finalize)
@@ -167,11 +180,36 @@ def make_problem(
     )
 
 
+def make_batch(m_batch, cfg: fz.DCFConfig, generators=None,
+               warm: tuple[Tensor, Tensor] | None = None, mask=None, *,
+               device: torch.device | str | None = None) -> CFProblem:
+    """A batch of B problems (``m_batch`` (B, m, n)) on ``device``: problem
+    b is :func:`make_problem` of ``m_batch[b]`` with its own seed or
+    generator (``rpca.batch_keys``), mask and warm slices ((B, m, r),
+    (B, n, r)), stacked on a leading problem axis.  The kernels' grids must
+    hold B clients (checked first)."""
+    device = resolve_device(device)
+    b = m_batch.shape[0]
+    fz.check_supported(cfg, device)
+    fz.check_grid(cfg, b, m_batch.shape[-2], device)
+    keys = _rpca.batch_keys(generators, b)
+    return rt.stack_problems([
+        make_problem(m_batch[i], cfg, keys[i],
+                     None if warm is None else (warm[0][i], warm[1][i]),
+                     mask=None if mask is None else mask[i], device=device)
+        for i in range(b)])
+
+
 def solve_problem(problem: CFProblem, cfg: fz.DCFConfig,
                   run: rt.RunConfig | str | None = None) -> CFResult:
-    """Run the solver on an assembled problem and finalize."""
+    """Run the solver on an assembled problem (or a batch:
+    ``runtime.solve_batch``) and finalize."""
     run = rt.resolve_run(run)
     solver = make_solver(cfg, with_objective=run.needs_objective)
+    if problem.m_obs.ndim == 3:
+        (l, s, u, v), _, stats = rt.solve_batch(solver, problem,
+                                                cfg.outer_iters, run)
+        return CFResult(l=l, s=s, u=u, v=v, stats=stats)
     carry, stats = rt.run(solver, problem, cfg.outer_iters, run)
     l, s, u, v = solver.finalize(problem, carry)
     return CFResult(l=l, s=s, u=u, v=v, stats=stats)
@@ -195,6 +233,26 @@ def cf_pca(
     return solve_problem(problem, cfg, run)
 
 
+def cf_pca_batch(
+    m_batch,
+    cfg: fz.DCFConfig,
+    keys=None,
+    *,
+    run: rt.RunConfig | str | None = None,
+    warm: tuple[Tensor, Tensor] | None = None,
+    mask=None,
+    device: torch.device | str | None = None,
+) -> CFResult:
+    """Solve a stack of problems (``m_batch`` (B, m, n)) together; under
+    the early-exit modes a finished problem freezes.  ``keys``: one seed
+    or generator a problem (``rpca.batch_keys``).  A shim over
+    ``repro_torch.rpca.solve`` (the leading axis selects the batch)."""
+    res = _rpca.solve(_rpca.RPCASpec(m_batch, mask=mask, warm=warm,
+                                     key=keys),
+                      method="cf", run=run, cfg=cfg, device=device)
+    return CFResult(l=res.l, s=res.s, u=res.u, v=res.v, stats=res.stats)
+
+
 # ---------------------------------------------------------------------------
 # Registry adapter (repro_torch.rpca front door)
 # ---------------------------------------------------------------------------
@@ -208,8 +266,13 @@ def _default_cfg(spec) -> fz.DCFConfig:
 def _registry_make(spec, cfg, run_cfg, device):
     cfg = cfg if cfg is not None else _default_cfg(spec)
     _rpca.require_cfg_type("cf", cfg, fz.DCFConfig)
-    res = cf_pca(spec.m_obs, cfg, _rpca.default_key(spec), run=run_cfg,
-                 warm=spec.warm, mask=spec.mask, device=device)
+    if spec.batched:
+        problem = make_batch(spec.m_obs, cfg, _rpca.default_key(spec),
+                             spec.warm, mask=spec.mask, device=device)
+        res = solve_problem(problem, cfg, run_cfg)
+    else:
+        res = cf_pca(spec.m_obs, cfg, _rpca.default_key(spec), run=run_cfg,
+                     warm=spec.warm, mask=spec.mask, device=device)
     return res.l, res.s, res.u, res.v, res.stats
 
 

@@ -27,6 +27,12 @@ back-substituted per sweep.
 
 Everything in the loop stays on the device: ``lam`` and ``eta`` are device
 tensors and nothing is read back to the host.
+
+A batch of B problems folds into the client axis: ``local_round`` takes
+B·E clients in the same launches (one threshold, step size and
+regularizer share a client), and ``aggregate_stacked`` takes the stacked
+factors with a leading problem axis, ``(B, E, m, r)``, one consensus a
+problem.
 """
 from __future__ import annotations
 
@@ -52,9 +58,9 @@ class DCFConfig:
     ``impl`` is ``"auto"`` (kernel on CUDA tensors, plain version on CPU
     tensors), ``"cuda"`` or ``"ref"``.  The port runs every ``fused`` mode,
     dense and bit-packed masks (``pack_mask``), fp32 and bf16 data,
-    ``lam_sample``, every aggregator and the divergence screen; the wire
-    consensus (``consensus_compress``, ``consensus_delay``) raises
-    ``NotImplementedError`` when a problem is built (``check_supported``).
+    ``lam_sample``, every aggregator, the divergence screen and the wire
+    consensus (``consensus_compress``: a
+    ``distributed.grad_compress.CompressConfig``; ``consensus_delay``).
     """
 
     rank: int
@@ -154,24 +160,18 @@ class DCFConfig:
         return cls(**kw)
 
 
-def check_supported(cfg: DCFConfig,
-                    device: torch.device | None = None) -> None:
-    """Raise ``NotImplementedError`` for options this slice of the port does
-    not run yet (they wait in ``ROADMAP.md``), before any solve starts: the
-    wire consensus (``consensus_compress`` / ``consensus_delay``).
-    ``device`` adds the checks that depend on where the solve runs: on a
-    CUDA device, an ``impl`` the port does not know (such as the
-    reference's ``"pallas"``).  The kernels take any rank."""
-    later = "waits for a later slice of the port (ROADMAP.md)"
-    if cfg.consensus_compress is not None or cfg.consensus_delay:
+def check_supported(cfg: DCFConfig, device: torch.device) -> None:
+    """Refuse, before any solve starts, what the port cannot run where the
+    solve runs (``device``): on a CUDA device, an ``impl`` the port does
+    not know (such as the reference's ``"pallas"``, which raises
+    ``NotImplementedError`` naming ROADMAP.md), and ``impl="cuda"``
+    anywhere else (``ValueError``).  Every option of the config solves,
+    the wire consensus included, and the kernels take any rank."""
+    if device.type == "cuda" and cfg.impl not in kops.IMPLS:
         raise NotImplementedError(
-            f"consensus_compress / consensus_delay (the wire solver) {later}")
-    if device is not None and device.type == "cuda":
-        if cfg.impl not in kops.IMPLS:
-            raise NotImplementedError(
-                f"impl={cfg.impl!r} on the card {later} (the port runs "
-                f"{', '.join(kops.IMPLS)})")
-    if device is not None and cfg.impl == "cuda" and device.type != "cuda":
+            f"impl={cfg.impl!r} on the card waits for a later slice of the "
+            f"port (ROADMAP.md) (the port runs {', '.join(kops.IMPLS)})")
+    if cfg.impl == "cuda" and device.type != "cuda":
         raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
 
 
@@ -229,32 +229,44 @@ def consensus_weights(n_cols: Tensor | None, part: Tensor | None,
                       device: torch.device) -> tuple[Tensor, Tensor]:
     """Normalized consensus weights ``w_i = p_i n_i / sum_j p_j n_j`` and
     their total ``wsum = sum_j p_j n_j`` (``n_cols=None``: equal blocks;
-    ``part=None``: every client).  Callers gate the consensus on
-    ``wsum > 0``.  Normalizing before the weighted sum keeps equal blocks
-    with everyone in bit-exact with the mean for a power-of-two E."""
+    ``part=None``: every client).  ``n_cols`` and ``part`` are (E,), or
+    (B, E) for a batch (``wsum`` then (B,), one a problem).  Callers gate
+    the consensus on ``wsum > 0``.  Normalizing before the weighted sum
+    keeps equal blocks with everyone in bit-exact with the mean for a
+    power-of-two E."""
     raw = torch.ones(num_clients, dtype=torch.float32, device=device)
     if n_cols is not None:
         raw = raw * n_cols
     if part is not None:
         raw = raw * part
-    wsum = raw.sum()
-    return raw / torch.clamp_min(wsum, 1e-30), wsum
+    wsum = raw.sum(-1)
+    return raw / torch.clamp_min(wsum, 1e-30)[..., None], wsum
+
+
+def _clients(x: Tensor) -> Tensor:
+    """Per-client (E,) or per-problem (B,) values against stacked factors
+    (..., m, r)."""
+    return x[..., None, None]
 
 
 def _weighted(w: Tensor, u_i: Tensor, keep: Tensor, u_prev: Tensor,
               wsum: Tensor) -> Tensor:
     """``sum_i w_i u_i`` over the kept clients (the others count as
     ``u_prev``), or ``u_prev`` itself when ``wsum == 0``."""
-    u_g = torch.where(keep[:, None, None] > 0, u_i, u_prev)
-    return torch.where(wsum > 0, (w[:, None, None] * u_g).sum(dim=0), u_prev)
+    u_g = torch.where(_clients(keep) > 0, u_i, u_prev.unsqueeze(-3))
+    return torch.where(_clients(wsum) > 0,
+                       (_clients(w) * u_g).sum(dim=-3), u_prev)
 
 
 def aggregate_stacked(cfg: DCFConfig, u_i: Tensor, u_prev: Tensor, *,
                       n_cols: Tensor | None = None,
                       part: Tensor | None = None,
                       num_clients: int) -> tuple[Tensor, Tensor | None]:
-    """Consensus (Eq. 9) over the stacked ``(E, m, r)`` client factors:
-    the reference's dispatch (``repro.core.factorized.aggregate_stacked``).
+    """Consensus (Eq. 9) over the stacked ``(E, m, r)`` client factors, or
+    ``(B, E, m, r)`` with ``u_prev`` (B, m, r) and ``n_cols`` / ``part``
+    (B, E) for a batch (one consensus a problem, which never sees another
+    problem's clients): the reference's dispatch
+    (``repro.core.factorized.aggregate_stacked``).
 
     Returns ``(u_new, wsum)``.  ``wsum`` is ``None`` on the unconditional
     path (everyone in, no screen, weighted mean: the plain mean for equal
@@ -268,16 +280,16 @@ def aggregate_stacked(cfg: DCFConfig, u_i: Tensor, u_prev: Tensor, *,
     if not robust and cfg.divergence_screen is None:
         if part is None:
             if n_cols is None:
-                return u_i.mean(dim=0), None
+                return u_i.mean(dim=-3), None
             w, _ = consensus_weights(n_cols, None, e, u_i.device)
-            return (w[:, None, None] * u_i).sum(dim=0), None
+            return (_clients(w) * u_i).sum(dim=-3), None
         w, wsum = consensus_weights(n_cols, part, e, u_i.device)
         return _weighted(w, u_i, part, u_prev, wsum), wsum
     from repro_torch.distributed import grad_compress as gcomp
 
-    active = (torch.ones(e, dtype=torch.float32, device=u_i.device)
-              if part is None else part)
-    delta = (u_i - u_prev).to(torch.float32)
+    active = (torch.ones(u_i.shape[:-2], dtype=torch.float32,
+                         device=u_i.device) if part is None else part)
+    delta = (u_i - u_prev.unsqueeze(-3)).to(torch.float32)
     if cfg.divergence_screen is not None:
         active = active * gcomp.divergence_screen_mask(
             delta, active, cfg.divergence_screen)
@@ -285,7 +297,8 @@ def aggregate_stacked(cfg: DCFConfig, u_i: Tensor, u_prev: Tensor, *,
         # One vote a client: the ragged column counts are left out.
         agg, cnt = gcomp.robust_combine_stacked(delta, active, cfg.aggregator,
                                                 cfg.trim_frac)
-        u = torch.where(cnt > 0, u_prev + agg.to(u_prev.dtype), u_prev)
+        u = torch.where(_clients(cnt) > 0, u_prev + agg.to(u_prev.dtype),
+                        u_prev)
         return u, cnt.to(torch.float32)
     w, wsum = consensus_weights(n_cols, active, e, u_i.device)
     return _weighted(w, u_i, active, u_prev, wsum), wsum
@@ -374,7 +387,7 @@ def _u_step(cfg: DCFConfig, u_i: Tensor, v_i: Tensor, psi_v: Tensor,
     ``grad = -Psi V + (n_i/n) rho U``, raw, Lipschitz-scaled or Newton."""
     grad_u = -psi_v + _per_client(n_frac) * cfg.rho * u_i
     if cfg.precondition == "raw":
-        upd = eta * grad_u
+        upd = _per_client(eta) * grad_u
     else:
         gram_v = _gram(v_i)
         if cfg.precondition == "newton":
@@ -382,7 +395,7 @@ def _u_step(cfg: DCFConfig, u_i: Tensor, v_i: Tensor, psi_v: Tensor,
                             device=gram_v.device)
             h = gram_v + _per_client(n_frac) * cfg.rho * eye
             sol, _ = torch.linalg.solve_ex(h, grad_u.transpose(-1, -2))
-            upd = eta * sol.transpose(-1, -2)
+            upd = _per_client(eta) * sol.transpose(-1, -2)
         else:
             lip = core_ops.spectral_norm_ub_gram(gram_v) + n_frac * cfg.rho
             upd = _per_client(eta / lip) * grad_u
@@ -396,7 +409,9 @@ def local_round(u_global: Tensor, v: Tensor, m_blk: Tensor, *,
 
     ``u_global`` is the (m, r) broadcast (or an (E, m, r) stack), ``v`` and
     ``m_blk`` are (E, n_i, r) and (E, m, n_i), ``lam`` is one threshold per
-    client (E,) or a scalar, ``n_frac`` the clients' regularizer shares.
+    client (E,) or a scalar, ``n_frac`` the clients' regularizer shares,
+    ``eta`` the step size (0-d, or (E,) one a client).  A batch of B
+    problems comes as B·E clients, its U broadcast as a (B·E, m, r) stack.
     ``m_blk`` may be bf16 and ``w`` dense or bit-packed (the kernels take
     both as they are).  Returns ``(U_i (E, m, r), V_i, diag)``; ``diag`` is
     ``(H_lam(R_W), ||Psi||_F^2)`` per client from the last fused pass
@@ -453,5 +468,10 @@ def local_objective(u, v, m_blk, rho: float, lam, n_frac, w=None) -> Tensor:
 
 
 def reg_terms(u: Tensor, v: Tensor, rho: float, n_frac) -> Tensor:
-    """The rho/2 regularizer share added to an epilogue-measured data term."""
-    return 0.5 * rho * ((v * v).sum() + n_frac * (u * u).sum())
+    """The rho/2 regularizer share added to an epilogue-measured data term;
+    one a problem for a batch (``u`` (B, m, r), ``v`` (B, n, r) or
+    (B, E, n_i, r))."""
+    if u.ndim == 2:
+        return 0.5 * rho * ((v * v).sum() + n_frac * (u * u).sum())
+    return 0.5 * rho * ((v * v).sum(dim=tuple(range(1, v.ndim)))
+                        + n_frac * (u * u).sum(dim=(-2, -1)))

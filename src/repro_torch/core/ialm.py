@@ -12,7 +12,8 @@ for a small fp32 problem given with no rank (``rpca.auto_method``).  The
 residual diagnostic is the constraint violation ``||M - L - S||_F /
 ||M||_F`` (the standard stopping rule), the objective ``||L||_* + lam
 ||S||_1``.  As APGM, fp32 data only, and one host sync an iteration on the
-card (the SVD).
+card (the SVD).  A batch (:func:`ialm_batch`: (B, m, n)) takes one batched
+SVD an iteration for all B problems.
 """
 from __future__ import annotations
 
@@ -24,9 +25,12 @@ import torch
 from repro_torch import rpca as _rpca
 from repro_torch.core import runtime as rt
 from repro_torch.core import validate
-from repro_torch.core.apgm import ConvexResult, convex_data, default_lam
+from repro_torch.core.apgm import (
+    ConvexResult, convex_data, default_lam, solve_convex,
+)
 from repro_torch.core.ops import (
-    masked_soft_threshold, soft_threshold, spectral_norm, svt,
+    amax, fro, masked_soft_threshold, per_problem as pp, soft_threshold,
+    spectral_norm, svt, total,
 )
 
 Tensor = torch.Tensor
@@ -78,33 +82,35 @@ def make_solver(cfg: IALMConfig) -> rt.Solver:
         # case gets the right fixed point y = 0.
         norm2 = torch.clamp_min(spectral_norm(p.m_obs), 1e-30)
         # The standard IALM initialization (Lin et al. 2010).
-        j2 = torch.maximum(norm2, p.m_obs.abs().amax() / lam)
+        j2 = torch.maximum(norm2, amax(p.m_obs.abs()) / lam)
         mu0 = cfg.mu_factor / norm2
-        inf = torch.full((), float("inf"), device=p.m_obs.device)
+        inf = torch.full(p.m_obs.shape[:-2], float("inf"),
+                         device=p.m_obs.device)
         return _Carry(
-            l=p.l_init, s=p.s_init, y=p.m_obs / j2, mu=mu0,
+            l=p.l_init, s=p.s_init, y=p.m_obs / pp(j2), mu=mu0,
             lam=lam, mu_max=cfg.mu_max_scale * mu0,
-            m_fro=torch.linalg.norm(p.m_obs) + 1e-30,
+            m_fro=fro(p.m_obs) + 1e-30,
             diag=rt.Diag(inf, inf),
         )
 
     def step(p: IALMProblem, c: _Carry, t: Tensor) -> _Carry:
-        l_new, sv = svt(p.m_obs - c.s + c.y / c.mu, 1.0 / c.mu)
-        s_arg = p.m_obs - l_new + c.y / c.mu
+        mu = pp(c.mu)
+        l_new, sv = svt(p.m_obs - c.s + c.y / mu, 1.0 / c.mu)
+        s_arg = p.m_obs - l_new + c.y / mu
         if p.mask is None:
-            s_new = soft_threshold(s_arg, c.lam / c.mu)
+            s_new = soft_threshold(s_arg, pp(c.lam / c.mu))
         else:
             # Off the mask S is free: it absorbs the residual there, so the
             # constraint (and the dual update) act on Omega only.
-            s_new = (masked_soft_threshold(s_arg, c.lam / c.mu, p.mask)
+            s_new = (masked_soft_threshold(s_arg, pp(c.lam / c.mu), p.mask)
                      + (1.0 - p.mask) * s_arg)
         resid = p.m_obs - l_new - s_new
-        y_new = c.y + c.mu * resid
+        y_new = c.y + mu * resid
         mu_new = torch.minimum(cfg.rho * c.mu, c.mu_max)
         s_obs = s_new if p.mask is None else p.mask * s_new
-        obj = sv.sum() + c.lam * s_obs.abs().sum()
+        obj = sv.sum(-1) + c.lam * total(s_obs.abs())
         rel_resid = resid if p.mask is None else p.mask * resid
-        rel = torch.linalg.norm(rel_resid) / c.m_fro
+        rel = fro(rel_resid) / c.m_fro
         return _Carry(
             l=l_new, s=s_new, y=y_new, mu=mu_new,
             lam=c.lam, mu_max=c.mu_max, m_fro=c.m_fro,
@@ -135,11 +141,9 @@ def _problem(m_obs: Tensor, warm, mask=None, lam0=None) -> IALMProblem:
 
 def solve_problem(problem: IALMProblem, cfg: IALMConfig,
                   run: rt.RunConfig | str | None = None) -> ConvexResult:
-    """Run the solver on an assembled problem and finalize."""
-    solver = make_solver(cfg)
-    carry, stats = rt.run(solver, problem, cfg.iters, rt.resolve_run(run))
-    l, s = solver.finalize(problem, carry)
-    return ConvexResult(l=l, s=s, stats=stats)
+    """Run the solver on an assembled problem (or a batch (B, m, n):
+    ``runtime.solve_batch``) and finalize."""
+    return solve_convex(make_solver(cfg), problem, cfg.iters, run)
 
 
 def _solve(m_obs, cfg: IALMConfig, *, run: rt.RunConfig, warm=None,
@@ -180,3 +184,14 @@ def ialm(m_obs, cfg: IALMConfig = IALMConfig(), *,
     res = _rpca.solve(_rpca.RPCASpec(m_obs, mask=mask, warm=warm),
                       method="ialm", run=run, cfg=cfg, device=device)
     return ConvexResult(l=res.l, s=res.s, stats=res.stats)
+
+
+def ialm_batch(m_batch, cfg: IALMConfig = IALMConfig(), *,
+               run: rt.RunConfig | str | None = None,
+               warm: tuple[Any, Any] | None = None, mask=None,
+               device: torch.device | str | None = None) -> ConvexResult:
+    """Solve a stack of problems (``m_batch``, ``mask`` and each warm
+    component (B, m, n)) together, one batched SVD an iteration; under the
+    early-exit modes a finished problem freezes.  A shim over
+    ``repro_torch.rpca.solve`` (the leading axis selects the batch)."""
+    return ialm(m_batch, cfg, run=run, warm=warm, mask=mask, device=device)

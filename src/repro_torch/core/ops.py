@@ -3,7 +3,9 @@
 Plain functions on tensors; the kernels in ``repro_torch.kernels`` fuse the
 hot paths (the soft threshold of a low-rank residual, the Huber-clipped
 contractions) and these are the semantics they match.  Functions that take
-a Gram matrix accept any number of leading batch axes.
+a Gram matrix accept any number of leading batch axes, and :func:`svt`,
+:func:`fro`, :func:`total` and :func:`amax` a leading problem axis (B, m,
+n) with one result a problem, as the batched solvers need.
 """
 from __future__ import annotations
 
@@ -23,6 +25,31 @@ def masked_soft_threshold(x: Tensor, lam, w: Tensor) -> Tensor:
     """``W * soft_threshold(x, lam)``: the prox of ``lam ||P_Omega(.)||_1``
     on the observed support (S == 0 outside Omega)."""
     return w * soft_threshold(x, lam)
+
+
+def per_problem(x):
+    """A per-problem scalar (B,) shaped to broadcast against (B, m, n); a
+    0-d tensor or a float (one problem) passes through as it is."""
+    if isinstance(x, Tensor) and x.ndim == 1:
+        return x[:, None, None]
+    return x
+
+
+def fro(x: Tensor) -> Tensor:
+    """Frobenius norm of a matrix, or one a matrix of a batch (B, m, n)."""
+    if x.ndim == 2:
+        return torch.linalg.norm(x)
+    return torch.linalg.vector_norm(x, dim=(-2, -1))
+
+
+def total(x: Tensor) -> Tensor:
+    """Sum of a matrix's entries, or one sum a matrix of a batch."""
+    return x.sum() if x.ndim == 2 else x.sum(dim=(-2, -1))
+
+
+def amax(x: Tensor) -> Tensor:
+    """Largest entry of a matrix, or one a matrix of a batch."""
+    return x.amax() if x.ndim == 2 else x.amax(dim=(-2, -1))
 
 
 def svd_driver(x: Tensor) -> str | None:
@@ -46,9 +73,12 @@ def svt(x: Tensor, tau, full_matrices: bool = False
     convex baselines (APGM, IALM) call it: one thin SVD
     (``torch.linalg.svd``), O(m n min(m, n)), the centralized cost that
     DCF-PCA avoids.  On a CUDA tensor cuSOLVER's SVD synchronises with the
-    host (it reads back its ``info``)."""
+    host (it reads back its ``info``).  A batch (B, m, n) takes ``tau``
+    (B,), one threshold a problem, in one batched call."""
     u, s, vt = torch.linalg.svd(x, full_matrices=full_matrices,
                                 driver=svd_driver(x))
+    if isinstance(tau, Tensor) and tau.ndim == 1:
+        tau = tau[:, None]
     s_shrunk = torch.clamp_min(s - tau, 0.0)
     return (u * s_shrunk[..., None, :]) @ vt, s_shrunk
 

@@ -132,11 +132,12 @@ def split_columns(mat: Tensor, num_clients: int) -> Tensor:
 
 
 def merge_columns(blocks: Tensor, n: int | None = None) -> Tensor:
-    """Inverse of :func:`split_columns`: ``(E, m, ni) -> (m, n)``, trimming
-    the padding to ``n`` columns when given."""
-    e, m, ni = blocks.shape
-    merged = blocks.movedim(0, 1).reshape(m, e * ni)
-    return merged if n is None else merged[:, :n]
+    """Inverse of :func:`split_columns`: ``(E, m, ni) -> (m, n)``, or
+    ``(B, E, m, ni) -> (B, m, n)`` for a batch, trimming the padding to
+    ``n`` columns when given."""
+    e, m, ni = blocks.shape[-3:]
+    merged = blocks.movedim(-3, -2).reshape(*blocks.shape[:-3], m, e * ni)
+    return merged if n is None else merged[..., :n]
 
 
 def participation_schedule(

@@ -19,6 +19,11 @@ and :func:`run` drives it in one of three modes (:class:`RunConfig.mode`):
 ``chunk``  rounds in chunks of ``chunk_size``; the predicate is read once a
            chunk, so a chunk's launches queue without a sync.
 
+:func:`solve_batch` drives B problems at once: the problem's leaves carry
+a leading problem axis and the solver's functions take it natively (one
+kernel launch a sweep for the whole batch).  Finished problems freeze
+(:func:`tree_where`) while the others go on.
+
 The diagnostics contract is the reference's: ``residual`` is a relative
 quantity and ``objective`` an inf for rounds where nothing was measured.
 """
@@ -113,6 +118,26 @@ def resolve_run(run: "RunConfig | str | None") -> RunConfig:
     )
 
 
+def _bcast(pred: Tensor, leaf: Tensor) -> Tensor:
+    """A ()- or (B,)-shaped predicate shaped to broadcast against a leaf."""
+    return pred.reshape(pred.shape + (1,) * (leaf.ndim - pred.ndim))
+
+
+def tree_where(pred: Tensor, new: Any, old: Any) -> Any:
+    """``torch.where(pred, new, old)`` leaf by leaf over matching trees
+    (named tuples, tuples, lists, dicts, ``None``); ``pred`` is a scalar or
+    a leading-axis mask (the batch's freeze mask)."""
+    if new is None:
+        return None
+    if isinstance(new, dict):
+        return {k: tree_where(pred, new[k], old[k]) for k in new}
+    if isinstance(new, tuple) and hasattr(new, "_fields"):
+        return type(new)(*(tree_where(pred, a, b) for a, b in zip(new, old)))
+    if isinstance(new, (tuple, list)):
+        return type(new)(tree_where(pred, a, b) for a, b in zip(new, old))
+    return torch.where(_bcast(pred, new), new, old)
+
+
 def _converged(run: RunConfig, diag: Diag, prev_obj: Tensor) -> Tensor:
     if run.criterion == "rel_residual":
         return diag.residual <= run.tol
@@ -127,8 +152,8 @@ def scan_converged(run_cfg: RunConfig, obuf: Tensor, rbuf: Tensor) -> Tensor:
     (:func:`run`'s in scan mode), so an interrupted and resumed
     :func:`run_segmented` solve reports the same flag."""
     inf = torch.full((), float("inf"), device=obuf.device)
-    prev_obj = obuf[-2] if obuf.shape[0] > 1 else inf
-    return _converged(run_cfg, Diag(obuf[-1], rbuf[-1]), prev_obj)
+    prev_obj = obuf[..., -2] if obuf.shape[-1] > 1 else inf
+    return _converged(run_cfg, Diag(obuf[..., -1], rbuf[..., -1]), prev_obj)
 
 
 def segment_plan(max_iters: int, checkpoint_every: int) -> list[int]:
@@ -207,6 +232,18 @@ def _device(problem: Any) -> torch.device:
     return next(x.device for x in problem if isinstance(x, Tensor))
 
 
+def driver(solver: Solver, max_iters: int, run_cfg: RunConfig = FIXED
+           ) -> Callable[[Any], tuple[Any, SolveStats]]:
+    """``(solver, budget, run mode)`` closed into ``drive(problem) ->
+    (final_carry, stats)``, the same as ``run(solver, problem, max_iters,
+    run_cfg)`` (the reference's unit of its compile cache)."""
+
+    def drive(problem: Any) -> tuple[Any, SolveStats]:
+        return run(solver, problem, max_iters, run_cfg)
+
+    return drive
+
+
 def run(solver: Solver, problem: Any, max_iters: int,
         run_cfg: RunConfig = FIXED) -> tuple[Any, SolveStats]:
     """Drive ``solver`` on one problem; returns ``(final_carry, stats)``."""
@@ -246,3 +283,80 @@ def run(solver: Solver, problem: Any, max_iters: int,
         converged=_converged(run_cfg, last, prev_obj),
     )
     return carry, stats
+
+
+def stack_problems(problems: list) -> Any:
+    """Problems of one shape (named tuples) stacked on a leading problem
+    axis, field by field (``None`` fields stay ``None``): the batch that
+    :func:`solve_batch` takes."""
+    first = problems[0]
+    return type(first)(*(
+        None if x is None else torch.stack([getattr(q, f) for q in problems])
+        for f, x in zip(first._fields, first)))
+
+
+def solve_batch(solver: Solver, problems: Any, max_iters: int,
+                run_cfg: RunConfig = FIXED) -> tuple[Any, Any, SolveStats]:
+    """Solve a batch of problems in lock-step (the reference's
+    ``solve_batch``); returns ``(solver.finalize output, final_carry,
+    stats)``, every stats field with a leading batch axis.
+
+    ``problems`` is the solver's problem with a leading problem axis on
+    every leaf, and the solver's functions take that axis natively, so a
+    round is one set of launches for the whole batch.  In ``while`` and
+    ``chunk`` mode each problem that meets the criterion freezes: its
+    carry, diagnostics and ``rounds`` stop, its traces are zero past its
+    exit, and the loop ends once all are done.  The done mask is updated
+    every round on the device; the host reads ``all(done)`` once a round
+    (``while``) or once a chunk of ``chunk_size`` rounds (``chunk``), which
+    gives the same results since a frozen problem does not change.
+    ``scan`` runs the whole budget (nothing freezes) and computes
+    ``converged`` from the last two trace entries, as :func:`run`."""
+    if run_cfg.mode not in ("scan", "while", "chunk"):
+        raise ValueError(f"unknown mode {run_cfg.mode!r}")
+    if max_iters < 1:
+        raise ValueError(f"max_iters must be >= 1, got {max_iters}")
+    leaf = next((x for x in problems if isinstance(x, Tensor)), None)
+    if leaf is None:
+        raise ValueError("solve_batch needs a non-empty problem")
+    batch, device = leaf.shape[0], leaf.device
+    check = run_cfg.mode != "scan"
+    ts = torch.arange(max_iters, dtype=torch.int32, device=device)
+    carry = solver.init(problems)
+    inf = torch.full((batch,), float("inf"), device=device)
+    done = torch.zeros(batch, dtype=torch.bool, device=device)
+    rounds = torch.zeros(batch, dtype=torch.int32, device=device)
+    last, prev_obj = Diag(inf, inf), inf
+    obuf = torch.zeros(batch, max_iters, device=device)
+    rbuf = torch.zeros(batch, max_iters, device=device)
+    period = {"scan": max_iters, "while": 1,
+              "chunk": max(1, run_cfg.chunk_size)}[run_cfg.mode]
+    t = 0
+    while t < max_iters:
+        for g in range(t, min(t + period, max_iters)):
+            new = solver.step(problems, carry, ts[g])
+            # Nothing freezes in scan mode: skip the copy of every leaf.
+            carry = tree_where(~done, new, carry) if check else new
+            d = solver.diagnostics(problems, carry)
+            d = Diag(torch.where(done, last.objective,
+                                 d.objective.to(torch.float32)),
+                     torch.where(done, last.residual,
+                                 d.residual.to(torch.float32)))
+            active = ~done
+            obuf[:, g] = torch.where(active, d.objective, 0.0)
+            rbuf[:, g] = torch.where(active, d.residual, 0.0)
+            rounds = rounds + active.to(torch.int32)
+            if check:
+                hit = _converged(run_cfg, d, prev_obj) & (
+                    rounds >= run_cfg.min_iters)
+                done = done | (active & hit)
+            prev_obj = torch.where(active, d.objective, prev_obj)
+            last = d
+        t = g + 1
+        if check and bool(done.all()):
+            break
+    if not check:
+        done = scan_converged(run_cfg, obuf, rbuf)
+    stats = SolveStats(objective=obuf, residual=rbuf, rounds=rounds,
+                       converged=done)
+    return solver.finalize(problems, carry), carry, stats

@@ -159,7 +159,12 @@ def resolve_faults(faults, device: torch.device | str = "cpu"
 def round_codes(table: Tensor, t: Tensor) -> Tensor:
     """The (E,) row of round ``t`` (a 0-d device tensor) of a per-round
     table, fault codes or a participation schedule (the table wraps),
-    picked on the device without a host sync."""
+    picked on the device without a host sync.  A batch's (B, T, E) table
+    with ``t`` (B,) gives each problem its own row, (B, E)."""
+    if table.ndim == 3:
+        idx = torch.remainder(t, table.shape[1]).to(torch.int64)
+        idx = idx[:, None, None].expand(-1, 1, table.shape[2])
+        return table.gather(1, idx).squeeze(1)
     idx = torch.remainder(t, table.shape[0]).to(torch.int64).reshape(1)
     return table.index_select(0, idx).squeeze(0)
 

@@ -29,8 +29,20 @@ aggregators and mid-solve checkpoints::
                      cfg=DCFConfig.tuned(150, aggregator="coordinate_median"),
                      checkpoint_dir="ckpt", run=RunConfig(checkpoint_every=25))
 
-Batched problems and ``compile_policy`` wait for later slices (ROADMAP.md)
-and raise.
+A batch is a (B, m, n) ``m_obs`` (masks (B, m, n), warm pairs with a
+leading B): every registered method but ``"dcf_sharded"`` solves it in
+lock-step, one kernel launch a sweep for the whole batch, and a finished
+problem freezes under the early-exit modes (``core.runtime.solve_batch``)::
+
+    res = rpca.solve(rpca.RPCASpec(m_batch, num_clients=8), method="dcf",
+                     cfg=DCFConfig.tuned(8), run="early")
+    res.l.shape, res.stats.rounds   # (B, m, n), (B,)
+
+``"dcf"`` also runs the wire consensus: ``DCFConfig(...,
+consensus_compress=CompressConfig(topk_frac=0.1), consensus_delay=1)``
+(``distributed.grad_compress``), its modelled traffic in
+``distributed.multihost.consensus_traffic()``.  ``compile_policy`` waits
+for a later slice (ROADMAP.md) and raises.
 """
 from __future__ import annotations
 
@@ -78,7 +90,8 @@ class RPCASpec:
     target ``rank`` (factorized methods, when no cfg is passed), the client
     count ``num_clients`` for ``"dcf"``, a warm pair (``(L, S)`` for the
     convex methods, ``(U, V)`` for the factorized ones), and ``key``, the
-    seed (or ``torch.Generator``) of the random factor init (default 0).
+    seed (or ``torch.Generator``) of the random factor init (default 0; a
+    batch's keys: :func:`default_key`).
     ``dtype`` casts ``m_obs`` (fp32 or bf16).  ``participation`` is a
     (T, E) 0/1 round schedule or a Bernoulli rate, ``faults`` a
     ``distributed.faults.FaultPlan`` or its (T_f, E) code table (both for
@@ -344,7 +357,10 @@ def solve(spec_or_matrix: RPCASpec | Any, method: str = "auto", *,
     (:func:`auto_method`); ``run`` a ``RunConfig``, a preset name or
     ``None`` (the fixed schedule); ``cfg`` the method's config
     (``DCFConfig``, ``IALMConfig`` or ``APGMConfig``; ``None`` picks the
-    method's default).  Batched specs and any ``compile_policy`` raise
+    method's default).  A batched spec (``m_obs`` (B, m, n)) solves its B
+    problems together (``core.runtime.solve_batch``; every result field
+    gets a leading B), each problem's factors drawn from its own seed
+    (:func:`default_key`).  Any ``compile_policy`` raises
     ``NotImplementedError`` (ROADMAP.md)."""
     if isinstance(spec_or_matrix, RPCASpec):
         if spec_kwargs:
@@ -359,8 +375,6 @@ def solve(spec_or_matrix: RPCASpec | Any, method: str = "auto", *,
         spec = replace(spec, m_obs=torch.as_tensor(spec.m_obs).to(spec.dtype))
     spec.validate()
     device = resolve_device(device)
-    if spec.batched:
-        raise _not_ported("batched solves")
     run_cfg = _rt().resolve_run(run)
     if method == "auto":
         method = auto_method(spec, cfg)
@@ -395,10 +409,34 @@ def require_rank(name: str, spec: RPCASpec) -> int:
     return spec.rank
 
 
-def default_key(spec: RPCASpec) -> int | torch.Generator:
-    """The spec's seed or generator; 0 if unset (the port's seed of the
-    factor init: ``jax.random`` keys do not carry across)."""
+def default_key(spec: RPCASpec):
+    """The seed (or generator) of the factor init: the spec's ``key``, 0 if
+    unset (``jax.random`` keys do not carry across).  For a batch of B
+    problems, a list of B, one a problem (:func:`batch_keys`)."""
+    if spec.batched:
+        return batch_keys(spec.key, spec.m_obs.shape[0])
     return 0 if spec.key is None else spec.key
+
+
+def batch_keys(key, batch: int) -> list:
+    """One seed or generator a problem of a batch: ``None`` gives seeds
+    ``0 .. B-1`` and an int ``k`` seeds ``k .. k+B-1`` (problem b draws its
+    factors, and its participation schedule, as a serial solve with seed
+    ``k + b`` would); a sequence of B seeds or generators is taken as it
+    is; one ``torch.Generator`` serves every problem, in batch order."""
+    if key is None:
+        key = 0
+    if isinstance(key, torch.Generator):
+        return [key] * batch
+    if isinstance(key, int) or (isinstance(key, torch.Tensor)
+                                and key.ndim == 0):
+        return [int(key) + b for b in range(batch)]
+    keys = list(key)
+    if len(keys) != batch:
+        raise ValueError(
+            f"a batch of {batch} problems needs {batch} keys, got "
+            f"{len(keys)}")
+    return keys
 
 
 __all__ = [

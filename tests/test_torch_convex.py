@@ -398,14 +398,12 @@ def test_solve_with_no_rank_runs_ialm(problem):
 
 
 #: The reference's exports that the port does not have yet, each named in
-#: ROADMAP.md's Queue 1 (items 3-6: batched solves, the serving plane, the
-#: compile cache, the sharded engine).
+#: ROADMAP.md's Queue 1 (the serving plane, the compile cache, the sharded
+#: engine).
 UNPORTED = {
     "repro": {"GatewayConfig", "RPCAGateway", "RPCAService",
               "RPCAServiceConfig"},
-    "repro.core": {"apgm_batch", "cf_pca_batch", "dcf_pca_batch",
-                   "ialm_batch", "dcf_pca_sharded", "driver", "solve_batch",
-                   "CacheStats", "CompileCache",
+    "repro.core": {"dcf_pca_sharded", "CacheStats", "CompileCache",
                    "CompilePolicy", "bucket_shape", "default_cache"},
     "repro.rpca": {"AOTHooks", "CompilePolicy", "ServiceHooks"},
 }

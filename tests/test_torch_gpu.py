@@ -838,3 +838,234 @@ def test_nan_inputs_give_the_plain_versions_nans(cuda, fn, mode, r):
     torch.cuda.synchronize()
     assert any(t.isnan().any() for t in want)
     _assert_close_nan(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Batched solves and the wire consensus on the card
+# ---------------------------------------------------------------------------
+BATCH_SHAPE = (3, 64, 62, 3, 4)  # B, m, n (ragged over E), rank, E
+
+
+def _batch_problems(cuda, observed=1.0, seed=0):
+    from repro_torch.core import problems as prob
+
+    b, m, n, r, _ = BATCH_SHAPE
+    return [prob.generate_problem(seed + i, m, n, r, 0.05,
+                                  observed_frac=observed, device=cuda)
+            for i in range(b)]
+
+
+def _batch_solve(cuda, problems, cfg, method="dcf", key=0, mask=False):
+    from repro_torch import rpca
+
+    m = torch.stack([p.m_obs for p in problems])
+    w = torch.stack([p.mask for p in problems]) if mask else None
+    kw = {"num_clients": BATCH_SHAPE[-1]} if method == "dcf" else {}
+    return rpca.solve(m, method=method, cfg=cfg, mask=w, key=key,
+                      device=cuda, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["none", "dense", "packed"])
+@pytest.mark.parametrize("fused", ["diag", "dual", "off"])
+def test_dcf_batch_matches_serial_on_the_card(cuda, fused, mode):
+    """A ragged dcf batch on the kernel route, every fused mode and mask
+    mode, against the card's serial solves (problem b from seed b): L and
+    S within the reference's batch tolerance (1e-3)."""
+    from repro_torch import rpca
+    from repro_torch.core.factorized import DCFConfig
+
+    masked = mode != "none"
+    problems = _batch_problems(cuda, 0.8 if masked else 1.0)
+    cfg = DCFConfig.masked(BATCH_SHAPE[3], 0.8, outer_iters=20, fused=fused,
+                           pack_mask=mode == "packed")
+    bat = _batch_solve(cuda, problems, cfg, mask=masked)
+    for b, p in enumerate(problems):
+        one = rpca.solve(p.m_obs, method="dcf", cfg=cfg, key=b,
+                         mask=p.mask if masked else None,
+                         num_clients=BATCH_SHAPE[-1], device=cuda)
+        for x, y in ((bat.l[b], one.l), (bat.s[b], one.s)):
+            assert (x - y).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["cf", "apgm", "ialm"])
+def test_other_batches_match_serial_on_the_card(cuda, method):
+    """cf (the batch is the kernels' leading axis), APGM and IALM (one
+    batched SVD an iteration) against the card's serial solves: 1e-3 for
+    cf, 1e-5 relative for the convex solvers."""
+    from repro_torch import rpca
+    from repro_torch.core import APGMConfig, IALMConfig
+    from repro_torch.core.factorized import DCFConfig
+
+    problems = _batch_problems(cuda)
+    cfg = {"cf": DCFConfig.tuned(BATCH_SHAPE[3], outer_iters=20),
+           "apgm": APGMConfig(iters=40), "ialm": IALMConfig(iters=30)}[method]
+    bat = _batch_solve(cuda, problems, cfg, method=method)
+    for b, p in enumerate(problems):
+        one = rpca.solve(p.m_obs, method=method, cfg=cfg, key=b, device=cuda)
+        for x, y in ((bat.l[b], one.l), (bat.s[b], one.s)):
+            if method == "cf":
+                assert (x - y).abs().max().item() <= 1e-3
+            else:
+                assert (torch.linalg.norm(x - y)
+                        / torch.linalg.norm(y)).item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", ["diag", "dual"])
+def test_batch_mates_leave_a_problems_bits_on_the_card(cuda, fused):
+    """Problem 0's L, S, U, V and traces, bit for bit, whoever its
+    batch-mates are (the splits depend on the batch's shape only)."""
+    from repro_torch.core.factorized import DCFConfig
+
+    cfg = DCFConfig.masked(BATCH_SHAPE[3], 0.8, outer_iters=15, fused=fused,
+                           pack_mask=True)
+    a_probs = _batch_problems(cuda, 0.8)
+    b_probs = a_probs[:1] + _batch_problems(cuda, 0.6, seed=50)[1:]
+    a = _batch_solve(cuda, a_probs, cfg, mask=True)
+    b = _batch_solve(cuda, b_probs, cfg, mask=True)
+    for x, y in ((a.l, b.l), (a.s, b.s), (a.u, b.u), (a.v, b.v),
+                 (a.stats.residual, b.stats.residual)):
+        assert torch.equal(x[0], y[0])
+    assert not torch.equal(a.l[1], b.l[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", ["ones_mask", "packed", "off"])
+def test_bit_exact_pairs_hold_in_a_card_batch(cuda, pair):
+    """Inside a batch on the card: an all-ones mask gives the bits of no
+    mask, a packed mask those of the dense one, fused="off" those of
+    "diag"."""
+    import dataclasses
+
+    from repro_torch.core.factorized import DCFConfig
+
+    problems = _batch_problems(cuda, 0.8)
+    cfg = DCFConfig.tuned(BATCH_SHAPE[3], outer_iters=10)
+    if pair == "ones_mask":
+        ones = [dataclasses.replace(p, mask=torch.ones_like(p.m_obs))
+                for p in problems]
+        a = _batch_solve(cuda, problems, cfg)
+        b = _batch_solve(cuda, ones, cfg, mask=True)
+    elif pair == "packed":
+        a = _batch_solve(cuda, problems, cfg, mask=True)
+        b = _batch_solve(cuda, problems,
+                         dataclasses.replace(cfg, pack_mask=True), mask=True)
+    else:
+        a = _batch_solve(cuda, problems, cfg)
+        b = _batch_solve(cuda, problems,
+                         dataclasses.replace(cfg, fused="off"))
+    assert torch.equal(a.l, b.l) and torch.equal(a.s, b.s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["dcf", "cf"])
+def test_one_launch_per_sweep_for_the_batch(cuda, method):
+    """A batch of B problems launches each kernel once a sweep for all of
+    them: T·K·J / T·K / 1, as one serial solve."""
+    from repro_torch.core.factorized import DCFConfig
+
+    cfg = DCFConfig.tuned(BATCH_SHAPE[3], outer_iters=7)
+    suffix = "_masked" if method == "dcf" else ""  # n = 62 is ragged
+    problems = _batch_problems(cuda)
+    ops.reset_launch_counts()
+    _batch_solve(cuda, problems, cfg, method=method)
+    local = cfg.outer_iters * cfg.local_iters
+    want = {f"huber_contract_v{suffix}": local * cfg.inner_sweeps,
+            f"huber_contract_u_diag{suffix}": local,
+            f"residual_shrink{suffix}": 1}
+    counts = ops.launch_counts()
+    assert counts == {k: want.get(k, 0) for k in counts}
+
+
+@pytest.mark.gpu
+def test_wire_reconstruction_is_deterministic_without_atomics(cuda):
+    """The top-k payloads of E clients scattered into one row each and
+    summed in a fixed order: the same bits on every run and under
+    PyTorch's deterministic mode (which warns about none of its
+    operations), and the scatter-add sum of the reference within fp32
+    rounding."""
+    import warnings
+
+    from repro_torch.distributed import grad_compress as gc
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    flat = torch.randn(10, 450_000, device=cuda, generator=g)
+    k = 45_000
+
+    def wire():
+        vals, idx = gc.topk_sparsify(flat, k)
+        return gc.topk_reconstruct(vals, idx, flat.shape[1]).sum(0)
+
+    first = wire()
+    assert all(torch.equal(first, wire()) for _ in range(5))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            again = wire()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    assert not [w for w in caught if "determinis" in str(w.message)]
+    assert torch.equal(first, again)
+    vals, idx = gc.topk_sparsify(flat, k)
+    added = torch.zeros(flat.shape[1], device=cuda).index_add_(
+        0, idx.reshape(-1).long(), vals.reshape(-1))
+    assert (added - first).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", ["diag", "dual", "off"])
+def test_stale_guard_trips_on_a_nan_scalar_on_the_card(cuda, fused):
+    """A NaN in one client's block makes the guard scalar (the kernels'
+    ||Psi||_F^2, or the delta's energy under "off") NaN: the stale wire
+    falls back to synchronous rounds at once and stays there."""
+    import importlib
+
+    from repro_torch.core import problems as prob
+    from repro_torch.core.factorized import DCFConfig
+
+    dcf = importlib.import_module("repro_torch.core.dcf_pca")
+    p = prob.generate_problem(0, 64, 64, 3, 0.05, device=cuda)
+    cfg = DCFConfig.tuned(3, outer_iters=3, consensus_delay=1, fused=fused)
+    problem = dcf.make_problem(p.m_obs, cfg, 4, 0, device=cuda)
+    problem.blocks[1, 7, 2] = float("nan")
+    solver = dcf.make_solver(cfg)
+    c = solver.init(problem)
+    for t in range(3):
+        c = solver.step(problem, c,
+                        torch.tensor(t, dtype=torch.int32, device=cuda))
+        assert bool(c["sync"]) and not torch.isfinite(c["guard"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["delay", "topk", "topk_delay_median"])
+def test_wire_solves_on_the_card_match_the_cpu(cuda, wire):
+    """The wire solver on the kernel route against the plain route on the
+    CPU, from one seed (64^2, rank 3, E = 4, 40 rounds): U within 1e-4
+    relative; and a wire batch against its serial solves on the card."""
+    from repro_torch import rpca
+    from repro_torch.core import problems as prob
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.distributed.grad_compress import CompressConfig
+
+    kw = {"delay": dict(consensus_delay=1),
+          "topk": dict(consensus_compress=CompressConfig(topk_frac=0.1)),
+          "topk_delay_median": dict(
+              consensus_delay=1, aggregator="coordinate_median",
+              consensus_compress=CompressConfig(topk_frac=0.25))}[wire]
+    cfg = DCFConfig.tuned(4, outer_iters=40, **kw)
+    p = prob.generate_problem(0, 64, 64, 3, 0.05, device="cpu")
+    cpu = rpca.solve(p.m_obs, method="dcf", cfg=cfg, num_clients=4, key=1,
+                     device="cpu")
+    card = rpca.solve(p.m_obs.to(cuda), method="dcf", cfg=cfg,
+                      num_clients=4, key=1, device=cuda)
+    assert (torch.linalg.norm(card.u.cpu() - cpu.u)
+            / torch.linalg.norm(cpu.u)).item() <= 1e-4
+    problems = _batch_problems(cuda)
+    bat = _batch_solve(cuda, problems, cfg)
+    for b, q in enumerate(problems):
+        one = rpca.solve(q.m_obs, method="dcf", cfg=cfg, key=b,
+                         num_clients=BATCH_SHAPE[-1], device=cuda)
+        assert (bat.l[b] - one.l).abs().max().item() <= 1e-3

@@ -287,36 +287,47 @@ def test_front_door_on_the_cpu():
                                         p.s0)) < 1e-6
 
 
-@pytest.mark.parametrize("what", ["participation", "faults", "compress",
-                                  "trimmed", "batched", "ialm"])
-def test_later_slices_raise_before_solving(what):
-    """Batched solves and the wire solver (``consensus_compress`` /
-    ``consensus_delay``) raise NotImplementedError naming ROADMAP.md before
-    a solve starts, also beside the options that now solve (participation,
-    faults, the robust aggregators)."""
-    from types import SimpleNamespace
+STILL_REFUSED = ["compile_policy", "dcf_sharded", "moe_lm", "mamba_lm",
+                 "batch_faults", "batch_checkpoint", "batch_resume"]
 
-    m = torch.zeros(8, 8)
-    cfg = DCFConfig.tuned(2)
-    kw = {"num_clients": 2}
-    wire = SimpleNamespace(topk_frac=0.5)  # a CompressConfig's one field
-    if what == "participation":  # a batch of schedule-driven solves
-        m, kw["participation"] = torch.zeros(2, 8, 8), 0.5
-    elif what == "faults":
-        kw["faults"] = np.zeros((3, 2), np.int32)
-        cfg = DCFConfig.tuned(2, consensus_delay=1)
-    elif what == "compress":
-        cfg = DCFConfig.tuned(2, consensus_delay=1)
-    elif what == "trimmed":
-        cfg = DCFConfig.tuned(2, aggregator="trimmed_mean",
-                              consensus_compress=wire)
-    elif what == "batched":
-        m = torch.zeros(2, 8, 8)
-    elif what == "ialm":  # the convex solvers solve; batches of them wait
-        m, cfg, kw = torch.zeros(2, 8, 8), None, {}
-    method = "ialm" if what == "ialm" else "dcf"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rpca.solve(m, method=method, cfg=cfg, device="cpu", **kw)
+
+@pytest.mark.parametrize("what", STILL_REFUSED)
+def test_what_still_refuses_before_solving(what):
+    """What the port does not run refuses before anything starts: the
+    compile cache (``compile_policy``) and the sharded engine raise
+    NotImplementedError naming ROADMAP.md, as does a language model of a
+    family the port does not build (mixture of experts, state space); a
+    batch with a fault plan or a checkpoint raises the reference's
+    ValueError, word for word."""
+    from repro_torch import configs, models
+
+    m, cfg = torch.zeros(2, 8, 8), DCFConfig.tuned(2)
+    if what == "compile_policy":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rpca.solve(m[0], method="ialm", compile_policy="aot",
+                       device="cpu")
+        return
+    if what == "dcf_sharded":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rpca.solve(m[0], method="dcf_sharded", cfg=cfg, mesh=object(),
+                       device="cpu")
+        return
+    if what.endswith("_lm"):
+        arch = {"moe_lm": "qwen2-moe-a2.7b", "mamba_lm": "mamba2-780m"}[what]
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            models.get_model(configs.get_smoke_config(arch))
+        return
+    kw = {"batch_faults": {"faults": np.zeros((3, 2), np.int32)},
+          "batch_checkpoint": {"checkpoint_dir": "unused"},
+          "batch_resume": {"resume_from": "unused"}}[what]
+    with pytest.raises(ValueError) as want:
+        jrpca.solve(jnp.zeros((2, 8, 8)), method="dcf", num_clients=2,
+                    cfg=JConfig.tuned(2), **kw)
+    with pytest.raises(ValueError) as got:
+        rpca.solve(m, method="dcf", num_clients=2, cfg=cfg, device="cpu",
+                   **kw)
+    assert str(got.value) == str(want.value)
+    assert "batched solves" in str(got.value)
 
 
 def _auto_specs(case):
