@@ -134,12 +134,26 @@ CUDA toolkit.  Phases, one JSON line each:
    The kernel rows also hold the batch phases' shapes: row "bn" (B·E =
    128 clients, m=500, n_i=63, r=8, the padding mask) and row "b4" (40
    clients of 3000 x 300, r=150), with those phases' launches.
+   graphs   one captured round replayed against eager rounds
+            (``core.runtime.run`` / ``solve_batch`` with ``eager=True``)
+            for the dcf phase's solve, the dual phase's, the batch phase's
+            and the wire (top-k 0.1, one round stale): every output and
+            trace bit for bit, walls, busy shares and peak memory both
+            ways, the same launch counts, one capture and T - 1 replays,
+            and the replayed solve's launch counters against the
+            profiler's device kernels by family.
+   compile_cache  ``rpca.solve(method="cf", compile_policy="aot")`` at
+            three shapes in two buckets: two entry builds with one capture
+            each, then no build and no capture on the repeats; first-call,
+            repeat and uncached walls, the entries' bytes, each recovery
+            error within the reference's bar of the uncached one.
 10. small_lm the llama3-8b smoke config in fp32 (2 layers, d_model 128,
             head dim 32) with flash attention: 2 prompts of 33 tokens, 8
             greedy new tokens through ``serving.engine.generate`` on the
-            card (the kernel) and on the CPU (plain versions): the same
-            tokens, prefill logits within 1e-4 of max|logits|, exactly 2
-            flash_attention launches.
+            card (the kernel; the decode step replayed) and on the CPU
+            (plain versions): the same tokens, and the card's eager decode
+            the same again, prefill logits within 1e-4 of max|logits|,
+            exactly 2 flash_attention launches.
 11. serve_f32 TinyLlama-1.1B (``configs/tinyllama_1_1b.py``,
             arXiv:2401.02385) at full width and depth (22 layers, d_model
             2048, 32 / 4 heads), fp32, flash attention (its fp32 path),
@@ -154,14 +168,18 @@ CUDA toolkit.  Phases, one JSON line each:
             launches (one per layer; decode launches none), and the last-
             position logits of the same prefill with the plain attention
             (the config's ``flash_attention`` off) within 5e-2 of
-            max|logits|.
+            max|logits|.  The decode step is captured once and replayed
+            (one graph launch a step): the replayed ms a step beside an
+            eager decode's, and the tokens equal to the eager ones.
 
 In each of phases 4-9, elastic, table1, wide, batch, batch_fig1, wire, 11
-and 12 a first run warms the libraries, the counts
-are zeroed just before the counted run and read just after it, and one more
-run goes under torch.profiler (``<phase>_profile``): the device busy time
-and its share of the counted run's wall, the kernels that take the most
-device time, and the host's CUDA runtime calls by count.
+and 12 a first run warms the libraries, the counts (kernel launches and
+round graphs' captures and replays) are zeroed just before the counted run
+and read just after it, and one more run goes under torch.profiler
+(``<phase>_profile``): the device busy time and its share of the counted
+run's wall, the kernels that take the most device time, and the host's
+CUDA runtime calls by count.  Every factorized solve replays one captured
+round (``core.runtime``): one capture and T - 1 replays a solve.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises or exits non-zero
@@ -264,6 +282,12 @@ CONVEX_BATCH, CONVEX_BATCH_N, CONVEX_BATCH_TOL = 4, 160, 1e-5
 # delta); tests/test_multihost.py:124-135's problem (64^2, rank 3, tuned(4),
 # E = 4, 40 rounds, seed 1), where topk_frac=1.0 is within 1e-4 of dense.
 WIRE_TOPK, WIRE_SMALL, WIRE_SMALL_TOL = 0.1, (64, 3, 4, 4, 40), 1e-4
+# The compile cache: cf through compile_policy="aot" (buckets of 64 x 2^k)
+# at three shapes in two buckets, (1024, 1024) twice and (2048, 2048), on
+# the port's problems (rank 20, 5%), DCFConfig.tuned(20).
+CACHE_SHAPES = ((1000, 900), (1000, 1000), (1500, 1200))
+CACHE_TRUE_RANK = CACHE_RANK = 20
+CACHE_REPEATS = 3
 # Fig. 1's convex baselines (benchmarks/fig1_convergence.py) at n = 1000:
 # the reference's recovery bars (tests/test_rpca_core.py:38-45), which the
 # reference meets at this size on the CPU (1.6e-15, 5.3e-11; printed by
@@ -274,6 +298,11 @@ FIG1_LARGEST = 3000
 # The convex solves at 160 x 160, card against CPU: L and S relative.
 SMALL_CONVEX_TOL = 1e-5
 TIMED_LAUNCHES, WARMUP_LAUNCHES = 20, 3
+# The outer rounds of the replayed solves whose launch counters are held
+# against the profiler's kernel records: a few thousand records each (the
+# trace of a 429-round solve, ~107k records, has lost some at random:
+# src/repro_torch/launch/graph_costs.py, PERF.md §7).
+GRAPHS_COUNTED_ROUNDS = 12
 TOP_KERNELS = 8
 
 TPU = "src/repro/kernels/"
@@ -794,11 +823,34 @@ def small_trajectory_check(device) -> dict:
                             for d in convex.values())))
 
 
-def profile_run(run) -> dict:
+#: The port's kernels by family: the launch counters' names and the
+#: substring of the device kernels' names each family launches (one
+#: device kernel a wrapper call; the split sums run as sum_partials_kernel).
+KERNEL_FAMILIES = {
+    "contract_v": (("huber_contract_v",), "contract_v_"),
+    "stripe": (("huber_contract_u", "huber_contract_u_diag",
+                "huber_dual_contract"), "stripe_"),
+    "shrink": (("residual_shrink", "residual_shrink_psi"), "shrink_"),
+}
+
+
+def family_launches(counts: dict[str, int]) -> dict[str, int]:
+    """The launch counters summed by kernel family (every mask mode)."""
+    return {fam: sum(c for k, c in counts.items()
+                     if k.removesuffix("_masked").removesuffix("_packed")
+                     in names)
+            for fam, (names, _) in KERNEL_FAMILIES.items()}
+
+
+def profile_run(run, families: bool = False) -> dict:
     """Where one run's time goes on the card: ``run()`` once under
     torch.profiler.  The device busy time is the sum of kernel times (one
     stream, so kernels do not overlap); beside it the kernels that take
-    the most of it and the host's CUDA runtime calls, by count."""
+    the most of it and the host's CUDA runtime calls, by count
+    (``cudaGraphLaunch`` for each replay) and the replays' device period
+    (:func:`replay_period_ms`).  With ``families`` also the
+    device kernels launched, by :data:`KERNEL_FAMILIES` (CUPTI records the
+    kernels a graph replay launches, by name, as any other)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -823,14 +875,34 @@ def profile_run(run) -> dict:
         elif name.startswith("cuda"):
             runtime[name] = runtime.get(name, 0) + 1
     top = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)
-    return dict(
+    out = dict(
         wall_ms_profiled=wall * 1e3,
         device_busy_ms=sum(ns for _, ns in kernels.values()) / 1e6,
         top_kernels=[{"name": name[:96], "calls": calls, "device_ms": ns / 1e6}
                      for name, (calls, ns) in top[:TOP_KERNELS]],
         runtime_calls=runtime,
+        graph_replays=replay_period_ms(prof),
         profile_read_s=time.perf_counter() - t1,
     )
+    if families:
+        out["device_kernels"] = {
+            fam: sum(calls for name, (calls, _) in kernels.items()
+                     if part in name)
+            for fam, (_, part) in KERNEL_FAMILIES.items()}
+    return out
+
+
+def graph_fields() -> dict:
+    """The round graphs of the run since ``runtime.reset_graph_counts``:
+    captures, replays, the host's capture and instantiate ms, and the
+    ``cudaMalloc`` calls the captures made (the graph pool growing)."""
+    from repro_torch.core import runtime as rt
+
+    g = rt.graph_counts
+    return dict(graph_captures=g["captures"], graph_replays=g["replays"],
+                capture_ms=g["capture_s"] * 1e3,
+                instantiate_ms=g["instantiate_s"] * 1e3,
+                capture_mallocs=g["capture_mallocs"])
 
 
 def solve_phase(name: str, device, problem, spec_kw: dict, method: str,
@@ -841,12 +913,15 @@ def solve_phase(name: str, device, problem, spec_kw: dict, method: str,
     or (B, m, n) for a batch), its launch counts (zeroed just before, read
     just after; every kernel not in ``want`` must be launched 0 times) and
     ``error(result)`` against ``bar``; L and S must be finite (non-finite
-    with ``finite=False``); ``extra(result)`` adds fields to the row.
+    with ``finite=False``); ``extra(result)`` adds fields to the row, as
+    do the counted run's round graphs (captures, replays: one capture and
+    T - 1 replays for a capturable solver, none for the convex ones).
     Returns the phase's row (with the profiled run's device busy ms) and
     its result."""
     import torch
 
     from repro_torch import rpca
+    from repro_torch.core import runtime as rt
     from repro_torch.kernels import ops
 
     def solve():
@@ -859,11 +934,13 @@ def solve_phase(name: str, device, problem, spec_kw: dict, method: str,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    rt.reset_graph_counts()
     t0 = time.perf_counter()
     res = solve()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    graphs = graph_fields()
     expected = {k: want.get(k, 0) for k in counts}
     err = error(res)
     is_finite = bool(torch.isfinite(res.l).all()
@@ -882,7 +959,8 @@ def solve_phase(name: str, device, problem, spec_kw: dict, method: str,
                finite=is_finite, wall_s=wall,
                launches={k: c for k, c in counts.items() if c or k in want},
                expected_launches=want,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ok=ok)
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               **graphs, ok=ok)
     if extra is not None:
         row.update(extra(res))
     emit(**row)
@@ -1485,6 +1563,257 @@ def wire_phase(device) -> list[dict]:
     return rows
 
 
+def graphs_phase(device) -> list[dict]:
+    """One captured round replayed against eager rounds on the card, at
+    ``core.runtime``'s level (the front door has no eager switch): the dcf
+    phase's Fig. 1 solve, the dual phase's, the batch phase's 16 x 500^2
+    batch and the wire (top-k 0.1 and one-round stale, Fig. 1).  Each:
+    every output and trace bit for bit, the walls and busy shares of both
+    ways, the same launch counts, one capture and T - 1 replays, and the
+    launch counters of a replayed solve of the same configuration cut to
+    :data:`GRAPHS_COUNTED_ROUNDS` rounds against the profiler's device
+    kernels by family (the replays' kernels, as CUPTI records them), held
+    equal at the first attempt.  The full solve's profiled kernels by
+    family stand beside them, not held (its trace has lost the last
+    rounds' records before)."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from repro_torch.core import problems as prob
+    from repro_torch.core import runtime as rt
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.distributed.grad_compress import CompressConfig
+    from repro_torch.kernels import ops
+
+    dcf = importlib.import_module("repro_torch.core.dcf_pca")
+    fig1 = prob.generate_problem(0, M_ROWS, N_COLS, RANK, SPARSITY,
+                                 device=device)
+    tuned = DCFConfig.tuned(RANK)
+    wire = dataclasses.replace(tuned, consensus_delay=1,
+                               consensus_compress=CompressConfig(
+                                   topk_frac=WIRE_TOPK))
+    dual_cfg = DCFConfig.masked(D_RANK, observed_frac=D_OBSERVED,
+                                fused="dual")
+    dual = prob.generate_problem(0, D_SIZE, D_SIZE, D_RANK, D_SPARSITY,
+                                 observed_frac=D_OBSERVED, device=device)
+
+    def build(name, rounds=None):
+        """The cell's (config, problem), cut to ``rounds`` outer rounds."""
+        def cut(cfg):
+            return cfg if rounds is None else dataclasses.replace(
+                cfg, outer_iters=rounds)
+        if name in ("dcf", "wire"):
+            cfg = cut(tuned if name == "dcf" else wire)
+            return cfg, dcf.make_problem(fig1.m_obs, cfg, CLIENTS, 0,
+                                         device=device)
+        if name == "dual":
+            cfg = cut(dual_cfg)
+            return cfg, dcf.make_problem(dual.m_obs, cfg, D_CLIENTS, 0,
+                                         mask=dual.mask, device=device)
+        cfg = cut(DCFConfig.tuned(BATCH_RANK))
+        ms = torch.stack([prob.generate_problem(
+            1 + b, BATCH_N, BATCH_N, BATCH_RANK, SPARSITY,
+            device=device).m_obs for b in range(BATCH)])
+        return cfg, dcf.make_batch(ms, cfg, BATCH_CLIENTS, BATCH_KEY,
+                                   device=device)
+
+    def solver_run(cfg, problem, batch):
+        """``solve(eager)`` of one cell: its finalize output and stats."""
+        solver = dcf.make_solver(cfg)
+        t = cfg.outer_iters
+
+        def solve(eager):
+            if batch:
+                out, _, stats = rt.solve_batch(solver, problem, t,
+                                               eager=eager)
+                return out, stats
+            carry, stats = rt.run(solver, problem, t, eager=eager)
+            return solver.finalize(problem, carry), stats
+
+        return solve
+
+    rows = []
+    for name in ("dcf", "dual", "batch", "wire"):
+        cfg, problem = build(name)
+        t = cfg.outer_iters
+        solve = solver_run(cfg, problem, name == "batch")
+        solve(True)
+        solve(False)
+        way = {}
+        for eager in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            rt.reset_graph_counts()
+            t0 = time.perf_counter()
+            out = solve(eager)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            way[eager] = dict(out=out, wall_s=wall,
+                              counts=ops.launch_counts(),
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                              **graph_fields())
+        same = all(torch.equal(a, b) for a, b in zip(
+            rt.leaves(way[True]["out"]), rt.leaves(way[False]["out"]),
+            strict=True))
+        prof = {True: profile_run(lambda: solve(True)),
+                False: profile_run(lambda: solve(False), families=True)}
+        del problem, solve
+        # The counters against the trace on the cut solve (one attempt).
+        short_cfg, short_problem = build(name, GRAPHS_COUNTED_ROUNDS)
+        short = solver_run(short_cfg, short_problem, name == "batch")
+        short(False)
+        ops.reset_launch_counts()
+        short(False)
+        counted = family_launches(ops.launch_counts())
+        seen = profile_run(lambda: short(False),
+                           families=True)["device_kernels"]
+        del short_problem, short
+        g = way[False]
+        row = dict(
+            phase=f"graphs_{name}", rounds=t, bit_identical=same,
+            eager_wall_s=way[True]["wall_s"], replay_wall_s=g["wall_s"],
+            eager_busy_ms=prof[True]["device_busy_ms"],
+            replay_busy_ms=prof[False]["device_busy_ms"],
+            eager_busy_share=(prof[True]["device_busy_ms"]
+                              / (way[True]["wall_s"] * 1e3)),
+            replay_busy_share=(prof[False]["device_busy_ms"]
+                               / (g["wall_s"] * 1e3)),
+            eager_peak_gb=way[True]["peak_gb"], replay_peak_gb=g["peak_gb"],
+            graph_captures=g["graph_captures"],
+            graph_replays=g["graph_replays"], capture_ms=g["capture_ms"],
+            instantiate_ms=g["instantiate_ms"],
+            graph_launches=prof[False]["runtime_calls"].get(
+                "cudaGraphLaunch", 0),
+            eager_kernel_launches=prof[True]["runtime_calls"].get(
+                "cudaLaunchKernel", 0),
+            replay_kernel_launches=prof[False]["runtime_calls"].get(
+                "cudaLaunchKernel", 0),
+            launches={k: c for k, c in g["counts"].items() if c},
+            counted_rounds=GRAPHS_COUNTED_ROUNDS,
+            counters_by_family=counted, profiler_kernels_by_family=seen,
+            full_counters_by_family=family_launches(g["counts"]),
+            full_profiler_kernels_by_family=prof[False]["device_kernels"])
+        row["ok"] = (same and g["counts"] == way[True]["counts"]
+                     and counted == seen and g["graph_captures"] == 1
+                     and g["graph_replays"] == t - 1)
+        emit(**row)
+        if not row["ok"]:
+            raise SystemExit(f"phase graphs_{name}: replay != eager")
+        rows.append(row)
+        del way, prof
+        torch.cuda.empty_cache()
+    return rows
+
+
+def compile_cache_phase(device) -> dict:
+    """``rpca.solve(method="cf", compile_policy="aot")`` at
+    :data:`CACHE_SHAPES` (three shapes in two buckets of the AOT policy's
+    grid): two entry builds, each with one capture, then every shape again
+    with no build and no capture (:data:`CACHE_REPEATS` rounds of the
+    three); the first-call and repeat walls of each shape beside the
+    uncached solve's, each entry's bytes, every cached result bit for bit
+    the eager solve of the same padded problem without the cache (a replay
+    that kept anything of an earlier admission would differ), and each
+    cached recovery error within 1.5x the uncached one (the reference's
+    factor, tests/test_compile_cache.py:206, without its 1e-3 term: the
+    errors read ~1e-10 here)."""
+    import torch
+
+    from repro_torch import rpca
+    from repro_torch.core import compile_cache as cc
+    from repro_torch.core import metrics
+    from repro_torch.core import problems as prob
+    from repro_torch.core import runtime as rt
+    from repro_torch.core.factorized import DCFConfig
+
+    cache = cc.default_cache()
+    cache.clear()
+    cfg = DCFConfig.tuned(CACHE_RANK)
+    entry = rpca.get_solver("cf")
+
+    def padded_eager(p):
+        """(l, s) of the cache's padded problem, solved eagerly without
+        the cache, finalized and trimmed."""
+        spec = rpca.RPCASpec(p.m_obs)
+        resolved = entry.aot.resolve_cfg(cfg, spec)
+        m, n = spec.shape
+        mb, nb = cc.bucket_shape(m, n, cc.AOT)
+        solver, iters, make_problem = entry.aot.program(resolved, rt.FIXED)
+        problem = make_problem(*cc._admit(entry.aot, spec, resolved, m, n,
+                                          mb, nb, device))
+        carry, _ = rt.run(solver, problem, iters, rt.FIXED, eager=True)
+        l, s = solver.finalize(problem, carry)[:2]
+        return l[:m, :n], s[:m, :n]
+
+    problems = [prob.generate_problem(0, m, n, CACHE_TRUE_RANK, SPARSITY,
+                                      device=device)
+                for m, n in CACHE_SHAPES]
+
+    def timed(p, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rpca.solve(p.m_obs, method="cf", cfg=cfg, device=device, **kw)
+        torch.cuda.synchronize()
+        err = metrics.relative_error(res.l, res.s, p.l0, p.s0).item()
+        return res, time.perf_counter() - t0, err
+
+    timed(problems[0])  # warm the libraries
+    start = cache.stats.snapshot()
+    rt.reset_graph_counts()
+    shapes = []
+    firsts = []
+    for p in problems:
+        res, first, err = timed(p, compile_policy="aot")
+        firsts.append(res)
+        shapes.append(dict(shape=list(p.m_obs.shape),
+                           bucket=list(cc.bucket_shape(*p.m_obs.shape,
+                                                       cc.AOT)),
+                           first_wall_s=first, error=err))
+    built = cache.stats.compiles - start.compiles
+    captures = rt.graph_counts["captures"]
+    entry_bytes = cache.nbytes
+    rt.reset_graph_counts()
+    lasts = [None] * len(problems)
+    for _ in range(CACHE_REPEATS):
+        for i, (p, row) in enumerate(zip(problems, shapes)):
+            lasts[i], again, err = timed(p, compile_policy="aot")
+            row.setdefault("repeat_walls_s", []).append(again)
+            row.update(repeat_error=err, shape_ok=tuple(lasts[i].l.shape)
+                       == tuple(p.m_obs.shape))
+    repeats = dict(rt.graph_counts)
+    rebuilt = cache.stats.compiles - start.compiles - built
+    for p, row, first, last in zip(problems, shapes, firsts, lasts):
+        _, plain, plain_err = timed(p)
+        l, s = padded_eager(p)
+        same = all(bool(torch.equal(res.l, l) and torch.equal(res.s, s))
+                   for res in (first, last))
+        row.update(uncached_wall_s=plain, uncached_error=plain_err,
+                   bit_identical_to_padded_eager=same,
+                   ok=(row.pop("shape_ok") and same
+                       and row["error"] <= 1.5 * plain_err
+                       and row["repeat_error"] <= 1.5 * plain_err))
+    row = dict(phase="compile_cache", method="cf", rank=CACHE_RANK,
+               policy=dict(bucket_min=cc.AOT.bucket_min,
+                           bucket_ratio=cc.AOT.bucket_ratio),
+               shapes=shapes, entry_builds=built, captures_first=captures,
+               builds_on_repeats=rebuilt,
+               captures_on_repeats=repeats["captures"],
+               replays_on_repeats=repeats["replays"],
+               entries=len(cache), entries_bytes=entry_bytes,
+               cache_stats=cache.stats.as_dict())
+    row["ok"] = (built == 2 and captures == 2 and rebuilt == 0
+                 and repeats["captures"] == 0
+                 and all(r["ok"] for r in shapes))
+    emit(**row)
+    if not row["ok"]:
+        raise SystemExit("phase compile_cache failed")
+    cache.clear()
+    return row
+
+
 def metrics_err(res, p) -> float:
     """Relative recovery error (Eq. 30) of one solve."""
     from repro_torch.core import metrics
@@ -1582,16 +1911,19 @@ def small_lm_phase(device) -> dict:
     ops.reset_launch_counts()
     got = generate(model, card, prompt.to(device), scfg).cpu()
     counts = ops.launch_counts()
+    eager = generate(model, card, prompt.to(device), scfg, eager=True).cpu()
     cpu_logits, _ = model.prefill(params, prompt)
     logits, _ = model.prefill(card, prompt.to(device))
     rel = ((logits.cpu() - cpu_logits).abs().max()
            / cpu_logits.abs().max()).item()
     want_counts = {"flash_attention": cfg.n_layers}
     ok = (bool(torch.equal(got, want)) and rel <= SMALL_LOGITS_BAR
+          and bool(torch.equal(got, eager))
           and counts == {k: want_counts.get(k, 0) for k in counts})
     row = dict(phase="small_lm", arch=cfg.name, dtype="float32",
                batch=SMALL_BATCH, prompt=SMALL_PROMPT, new_tokens=SMALL_NEW,
                tokens_equal=bool(torch.equal(got, want)),
+               replayed_tokens_equal_eager=bool(torch.equal(got, eager)),
                logits_rel_diff_vs_cpu=rel, bar=SMALL_LOGITS_BAR,
                launches={k: c for k, c in counts.items() if c},
                expected_launches=want_counts, ok=ok)
@@ -1603,12 +1935,16 @@ def small_lm_phase(device) -> dict:
 
 
 class _EventTimedModel:
-    """The model as ``generate`` calls it, with a CUDA event recorded before
-    and after the prefill and every decode step: the counted run itself
-    gives the prefill ms and the decode ms a step (sampling included)."""
+    """The model as ``generate`` calls it, keeping the last prefill's
+    logits (held against the plain attention's), with a CUDA event
+    recorded before and after the prefill and, with ``step_events``, after
+    every decode step: the prefill ms of any run, and the decode ms a step
+    of an eager one (a replayed run calls ``decode_step`` only to capture
+    it, where no event may be recorded)."""
 
-    def __init__(self, model):
+    def __init__(self, model, step_events: bool = False):
         self.model = model
+        self.step_events = step_events
         self.events = []
         self.prefill_logits = None
 
@@ -1631,25 +1967,63 @@ class _EventTimedModel:
 
     def decode_step(self, *args):
         out = self.model.decode_step(*args)
-        self._event()
+        if self.step_events:
+            self._event()
         return out
 
-    def split_ms(self) -> tuple[float, float]:
-        """(prefill ms, decode ms a step) of the last generate; call after a
-        synchronize."""
-        start, mid, *steps = self.events
-        return (start.elapsed_time(mid),
-                mid.elapsed_time(steps[-1]) / len(steps))
+    def prefill_ms(self) -> float:
+        """The last generate's prefill ms; call after a synchronize."""
+        return self.events[0].elapsed_time(self.events[1])
+
+    def step_ms(self) -> float:
+        """The last eager generate's decode ms a step (sampling included);
+        call after a synchronize."""
+        return (self.events[1].elapsed_time(self.events[-1])
+                / (len(self.events) - 2))
+
+
+def replay_period_ms(prof) -> dict:
+    """The graph replays of a profiled run, from the trace: the device ms
+    from one replay's first kernel to the next one's (the mean over the
+    run: what a replayed step takes on the card, idle gaps included) and
+    the kernel ms a replay.  A kernel that a graph launches carries its
+    ``cudaGraphLaunch``'s correlation id."""
+    from torch.autograd import DeviceType
+
+    launches, first, busy = set(), {}, {}
+    events = list(prof.profiler.kineto_results.events())
+    for ev in events:
+        if ev.device_type() != DeviceType.CUDA \
+                and ev.name() == "cudaGraphLaunch":
+            launches.add(ev.correlation_id())
+    for ev in events:
+        c = ev.correlation_id()
+        if ev.device_type() == DeviceType.CUDA and c in launches:
+            first[c] = min(first.get(c, ev.start_ns()), ev.start_ns())
+            busy[c] = busy.get(c, 0) + ev.duration_ns()
+    starts = sorted(first.values())
+    return dict(
+        replays_traced=len(starts),
+        period_ms=((starts[-1] - starts[0]) / (len(starts) - 1) / 1e6
+                   if len(starts) > 1 else None),
+        kernel_ms_per_replay=(sum(busy.values()) / len(busy) / 1e6
+                              if busy else None))
 
 
 def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
                 new_tokens: int = SERVE_NEW, fp32: bool = False) -> dict:
     """Phases 11 and 12: ``arch`` at full width and depth through
     ``generate`` (in fp32 when ``fp32``, else its bf16), 4 prompts of 2048
-    tokens and ``new_tokens`` greedy tokens."""
+    tokens and ``new_tokens`` greedy tokens: the decode step captured once
+    and replayed.  The prefill ms (CUDA events around it), the replayed
+    decode ms a step (the profiled run's replay period on the device,
+    :func:`replay_period_ms`), the tokens equal to an eager decode's (its
+    ms a step beside, from CUDA events after every step), one graph launch
+    a replayed step (the profiler's ``cudaGraphLaunch`` count)."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.core import runtime as rt
     from repro_torch.kernels import ops
     from repro_torch.models import get_model
     from repro_torch.models.layers import padded_vocab
@@ -1671,24 +2045,32 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     weights_gb = torch.cuda.memory_allocated() / 1e9
     scfg = ServeConfig(max_new_tokens=new_tokens)
 
-    timed = _EventTimedModel(model)
+    kept = _EventTimedModel(model)
+    eager_timed = _EventTimedModel(model, step_events=True)
 
-    def serve():
-        return generate(timed, params, prompt, scfg)
+    def serve(eager=False):
+        return generate(eager_timed if eager else kept, params, prompt, scfg,
+                        eager=eager)
 
     # Warm the libraries (cuBLAS handles and heuristics) with a short run.
-    generate(model, params, prompt, ServeConfig(max_new_tokens=2))
+    generate(model, params, prompt, ServeConfig(max_new_tokens=3))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    rt.reset_graph_counts()
     t0 = time.perf_counter()
     tokens = serve()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    graphs = graph_fields()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    prefill_ms, decode_ms = timed.split_ms()
-    logits = timed.prefill_logits
+    logits = kept.prefill_logits
+    prefill_ms = kept.prefill_ms()
+    eager_tokens = serve(eager=True)
+    torch.cuda.synchronize()
+    eager_step_ms = eager_timed.step_ms()
+    same = bool(torch.equal(tokens, eager_tokens))
     # The same weights and prompt with the config's flash switch off: the
     # plain (chunked, fp32 softmax) attention of every layer.
     ref_logits, _ = get_model(cfg.replace(flash_attention=False)).prefill(
@@ -1699,24 +2081,34 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     want = {"flash_attention": cfg.n_layers}
     in_vocab = bool((tokens >= 0).all()
                     and (tokens < padded_vocab(cfg.vocab)).all())
+    replays = new_tokens - 2
+    del ref_logits
+    profiled = profile_run(serve)
     ok = (tuple(tokens.shape) == (SERVE_BATCH, new_tokens) and in_vocab
-          and finite and rel <= SERVE_LOGITS_BAR
+          and finite and rel <= SERVE_LOGITS_BAR and same
+          and graphs["graph_captures"] == 1
+          and graphs["graph_replays"] == replays
           and counts == {k: want.get(k, 0) for k in counts})
     row = dict(phase=name, arch=cfg.name, layers=cfg.n_layers,
                d_model=cfg.d_model, dtype=cfg.compute_dtype,
                batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=new_tokens,
                setup_s=setup_s, weights_gb=weights_gb, wall_s=wall,
                tokens_per_s=SERVE_BATCH * new_tokens / wall,
-               prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+               prefill_ms=prefill_ms,
+               decode_ms_per_step=profiled["graph_replays"]["period_ms"],
+               decode_kernel_ms_per_step=profiled["graph_replays"][
+                   "kernel_ms_per_replay"],
+               eager_decode_ms_per_step=eager_step_ms,
+               tokens_equal_eager=same, **graphs,
                peak_mem_gb=peak_gb, logits_rel_diff_vs_plain=rel,
                bar=SERVE_LOGITS_BAR, finite=finite,
                launches={k: c for k, c in counts.items() if c},
                expected_launches=want, ok=ok)
     emit(**row)
-    del ref_logits
-    profiled = profile_run(serve)
     emit(phase=f"{name}_profile", wall_ms=wall * 1e3,
          device_busy_share=profiled["device_busy_ms"] / (wall * 1e3),
+         graph_launches_per_replayed_step=profiled["runtime_calls"].get(
+             "cudaGraphLaunch", 0) / replays,
          **profiled)
     if not ok:
         raise SystemExit(f"phase {name} failed")
@@ -1799,6 +2191,8 @@ def main() -> int:
     phases += batch_fig1_phase(device, dcf_busy)
     phases.append(batch_convex_phase(device))
     phases += wire_phase(device)
+    phases += graphs_phase(device)
+    phases.append(compile_cache_phase(device))
     phases += table1_phase(device)
     phases.append(wide_phase(device))
     phases.append(convex_phase(device))

@@ -3,12 +3,20 @@ and the baselines it is compared with (CF-PCA, APGM, IALM), all on the
 solver runtime (``repro_torch.core.runtime``) and registered with the
 ``repro_torch.rpca`` front door (re-exported here as ``rpca`` /
 ``RPCASpec`` / ``RPCAResult`` / ``solve``), with the batched solvers
-(``*_batch``, ``solve_batch``) and ``driver``.  The reference's names that
-are not ported yet (the sharded engine, the compile cache) are not
-exported (ROADMAP.md)."""
+(``*_batch``, ``solve_batch``), ``driver`` and the shape-bucketed compile
+cache (``CompilePolicy``, ``CompileCache``, ``CacheStats``,
+``bucket_shape``, ``default_cache``).  The reference's name that is not
+ported yet (the sharded engine) is not exported (ROADMAP.md)."""
 from repro_torch import rpca
 from repro_torch.core.apgm import APGMConfig, ConvexResult, apgm, apgm_batch
 from repro_torch.core.cf_pca import CFResult, cf_pca, cf_pca_batch
+from repro_torch.core.compile_cache import (
+    CacheStats,
+    CompileCache,
+    CompilePolicy,
+    bucket_shape,
+    default_cache,
+)
 from repro_torch.core.dcf_pca import DCFResult, dcf_pca, dcf_pca_batch
 from repro_torch.core.factorized import DCFConfig
 from repro_torch.core.ialm import IALMConfig, ialm, ialm_batch
@@ -63,6 +71,11 @@ __all__ = [
     "CFResult",
     "cf_pca",
     "cf_pca_batch",
+    "CacheStats",
+    "CompileCache",
+    "CompilePolicy",
+    "bucket_shape",
+    "default_cache",
     "DCFConfig",
     "DCFResult",
     "dcf_pca",

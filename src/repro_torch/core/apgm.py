@@ -227,11 +227,43 @@ def _registry_make(spec, cfg, run_cfg, device):
     return res.l, res.s, None, None, res.stats
 
 
+def convex_aot_hooks(name: str, cfg_type: type, make_solver,
+                     make_problem) -> _rpca.AOTHooks:
+    """A convex solver's compile-cache hooks (the reference's
+    ``_aot_program`` of IALM and APGM): the padded tail is mask-zero, so
+    every iterate stays zero there and the true block matches the unpadded
+    solve; ``lam0`` pins the true-shape threshold unless the config fixed
+    one.  The entry buckets and pads, but its rounds run eagerly: the SVD
+    reads cuSOLVER's status on the host every iteration, which no CUDA
+    graph can capture (the solver is not ``capturable``)."""
+
+    def resolve_cfg(cfg, spec):
+        cfg = cfg if cfg is not None else cfg_type()
+        _rpca.require_cfg_type(name, cfg, cfg_type)
+        return cfg
+
+    def program(cfg, run_cfg: rt.RunConfig):
+        def problem(m_obs, key, mask, warm, lam0):
+            del key  # no random init
+            m_obs, warm, mask = convex_data(m_obs, warm, mask, m_obs.device)
+            return make_problem(m_obs, warm, mask,
+                                lam0=None if cfg.lam is not None else lam0)
+
+        return make_solver(cfg), cfg.iters, problem
+
+    def warm_shapes(cfg, m: int, n: int):
+        return (("L", (m, n), "(m, n)"), ("S", (m, n), "(m, n)"))
+
+    return _rpca.AOTHooks(resolve_cfg=resolve_cfg, program=program,
+                          warm_shapes=warm_shapes)
+
+
 _rpca.register_solver(
     "apgm",
     _rpca.SolverCaps(supports_mask=True, supports_factors=False,
                      batchable=True, supports_service=True),
     _registry_make,
+    aot=convex_aot_hooks("apgm", APGMConfig, make_solver, _problem),
 )
 
 

@@ -98,7 +98,7 @@ def make_solver(cfg: fz.DCFConfig, *, with_objective: bool = False) -> rt.Solver
                            cfg.impl, w=w)
         return l[0], s[0], c.u, c.v
 
-    return rt.Solver(init, step, diagnostics, finalize)
+    return rt.Solver(init, step, diagnostics, finalize, capturable=True)
 
 
 def _float_on(x, device: torch.device) -> Tensor:
@@ -276,10 +276,40 @@ def _registry_make(spec, cfg, run_cfg, device):
     return res.l, res.s, res.u, res.v, res.stats
 
 
+def _aot_resolve_cfg(cfg, spec) -> fz.DCFConfig:
+    cfg = cfg if cfg is not None else _default_cfg(spec)
+    _rpca.require_cfg_type("cf", cfg, fz.DCFConfig)
+    return cfg
+
+
+def _aot_program(cfg: fz.DCFConfig, run_cfg: rt.RunConfig):
+    """The compile cache's bucket program (the reference's
+    ``_aot_program``): the mask is always there (the padding rides it),
+    ``lam0`` is calibrated on the device over the mask (the masked medians
+    ignore the mask-zero tail, so it is the unpadded value), and a cold
+    start draws its factors at the bucket shape; the padded factor rows
+    never reach the true block.  The round is captured on the card."""
+    solver = make_solver(cfg, with_objective=run_cfg.needs_objective)
+
+    def problem(m_obs, key, mask, warm, lam0) -> CFProblem:
+        del lam0  # calibrated on the device (robust_lam over the mask)
+        return make_problem(m_obs, cfg, key, warm, mask=mask,
+                            device=m_obs.device)
+
+    return solver, cfg.outer_iters, problem
+
+
+def _aot_warm_shapes(cfg: fz.DCFConfig, m: int, n: int):
+    return (("U", (m, cfg.rank), "(m, rank)"),
+            ("V", (n, cfg.rank), "(n, rank)"))
+
+
 _rpca.register_solver(
     "cf",
     _rpca.SolverCaps(supports_mask=True, supports_factors=True,
                      batchable=True, needs_rank=True,
                      supports_service=True, supports_lowp=True),
     _registry_make,
+    aot=_rpca.AOTHooks(resolve_cfg=_aot_resolve_cfg, program=_aot_program,
+                       warm_shapes=_aot_warm_shapes),
 )

@@ -232,7 +232,7 @@ def make_solver(cfg: fz.DCFConfig, *, with_objective: bool = False) -> rt.Solver
     def finalize(p: DCFProblem, c: _Carry):
         return _finalize(cfg, p, c.u, c.v)
 
-    return rt.Solver(init, step, diagnostics, finalize)
+    return rt.Solver(init, step, diagnostics, finalize, capturable=True)
 
 
 def _make_wire_solver(cfg: fz.DCFConfig, track: bool) -> rt.Solver:
@@ -405,7 +405,8 @@ def _make_wire_solver(cfg: fz.DCFConfig, track: bool) -> rt.Solver:
         u = c["u"] + c["pending"] if delay else c["u"]
         return _finalize(cfg, p, u, c["v"])
 
-    return rt.Solver(init, step, lambda p, c: c["diag"], finalize)
+    return rt.Solver(init, step, lambda p, c: c["diag"], finalize,
+                     capturable=True)
 
 
 def _resolve_participation(participation, rounds: int, num_clients: int,

@@ -84,8 +84,12 @@ def svt(x: Tensor, tau, full_matrices: bool = False
 
 
 def huber_clip(x: Tensor, lam) -> Tensor:
-    """Derivative of the Huber loss (Eq. 32): clip to ``[-lam, lam]``."""
-    lam = torch.as_tensor(lam, dtype=x.dtype, device=x.device)
+    """Derivative of the Huber loss (Eq. 32): clip to ``[-lam, lam]``.  A
+    Python ``lam`` stays a scalar operand (no tensor is made from it, so
+    no host-to-device copy: a CUDA graph can capture the call)."""
+    if not isinstance(lam, Tensor):
+        return torch.clamp(x, -lam, lam)
+    lam = lam.to(x.dtype)
     return torch.minimum(torch.maximum(x, -lam), lam)
 
 

@@ -43,15 +43,15 @@ def topk_sparsify(g: Tensor, k: int) -> tuple[Tensor, Tensor]:
     payload of one compressed consensus message a row (a flat vector is
     the reference's call).
 
-    ``jax.lax.top_k`` breaks ties by the lower index; ``torch.topk``
-    promises no order.  A tie at the k-th magnitude between two zeros
-    changes nothing (a zero shipped or kept is a zero), but a tie between
-    two nonzero entries of equal magnitude can ship another one than the
-    reference: the payload, the reconstruction and the error-feedback
-    residual then differ by that entry (exact ties of nonzero fp32
-    magnitudes are rare in a consensus delta)."""
+    The payload is ``jax.lax.top_k``'s, in its order: magnitude
+    descending, and among equal magnitudes the lower index first (so a tie
+    at the k-th magnitude keeps the lower index).  ``torch.topk`` promises
+    no order among ties; a stable descending sort of the magnitudes gives
+    the reference's (NaN, as there, ranks above every number).  The sort is
+    deterministic, so the wire's bits repeat run to run."""
     flat = g.to(torch.float32)
-    idx = torch.topk(flat.abs(), k, dim=-1).indices
+    idx = torch.sort(flat.abs(), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
     return flat.gather(-1, idx), idx.to(torch.int32)
 
 

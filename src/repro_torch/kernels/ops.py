@@ -45,7 +45,9 @@ def _kernel_args(u, v, m, lam, w):
     if single:
         u, v, m = u[None], v[None], m[None]
         w = None if w is None else w[None]
-    lam = torch.as_tensor(lam, dtype=torch.float32, device=m.device)
+    if not isinstance(lam, torch.Tensor):  # filled on the device, no copy
+        lam = torch.full((), float(lam), device=m.device)
+    lam = lam.to(dtype=torch.float32, device=m.device)
     if lam.ndim == 0:
         lam = lam.expand(m.shape[0])
     return single, u, v, m, lam.contiguous(), w
@@ -129,3 +131,12 @@ def reset_launch_counts() -> None:
     for table in (_hc.launches, _sh.launches, _fa.launches):
         for name in table:
             table[name] = 0
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (kernel name -> launches) to the counts: a CUDA graph's
+    replay launches its captured kernels without running their wrappers
+    (``core.runtime.CapturedRound``)."""
+    for table in (_hc.launches, _sh.launches, _fa.launches):
+        for name in table.keys() & delta.keys():
+            table[name] += delta[name]

@@ -28,8 +28,12 @@ Tensor = torch.Tensor
 
 
 def _lam(lam, like: Tensor) -> Tensor:
-    """``lam`` as fp32 on ``like``'s device, broadcastable against planes."""
-    lam = torch.as_tensor(lam, dtype=torch.float32, device=like.device)
+    """``lam`` as fp32 on ``like``'s device, broadcastable against planes
+    (a Python number is filled in on the device, not copied from the
+    host, so a CUDA graph can capture the call)."""
+    if not isinstance(lam, Tensor):
+        lam = torch.full((), float(lam), device=like.device)
+    lam = lam.to(dtype=torch.float32, device=like.device)
     return lam.reshape(lam.shape + (1, 1)) if lam.ndim else lam
 
 

@@ -51,7 +51,12 @@ class Model:
             caches = self.init_cache(*tokens.shape, tokens.device)
         return lm.lm_prefill(params, tokens, self.cfg, caches)
 
-    def decode_step(self, params, tokens, caches, pos: int):
+    def decode_step(self, params, tokens, caches, pos):
+        """Logits of ``tokens`` (B, 1) at position ``pos``: a 0-d integer
+        tensor on their device (as the reference's traced ``pos``), or a
+        Python int, filled in on the device."""
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((), pos, dtype=torch.int32, device=tokens.device)
         return lm.lm_decode_step(params, tokens, caches, pos, self.cfg)
 
     def loss(self, params, batch):

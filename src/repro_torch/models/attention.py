@@ -6,8 +6,10 @@ otherwise to the plain chunked attention, which the reference also computes
 outside Pallas.
 Decode attends one new token over the whole ``s_max`` cache in fp32, plain
 PyTorch as in the reference, and writes the token's K/V into the cache in
-place.  The cache holds the un-repeated KV heads.  MLA and cross-attention
-wait (ROADMAP.md).
+place.  Its position is a 0-d device tensor, as the reference's traced
+``pos``: no host value enters the step, so a CUDA graph can capture it
+(``serving/engine.py``).  The cache holds the un-repeated KV heads.  MLA
+and cross-attention wait (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -90,22 +92,24 @@ def attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig
 
 
 def attention_decode(params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
-                     pos: int, cfg: ModelConfig) -> Tensor:
-    """One new token (B, 1, d) at position ``pos`` against the (B, S_max, KV,
-    hd) caches, which it updates in place at ``pos``."""
+                     pos: Tensor, cfg: ModelConfig) -> Tensor:
+    """One new token (B, 1, d) at position ``pos`` (a 0-d integer tensor on
+    ``x``'s device) against the (B, S_max, KV, hd) caches, which it updates
+    in place at ``pos``."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kv
     cd = cfg.cdtype
     b = x.shape[0]
     s_max = cache_k.shape[1]
-    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    at = pos.reshape(1).to(torch.long)
+    positions = at.expand(b, 1)
     q = apply_rope(_split_heads(x @ params.wq.to(cd), h, hd), positions,
                    cfg.rope_theta)
     k_new = apply_rope(_split_heads(x @ params.wk.to(cd), kv, hd), positions,
                        cfg.rope_theta)
     v_new = _split_heads(x @ params.wv.to(cd), kv, hd)
-    cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+    cache_k.index_copy_(1, at, k_new.to(cache_k.dtype))
+    cache_v.index_copy_(1, at, v_new.to(cache_v.dtype))
 
     qf = q.reshape(b, 1, kv, g, hd).to(torch.float32) / float(hd) ** 0.5
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, cache_k.to(torch.float32))

@@ -37,10 +37,12 @@ def layer_specs(cfg: ModelConfig, *, mixer: str = "attn",
 
 
 def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
-                positions: torch.Tensor | None = None, pos: int | None = None,
+                positions: torch.Tensor | None = None,
+                pos: torch.Tensor | None = None,
                 cache: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Returns ``(x, (k, v))``: in ``prefill`` this layer's prompt K/V, in
-    ``decode`` the caches it updated in place."""
+    ``decode`` the caches it updated in place at ``pos`` (a 0-d device
+    tensor)."""
     if mode not in MODES:
         raise not_ported(f"mode {mode!r}")
     h = rmsnorm(params.ln1, x, cfg.norm_eps)

@@ -66,10 +66,10 @@ def lm_prefill(params, tokens: Tensor, cfg: ModelConfig, caches: Caches
     return logits[:, 0], caches
 
 
-def lm_decode_step(params, tokens: Tensor, caches: Caches, pos: int,
+def lm_decode_step(params, tokens: Tensor, caches: Caches, pos: Tensor,
                    cfg: ModelConfig) -> tuple[Tensor, Caches]:
-    """One decode step: tokens (B, 1) at position ``pos``; the caches are
-    updated in place."""
+    """One decode step: tokens (B, 1) at position ``pos`` (a 0-d integer
+    tensor on the tokens' device); the caches are updated in place."""
     x = embed(params.embed, tokens, cfg)
     for layer, cache in zip(params.layers, caches, strict=True):
         x, _ = blocks.layer_apply(layer, x, cfg=cfg, mode="decode", pos=pos,

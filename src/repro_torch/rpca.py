@@ -41,8 +41,19 @@ problem freezes under the early-exit modes (``core.runtime.solve_batch``)::
 ``"dcf"`` also runs the wire consensus: ``DCFConfig(...,
 consensus_compress=CompressConfig(topk_frac=0.1), consensus_delay=1)``
 (``distributed.grad_compress``), its modelled traffic in
-``distributed.multihost.consensus_traffic()``.  ``compile_policy`` waits
-for a later slice (ROADMAP.md) and raises.
+``distributed.multihost.consensus_traffic()``.
+
+``compile_policy="aot"`` (or a ``CompilePolicy``) solves through the
+shape-bucketed compile cache (``core.compile_cache``): the problem is
+zero-padded into its shape bucket behind the mask, and every problem of a
+bucket replays the bucket's one captured round on the card::
+
+    res = rpca.solve(m_obs, method="cf", rank=8, compile_policy="aot")
+    res.cache_stats   # hits, misses, compiles, evictions
+
+Specs the cache cannot express (batched, simulated clients,
+participation, a mesh) and methods without AOT hooks take the regular
+path, with ``cache_stats`` ``None``.
 """
 from __future__ import annotations
 
@@ -138,7 +149,8 @@ class RPCASpec:
 @dataclass(frozen=True)
 class RPCAResult:
     """Uniform solve result: components, factors (``None`` for the convex
-    methods), stats, the method that ran, the spec."""
+    methods), stats, the method that ran, the spec, and the compile cache's
+    counters after a cached solve (``None`` otherwise)."""
 
     l: torch.Tensor
     s: torch.Tensor
@@ -147,6 +159,7 @@ class RPCAResult:
     stats: rt.SolveStats
     method: str
     spec: RPCASpec = field(repr=False)
+    cache_stats: Any = None
 
     @property
     def factors(self) -> tuple[torch.Tensor, torch.Tensor] | None:
@@ -182,17 +195,47 @@ class SolverCaps:
 
 
 @dataclass(frozen=True)
+class AOTHooks:
+    """How a solver plugs into the compile cache (``core.compile_cache``;
+    the reference's ``AOTHooks``, field for field).
+
+    ``resolve_cfg``  ``(cfg_or_None, spec) -> cfg``: the concrete, hashable
+                     config that keys the entry, resolved against the
+                     *true* spec (before the bucket padding).
+    ``program``      ``(cfg, run_cfg) -> (solver, rounds, make_problem)``:
+                     the runtime solver, its round budget, and
+                     ``make_problem(m_obs, key, mask, warm, lam0)``, which
+                     builds one problem from the bucket-shaped device
+                     planes at every admission (eagerly, into the entry's
+                     static buffers; ``mask`` is always a dense 0/1 plane,
+                     the padding mask-zero, ``lam0`` the true-shape convex
+                     threshold).  The solver's finalize returns ``(l, s,
+                     u, v)`` or ``(l, s)``.  Where the reference traces
+                     ``program`` into one executable, the port captures
+                     one round of it in a CUDA graph (a capturable solver)
+                     or runs it eagerly on the bucket's static buffers.
+    ``warm_shapes``  ``(cfg, m, n) ->`` per-factor ``(name, shape, desc)``
+                     records, at the true shape to validate and at the
+                     bucket shape to pad into.
+    """
+
+    resolve_cfg: Callable[[Any, RPCASpec], Any]
+    program: Callable[[Any, Any], tuple]
+    warm_shapes: Callable[[Any, int, int], tuple]
+
+
+@dataclass(frozen=True)
 class SolverEntry:
     """A registered solver.  ``make(spec, cfg, run_cfg, device)`` runs the
-    solve and returns ``(l, s, u, v, stats)``; ``service`` and ``aot`` (the
-    reference's slot-service and compile-cache hooks) stay ``None`` until
-    those slices land."""
+    solve and returns ``(l, s, u, v, stats)``; ``aot`` opts it into the
+    compile cache (:class:`AOTHooks`); ``service`` (the reference's
+    slot-service hooks) stays ``None`` until that slice lands."""
 
     name: str
     caps: SolverCaps
     make: Callable[[RPCASpec, Any, Any, torch.device], tuple]
     service: Any = None
-    aot: Any = None
+    aot: AOTHooks | None = None
 
 
 #: The solver registry: filled by the solver modules when imported.
@@ -201,10 +244,12 @@ SOLVERS: dict[str, SolverEntry] = {}
 
 def register_solver(name: str, caps: SolverCaps,
                     make: Callable[[RPCASpec, Any, Any, torch.device], tuple],
-                    service: Any = None, aot: Any = None) -> None:
+                    service: Any = None,
+                    aot: AOTHooks | None = None) -> None:
     """Register (or re-register) a solver under ``name``.  ``cfg`` reaches
     ``make`` as ``None`` when the caller passed none (the adapter picks its
-    default)."""
+    default); ``aot`` opts the method into the compile cache
+    (``solve(..., compile_policy=...)``)."""
     SOLVERS[name] = SolverEntry(name=name, caps=caps, make=make,
                                 service=service, aot=aot)
 
@@ -239,11 +284,6 @@ def _unsupported(name: str, feature: str, flag: str) -> ValueError:
         f"method {name!r} does not support {feature}; methods with "
         f"{feature}: {', '.join(methods_with(flag)) or '(none)'}"
     )
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} waits for a later slice of the port (ROADMAP.md)")
 
 
 def _is_lowp(dtype: Any) -> bool:
@@ -360,8 +400,10 @@ def solve(spec_or_matrix: RPCASpec | Any, method: str = "auto", *,
     method's default).  A batched spec (``m_obs`` (B, m, n)) solves its B
     problems together (``core.runtime.solve_batch``; every result field
     gets a leading B), each problem's factors drawn from its own seed
-    (:func:`default_key`).  Any ``compile_policy`` raises
-    ``NotImplementedError`` (ROADMAP.md)."""
+    (:func:`default_key`).  ``compile_policy`` (``"aot"``, a
+    ``CompilePolicy``, or ``None`` / ``"off"``) takes the shape-bucketed
+    compile cache where the spec and method allow it (the reference's
+    bypasses take the regular path, ``cache_stats`` then ``None``)."""
     if isinstance(spec_or_matrix, RPCASpec):
         if spec_kwargs:
             raise ValueError(
@@ -381,7 +423,17 @@ def solve(spec_or_matrix: RPCASpec | Any, method: str = "auto", *,
     entry = get_solver(method)
     _check_caps(entry, spec, cfg)
     if compile_policy is not None:
-        raise _not_ported("compile_policy (the AOT compile cache)")
+        from repro_torch.core import compile_cache as cc
+
+        policy = cc.resolve_policy(compile_policy)
+        if policy is not None:
+            out = cc.solve_cached(entry, spec, cfg, run_cfg, policy,
+                                  device=device)
+            if out is not None:
+                l, s, u, v, stats, cstats = out
+                return RPCAResult(l=l, s=s, u=u, v=v, stats=stats,
+                                  method=entry.name, spec=spec,
+                                  cache_stats=cstats)
     l, s, u, v, stats = entry.make(spec, cfg, run_cfg, device)
     return RPCAResult(l=l, s=s, u=u, v=v, stats=stats, method=entry.name,
                       spec=spec)
@@ -439,7 +491,20 @@ def batch_keys(key, batch: int) -> list:
     return keys
 
 
+def __getattr__(name: str) -> Any:
+    # CompilePolicy lives in repro_torch.core (not imported here at module
+    # level: see the note at the top) but belongs on the front door beside
+    # ``solve(..., compile_policy=...)``, as in the reference.
+    if name == "CompilePolicy":
+        from repro_torch.core.compile_cache import CompilePolicy
+
+        return CompilePolicy
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
+    "AOTHooks",
+    "CompilePolicy",
     "RPCAResult",
     "RPCASpec",
     "SOLVERS",

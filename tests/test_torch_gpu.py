@@ -1069,3 +1069,298 @@ def test_wire_solves_on_the_card_match_the_cpu(cuda, wire):
         one = rpca.solve(q.m_obs, method="dcf", cfg=cfg, key=b,
                          num_clients=BATCH_SHAPE[-1], device=cuda)
         assert (bat.l[b] - one.l).abs().max().item() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# One captured round a solve, one captured step a decode
+# ---------------------------------------------------------------------------
+GRAPH_SHAPE = (192, 160, 8, 4, 12)  # m, n, rank, E, rounds
+
+
+def _graph_case(cuda, case):
+    """``(module, problem, cfg)`` of a small solve on the card: cf, dcf,
+    off, dual (dense mask), compact (bf16 M, packed mask, lam_sample),
+    ragged (n % E != 0), wire (top-k with error feedback, one-round
+    stale), faulted (NaN clients and dropouts under the median)."""
+    import importlib
+
+    from repro_torch.core import problems as prob
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.distributed.faults import FaultPlan
+    from repro_torch.distributed.grad_compress import CompressConfig
+
+    m, n, r, e, t = GRAPH_SHAPE
+    masked = case in ("dual", "compact")
+    p = prob.generate_problem(0, m, n - (case == "ragged"), r, 0.05,
+                              observed_frac=0.8 if masked else 1.0,
+                              device=cuda)
+    kw = {"dual": dict(fused="dual"),
+          "compact": dict(fused="dual", pack_mask=True, lam_sample=4096),
+          "off": dict(fused="off"),
+          "wire": dict(consensus_delay=1,
+                       consensus_compress=CompressConfig(topk_frac=0.1)),
+          "faulted": dict(aggregator="coordinate_median")}.get(case, {})
+    cfg = DCFConfig.tuned(r, outer_iters=t, track_objective=True, **kw)
+    if case == "cf":
+        mod = importlib.import_module("repro_torch.core.cf_pca")
+        return mod, mod.make_problem(p.m_obs, cfg, 0, device=cuda), cfg
+    mod = importlib.import_module("repro_torch.core.dcf_pca")
+    m_obs = p.m_obs.to(torch.bfloat16) if case == "compact" else p.m_obs
+    extra = {}
+    if case == "faulted":
+        extra = dict(faults=FaultPlan.byzantine(t, e, (1,), kind="nan"),
+                     participation=0.75)
+    problem = mod.make_problem(m_obs, cfg, e, 0,
+                               mask=p.mask if masked else None,
+                               device=cuda, **extra)
+    return mod, problem, cfg
+
+
+def _solve_counted(solver, problem, rounds, run_cfg=None, eager=False,
+                   batch=False):
+    """One run through the runtime with the launch counts zeroed before:
+    ``(finalize output, stats, counts, graph counts)``."""
+    from repro_torch.core import runtime as rt
+
+    run_cfg = run_cfg or rt.FIXED
+    ops.reset_launch_counts()
+    rt.reset_graph_counts()
+    if batch:
+        out, _, stats = rt.solve_batch(solver, problem, rounds, run_cfg,
+                                       eager=eager)
+    else:
+        carry, stats = rt.run(solver, problem, rounds, run_cfg, eager=eager)
+        out = solver.finalize(problem, carry)
+    torch.cuda.synchronize()
+    return out, stats, ops.launch_counts(), dict(rt.graph_counts)
+
+
+def _assert_same_bits(a, b):
+    for x, y in zip(a, b, strict=True):
+        assert torch.equal(x, y)
+
+
+GRAPH_CASES = ["cf", "dcf", "off", "dual", "compact", "ragged", "wire",
+               "faulted"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_replayed_round_gives_the_eager_bits(cuda, case):
+    """Each flavour's solve replays one captured round: L, S, U, V and the
+    traces bit for bit as the eager rounds, the same launch counts
+    (T·K·J / T·K / 1, added at each replay), one capture and T - 1
+    replays."""
+    mod, problem, cfg = _graph_case(cuda, case)
+    solver = mod.make_solver(cfg)
+    t = cfg.outer_iters
+    want, wstats, wcounts, wgraphs = _solve_counted(solver, problem, t,
+                                                    eager=True)
+    got, gstats, gcounts, graphs = _solve_counted(solver, problem, t)
+    _assert_same_bits(got, want)
+    _assert_same_bits(gstats, wstats)
+    assert gcounts == wcounts
+    local = t * cfg.local_iters
+    sweeps = local * (cfg.inner_sweeps - (cfg.fused == "dual"))
+    assert sum(v for k, v in gcounts.items()
+               if k.startswith("huber_contract_v")) == sweeps
+    assert wgraphs["captures"] == 0 and wgraphs["replays"] == 0
+    assert graphs["captures"] == 1 and graphs["replays"] == t - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["chunk", "while", "scan"])
+def test_replayed_batch_gives_the_eager_bits(cuda, mode):
+    """A ragged dcf batch under the early-exit modes: the done mask and the
+    freeze replay inside the graph, the host reads all(done) once a chunk
+    (or round); outputs, traces, rounds and flags bit for bit as eagerly,
+    launch counts equal."""
+    import importlib
+
+    from repro_torch.core import runtime as rt
+    from repro_torch.core.factorized import DCFConfig
+
+    dcf = importlib.import_module("repro_torch.core.dcf_pca")
+    problems = _batch_problems(cuda)
+    cfg = DCFConfig.tuned(BATCH_SHAPE[3], outer_iters=40)
+    batch = dcf.make_batch(torch.stack([p.m_obs for p in problems]), cfg,
+                           BATCH_SHAPE[-1], 0, device=cuda)
+    run_cfg = rt.RunConfig(mode=mode, tol=1e-3, chunk_size=4)
+    solver = dcf.make_solver(cfg)
+    want, wstats, wcounts, _ = _solve_counted(solver, batch, 40, run_cfg,
+                                              eager=True, batch=True)
+    got, gstats, gcounts, graphs = _solve_counted(solver, batch, 40,
+                                                  run_cfg, batch=True)
+    _assert_same_bits(got, want)
+    _assert_same_bits(gstats, wstats)
+    assert gcounts == wcounts and graphs["captures"] == 1
+    if mode != "scan":
+        assert int(gstats.rounds.max()) < 40
+
+
+@pytest.mark.gpu
+def test_resumed_segmented_solve_replays_the_uninterrupted_bits(cuda,
+                                                                tmp_path):
+    """A checkpointed solve, interrupted after its first snapshot and
+    resumed, replays its captured round between the snapshots: the bits
+    of one eager unsegmented solve."""
+    from repro_torch.core import runtime as rt
+
+    mod, problem, cfg = _graph_case(cuda, "faulted")
+    solver = mod.make_solver(cfg)
+    t = cfg.outer_iters
+    want, wstats, _, _ = _solve_counted(solver, problem, t, eager=True)
+
+    class Interrupt(Exception):
+        pass
+
+    def stop(step, carry):
+        raise Interrupt
+
+    run_cfg = rt.RunConfig(checkpoint_every=5)
+    with pytest.raises(Interrupt):
+        rt.run_segmented(solver, problem, t, run_cfg,
+                         checkpoint_dir=str(tmp_path), save_extra=stop)
+    rt.reset_graph_counts()
+    carry, stats = rt.run_segmented(solver, problem, t, run_cfg,
+                                    checkpoint_dir=str(tmp_path),
+                                    resume_from=str(tmp_path))
+    _assert_same_bits(solver.finalize(problem, carry), want)
+    _assert_same_bits(stats, wstats)
+    assert rt.graph_counts["captures"] == 1
+    assert rt.graph_counts["replays"] == t - 5 - 1
+
+
+@pytest.mark.gpu
+def test_a_capture_that_fails_raises(cuda):
+    """A solver marked capturable whose round reads the card from the host
+    fails its capture, and the run raises: nothing falls back to eager
+    rounds.  (In a child process: a failed capture may leave the CUDA
+    context unusable for the tests after it.)"""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from repro_torch.core import runtime as rt\n"
+        "x = torch.ones(4, device='cuda')\n"
+        "def step(p, c, t):\n"
+        "    return c * 2 if bool(c.sum() > 0) else c\n"
+        "s = rt.Solver(lambda p: p[0], step,\n"
+        "              lambda p, c: rt.Diag(c.sum(), c.sum()),\n"
+        "              lambda p, c: c, capturable=True)\n"
+        "try:\n"
+        "    rt.run(s, (x,), 4)\n"
+        "except Exception as e:\n"
+        "    print('raised', type(e).__name__, rt.graph_counts['replays'])\n"
+        "else:\n"
+        "    print('ran')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src"),
+         env.get("PYTHONPATH", "")])
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.stdout.startswith("raised"), (out.stdout, out.stderr)
+    assert out.stdout.split()[-1] == "0"
+
+
+def _padded_eager(method, cfg, m_obs, mask, policy, device):
+    """``(l, s)`` of the compile cache's padded problem for this spec,
+    solved by ``runtime.run`` eagerly (no cache, no graph), finalized and
+    trimmed: what a cached solve must give bit for bit."""
+    from repro_torch import rpca
+    from repro_torch.core import compile_cache as cc
+    from repro_torch.core import runtime as rt
+
+    entry = rpca.get_solver(method)
+    spec = rpca.RPCASpec(m_obs, mask=mask)
+    cfg = entry.aot.resolve_cfg(cfg, spec)
+    m, n = spec.shape
+    mb, nb = cc.bucket_shape(m, n, policy)
+    solver, iters, make_problem = entry.aot.program(cfg, rt.FIXED)
+    problem = make_problem(*cc._admit(entry.aot, spec, cfg, m, n, mb, nb,
+                                      device))
+    carry, _ = rt.run(solver, problem, iters, rt.FIXED, eager=True)
+    l, s = solver.finalize(problem, carry)[:2]
+    return l[:m, :n], s[:m, :n]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["cf", "ialm"])
+def test_repeat_bucket_builds_and_captures_nothing(cuda, method):
+    """Three shapes in one bucket through compile_policy: one entry build
+    (with one capture for cf; IALM's entry runs eagerly), then hits that
+    build and capture nothing, each result the shape of its spec and bit
+    for bit the eager solve of the same padded problem without the cache
+    (a replay that kept anything of an earlier admission would differ),
+    and a repeated admission bit for bit the first."""
+    from repro_torch import rpca
+    from repro_torch.core import compile_cache as cc
+    from repro_torch.core import problems as prob
+    from repro_torch.core import runtime as rt
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.core.ialm import IALMConfig
+
+    cache = cc.default_cache()
+    cache.clear()
+    policy = cc.CompilePolicy(bucket_min=32)
+    cfg = (DCFConfig.tuned(4, outer_iters=10) if method == "cf"
+           else IALMConfig(iters=10))
+    p = prob.generate_problem(0, 48, 40, 4, 0.1, observed_frac=0.8,
+                              device=cuda)
+    rt.reset_graph_counts()
+    before = cache.stats.snapshot()
+    kw = dict(method=method, cfg=cfg, compile_policy=policy, device=cuda)
+    first = rpca.solve(p.m_obs, mask=p.mask, **kw)
+    assert first.cache_stats.compiles == before.compiles + 1
+    assert rt.graph_counts["captures"] == (method == "cf")
+    nbytes = cache.nbytes
+    assert nbytes > 0
+    for mt, nt in [(45, 37), (40, 33)]:
+        res = rpca.solve(p.m_obs[:mt, :nt], mask=p.mask[:mt, :nt], **kw)
+        assert res.l.shape == (mt, nt) and res.s.shape == (mt, nt)
+        assert res.cache_stats.compiles == before.compiles + 1
+        l, s = _padded_eager(method, cfg, p.m_obs[:mt, :nt],
+                             p.mask[:mt, :nt], policy, cuda)
+        assert torch.equal(res.l, l) and torch.equal(res.s, s)
+    again = rpca.solve(p.m_obs, mask=p.mask, **kw)
+    assert rt.graph_counts["captures"] == (method == "cf")
+    assert again.cache_stats.hits == before.hits + 3
+    assert torch.equal(again.l, first.l) and torch.equal(again.s, first.s)
+    assert cache.nbytes == nbytes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "temp"])
+def test_replayed_decode_gives_the_eager_tokens(cuda, temperature):
+    """The llama3-8b smoke config (fp32, flash prefill): the replayed
+    decode step gives the eager tokens, greedy and by temperature from one
+    seeded card generator; one capture and max_new_tokens - 2 replays."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import runtime as rt
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServeConfig, generate
+
+    cfg = get_smoke_config("llama3-8b").replace(
+        param_dtype="float32", compute_dtype="float32",
+        flash_attention=True)
+    model = get_model(cfg)
+    params = model.init_params(seed=0, device=cuda)
+    prompt = torch.randint(0, cfg.vocab, (2, 33), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    scfg = ServeConfig(max_new_tokens=9, temperature=temperature)
+
+    def tokens(eager):
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        return generate(model, params, prompt, scfg, generator=gen,
+                        eager=eager)
+
+    want = tokens(True)
+    rt.reset_graph_counts()
+    got = tokens(False)
+    assert torch.equal(got, want)
+    assert rt.graph_counts["captures"] == 1
+    assert rt.graph_counts["replays"] == scfg.max_new_tokens - 2

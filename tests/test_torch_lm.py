@@ -100,6 +100,63 @@ def test_greedy_tokens_match_reference(f32_pair):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+def test_decode_at_a_tensor_position_matches_reference(pair):
+    """Two decode steps with the position a 0-d int32 tensor (the
+    reference's traced ``pos``, as the engine's captured step takes it):
+    logits and the caches written at that position within the tolerances
+    of the reference's decode_step, and the same bits as a Python int
+    position."""
+    kind, jmodel, jparams, model, params, prompt = pair
+    tol = TOL if kind == "f32" else BF16_TOL
+    s_max = PROMPT + 2
+    _, jcaches = jmodel.prefill(jparams, {"tokens": jnp.asarray(prompt)},
+                                SINGLE_DEVICE)
+    jcaches = jengine._pad_caches(jmodel, jcaches, BATCH, PROMPT, s_max)
+    caches = model.init_cache(BATCH, s_max, "cpu")
+    model.prefill(params, torch.from_numpy(prompt).long(), caches)
+    by_int = [tuple(x.clone() for x in c) for c in caches]
+    tok = _prompt(model.cfg, s=2, seed=9)
+    for step in range(2):
+        pos = PROMPT + step
+        jlogits, jcaches = jmodel.decode_step(
+            jparams, jnp.asarray(tok[:, step:step + 1]), jcaches,
+            jnp.int32(pos), SINGLE_DEVICE)
+        t = torch.from_numpy(tok[:, step:step + 1]).long()
+        logits, caches = model.decode_step(
+            params, t, caches, torch.tensor(pos, dtype=torch.int32))
+        plain, by_int = model.decode_step(params, t, by_int, pos)
+        assert torch.equal(logits, plain)
+        np.testing.assert_allclose(logits.to(torch.float32).numpy(),
+                                   np.asarray(jlogits, np.float32),
+                                   rtol=tol, atol=tol)
+    # The reference stacks its layers' caches: ((L, B, S, KV, hd), ...).
+    jk_all, jv_all = jcaches[0]["mixer"]
+    for (k, v), jk, jv, (ik, iv) in zip(caches, jk_all, jv_all, by_int,
+                                        strict=True):
+        assert torch.equal(k, ik) and torch.equal(v, iv)
+        for got, want in ((k, jk), (v, jv)):
+            np.testing.assert_allclose(
+                got[:, PROMPT:].to(torch.float32).numpy(),
+                np.asarray(want, np.float32)[:, PROMPT:], rtol=tol,
+                atol=tol)
+
+
+def test_engine_steps_one_decode_function_on_the_cpu(f32_pair):
+    """On the CPU ``generate`` runs the step it captures on the card,
+    eagerly: eager=True changes nothing there, and greedy tokens are the
+    reference's for a longer run."""
+    _, jmodel, jparams, model, params, prompt = f32_pair
+    scfg = ServeConfig(max_new_tokens=12)
+    want = jengine.generate(jmodel, jparams, jnp.asarray(prompt),
+                            SINGLE_DEVICE,
+                            jengine.ServeConfig(max_new_tokens=12))
+    got = generate(model, params, torch.from_numpy(prompt).long(), scfg)
+    eager = generate(model, params, torch.from_numpy(prompt).long(), scfg,
+                     eager=True)
+    assert torch.equal(got, eager)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("flash", [True, False], ids=["flash", "chunked"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_then_decode_matches_full_forward(dtype, flash):

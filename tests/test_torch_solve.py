@@ -293,19 +293,23 @@ STILL_REFUSED = ["compile_policy", "dcf_sharded", "moe_lm", "mamba_lm",
 
 @pytest.mark.parametrize("what", STILL_REFUSED)
 def test_what_still_refuses_before_solving(what):
-    """What the port does not run refuses before anything starts: the
-    compile cache (``compile_policy``) and the sharded engine raise
-    NotImplementedError naming ROADMAP.md, as does a language model of a
-    family the port does not build (mixture of experts, state space); a
-    batch with a fault plan or a checkpoint raises the reference's
-    ValueError, word for word."""
+    """What the port does not run refuses before anything starts: an
+    unknown ``compile_policy`` raises the reference's ValueError, word for
+    word; the sharded engine raises NotImplementedError naming ROADMAP.md,
+    as does a language model of a family the port does not build (mixture
+    of experts, state space); a batch with a fault plan or a checkpoint
+    raises the reference's ValueError, word for word."""
     from repro_torch import configs, models
 
     m, cfg = torch.zeros(2, 8, 8), DCFConfig.tuned(2)
     if what == "compile_policy":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rpca.solve(m[0], method="ialm", compile_policy="aot",
+        with pytest.raises(ValueError) as got:
+            rpca.solve(m[0], method="ialm", compile_policy="jit",
                        device="cpu")
+        with pytest.raises(ValueError) as want:
+            jrpca.solve(jnp.zeros((8, 8)), method="ialm",
+                        compile_policy="jit")
+        assert str(got.value) == str(want.value)
         return
     if what == "dcf_sharded":
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -97,6 +97,28 @@ def test_compress_config_is_the_references():
         dataclasses.asdict(jgc.CompressConfig())
 
 
+@pytest.mark.parametrize("shape,k", [((8,), 2), ((3, 4096), 700),
+                                     ((10, 4500), 450)])
+def test_topk_ties_break_as_the_reference(shape, k):
+    """Integer-valued rows (many nonzero magnitudes tie, and they tie at
+    the k-th): the same indices in the same order as ``jax.lax.top_k``
+    (magnitude descending, the lower index first among ties), and the same
+    values, row by row."""
+    if shape == (8,):
+        rows = np.array([1, 3, -2, 2, 3, -3, 2, 0.5], np.float32)
+    else:
+        rng = np.random.default_rng(k)
+        rows = rng.integers(-6, 7, shape).astype(np.float32)
+    vals, idx = gc.topk_sparsify(_t(rows), k)
+    flat = rows.reshape(-1, rows.shape[-1])
+    for i, row in enumerate(flat):
+        jv, ji = jgc.topk_sparsify(jnp.asarray(row), k)
+        assert idx.reshape(-1, k)[i].tolist() == np.asarray(ji).tolist()
+        assert vals.reshape(-1, k)[i].tolist() == np.asarray(jv).tolist()
+    if shape == (8,):
+        assert idx.tolist() == [1, 4]
+
+
 @pytest.mark.parametrize("k", [7, 192])
 def test_topk_payload_and_reconstruction_are_the_references(k):
     """Distinct magnitudes (no ties): the same entries, values and
