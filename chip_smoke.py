@@ -147,6 +147,36 @@ CUDA toolkit.  Phases, one JSON line each:
             each, then no build and no capture on the repeats; first-call,
             repeat and uncached walls, the entries' bytes, each recovery
             error within the reference's bar of the uncached one.
+   service  the slot service (``serving.RPCAService``): 32 problems of
+            500 x 500 (rank 8, 5%, the batch phase's generator), 16 slots,
+            DCFConfig.tuned(8), 8 rounds a tick, 200 at most, drained by
+            ``solve_all``.  A first service builds the lane's tick (one
+            capture); the counted drain runs on a second service of the
+            same geometry, which captures nothing: each tick is 8 replays
+            of the captured slot-table round, exactly J·K masked
+            contract_v and K masked u_diag launches a replay and one masked
+            shrink a poll; problems/s against the serial and the batched
+            ``rpca.solve`` of the same problems (the service's tolerance),
+            each recovery error under 1e-4, the admission's ms (median and
+            p90) split into ``robust_lam``, the fingerprints and the rest,
+            the tick's ms, peak memory, busy share, the counters of 12
+            rounds against the profiler's kernels, the replayed drain bit
+            for bit an eager one, a poisoned slot's neighbour bit for bit
+            a solo run, and IALM / APGM lanes at 160^2 (eager ticks) within
+            1e-5 of serial solves.
+   service_fig1  four Fig. 1 problems through a 4-slot ``cf`` service:
+            problems/s against serial solves, each error under 1e-4, a warm
+            refresh's rounds (under a third of the cold ones), the
+            admission's split.
+   gateway  ``benchmarks/gateway_bench.py``'s full mix (m = 512, n_max =
+            256, rank 8, pages of 32 columns, 4 slots a width class) through
+            ``serving.RPCAGateway``: the padded-byte reduction (>= 2), the
+            width classes' captures, then a timed gateway that captures
+            nothing: wall, solves/s, p50 / p99 latency, each error under
+            5e-2.
+   The kernel rows also hold the service phase's shapes: row "sv" (its 16
+   slots as clients, m = n = 500, r = 8, the all-ones mask) and "s1" (one
+   slot: the shrink of a poll), with that phase's launches.
 10. small_lm the llama3-8b smoke config in fp32 (2 layers, d_model 128,
             head dim 32) with flash attention: 2 prompts of 33 tokens, 8
             greedy new tokens through ``serving.engine.generate`` on the
@@ -298,6 +328,29 @@ FIG1_LARGEST = 3000
 # The convex solves at 160 x 160, card against CPU: L and S relative.
 SMALL_CONVEX_TOL = 1e-5
 TIMED_LAUNCHES, WARMUP_LAUNCHES = 20, 3
+# The slot service (serving.rpca_service) on the batch phase's problems:
+# SERVICE_PROBLEMS of BATCH_N^2 (rank 8, 5%, seeds 1..) drained through
+# SERVICE_SLOTS slots, DCFConfig.tuned(8), the reference's RPCAServiceConfig
+# defaults but for the slots (8 rounds a tick, 200 at most, tol 5e-4); each
+# recovery error under tests/test_runtime.py:186's bar; the convex lanes at
+# CONVEX_BATCH_N^2 within tests/test_masked.py:296-298's 1e-5 of serial
+# solves.
+SERVICE_PROBLEMS, SERVICE_SLOTS = 32, 16
+SERVICE_ROUNDS_PER_TICK, SERVICE_MAX_ROUNDS = 8, 200
+SERVICE_BAR, SERVICE_CONVEX_TOL = 1e-4, 1e-5
+# The gateway: benchmarks/gateway_bench.py's run() at its full mix (m = 512,
+# n_max = 256, rank 8, 4 slots a width class, pages of n_max / 8), its
+# acceptance gate on the padded-byte reduction (>= 2) and the reference
+# test's recovery bar for paged lanes (tests/test_gateway.py:189).
+GATEWAY_M, GATEWAY_N_MAX, GATEWAY_RANK, GATEWAY_SLOTS = 512, 256, 8, 4
+GATEWAY_MIX = (1 / 8, 1 / 8, 1 / 4, 1 / 4, 3 / 8, 3 / 8, 1 / 2, 1.0)
+GATEWAY_MIN_REDUCTION, GATEWAY_BAR = 2.0, 5e-2
+# The kernel rows of the gateway's narrowest and widest width classes: the
+# widths of the tenants in each slot of the class's table (a class of w
+# columns admits page spans of w; a narrower tenant is padded behind
+# mask-zero columns), and the ragged slot whose poll the shrink row takes.
+GATEWAY_CLASS_TENANTS = {32: (32, 32, 25, 9), 256: (256, 256, 240, 229)}
+GATEWAY_RAGGED_SLOT = 2
 # The outer rounds of the replayed solves whose launch counters are held
 # against the profiler's kernel records: a few thousand records each (the
 # trace of a 429-round solve, ~107k records, has lost some at random:
@@ -344,8 +397,14 @@ SUFFIX = {"none": "", "dense": "_masked", "packed": "_packed"}
 # n_i=300, r=150), "cf" (E=1, m=n=3000), "d32" / "d16" (E=4, m=2048,
 # n_i=512, r=64, fp32 / bf16 M), "t5" (E=10, m=5000, n_i=500, r=500),
 # "t6" (E=10, m=4000, n_i=400, r=600: three rank chunks), "bn" (the batch
-# phase's B·E = 128 clients, m=500, n_i=63, r=8, the padding mask) and "b4"
-# (batch_fig1's 4 x 10 = 40 clients, m=3000, n_i=300, r=150).
+# phase's B·E = 128 clients, m=500, n_i=63, r=8, the padding mask), "b4"
+# (batch_fig1's 4 x 10 = 40 clients, m=3000, n_i=300, r=150), "sv" (the
+# service phase's slot table: 16 slots, m=n=500, r=8, the all-ones mask),
+# "s1" (one slot of it: a poll's finalize), "f4" / "f1" (service_fig1's
+# table: 4 slots, m=n=3000, r=150, all-ones mask; one slot), "g32" /
+# "g256" (the gateway's narrowest and widest width classes: 4 slots, m=512,
+# r=8, ragged tenants behind mask-zero columns) and "g32_1" / "g256_1" (the
+# ragged slot of each: a poll's finalize).
 ROWS = [
     ("huber_contract_v", "none", "fig1", "dcf"),
     ("huber_contract_v", "dense", "fig1", "ragged"),
@@ -390,6 +449,18 @@ ROWS = [
     ("residual_shrink", "dense", "bn", "batch"),
     ("huber_contract_v", "none", "b4", "batch_fig1"),
     ("huber_contract_u_diag", "none", "b4", "batch_fig1"),
+    ("huber_contract_v", "dense", "sv", "service"),
+    ("huber_contract_u_diag", "dense", "sv", "service"),
+    ("residual_shrink", "dense", "s1", "service"),
+    ("huber_contract_v", "dense", "f4", "service_fig1"),
+    ("huber_contract_u_diag", "dense", "f4", "service_fig1"),
+    ("residual_shrink", "dense", "f1", "service_fig1"),
+    ("huber_contract_v", "dense", "g32", "gateway@32"),
+    ("huber_contract_u_diag", "dense", "g32", "gateway@32"),
+    ("residual_shrink", "dense", "g32_1", "gateway@32"),
+    ("huber_contract_v", "dense", "g256", "gateway@256"),
+    ("huber_contract_u_diag", "dense", "g256", "gateway@256"),
+    ("residual_shrink", "dense", "g256_1", "gateway@256"),
 ]
 # Flash rows: (row name, (B, S_q, S_kv, H, d), causal, dtype, phase whose
 # launches the row reports or None).
@@ -603,6 +674,31 @@ def kernel_operands(device) -> dict:
                            BATCH_RANK, ragged=True)
     sets["b4"] = batch_set(range(FIG1_BATCH), M_ROWS, CLIENTS, RANK,
                            ragged=False)
+    sets["sv"] = batch_set(range(1, SERVICE_SLOTS + 1), BATCH_N, 1,
+                           BATCH_RANK, ragged=True)
+    sets["s1"] = tuple(x[:1].contiguous() for x in sets["sv"])
+    sets["f4"] = batch_set(range(FIG1_BATCH), M_ROWS, 1, RANK, ragged=True)
+    sets["f1"] = tuple(x[:1].contiguous() for x in sets["f4"])
+
+    def gateway_set(width, n_reqs):
+        """A gateway width class's slot table: tenants of ``n_reqs``
+        columns (seeds 0..), each padded to ``width`` behind mask-zero
+        columns as the service pads a ragged one."""
+        parts = []
+        for seed, n_req in enumerate(n_reqs):
+            obs = torch.from_numpy(gateway_tenant(n_req, seed)[1])
+            m_obs = torch.zeros(GATEWAY_M, width, device=device)
+            m_obs[:, :n_req] = obs.to(device)
+            w = torch.zeros_like(m_obs)
+            w[:, :n_req] = 1.0
+            parts.append(client_set(m_obs, 1, GATEWAY_RANK, w))
+        return tuple(torch.cat(xs) for xs in zip(*parts))
+
+    ragged = slice(GATEWAY_RAGGED_SLOT, GATEWAY_RAGGED_SLOT + 1)
+    for width, n_reqs in GATEWAY_CLASS_TENANTS.items():
+        sets[f"g{width}"] = gateway_set(width, n_reqs)
+        sets[f"g{width}_1"] = tuple(x[ragged].contiguous()
+                                    for x in sets[f"g{width}"])
     return sets
 
 
@@ -1814,6 +1910,539 @@ def compile_cache_phase(device) -> dict:
     return row
 
 
+def _percentile(xs, q) -> float | None:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs) * 1e3, q)) if xs else None
+
+
+def _same_response(a, b) -> bool:
+    """Two service responses bit for bit (fields, verdicts, planes)."""
+    import torch
+
+    if (a.method, a.rounds, a.converged, a.diverged) != (
+            b.method, b.rounds, b.converged, b.diverged):
+        return False
+    return all((x is None and y is None) or bool(torch.equal(x, y))
+               for x, y in ((a.l, b.l), (a.s, b.s), (a.u, b.u), (a.v, b.v)))
+
+
+def _drain_timed(svc, mats, **kw):
+    """``svc.solve_all(mats, **kw)``, synchronised: (responses, wall s)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = svc.solve_all(mats, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _instrumented_drain(svc, mats) -> dict:
+    """One drain with each admission, its ``robust_lam`` calibration, its
+    fingerprints and each tick timed on their own (synchronised before and
+    after each, so the drain's wall is not the counted one's): medians and
+    90th percentiles in ms."""
+    import torch
+
+    from repro_torch.core import factorized as fz
+    from repro_torch.serving import rpca_service as svc_mod
+
+    times = {"admit": [], "robust_lam": [], "fingerprint": [], "tick": []}
+
+    def timer(name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    real_lam, real_fp = fz.robust_lam, svc_mod._fingerprint
+    fz.robust_lam = timer("robust_lam", real_lam)
+    svc_mod._fingerprint = timer("fingerprint", real_fp)
+    svc.try_submit = timer("admit", svc.try_submit)
+    svc.tick = timer("tick", svc.tick)
+    try:
+        svc.solve_all(mats)
+    finally:
+        fz.robust_lam, svc_mod._fingerprint = real_lam, real_fp
+        del svc.try_submit, svc.tick
+    rest = [a - b for a, b in zip(times["admit"], times["robust_lam"])]
+    out = {}
+    for name, xs in (("admission", times["admit"]),
+                     ("robust_lam", times["robust_lam"]),
+                     ("admission_rest", rest),
+                     ("fingerprints", [a + b for a, b in zip(
+                         times["fingerprint"][::2],
+                         times["fingerprint"][1::2])]),
+                     ("tick", times["tick"])):
+        out[f"{name}_ms_median"] = _percentile(xs, 50)
+        out[f"{name}_ms_p90"] = _percentile(xs, 90)
+    out["admissions"] = len(times["admit"])
+    out["ticks"] = len(times["tick"])
+    return out
+
+
+def _tick_launches(cfg, replays: int, polls: int) -> dict[str, int]:
+    """The launches a ``cf`` lane's replays and polls make: J·K masked
+    contract_v and K masked u_diag a round, one masked shrink a poll."""
+    return {"huber_contract_v_masked": replays * cfg.local_iters
+            * cfg.inner_sweeps,
+            "huber_contract_u_diag_masked": replays * cfg.local_iters,
+            "residual_shrink_masked": polls}
+
+
+def _launches_by_width(run):
+    """``run()`` with every ``RPCAService.tick`` and ``poll`` counted by
+    the service's width (a gateway's width class): the kernel launches and
+    graph replays each call added, and the responses it handed back.  The
+    counters are host-side, so each call's share is exact."""
+    from repro_torch.core import runtime as rt
+    from repro_torch.kernels import ops
+    from repro_torch.serving import RPCAService
+
+    by = {}
+    real = {name: getattr(RPCAService, name) for name in ("tick", "poll")}
+
+    def counted(name):
+        def call(self, *args, **kwargs):
+            before, replays = ops.launch_counts(), rt.graph_counts["replays"]
+            out = real[name](self, *args, **kwargs)
+            c = by.setdefault(self.n, {"launches": {}, "replays": 0,
+                                       "responses": 0})
+            for k, v in ops.launch_counts().items():
+                if v != before[k]:
+                    c["launches"][k] = c["launches"].get(k, 0) + v - before[k]
+            c["replays"] += rt.graph_counts["replays"] - replays
+            c["responses"] += name == "poll" and out is not None
+            return out
+        return call
+
+    for name in real:
+        setattr(RPCAService, name, counted(name))
+    try:
+        return run(), by
+    finally:
+        for name, fn in real.items():
+            setattr(RPCAService, name, fn)
+
+
+def service_phase(device) -> dict:
+    """The slot service (``serving.RPCAService``) on the batch phase's
+    problems: :data:`SERVICE_PROBLEMS` of 500 x 500 (rank 8, 5%, seeds 1..),
+    DCFConfig.tuned(8), :data:`SERVICE_SLOTS` slots, 8 rounds a tick, 200 at
+    most, drained by ``solve_all`` (continuous refill).  A first service
+    builds the lane's tick (one capture) and warms the libraries; the
+    counted drain runs on a second service of the same geometry, which
+    captures nothing: each tick is 8 replays of the captured slot-table
+    round, with exactly J·K masked contract_v and K masked u_diag launches
+    a replay and one masked shrink a poll.  Beside it: problems/s against
+    the serial ``rpca.solve(method="cf")`` solves and the batched solve of
+    the same problems (both with the service's tolerance), each recovery
+    error under :data:`SERVICE_BAR`, the admission's time split into
+    ``robust_lam``, the fingerprints and the rest, the tick's time, peak
+    memory, the profiled drain's busy share, the launch counters of 12
+    rounds against the profiler's kernels, the replayed drain bit for bit
+    an eager one, a poisoned slot's neighbour bit for bit a solo run, and
+    an IALM / APGM lane at 160^2 within 1e-5 of serial solves."""
+    import torch
+
+    from repro_torch import rpca
+    from repro_torch.core import APGMConfig, IALMConfig
+    from repro_torch.core import compile_cache as cc
+    from repro_torch.core import problems as prob
+    from repro_torch.core import runtime as rt
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import RPCAService, RPCAServiceConfig
+
+    cc.default_cache().clear()
+    problems = [prob.generate_problem(1 + b, BATCH_N, BATCH_N, BATCH_RANK,
+                                      SPARSITY, device=device)
+                for b in range(SERVICE_PROBLEMS)]
+    mats = [p.m_obs for p in problems]
+    cfg = DCFConfig.tuned(BATCH_RANK)
+    scfg = RPCAServiceConfig(slots=SERVICE_SLOTS,
+                             rounds_per_tick=SERVICE_ROUNDS_PER_TICK,
+                             max_rounds=SERVICE_MAX_ROUNDS)
+
+    def service(eager=False, rounds_per_tick=None):
+        s = scfg if rounds_per_tick is None else RPCAServiceConfig(
+            slots=SERVICE_SLOTS, rounds_per_tick=rounds_per_tick,
+            max_rounds=SERVICE_MAX_ROUNDS)
+        return RPCAService(BATCH_N, BATCH_N, cfg, s, key=BATCH_KEY,
+                           device=device, eager=eager)
+
+    rt.reset_graph_counts()
+    t0 = time.perf_counter()
+    first = service()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build = graph_fields()
+    first.solve_all(mats[:2])  # warms the libraries
+    del first
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rt.reset_graph_counts()
+    resps, wall = _drain_timed(service(), mats)
+    counts = ops.launch_counts()
+    graphs = graph_fields()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    replays = graphs["graph_replays"]
+    want = _tick_launches(cfg, replays, SERVICE_PROBLEMS)
+    errors = [metrics_err(r, p) for r, p in zip(resps, problems)]
+    rounds = [r.rounds for r in resps]
+    profiled = profile_run(lambda: service().solve_all(mats))
+
+    early = rt.RunConfig(mode="while", tol=scfg.tol)
+    serial, serial_wall = _serial(problems, cfg, method="cf", run=early,
+                                  key=BATCH_KEY, device=device)
+    chunked = rt.RunConfig(mode="chunk", tol=scfg.tol,
+                           chunk_size=SERVICE_ROUNDS_PER_TICK)
+    stacked = _stacked(problems).m_obs
+
+    def batched():
+        return rpca.solve(stacked, method="cf", cfg=cfg, run=chunked,
+                          key=BATCH_KEY, device=device)
+
+    batched()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch_res = batched()
+    torch.cuda.synchronize()
+    batch_wall = time.perf_counter() - t0
+    timing = _instrumented_drain(service(), mats)
+
+    eager, eager_wall = _drain_timed(service(eager=True), mats)
+    replay_is_eager = all(_same_response(a, b)
+                          for a, b in zip(resps, eager, strict=True))
+
+    # A poisoned tenant beside a healthy one, against the healthy alone.
+    solo = service().solve_all(mats[:1])[0]
+    poison = mats[1].clone()
+    poison[3, 5] = float("nan")
+    mixed = service().solve_all([mats[0], poison])
+    neighbour_same = _same_response(mixed[0], solo)
+    quarantined = mixed[1].diverged and not mixed[1].converged
+
+    # Launch counters against the profiler's kernels over 12 rounds (three
+    # ticks of 4 rounds: a lane of its own, one capture).
+    short = service(rounds_per_tick=GRAPHS_COUNTED_ROUNDS // 3)
+    for m_obs in mats[:SERVICE_SLOTS]:
+        short.try_submit(m_obs)
+    short.tick()
+
+    def three_ticks():
+        for _ in range(3):
+            short.tick()
+
+    ops.reset_launch_counts()
+    three_ticks()
+    torch.cuda.synchronize()
+    counted = family_launches(ops.launch_counts())
+    seen = profile_run(three_ticks, families=True)["device_kernels"]
+    del short
+
+    # The convex lanes: two IALM and two APGM tenants at 160^2, eager ticks.
+    convex = [prob.generate_problem(10 + b, CONVEX_BATCH_N, CONVEX_BATCH_N,
+                                    8, SPARSITY, device=device)
+              for b in range(4)]
+    methods = {0: "ialm", 1: "ialm", 2: "apgm", 3: "apgm"}
+    lanes = RPCAService(CONVEX_BATCH_N, CONVEX_BATCH_N,
+                        DCFConfig.tuned(BATCH_RANK),
+                        RPCAServiceConfig(slots=4, rounds_per_tick=8,
+                                          max_rounds=SERVICE_MAX_ROUNDS),
+                        cfgs={"ialm": IALMConfig(), "apgm": APGMConfig()},
+                        device=device)
+    rt.reset_graph_counts()
+    convex_resps, convex_wall = _drain_timed(
+        lanes, [p.m_obs for p in convex], methods=methods)
+    convex_captures = rt.graph_counts["captures"]
+    convex_rows = []
+    for b, (p, r) in enumerate(zip(convex, convex_resps)):
+        cfg_t = IALMConfig if methods[b] == "ialm" else APGMConfig
+        one = rpca.solve(p.m_obs, method=methods[b],
+                         cfg=cfg_t(iters=r.rounds), device=device)
+        rel = max((torch.linalg.norm(a - x) / torch.linalg.norm(x)).item()
+                  for a, x in ((r.l, one.l), (r.s, one.s)))
+        convex_rows.append(dict(method=methods[b], rounds=r.rounds,
+                                converged=r.converged,
+                                rel_diff_vs_serial=rel))
+    cc.default_cache().clear()
+
+    row = dict(
+        phase="service", method="cf", problems=SERVICE_PROBLEMS, m=BATCH_N,
+        n=BATCH_N, rank=BATCH_RANK, slots=SERVICE_SLOTS,
+        rounds_per_tick=SERVICE_ROUNDS_PER_TICK,
+        max_rounds=SERVICE_MAX_ROUNDS, tol=scfg.tol,
+        lane_build_s=build_s, lane_build_captures=build["graph_captures"],
+        lane_capture_ms=build["capture_ms"], wall_s=wall,
+        problems_per_s=SERVICE_PROBLEMS / wall,
+        serial_wall_s=serial_wall,
+        serial_problems_per_s=SERVICE_PROBLEMS / serial_wall,
+        batched_wall_s=batch_wall,
+        batched_problems_per_s=SERVICE_PROBLEMS / batch_wall,
+        batched_rounds=batch_res.stats.rounds.tolist(),
+        serial_rounds=[int(r.stats.rounds) for r in serial],
+        rounds=rounds, converged=all(r.converged for r in resps),
+        errors_max=max(errors), serial_errors_max=max(
+            metrics_err(r, p) for r, p in zip(serial, problems)),
+        bar=SERVICE_BAR, **timing,
+        peak_mem_gb=peak, device_busy_ms=profiled["device_busy_ms"],
+        device_busy_share=profiled["device_busy_ms"] / (wall * 1e3),
+        top_kernels=profiled["top_kernels"][:4],
+        runtime_calls=profiled["runtime_calls"],
+        **graphs, graph_replays_per_tick=SERVICE_ROUNDS_PER_TICK,
+        launches={k: c for k, c in counts.items() if c or k in want},
+        expected_launches=want,
+        counted_rounds=GRAPHS_COUNTED_ROUNDS, counters_by_family=counted,
+        profiler_kernels_by_family=seen,
+        eager_wall_s=eager_wall, replay_is_eager=replay_is_eager,
+        poisoned_neighbour_bit_identical=neighbour_same,
+        poisoned_slot_quarantined=quarantined,
+        convex_lanes=convex_rows, convex_wall_s=convex_wall,
+        convex_captures=convex_captures, convex_tol=SERVICE_CONVEX_TOL)
+    row["ok"] = (graphs["graph_captures"] == 0 and replays > 0
+                 and replays % SERVICE_ROUNDS_PER_TICK == 0
+                 and build["graph_captures"] == 1
+                 and counts == {k: want.get(k, 0) for k in counts}
+                 and row["converged"] and max(errors) < SERVICE_BAR
+                 and counted == seen and replay_is_eager
+                 and neighbour_same and quarantined
+                 and convex_captures == 0
+                 and all(r["rel_diff_vs_serial"] <= SERVICE_CONVEX_TOL
+                         for r in convex_rows))
+    emit(**row)
+    if not row["ok"]:
+        raise SystemExit("phase service failed")
+    row["launches"] = counts
+    return row
+
+
+def service_fig1_phase(device) -> dict:
+    """Four Fig. 1 problems (3000 x 3000, r = 150, 5%, seeds 0-3,
+    DCFConfig.tuned(150)) through a 4-slot ``cf`` service: the lane's
+    build (one capture), the drain's problems/s against the serial
+    ``rpca.solve(method="cf")`` solves with the service's tolerance, each
+    recovery error under the Fig. 1 bar, the drain's launches (no capture;
+    exactly J·K masked contract_v and K masked u_diag a replay, one masked
+    shrink a poll), a warm refresh of problem 0 (its data plus 1% noise,
+    its factors): rounds and wall; and the admission's time split as in
+    the service phase (a drain of its own)."""
+    import torch
+
+    from repro_torch import rpca
+    from repro_torch.core import compile_cache as cc
+    from repro_torch.core import problems as prob
+    from repro_torch.core import runtime as rt
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import RPCAService, RPCAServiceConfig
+
+    cc.default_cache().clear()
+    problems = [prob.generate_problem(seed, M_ROWS, N_COLS, RANK, SPARSITY,
+                                      device=device)
+                for seed in range(FIG1_BATCH)]
+    cfg = DCFConfig.tuned(RANK)
+    scfg = RPCAServiceConfig(slots=FIG1_BATCH,
+                             rounds_per_tick=SERVICE_ROUNDS_PER_TICK,
+                             max_rounds=SERVICE_MAX_ROUNDS)
+    rt.reset_graph_counts()
+    t0 = time.perf_counter()
+    svc = RPCAService(M_ROWS, N_COLS, cfg, scfg, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    captures = rt.graph_counts["captures"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rt.reset_graph_counts()
+    resps, wall = _drain_timed(svc, [p.m_obs for p in problems])
+    counts = ops.launch_counts()
+    replays = rt.graph_counts["replays"]
+    drain_captures = rt.graph_counts["captures"]
+    want = _tick_launches(cfg, replays, FIG1_BATCH)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    errors = [metrics_err(r, p) for r, p in zip(resps, problems)]
+    early = rt.RunConfig(mode="while", tol=scfg.tol)
+    serial, serial_wall = _serial(problems, cfg, method="cf", run=early,
+                                  device=device)
+    g = torch.Generator(device=device).manual_seed(99)
+    noisy = problems[0].m_obs + 0.01 * torch.randn(
+        problems[0].m_obs.shape, generator=g, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slot = svc.try_submit(noisy, warm=(resps[0].u, resps[0].v))
+    while svc.pending():
+        svc.tick()
+    refresh = svc.poll(slot)
+    torch.cuda.synchronize()
+    refresh_wall = time.perf_counter() - t0
+    svc.release(slot)
+    del svc
+    timing = _instrumented_drain(
+        RPCAService(M_ROWS, N_COLS, cfg, scfg, device=device),
+        [p.m_obs for p in problems])
+    cc.default_cache().clear()
+    row = dict(phase="service_fig1", method="cf", problems=FIG1_BATCH,
+               m=M_ROWS, n=N_COLS, rank=RANK, slots=FIG1_BATCH,
+               lane_build_s=build_s, lane_build_captures=captures,
+               wall_s=wall, problems_per_s=FIG1_BATCH / wall,
+               serial_wall_s=serial_wall,
+               serial_problems_per_s=FIG1_BATCH / serial_wall,
+               rounds=[r.rounds for r in resps],
+               serial_rounds=[int(r.stats.rounds) for r in serial],
+               errors=errors, bar=ERR_BAR, peak_mem_gb=peak,
+               drain_captures=drain_captures, graph_replays=replays,
+               launches={k: c for k, c in counts.items() if c or k in want},
+               expected_launches=want, refresh_rounds=refresh.rounds,
+               refresh_converged=refresh.converged,
+               refresh_wall_s=refresh_wall,
+               cold_rounds_third=resps[0].rounds // 3, **timing)
+    row["ok"] = (captures == 1 and drain_captures == 0 and replays > 0
+                 and replays % SERVICE_ROUNDS_PER_TICK == 0
+                 and counts == {k: want.get(k, 0) for k in counts}
+                 and all(r.converged for r in resps)
+                 and max(errors) < ERR_BAR and refresh.converged
+                 and refresh.rounds < resps[0].rounds // 3)
+    emit(**row)
+    if not row["ok"]:
+        raise SystemExit("phase service_fig1 failed")
+    row["launches"] = counts
+    return row
+
+
+def gateway_tenant(n_cols: int, seed: int):
+    """``benchmarks/gateway_bench.py``'s tenant: a rank-GATEWAY_RANK
+    GATEWAY_M x ``n_cols`` plane plus 5% spikes of 3.0, as (truth,
+    observation) in fp32 numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    low = rng.standard_normal((GATEWAY_M, GATEWAY_RANK)) @ \
+        rng.standard_normal((GATEWAY_RANK, n_cols))
+    sparse = (rng.random((GATEWAY_M, n_cols)) < 0.05) * 3.0
+    return low.astype(np.float32), (low + sparse).astype(np.float32)
+
+
+def gateway_phase(device) -> list[dict]:
+    """``benchmarks/gateway_bench.py``'s ``run()`` at its full mix on the
+    card: m = 512, n_max = 256, rank 8, pages of 32 columns, 4 slots a
+    width class, 8 rounds a tick, 200 at most; eight tenants of 1/8 to 1
+    of n_max.  The padded-byte reduction of the paged width classes
+    against one homogeneous table (the benchmark's model, gated at >= 2),
+    then the mix through ``RPCAGateway.solve_all``: a first gateway builds
+    the width classes' lanes (a capture each), the second is timed: wall,
+    solves/s, the gateway's p50 / p99 submit-to-result latency, rounds/s,
+    the largest live homogeneous-to-paged byte ratio (a metrics snapshot
+    each tick), and each response's low-rank error against its truth (the
+    reference test's 5e-2, tests/test_gateway.py:189).  The timed run's
+    launches are counted by width class (a ``gateway@<width>`` line each):
+    no capture, and exactly J·K masked contract_v and K masked u_diag a
+    replay and one masked shrink a poll in every class."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import compile_cache as cc
+    from repro_torch.core import runtime as rt
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import GatewayConfig, RPCAGateway
+
+    m, n_max, rank = GATEWAY_M, GATEWAY_N_MAX, GATEWAY_RANK
+    page = n_max // 8
+    widths = [max(1, int(round(f * n_max))) for f in GATEWAY_MIX]
+    paged = sum(min(n_max, -(-w // page) * page) * 4 * m for w in widths)
+    homog = len(widths) * n_max * 4 * m
+    reduction = homog / paged
+
+    truths, mats = zip(*(gateway_tenant(w, i) for i, w in enumerate(widths)))
+    cfg = DCFConfig.tuned(rank=rank)
+    gcfg = GatewayConfig(page_cols=page, pool_pages=4 * len(widths),
+                         max_queue=2 * len(widths), slots=GATEWAY_SLOTS,
+                         rounds_per_tick=SERVICE_ROUNDS_PER_TICK,
+                         max_rounds=SERVICE_MAX_ROUNDS)
+    cc.default_cache().clear()
+    rt.reset_graph_counts()
+    t0 = time.perf_counter()
+    RPCAGateway(m, n_max, cfg, gcfg, device=device).solve_all(list(mats))
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    captures = rt.graph_counts["captures"]
+    homog_seen = []
+    gw = RPCAGateway(m, n_max, cfg,
+                     dataclasses.replace(gcfg, snapshot_every=1),
+                     device=device,
+                     snapshot_hook=lambda mets: homog_seen.append(
+                         mets["padding"]["homogeneous_ratio"]))
+    ops.reset_launch_counts()
+    rt.reset_graph_counts()
+    t0 = time.perf_counter()
+    resps, by_width = _launches_by_width(lambda: gw.solve_all(list(mats)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    mets = gw.metrics()
+    classes = []
+    for width in sorted(by_width):
+        c = by_width[width]
+        want = _tick_launches(cfg, c["replays"], c["responses"])
+        launches = {k: c["launches"].get(k, 0) for k in counts}
+        tenants = sum(gw._width_for(w) == width for w in widths)
+        cls = dict(phase=f"gateway@{width}", width=width, tenants=tenants,
+                   responses=c["responses"], graph_replays=c["replays"],
+                   launches={k: x for k, x in launches.items() if x},
+                   expected_launches=want)
+        cls["ok"] = (c["replays"] > 0
+                     and c["replays"] % SERVICE_ROUNDS_PER_TICK == 0
+                     and c["responses"] == tenants
+                     and launches == {k: want.get(k, 0) for k in counts})
+        emit(**cls)
+        cls["launches"] = launches
+        classes.append(cls)
+    summed = {k: sum(cls["launches"][k] for cls in classes) for k in counts}
+    errors = [float(np.linalg.norm(r.l.cpu().numpy() - t)
+                    / np.linalg.norm(t)) for r, t in zip(resps, truths)]
+    shapes_ok = all(tuple(r.l.shape) == x.shape
+                    for r, x in zip(resps, mats))
+    cc.default_cache().clear()
+    row = dict(phase="gateway", m=m, n_max=n_max, rank=rank,
+               page_cols=page, widths=widths,
+               width_classes=sorted(gw._services),
+               paged_plane_bytes=paged, homog_plane_bytes=homog,
+               reduction=reduction, min_reduction=GATEWAY_MIN_REDUCTION,
+               live_homogeneous_ratio_max=max(homog_seen, default=None),
+               first_wall_s=first_wall, first_captures=captures,
+               wall_s=wall, solves_per_s=len(mats) / wall,
+               captures=rt.graph_counts["captures"],
+               replays=rt.graph_counts["replays"],
+               rounds_total=mets["rounds_total"],
+               rounds_per_s=mets["rounds_total"] / wall,
+               p50_ms=mets["latency"]["p50_ms"],
+               p99_ms=mets["latency"]["p99_ms"], shed=mets["shed"],
+               rounds=[r.rounds for r in resps], errors=errors,
+               bar=GATEWAY_BAR)
+    row["ok"] = (reduction >= GATEWAY_MIN_REDUCTION and shapes_ok
+                 and captures == len(row["width_classes"])
+                 and row["captures"] == 0 and mets["shed"] == 0
+                 and all(r.converged for r in resps)
+                 and max(errors) < GATEWAY_BAR
+                 and sorted(by_width) == row["width_classes"]
+                 and all(cls["ok"] for cls in classes) and counts == summed
+                 and row["replays"] == sum(c["replays"]
+                                           for c in by_width.values()))
+    emit(**row)
+    if not row["ok"]:
+        raise SystemExit("phase gateway failed")
+    return [row, *classes]
+
+
 def metrics_err(res, p) -> float:
     """Relative recovery error (Eq. 30) of one solve."""
     from repro_torch.core import metrics
@@ -2193,6 +2822,9 @@ def main() -> int:
     phases += wire_phase(device)
     phases += graphs_phase(device)
     phases.append(compile_cache_phase(device))
+    phases.append(service_phase(device))
+    phases.append(service_fig1_phase(device))
+    phases += gateway_phase(device)
     phases += table1_phase(device)
     phases.append(wide_phase(device))
     phases.append(convex_phase(device))

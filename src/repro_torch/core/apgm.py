@@ -258,11 +258,55 @@ def convex_aot_hooks(name: str, cfg_type: type, make_solver,
                           warm_shapes=warm_shapes)
 
 
+def convex_service_hooks(make_solver_fn, problem_fn,
+                         default_cfg: type) -> _rpca.ServiceHooks:
+    """The slot-service hooks shared by the convex (L, S) solvers (APGM,
+    IALM; the reference's ``convex_service_hooks``).  Both carry the same
+    slot layout: data-shaped ``m_obs``, ``l_init``, ``s_init`` planes and
+    an always-present mask plane (all-ones for maskless submissions:
+    numerically the unmasked path); warm starts are ``(L, S)`` iterates,
+    padded along the columns for ragged widths.  An empty slot is the
+    zero matrix, which both solvers' initialisations take (IALM's guard,
+    APGM's zero spectrum)."""
+
+    def empty_problems(cfg, slots: int, m: int, n: int,
+                       device: torch.device):
+        def zeros():  # one tensor a field: slot writes go into each
+            return torch.zeros(slots, m, n, device=device)
+
+        return problem_fn(zeros(), (zeros(), zeros()),
+                          torch.ones(slots, m, n, device=device))
+
+    def make_problem(m_obs, cfg, key, warm, mask, device: torch.device):
+        del key  # convex solvers have no random init
+        if mask is None:
+            mask = torch.ones(tuple(m_obs.shape), device=device)
+        m_obs, warm, mask = convex_data(m_obs, warm, mask, device)
+        return problem_fn(m_obs, warm, mask)
+
+    def warm_layout(cfg, m: int, n_req: int):
+        return (
+            ("L", (m, n_req), "(m, n)", 1),
+            ("S", (m, n_req), "(m, n)", 1),
+        )
+
+    return _rpca.ServiceHooks(
+        make_solver=make_solver_fn,
+        empty_problems=empty_problems,
+        make_problem=make_problem,
+        unpack=lambda fin: (fin[0], fin[1], None, None),
+        warm_layout=warm_layout,
+        default_cfg=default_cfg,
+        cfg_type=default_cfg,  # the convex config classes are the factory
+    )
+
+
 _rpca.register_solver(
     "apgm",
     _rpca.SolverCaps(supports_mask=True, supports_factors=False,
                      batchable=True, supports_service=True),
     _registry_make,
+    service=convex_service_hooks(make_solver, _problem, APGMConfig),
     aot=convex_aot_hooks("apgm", APGMConfig, make_solver, _problem),
 )
 

@@ -276,6 +276,46 @@ def _registry_make(spec, cfg, run_cfg, device):
     return res.l, res.s, res.u, res.v, res.stats
 
 
+def _service_empty(cfg: fz.DCFConfig, slots: int, m: int, n: int,
+                   device: torch.device) -> CFProblem:
+    """An empty slot table: zero data, factors, ``lam0`` and ``t0``, and an
+    all-ones mask plane (packed under ``cfg.pack_mask``).  The kernels'
+    grids must hold the slots as clients (checked here)."""
+    device = torch.device(device)
+    fz.check_grid(cfg, slots, m, device)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return CFProblem(
+        m_obs=zeros(slots, m, n), u_init=zeros(slots, m, cfg.rank),
+        v_init=zeros(slots, n, cfg.rank), lam0=zeros(slots),
+        t0=zeros(slots, dtype=torch.int32),
+        mask=(bitmask.packed_ones((slots, m, n), device) if cfg.pack_mask
+              else torch.ones(slots, m, n, device=device)))
+
+
+def _service_problem(m_obs, cfg: fz.DCFConfig, key, warm, mask,
+                     device: torch.device) -> CFProblem:
+    """One slot's problem.  A maskless submission calibrates ``lam`` on the
+    unmasked path (plain medians, no masked sort), then takes the all-ones
+    plane that the homogeneous slot table needs: numerically the same."""
+    if mask is None:
+        problem = make_problem(m_obs, cfg, key, warm, device=device)
+        shape = tuple(problem.m_obs.shape)
+        return problem._replace(
+            mask=(bitmask.packed_ones(shape, device) if cfg.pack_mask
+                  else torch.ones(shape, device=device)))
+    return make_problem(m_obs, cfg, key, warm, mask=mask, device=device)
+
+
+def _service_warm_layout(cfg: fz.DCFConfig, m: int, n_req: int):
+    return (
+        ("U", (m, cfg.rank), "(m, rank)", None),
+        ("V", (n_req, cfg.rank), "(n, rank)", 0),
+    )
+
+
 def _aot_resolve_cfg(cfg, spec) -> fz.DCFConfig:
     cfg = cfg if cfg is not None else _default_cfg(spec)
     _rpca.require_cfg_type("cf", cfg, fz.DCFConfig)
@@ -310,6 +350,14 @@ _rpca.register_solver(
                      batchable=True, needs_rank=True,
                      supports_service=True, supports_lowp=True),
     _registry_make,
+    service=_rpca.ServiceHooks(
+        make_solver=make_solver,
+        empty_problems=_service_empty,
+        make_problem=_service_problem,
+        unpack=lambda fin: fin,
+        warm_layout=_service_warm_layout,
+        cfg_type=fz.DCFConfig,
+    ),
     aot=_rpca.AOTHooks(resolve_cfg=_aot_resolve_cfg, program=_aot_program,
                        warm_shapes=_aot_warm_shapes),
 )

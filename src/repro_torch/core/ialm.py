@@ -26,7 +26,8 @@ from repro_torch import rpca as _rpca
 from repro_torch.core import runtime as rt
 from repro_torch.core import validate
 from repro_torch.core.apgm import (
-    ConvexResult, convex_aot_hooks, convex_data, default_lam, solve_convex,
+    ConvexResult, convex_aot_hooks, convex_data, convex_service_hooks,
+    default_lam, solve_convex,
 )
 from repro_torch.core.ops import (
     amax, fro, masked_soft_threshold, per_problem as pp, soft_threshold,
@@ -170,6 +171,7 @@ _rpca.register_solver(
     _rpca.SolverCaps(supports_mask=True, supports_factors=False,
                      batchable=True, supports_service=True),
     _registry_make,
+    service=convex_service_hooks(make_solver, _problem, IALMConfig),
     aot=convex_aot_hooks("ialm", IALMConfig, make_solver, _problem),
 )
 

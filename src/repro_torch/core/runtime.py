@@ -22,7 +22,10 @@ and :func:`run` drives it in one of three modes (:class:`RunConfig.mode`):
 :func:`solve_batch` drives B problems at once: the problem's leaves carry
 a leading problem axis and the solver's functions take it natively (one
 kernel launch a sweep for the whole batch).  Finished problems freeze
-(:func:`tree_where`) while the others go on.
+(:func:`tree_where`) while the others go on.  :func:`slot_body` is the
+round of a service's slot table (``serving.rpca_service``): each slot at
+its own schedule position, with its own done, converged and quarantine
+flags, all on the device.
 
 On a CUDA device a solver whose ``capturable`` flag is set runs its rounds
 as one CUDA graph, the counterpart of the reference's compiled ``lax.scan``
@@ -281,9 +284,9 @@ def _graph_pool(device: torch.device, side: torch.cuda.Stream) -> tuple:
     capture reuses them and allocates nothing: with a pool of its own,
     each capture of a Fig. 1 round made 3-9 ``cudaMalloc`` calls and took
     7-226 ms to record against 3-5 ms, and the dead graphs' pools stayed
-    reserved (``launch/graph_costs.py``, PERF.md §5).  A pool lives
-    while a graph uses it, so a graph of one kernel, never replayed, holds
-    it for the process.  Sharing asks two things of the graphs: they do
+    reserved (``launch/graph_costs.py``; PERF_ARCHIVE.md, PR 20).  A pool
+    lives while a graph uses it, so a graph of one kernel, never replayed,
+    holds it for the process.  Sharing asks two things of the graphs: they do
     not replay concurrently (every replay here runs on the current stream,
     in order), and no capture keeps alive a tensor it allocated, whose
     memory may be an earlier graph's temporary (:class:`CapturedRound`
@@ -455,6 +458,56 @@ def single_body(solver: Solver, problem: Any) -> Callable[[dict], dict]:
         s["obj"].index_copy_(0, i, d.objective.to(torch.float32).reshape(1))
         s["res"].index_copy_(0, i, d.residual.to(torch.float32).reshape(1))
         return {"carry": carry, "t": t + 1}
+
+    return body
+
+
+#: The per-slot state of a slot table beside the carry (``serving.
+#: rpca_service``): the schedule position, the done and converged flags,
+#: the rounds spent and the quarantine flag.
+SLOT_COUNTERS = ("t", "done", "rounds", "hit", "dived")
+
+
+def slot_counters(slots: int, device: torch.device) -> dict:
+    """Zeroed :data:`SLOT_COUNTERS` of ``slots`` slots."""
+    i32 = dict(dtype=torch.int32, device=device)
+    b = dict(dtype=torch.bool, device=device)
+    return {"t": torch.zeros(slots, **i32), "done": torch.zeros(slots, **b),
+            "rounds": torch.zeros(slots, **i32),
+            "hit": torch.zeros(slots, **b), "dived": torch.zeros(slots, **b)}
+
+
+def slot_body(solver: Solver, problems: Any, tol: float, min_rounds: int,
+              max_rounds: int) -> Callable[[dict], dict]:
+    """One lock-step round of a slot table (the reference service's tick
+    body): ``problems`` carries a leading slot axis, and the state holds
+    the batched carry, the :data:`SLOT_COUNTERS` and ``active``, the slots
+    this lane owns.  A slot advances when it is active and not done: its
+    carry steps at its own schedule position ``t`` (a (slots,) int32; the
+    solver adds the problem's ``t0``), ``t`` and ``rounds`` grow by one;
+    a non-finite residual quarantines it (``dived`` and ``done``), a
+    residual within ``tol`` after ``min_rounds`` rounds converges it
+    (``hit``), and ``max_rounds`` ends it.  Every slot computes every
+    round; the others keep their state through ``torch.where``
+    (:func:`tree_where`), so a quarantined slot's NaNs reach no
+    neighbour.  Nothing is read on the host: the round is capturable
+    where the solver is."""
+
+    def body(s: dict) -> dict:
+        done, rounds = s["done"], s["rounds"]
+        adv = s["active"] & ~done
+        carry = tree_where(adv, solver.step(problems, s["carry"], s["t"]),
+                           s["carry"])
+        d = solver.diagnostics(problems, carry)
+        inc = adv.to(torch.int32)
+        rounds = rounds + inc
+        bad = adv & ~torch.isfinite(d.residual)
+        hit_now = (d.residual <= tol) & (rounds >= min_rounds)
+        return {"carry": carry, "t": s["t"] + inc, "rounds": rounds,
+                "hit": s["hit"] | (adv & hit_now),
+                "dived": s["dived"] | bad,
+                "done": done | bad | (adv & (hit_now
+                                             | (rounds >= max_rounds)))}
 
     return body
 

@@ -60,7 +60,7 @@ class Model:
         return lm.lm_decode_step(params, tokens, caches, pos, self.cfg)
 
     def loss(self, params, batch):
-        raise blocks.not_ported("training (lm_loss)")
+        raise blocks.not_ported("training (lm_loss)", blocks.TRAINING_ITEM)
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -19,10 +19,17 @@ from repro_torch.models.mlp import mlp, mlp_specs
 MODES = ("prefill", "decode")
 
 
-def not_ported(what: str) -> NotImplementedError:
+#: ROADMAP.md's Queue 1 items that port what is refused here.
+FAMILIES_ITEM, TRAINING_ITEM = 8, 7
+
+
+def not_ported(what: str, item: int = FAMILIES_ITEM) -> NotImplementedError:
+    """The refusal of an unported LM feature: ``item`` is ROADMAP.md's
+    Queue 1 item that ports it (the other families, their mixers and FFNs:
+    :data:`FAMILIES_ITEM`; training: :data:`TRAINING_ITEM`)."""
     return NotImplementedError(
         f"{what} waits for a later slice of the port (ROADMAP.md, Queue 1 "
-        f"item 13); the port serves the dense family")
+        f"item {item}); the port serves the dense family")
 
 
 def layer_specs(cfg: ModelConfig, *, mixer: str = "attn",
@@ -44,7 +51,8 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
     ``decode`` the caches it updated in place at ``pos`` (a 0-d device
     tensor)."""
     if mode not in MODES:
-        raise not_ported(f"mode {mode!r}")
+        raise not_ported(f"mode {mode!r}",
+                         TRAINING_ITEM if mode == "train" else FAMILIES_ITEM)
     h = rmsnorm(params.ln1, x, cfg.norm_eps)
     if mode == "decode":
         y = attn_mod.attention_decode(params.mixer, h, cache[0], cache[1],

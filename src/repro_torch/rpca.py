@@ -54,11 +54,15 @@ bucket replays the bucket's one captured round on the card::
 Specs the cache cannot express (batched, simulated clients,
 participation, a mesh) and methods without AOT hooks take the regular
 path, with ``cache_stats`` ``None``.
+
+A method registered with :class:`ServiceHooks` (``"cf"``, ``"ialm"``,
+``"apgm"``) backs the slots of ``serving.RPCAService`` and the gateway in
+front of it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import TYPE_CHECKING, Any, Callable
+from typing import TYPE_CHECKING, Any, Callable, Sequence
 
 import torch
 
@@ -225,16 +229,48 @@ class AOTHooks:
 
 
 @dataclass(frozen=True)
+class ServiceHooks:
+    """How a solver plugs into ``serving.RPCAService``'s slot lanes (the
+    reference's ``ServiceHooks``, field for field; the two builders also
+    take the lane's device).
+
+    ``make_solver``     cfg -> runtime ``core.runtime.Solver``.
+    ``empty_problems``  (cfg, slots, m, n, device) -> zeroed batched problem
+                        (homogeneous across slots: always carries a mask
+                        plane; all-ones = numerically the unmasked path).
+    ``make_problem``    (m_obs, cfg, key, warm, mask, device) -> one problem
+                        slot-compatible with ``empty_problems``.
+    ``unpack``          finalize output -> ``(l, s, u-or-None, v-or-None)``.
+    ``warm_layout``     (cfg, m, n_req) -> sequence of
+                        ``(name, expected_shape, desc, pad_axis)`` records
+                        used to validate and ragged-pad ``warm=`` factors
+                        (``pad_axis=None`` = never padded).
+    ``default_cfg``     zero-arg cfg factory for lanes created without an
+                        explicit config (``None`` = config required).
+    ``cfg_type``        expected config class; the service validates lane
+                        configs against it eagerly (``None`` = unchecked).
+    """
+
+    make_solver: Callable[[Any], Any]
+    empty_problems: Callable[[Any, int, int, int, torch.device], Any]
+    make_problem: Callable[..., Any]
+    unpack: Callable[[Any], tuple]
+    warm_layout: Callable[[Any, int, int], Sequence[tuple]]
+    default_cfg: Callable[[], Any] | None = None
+    cfg_type: type | None = None
+
+
+@dataclass(frozen=True)
 class SolverEntry:
     """A registered solver.  ``make(spec, cfg, run_cfg, device)`` runs the
     solve and returns ``(l, s, u, v, stats)``; ``aot`` opts it into the
-    compile cache (:class:`AOTHooks`); ``service`` (the reference's
-    slot-service hooks) stays ``None`` until that slice lands."""
+    compile cache (:class:`AOTHooks`); ``service`` into the slot service
+    (:class:`ServiceHooks`)."""
 
     name: str
     caps: SolverCaps
     make: Callable[[RPCASpec, Any, Any, torch.device], tuple]
-    service: Any = None
+    service: ServiceHooks | None = None
     aot: AOTHooks | None = None
 
 
@@ -244,11 +280,12 @@ SOLVERS: dict[str, SolverEntry] = {}
 
 def register_solver(name: str, caps: SolverCaps,
                     make: Callable[[RPCASpec, Any, Any, torch.device], tuple],
-                    service: Any = None,
+                    service: ServiceHooks | None = None,
                     aot: AOTHooks | None = None) -> None:
     """Register (or re-register) a solver under ``name``.  ``cfg`` reaches
     ``make`` as ``None`` when the caller passed none (the adapter picks its
-    default); ``aot`` opts the method into the compile cache
+    default); ``service`` opts the method into the slot service
+    (``serving.RPCAService``), ``aot`` into the compile cache
     (``solve(..., compile_policy=...)``)."""
     SOLVERS[name] = SolverEntry(name=name, caps=caps, make=make,
                                 service=service, aot=aot)
@@ -508,6 +545,7 @@ __all__ = [
     "RPCAResult",
     "RPCASpec",
     "SOLVERS",
+    "ServiceHooks",
     "SolverCaps",
     "SolverEntry",
     "SVD_COST_THRESHOLD",

@@ -38,10 +38,12 @@ class ServeConfig:
 
 def _sample(logits: torch.Tensor, generator: torch.Generator | None,
             temperature: float) -> torch.Tensor:
+    """The next tokens, int32 on both branches (as the reference's)."""
     if temperature <= 0.0:
-        return torch.argmax(logits, dim=-1)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
 
 
 def generate(model: Model, params, prompt: torch.Tensor,
@@ -50,7 +52,8 @@ def generate(model: Model, params, prompt: torch.Tensor,
              s_max: int | None = None, *, eager: bool = False
              ) -> torch.Tensor:
     """Greedy or temperature decoding of ``prompt`` (B, S_prompt) on its
-    device.  Returns (B, max_new_tokens) token ids.
+    device.  Returns (B, max_new_tokens) int32 token ids (the next token
+    goes back in as int32; the embedding gathers at int32 indices).
 
     On a CUDA device the decode steps after the first replay one captured
     step, from ``runtime.MIN_GRAPH_ROUNDS`` decode steps on
@@ -62,7 +65,8 @@ def generate(model: Model, params, prompt: torch.Tensor,
     caches = model.init_cache(b, s_max, device)
     logits, caches = model.prefill(params, prompt, caches)
     tok = _sample(logits, generator, scfg.temperature)
-    out = torch.empty(b, scfg.max_new_tokens, dtype=tok.dtype, device=device)
+    out = torch.empty(b, scfg.max_new_tokens, dtype=torch.int32,
+                      device=device)
     out[:, 0] = tok
     greedy = scfg.temperature <= 0.0
     # The decode step's static buffers: the graph reads the token and the
@@ -79,7 +83,7 @@ def generate(model: Model, params, prompt: torch.Tensor,
                                            state["pos"])
         state["logits"].copy_(step_logits)
         if greedy:
-            nxt = torch.argmax(step_logits, dim=-1)
+            nxt = _sample(step_logits, None, 0.0)
             out.index_copy_(1, state["col"].reshape(1), nxt[:, None])
             state["tok"].copy_(nxt[:, None])
         state["pos"].add_(1)

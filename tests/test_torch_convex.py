@@ -300,8 +300,10 @@ def test_registry_caps_match_the_reference():
         got = rpca.get_solver(name).caps
         assert {f: getattr(got, f) for f in CAPS} == \
             {f: getattr(want, f) for f in CAPS}
-        assert rpca.get_solver(name).service is None
-        # The compile cache's hooks where the reference registers them.
+        # The slot service's and the compile cache's hooks where the
+        # reference registers them.
+        assert (rpca.get_solver(name).service is None) == \
+            (jrpca.get_solver(name).service is None)
         assert (rpca.get_solver(name).aot is None) == \
             (jrpca.get_solver(name).aot is None)
 
@@ -403,12 +405,11 @@ def test_solve_with_no_rank_runs_ialm(problem):
 
 
 #: The reference's exports that the port does not have yet, each named in
-#: ROADMAP.md's Queue 1 (the serving plane, the sharded engine).
+#: ROADMAP.md's Queue 1 (the sharded engine).
 UNPORTED = {
-    "repro": {"GatewayConfig", "RPCAGateway", "RPCAService",
-              "RPCAServiceConfig"},
+    "repro": set(),
     "repro.core": {"dcf_pca_sharded"},
-    "repro.rpca": {"ServiceHooks"},
+    "repro.rpca": set(),
 }
 
 

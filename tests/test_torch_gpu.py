@@ -1362,5 +1362,187 @@ def test_replayed_decode_gives_the_eager_tokens(cuda, temperature):
     rt.reset_graph_counts()
     got = tokens(False)
     assert torch.equal(got, want)
+    assert got.dtype == want.dtype == torch.int32
     assert rt.graph_counts["captures"] == 1
     assert rt.graph_counts["replays"] == scfg.max_new_tokens - 2
+
+
+# ---------------------------------------------------------------------------
+# The slot service and the gateway on the card
+# ---------------------------------------------------------------------------
+SVC_M, SVC_N, SVC_R = 48, 40, 3
+
+
+def _tenant(n_cols, seed, poison=False):
+    g = torch.Generator().manual_seed(seed)
+    low = torch.randn(SVC_M, SVC_R, generator=g) @ torch.randn(
+        SVC_R, n_cols, generator=g)
+    out = low + (torch.rand(SVC_M, n_cols, generator=g) < 0.05) * 3.0
+    if poison:
+        out[3, 5] = float("nan")
+    return out.numpy()
+
+
+def _service(cuda, eager=False, key=0, slots=3, **kw):
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.core.ialm import IALMConfig
+    from repro_torch.serving import RPCAService, RPCAServiceConfig
+
+    scfg = RPCAServiceConfig(slots=slots, rounds_per_tick=8, max_rounds=96,
+                             **kw)
+    return RPCAService(SVC_M, SVC_N, DCFConfig.tuned(SVC_R), scfg, key=key,
+                       cfgs={"ialm": IALMConfig()}, device=cuda, eager=eager)
+
+
+def _tick_until(svc, slots):
+    out = {}
+    for _ in range(64):
+        svc.tick()
+        for s in slots:
+            if s not in out:
+                r = svc.poll(s)
+                if r is not None:
+                    out[s] = r
+        if len(out) == len(slots):
+            return out
+    raise AssertionError("the service did not finish")
+
+
+def _same_response(a, b):
+    assert a.method == b.method and a.rounds == b.rounds
+    assert a.converged == b.converged and a.diverged == b.diverged
+    for name in ("l", "s", "u", "v"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert (x is None and y is None) or torch.equal(x, y), name
+
+
+@pytest.mark.gpu
+def test_replayed_service_ticks_give_the_eager_bits(cuda):
+    """A cf lane's replayed ticks (one captured slot-table round) against
+    eager ticks, through continuous refill with a ragged, a masked and an
+    ialm tenant: every response bit for bit."""
+    mats = [_tenant(SVC_N, 0), _tenant(30, 1), _tenant(SVC_N, 2),
+            _tenant(SVC_N, 3), _tenant(SVC_N, 4)]
+    mask = (torch.rand(SVC_M, SVC_N, generator=torch.Generator()
+                       .manual_seed(6)) < 0.8).float().numpy()
+    runs = [_service(cuda, eager=eager).solve_all(
+        mats, masks={2: mask}, methods={3: "ialm"}) for eager in (True,
+                                                                  False)]
+    for a, b in zip(*runs, strict=True):
+        _same_response(a, b)
+
+
+@pytest.mark.gpu
+def test_a_tick_is_rounds_per_tick_replays_with_exact_counts(cuda):
+    """One capture when the lane is built (its warm-up round moves no
+    slot), then each tick replays the round rounds_per_tick times and adds
+    one round's launches each time: J·K masked contract_v and K masked
+    u_diag launches a round; one masked shrink a poll."""
+    from repro_torch.core import compile_cache as cc
+    from repro_torch.core import runtime as rt
+
+    cc.default_cache().clear()
+    rt.reset_graph_counts()
+    svc = _service(cuda)
+    assert rt.graph_counts["captures"] == 1
+    for seed in range(2):
+        svc.try_submit(_tenant(SVC_N, seed))
+    ops.reset_launch_counts()
+    rt.reset_graph_counts()
+    svc.tick()
+    torch.cuda.synchronize()
+    cfg = svc.cfg
+    assert rt.graph_counts["captures"] == 0
+    assert rt.graph_counts["replays"] == 8
+    counts = {k: c for k, c in ops.launch_counts().items() if c}
+    per_round = cfg.local_iters
+    assert counts == {
+        "huber_contract_v_masked": 8 * per_round * cfg.inner_sweeps,
+        "huber_contract_u_diag_masked": 8 * per_round}
+    ops.reset_launch_counts()
+    out = _tick_until(svc, [0, 1])
+    assert ops.launch_counts()["residual_shrink_masked"] == len(out)
+
+
+@pytest.mark.gpu
+def test_a_second_service_of_one_geometry_captures_nothing(cuda):
+    """Two services of one geometry share the tick's captured round:
+    the second captures nothing, and ticking the two in turn (each tick
+    hands the static buffers to its lane) gives each the bits it gives
+    alone."""
+    from repro_torch.core import runtime as rt
+
+    alone = []
+    for key in (0, 5):
+        svc = _service(cuda, key=key)
+        slots = [svc.try_submit(_tenant(SVC_N, key + i)) for i in range(2)]
+        alone.append(_tick_until(svc, slots))
+    rt.reset_graph_counts()
+    a, b = _service(cuda, key=0), _service(cuda, key=5)
+    for svc, key in ((a, 0), (b, 5)):
+        for i in range(2):
+            svc.try_submit(_tenant(SVC_N, key + i))
+    got = [{}, {}]
+    for _ in range(64):
+        for svc, out in zip((a, b), got):
+            svc.tick()
+            for s in (0, 1):
+                if s not in out:
+                    r = svc.poll(s)
+                    if r is not None:
+                        out[s] = r
+        if all(len(o) == 2 for o in got):
+            break
+    assert rt.graph_counts["captures"] == 0
+    for out, want in zip(got, alone):
+        for s in (0, 1):
+            _same_response(out[s], want[s])
+
+
+@pytest.mark.gpu
+def test_a_quarantined_slots_neighbour_is_a_solo_run_on_the_card(cuda):
+    """A NaN tenant beside a healthy one: quarantined (diverged, not
+    converged), and the neighbour's bits those of a solo run (the
+    kernels' splits depend on the slot count, not on the neighbours'
+    data)."""
+    solo = _service(cuda, key=21, slots=4)
+    want = _tick_until(solo, [solo.try_submit(_tenant(SVC_N, 0))])[0]
+    svc = _service(cuda, key=21, slots=4)
+    good = svc.try_submit(_tenant(SVC_N, 0))
+    bad = svc.try_submit(_tenant(SVC_N, 1, poison=True))
+    out = _tick_until(svc, [good, bad])
+    assert out[bad].diverged and not out[bad].converged
+    assert svc.metrics()["diverged"] == 1
+    _same_response(out[good], want)
+
+
+@pytest.mark.gpu
+def test_polled_results_survive_the_next_admission_on_the_card(cuda):
+    """A response's tensors are not views of the lane's static buffers:
+    the next admission into its slot and a tick leave them unchanged."""
+    svc = _service(cuda, slots=1)
+    first = _tick_until(svc, [svc.try_submit(_tenant(SVC_N, 0))])[0]
+    kept = [x.clone() for x in (first.l, first.s, first.u, first.v)]
+    svc.release(0)
+    svc.try_submit(_tenant(SVC_N, 1))
+    svc.tick()
+    torch.cuda.synchronize()
+    for x, y in zip((first.l, first.s, first.u, first.v), kept):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_single_page_gateway_is_the_service_on_the_card(cuda):
+    """page_cols = n: the gateway's one full-width lane gives the
+    service's bits (same key, same admission order, same planes)."""
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.serving import GatewayConfig, RPCAGateway
+
+    mats = [_tenant(SVC_N, 1), _tenant(30, 2), _tenant(SVC_N, 3)]
+    direct = _service(cuda, key=7, slots=4).solve_all(list(mats))
+    gw = RPCAGateway(SVC_M, SVC_N, DCFConfig.tuned(SVC_R),
+                     GatewayConfig(slots=4, rounds_per_tick=8, max_rounds=96),
+                     key=7, device=cuda)
+    via = gw.solve_all(list(mats))
+    for d, g in zip(direct, via, strict=True):
+        _same_response(g, d)

@@ -97,6 +97,7 @@ def test_greedy_tokens_match_reference(f32_pair):
     got = generate(model, params, torch.from_numpy(prompt).long(),
                    ServeConfig(max_new_tokens=NEW))
     assert got.shape == (BATCH, NEW)
+    assert got.dtype == torch.int32 and np.asarray(want).dtype == np.int32
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
@@ -154,6 +155,7 @@ def test_engine_steps_one_decode_function_on_the_cpu(f32_pair):
     eager = generate(model, params, torch.from_numpy(prompt).long(), scfg,
                      eager=True)
     assert torch.equal(got, eager)
+    assert got.dtype == eager.dtype == torch.int32
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
@@ -245,6 +247,35 @@ def test_train_mode_and_other_mixers_raise():
                            cfg=cfg, mode="train")
 
 
+def test_refusals_name_the_roadmap_item():
+    """Each refusal names the ROADMAP.md Queue 1 item that ports it: the
+    other families, their mixers and FFNs item 8, training item 7."""
+    cfg = configs.get_smoke_config(ARCH)
+    for call, item in (
+            (lambda: blocks.layer_specs(cfg, mixer="mla"), 8),
+            (lambda: blocks.layer_specs(cfg, ffn="moe"), 8),
+            (lambda: get_model(configs.get_smoke_config("mamba2-780m")), 8),
+            (lambda: get_model(cfg).loss(None, {}), 7),
+            (lambda: blocks.layer_apply(None, torch.zeros(1, 2, 8), cfg=cfg,
+                                        mode="train"), 7)):
+        with pytest.raises(NotImplementedError) as got:
+            call()
+        assert f"ROADMAP.md, Queue 1 item {item})" in str(got.value)
+
+
+def test_decoded_tokens_feed_back_as_int32():
+    """The embedding gathers at int32 indices (the tokens ``generate``
+    feeds back) as at int64 ones: the same logits."""
+    cfg = configs.get_smoke_config(ARCH).replace(**F32)
+    model = get_model(cfg)
+    params = model.init_params(seed=0, device="cpu")
+    prompt = torch.from_numpy(_prompt(cfg))
+    assert prompt.dtype == torch.int32
+    a, _ = model.prefill(params, prompt)
+    b, _ = model.prefill(params, prompt.long())
+    assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # Parameters and the launcher
 # ---------------------------------------------------------------------------
@@ -301,7 +332,12 @@ def test_sampling_with_temperature_uses_the_generator():
                      generator=torch.Generator().manual_seed(5))
             for _ in range(2)]
     assert torch.equal(runs[0], runs[1])
+    assert runs[0].dtype == torch.int32
     assert runs[0].max().item() < padded_vocab(cfg.vocab)
+    eager = generate(model, params, prompt, ServeConfig(max_new_tokens=4,
+                                                        temperature=1.0),
+                     generator=torch.Generator().manual_seed(5), eager=True)
+    assert torch.equal(eager, runs[0])
 
 
 def test_port_sources_import_no_jax():
