@@ -99,6 +99,34 @@ CUDA toolkit.  Phases, one JSON line each:
             chunks; M is 64 MB): the singular-value error and rank_gap
             (the paper gives no value here), exactly 600 / 200 / 1
             launches, the plain route's error within 10%.
+   sharded  the sharded engine (``method="dcf_sharded"``, one rank a
+            process, ``distributed.multihost.launch_workers``; the kernels
+            are built before any worker starts and each phase's M, L0 and
+            S0 are written once to ``.npy`` files every rank loads): the
+            dcf phase's problem over 10 gloo ranks sharing the card (CUDA
+            tensors; one client of 3000 x 300 a rank): the dense solve
+            (error < 1e-4, within 1e-6 of the dcf phase's and within 1% of
+            it relatively), the wire (top-k 0.1, one round stale; within
+            2x dense), the coordinate median with client 1 NaN and client
+            5 corrupt in every round (finite, within 3x dense), and a
+            solve snapshotting every 25 rounds, resumed from its first
+            snapshot (rank 0 deletes the later ones, standing in for a
+            kill): its L, S, U and V the uninterrupted solve's bytes.
+            Each line: the ranks, the backend, the slowest rank's wall (the
+            ranks time-slice one card: a correctness run, not a speed), the
+            error, each rank's launches (exactly 600 / 200 / 1; the resumed
+            solve 450 / 150 / 1), peak memory and ms a round in
+            collectives, and whether every rank's U has the same SHA-256
+            (it must).
+            ``sharded_rows``: the same problem over data 2 x model 2
+            (blocks of 1500 x 1500), error < 1e-4, the same counts.
+            ``sharded_nccl1``: one NCCL rank (world size 1) on the cf
+            problem: error within 1e-6 of the cf phase's and within 1% of
+            it relatively, whether its L has the cf phase's bits, whether
+            its round was captured (then one capture and T - 1 graph
+            replays).  The kernel rows also hold
+            the ranks' blocks: "sh" (1, 3000, 300, 150) and "sr" (1, 1500,
+            1500, 150), with those phases' launches a rank.
    convex   Fig. 1's baselines at n = 1000 (r = 50, 5%) on the card
             through ``rpca.solve``: IALM (60 iterations) and APGM (200)
             under the reference's recovery bars (1e-6, 1e-5), with the
@@ -218,6 +246,7 @@ exits with 2.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import subprocess
@@ -312,6 +341,15 @@ CONVEX_BATCH, CONVEX_BATCH_N, CONVEX_BATCH_TOL = 4, 160, 1e-5
 # delta); tests/test_multihost.py:124-135's problem (64^2, rank 3, tuned(4),
 # E = 4, 40 rounds, seed 1), where topk_frac=1.0 is within 1e-4 of dense.
 WIRE_TOPK, WIRE_SMALL, WIRE_SMALL_TOL = 0.1, (64, 3, 4, 4, 40), 1e-4
+# The sharded engine (method="dcf_sharded", one client a process): Fig. 1's
+# dcf problem over SHARDED_RANKS gloo ranks sharing the card, the rows
+# layout over data 2 x model 2 and one NCCL rank; the sharded error within
+# SHARDED_MATCH of the simulated engine's (tests/test_multidevice.py:46-48)
+# and, since errors here are ~2e-10 and pass that bar whatever they are,
+# within SHARDED_REL_MATCH of it relatively (the same problem and initial
+# factors: a sharded solve that departs from the simulated one fails).
+SHARDED_RANKS, SHARDED_MATCH, SHARDED_TIMEOUT = 10, 1e-6, 600
+SHARDED_REL_MATCH = 0.01
 # The compile cache: cf through compile_policy="aot" (buckets of 64 x 2^k)
 # at three shapes in two buckets, (1024, 1024) twice and (2048, 2048), on
 # the port's problems (rank 20, 5%), DCFConfig.tuned(20).
@@ -404,7 +442,9 @@ SUFFIX = {"none": "", "dense": "_masked", "packed": "_packed"}
 # table: 4 slots, m=n=3000, r=150, all-ones mask; one slot), "g32" /
 # "g256" (the gateway's narrowest and widest width classes: 4 slots, m=512,
 # r=8, ragged tenants behind mask-zero columns) and "g32_1" / "g256_1" (the
-# ragged slot of each: a poll's finalize).
+# ragged slot of each: a poll's finalize), "sh" (one rank of the sharded
+# phase: one client of 3000 x 300, r=150) and "sr" (one rank of the
+# sharded_rows phase: a 1500 x 1500 block, r=150).
 ROWS = [
     ("huber_contract_v", "none", "fig1", "dcf"),
     ("huber_contract_v", "dense", "fig1", "ragged"),
@@ -461,6 +501,12 @@ ROWS = [
     ("huber_contract_v", "dense", "g256", "gateway@256"),
     ("huber_contract_u_diag", "dense", "g256", "gateway@256"),
     ("residual_shrink", "dense", "g256_1", "gateway@256"),
+    ("huber_contract_v", "none", "sh", "sharded"),
+    ("huber_contract_u_diag", "none", "sh", "sharded"),
+    ("residual_shrink", "none", "sh", "sharded"),
+    ("huber_contract_v", "none", "sr", "sharded_rows"),
+    ("huber_contract_u_diag", "none", "sr", "sharded_rows"),
+    ("residual_shrink", "none", "sr", "sharded_rows"),
 ]
 # Flash rows: (row name, (B, S_q, S_kv, H, d), causal, dtype, phase whose
 # launches the row reports or None).
@@ -658,6 +704,10 @@ def kernel_operands(device) -> dict:
                                TABLE1_SPARSITY, device=device)
     sets["t6"] = client_set(t6.m_obs, TABLE1_CLIENTS, WIDE_RANK, None)
     del t5, t6
+    sets["sh"] = tuple(x[:1].contiguous() for x in sets["fig1"])
+    half = M_ROWS // 2
+    sets["sr"] = client_set(p.m_obs[:half, :half].contiguous(), 1, RANK,
+                            None)
 
     def batch_set(seeds, n, clients, rank, ragged):
         """A batch's operands: each problem's client set, the problems'
@@ -1079,7 +1129,8 @@ def solve_phases(device) -> list[dict]:
     from repro_torch.core import problems as prob
     from repro_torch.core.factorized import DCFConfig
 
-    def fig1(name, problem, method, clients, masked, fused="diag"):
+    def fig1(name, problem, method, clients, masked, fused="diag",
+             extra=None):
         cfg = DCFConfig.tuned(RANK, fused=fused)
         rounds = cfg.outer_iters * cfg.local_iters
         suffix = "_masked" if masked else ""
@@ -1092,7 +1143,8 @@ def solve_phases(device) -> list[dict]:
         return solve_phase(
             name, device, problem, kw, method, cfg, want,
             lambda res: metrics.relative_error(
-                res.l, res.s, problem.l0, problem.s0).item(), ERR_BAR)
+                res.l, res.s, problem.l0, problem.s0).item(), ERR_BAR,
+            extra=extra)
 
     def compact(name, problem, bar, **cfg_kw):
         cfg = DCFConfig.masked(D_RANK, observed_frac=D_OBSERVED,
@@ -1112,7 +1164,9 @@ def solve_phases(device) -> list[dict]:
     p = prob.generate_problem(0, M_ROWS, N_COLS, RANK, SPARSITY,
                               device=device)
     dcf, dcf_res = fig1("dcf", p, "dcf", CLIENTS, masked=False)
-    rows = [dcf, fig1("cf", p, "cf", None, masked=False)[0]]
+    rows = [dcf, fig1("cf", p, "cf", None, masked=False,
+                      extra=lambda res: {"l_sha256": hashlib.sha256(
+                          res.l.cpu().numpy().tobytes()).hexdigest()})[0]]
     ragged = prob.generate_problem(0, M_ROWS, RAGGED_COLS, RANK, SPARSITY,
                                    device=device)
     rows.append(fig1("ragged", ragged, "dcf", CLIENTS, masked=True)[0])
@@ -1564,6 +1618,265 @@ def batch_convex_phase(device) -> dict:
     if not row["ok"]:
         raise SystemExit("phase batch_convex failed")
     return row
+
+
+# The sharded engine's workers (``launch_workers`` runs this in every rank
+# of a cohort; the kernels are built before any worker starts, so each
+# loads the same libraries).  Every rank loads the phase's problem from the
+# files the script wrote, solves it through ``rpca.solve(method=
+# "dcf_sharded")`` and prints one ``SHARDED`` JSON line a solve.
+SHARDED_WORKER = r"""
+import hashlib, json, os, shutil, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch import rpca
+from repro_torch.core import metrics
+from repro_torch.core import runtime as rt
+from repro_torch.core.factorized import DCFConfig
+from repro_torch.distributed.faults import CORRUPT, FaultPlan
+from repro_torch.distributed.grad_compress import CompressConfig
+from repro_torch.kernels import ops
+
+torch.backends.cuda.matmul.allow_tf32 = False
+_mh.SYNC_TIMING = True  # collective seconds without the solve's queue
+phase, data = os.environ["SHARDED_PHASE"], os.environ["SHARDED_DIR"]
+device = torch.device(os.environ.get("SHARDED_DEVICE", "cuda"))
+rank, world = dist.get_rank(), dist.get_world_size()
+m_obs, l0, s0 = (torch.from_numpy(np.load(os.path.join(data, f + ".npy")))
+                 .to(device) for f in ("m", "l0", "s0"))
+rank_r = int(os.environ["SHARDED_RANK"])
+if phase == "sharded_rows":
+    mesh = _mh.multihost_mesh(("data", "model"), (world // 2, 2),
+                              device=device)
+    model_axis = "model"
+else:
+    mesh = _mh.multihost_mesh(("data",), device=device)
+    model_axis = None
+
+
+def sha(x):
+    return hashlib.sha256(x.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def solve(tag, cfg, run=None, **spec):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rt.reset_graph_counts()
+    _mh.wire_counts(reset=True)
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = rpca.solve(rpca.RPCASpec(m_obs, mesh=mesh, model_axis=model_axis,
+                                   **spec),
+                     method="dcf_sharded", cfg=cfg, run=run, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wire = _mh.wire_counts()
+    rounds = int(res.stats.rounds)
+    # A replayed round's collectives are not timed on the host: the ms a
+    # round are over the rounds that ran eagerly.
+    eager = rounds - int(rt.graph_counts["replays"])
+    print("SHARDED " + json.dumps(dict(
+        tag=tag, rank=rank, backend=str(dist.get_backend()), wall_s=wall,
+        error=metrics.relative_error(res.l, res.s, l0, s0).item(),
+        finite=bool(torch.isfinite(res.l).all()
+                    and torch.isfinite(res.s).all()),
+        launches={k: c for k, c in ops.launch_counts().items() if c},
+        peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                     if device.type == "cuda" else None),
+        rounds=rounds, eager_rounds=eager,
+        collective_ms_per_round=wire["seconds"] * 1e3 / max(eager, 1),
+        wire={k: v for k, v in wire.items() if v},
+        graph_captures=int(rt.graph_counts["captures"]),
+        graph_replays=int(rt.graph_counts["replays"]),
+        sha={k: sha(getattr(res, k)) for k in ("l", "s", "u", "v")},
+        shape=list(res.l.shape))), flush=True)
+    return res
+
+
+cfg = DCFConfig.tuned(rank_r)
+solve("dense", cfg)
+if phase == "sharded":
+    solve("wire", DCFConfig.tuned(
+        rank_r, consensus_compress=CompressConfig(
+            topk_frac=float(os.environ["SHARDED_TOPK"])),
+        consensus_delay=1))
+    codes = FaultPlan.byzantine(cfg.outer_iters, world, (1,),
+                                kind="nan").codes.copy()
+    codes[:, 5] = CORRUPT
+    solve("robust", DCFConfig.tuned(rank_r, aggregator="coordinate_median"),
+          faults=FaultPlan(codes))
+    ckdir = os.path.join(data, "ckpt")
+    run = rt.RunConfig(checkpoint_every=int(os.environ["SHARDED_EVERY"]))
+    solve("snapshots", cfg, run, checkpoint_dir=ckdir)
+    dist.barrier()
+    if rank == 0:  # a kill after the first snapshot: the later ones go
+        steps = sorted(x for x in os.listdir(ckdir) if x.startswith("step_"))
+        for s in steps[1:]:
+            shutil.rmtree(os.path.join(ckdir, s))
+        with open(os.path.join(ckdir, "LATEST"), "w") as f:
+            f.write(str(int(steps[0].split("_")[1])))
+    dist.barrier()
+    solve("resumed", cfg, run, resume_from=ckdir)
+"""
+
+
+def _sharded_cohort(phase: str, ranks: int, backend: str, files: str,
+                    device) -> dict[str, list[dict]]:
+    """Run one cohort of the sharded engine's workers; their rows by solve
+    tag, one a rank in rank order."""
+    from repro_torch.distributed import multihost as mh
+
+    outs = mh.launch_workers(
+        SHARDED_WORKER, num_processes=ranks, backend=backend,
+        timeout=SHARDED_TIMEOUT,
+        extra_env={"SHARDED_PHASE": phase, "SHARDED_DIR": files,
+                   "SHARDED_DEVICE": str(device),
+                   "SHARDED_RANK": str(RANK),
+                   "SHARDED_TOPK": str(WIRE_TOPK),
+                   "SHARDED_EVERY": str(CHECKPOINT_EVERY)})
+    rows: dict[str, list[dict]] = {}
+    for out in outs:
+        for ln in out.splitlines():
+            if ln.startswith("SHARDED "):
+                row = json.loads(ln[len("SHARDED "):])
+                rows.setdefault(row["tag"], []).append(row)
+    return rows
+
+
+def _sharded_row(phase: str, tag: str, rows: list[dict], want: dict,
+                 bar: float, info: dict | None = None, **checks) -> dict:
+    """One solve of a cohort as one JSON line: the ranks, the backend, the
+    slowest rank's wall, the error (every rank's the same), each rank's
+    launches and peak memory, the ms a round each rank spent in
+    collectives, whether every rank's L, S, U and V have the same SHA-256;
+    ``want`` is each rank's exact launch counts, ``checks`` further gates
+    and ``info`` fields that are reported only."""
+    errors = {r["error"] for r in rows}
+    same = {k: len({r["sha"][k] for r in rows}) == 1
+            for k in ("l", "s", "u", "v")}
+    launches_ok = all(r["launches"] == want for r in rows)
+    err = rows[0]["error"]
+    ok = (len(errors) == 1 and err < bar and all(r["finite"] for r in rows)
+          and all(same.values()) and launches_ok and all(checks.values()))
+    row = dict(
+        phase=phase, solve=tag, ranks=len(rows), backend=rows[0]["backend"],
+        wall_s=max(r["wall_s"] for r in rows), error=err,
+        bar=None if math.isinf(bar) else bar,
+        launches_per_rank=[r["launches"] for r in rows],
+        expected_launches_per_rank=want,
+        peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in rows],
+        collective_ms_per_round=[r["collective_ms_per_round"]
+                                 for r in rows],
+        wire_per_rank=rows[0]["wire"], rounds=rows[0]["rounds"],
+        eager_rounds=rows[0]["eager_rounds"],
+        graph_captures=rows[0]["graph_captures"],
+        graph_replays=rows[0]["graph_replays"],
+        same_u_sha256=same["u"], same_lsv_sha256=same["l"] and same["s"]
+        and same["v"], u_sha256=rows[0]["sha"]["u"],
+        note="ranks share one card: walls are correctness runs, not speed",
+        **(info or {}), **checks, ok=ok)
+    emit(**row)
+    if not ok:
+        raise SystemExit(f"phase {phase} ({tag}) failed")
+    return row
+
+
+def sharded_phases(device, dcf_error: float, cf_row: dict) -> list[dict]:
+    """The sharded engine (``method="dcf_sharded"``) on the card, one rank
+    a process (``distributed.multihost.launch_workers``), each rank given
+    the whole problem from files written here once:
+
+    - ``sharded``: Fig. 1's dcf problem over :data:`SHARDED_RANKS` gloo
+      ranks sharing the card (CUDA tensors; one client of 3000 x 300 a
+      rank): the dense solve (error < 1e-4, within :data:`SHARDED_MATCH`
+      of the dcf phase's and within :data:`SHARDED_REL_MATCH` of it
+      relatively), the wire (top-k 0.1, one round stale; within 2x
+      dense), the coordinate median with client 1 NaN and client 5 corrupt
+      every round (finite, within 3x dense), and a solve snapshotting every
+      25 rounds, resumed from its first snapshot (rank 0 deletes the later
+      ones, standing in for a kill after the first): the resumed L, S, U
+      and V have the bytes of the uninterrupted dense solve;
+    - ``sharded_rows``: the same problem over data 2 x model 2 (blocks of
+      1500 x 1500), error < 1e-4;
+    - ``sharded_nccl1``: one NCCL rank (world size 1) on the cf problem,
+      its error within :data:`SHARDED_MATCH` of the cf phase's (and
+      :data:`SHARDED_REL_MATCH` relatively), whether its
+      L has the cf phase's bits, and whether its rounds were captured
+      (one capture, T - 1 graph replays).
+
+    Each rank launches exactly J K T huber_contract_v, K T
+    huber_contract_u_diag and one residual_shrink a solve (the resumed
+    one: the rounds after its snapshot); every rank's U has the same
+    bytes.  The phase rows carry rank 0's dense launches for the kernel
+    rows."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import problems as prob
+    from repro_torch.core.factorized import DCFConfig
+
+    cfg = DCFConfig.tuned(RANK)
+    rounds = cfg.outer_iters * cfg.local_iters
+
+    def want(r=rounds):
+        return {"huber_contract_v": r * cfg.inner_sweeps,
+                "huber_contract_u_diag": r, "residual_shrink": 1}
+
+    files = tempfile.mkdtemp(prefix="sharded_")
+    try:
+        p = prob.generate_problem(0, M_ROWS, N_COLS, RANK, SPARSITY,
+                                  device=device)
+        for name, x in (("m", p.m_obs), ("l0", p.l0), ("s0", p.s0)):
+            np.save(f"{files}/{name}.npy", x.cpu().numpy())
+        del p
+        out = []
+        by = _sharded_cohort("sharded", SHARDED_RANKS, "gloo", files, device)
+        e_sh = by["dense"][0]["error"]
+        dense = _sharded_row(
+            "sharded", "dense", by["dense"], want(), ERR_BAR,
+            matches_dcf=abs(e_sh - dcf_error) < SHARDED_MATCH,
+            near_dcf_rel=abs(e_sh - dcf_error)
+            <= SHARDED_REL_MATCH * dcf_error)
+        e_d = dense["error"]
+        _sharded_row("sharded", "wire", by["wire"], want(), 2 * e_d)
+        _sharded_row("sharded", "robust", by["robust"], want(),
+                     3 * max(e_d, 1e-6))
+        _sharded_row("sharded", "snapshots", by["snapshots"], want(),
+                     ERR_BAR, bits_of_dense=by["snapshots"][0]["sha"]
+                     == by["dense"][0]["sha"])
+        every = CHECKPOINT_EVERY * cfg.local_iters
+        _sharded_row("sharded", "resumed", by["resumed"],
+                     want(rounds - every), ERR_BAR,
+                     bits_of_dense=by["resumed"][0]["sha"]
+                     == by["dense"][0]["sha"])
+        out.append(dict(dense, launches=by["dense"][0]["launches"]))
+        rows = _sharded_cohort("sharded_rows", 4, "gloo", files, device)
+        out.append(dict(_sharded_row("sharded_rows", "dense", rows["dense"],
+                                     want(), ERR_BAR),
+                        launches=rows["dense"][0]["launches"]))
+        one = _sharded_cohort("sharded_nccl1", 1, "nccl", files,
+                              device)["dense"]
+        captured = one[0]["graph_captures"] == 1
+        row = _sharded_row(
+            "sharded_nccl1", "dense", one, want(), ERR_BAR,
+            info={"captured": captured,
+                  "l_bits_of_cf": one[0]["sha"]["l"] == cf_row["l_sha256"]},
+            matches_cf=abs(one[0]["error"] - cf_row["error"])
+            < SHARDED_MATCH,
+            near_cf_rel=abs(one[0]["error"] - cf_row["error"])
+            <= SHARDED_REL_MATCH * cf_row["error"],
+            replays_t_minus_1=not captured
+            or one[0]["graph_replays"] == cfg.outer_iters - 1)
+        out.append(dict(row, launches=one[0]["launches"]))
+        return out
+    finally:
+        shutil.rmtree(files, ignore_errors=True)
 
 
 def wire_phase(device) -> list[dict]:
@@ -2814,6 +3127,8 @@ def main() -> int:
     phases += solve_phases(device)
     dcf_error = next(ph["error"] for ph in phases if ph["phase"] == "dcf")
     phases += elastic_phase(device, dcf_error)
+    phases += sharded_phases(device, dcf_error,
+                             next(ph for ph in phases if ph["phase"] == "cf"))
     dcf_busy = next(ph["device_busy_ms"] for ph in phases
                     if ph["phase"] == "dcf")
     phases += batch_phase(device)

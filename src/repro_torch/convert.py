@@ -8,7 +8,9 @@ make_problem``, ``cf_pca.make_problem``, or the convex solvers'
 read by name and converted through numpy; nothing of the reference is
 imported.  A bf16 data plane stays bf16 and a bit-packed mask stays uint8.
 LM weights likewise: the reference materialises them, the port takes them
-(:func:`lm_params_from_reference`).
+(:func:`lm_params_from_reference`).  A rank of the sharded engine takes its
+share of the reference's initial factors
+(:func:`sharded_problem_from_reference`).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.core.apgm import APGMProblem
 from repro_torch.core.cf_pca import CFProblem
-from repro_torch.core.dcf_pca import DCFProblem
+from repro_torch.core.dcf_pca import DCFProblem, ShardLayout, ShardProblem
 from repro_torch.core.factorized import DCFConfig
 from repro_torch.core.ialm import IALMProblem
 from repro_torch.device import resolve_device
@@ -100,6 +102,27 @@ def problem_from_reference(ref_problem: Any, device: torch.device | str
         faults=_tensor(getattr(ref_problem, "faults", None), device,
                        torch.int32),
         **common)
+
+
+def sharded_problem_from_reference(problem: ShardProblem,
+                                   layout: ShardLayout, u_init: Any,
+                                   v_init: Any, participation: Any = None
+                                   ) -> ShardProblem:
+    """This rank's sharded problem (``core.dcf_pca.make_sharded_problem``)
+    with the reference's initial factors and, optionally, its drawn
+    participation schedule: ``u_init`` the (m, r) server broadcast,
+    ``v_init`` every client's V_i, client-major as (E n_i, r) or
+    (E, n_i, r) over the padded split, and ``participation`` the (T, E)
+    schedule.  The rank keeps its row block of U and its client's V_i."""
+    comm, dev = layout.comm, problem.lam0.device
+    rows = slice(comm.model_index * layout.m_loc,
+                 (comm.model_index + 1) * layout.m_loc)
+    u = _tensor(u_init, dev)[rows].contiguous()
+    v = _tensor(v_init, dev).reshape(comm.clients, layout.n_i, -1)
+    out = problem._replace(u_init=u, v_init=v[comm.client][None].contiguous())
+    if participation is not None:
+        out = out._replace(participation=_tensor(participation, dev))
+    return out
 
 
 @torch.no_grad()

@@ -5,8 +5,8 @@ solver runtime (``repro_torch.core.runtime``) and registered with the
 ``RPCASpec`` / ``RPCAResult`` / ``solve``), with the batched solvers
 (``*_batch``, ``solve_batch``), ``driver`` and the shape-bucketed compile
 cache (``CompilePolicy``, ``CompileCache``, ``CacheStats``,
-``bucket_shape``, ``default_cache``).  The reference's name that is not
-ported yet (the sharded engine) is not exported (ROADMAP.md)."""
+``bucket_shape``, ``default_cache``) and the sharded engine
+(``dcf_pca_sharded``: one client a ``torch.distributed`` rank)."""
 from repro_torch import rpca
 from repro_torch.core.apgm import APGMConfig, ConvexResult, apgm, apgm_batch
 from repro_torch.core.cf_pca import CFResult, cf_pca, cf_pca_batch
@@ -17,7 +17,12 @@ from repro_torch.core.compile_cache import (
     bucket_shape,
     default_cache,
 )
-from repro_torch.core.dcf_pca import DCFResult, dcf_pca, dcf_pca_batch
+from repro_torch.core.dcf_pca import (
+    DCFResult,
+    dcf_pca,
+    dcf_pca_batch,
+    dcf_pca_sharded,
+)
 from repro_torch.core.factorized import DCFConfig
 from repro_torch.core.ialm import IALMConfig, ialm, ialm_batch
 from repro_torch.core.metrics import (
@@ -80,6 +85,7 @@ __all__ = [
     "DCFResult",
     "dcf_pca",
     "dcf_pca_batch",
+    "dcf_pca_sharded",
     "IALMConfig",
     "ialm",
     "ialm_batch",

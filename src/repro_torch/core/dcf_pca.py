@@ -1,6 +1,6 @@
 """DCF-PCA, Algorithm 1: distributed RPCA by consensus factorization, in the
-simulated-client engine (counterpart of ``repro.core.dcf_pca`` :54-270 and
-:490-599).
+simulated-client engine and the sharded engine (counterpart of
+``repro.core.dcf_pca`` :54-270, :490-599 and :863-1653).
 
 The E column blocks live on a leading axis of one device.  Each round the
 server broadcasts U, every client runs K local iterations (all clients in
@@ -31,10 +31,17 @@ A batch of B problems (:func:`make_batch`, :func:`dcf_pca_batch`) carries
 a leading problem axis on every field and folds it into the kernels'
 client axis: each sweep is one launch over B·E clients, and each problem
 takes its own consensus.
+
+The sharded engine (:func:`dcf_pca_sharded`, ``method="dcf_sharded"``)
+runs one client a ``torch.distributed`` rank: each rank runs its client's
+local iterations on its own block (a stack of one client, the same
+kernels) and the ranks meet in collectives (``distributed.multihost.
+MeshComm``), rows optionally split over a model axis.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import Any, NamedTuple
 
 import torch
 
@@ -617,6 +624,583 @@ def dcf_pca_batch(
 
 
 # ---------------------------------------------------------------------------
+# Engine 2: one client a rank, over a torch.distributed mesh
+# ---------------------------------------------------------------------------
+#: The reference's refusals of what the sharded engine does not take.
+_SHARDED_PACK = ("cfg.pack_mask is not supported by the sharded engine (the "
+                 "mask is sharded like M); use a dense mask, or the simulated "
+                 "engine for bit-packed planes")
+_SHARDED_SEGMENT_MODEL = (
+    "checkpointed (segmented) sharded solves do not compose with model_axis "
+    "row sharding; shard only over data_axes, or solve without "
+    "checkpointing")
+
+
+def _refuse_sharded(cfg: fz.DCFConfig, participation, mask) -> None:
+    """What the sharded engine refuses whatever the mesh."""
+    validate.check_consensus_cfg(cfg, participation)
+    if cfg.pack_mask and mask is not None:
+        raise ValueError(_SHARDED_PACK)
+
+
+class ShardLayout(NamedTuple):
+    """Where this rank's block sits: the rank's ``comm``
+    (``distributed.multihost.MeshComm``: its client and row block), the
+    global ``(m, n)``, the rows a row block holds (``m_loc``) and the
+    padded columns a client holds (``n_i``; ``E n_i >= n``)."""
+
+    comm: Any
+    m: int
+    n: int
+    m_loc: int
+    n_i: int
+
+    @property
+    def ragged(self) -> bool:
+        return self.n_i * self.comm.clients != self.n
+
+
+class ShardProblem(NamedTuple):
+    """One rank's share of a sharded solve, on its device: its client's
+    block of M (its row block of it) as a stack of one client, so the
+    kernels take it as they take the simulated engine's blocks; the
+    factors' rows it holds; the replicated threshold, schedule offset,
+    participation schedule and fault table (each rank reads its client's
+    column); and, for a ragged split, the mask (zero over the padding) and
+    the client's true column count."""
+
+    blocks: Tensor  # (1, m_loc, n_i), contiguous fp32 or bf16
+    u_init: Tensor  # (m_loc, r): this row block of the server broadcast
+    v_init: Tensor  # (1, n_i, r): this client's V_i
+    lam0: Tensor  # () base threshold, calibrated on the whole M
+    t0: Tensor  # () int32 schedule offset
+    mask: Tensor | None = None  # (1, m_loc, n_i) fp32
+    n_i: Tensor | None = None  # () fp32 true column count (ragged only)
+    participation: Tensor | None = None  # (T_sched, E) fp32
+    faults: Tensor | None = None  # (T_f, E) int32
+
+
+def client_generator(key, client: int) -> torch.Generator:
+    """The CPU generator of client ``client``'s initial ``V_i``: seeded from
+    the solve's seed (a ``torch.Generator``'s initial seed) and the client
+    index, so each rank draws its own block alone and a seed gives the
+    same factors on any mesh of E clients."""
+    base = key.initial_seed() if isinstance(key, torch.Generator) \
+        else (0 if key is None else int(key))
+    return torch.Generator().manual_seed(
+        (base * 0x9E3779B1 + client + 1) % (1 << 63))
+
+
+def make_sharded_problem(
+    m_obs,
+    cfg: fz.DCFConfig,
+    comm,
+    generator: int | torch.Generator | None = None,
+    warm: tuple[Tensor, Tensor] | None = None,
+    mask=None,
+    participation=None,
+    faults=None,
+    *,
+    device: torch.device | str | None = None,
+) -> tuple[ShardProblem, ShardLayout]:
+    """This rank's problem of a sharded solve over ``comm``'s mesh, on
+    ``device`` (the card unless ``"cpu"``).
+
+    Every rank is given the whole ``m_obs`` (and ``mask``), as every
+    process is in the reference's multi-process entry; each computes the
+    same ``lam0`` from it (on the unpadded data) and takes its client's
+    columns (its data coordinate) and its row block (its model
+    coordinate).  ``n % E != 0`` pads the column tail behind a mask-zero
+    plane and weighs the consensus by each client's true column count.
+    Cold factors: ``U`` from ``generator`` (the same on every rank), then
+    ``V_i`` from :func:`client_generator`; a rate ``participation`` is
+    drawn from ``generator`` after ``U``, the same on every rank.
+    ``warm=(U, V)`` takes the engine's own result layout, ``(m, r)`` and
+    ``(n, r)``, and resumes the schedules at ``t0 = outer_iters``."""
+    _refuse_sharded(cfg, participation, mask)
+    num_clients = comm.clients
+    validate.check_fault_plan(cfg, faults, num_clients)
+    device = resolve_device(device)
+    m_obs, mask, lam0 = prepare_data(m_obs, cfg, mask, device)
+    m, n = m_obs.shape
+    if m % comm.model_size:
+        raise ValueError(
+            f"m={m} rows do not split into {comm.model_size} equal row "
+            f"blocks over model_axis {comm.model_axis!r}")
+    m_loc = m // comm.model_size
+    n_i = -(-n // num_clients)
+    layout = ShardLayout(comm=comm, m=m, n=n, m_loc=m_loc, n_i=n_i)
+    fz.check_grid(cfg, 1, m_loc, device)
+    rows = slice(comm.model_index * m_loc, (comm.model_index + 1) * m_loc)
+    c0 = min(comm.client * n_i, n)
+    c1 = min(c0 + n_i, n)
+
+    def own(plane: Tensor) -> Tensor:
+        """This rank's (m_loc, n_i) block, the padding zero."""
+        blk = plane[rows, c0:c1]
+        if c1 - c0 < n_i:
+            blk = torch.nn.functional.pad(blk, (0, n_i - (c1 - c0)))
+        return blk.contiguous()[None]
+
+    n_true = None
+    if layout.ragged:
+        if mask is None:
+            mask = torch.ones(m_obs.shape, device=device)
+        n_true = torch.full((), float(c1 - c0), device=device)
+    blocks = own(m_obs)
+    mask = None if mask is None else own(mask)
+    gen = prob.generator(generator)
+    if warm is None:
+        t0 = 0
+        scale = 1.0 / math.sqrt(cfg.rank)
+        u0 = torch.randn(m, cfg.rank, generator=gen) * scale
+        v0 = torch.randn(n_i, cfg.rank,
+                         generator=client_generator(generator,
+                                                    comm.client)) * scale
+    else:
+        u0, v0 = validate.check_warm_shapes(
+            warm, ("U", "V"), ((m, cfg.rank), (n, cfg.rank)),
+            ("(m, rank)", "(n, rank)"))
+        u0 = torch.as_tensor(u0).to(torch.float32)
+        v0 = torch.as_tensor(v0).to(torch.float32)[c0:c1]
+        if c1 - c0 < n_i:  # V's row tail padded like M's column tail
+            v0 = torch.nn.functional.pad(v0, (0, 0, 0, n_i - (c1 - c0)))
+        t0 = cfg.outer_iters
+    sched = _resolve_participation(participation, cfg.outer_iters,
+                                   num_clients, gen, device)
+    problem = ShardProblem(
+        blocks=blocks,
+        u_init=u0[rows].to(device).contiguous(),
+        v_init=v0.to(device).contiguous()[None],
+        lam0=lam0, t0=torch.full((), t0, dtype=torch.int32, device=device),
+        mask=mask, n_i=n_true, participation=sched,
+        faults=flt.resolve_faults(faults, device))
+    return problem, layout
+
+
+def make_sharded_solver(cfg: fz.DCFConfig, layout: ShardLayout, *,
+                        with_objective: bool = False) -> rt.Solver:
+    """The per-rank solver of the sharded engine (the reference's
+    ``solve_body``): each round this rank runs its client's K local
+    iterations on its block (the same kernels, one client a launch), then
+    the consensus over the data group (``fz.aggregate_sharded``; the wire,
+    top-k with error feedback and / or one round stale, under
+    ``cfg.consensus_compress`` / ``cfg.consensus_delay``).  With a model
+    axis the Gram of U and every ``Psi^T U`` are summed over the row
+    blocks (``reduce_m``).
+
+    Every value that steers control flow comes out of a collective, so all
+    ranks agree on it bit for bit: the objective and every guard scalar
+    are summed over the whole mesh, the residual's norms over the model
+    group (the consensus U itself is the same on the ranks of a row
+    block), and ``wsum`` over the data group.  A round over gloo is not
+    capturable (gloo runs its collectives on the host): ``capturable`` is
+    the groups' backend being NCCL."""
+    from repro_torch.distributed import grad_compress as gcomp
+    from repro_torch.distributed import multihost as mh
+
+    comm, n, ragged = layout.comm, layout.n, layout.ragged
+    e, client = comm.clients, comm.client
+    track = cfg.track_objective or with_objective
+    compress, delay = cfg.consensus_compress, cfg.consensus_delay
+    wire = compress is not None or bool(delay)
+    robust = cfg.aggregator != "weighted_mean"
+    screen = cfg.divergence_screen
+    reduce_m = ((lambda x: comm.all_reduce(x, "model"))
+                if comm.model_axis is not None else None)
+    rm = reduce_m or (lambda x: x)
+
+    def n_frac(p: ShardProblem):
+        return p.n_i / n if ragged else 1.0 / e
+
+    def one(p: ShardProblem) -> Tensor:
+        return torch.ones((), device=p.lam0.device)
+
+    def round_gates(p: ShardProblem, t: Tensor, u_i: Tensor, u_prev: Tensor):
+        """This client's (payload, consensus weight, V-advance) for round
+        ``t``: the schedule composed with the fault plan at the consensus
+        boundary; the weights are ``None`` with neither."""
+        pt = (None if p.participation is None
+              else flt.round_codes(p.participation, t)[client])
+        if p.faults is None:
+            return u_i, pt, pt
+        code = flt.round_codes(p.faults, t)[client]
+        u_i = flt.corrupt_payload(code, u_i, u_prev)
+        ptw = one(p) if pt is None else pt
+        return u_i, ptw * flt.live_mask(code), ptw * flt.v_advance_mask(code)
+
+    def local(p: ShardProblem, u: Tensor, v: Tensor, t: Tensor):
+        lam_t = cfg.lam_at(p.lam0, t)
+        u_i, v_new, diag_i = fz.local_round(
+            u, v, p.blocks, cfg=cfg, lam=lam_t.expand(1).contiguous(),
+            n_frac=n_frac(p), eta=cfg.lr(t), w=p.mask, reduce_m=reduce_m)
+        return u_i[0], v_new, diag_i, lam_t
+
+    def objective(p, u_new, v_new, diag_i, lam_t) -> Tensor:
+        if not track:
+            return torch.zeros((), device=u_new.device)
+        if (diag_i is not None and p.participation is None
+                and p.faults is None):
+            # The fused epilogue's data term (summed over this block) plus
+            # the regularizer share: summed over the mesh.
+            val = diag_i[0][0] + fz.reg_terms(u_new, v_new, cfg.rho,
+                                             n_frac(p))
+        else:
+            # Rounds where a client may drop out take the objective pass:
+            # a dropped client's epilogue measured a discarded local run.
+            val = fz.local_objective(u_new, v_new, p.blocks, cfg.rho, lam_t,
+                                     n_frac(p), w=p.mask).sum()
+        return comm.all_reduce(val, "all")
+
+    def residual(u_new: Tensor, u_old: Tensor) -> Tensor:
+        du2 = rm(((u_new - u_old) ** 2).sum())
+        u2 = rm((u_old ** 2).sum())
+        return torch.sqrt(du2) / (torch.sqrt(u2) + 1e-30)
+
+    def gated(resid, obj, wsum, prev: rt.Diag):
+        """An all-dropout round (``wsum`` 0, the same on every rank) is a
+        no-op: the previous residual and an inf objective."""
+        if wsum is None:
+            return rt.Diag(obj, resid)
+        resid = torch.where(wsum > 0, resid, prev.residual)
+        if track:
+            obj = torch.where(wsum > 0, obj,
+                              torch.full((), float("inf"), device=obj.device))
+        return rt.Diag(obj, resid)
+
+    def plain_init(p: ShardProblem) -> _Carry:
+        inf = torch.full((), float("inf"), device=p.lam0.device)
+        return _Carry(u=p.u_init, v=p.v_init, diag=rt.Diag(inf, inf))
+
+    def plain_step(p: ShardProblem, c: _Carry, t: Tensor) -> _Carry:
+        t = t + p.t0
+        u_i, v_new, diag_i, lam_t = local(p, c.u, c.v, t)
+        u_i, pt, v_keep = round_gates(p, t, u_i, c.u)
+        u_new, wsum = fz.aggregate_sharded(
+            cfg, u_i, c.u, comm=comm, pt=one(p) if pt is None else pt,
+            n_i=one(p) if p.n_i is None else p.n_i,
+            uniform=pt is None and not ragged, reduce_m=reduce_m)
+        if v_keep is not None:
+            # Dropped or crashed this round: V_i freezes bit for bit.
+            v_new = torch.where(v_keep > 0, v_new, c.v)
+        obj = objective(p, u_new, v_new, diag_i, lam_t)
+        return _Carry(u=u_new, v=v_new,
+                      diag=gated(residual(u_new, c.u), obj, wsum, c.diag))
+
+    def wire_init(p: ShardProblem) -> dict:
+        c = plain_init(p)._asdict()
+        if compress is not None:
+            c["err"] = torch.zeros(p.u_init.shape, device=p.lam0.device)
+        if delay:
+            c["pending"] = torch.zeros(p.u_init.shape, device=p.lam0.device)
+            c["sync"] = torch.zeros((), dtype=torch.bool,
+                                    device=p.lam0.device)
+            c["guard"] = c["diag"].objective
+        return c
+
+    def wire_step(p: ShardProblem, c: dict, t: Tensor) -> dict:
+        # The consensus in delta form: each client's weighted delta crosses
+        # the wire (top-k with error feedback when configured) and may be
+        # applied one round late.
+        tg = t + p.t0
+        u_used = c["u"]
+        u_i, v_new, diag_i, lam_t = local(p, u_used, c["v"], tg)
+        u_i, pt, v_keep = round_gates(p, tg, u_i, u_used)
+        n_i = one(p) if p.n_i is None else p.n_i
+        wsum = None
+        if robust:
+            # One unweighted vote a client.
+            wgt = 1.0
+        elif pt is None and not ragged:
+            wgt = 1.0 / e
+        else:
+            ptw = one(p) if pt is None else pt
+            u_i = torch.where(ptw > 0, u_i, u_used)
+            raw_w = ptw * n_i
+            wsum = comm.all_reduce(raw_w)
+            wgt = raw_w / torch.clamp_min(wsum, 1e-30)
+        if v_keep is not None:
+            v_new = torch.where(v_keep > 0, v_new, c["v"])
+        contrib = (wgt * (u_i - u_used)).to(torch.float32)
+        act = one(p) if pt is None else pt
+        out = dict(c)
+        if compress is None:
+            if robust or screen is not None:
+                u_cand, wsum = fz.aggregate_sharded(
+                    cfg, u_i, u_used, comm=comm, pt=act, n_i=n_i,
+                    uniform=False, reduce_m=reduce_m)
+                delta = (u_cand - u_used).to(torch.float32)
+            else:
+                delta = comm.all_reduce(contrib)
+        else:
+            # One all-gather of the compact payloads over the data group;
+            # each row block compresses its own rows.
+            k = mh.topk_k(u_used.numel(), compress.topk_frac)
+            if robust:
+                delta, err_new, cnt = gcomp.compressed_consensus_robust(
+                    contrib, comm, k, c["err"], act, cfg.aggregator,
+                    cfg.trim_frac, screen=screen, reduce_m=reduce_m)
+                wsum = cnt.to(torch.float32)
+                # A poisoned payload must not poison its residual for good.
+                err_new = torch.where(torch.isfinite(err_new), err_new, 0.0)
+            else:
+                delta, err_new = gcomp.compressed_consensus_sum(
+                    contrib, comm, k, c["err"], active=pt)
+            out["err"] = err_new
+        if delay == 0:
+            u_new = u_used + delta
+        else:
+            # The staleness guard: the fused epilogue's ||Psi||_F^2 summed
+            # over the mesh, or (fault rounds, fused="off") the applied
+            # delta's energy; the same on every rank.
+            if diag_i is not None and p.faults is None:
+                scalar = comm.all_reduce(diag_i[1][0], "all")
+            else:
+                scalar = rm((delta * delta).sum())
+            trip = ~torch.isfinite(scalar) | (
+                torch.isfinite(c["guard"])
+                & (scalar > cfg.stale_guard * c["guard"]))
+            sync = c["sync"] | trip
+            u_new = u_used + c["pending"] + torch.where(sync, delta, 0.0)
+            out["pending"] = torch.where(sync, 0.0, delta)
+            out["sync"] = sync
+            out["guard"] = scalar
+        obj = objective(p, u_new, v_new, diag_i, lam_t)
+        resid = residual(u_new, u_used)
+        if delay:
+            # Round 0 applies nothing (its delta waits).
+            resid = torch.where(t > 0, resid, c["diag"].residual)
+        out["u"], out["v"] = u_new, v_new
+        out["diag"] = gated(resid, obj, wsum, c["diag"])
+        return out
+
+    def finalize(p: ShardProblem, c):
+        # The last round's stale delta is still in flight: apply it.
+        if wire:
+            u = c["u"] + c["pending"] if delay else c["u"]
+            v = c["v"]
+        else:
+            u, v = c.u, c.v
+        lam = cfg.final_lam(p.lam0).expand(1).contiguous()
+        l_blk, s_blk = fz.finalize(u, v, p.blocks, lam, cfg.impl, w=p.mask)
+        return l_blk[0], s_blk[0], u, v[0]
+
+    if wire:
+        return rt.Solver(wire_init, wire_step, lambda p, c: c["diag"],
+                         finalize, capturable=comm.capturable)
+    return rt.Solver(plain_init, plain_step, lambda p, c: c.diag, finalize,
+                     capturable=comm.capturable)
+
+
+def _assemble(layout: ShardLayout, l_blk: Tensor, s_blk: Tensor,
+              u: Tensor, v: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The whole ``(L (m, n), S (m, n), U (m, r), V (n, r))`` on every rank
+    from the ranks' blocks: all-gathers in client order, the padding
+    trimmed (the reference's ``process_allgather(tiled=True)`` view)."""
+    comm = layout.comm
+    e, mb = comm.clients, comm.model_size
+
+    def plane(blk: Tensor) -> Tensor:
+        g = comm.all_gather(blk, "all")  # (E * mb, m_loc, n_i), client-major
+        g = g.view(e, mb, layout.m_loc, layout.n_i).permute(1, 2, 0, 3)
+        return g.reshape(layout.m, e * layout.n_i)[:, :layout.n]
+
+    u_full = u if mb == 1 else comm.all_gather(u, "model").reshape(
+        layout.m, -1)
+    v_full = comm.all_gather(v, "data").reshape(e * layout.n_i, -1)
+    return plane(l_blk), plane(s_blk), u_full, v_full[:layout.n]
+
+
+def _sharded_ckpt_template(cfg: fz.DCFConfig, device) -> dict:
+    """The tree of a sharded segment snapshot (the reference's layout:
+    every leaf replicated, V and the wire residual client-major); the
+    leaves' shapes come from the manifest."""
+    z = torch.zeros((), device=device)
+    carry = {"u": z, "v": z, "dobj": z, "dres": z}
+    if cfg.consensus_compress is not None:
+        carry["err"] = z
+    if cfg.consensus_delay:
+        carry.update(pending=z, sync=z, guard=z)
+    return {"carry": carry, "objective": z, "residual": z}
+
+
+def _carry_to_host(layout: ShardLayout, carry) -> dict:
+    """A mid-solve carry as the snapshot holds it: U (and ``pending``,
+    ``sync``, ``guard``) replicated, V and ``err`` gathered client-major."""
+    comm = layout.comm
+    c = carry if isinstance(carry, dict) else carry._asdict()
+    out = {k: c[k] for k in ("u", "pending", "sync", "guard") if k in c}
+    out["v"] = comm.all_gather(c["v"][0], "data").reshape(-1, c["v"].shape[-1])
+    if "err" in c:
+        out["err"] = comm.all_gather(c["err"], "data").reshape(
+            -1, c["err"].shape[-1])
+    out["dobj"], out["dres"] = c["diag"].objective, c["diag"].residual
+    return out
+
+
+def _carry_from_host(layout: ShardLayout, restored: dict, wire: bool):
+    """This rank's carry from a restored snapshot."""
+    comm = layout.comm
+    ni = layout.n_i
+    c = {"u": restored["u"].contiguous(),
+         "v": restored["v"][comm.client * ni:(comm.client + 1) * ni]
+         .contiguous()[None],
+         "diag": rt.Diag(restored["dobj"], restored["dres"])}
+    if not wire:
+        return _Carry(**c)
+    if "err" in restored:
+        m = layout.m
+        c["err"] = restored["err"][comm.client * m:(comm.client + 1) * m] \
+            .contiguous()
+    if "pending" in restored:
+        c["pending"] = restored["pending"].contiguous()
+        c["sync"] = restored["sync"].to(torch.bool)
+        c["guard"] = restored["guard"]
+    return c
+
+
+def solve_sharded_problem(problem: ShardProblem, layout: ShardLayout,
+                          cfg: fz.DCFConfig,
+                          run: rt.RunConfig | str | None = None, *,
+                          checkpoint_dir: str | None = None,
+                          resume_from: str | None = None) -> DCFResult:
+    """Run this rank's solver (every rank of the mesh calls it in
+    lock-step) and assemble the whole result on every rank.
+
+    ``checkpoint_dir`` / ``resume_from`` split the fixed scan into
+    segments of ``run.checkpoint_every`` rounds (scan mode only; not with
+    a model axis): after each but the last, every rank holds the whole
+    carry (V and the wire residual gathered client-major) and rank 0 of
+    the mesh writes it with the traces so far, pinned to the mesh's shape;
+    ``resume_from`` restores the latest snapshot (refusing one written on
+    another mesh shape) and finishes the solve bit for bit as the
+    uninterrupted one."""
+    run = rt.resolve_run(run)
+    solver = make_sharded_solver(cfg, layout,
+                                 with_objective=run.needs_objective)
+    if checkpoint_dir is None and resume_from is None:
+        carry, stats = rt.run(solver, problem, cfg.outer_iters, run)
+    else:
+        carry, stats = _solve_sharded_checkpointed(
+            solver, problem, layout, cfg, run, checkpoint_dir, resume_from)
+    l, s, u, v = _assemble(layout, *solver.finalize(problem, carry))
+    return DCFResult(l=l, s=s, u=u, v=v, stats=stats)
+
+
+def _solve_sharded_checkpointed(solver, problem, layout, cfg, run_cfg,
+                                checkpoint_dir, resume_from):
+    """The segmented scan of :func:`solve_sharded_problem`: ``(carry,
+    stats)`` after the last segment."""
+    import torch.distributed as dist
+
+    from repro_torch.training import checkpoint as ckpt
+
+    if run_cfg.mode != "scan":
+        raise ValueError(
+            f"checkpointed solves require run mode 'scan' (the fixed "
+            f"paper schedule); got mode {run_cfg.mode!r}")
+    comm = layout.comm
+    wire = cfg.consensus_compress is not None or bool(cfg.consensus_delay)
+    total = cfg.outer_iters
+    device = rt.device_of(problem)
+    state = rt.single_state(solver, problem, total)
+    t_done = 0
+    if resume_from is not None:
+        step = ckpt.latest_step(resume_from)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {resume_from}")
+        restored, t_done = ckpt.restore(
+            resume_from, _sharded_ckpt_template(cfg, device), step=step,
+            expect_mesh=comm.shape)
+        if t_done > total:
+            raise ValueError(
+                f"checkpoint at round {t_done} exceeds this solve's budget "
+                f"of {total} rounds")
+        state["carry"] = _carry_from_host(layout, restored["carry"], wire)
+        state["obj"][:t_done] = restored["objective"]
+        state["res"][:t_done] = restored["residual"]
+        state["t"].fill_(t_done)
+    if comm.model_axis is not None:
+        raise ValueError(_SHARDED_SEGMENT_MODEL)
+    plan = rt.segment_plan(total - t_done, run_cfg.checkpoint_every)
+    if not plan:
+        raise ValueError(
+            f"checkpoint already covers all {total} rounds; nothing to "
+            f"resume (finalize needs at least one remaining segment)")
+    rounds = rt.Rounds(rt.single_body(solver, problem), state, device,
+                       rt.use_graph(solver, device, False, total - t_done))
+    s = rounds.state
+    for seg in plan:
+        rounds.advance(seg)
+        t_done += seg
+        if checkpoint_dir is not None and t_done < total:
+            host = _carry_to_host(layout, s["carry"])
+            if dist.get_rank() == int(torch.as_tensor(comm.mesh.mesh)
+                                      .reshape(-1)[0]):
+                ckpt.save(checkpoint_dir, t_done,
+                          {"carry": host, "objective": s["obj"][:t_done],
+                           "residual": s["res"][:t_done]},
+                          mesh_shape=comm.shape)
+    stats = rt.SolveStats(
+        objective=s["obj"], residual=s["res"],
+        rounds=torch.full((), total, dtype=torch.int32, device=device),
+        converged=rt.scan_converged(run_cfg, s["obj"], s["res"]))
+    return s["carry"], stats
+
+
+def _solve_sharded(m_obs, cfg: fz.DCFConfig, mesh, *,
+                   data_axes=("data",), model_axis=None, key=None, run=None,
+                   warm=None, mask=None, participation=None, faults=None,
+                   checkpoint_dir=None, resume_from=None,
+                   device=None) -> DCFResult:
+    """The sharded solve of this rank (see :func:`make_sharded_problem`
+    and :func:`solve_sharded_problem`)."""
+    from repro_torch.distributed import multihost as mh
+
+    _refuse_sharded(cfg, participation, mask)  # before any group is made
+    comm = mh.MeshComm(mesh, data_axes, model_axis)
+    problem, layout = make_sharded_problem(
+        m_obs, cfg, comm, key, warm, mask=mask, participation=participation,
+        faults=faults, device=device)
+    return solve_sharded_problem(problem, layout, cfg, run,
+                                 checkpoint_dir=checkpoint_dir,
+                                 resume_from=resume_from)
+
+
+def dcf_pca_sharded(
+    m_obs,
+    cfg: fz.DCFConfig,
+    mesh,
+    *,
+    data_axes: tuple[str, ...] = ("data",),
+    model_axis: str | None = None,
+    generator: int | torch.Generator | None = None,
+    run: rt.RunConfig | str | None = None,
+    warm: tuple[Tensor, Tensor] | None = None,
+    mask=None,
+    participation=None,
+    faults=None,
+    checkpoint_dir: str | None = None,
+    resume_from: str | None = None,
+    device: torch.device | str | None = None,
+) -> DCFResult:
+    """DCF-PCA over ``mesh`` (a ``torch.distributed`` ``DeviceMesh``; every
+    rank calls it with the whole ``m_obs``): each rank along ``data_axes``
+    is one client, rows split over ``model_axis``.  Every rank returns the
+    whole ``l``, ``s`` (m, n), ``u`` (m, r) and ``v`` (n, r), and the same
+    stats.  A shim over ``repro_torch.rpca.solve(...,
+    method="dcf_sharded")``."""
+    res = _rpca.solve(
+        _rpca.RPCASpec(m_obs, mask=mask, warm=warm, key=generator, mesh=mesh,
+                       data_axes=data_axes, model_axis=model_axis,
+                       participation=participation, faults=faults,
+                       checkpoint_dir=checkpoint_dir,
+                       resume_from=resume_from),
+        method="dcf_sharded", run=run, cfg=cfg, device=device)
+    return DCFResult(l=res.l, s=res.s, u=res.u, v=res.v, stats=res.stats)
+
+
+# ---------------------------------------------------------------------------
 # Registry adapters (repro_torch.rpca front door)
 # ---------------------------------------------------------------------------
 #: The reference's refusals of what a batch does not take.
@@ -689,9 +1273,22 @@ def _registry_make(spec, cfg, run_cfg, device):
 
 
 def _registry_make_sharded(spec, cfg, run_cfg, device):
-    raise NotImplementedError(
-        "method 'dcf_sharded' (the SPMD engine over a device mesh) waits "
-        "for a later slice of the port (ROADMAP.md)")
+    cfg = cfg if cfg is not None else _default_cfg(spec, "dcf_sharded")
+    _rpca.require_cfg_type("dcf_sharded", cfg, fz.DCFConfig)
+    res = _solve_sharded(
+        spec.m_obs, cfg, spec.mesh, data_axes=tuple(spec.data_axes),
+        model_axis=spec.model_axis, key=_rpca.default_key(spec),
+        run=run_cfg, warm=spec.warm, mask=spec.mask,
+        participation=spec.participation, faults=spec.faults,
+        checkpoint_dir=spec.checkpoint_dir, resume_from=spec.resume_from,
+        device=device)
+    num_clients = 1
+    names = tuple(spec.mesh.mesh_dim_names)
+    shape = torch.as_tensor(spec.mesh.mesh).shape
+    for a in spec.data_axes:
+        num_clients *= int(shape[names.index(a)])
+    _record_traffic(cfg, spec.m_obs.shape[0], num_clients, res.stats)
+    return res.l, res.s, res.u, res.v, res.stats
 
 
 _rpca.register_solver(
@@ -703,8 +1300,6 @@ _rpca.register_solver(
     _registry_make,
 )
 
-# The reference's caps, so that every refusal lists its methods; solving
-# raises until the sharded engine is ported.
 _rpca.register_solver(
     "dcf_sharded",
     _rpca.SolverCaps(supports_mask=True, supports_factors=True,

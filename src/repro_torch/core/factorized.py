@@ -304,6 +304,66 @@ def aggregate_stacked(cfg: DCFConfig, u_i: Tensor, u_prev: Tensor, *,
     return _weighted(w, u_i, active, u_prev, wsum), wsum
 
 
+def aggregate_sharded(cfg: DCFConfig, u_i: Tensor, u_prev: Tensor, *,
+                      comm, pt: Tensor, n_i: Tensor, uniform: bool,
+                      reduce_m=None) -> tuple[Tensor, Tensor | None]:
+    """Consensus (Eq. 9) across the ranks of the sharded engine, called by
+    every rank with its own client's ``u_i`` (its row block of it): the
+    reference's ``aggregate_sharded``, over ``comm``
+    (``distributed.multihost.MeshComm``).
+
+    ``pt`` is this client's participation weight for the round (1.0 when
+    no schedule), ``n_i`` its true column count (1.0 unless ragged), and
+    ``uniform`` takes the plain mean (no schedule, no ragged tail): one
+    ``all_reduce`` of ``u_i`` over the data group, then ``/ E``.  The
+    weighted path sums ``w_i u_i`` with ``w_i = p_i n_i / sum_j p_j n_j``
+    (an all-reduce of the weights, then of the weighted factors).  The
+    robust and screened paths all-gather the deltas and combine the
+    stacked clients as :func:`aggregate_stacked` does; their non-finite
+    counts and norms are summed over the model group by ``reduce_m``, so
+    every row block agrees on who is quarantined.  Every rank runs the
+    same collectives (lock-step).  Returns ``(u_new, wsum)`` with
+    :func:`aggregate_stacked`'s ``wsum``."""
+    from repro_torch.distributed import grad_compress as gcomp
+
+    reduce_m = reduce_m or _identity
+    robust = cfg.aggregator != "weighted_mean"
+    if not robust and cfg.divergence_screen is None:
+        if uniform:
+            return comm.all_reduce(u_i) / comm.clients, None
+        u_g = torch.where(pt > 0, u_i, u_prev)
+        raw_w = pt * n_i
+        wsum = comm.all_reduce(raw_w)
+        wgt = raw_w / torch.clamp_min(wsum, 1e-30)
+        u_cand = comm.all_reduce(wgt * u_g)
+        return torch.where(wsum > 0, u_cand, u_prev), wsum
+    one = torch.ones((), device=u_i.device)
+    stacked = gcomp.gather_clients((u_i - u_prev).to(torch.float32), comm)
+    active = gcomp.gather_clients(pt * one, comm)
+    e = stacked.shape[0]
+    flat = stacked.reshape(e, -1)
+    bad = reduce_m((~torch.isfinite(flat)).to(torch.float32).sum(1))
+    active = active * (bad == 0).to(torch.float32)
+    if cfg.divergence_screen is not None:
+        nrm = torch.sqrt(reduce_m((flat * flat).sum(1)))
+        active = active * gcomp.screen_from_norms(nrm, active,
+                                                  cfg.divergence_screen)
+    if robust:
+        agg, cnt = gcomp.robust_combine_stacked(stacked, active,
+                                                cfg.aggregator, cfg.trim_frac)
+        u = torch.where(cnt > 0, u_prev + agg.to(u_prev.dtype), u_prev)
+        return u, cnt.to(torch.float32)
+    # The screened weighted mean over the gathered stack: every rank holds
+    # the same stack, so no further collective is needed.
+    raw = active * gcomp.gather_clients(n_i * one, comm)
+    wsum = raw.sum()
+    w = raw / torch.clamp_min(wsum, 1e-30)
+    step = (_clients(w) * torch.where(_clients(active) > 0, stacked,
+                                      0.0)).sum(0)
+    return torch.where(wsum > 0, u_prev + step.to(u_prev.dtype),
+                       u_prev), wsum
+
+
 @dataclass(frozen=True)
 class DCFState:
     """Factors: ``u`` (m, r) global, ``v`` (n_i, r) or (E, n_i, r)."""
@@ -331,15 +391,20 @@ def _gram(u: Tensor) -> Tensor:
     return u.transpose(-1, -2) @ u
 
 
-def _altmin_update(u: Tensor, rho: float):
+def _identity(x: Tensor) -> Tensor:
+    return x
+
+
+def _altmin_update(u: Tensor, rho: float, reduce_m=_identity):
     """The ridge update ``V^T <- (G + rho I)^{-1} (G V^T + U^T Psi)`` with
-    ``G = U^T U``, factored once per U.
+    ``G = U^T U`` (summed over the row blocks by ``reduce_m``), factored
+    once per U.
 
     The back-substitution is two triangular solves: batched over clients
     on the card, ``torch.cholesky_solve`` takes a path that synchronises
     with the host and allocates on every call (see PERF.md), while
     ``solve_triangular`` stays one asynchronous batched launch each."""
-    g = _gram(u)
+    g = reduce_m(_gram(u))
     eye = torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)
     chol, _ = torch.linalg.cholesky_ex(g + rho * eye)
     chol_t = chol.transpose(-1, -2)
@@ -353,10 +418,10 @@ def _altmin_update(u: Tensor, rho: float):
     return update
 
 
-def _gd_update(u: Tensor, rho: float):
+def _gd_update(u: Tensor, rho: float, reduce_m=_identity):
     """One Lemma-1 step ``V <- V - (rho V - Psi^T U) /
     (rho + sigma_max(U)^2)``."""
-    g = _gram(u)
+    g = reduce_m(_gram(u))
     step = (1.0 / (rho + core_ops.spectral_norm_ub_gram(g)))[..., None, None]
 
     def update(v: Tensor, contr: Tensor) -> Tensor:
@@ -365,12 +430,13 @@ def _gd_update(u: Tensor, rho: float):
     return update
 
 
-def _sweeps(update, u, v, m_blk, lam, sweeps, impl, w):
+def _sweeps(update, u, v, m_blk, lam, sweeps, impl, w, reduce_m=_identity):
     """``sweeps`` inner (V, S) sweeps against a fixed U: one batched
-    ``huber_contract_v`` launch and one ``update`` (altmin or huber_gd)
-    each."""
+    ``huber_contract_v`` launch (its row-partial summed by ``reduce_m``)
+    and one ``update`` (altmin or huber_gd) each."""
     for _ in range(sweeps):
-        v = update(v, kops.huber_contract_v(u, v, m_blk, lam, w=w, impl=impl))
+        v = update(v, reduce_m(kops.huber_contract_v(u, v, m_blk, lam, w=w,
+                                                     impl=impl)))
     return v
 
 
@@ -403,7 +469,8 @@ def _u_step(cfg: DCFConfig, u_i: Tensor, v_i: Tensor, psi_v: Tensor,
 
 
 def local_round(u_global: Tensor, v: Tensor, m_blk: Tensor, *,
-                cfg: DCFConfig, lam, n_frac, eta: Tensor, w=None):
+                cfg: DCFConfig, lam, n_frac, eta: Tensor, w=None,
+                reduce_m=None):
     """Every client's work in one consensus round (Alg. 1): K local
     iterations of {inner (V, S) solve; one gradient step on the local U}.
 
@@ -417,24 +484,30 @@ def local_round(u_global: Tensor, v: Tensor, m_blk: Tensor, *,
     ``(H_lam(R_W), ||Psi||_F^2)`` per client from the last fused pass
     (``None`` under ``fused="off"``): under ``"diag"`` at (U_i before its
     step, V_i final), under ``"dual"`` one sweep earlier, as the reference.
+
+    ``reduce_m`` sums row-partial results over the model group of the
+    sharded engine (each rank holding a row block of its client): the Gram
+    of U and every ``Psi^T U``.  ``Psi V`` and the U-step stay row-local.
+    ``None`` is the identity (the simulated engine).
     """
+    reduce_m = reduce_m or _identity
     e = m_blk.shape[0]
     u_i = u_global.expand(e, *u_global.shape[-2:]).contiguous()
     make_update = _altmin_update if cfg.inner == "altmin" else _gd_update
     diag = None
     for _ in range(cfg.local_iters):
         # One inner-solver context (Gram, factorization) per U.
-        update = make_update(u_i, cfg.rho)
+        update = make_update(u_i, cfg.rho, reduce_m)
         if cfg.fused == "dual":
             v = _sweeps(update, u_i, v, m_blk, lam, cfg.inner_sweeps - 1,
-                        cfg.impl, w)
+                        cfg.impl, w, reduce_m)
             cv, psi_v, obj, psi2 = kops.huber_dual_contract(
                 u_i, v, m_blk, lam, w=w, impl=cfg.impl)
-            v = update(v, cv)
+            v = update(v, reduce_m(cv))
             diag = (obj, psi2)
         else:
             v = _sweeps(update, u_i, v, m_blk, lam, cfg.inner_sweeps,
-                        cfg.impl, w)
+                        cfg.impl, w, reduce_m)
             if cfg.fused == "diag":
                 psi_v, obj, psi2 = kops.huber_contract_u_diag(
                     u_i, v, m_blk, lam, w=w, impl=cfg.impl)

@@ -41,11 +41,12 @@ later round is one replay: ``scan`` replays ``max_iters - 1`` times and
 reads nothing back, ``while`` reads the predicate once a round and
 ``chunk`` once a chunk, as eagerly.  A capture that fails raises; nothing
 falls back to eager rounds.  A budget under :data:`MIN_GRAPH_ROUNDS`
-rounds runs eagerly (a capture would not pay).  The kernels' launch
-counters are Python-side, so a replay adds the captured round's counts to
-them.  ``eager=True`` runs every round eagerly on the card (the tests and
-``chip_smoke.py`` hold the replay against it; the front door has no such
-option).
+rounds runs eagerly (a capture would not pay).  The host-side counters
+(:mod:`repro_torch.counters`: kernel launches, collective calls and bytes)
+move only when a wrapper runs, so a replay adds the captured round's
+counts to them.  ``eager=True`` runs every round eagerly on the card (the
+tests and ``chip_smoke.py`` hold the replay against it; the front door
+has no such option).
 
 The diagnostics contract is the reference's: ``residual`` is a relative
 quantity and ``objective`` an inf for rounds where nothing was measured.
@@ -58,7 +59,7 @@ from typing import Any, Callable, Literal, NamedTuple
 
 import torch
 
-from repro_torch.kernels import ops as kops
+from repro_torch import counters
 
 Tensor = torch.Tensor
 
@@ -309,9 +310,10 @@ class CapturedRound:
     device's shared pool (:func:`_graph_pool`); :meth:`replay` launches
     the graph on the current stream.
 
-    The kernels' launch counters move when a wrapper runs, not when a
-    kernel does: the capture's counts (launches that have not run) are
-    taken back, and every replay adds them again."""
+    The host-side counters (:mod:`repro_torch.counters`: the kernels'
+    launches, the collectives' calls and bytes) move when a wrapper runs,
+    not when a kernel does: the capture's counts (work that has not run)
+    are taken back, and every replay adds them again."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device):
         side = _capture_stream(device)
@@ -320,7 +322,7 @@ class CapturedRound:
         with torch.cuda.stream(side):
             fn()
         pool = _graph_pool(device, side)
-        before = kops.launch_counts()
+        before = counters.snapshot()
         held = torch.cuda.memory_allocated(device)
         mallocs = torch.cuda.memory_stats(device).get("num_device_alloc", 0)
         self.graph = torch.cuda.CUDAGraph()
@@ -351,11 +353,9 @@ class CapturedRound:
                 f"a captured round kept {kept} bytes it allocated alive; "
                 f"the graphs' shared pool needs every capture to free "
                 f"what it allocates")
-        after = kops.launch_counts()
-        #: The kernel launches of one replay, by counter name.
-        self.launches = {k: after[k] - before[k] for k in after
-                         if after[k] != before[k]}
-        kops.add_launch_counts({k: -n for k, n in self.launches.items()})
+        #: What one replay counts, by registry and counter name.
+        self.counts = counters.since(before)
+        counters.add(self.counts, -1)
         graph_counts["captures"] += 1
         graph_counts["capture_s"] += t1 - t0
         graph_counts["instantiate_s"] += t2 - t1
@@ -364,7 +364,7 @@ class CapturedRound:
 
     def replay(self) -> None:
         self.graph.replay()
-        kops.add_launch_counts(self.launches)
+        counters.add(self.counts)
         graph_counts["replays"] += 1
 
 

@@ -1,7 +1,15 @@
 """Byzantine-robust consensus over a stacked client axis and the compressed
 consensus wire (counterpart of ``repro.distributed.grad_compress``:
 ``CompressConfig`` :39-58, ``topk_sparsify`` / ``topk_reconstruct``
-:91-104 and the robust combine and screens :205-285).
+:91-104, the robust combine and screens :205-285, and the collective
+halves of the sharded engine's wire: ``gather_clients`` :187,
+``median_aggregate`` :197, ``compressed_consensus_sum`` :107-142 and
+``compressed_consensus_robust`` :288-335).
+
+The collective functions take the rank's ``distributed.multihost.
+MeshComm`` where the reference takes mesh axis names; they use only its
+``all_gather`` (the list form, clients stacked in client order), so every
+rank receives the same stack and computes the same result from it.
 
 Everything here stays on the device: the live counts are device tensors and
 the order statistics are picked with ``gather``, so a robust round never
@@ -156,3 +164,82 @@ def divergence_screen_mask(delta: Tensor, active: Tensor,
     flat = delta.reshape(*active.shape, -1).to(torch.float32)
     nrm = torch.sqrt((flat ** 2).sum(-1))
     return screen_from_norms(nrm, active, threshold)
+
+
+# ---------------------------------------------------------------------------
+# The collective halves (the sharded engine: one client a rank)
+# ---------------------------------------------------------------------------
+def gather_clients(x: Tensor, comm) -> Tensor:
+    """``x`` of every client (every rank of ``comm``'s data group), stacked
+    ``(E, ...)`` in client order: the same stack on every rank, so stacked
+    post-processing (median, trim, screens) stays in lock-step."""
+    return comm.all_gather(x, "data")
+
+
+def median_aggregate(g: Tensor, comm) -> Tensor:
+    """Coordinate-wise median over the clients: one all-gather of ``g``."""
+    gathered = gather_clients(g, comm).to(torch.float32)
+    e = gathered.shape[0]
+    xs = torch.sort(gathered.reshape(e, -1), dim=0).values
+    med = 0.5 * (xs[(e - 1) // 2] + xs[e // 2])
+    return med.reshape(g.shape).to(g.dtype)
+
+
+def _ship(contrib: Tensor, k: int, err: Tensor, active: Tensor | None):
+    """This rank's payload: the top-k of ``contrib + err`` (values masked
+    to zero when ``active`` is 0) and the error-feedback residual (kept as
+    it was when ``active`` is 0)."""
+    g = contrib.to(torch.float32) + err
+    vals, idx = topk_sparsify(g.reshape(-1), k)
+    err_new = g - topk_reconstruct(vals, idx, g.numel()).reshape(g.shape)
+    if active is not None:
+        vals = torch.where(active > 0, vals, 0.0)
+        err_new = torch.where(active > 0, err_new, err)
+    return g, vals, idx, err_new
+
+
+def compressed_consensus_sum(contrib: Tensor, comm, k: int, err: Tensor,
+                             active: Tensor | None = None
+                             ) -> tuple[Tensor, Tensor]:
+    """Error-feedback top-k in place of the all-reduce of ``contrib`` over
+    the clients.  Each rank ships the top-k of ``contrib + err`` as (k fp32
+    values, k int32 indices); one all-gather of each moves the E payloads
+    (E k 8 bytes a rank).  Every rank writes each payload into its own
+    dense row and sums the rows in client order: no atomics, the same bits
+    on every rank and every run.  What the top-k dropped stays in the
+    returned residual (``shipped_t + err_t = contrib_t + err_{t-1}``).  An
+    inactive rank (``active`` 0) ships zeros and keeps its residual.
+    Returns ``(sum, err_new)``; exact when ``k`` is the size."""
+    g, vals, idx, err_new = _ship(contrib, k, err, active)
+    rows = topk_reconstruct(gather_clients(vals, comm),
+                            gather_clients(idx, comm), g.numel())
+    return rows.sum(0).reshape(g.shape).to(contrib.dtype), err_new
+
+
+def compressed_consensus_robust(contrib: Tensor, comm, k: int, err: Tensor,
+                                active: Tensor | None, aggregator: str,
+                                trim_frac: float = 0.25,
+                                screen: float | None = None,
+                                reduce_m=None
+                                ) -> tuple[Tensor, Tensor, Tensor]:
+    """The robust sibling of :func:`compressed_consensus_sum`: the same
+    wire, but every rank rebuilds the E per-client deltas and combines them
+    one vote a client (:func:`robust_combine_stacked`), after the
+    divergence screen on the shipped norms when ``screen`` is set
+    (``reduce_m`` sums the squared norms over the model group, so every
+    row block judges a client by its whole payload).  Returns ``(delta,
+    err_new, count)``."""
+    g, vals, idx, err_new = _ship(contrib, k, err, active)
+    vals_g = gather_clients(vals, comm)
+    recon = topk_reconstruct(vals_g, gather_clients(idx, comm), g.numel())
+    e = vals_g.shape[0]
+    one = torch.ones((), device=g.device)
+    act = gather_clients(one if active is None else active * one, comm)
+    if screen is not None:
+        sq = (vals_g * vals_g).sum(1)
+        if reduce_m is not None:
+            sq = reduce_m(sq)
+        act = act * screen_from_norms(torch.sqrt(sq), act, screen)
+    delta, cnt = robust_combine_stacked(recon.reshape((e,) + g.shape), act,
+                                        aggregator, trim_frac)
+    return delta.to(contrib.dtype), err_new, cnt

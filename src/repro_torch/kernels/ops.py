@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import counters
 from repro_torch.kernels import ref
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import huber_contract as _hc
@@ -136,7 +137,10 @@ def reset_launch_counts() -> None:
 def add_launch_counts(delta: dict[str, int]) -> None:
     """Add ``delta`` (kernel name -> launches) to the counts: a CUDA graph's
     replay launches its captured kernels without running their wrappers
-    (``core.runtime.CapturedRound``)."""
+    (``core.runtime.CapturedRound``, through :mod:`repro_torch.counters`)."""
     for table in (_hc.launches, _sh.launches, _fa.launches):
         for name in table.keys() & delta.keys():
             table[name] += delta[name]
+
+
+counters.register("launches", launch_counts, add_launch_counts)

@@ -13,9 +13,7 @@ Dispatch goes through the :data:`SOLVERS` registry, as in the reference:
 each solver module registers itself (:func:`register_solver`) with a
 :class:`SolverCaps` record, so a feature a method lacks is refused before
 any solve starts, with the reference's words.  ``"cf"``, ``"dcf"``,
-``"ialm"`` and ``"apgm"`` solve; ``"dcf_sharded"`` is registered with the
-reference's caps and raises ``NotImplementedError`` naming ROADMAP.md, so
-every refusal lists the reference's methods.
+``"ialm"``, ``"apgm"`` and ``"dcf_sharded"`` solve.
 
 A solve runs on the CUDA card unless ``device="cpu"`` is passed; with no
 card and no device named it raises.  ``dtype=torch.bfloat16`` stores M as
@@ -42,6 +40,16 @@ problem freezes under the early-exit modes (``core.runtime.solve_batch``)::
 consensus_compress=CompressConfig(topk_frac=0.1), consensus_delay=1)``
 (``distributed.grad_compress``), its modelled traffic in
 ``distributed.multihost.consensus_traffic()``.
+
+``"dcf_sharded"`` runs one client a ``torch.distributed`` rank: every
+rank of a ``DeviceMesh`` (``distributed.multihost.multihost_mesh``) calls
+``solve`` with the whole matrix, holds its own column block (its row block
+too, with ``model_axis``) and gets the whole result back::
+
+    mesh = multihost_mesh(("data", "model"), (2, 2), device="cpu")
+    res = rpca.solve(rpca.RPCASpec(m_obs, mesh=mesh, model_axis="model"),
+                     method="dcf_sharded", cfg=DCFConfig.tuned(8),
+                     device="cpu")
 
 ``compile_policy="aot"`` (or a ``CompilePolicy``) solves through the
 shape-bucketed compile cache (``core.compile_cache``): the problem is
@@ -113,8 +121,10 @@ class RPCASpec:
     ``"dcf"``); ``checkpoint_dir`` takes a snapshot of the solve every
     ``RunConfig.checkpoint_every`` rounds and ``resume_from`` finishes the
     solve from the latest one there, bit-exact with an uninterrupted run.
-    ``mesh`` is not ported yet: a method that takes it raises when it
-    solves."""
+    ``mesh`` / ``data_axes`` / ``model_axis`` place the problem on a
+    ``torch.distributed`` ``DeviceMesh`` for ``"dcf_sharded"``: one client a
+    rank along ``data_axes``, rows split over ``model_axis``; a mesh makes
+    ``method="auto"`` pick ``"dcf_sharded"``."""
 
     m_obs: Any
     mask: Any = None
@@ -124,6 +134,8 @@ class RPCASpec:
     warm: tuple[Any, Any] | None = None
     key: int | torch.Generator | None = None
     mesh: Any = None
+    data_axes: tuple[str, ...] = ("data",)
+    model_axis: str | None = None
     dtype: torch.dtype | None = None
     faults: Any = None
     checkpoint_dir: str | None = None
@@ -372,6 +384,16 @@ def _check_caps(entry: SolverEntry, spec: RPCASpec,
     mesh = getattr(spec, "mesh", None)
     if mesh is not None and not caps.supports_sharding:
         raise _unsupported(entry.name, "device meshes", "supports_sharding")
+    if mesh is not None and not caps.supports_multiprocess:
+        # A mesh spanning OS processes: only solvers whose collectives run
+        # in lock-step may run there.
+        from repro_torch.distributed import multihost as mh
+
+        if mh.is_multiprocess_mesh(mesh):
+            raise _unsupported(
+                entry.name, "multi-process meshes (torch.distributed)",
+                "supports_multiprocess",
+            )
     if spec.batched and not caps.batchable:
         raise _unsupported(
             entry.name, "batched problems (leading problem axis)",
@@ -397,10 +419,7 @@ def auto_method(spec: RPCASpec, cfg: Any = None) -> str:
     4. a low-precision data plane -> ``"cf"`` (a rank is then required);
     5. a known rank and one SVD costlier than :data:`SVD_COST_THRESHOLD`
        flops -> ``"cf"``;
-    6. otherwise ``"ialm"``.
-
-    ``solve`` refuses ``"dcf_sharded"``: it waits for a later slice
-    (ROADMAP.md)."""
+    6. otherwise ``"ialm"``."""
     if getattr(spec, "mesh", None) is not None:
         return "dcf_sharded"
     if spec.participation is not None or spec.num_clients is not None:

@@ -375,12 +375,17 @@ def test_refusals_read_as_the_reference(case):
 
 
 def test_dcf_sharded_waits_for_its_slice():
-    """With a mesh, auto picks "dcf_sharded" as the reference does, and the
-    port refuses it naming ROADMAP.md before anything runs."""
-    spec = rpca.RPCASpec(torch.zeros(12, 10), rank=3, mesh=_Mesh())
+    """The sharded engine has landed (tests/test_torch_sharded.py): with a
+    mesh, auto picks "dcf_sharded" as the reference does, and the engine
+    refuses what it does not take before any process group is touched (a
+    bit-packed mask, in the reference's words)."""
+    spec = rpca.RPCASpec(torch.zeros(12, 10), rank=3, mesh=_Mesh(),
+                         mask=torch.ones(12, 10))
     assert rpca.auto_method(spec) == "dcf_sharded"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rpca.solve(spec, device="cpu")
+    with pytest.raises(ValueError, match="cfg.pack_mask is not supported "
+                       "by the sharded engine"):
+        rpca.solve(spec, cfg=DCFConfig.masked(3, pack_mask=True),
+                   device="cpu")
 
 
 def test_compile_policy_waits_for_its_slice():
@@ -405,10 +410,10 @@ def test_solve_with_no_rank_runs_ialm(problem):
 
 
 #: The reference's exports that the port does not have yet, each named in
-#: ROADMAP.md's Queue 1 (the sharded engine).
+#: ROADMAP.md's Queue 1 (none since the sharded engine landed).
 UNPORTED = {
     "repro": set(),
-    "repro.core": {"dcf_pca_sharded"},
+    "repro.core": set(),
     "repro.rpca": set(),
 }
 

@@ -21,6 +21,7 @@ fp32 (the kernel sums in another order and exponentiates in base 2) and
 and P to bf16 for P V, at most 2^-8 a weight).
 """
 import copy
+import json
 
 import pytest
 import torch
@@ -1546,3 +1547,80 @@ def test_single_page_gateway_is_the_service_on_the_card(cuda):
     via = gw.solve_all(list(mats))
     for d, g in zip(direct, via, strict=True):
         _same_response(g, d)
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine on the card: one rank a process
+# ---------------------------------------------------------------------------
+_SHARDED_CARD = """
+import hashlib, json
+import torch
+import torch.distributed as dist
+from repro_torch import rpca
+from repro_torch.core import metrics
+from repro_torch.core import problems as prob
+from repro_torch.core import runtime as rt
+from repro_torch.core.factorized import DCFConfig
+from repro_torch.kernels import ops
+
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+p = prob.generate_problem(0, 500, 500, 8, 0.05, device=dev)
+mesh = _mh.multihost_mesh(device=dev)
+ops.reset_launch_counts()
+rt.reset_graph_counts()
+res = rpca.solve(rpca.RPCASpec(p.m_obs, mesh=mesh), method="dcf_sharded",
+                 cfg=DCFConfig.tuned(8), device=dev)
+torch.cuda.synchronize()
+print("CARD " + json.dumps(dict(
+    backend=str(dist.get_backend()),
+    err=metrics.relative_error(res.l, res.s, p.l0, p.s0).item(),
+    u=hashlib.sha256(res.u.cpu().numpy().tobytes()).hexdigest(),
+    launches={k: c for k, c in ops.launch_counts().items() if c},
+    captures=int(rt.graph_counts["captures"]),
+    replays=int(rt.graph_counts["replays"]), shape=list(res.l.shape))))
+"""
+#: A rank's launches in a solve of tuned(8): J K T, K T and one shrink.
+_SHARDED_WANT = {"huber_contract_v": 600, "huber_contract_u_diag": 200,
+                 "residual_shrink": 1}
+
+
+def _card_cohort(ranks: int, backend: str) -> list[dict]:
+    """A cohort of ``ranks`` processes on the card solving 500 x 500 (rank
+    8, 5%) through ``rpca.solve(method="dcf_sharded")``; each rank's row.
+    The kernels are built here first, so the workers load one library."""
+    from repro_torch.distributed import multihost as mh
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    outs = mh.launch_workers(_SHARDED_CARD, num_processes=ranks,
+                             backend=backend, timeout=600)
+    return [json.loads(next(ln for ln in out.splitlines()
+                            if ln.startswith("CARD "))[len("CARD "):])
+            for out in outs]
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_share_the_card(cuda):
+    """Two gloo ranks on the one card (CUDA tensors staged through the
+    host): the same U bytes on both, each rank's exact launch counts on
+    its 500 x 250 block, the Fig. 1 bar, and eager rounds (gloo runs its
+    collectives on the host, so a round is not captured)."""
+    rows = _card_cohort(2, "gloo")
+    assert len({r["u"] for r in rows}) == 1
+    for r in rows:
+        assert r["backend"] == "gloo" and r["launches"] == _SHARDED_WANT
+        assert r["err"] < 1e-4 and r["shape"] == [500, 500]
+        assert r["captures"] == 0 and r["replays"] == 0
+
+
+@pytest.mark.gpu
+def test_one_nccl_rank_replays_its_captured_round(cuda):
+    """One NCCL rank (world size 1): the round, its all-reduce included,
+    is captured once and replayed T - 1 times, with exact launch counts
+    and the Fig. 1 bar."""
+    (r,) = _card_cohort(1, "nccl")
+    assert r["backend"] == "nccl" and r["launches"] == _SHARDED_WANT
+    assert r["err"] < 1e-4
+    assert r["captures"] == 1 and r["replays"] == 99
+

@@ -227,3 +227,31 @@ def test_copy_into_rules():
     assert a.tolist() == [10.0, 11.0, 12.0]
     with pytest.raises(ValueError, match="carry leaf"):
         rt.copy_into({"x": a}, {"x": torch.zeros(4)})
+
+
+def test_host_counters_are_one_registry():
+    """The kernels' launch counters and the collectives' call and byte
+    counters (not their seconds) are registered in ``repro_torch.counters``,
+    the one registry ``CapturedRound`` reads: what a capture counted is
+    taken back, and every replay adds it again."""
+    from repro_torch import counters
+    from repro_torch.distributed import multihost as mh
+    from repro_torch.kernels import ops as kops
+
+    assert {"launches", "wire"} <= set(counters.snapshot())
+    assert "seconds" not in counters.snapshot()["wire"]
+    before = counters.snapshot()
+    kops.add_launch_counts({"huber_contract_v": 3})
+    mh.add_wire_counts({"all_reduce_calls": 1, "all_reduce_bytes": 64,
+                        "seconds": 0.5})
+    moved = counters.since(before)
+    assert moved == {"launches": {"huber_contract_v": 3},
+                     "wire": {"all_reduce_calls": 1, "all_reduce_bytes": 64}}
+    counters.add(moved, -1)  # the capture's counts taken back
+    assert counters.since(before) == {}
+    counters.add(moved)  # two replays
+    counters.add(moved)
+    assert counters.since(before) == {
+        "launches": {"huber_contract_v": 6},
+        "wire": {"all_reduce_calls": 2, "all_reduce_bytes": 128}}
+    counters.add(moved, -2)

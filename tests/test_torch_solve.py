@@ -295,10 +295,11 @@ STILL_REFUSED = ["compile_policy", "dcf_sharded", "moe_lm", "mamba_lm",
 def test_what_still_refuses_before_solving(what):
     """What the port does not run refuses before anything starts: an
     unknown ``compile_policy`` raises the reference's ValueError, word for
-    word; the sharded engine raises NotImplementedError naming ROADMAP.md,
-    as does a language model of a family the port does not build (mixture
-    of experts, state space); a batch with a fault plan or a checkpoint
-    raises the reference's ValueError, word for word."""
+    word, as does a batch given to the sharded engine; a language model of
+    a family the port does not build (mixture of experts, state space)
+    raises NotImplementedError naming ROADMAP.md; a batch with a fault
+    plan or a checkpoint raises the reference's ValueError, word for
+    word."""
     from repro_torch import configs, models
 
     m, cfg = torch.zeros(2, 8, 8), DCFConfig.tuned(2)
@@ -312,9 +313,13 @@ def test_what_still_refuses_before_solving(what):
         assert str(got.value) == str(want.value)
         return
     if what == "dcf_sharded":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rpca.solve(m[0], method="dcf_sharded", cfg=cfg, mesh=object(),
+        with pytest.raises(ValueError) as want:
+            jrpca.solve(jnp.zeros((2, 8, 8)), method="dcf_sharded",
+                        cfg=JConfig.tuned(2), mesh=object())
+        with pytest.raises(ValueError) as got:
+            rpca.solve(m, method="dcf_sharded", cfg=cfg, mesh=object(),
                        device="cpu")
+        assert str(got.value) == str(want.value)
         return
     if what.endswith("_lm"):
         arch = {"moe_lm": "qwen2-moe-a2.7b", "mamba_lm": "mamba2-780m"}[what]
@@ -387,19 +392,29 @@ def test_auto_method_follows_the_reference(case):
 
 def test_auto_refuses_unported_methods_before_solving(monkeypatch):
     """method="auto" with a device mesh picks "dcf_sharded", as the
-    reference does, and the port refuses it before any solve starts (the
-    only method left unported: "ialm" now solves)."""
+    reference does; every method is ported now, and what the sharded
+    engine does not take is refused before any solve starts: no rank, in
+    the reference's words, and a bit-packed mask."""
     def no_solve(*a, **k):
         raise AssertionError("a solve started")
 
     monkeypatch.setattr(cf_pca, "cf_pca", no_solve)
     monkeypatch.setattr(dcf_pca, "dcf_pca", no_solve)
+    monkeypatch.setattr(dcf_pca, "solve_sharded_problem", no_solve)
     m = torch.zeros(M, M)
-    for kw in ({"rank": RANK}, {}):
-        spec = rpca.RPCASpec(m, mesh=object(), **kw)
-        assert rpca.auto_method(spec) == "dcf_sharded"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rpca.solve(spec, device="cpu")
+    spec = rpca.RPCASpec(m, mesh=object())
+    assert rpca.auto_method(spec) == "dcf_sharded"
+    with pytest.raises(ValueError) as got:
+        rpca.solve(spec, device="cpu")
+    with pytest.raises(ValueError) as want:
+        jrpca.solve(jnp.zeros((M, M)), mesh=object())
+    assert str(got.value) == str(want.value)
+    spec = rpca.RPCASpec(m, mesh=object(), rank=RANK, mask=torch.ones(M, M))
+    assert rpca.auto_method(spec) == "dcf_sharded"
+    with pytest.raises(ValueError, match="pack_mask is not supported by "
+                       "the sharded engine"):
+        rpca.solve(spec, cfg=DCFConfig.masked(RANK, pack_mask=True),
+                   device="cpu")
 
 
 @pytest.mark.parametrize("what", ["num_clients", "participation", "faults"])
