@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (DCF-PCA and dense-LM serving) on one CUDA
-card and check it.
+"""Drive the PyTorch/CUDA port (DCF-PCA, dense-LM serving and training) on
+one CUDA card and check it.
 
     python3 chip_smoke.py
 
@@ -230,6 +230,40 @@ CUDA toolkit.  Phases, one JSON line each:
             (one graph launch a step): the replayed ms a step beside an
             eager decode's, and the tokens equal to the eager ones.
 
+13. train_parity the smoke TinyLlama in fp32: one ``make_train_step`` step
+            on the card against the same step on the CPU (loss within 1e-5
+            relative, parameters within 1e-5 of max |p|), four microbatches
+            against one on the card within 5e-5.
+14. train    ``launch/train.py``'s ``main``: TinyLlama-1.1B at full width
+            and depth, bf16, remat full, 8 x 2048 tokens, 12 steps, flash
+            attention on in its config: every loss finite and the last
+            five's mean under the first five's, the median step ms after
+            two warm-up steps, tokens/s, peak memory, no kernel launched
+            (training never takes the flash kernel); ``train_profile``:
+            one more step under the profiler.
+    probe    the trained model's hidden states after layer 11 of one batch
+            (2048 x 16384 in fp32) through ``training.probes.
+            activation_probe`` (rank 8, 8 clients, 40 rounds): exactly
+            240 / 80 / 1 launches; tests/test_probes.py's planted
+            structure under its bars.
+    train_resume  launcher children under deterministic algorithms at
+            TinyLlama's widths cut to 2 layers: one ends itself after its
+            first checkpoint and is relaunched; its final parameters and
+            optimizer state have the uninterrupted run's SHA-256.
+    train_robust  ``--robust-agg`` under ``multihost.launch_workers``: 4
+            gloo ranks sharing the card, 4 layers, 8 x 512, 3 steps,
+            weight decay 0: exactly 8 / 4 huber_contract_v /
+            huber_contract_u_diag launches a 2-D gradient leaf a step (30
+            leaves; counted by leaf shape too), the parameters moved, one
+            parameter hash, each rank's step ms, collective ms and bytes
+            and peak;
+            tests/test_multidevice.py's Byzantine aggregation on CUDA
+            tensors (4 workers) under its bars.
+   The kernel rows also hold the probe's blocks ("pr": 8 clients of 2048 x
+   2048, r = 8) and two gradient leaves of train_robust ("gr": 2048 x
+   5632, "gr_emb": 32000 x 2048, one client, r = 8), with the launches
+   those phases made at that shape.
+
 In each of phases 4-9, elastic, table1, wide, batch, batch_fig1, wire, 11
 and 12 a first run warms the libraries, the counts (kernel launches and
 round graphs' captures and replays) are zeroed just before the counted run
@@ -249,6 +283,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -350,6 +385,54 @@ WIRE_TOPK, WIRE_SMALL, WIRE_SMALL_TOL = 0.1, (64, 3, 4, 4, 40), 1e-4
 # factors: a sharded solve that departs from the simulated one fails).
 SHARDED_RANKS, SHARDED_MATCH, SHARDED_TIMEOUT = 10, 1e-6, 600
 SHARDED_REL_MATCH = 0.01
+# LM training.  ``train``: the training launcher's default arch, TinyLlama-
+# 1.1B (configs/tinyllama_1_1b.py, arXiv:2401.02385) at full width and
+# depth, bf16, remat "full", a global batch of 8 x 2048 tokens (its
+# pretraining context), 12 steps on one rank; the step ms is the median
+# after two warm-up steps.  The learning rate is TinyLlama's published peak,
+# 4e-4: at the launcher's default 3e-3 (sized for the smoke model) the
+# 22-layer model's loss rose over the 12 steps, in bf16 and in fp32 alike
+# (src/repro_torch/launch/train_losses.py; PERF.md §6).  Its config
+# turns flash attention on, so the phase shows that training never takes
+# the kernel (0 launches).
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = (
+    "tinyllama-1.1b", 8, 2048, 12, 4e-4)
+TRAIN_WARMUP = 2
+# ``train_parity``: the smoke config in fp32, one step on the card against
+# the same step on the CPU: loss within 1e-5 relative, parameters within
+# 1e-5 of max |p| at lr 1e-4 and eps 1e-6 (tests/test_torch_train.py's
+# STEP_OCFG: Adam divides each gradient entry's fp32 noise by |g| + eps);
+# four microbatches against one on the card within the reference's 5e-5
+# (tests/test_train_loop.py:36-57, its lr 1e-3), on a batch of 8 x 32.
+PARITY_TOL, PARITY_MB_TOL, PARITY_SHAPE = 1e-5, 5e-5, (32, 8)
+# ``train_resume``: two launcher children under deterministic algorithms at
+# TinyLlama's widths cut to RESUME_LAYERS layers (a checkpoint of the 22
+# layers' parameters and fp32 moments is 11 GB to write; 2 layers hold
+# the embeddings, 2.6 GB with them), RESUME_STEPS steps of 4 x 512, a
+# checkpoint every RESUME_EVERY.
+RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY, RESUME_SHAPE = 2, 4, 2, (512, 4)
+# ``train_robust``: the launcher's --robust-agg under launch_workers, 4 gloo
+# ranks sharing the card, TinyLlama's widths cut to 4 layers (four copies
+# of the 22-layer AdamW state, 13.2 GB each, and their activations do not
+# fit in 80 GB), a global batch of 8 x 512, 3 steps, CompressConfig()'s
+# defaults: rounds 4, K 1, J 2, so 8 huber_contract_v and 4
+# huber_contract_u_diag launches a 2-D leaf a step.  In the same cohort
+# tests/test_multidevice.py:138-179's Byzantine case on CUDA tensors with 4
+# workers in place of 8.
+ROBUST_RANKS, ROBUST_LAYERS, ROBUST_STEPS, ROBUST_SHAPE = 4, 4, 3, (512, 8)
+# The gradient leaves whose launches the kernel rows "gr" / "gr_emb"
+# report (``train_robust@gr``, ``@gr_emb``): the MLP's w_gate and w_up, two
+# a layer, and the embedding table.
+ROBUST_LEAF_ROWS = {"gr": ((2048, 5632), 2 * ROBUST_LAYERS),
+                    "gr_emb": ((32000, 2048), 1)}
+ROBUST_TIMEOUT = 900
+BYZ = dict(m=256, k=128, r=4, spike=1e4, frac=0.02, rank=8, rounds=6)
+# ``probe``: the hidden states after layer PROBE_LAYER (0-based) of one
+# training batch (8 x 2048 tokens, d_model 2048) through
+# training.probes.activation_probe: rank 8, 8 clients (2048 x 2048 blocks),
+# 40 rounds of DCFConfig.tuned (K 2, J 3): 240 / 80 / 1 launches.  Then
+# tests/test_probes.py's planted structure, under its bars.
+PROBE_LAYER, PROBE_RANK, PROBE_CLIENTS, PROBE_ROUNDS = 11, 8, 8, 40
 # The compile cache: cf through compile_policy="aot" (buckets of 64 x 2^k)
 # at three shapes in two buckets, (1024, 1024) twice and (2048, 2048), on
 # the port's problems (rank 20, 5%), DCFConfig.tuned(20).
@@ -443,8 +526,11 @@ SUFFIX = {"none": "", "dense": "_masked", "packed": "_packed"}
 # "g256" (the gateway's narrowest and widest width classes: 4 slots, m=512,
 # r=8, ragged tenants behind mask-zero columns) and "g32_1" / "g256_1" (the
 # ragged slot of each: a poll's finalize), "sh" (one rank of the sharded
-# phase: one client of 3000 x 300, r=150) and "sr" (one rank of the
-# sharded_rows phase: a 1500 x 1500 block, r=150).
+# phase: one client of 3000 x 300, r=150), "sr" (one rank of the
+# sharded_rows phase: a 1500 x 1500 block, r=150), "pr" (the probe phase's
+# 8 clients of a 2048 x 16384 hidden-state matrix, r=8) and "gr" /
+# "gr_emb" (train_robust's gradient leaves, one client a rank, r=8: an MLP
+# matrix (2048, 5632) and the embedding table (32000, 2048)).
 ROWS = [
     ("huber_contract_v", "none", "fig1", "dcf"),
     ("huber_contract_v", "dense", "fig1", "ragged"),
@@ -507,6 +593,13 @@ ROWS = [
     ("huber_contract_v", "none", "sr", "sharded_rows"),
     ("huber_contract_u_diag", "none", "sr", "sharded_rows"),
     ("residual_shrink", "none", "sr", "sharded_rows"),
+    ("huber_contract_v", "none", "pr", "probe"),
+    ("huber_contract_u_diag", "none", "pr", "probe"),
+    ("residual_shrink", "none", "pr", "probe"),
+    ("huber_contract_v", "none", "gr", "train_robust@gr"),
+    ("huber_contract_u_diag", "none", "gr", "train_robust@gr"),
+    ("huber_contract_v", "none", "gr_emb", "train_robust@gr_emb"),
+    ("huber_contract_u_diag", "none", "gr_emb", "train_robust@gr_emb"),
 ]
 # Flash rows: (row name, (B, S_q, S_kv, H, d), causal, dtype, phase whose
 # launches the row reports or None).
@@ -708,6 +801,16 @@ def kernel_operands(device) -> dict:
     half = M_ROWS // 2
     sets["sr"] = client_set(p.m_obs[:half, :half].contiguous(), 1, RANK,
                             None)
+    del p
+    # Low rank plus sparse at the probe's and the gradients' shapes (their
+    # rank 8 is the probe's and CompressConfig's).
+    for key, (m, n, clients) in {
+            "pr": (2048, TRAIN_BATCH * TRAIN_SEQ, PROBE_CLIENTS),
+            "gr": (2048, 5632, 1), "gr_emb": (32000, 2048, 1)}.items():
+        q = prob.generate_problem(0, m, n, PROBE_RANK, SPARSITY,
+                                  device=device)
+        sets[key] = client_set(q.m_obs, clients, PROBE_RANK, None)
+        del q
 
     def batch_set(seeds, n, clients, rank, ragged):
         """A batch's operands: each problem's client set, the problems'
@@ -3058,6 +3161,582 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     return row
 
 
+# ---------------------------------------------------------------------------
+# LM training
+# ---------------------------------------------------------------------------
+def _step_seconds(log: list[dict]) -> list[float]:
+    """Each logged step's host seconds (the launcher logs every step here
+    and each log reads the loss, which waits for the step)."""
+    ts = [entry["seconds"] for entry in log]
+    return [b - a for a, b in zip([0.0] + ts[:-1], ts)]
+
+
+def train_phase(device) -> tuple[dict, object]:
+    """``train``: ``launch/train.py``'s ``main`` for TinyLlama-1.1B at full
+    width and depth (bf16, remat full, flash attention on in the config),
+    8 x 2048 tokens, lr :data:`TRAIN_LR`, 12 steps, logged every step:
+    every loss,
+    the median step ms after two warm-up steps, tokens/s, peak memory, no
+    kernel launch of the port (training takes the chunked attention, never
+    the flash kernel); then one more step under the profiler (its busy
+    share and top kernels).  Returns the row and the trained parameters."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticData
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = get_config(TRAIN_ARCH).replace(flash_attention=True)
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+            "--log-every", "1", "--device", str(device)]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(argv, cfg=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [entry["loss"] for entry in out["log"]]
+    steps_ms = [x * 1e3 for x in _step_seconds(out["log"])]
+    step_ms = statistics.median(steps_ms[TRAIN_WARMUP:])
+    params, state = out["params"], out["opt_state"]
+
+    # One more step, profiled: the launcher's step on the next batch.
+    model = get_model(cfg)
+    data = SyntheticData(cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                        "train"), device=device)
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=min(
+        20, TRAIN_STEPS // 5), total_steps=TRAIN_STEPS)
+    step = make_train_step(model, ocfg)
+    batch = data.batch_at(TRAIN_STEPS)
+    profiled = profile_run(lambda: step(params, state, batch))
+    first5, last5 = losses[:5], losses[-5:]
+    finite = all(math.isfinite(x) for x in losses)
+    ok = (finite and len(losses) == TRAIN_STEPS
+          and sum(last5) / 5 < sum(first5) / 5
+          and not any(counts.values()))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    row = dict(phase="train", arch=cfg.name, layers=cfg.n_layers,
+               d_model=cfg.d_model, dtype=cfg.compute_dtype,
+               param_dtype=cfg.param_dtype, remat=cfg.remat,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+               lr=TRAIN_LR, wall_s=wall, losses=losses,
+               grad_norms=[entry["grad_norm"] for entry in out["log"]],
+               step_ms=steps_ms,
+               median_step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+               peak_mem_gb=peak_gb, finite=finite,
+               mean_first5=sum(first5) / 5, mean_last5=sum(last5) / 5,
+               launches={k: c for k, c in counts.items() if c},
+               expected_launches={}, ok=ok)
+    emit(**row)
+    emit(phase="train_profile", wall_ms=profiled["wall_ms_profiled"],
+         device_busy_share=profiled["device_busy_ms"]
+         / profiled["wall_ms_profiled"], **profiled)
+    if not ok:
+        raise SystemExit("phase train failed")
+    row["launches"] = counts
+    return row, params
+
+
+def train_parity_phase(device) -> dict:
+    """``train_parity``: the smoke TinyLlama in fp32; one ``make_train_step``
+    step on the card against the same step of the plain path on the CPU
+    from the same parameters and batch; then four microbatches against one
+    on the card."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import get_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticData
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = get_smoke_config(TRAIN_ARCH).replace(
+        param_dtype="float32", compute_dtype="float32")
+    model = get_model(cfg)
+    cpu_params = model.init_params(seed=0, device="cpu")
+    batch = SyntheticData(cfg, ShapeSpec("t", *PARITY_SHAPE, "train"),
+                          device="cpu").batch_at(0)
+    card_batch = {k: x.to(device) for k, x in batch.items()}
+
+    def one_step(params, batch, microbatches=1, **ocfg):
+        step = make_train_step(model, opt.AdamWConfig(
+            warmup_steps=1, total_steps=10, **ocfg),
+            microbatches=microbatches)
+        params, _, mets = step(params, opt.init(params), batch)
+        return params, mets
+
+    card0 = copy.deepcopy(cpu_params).to(device)
+    got, got_m = one_step(copy.deepcopy(card0), card_batch, lr=1e-4,
+                          eps=1e-6)
+    want, want_m = one_step(copy.deepcopy(cpu_params), batch, lr=1e-4,
+                            eps=1e-6)
+    loss_rel = abs(float(got_m["loss"]) - float(want_m["loss"])) / abs(
+        float(want_m["loss"]))
+    param_rel = max(
+        float((a.detach().cpu() - b.detach()).abs().max()
+              / b.detach().abs().max())
+        for a, b in zip(got.parameters(), want.parameters()))
+    one, one_m = one_step(copy.deepcopy(card0), card_batch, lr=1e-3)
+    four, four_m = one_step(copy.deepcopy(card0), card_batch, 4, lr=1e-3)
+    mb_diff = max(float((a - b).detach().abs().max())
+                  for a, b in zip(one.parameters(), four.parameters()))
+    mb_loss = abs(float(one_m["loss"]) - float(four_m["loss"]))
+    ok = (loss_rel <= PARITY_TOL and param_rel <= PARITY_TOL
+          and mb_diff < PARITY_MB_TOL and mb_loss < 1e-4)
+    row = dict(phase="train_parity", arch=cfg.name, dtype="float32",
+               seq=PARITY_SHAPE[0], batch=PARITY_SHAPE[1],
+               loss_rel_diff_vs_cpu=loss_rel,
+               param_rel_diff_vs_cpu=param_rel, bar=PARITY_TOL,
+               microbatch4_max_param_diff=mb_diff,
+               microbatch4_loss_diff=mb_loss, microbatch_bar=PARITY_MB_TOL,
+               ok=ok)
+    emit(**row)
+    if not ok:
+        raise SystemExit("phase train_parity failed")
+    return row
+
+
+def probe_phase(device, params) -> dict:
+    """``probe``: the hidden states after layer :data:`PROBE_LAYER` of one
+    training batch (8 x 2048 tokens of the trained TinyLlama, no
+    gradients, bf16 -> fp32) through ``activation_probe(rank 8, 8
+    clients, 40 rounds)``: its statistics, wall and exactly 240 / 80 / 1
+    launches; then tests/test_probes.py's planted structure on the card
+    under its bars."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import runtime as rt
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import embed
+    from repro_torch.training.data import SyntheticData
+    from repro_torch.training.probes import activation_probe
+
+    cfg = get_config(TRAIN_ARCH)
+    data = SyntheticData(cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                        "train"), device=device)
+    tokens = data.batch_at(TRAIN_STEPS + 1)["tokens"]
+    with torch.no_grad():
+        positions = torch.arange(TRAIN_SEQ, device=device).expand(
+            TRAIN_BATCH, TRAIN_SEQ)
+        x = embed(params.embed, tokens, cfg)
+        for layer in params.layers[:PROBE_LAYER + 1]:
+            x, _ = blocks.layer_apply(layer, x, cfg=cfg, mode="train",
+                                      positions=positions)
+    hidden = x.to(torch.float32)
+    del x
+
+    def probe():
+        return activation_probe(hidden, rank=PROBE_RANK,
+                                num_clients=PROBE_CLIENTS,
+                                outer_iters=PROBE_ROUNDS)
+
+    probe()  # warm the libraries (cuBLAS, the solver's capture)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rt.reset_graph_counts()
+    t0 = time.perf_counter()
+    stats = probe()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    graphs = graph_fields()
+    per_round = PROBE_ROUNDS * 2  # DCFConfig.tuned: K = 2 local iterations
+    want = {"huber_contract_v": per_round * 3,
+            "huber_contract_u_diag": per_round, "residual_shrink": 1}
+    values = {k: (v.tolist() if k == "top_outlier_channels" else float(v))
+              for k, v in stats.items()}
+    finite = all(math.isfinite(v) for k, v in values.items()
+                 if k != "top_outlier_channels")
+
+    # tests/test_probes.py's planted structure (a rank-3 (4, 64, 32) stack
+    # plus 50 at 1% of the entries), drawn by a CPU generator from seed 0
+    # (the same input on any machine), probed on the card.
+    gen = torch.Generator().manual_seed(0)
+    h = torch.randn(4, 64, 32, generator=gen)
+    u = torch.randn(32, 3, generator=gen)
+    outliers = torch.where(torch.rand(h.shape, generator=gen) < 0.01, 50.0,
+                           0.0)
+    planted = activation_probe((h @ u @ u.T + outliers).to(device), rank=4,
+                               num_clients=4, outer_iters=30)
+    planted = {k: (v.tolist() if k == "top_outlier_channels" else float(v))
+               for k, v in planted.items()}
+    planted_ok = (planted["energy_low_rank"] > 0.7
+                  and abs(planted["outlier_fraction"] - 0.01) < 0.01
+                  and planted["residual"] < 0.1
+                  and len(planted["top_outlier_channels"]) == 8)
+    ok = (finite and counts == {k: want.get(k, 0) for k in counts}
+          and planted_ok and len(values["top_outlier_channels"]) == 8)
+    row = dict(phase="probe", arch=cfg.name, layer=PROBE_LAYER,
+               matrix=[cfg.d_model, TRAIN_BATCH * TRAIN_SEQ],
+               rank=PROBE_RANK, clients=PROBE_CLIENTS, rounds=PROBE_ROUNDS,
+               wall_s=wall, peak_mem_gb=torch.cuda.max_memory_allocated()
+               / 1e9, stats=values, **graphs,
+               launches={k: c for k, c in counts.items() if c},
+               expected_launches=want, planted=planted,
+               planted_ok=planted_ok, ok=ok)
+    emit(**row)
+    if not ok:
+        raise SystemExit("phase probe failed")
+    row["launches"] = counts
+    return row
+
+
+RESUME_CHILD = r"""
+import hashlib, json, os, sys
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+import torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.configs import get_config
+from repro_torch.launch import train
+from repro_torch.training import checkpoint
+
+argv, layers, stop = json.loads(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+if stop == "stop":  # end the process right after its first checkpoint
+    save = checkpoint.save
+
+    def save_then_exit(*args, **kw):
+        save(*args, **kw)
+        sys.stdout.flush()
+        os._exit(17)
+
+    checkpoint.save = save_then_exit
+out = train.main(argv, cfg=get_config(sys.argv[4]).replace(n_layers=layers))
+h = hashlib.sha256()
+state = out["opt_state"]
+tensors = [p for _, p in out["params"].named_parameters()]
+tensors += [state.step] + [state.m[k] for k in sorted(state.m)]
+tensors += [state.v[k] for k in sorted(state.v)]
+for t in tensors:
+    h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+             .tobytes())
+print("RESUME " + json.dumps({"sha": h.hexdigest(),
+                              "final_loss": out["final_loss"]}), flush=True)
+"""
+
+
+def _resume_child(argv: list[str], stop: bool) -> subprocess.Popen:
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen(
+        [sys.executable, "-c", RESUME_CHILD, json.dumps(argv),
+         str(RESUME_LAYERS), "stop" if stop else "run", TRAIN_ARCH],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def _finish(proc: subprocess.Popen) -> tuple[int, str]:
+    try:
+        out, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    return proc.returncode, out
+
+
+def train_resume_phase(device) -> dict:
+    """``train_resume``: the launcher in child processes under
+    ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_CONFIG``
+    set before CUDA starts), TinyLlama's widths at
+    :data:`RESUME_LAYERS` layers: one run ends itself right after its first
+    checkpoint and is relaunched to finish from it; another runs
+    uninterrupted.  The final parameters and optimizer state must have the
+    same SHA-256."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="train_resume_")
+    seq, batch = RESUME_SHAPE
+    base = ["--arch", TRAIN_ARCH, "--steps", str(RESUME_STEPS), "--batch",
+            str(batch), "--seq", str(seq), "--lr", str(TRAIN_LR),
+            "--ckpt-every", str(RESUME_EVERY), "--log-every", "1",
+            "--device", str(device)]
+    t0 = time.perf_counter()
+    try:
+        # The stopped run and the uninterrupted one side by side on the
+        # card (deterministic algorithms: neither's bits depend on the
+        # other), then the relaunch of the stopped one.
+        stopped = _resume_child(base + ["--ckpt-dir", f"{root}/a"], True)
+        whole = _resume_child(base + ["--ckpt-dir", f"{root}/b"], False)
+        rc_stop, out_stop = _finish(stopped)
+        rc_a, out_a = _finish(_resume_child(
+            base + ["--ckpt-dir", f"{root}/a"], False))
+        rc_b, out_b = _finish(whole)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def result(out):
+        lines = [ln for ln in out.splitlines() if ln.startswith("RESUME ")]
+        return json.loads(lines[-1][len("RESUME "):]) if lines else None
+
+    a, b = result(out_a), result(out_b)
+    resumed_at = f"resumed from step {RESUME_EVERY}" in out_a
+    ok = (rc_stop == 17 and rc_a == 0 and rc_b == 0
+          and a is not None and b is not None and resumed_at
+          and a["sha"] == b["sha"])
+    row = dict(phase="train_resume", arch=TRAIN_ARCH, layers=RESUME_LAYERS,
+               seq=seq, batch=batch, steps=RESUME_STEPS,
+               checkpoint_every=RESUME_EVERY, deterministic=True,
+               stopped_rc=rc_stop, resumed_rc=rc_a,
+               uninterrupted_rc=rc_b, resumed_from_checkpoint=resumed_at,
+               sha_resumed=a and a["sha"], sha_uninterrupted=b and b["sha"],
+               bits_equal=bool(a and b and a["sha"] == b["sha"]),
+               wall_s=time.perf_counter() - t0, ok=ok)
+    emit(**row)
+    if not ok:
+        for name, out in (("stopped", out_stop), ("resumed", out_a),
+                          ("uninterrupted", out_b)):
+            print(f"--- train_resume {name} child ---\n{out[-4000:]}",
+                  file=sys.stderr)
+        raise SystemExit("phase train_resume failed")
+    return row
+
+
+ROBUST_WORKER = r"""
+import hashlib, json, os, time
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.distributed import grad_compress as gcomp
+from repro_torch.kernels import ops
+from repro_torch.launch import train
+from repro_torch.models import get_model
+
+torch.backends.cuda.matmul.allow_tf32 = False
+_mh.SYNC_TIMING = True  # collective seconds without the step's queue
+env = json.loads(os.environ["ROBUST_ENV"])
+device = torch.device(env["device"])
+rank = dist.get_rank()
+cfg = get_config(env["arch"]).replace(n_layers=env["layers"])
+card = device.type == "cuda"
+if card:
+    torch.cuda.reset_peak_memory_stats()
+# Each aggregated leaf's launches by its shape (host-side counters, so
+# each call's share is exact).
+by_shape = {}
+real_leaf = gcomp.aggregate_leaf
+
+
+def counted_leaf(g, *args, **kwargs):
+    before = ops.launch_counts()
+    agg = real_leaf(g, *args, **kwargs)
+    c = by_shape.setdefault("x".join(map(str, g.shape)),
+                            {"calls": 0, "launches": {}})
+    c["calls"] += 1
+    for k, v in ops.launch_counts().items():
+        if v != before[k]:
+            c["launches"][k] = c["launches"].get(k, 0) + v - before[k]
+    return agg
+
+
+gcomp.aggregate_leaf = counted_leaf
+ops.reset_launch_counts()
+_mh.wire_counts(reset=True)
+dist.barrier()
+try:
+    # No weight decay: a parameter moves only by its aggregated gradient.
+    out = train.main(env["argv"], cfg=cfg, weight_decay=0.0)
+finally:
+    gcomp.aggregate_leaf = real_leaf
+if card:
+    torch.cuda.synchronize()
+counts = {k: c for k, c in ops.launch_counts().items() if c}
+wire = _mh.wire_counts()
+ccfg = gcomp.CompressConfig()
+leaves = sum(1 for p in out["params"].parameters()
+             if p.ndim >= 2 and min(p.shape[-2:]) >= ccfg.min_dim
+             and ccfg.rank < min(p.shape[-2:]))
+h = hashlib.sha256()
+for p in out["params"].parameters():
+    h.update(p.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+             .tobytes())
+with torch.no_grad():
+    moved = max(float((p.to(torch.float32) - q.to(torch.float32)).abs().max())
+                for p, q in zip(out["params"].parameters(),
+                                get_model(cfg).init_params(
+                                    0, device).parameters()))
+steps = env["steps"]
+ts = [e["seconds"] for e in out["log"]]
+step_ms = [1e3 * (b - a) for a, b in zip([0.0] + ts[:-1], ts)]
+row = dict(rank=rank, backend=str(dist.get_backend()),
+           losses=[e["loss"] for e in out["log"]], step_ms=step_ms,
+           launches=counts, by_shape=by_shape, leaves_2d=leaves,
+           sha=h.hexdigest(),
+           params_moved=moved,
+           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if card
+           else None,
+           collective_ms_per_step=wire["seconds"] * 1e3 / steps,
+           collective_bytes_per_step=(wire["all_reduce_bytes"]
+                                      + wire["all_gather_bytes"]) / steps,
+           wire={k: v for k, v in wire.items() if v})
+del out
+
+# tests/test_multidevice.py:138-179's Byzantine case on CUDA tensors.
+byz = env["byz"]
+gen = torch.Generator().manual_seed(0)
+m, k, r, e = byz["m"], byz["k"], byz["r"], dist.get_world_size()
+u0 = torch.randn(m, r, generator=gen)
+vs = torch.randn(e, k, r, generator=gen)
+grads = torch.einsum("mr,ekr->emk", u0, vs)
+grads += 0.01 * torch.randn(grads.shape, generator=gen)
+clean = grads.mean(0)
+grads[0] += (torch.rand(m, k, generator=gen) < byz["frac"]) * byz["spike"]
+comm = _mh.MeshComm(_mh.multihost_mesh(("data",), device=device), ("data",))
+ops.reset_launch_counts()
+robust = gcomp.consensus_compress(
+    grads[comm.client].to(device), comm,
+    gcomp.CompressConfig(rank=byz["rank"], rounds=byz["rounds"]),
+    torch.Generator(device=device).manual_seed(7)).cpu()
+row["byz_launches"] = {k: c for k, c in ops.launch_counts().items() if c}
+row["byz_err_robust"] = float((robust - clean).norm() / clean.norm())
+row["byz_err_plain"] = float((grads.mean(0) - clean).norm() / clean.norm())
+row["byz_sha"] = hashlib.sha256(robust.numpy().tobytes()).hexdigest()
+print("ROBUST " + json.dumps(row), flush=True)
+"""
+
+
+def train_robust_phase(device) -> list[dict]:
+    """``train_robust``: ``launch/train.py --robust-agg`` under
+    ``multihost.launch_workers``: :data:`ROBUST_RANKS` gloo ranks sharing
+    the card (CUDA tensors), TinyLlama's widths at
+    :data:`ROBUST_LAYERS` layers, 8 x 512 tokens, 3 steps,
+    ``CompressConfig()``, weight decay 0: each rank's step ms, ms and
+    bytes in collectives a step (``multihost.wire_counts``), peak memory
+    and launches (exactly 8 / 4 huber_contract_v / huber_contract_u_diag a
+    2-D leaf a step, counted by leaf shape: one row a shape of
+    :data:`ROBUST_LEAF_ROWS`, and the shapes' sum is the phase's count),
+    every loss finite, the parameters moved, one parameter hash over the
+    ranks; the Byzantine aggregation's errors (err_robust < 0.2 and < 0.2
+    x err_plain)."""
+    import torch
+
+    from repro_torch.distributed import multihost as mh
+    from repro_torch.distributed.grad_compress import CompressConfig
+
+    torch.cuda.empty_cache()
+    seq, batch = ROBUST_SHAPE
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(ROBUST_STEPS), "--batch",
+            str(batch), "--seq", str(seq), "--lr", str(TRAIN_LR),
+            "--robust-agg", "--log-every", "1", "--device", str(device)]
+    env = dict(arch=TRAIN_ARCH, layers=ROBUST_LAYERS, argv=argv,
+               steps=ROBUST_STEPS, byz=BYZ, device=str(device))
+    t0 = time.perf_counter()
+    outs = mh.launch_workers(ROBUST_WORKER, num_processes=ROBUST_RANKS,
+                             backend="gloo", timeout=ROBUST_TIMEOUT,
+                             extra_env={"ROBUST_ENV": json.dumps(env)})
+    wall = time.perf_counter() - t0
+    rows = []
+    for out in outs:
+        for ln in out.splitlines():
+            if ln.startswith("ROBUST "):
+                rows.append(json.loads(ln[len("ROBUST "):]))
+    rows.sort(key=lambda r: r["rank"])
+    leaves = rows[0]["leaves_2d"] if rows else 0
+    cc = CompressConfig()
+    per_leaf = cc.rounds * cc.local_iters
+    want = {"huber_contract_v": per_leaf * cc.inner_sweeps * leaves
+            * ROBUST_STEPS,
+            "huber_contract_u_diag": per_leaf * leaves * ROBUST_STEPS}
+    byz_want = {"huber_contract_v": BYZ["rounds"] * cc.local_iters
+                * cc.inner_sweeps,
+                "huber_contract_u_diag": BYZ["rounds"] * cc.local_iters}
+    finite = all(math.isfinite(x) for r in rows for x in r["losses"])
+    same_sha = len({r["sha"] for r in rows}) == 1
+    same_losses = len({tuple(r["losses"]) for r in rows}) == 1
+    launches_ok = all(r["launches"] == want for r in rows)
+
+    def shape_want(shape, calls):
+        big = (len(shape) >= 2 and min(shape[-2:]) >= cc.min_dim
+               and cc.rank < min(shape[-2:]))
+        return {"huber_contract_v": per_leaf * cc.inner_sweeps * calls,
+                "huber_contract_u_diag": per_leaf * calls} if big else {}
+
+    by_shape_ok = all(
+        c["launches"] == shape_want(tuple(map(int, key.split("x"))),
+                                    c["calls"])
+        for r in rows for key, c in r["by_shape"].items())
+    summed_ok = all(
+        {k: sum(c["launches"].get(k, 0) for c in r["by_shape"].values())
+         for k in want} == want for r in rows)
+    shape_rows = []
+    for tag, (shape, n_leaves) in ROBUST_LEAF_ROWS.items():
+        key = "x".join(map(str, shape))
+        per_rank = [r["by_shape"].get(key, {"calls": 0, "launches": {}})
+                    for r in rows]
+        calls = per_rank[0]["calls"] if rows else 0
+        swant = shape_want(shape, n_leaves * ROBUST_STEPS)
+        srow = dict(phase=f"train_robust@{tag}", shape=list(shape),
+                    leaves=n_leaves, calls_per_rank=calls,
+                    launches=per_rank[0]["launches"] if rows else {},
+                    expected_launches=swant)
+        srow["ok"] = bool(rows) and all(
+            c["calls"] == n_leaves * ROBUST_STEPS and c["launches"] == swant
+            for c in per_rank)
+        emit(**srow)
+        shape_rows.append(srow)
+    err_r = rows[0]["byz_err_robust"] if rows else float("inf")
+    err_p = rows[0]["byz_err_plain"] if rows else 0.0
+    byz_ok = (err_r < 0.2 and err_r < 0.2 * err_p
+              and len({r["byz_sha"] for r in rows}) == 1
+              and all(r["byz_launches"] == byz_want for r in rows))
+    moved = all(r["params_moved"] > 0 for r in rows)
+    ok = (len(rows) == ROBUST_RANKS and leaves == 30 and finite and same_sha
+          and same_losses and launches_ok and byz_ok and moved
+          and by_shape_ok and summed_ok
+          and all(srow["ok"] for srow in shape_rows))
+    row = dict(phase="train_robust", arch=TRAIN_ARCH, layers=ROBUST_LAYERS,
+               ranks=len(rows), backend=rows[0]["backend"] if rows else None,
+               seq=seq, batch=batch, steps=ROBUST_STEPS, wall_s=wall,
+               leaves_2d=leaves, losses=rows[0]["losses"] if rows else None,
+               step_ms_per_rank=[r["step_ms"] for r in rows],
+               median_step_ms=statistics.median(
+                   [x for r in rows for x in r["step_ms"][1:]])
+               if rows else None,
+               collective_ms_per_step=[r["collective_ms_per_step"]
+                                       for r in rows],
+               collective_bytes_per_step=rows[0]["collective_bytes_per_step"]
+               if rows else None,
+               wire_per_rank=rows[0]["wire"] if rows else None,
+               peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in rows],
+               launches_per_rank=[r["launches"] for r in rows],
+               expected_launches_per_rank=want,
+               launches_by_shape=rows[0]["by_shape"] if rows else None,
+               by_shape_ok=by_shape_ok, shapes_sum_to_phase=summed_ok,
+               weight_decay=0.0, finite=finite,
+               params_moved=moved, same_param_sha256=same_sha, same_losses=same_losses,
+               byz_err_robust=err_r, byz_err_plain=err_p,
+               byz_launches=rows[0]["byz_launches"] if rows else None,
+               byz_ok=byz_ok,
+               note="ranks share one card: walls are correctness runs, "
+                    "not speed", ok=ok)
+    emit(**row)
+    if not ok:
+        raise SystemExit("phase train_robust failed")
+    row["launches"] = rows[0]["launches"]
+    for srow in shape_rows:
+        srow["launches"] = {k: srow["launches"].get(k, 0) for k in want}
+    return [row] + shape_rows
+
+
 def main() -> int:
     import torch
 
@@ -3148,6 +3827,15 @@ def main() -> int:
                               fp32=True))
     torch.cuda.empty_cache()
     phases.append(serve_phase(device))
+    torch.cuda.empty_cache()
+    phases.append(train_parity_phase(device))
+    row, trained = train_phase(device)
+    phases.append(row)
+    phases.append(probe_phase(device, trained))
+    del trained, row
+    torch.cuda.empty_cache()
+    phases.append(train_resume_phase(device))
+    phases += train_robust_phase(device)
     # Launches on the main path, each row's from the phase that gives its
     # kernel that row's operands; null where no phase does.
     for row in rows:

@@ -89,7 +89,9 @@ class ModelConfig:
     ce_chunk: int = 512  # chunked cross-entropy sequence block
     remat: str = "full"  # "full" | "dots" | "none"
     # The reference's multi-device and backward-pass options, kept so that
-    # configs carry across; nothing in the port reads them yet.
+    # configs carry across.  Training reads ``bf16_norm_grad``; ``moe_ep``
+    # and ``seq_parallel`` wait for the families and the model-parallel
+    # meshes that use them (ROADMAP.md).
     moe_ep: bool = False
     bf16_norm_grad: bool = False
     seq_parallel: bool = False

@@ -8,7 +8,9 @@ make_problem``, ``cf_pca.make_problem``, or the convex solvers'
 read by name and converted through numpy; nothing of the reference is
 imported.  A bf16 data plane stays bf16 and a bit-packed mask stays uint8.
 LM weights likewise: the reference materialises them, the port takes them
-(:func:`lm_params_from_reference`).  A rank of the sharded engine takes its
+(:func:`lm_params_from_reference`), and so with training state: a gradient
+tree and an ``AdamWState`` (:func:`lm_grads_from_reference`,
+:func:`adamw_state_from_reference`).  A rank of the sharded engine takes its
 share of the reference's initial factors
 (:func:`sharded_problem_from_reference`).
 """
@@ -29,6 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.grad_compress import CompressConfig
 from repro_torch.models import get_model
 from repro_torch.models.params import Params
+from repro_torch.training.optimizer import AdamWState
 
 
 def config_from_reference(ref_cfg: Any) -> DCFConfig:
@@ -125,6 +128,36 @@ def sharded_problem_from_reference(problem: ShardProblem,
     return out
 
 
+def _lm_leaf(tree_np: Any, name: str) -> np.ndarray:
+    """The leaf of the reference's LM tree (``embed``, ``segments[0]``
+    stacked (L, ...) over the layers, ``ln_f``) that the port's parameter
+    ``name`` (``layers.<i>.<...>`` or a top-level path) stands for."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        node = tree_np["segments"][0]
+        for part in parts[2:]:
+            node = node[part]
+        return np.asarray(node)[int(parts[1])]
+    node = tree_np
+    for part in parts:
+        node = node[part]
+    return node
+
+
+def _lm_named(tree_np: Any, cfg: Any, device: torch.device,
+              dtype: torch.dtype | None) -> dict[str, torch.Tensor]:
+    """Every parameter name of the dense LM ``cfg`` with its leaf of
+    ``tree_np`` on ``device`` (``dtype`` None: bf16 stays bf16)."""
+    out = {}
+    for name, p in get_model(cfg).empty_params("meta").named_parameters():
+        t = _tensor(_lm_leaf(tree_np, name), device, dtype)
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: reference shape {tuple(t.shape)}, "
+                             f"port {tuple(p.shape)}")
+        out[name] = t
+    return out
+
+
 @torch.no_grad()
 def lm_params_from_reference(params_np: Any, cfg: Any,
                              device: torch.device | str | None = None
@@ -138,21 +171,29 @@ def lm_params_from_reference(params_np: Any, cfg: Any,
     the card unless ``device`` says otherwise."""
     device = resolve_device(device)
     params = get_model(cfg).empty_params(device)
-    segment = params_np["segments"][0]
+    named = _lm_named(params_np, cfg, device, None)
     for name, p in params.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            node, index = segment, int(parts[1])
-            for part in parts[2:]:
-                node = node[part]
-            node = np.asarray(node)[index]
-        else:
-            node = params_np
-            for part in parts:
-                node = node[part]
-        t = _tensor(node, device, None)
-        if tuple(t.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: reference shape {tuple(t.shape)}, "
-                             f"port {tuple(p.shape)}")
-        p.copy_(t.to(p.dtype))
+        p.copy_(named[name].to(p.dtype))
     return params
+
+
+def lm_grads_from_reference(grads_np: Any, cfg: Any,
+                            device: torch.device | str | None = None
+                            ) -> dict[str, torch.Tensor]:
+    """A gradient tree of the reference's LM (the params tree's layout, as
+    numpy) as the port's gradient dict, by parameter name, unstacked like
+    :func:`lm_params_from_reference` (bf16 stays bf16)."""
+    return _lm_named(grads_np, cfg, resolve_device(device), None)
+
+
+def adamw_state_from_reference(state_np: Any, cfg: Any,
+                               device: torch.device | str | None = None
+                               ) -> AdamWState:
+    """The reference's ``AdamWState`` (``step``, ``m``, ``v``, as numpy) as
+    the port's: ``step`` int32, ``m`` and ``v`` fp32 dicts by parameter
+    name, unstacked like :func:`lm_params_from_reference`."""
+    device = resolve_device(device)
+    return AdamWState(
+        step=_tensor(state_np.step, device, torch.int32),
+        m=_lm_named(state_np.m, cfg, device, torch.float32),
+        v=_lm_named(state_np.v, cfg, device, torch.float32))

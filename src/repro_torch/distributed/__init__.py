@@ -1,3 +1,5 @@
 """The distributed layer of the port: fault injection, the robust
-consensus and the compressed consensus wire of the simulated engine, and
-the wire's traffic model (counterpart of ``repro.distributed``)."""
+consensus, the compressed consensus wire and the robust gradient
+aggregation (``grad_compress``), the multi-process harness and the wire's
+traffic model (``multihost``), and the logical-axis sharding rules
+(``sharding``) (counterpart of ``repro.distributed``)."""

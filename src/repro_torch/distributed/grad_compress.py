@@ -1,10 +1,22 @@
-"""Byzantine-robust consensus over a stacked client axis and the compressed
-consensus wire (counterpart of ``repro.distributed.grad_compress``:
-``CompressConfig`` :39-58, ``topk_sparsify`` / ``topk_reconstruct``
-:91-104, the robust combine and screens :205-285, and the collective
-halves of the sharded engine's wire: ``gather_clients`` :187,
-``median_aggregate`` :197, ``compressed_consensus_sum`` :107-142 and
-``compressed_consensus_robust`` :288-335).
+"""DCF-PCA robust gradient aggregation, the Byzantine-robust consensus over a
+stacked client axis and the compressed consensus wire (counterpart of
+``repro.distributed.grad_compress``: ``CompressConfig`` :39-58,
+``_robust_sigma`` :61-89, ``topk_sparsify`` / ``topk_reconstruct``
+:91-104, ``consensus_compress`` :145-184, the robust combine and screens
+:205-285, the collective halves of the sharded engine's wire:
+``gather_clients`` :187, ``median_aggregate`` :197,
+``compressed_consensus_sum`` :107-142 and ``compressed_consensus_robust``
+:288-335, and ``aggregate_leaf`` / ``aggregate_tree`` /
+``compression_ratio`` :338-383).
+
+In data-parallel training worker i's gradient leaf ``G_i`` (m, k) is one
+column block of the paper's ``M = [G_1 ... G_E]``.  A few DCF-PCA
+consensus rounds give ``G_i ~= U V_i^T + S_i`` with U shared, and the
+optimizer takes the robust mean ``U (mean_i V_i)^T``: the sparse term
+absorbs one worker's gross corruption, which a plain mean passes on.  Each
+rank is one client (E = 1 a rank): every round is one ``factorized.
+local_round`` on its (1, m, k) block, so on the card ``huber_contract_v``
+and ``huber_contract_u_diag`` run at the gradient's own shape.
 
 The collective functions take the rank's ``distributed.multihost.
 MeshComm`` where the reference takes mesh axis names; they use only its
@@ -28,11 +40,11 @@ Tensor = torch.Tensor
 
 @dataclass(frozen=True)
 class CompressConfig:
-    """The reference's ``CompressConfig``, field for field.  The port's
-    solvers read ``topk_frac`` (``DCFConfig.consensus_compress``: ship only
-    that fraction of each consensus U delta, with an error-feedback
-    residual; ``None`` keeps the dense factor wire); the other fields
-    configure the reference's gradient compression, which is not ported."""
+    """The reference's ``CompressConfig``, field for field.  The solvers
+    read ``topk_frac`` (``DCFConfig.consensus_compress``: ship only that
+    fraction of each consensus U delta, with an error-feedback residual;
+    ``None`` keeps the dense factor wire); the robust gradient aggregation
+    (:func:`consensus_compress`) reads them all, through :meth:`dcf`."""
 
     rank: int = 8
     rounds: int = 4  # consensus rounds T
@@ -43,6 +55,21 @@ class CompressConfig:
     eta: float = 0.5
     min_dim: int = 64  # leaves smaller than this skip compression
     topk_frac: float | None = None
+
+    def dcf(self):
+        """The DCF-PCA config of one aggregation: the reference's fields,
+        but ``impl="auto"`` where the reference pins ``"ref"`` (it does so
+        that a 512-device dry run lowers on forced CPU devices,
+        ``repro/kernels/ops.py:4-5``): the card's kernels on CUDA
+        gradients, the plain versions on CPU ones."""
+        from repro_torch.core.factorized import DCFConfig
+
+        return DCFConfig(
+            rank=self.rank, outer_iters=self.rounds,
+            local_iters=self.local_iters, inner_sweeps=self.inner_sweeps,
+            rho=self.rho, eta0=self.eta, lr_schedule="fixed",
+            precondition="lipschitz", impl="auto",
+        )
 
 
 def topk_sparsify(g: Tensor, k: int) -> tuple[Tensor, Tensor]:
@@ -243,3 +270,133 @@ def compressed_consensus_robust(contrib: Tensor, comm, k: int, err: Tensor,
     delta, cnt = robust_combine_stacked(recon.reshape((e,) + g.shape), act,
                                         aggregator, trim_frac)
     return delta.to(contrib.dtype), err_new, cnt
+
+
+# ---------------------------------------------------------------------------
+# Robust gradient aggregation (one client a rank)
+# ---------------------------------------------------------------------------
+def _sorted_mid(xs: Tensor, start, count) -> Tensor:
+    """``0.5 * (xs[start + (c-1)//2] + xs[start + c//2])`` of a sorted flat
+    ``xs``; ``start`` and ``count`` may be device tensors."""
+    return 0.5 * (xs[start + (count - 1) // 2] + xs[start + count // 2])
+
+
+def _robust_sigma(g: Tensor, comm, eps: float = 1e-6) -> Tensor:
+    """Robust scale of a gradient leaf, floored away from zero, averaged
+    over the data group: 1.4826 times the MAD, or, where more than half the
+    deviations are exactly 0 (embedding rows, sparse gradients), the MAD
+    over the nonzero deviations; at least ``eps`` times the leaf's rms.
+    Computed in fp32 (the reference computes it in the leaf's dtype: for a
+    bf16 leaf its median and deviations round to bf16).
+    One sort of the deviations serves both medians (the zeros sort first),
+    and the picks index it with device tensors: no host read."""
+    gf = g.to(torch.float32).reshape(-1)
+    size = gf.numel()
+    med = _sorted_mid(torch.sort(gf).values, 0, size)
+    dev = (gf - med).abs()
+    x = torch.sort(dev).values
+    mad = _sorted_mid(x, 0, size)
+    cnt = torch.clamp_min((dev > 0).sum(), 1)
+    mad_nz = _sorted_mid(x, size - cnt, cnt)
+    rms = torch.sqrt(torch.mean(gf * gf))
+    sigma = torch.where(mad > 0, mad, mad_nz)
+    local = torch.maximum(1.4826 * sigma, eps * rms)
+    return comm.all_reduce(local) / comm.clients
+
+
+def consensus_compress(g_local: Tensor, comm, ccfg: CompressConfig,
+                       generator: torch.Generator | None = None, *,
+                       omega: Tensor | None = None) -> Tensor:
+    """Robust aggregate of this rank's 2-D gradient leaf (m, k) over the
+    data group of ``comm`` (a ``multihost.MeshComm``), in the leaf's dtype.
+
+    The threshold is ``lam_mult`` robust sigmas; U starts from the sketch
+    ``pmean(G_i Omega)``, columns normalised (one power-iteration step
+    toward the shared column space), with ``Omega`` (k, r) drawn from
+    ``generator`` (the same seed on every rank gives every rank the same
+    draw) or given as ``omega`` (a parity test passes the reference's);
+    then ``rounds`` consensus rounds of :func:`factorized.local_round` on
+    the rank's (1, m, k) block, each ending in the mean of the U copies
+    (or, with ``topk_frac``, its error-feedback top-k wire); the result is
+    ``U mean_i(V_i)^T``.  Collectives: one scalar and (rounds + 1) (m, r)
+    all-reduces, one (k, r)."""
+    from repro_torch.core import factorized as fz
+
+    m, k = g_local.shape
+    cfg = ccfg.dcf()
+    dev = g_local.device
+    e = comm.clients
+    lam = ccfg.lam_mult * _robust_sigma(g_local, comm) + 1e-12
+    gf = g_local.to(torch.float32)
+    if omega is None:
+        omega = torch.randn(k, ccfg.rank, generator=generator,
+                            dtype=torch.float32, device=dev)
+    u = comm.all_reduce(gf @ omega.to(device=dev, dtype=torch.float32)) / e
+    u = u / (torch.linalg.vector_norm(u, dim=0, keepdim=True) + 1e-12)
+    v = torch.zeros(1, k, ccfg.rank, dtype=torch.float32, device=dev)
+    blk = gf[None]
+    k_keep = None
+    if ccfg.topk_frac is not None:
+        from repro_torch.distributed.multihost import topk_k
+
+        k_keep = topk_k(m * ccfg.rank, ccfg.topk_frac)
+    err = torch.zeros_like(u)
+    for t in range(ccfg.rounds):
+        eta = cfg.lr(torch.full((), t, dtype=torch.float32, device=dev))
+        u_i, v, _ = fz.local_round(u, v, blk, cfg=cfg, lam=lam,
+                                   n_frac=1.0 / e, eta=eta)
+        if k_keep is None:
+            u = comm.all_reduce(u_i[0]) / e
+        else:  # pmean(u_i) == u + sum_i (u_i - u) / E, shipped top-k
+            delta, err = compressed_consensus_sum((u_i[0] - u) / e, comm,
+                                                  k_keep, err)
+            u = u + delta
+    v_mean = comm.all_reduce(v[0]) / e
+    return (u @ v_mean.T).to(g_local.dtype)
+
+
+def aggregate_leaf(g: Tensor, comm, ccfg: CompressConfig,
+                   generator: torch.Generator | None = None) -> Tensor:
+    """One gradient leaf: DCF-PCA consensus on a large >= 2-D leaf (each
+    trailing (m, k) matrix of a stacked leaf in turn, drawing from the same
+    generator), the coordinate median over the ranks for the rest (norm
+    scales, small matrices).  The port keeps one leaf a layer, so its
+    models give 2-D leaves only."""
+    dims = g.shape[-2:]
+    if g.ndim >= 2 and min(dims) >= ccfg.min_dim and ccfg.rank < min(dims):
+        if g.ndim == 2:
+            return consensus_compress(g, comm, ccfg, generator)
+        flat = g.reshape(-1, *dims)
+        return torch.stack([consensus_compress(x, comm, ccfg, generator)
+                            for x in flat]).reshape(g.shape)
+    return median_aggregate(g, comm)
+
+
+def aggregate_tree(grads: dict[str, Tensor], comm, ccfg: CompressConfig,
+                   generator: torch.Generator | None = None
+                   ) -> dict[str, Tensor]:
+    """Every leaf of a gradient dict through :func:`aggregate_leaf`, in the
+    dict's order (the same on every rank: the sketches draw in turn from
+    one generator)."""
+    return {name: aggregate_leaf(g, comm, ccfg, generator)
+            for name, g in grads.items()}
+
+
+def compression_ratio(shape: tuple[int, ...], ccfg: CompressConfig) -> float:
+    """Static per-step bytes a worker ships, compressed over all-reduce:
+    each consensus round the dense fp32 U (``m r 4`` bytes) or, with
+    ``topk_frac``, the top-k payload at 8 bytes an entry (fp32 value and
+    int32 index), plus the final V mean (``k r 4``), against the dense
+    ``m k 4`` gradient.  1.0 for a leaf that skips compression."""
+    from repro_torch.distributed.multihost import topk_k
+
+    if len(shape) < 2 or min(shape[-2:]) < ccfg.min_dim \
+            or ccfg.rank >= min(shape[-2:]):
+        return 1.0
+    m, k = shape[-2:]
+    if ccfg.topk_frac is None:
+        round_bytes = m * ccfg.rank * 4
+    else:
+        round_bytes = topk_k(m * ccfg.rank, ccfg.topk_frac) * (4 + 4)
+    compressed = ccfg.rounds * round_bytes + k * ccfg.rank * 4
+    return compressed / (m * k * 4)

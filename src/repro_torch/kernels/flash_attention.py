@@ -18,7 +18,10 @@ the card idle (:func:`f32_split`).  It is bound by operations (see the
 source note).
 
 On CPU tensors the wrapper returns the plain version; on CUDA tensors it
-launches the kernel or raises.  ``launches`` counts kernel launches.
+launches the kernel or raises.  ``launches`` counts kernel launches.  The
+kernel has no backward (nor has the reference's): a call that autograd
+would record (grad mode on, an input that requires grad) raises rather
+than return a result cut off from the graph, on either device.
 """
 from __future__ import annotations
 
@@ -101,6 +104,12 @@ def _check(q, k, v) -> None:
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
     """(B, S_q, H, d) in ``q``'s type; ``k``, ``v`` are (B, S_kv, H, d)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: training takes the chunked "
+            "attention (models/attention.py); call it under torch.no_grad() "
+            "or on tensors that do not require grad")
     if on_cpu(q):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     _check(q, k, v)

@@ -5,9 +5,13 @@
     caches = model.init_cache(batch, s_max, device)
     logits, caches = model.prefill(params, tokens, caches)
     logits, caches = model.decode_step(params, tokens, caches, pos)
+    loss, metrics = model.loss(params, batch)  # training
 
-Every other family raises ``NotImplementedError`` in :func:`get_model`, and
-so does ``loss``: training waits (ROADMAP.md).
+Every other family raises ``NotImplementedError`` in :func:`get_model`
+(ROADMAP.md).  ``prefill`` and ``decode_step`` run under
+``torch.no_grad()``, so parameters that a train step made require
+gradients bring no autograd state into serving (or into a captured
+decode graph).
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks, lm
+from repro_torch.models import lm
 from repro_torch.models.params import Params, materialize
 
 
@@ -44,6 +48,7 @@ class Model:
         return [(k.initializer(None, device), v.initializer(None, device))
                 for k, v in lm.lm_cache_specs(self.cfg, batch, s_max)]
 
+    @torch.no_grad()
     def prefill(self, params, tokens, caches=None):
         """Last-position logits and caches; caches sized to the prompt when
         none are given."""
@@ -51,6 +56,7 @@ class Model:
             caches = self.init_cache(*tokens.shape, tokens.device)
         return lm.lm_prefill(params, tokens, self.cfg, caches)
 
+    @torch.no_grad()
     def decode_step(self, params, tokens, caches, pos):
         """Logits of ``tokens`` (B, 1) at position ``pos``: a 0-d integer
         tensor on their device (as the reference's traced ``pos``), or a
@@ -60,7 +66,9 @@ class Model:
         return lm.lm_decode_step(params, tokens, caches, pos, self.cfg)
 
     def loss(self, params, batch):
-        raise blocks.not_ported("training (lm_loss)", blocks.TRAINING_ITEM)
+        """``(loss, {"ce", "aux"})`` of a batch of ``tokens`` and
+        ``labels`` (``lm.lm_loss``); differentiable in the parameters."""
+        return lm.lm_loss(params, batch, self.cfg)
 
 
 def get_model(cfg: ModelConfig) -> Model:

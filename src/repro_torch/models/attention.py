@@ -1,9 +1,13 @@
-"""GQA attention for prefill and decode, as ``repro/models/attention.py``.
+"""GQA attention for training, prefill and decode, as
+``repro/models/attention.py``.
 
-Prefill is causal.  It goes to the flash kernel
+Training and prefill are causal.  Prefill goes to the flash kernel
 (``kernels/flash_attention.py``) when ``cfg.flash_attention`` is on;
-otherwise to the plain chunked attention, which the reference also computes
-outside Pallas.
+otherwise, and always in training (the reference's ``allow_flash=(mode !=
+"train")``: the kernel has no backward), to the plain chunked attention,
+which the reference also computes outside Pallas.  In training each query
+chunk is recomputed in backward (the reference's per-chunk
+``jax.checkpoint``), so backward holds one chunk's fp32 scores at a time.
 Decode attends one new token over the whole ``s_max`` cache in fp32, plain
 PyTorch as in the reference, and writes the token's K/V into the cache in
 place.  Its position is a 0-d device tensor, as the reference's traced
@@ -17,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, recompute
 from repro_torch.models.params import ParamSpec
 
 Tensor = torch.Tensor
@@ -34,23 +38,30 @@ def attn_specs(cfg: ModelConfig) -> dict:
     }
 
 
+def _sdpa_chunk(qc: Tensor, kf: Tensor, vf: Tensor, c0: int, causal: bool,
+                scale: float) -> Tensor:
+    """One query chunk (rows ``c0`` on) against fp32 K/V, in fp32."""
+    qf = qc.to(torch.float32) * scale
+    scores = torch.einsum("bqhd,bshd->bhqs", qf, kf)
+    if causal:
+        rows = torch.arange(c0, c0 + qf.shape[1], device=qc.device)
+        mask = rows[:, None] >= torch.arange(kf.shape[1],
+                                             device=qc.device)[None, :]
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqs,bshd->bqhd", probs, vf).to(qc.dtype)
+
+
 def _sdpa_chunked(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                   q_chunk: int, scale: float) -> Tensor:
     """Exact attention over query chunks of ``q_chunk`` rows (scores peak at
-    (B, H, q_chunk, S_k)); (B, S, H, hd) layout, GQA KV already repeated."""
-    sq, sk = q.shape[1], k.shape[1]
+    (B, H, q_chunk, S_k)); (B, S, H, hd) layout, GQA KV already repeated.
+    While autograd records, each chunk is recomputed in backward."""
+    sq = q.shape[1]
     ck = min(q_chunk, sq)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
-    outs = []
-    for c0 in range(0, sq, ck):
-        qf = q[:, c0:c0 + ck].to(torch.float32) * scale
-        scores = torch.einsum("bqhd,bshd->bhqs", qf, kf)
-        if causal:
-            rows = torch.arange(c0, c0 + qf.shape[1], device=q.device)
-            mask = rows[:, None] >= torch.arange(sk, device=q.device)[None, :]
-            scores = torch.where(mask, scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        outs.append(torch.einsum("bhqs,bshd->bqhd", probs, vf).to(q.dtype))
+    outs = [recompute(_sdpa_chunk, q[:, c0:c0 + ck], kf, vf, c0, causal,
+                      scale) for c0 in range(0, sq, ck)]
     return torch.cat(outs, dim=1)
 
 
@@ -68,10 +79,11 @@ def _split_heads(x: Tensor, n: int, hd: int) -> Tensor:
     return x.reshape(b, s, n, hd)
 
 
-def attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig
-              ) -> tuple[Tensor, tuple[Tensor, Tensor]]:
+def attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig,
+              *, train: bool = False) -> tuple[Tensor, tuple[Tensor, Tensor]]:
     """Causal self-attention over (B, S, d); returns ``(y, (k, v))`` with the
-    un-repeated (B, S, KV, hd) K/V for the cache."""
+    un-repeated (B, S, KV, hd) K/V for the cache.  ``train`` never takes the
+    flash kernel."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cd = cfg.cdtype
     q = _split_heads(x @ params.wq.to(cd), h, hd)
@@ -83,7 +95,7 @@ def attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig
     k, v = repeat_kv(k, h // kv), repeat_kv(v, h // kv)
     b, s = q.shape[:2]
     scale = 1.0 / float(hd) ** 0.5
-    if cfg.flash_attention:
+    if cfg.flash_attention and not train:
         out = fa.flash_attention(q, k, v, causal=True, scale=scale)
     else:
         out = _sdpa_chunked(q, k, v, causal=True, q_chunk=cfg.q_chunk,

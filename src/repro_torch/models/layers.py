@@ -1,8 +1,11 @@
-"""Shared model primitives: RMSNorm, RoPE, embeddings, as
-``repro/models/layers.py``.  ``chunked_cross_entropy`` waits for training."""
+"""Shared model primitives: RMSNorm (with the reference's bf16-gradient
+variant), RoPE, embeddings and the chunked cross-entropy of training, as
+``repro/models/layers.py``."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import ParamSpec
@@ -19,12 +22,57 @@ def rmsnorm_spec(d: int) -> ParamSpec:
     return ParamSpec((d,), torch.float32, init="ones")
 
 
-def rmsnorm(w: Tensor, x: Tensor, eps: float = 1e-5) -> Tensor:
-    """RMSNorm with fp32 internals, cast back to ``x``'s type."""
+def rmsnorm(w: Tensor, x: Tensor, eps: float = 1e-5,
+            bf16_grad: bool = False) -> Tensor:
+    """RMSNorm with fp32 internals, cast back to ``x``'s type.
+
+    ``bf16_grad``: the same values, with the reference's hand-written
+    backward (``_rmsnorm_bwd``): autograd of the fp32 upcast hands back the
+    residual stream's gradient in fp32; this one returns dx in ``x``'s type
+    (dw in fp32)."""
+    if bf16_grad and torch.is_grad_enabled():
+        return _RMSNormBF16Grad.apply(w, x, eps)
+    return _rmsnorm(w, x, eps)
+
+
+def _rmsnorm(w: Tensor, x: Tensor, eps: float) -> Tensor:
     dt = x.dtype
     x = x.to(torch.float32)
     var = torch.mean(x * x, dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * w).to(dt)
+
+
+class _RMSNormBF16Grad(torch.autograd.Function):
+    """RMSNorm whose backward is the reference's ``_rmsnorm_bwd``."""
+
+    @staticmethod
+    def forward(ctx, w: Tensor, x: Tensor, eps: float) -> Tensor:
+        ctx.save_for_backward(w, x)
+        ctx.eps = eps
+        return _rmsnorm(w, x, eps)
+
+    @staticmethod
+    def backward(ctx, dy: Tensor):
+        w, x = ctx.saved_tensors
+        d = x.shape[-1]
+        xf = x.to(torch.float32)
+        r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + ctx.eps)
+        g = dy.to(torch.float32) * w
+        xg = torch.sum(xf * g, dim=-1, keepdim=True)
+        dx = r * g - (r ** 3 / d) * xf * xg
+        dw = torch.sum(dy.to(torch.float32) * xf * r,
+                       dim=tuple(range(x.ndim - 1)))
+        return dw, dx.to(x.dtype), None
+
+
+def recompute(fn, *args):
+    """``fn(*args)``, its intermediates recomputed in backward (a
+    non-reentrant ``torch.utils.checkpoint``) while autograd records; a
+    plain call otherwise.  The reference's ``jax.checkpoint`` of one
+    attention query chunk or one cross-entropy chunk."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def rope_freqs(hd: int, theta: float, device=None) -> Tensor:
@@ -61,3 +109,38 @@ def unembed_matrix(params) -> Tensor:
     if hasattr(params, "unembed"):
         return params.unembed
     return params.table.T
+
+
+def _chunk_nll(xc: Tensor, w_unembed: Tensor, lc: Tensor) -> Tensor:
+    """The summed NLL of one chunk's valid positions (label >= 0), from
+    fp32 logits."""
+    logits = (xc @ w_unembed.to(xc.dtype)).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, lc.clamp_min(0).to(torch.int64)[..., None])
+    nll = torch.where(lc >= 0, lse - tgt[..., 0], 0.0)
+    return nll.sum()
+
+
+def chunked_cross_entropy(x: Tensor, w_unembed: Tensor, labels: Tensor,
+                          cfg: ModelConfig) -> Tensor:
+    """Mean CE over the valid positions (label >= 0) of (B, S, d) final
+    hidden states against (B, S) labels, in sequence chunks of
+    ``cfg.ce_chunk``: the sequence is padded to a multiple of the chunk
+    (padded positions label -1, weight 0), each chunk's (B, ck, V) logits
+    are fp32 and recomputed in backward, so backward also holds one
+    chunk's logits at a time.  Chunks add up in order, as the reference's
+    scan."""
+    b, s, _ = x.shape
+    ck = min(cfg.ce_chunk, s)
+    pad = (-s) % ck
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int32, device=x.device)
+    for c0 in range(0, x.shape[1], ck):
+        lc = labels[:, c0:c0 + ck]
+        total = total + recompute(_chunk_nll, x[:, c0:c0 + ck], w_unembed,
+                                  lc)
+        count = count + (lc >= 0).sum(dtype=torch.int32)
+    return total / torch.clamp_min(count, 1).to(torch.float32)

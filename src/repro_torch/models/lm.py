@@ -3,7 +3,9 @@
 Parameters: ``embed`` (``table`` and ``unembed``), ``layers`` (one
 :class:`~repro_torch.models.params.Params` per layer, looped over in Python)
 and ``ln_f``.  Caches: one ``(k, v)`` pair per layer, each
-(B, S_max, KV, hd) in the compute type.  ``lm_loss`` (training) waits.
+(B, S_max, KV, hd) in the compute type.  ``lm_loss`` is the training
+objective: the chunked cross-entropy of the final hidden states, each layer
+recomputed in backward by ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.layers import (
-    embed, embed_specs, rmsnorm, rmsnorm_spec, unembed_matrix,
+    chunked_cross_entropy, embed, embed_specs, rmsnorm, rmsnorm_spec,
+    unembed_matrix,
 )
 from repro_torch.models.params import ParamSpec
 
@@ -46,6 +49,29 @@ def lm_cache_specs(cfg: ModelConfig, batch: int, s_max: int
     kv = ParamSpec((batch, s_max, cfg.n_kv_heads, cfg.hd), cfg.cdtype,
                    init="zeros")
     return [(kv, kv) for seg in stack_plan(cfg) for _ in range(seg.count)]
+
+
+def _train_layer(layer, x: Tensor, positions: Tensor, cfg: ModelConfig
+                 ) -> Tensor:
+    return blocks.layer_apply(layer, x, cfg=cfg, mode="train",
+                              positions=positions)[0]
+
+
+def lm_loss(params, batch: dict, cfg: ModelConfig
+            ) -> tuple[Tensor, dict[str, Tensor]]:
+    """``(ce + aux, {"ce", "aux"})`` over a batch of ``tokens`` and
+    ``labels`` (B, S) (label -1: no target); ``aux`` (the routers' load
+    loss) is 0 for the dense family."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = embed(params.embed, tokens, cfg)
+    for layer in params.layers:
+        x = blocks.remat(cfg, _train_layer, layer, x, positions, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = rmsnorm(params.ln_f, x, cfg.norm_eps, cfg.bf16_norm_grad)
+    ce = chunked_cross_entropy(x, unembed_matrix(params.embed), labels, cfg)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def lm_prefill(params, tokens: Tensor, cfg: ModelConfig, caches: Caches

@@ -8,8 +8,10 @@ from an explicit ``torch.Generator`` with the reference's distribution
 at +-2, times ``scale`` (default ``1/sqrt(shape[-2])``, or ``shape[0]`` for a
 vector); ones and zeros as named.  The bits differ from ``jax.random``'s.
 
-Parameters do not require gradients: the port serves, training waits
-(ROADMAP.md).  Sharding axes are dropped: the port runs on one device.
+Parameters are made without ``requires_grad``: a train step
+(``training/train_step.py``) turns it on for the parameters it trains, and
+serving runs under ``torch.no_grad()``.  Sharding axes are dropped: each
+rank of the port holds whole parameters.
 """
 from __future__ import annotations
 

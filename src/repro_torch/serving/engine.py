@@ -15,7 +15,9 @@ first decode step runs eagerly, as the warm-up, and the graph then
 replays every later one.  Greedy argmax sits inside the graph; a
 temperature sample runs after each replay from the static logits, with the
 caller's generator, so the tokens are the eager ones.  The prefill stays
-eager.  On the CPU (or with ``eager=True``, which only the tests and
+eager.  Generation runs under ``torch.no_grad()``: parameters that a train
+step made require gradients bring no autograd state into the captured
+step.  On the CPU (or with ``eager=True``, which only the tests and
 ``chip_smoke.py`` use) every step runs eagerly through the same step
 function.  Tokens stay on the device until the caller reads them.
 """
@@ -46,6 +48,7 @@ def _sample(logits: torch.Tensor, generator: torch.Generator | None,
         torch.int32)
 
 
+@torch.no_grad()
 def generate(model: Model, params, prompt: torch.Tensor,
              scfg: ServeConfig = ServeConfig(),
              generator: torch.Generator | None = None,

@@ -1624,3 +1624,145 @@ def test_one_nccl_rank_replays_its_captured_round(cuda):
     assert r["err"] < 1e-4
     assert r["captures"] == 1 and r["replays"] == 99
 
+
+
+# ---------------------------------------------------------------------------
+# LM training: the train step, the robust aggregation, the probe
+# ---------------------------------------------------------------------------
+def _smoke_f32(**kw):
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config("tinyllama-1.1b").replace(
+        param_dtype="float32", compute_dtype="float32", **kw)
+
+
+def _one_train_step(cfg, params, batch, **ocfg):
+    from repro_torch.models import get_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import make_train_step
+
+    step = make_train_step(get_model(cfg), opt.AdamWConfig(
+        warmup_steps=1, total_steps=10, **ocfg))
+    return step(params, opt.init(params), batch)
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One fp32 step of the smoke LM on the card against the CPU from the
+    same parameters and batch: the loss within 1e-5 relative, every
+    parameter within 1e-5 of its max |p| (lr 1e-4, eps 1e-6: Adam divides
+    each gradient entry's fp32 noise by |g| + eps)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import get_model
+    from repro_torch.training.data import SyntheticData
+
+    cfg = _smoke_f32()
+    cpu = get_model(cfg).init_params(0, "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    batch = SyntheticData(cfg, ShapeSpec("t", 32, 8, "train"),
+                          device="cpu").batch_at(0)
+    ocfg = dict(lr=1e-4, eps=1e-6)
+    cpu, _, want = _one_train_step(cfg, cpu, batch, **ocfg)
+    card, _, got = _one_train_step(
+        cfg, card, {k: x.to(cuda) for k, x in batch.items()}, **ocfg)
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * abs(
+        float(want["loss"]))
+    for (name, a), b in zip(card.named_parameters(), cpu.parameters()):
+        diff = (a.detach().cpu() - b.detach()).abs().max()
+        assert float(diff) <= 1e-5 * float(b.detach().abs().max()), name
+
+
+@pytest.mark.gpu
+def test_training_never_launches_the_flash_kernel(cuda):
+    """A train step with the config's flash attention on launches no
+    kernel of the port (training takes the chunked attention); the flash
+    wrapper refuses CUDA inputs that require grad with grad mode on."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import get_model
+    from repro_torch.training.data import SyntheticData
+
+    cfg = _smoke_f32(flash_attention=True)
+    params = get_model(cfg).init_params(0, cuda)
+    batch = SyntheticData(cfg, ShapeSpec("t", 32, 4, "train"),
+                          device=cuda).batch_at(0)
+    ops.reset_launch_counts()
+    _one_train_step(cfg, params, batch)
+    assert not any(ops.launch_counts().values())
+    q = torch.randn(1, 64, 2, 32, device=cuda, requires_grad=True)
+    k, v = torch.randn(1, 64, 2, 32, device=cuda), torch.randn(
+        1, 64, 2, 32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q, k, v)
+    with torch.no_grad():
+        fa.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+class _OneRank:
+    """A data group of one rank (no process group): the collectives are
+    the identity, as over a group of one."""
+
+    clients, client = 1, 0
+
+    @staticmethod
+    def all_reduce(x, over="data"):
+        return x.clone()
+
+    @staticmethod
+    def all_gather(x, over="data"):
+        return x[None].clone()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 192), (192, 640)])
+def test_robust_aggregation_kernels_match_the_plain_route(cuda, shape):
+    """``consensus_compress`` of one gradient leaf through the card's
+    kernels (``CompressConfig.dcf()``'s impl "auto") against the plain
+    route on the CPU from the same sketch: within 1e-4 of max |out|, and
+    exactly rounds x J huber_contract_v and rounds huber_contract_u_diag
+    launches (K = 1)."""
+    from repro_torch.distributed import grad_compress as gc
+
+    g = torch.Generator().manual_seed(3)
+    m, k = shape
+    grad = torch.randn(m, 8, generator=g) @ torch.randn(8, k, generator=g)
+    grad += 0.01 * torch.randn(m, k, generator=g)
+    grad[torch.rand(m, k, generator=g) < 0.02] += 100.0
+    omega = torch.randn(k, 8, generator=g)
+    ccfg = gc.CompressConfig()
+    want = gc.consensus_compress(grad, _OneRank, ccfg, omega=omega)
+    ops.reset_launch_counts()
+    got = gc.consensus_compress(grad.to(cuda), _OneRank, ccfg,
+                                omega=omega.to(cuda)).cpu()
+    counts = ops.launch_counts()
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+    assert counts["huber_contract_v"] == ccfg.rounds * ccfg.inner_sweeps
+    assert counts["huber_contract_u_diag"] == ccfg.rounds
+    assert counts["residual_shrink"] == 0
+
+
+@pytest.mark.gpu
+def test_probe_launches_and_statistics_on_the_card(cuda):
+    """``activation_probe`` on the card: exactly 6 T huber_contract_v, 2 T
+    huber_contract_u_diag and one residual_shrink (tuned: K 2, J 3), and
+    its statistics within 1e-3 of the CPU's from the same input and
+    seed."""
+    from repro_torch.training.probes import activation_probe
+
+    g = torch.Generator().manual_seed(0)
+    h = torch.randn(4, 64, 32, generator=g)
+    u = torch.randn(32, 3, generator=g)
+    h = h @ u @ u.T + torch.where(torch.rand(h.shape, generator=g) < 0.01,
+                                  50.0, 0.0)
+    want = activation_probe(h, rank=4, num_clients=4, outer_iters=30)
+    ops.reset_launch_counts()
+    got = activation_probe(h.to(cuda), rank=4, num_clients=4,
+                           outer_iters=30)
+    counts = ops.launch_counts()
+    assert counts["huber_contract_v"] == 180
+    assert counts["huber_contract_u_diag"] == 60
+    assert counts["residual_shrink"] == 1
+    for key in ("energy_low_rank", "energy_sparse", "outlier_fraction",
+                "residual"):
+        assert abs(float(got[key]) - float(want[key])) <= 1e-3, key

@@ -233,6 +233,8 @@ def test_other_families_raise_when_built(arch):
 
 
 def test_train_mode_and_other_mixers_raise():
+    """The other mixers and FFNs raise; ``Model.loss`` and ``mode="train"``
+    run (ported: ROADMAP.md Queue 1 item 7)."""
     cfg = configs.get_smoke_config(ARCH)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         blocks.layer_specs(cfg, mixer="mla")
@@ -240,27 +242,36 @@ def test_train_mode_and_other_mixers_raise():
         blocks.layer_specs(cfg, ffn="moe")
     model = get_model(cfg)
     params = model.init_params(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.loss(params, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocks.layer_apply(params.layers[0], torch.zeros(1, 2, cfg.d_model),
-                           cfg=cfg, mode="train")
+    tokens = torch.from_numpy(_prompt(cfg, 1, 8))
+    loss, mets = model.loss(params, {"tokens": tokens, "labels": tokens})
+    assert torch.isfinite(loss) and set(mets) == {"ce", "aux"}
+    x, kv = blocks.layer_apply(params.layers[0],
+                               torch.zeros(1, 2, cfg.d_model,
+                                           dtype=cfg.cdtype),
+                               cfg=cfg, mode="train",
+                               positions=torch.arange(2)[None])
+    assert x.shape == (1, 2, cfg.d_model) and kv is None
 
 
 def test_refusals_name_the_roadmap_item():
     """Each refusal names the ROADMAP.md Queue 1 item that ports it: the
-    other families, their mixers and FFNs item 8, training item 7."""
+    other families, their mixers and FFNs item 8.  Training (item 7) is
+    ported: ``Model.loss`` and ``mode="train"`` refuse nothing."""
     cfg = configs.get_smoke_config(ARCH)
     for call, item in (
             (lambda: blocks.layer_specs(cfg, mixer="mla"), 8),
             (lambda: blocks.layer_specs(cfg, ffn="moe"), 8),
-            (lambda: get_model(configs.get_smoke_config("mamba2-780m")), 8),
-            (lambda: get_model(cfg).loss(None, {}), 7),
-            (lambda: blocks.layer_apply(None, torch.zeros(1, 2, 8), cfg=cfg,
-                                        mode="train"), 7)):
+            (lambda: get_model(configs.get_smoke_config("mamba2-780m")), 8)):
         with pytest.raises(NotImplementedError) as got:
             call()
         assert f"ROADMAP.md, Queue 1 item {item})" in str(got.value)
+    params = get_model(cfg).init_params(device="cpu")
+    tokens = torch.from_numpy(_prompt(cfg, 1, 4))
+    get_model(cfg).loss(params, {"tokens": tokens, "labels": tokens})
+    blocks.layer_apply(params.layers[0], torch.zeros(1, 2, cfg.d_model,
+                                                     dtype=cfg.cdtype),
+                       cfg=cfg, mode="train",
+                       positions=torch.arange(2)[None])
 
 
 def test_decoded_tokens_feed_back_as_int32():

@@ -16,6 +16,31 @@ module-scoped runs, started together, give every test here its numbers:
   ``convert.sharded_problem_from_reference``), and rank 0 writes the
   results; every rank prints a SHA-256 of each case's U.
 
+The same two runs hold the robust gradient aggregation
+(``distributed.grad_compress.consensus_compress``, tests/test_multidevice.py:
+138-179 with 4 workers in place of 8): the reference draws the sketch
+``Omega`` from ``PRNGKey(7)`` and writes it with the factors; every rank
+aggregates its worker's gradient from it, the reference in a
+``shard_map`` over its 4 devices.  The reference also writes its smoke
+LM's fp32 parameters (from ``PRNGKey(0)``) and a batch, and every rank
+takes three steps from them (:data:`LM_STEPS`):
+
+* ``robust_step``: ``training.train_step.make_robust_train_step`` as
+  tests/test_multidevice.py:182-213 sets it (consensus on the large
+  leaves) with no weight decay, so a parameter moves only by its
+  aggregated gradient; its loss is held to the plain full-batch loss
+  computed here;
+* ``robust_median``: the same step with ``CompressConfig(min_dim=10**6)``,
+  which sends every leaf through the coordinate-wise median and draws no
+  sketch, held to the reference's ``make_robust_train_step`` (a
+  ``shard_map`` over its 4 devices) from the same parameters and batch;
+* ``dp_step``: ``make_train_step(comm=...)``, the plain data-parallel
+  step (each rank's shard, the gradients averaged by all-reduce), held to
+  the one-process step on the whole batch computed here.
+
+Then the ranks run ``launch/train.py`` without ``--robust-agg``
+(:data:`LAUNCH_ARGV`), its losses held to the same run in one process.
+
 The all-ones mask and all-ones schedule cases are tracked against the
 reference's solve without them (:data:`REFERENCE_OF`): the reference holds
 those pairs equal bit for bit itself (tests/test_multidevice.py:74-90,
@@ -35,6 +60,7 @@ engine at E = 4 from the same factors.
 """
 import hashlib
 import importlib
+import inspect
 import json
 import os
 import subprocess
@@ -63,6 +89,23 @@ XLA_FLAGS = ("--xla_force_host_platform_device_count=4 "
              "--xla_backend_optimization_level=0")
 E = 4
 TRACK_TOL = 1e-4
+#: The Byzantine aggregation case (tests/test_multidevice.py:144-158): a
+#: rank-4 (256, 128) signal a worker plus 0.01 noise, worker 0 spiked by
+#: 1e4 at 2% of its entries; CompressConfig(rank=8, rounds=6).
+BYZ = dict(m=256, k=128, r=4, spike=1e4, frac=0.02, rank=8, rounds=6)
+#: The LM steps: the smoke LM in fp32, a global batch of 8 x 32 (tests/
+#: test_multidevice.py:182-213).  ``robust_step`` takes that test's
+#: CompressConfig(rank=4, rounds=2, min_dim=32) and AdamW (lr 1e-3, one
+#: warm-up step) at weight decay 0; the steps held to another step's
+#: parameters take lr 1e-4 and eps 1e-6 (:data:`LM_OCFG`, the
+#: ``STEP_OCFG`` of tests/test_torch_train.py, which says why).
+LM_ARCH, LM_SHAPE = "tinyllama-1.1b", (32, 8)
+LM_OCFG = dict(lr=1e-4, eps=1e-6, warmup_steps=1, total_steps=10)
+LM_STEPS = ("robust_step", "robust_median", "dp_step")
+#: ``launch/train.py`` over the 4 ranks and in one process: two logged
+#: steps of the smoke LM (lr 1e-4: the step held to another step's).
+LAUNCH_ARGV = ["--smoke", "--steps", "2", "--batch", "8", "--seq", "32",
+               "--lr", "1e-4", "--log-every", "1", "--device", "cpu"]
 
 #: Problems: (seed, n, rank, observed_frac), all with m = 128 and 5%
 #: corruption (the reference tests' sizes).
@@ -109,8 +152,24 @@ REFERENCE_OF = {"mask_ones": "mask_none", "sched_ones": "dense"}
 #: solve (not tracked, see :data:`TRACKED`).
 REFERENCE_SOLVES = sorted(set(CASES) - set(REFERENCE_OF) - {"topk"})
 
-#: Shared by both scripts: the presets from plain data, and a case's
-#: solve inputs from the written problems.
+def nest(flat, prefix):
+    """The tree of numpy arrays written flat under ``prefix`` (the
+    reference's ``flat``: keys ``prefix/<path>``), digit keys as ints, so
+    that ``tree["segments"][0]`` indexes it as it does the reference's."""
+    tree = {}
+    for key, x in flat.items():
+        if key.startswith(prefix + "/"):
+            node = tree
+            *parts, last = [int(k) if k.isdigit() else k
+                            for k in key[len(prefix) + 1:].split("/")]
+            for part in parts:
+                node = node.setdefault(part, {})
+            node[last] = x
+    return tree
+
+
+#: Shared by both scripts: the presets from plain data, a case's solve
+#: inputs from the written problems, and :func:`nest`.
 _COMMON = f"""
 import json, os, sys, time
 import numpy as np
@@ -118,6 +177,9 @@ PROBLEMS = {PROBLEMS!r}
 CASES = {CASES!r}
 REFERENCE_SOLVES = {REFERENCE_SOLVES!r}
 E = {E}
+BYZ = {BYZ!r}
+LM_ARCH, LM_SHAPE, LM_OCFG = {LM_ARCH!r}, {LM_SHAPE!r}, {LM_OCFG!r}
+LAUNCH_ARGV = {LAUNCH_ARGV!r}
 
 
 def make_cfg(Config, Compress, kind, kw):
@@ -136,7 +198,7 @@ def wait_for(path, seconds=300):
             raise SystemExit("no inputs at " + path)
         time.sleep(0.05)
     return np.load(path)
-"""
+""" + inspect.getsource(nest)
 
 _REFERENCE = _COMMON + r"""
 import importlib, tempfile
@@ -182,6 +244,31 @@ for case, (pname, kind, kw, mesh, opts) in CASES.items():
     if isinstance(opts.get("participation"), float):
         inputs[f"{case}/sched"] = np.asarray(jdcf._resolve_participation(
             opts["participation"], cfg.outer_iters, E, KEY))
+inputs["byz/omega"] = np.asarray(jax.random.normal(
+    jax.random.PRNGKey(7), (BYZ["k"], BYZ["rank"]), jnp.float32))
+
+
+def flat(prefix, tree):
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        keys = [str(getattr(k, "key", getattr(k, "idx", k))) for k in path]
+        out["/".join([prefix] + keys)] = np.asarray(leaf)
+    return out
+
+
+from repro import configs as jconfigs
+from repro.configs.base import ShapeSpec as JShapeSpec
+from repro.models import get_model as jget_model, params as jpm
+from repro.training import data as jdata
+
+lm_cfg = jconfigs.get_smoke_config(LM_ARCH).replace(
+    param_dtype="float32", compute_dtype="float32")
+lm_model = jget_model(lm_cfg)
+lm_params = jpm.materialize(lm_model.specs(), KEY)
+lm_batch = jdata.SyntheticData(
+    lm_cfg, JShapeSpec("t", *LM_SHAPE, "train")).batch_at(0)
+inputs.update(flat("lm", lm_params))
+inputs.update(flat("lm_batch", lm_batch))
 np.savez(inputs_path + ".tmp.npz", **inputs)
 os.replace(inputs_path + ".tmp.npz", inputs_path)
 
@@ -218,6 +305,35 @@ try:
 except ValueError as e:
     msgs["segmented_model"] = str(e)
 results["messages"] = np.array(json.dumps(msgs))
+
+from jax.sharding import PartitionSpec as Pspec
+from repro.compat import shard_map_compat
+from repro.distributed.grad_compress import consensus_compress
+
+
+def aggregate(g):
+    out = consensus_compress(g[0], ("data",), CompressConfig(
+        rank=BYZ["rank"], rounds=BYZ["rounds"]), jax.random.PRNGKey(7))
+    return out[None]
+
+
+results["byz/robust"] = np.asarray(jax.jit(shard_map_compat(
+    aggregate, MESH["4"], (Pspec("data", None, None),),
+    Pspec("data", None, None)))(jnp.asarray(problems["byz/grads"])))[0]
+
+# The robust train step with every leaf on the coordinate-wise median.
+from repro.distributed.sharding import ShardingRules
+from repro.training import optimizer as jopt
+from repro.training.train_step import make_robust_train_step
+
+step = make_robust_train_step(
+    lm_model, jopt.AdamWConfig(**LM_OCFG), MESH["4"],
+    ShardingRules(dp=("data",)), CompressConfig(min_dim=10 ** 6))
+with MESH["4"]:
+    lm_after, _, lm_mets = jax.jit(step)(lm_params, jopt.init(lm_params),
+                                         lm_batch, jax.random.PRNGKey(1))
+results.update(flat("robust_median", lm_after))
+results["robust_median/loss"] = np.asarray(lm_mets["loss"])
 np.savez(results_path, **results)
 """
 
@@ -335,6 +451,60 @@ for case in ("dense", "topk"):
                     if k.endswith("_bytes")})
     results[case + "/round_bytes"] = np.array(json.dumps(
         {k: per[1][k] - per[0][k] for k in per[0]}))
+# Robust gradient aggregation from the reference's sketch, and the three
+# steps on the smoke LM from the reference's parameters and batch.
+from repro_torch import configs
+from repro_torch.distributed.sharding import rules_for_mesh
+from repro_torch.models import get_model
+from repro_torch.training import optimizer as opt
+from repro_torch.training.train_step import (
+    make_robust_train_step, make_train_step)
+
+comm4 = mh.MeshComm(MESH["4"], ("data",))
+robust = gcomp.consensus_compress(
+    t(inp["byz/grads"][comm4.client]), comm4,
+    CompressConfig(rank=BYZ["rank"], rounds=BYZ["rounds"]),
+    omega=t(inp["byz/omega"]))
+print("HASH byz", hashlib.sha256(robust.numpy().tobytes()).hexdigest(),
+      flush=True)
+results["byz/robust"] = robust.numpy()
+cfg = configs.get_smoke_config(LM_ARCH).replace(
+    param_dtype="float32", compute_dtype="float32")
+model = get_model(cfg)
+batch = {k: t(x) for k, x in nest(inp, "lm_batch").items()}
+rules = rules_for_mesh(MESH["4"])
+steps = {
+    "robust_step": make_robust_train_step(
+        model, opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                               weight_decay=0.0),
+        MESH["4"], rules, CompressConfig(rank=4, rounds=2, min_dim=32)),
+    "robust_median": make_robust_train_step(
+        model, opt.AdamWConfig(**LM_OCFG), MESH["4"], rules,
+        CompressConfig(min_dim=10 ** 6)),
+    "dp_step": make_train_step(model, opt.AdamWConfig(**LM_OCFG),
+                               rules, comm=comm4),
+}
+for tag, step in steps.items():
+    params = convert.lm_params_from_reference(nest(inp, "lm"), cfg, "cpu")
+    before = [p.detach().clone() for p in params.parameters()]
+    args = (params, opt.init(params), batch) + (
+        (1,) if tag.startswith("robust") else ())
+    params, state, mets = step(*args)
+    flat = torch.cat([p.detach().reshape(-1) for p in params.parameters()])
+    print("HASH", tag, hashlib.sha256(flat.numpy().tobytes()).hexdigest(),
+          flush=True)
+    results[tag + "/loss"] = mets["loss"].numpy()
+    results[tag + "/moved"] = np.array(max(
+        float((p.detach() - b).abs().max())
+        for p, b in zip(params.parameters(), before)))
+    for name, p in params.named_parameters():
+        results[f"{tag}/{name}"] = p.detach().numpy()
+
+# The launcher's data-parallel path (no --robust-agg) over the 4 ranks.
+from repro_torch.launch import train as launch_train
+
+log = launch_train.main(LAUNCH_ARGV)["log"]
+results["launcher/losses"] = np.array([e["loss"] for e in log])
 if rank == 0:
     results["messages"] = np.array(json.dumps(msgs))
     np.savez(out_path, **results)
@@ -406,7 +576,23 @@ def _problems() -> dict:
         for f in ("m_obs", "l0", "s0", "mask"):
             if getattr(p, f) is not None:
                 out[f"{name}/{f}"] = getattr(p, f).numpy()
+    out.update(_byzantine_grads())
     return out
+
+
+def _byzantine_grads() -> dict:
+    """:data:`BYZ`'s E worker gradients (E, m, k), worker 0 corrupted, and
+    their clean mean, from numpy's generator."""
+    rng = np.random.default_rng(0)
+    m, k, r = BYZ["m"], BYZ["k"], BYZ["r"]
+    u0 = rng.standard_normal((m, r))
+    vs = rng.standard_normal((E, k, r))
+    grads = np.einsum("mr,ekr->emk", u0, vs)
+    grads += 0.01 * rng.standard_normal(grads.shape)
+    clean = grads.mean(0)
+    grads[0] += (rng.random((m, k)) < BYZ["frac"]) * BYZ["spike"]
+    return {"byz/grads": grads.astype(np.float32),
+            "byz/clean": clean.astype(np.float32)}
 
 
 def _rel(a, b):
@@ -661,3 +847,136 @@ def test_own_initial_factors(seed):
         assert abs(float(x.std()) * r ** 0.5 - 1.0) < 0.1
     again = draw(2)
     assert torch.equal(again[0], us[0]) and torch.equal(again[1], vs[2])
+
+
+# ---------------------------------------------------------------------------
+# Robust gradient aggregation and the robust train step
+# ---------------------------------------------------------------------------
+def test_consensus_compress_tracks_the_reference(runs):
+    """Every rank's aggregate from the reference's sketch within 1e-4
+    (relative) of the reference's 4-device ``shard_map`` result."""
+    _, ref, port, _ = runs
+    assert port["byz/robust"].shape == (BYZ["m"], BYZ["k"])
+    assert _rel(port["byz/robust"], ref["byz/robust"]) < TRACK_TOL
+
+
+def test_byzantine_worker_is_rejected(runs):
+    """tests/test_multidevice.py:138-179 at E = 4: the consensus aggregate
+    within 0.2 of the clean mean (relative) and under a fifth of the plain
+    mean's error."""
+    inputs, _, port, _ = runs
+    clean = inputs["byz/clean"]
+    err_robust = _rel(port["byz/robust"], clean)
+    err_plain = _rel(inputs["byz/grads"].mean(0), clean)
+    assert err_robust < 0.2, err_robust
+    assert err_robust < 0.2 * err_plain, (err_robust, err_plain)
+
+
+@pytest.mark.parametrize("tag", ("byz",) + LM_STEPS)
+def test_every_rank_aggregates_the_same(runs, tag):
+    """The aggregate's bytes, and the parameters after each LM step, the
+    same on every rank (lock-step)."""
+    hashes = {ln.split()[2] for out in runs[3] for ln in out.splitlines()
+              if ln.startswith(f"HASH {tag} ")}
+    assert len(hashes) == 1
+
+
+def _lm(inputs):
+    """The port's smoke LM (fp32), the reference's parameters as the
+    port's, and the reference's batch, from the written inputs."""
+    from repro_torch import configs, convert
+    from repro_torch.models import get_model
+
+    cfg = configs.get_smoke_config(LM_ARCH).replace(
+        param_dtype="float32", compute_dtype="float32")
+    return (get_model(cfg), cfg,
+            convert.lm_params_from_reference(nest(inputs, "lm"), cfg, "cpu"),
+            {k: _t(x) for k, x in nest(inputs, "lm_batch").items()})
+
+
+def _held(port, tag, want):
+    """Every parameter of ``port``'s ``tag`` step within 1e-5 of its max
+    |p| of ``want`` (the port's ``Params``)."""
+    for name, p in want.named_parameters():
+        w = p.detach().numpy()
+        got = port[f"{tag}/{name}"]
+        assert np.max(np.abs(got - w)) <= 1e-5 * np.max(np.abs(w)), name
+
+
+def test_robust_train_step_runs(runs):
+    """tests/test_multidevice.py:182-213 on 4 ranks, from the reference's
+    parameters and batch: the loss finite and (the mean of the ranks'
+    shard losses before the update) within 1e-5 of the plain full-batch
+    loss at the same parameters and batch; at weight decay 0 the
+    parameters moved, so the aggregated gradients were not all zero."""
+    inputs, _, port, _ = runs
+    model, _, params, batch = _lm(inputs)
+    loss = float(port["robust_step/loss"])
+    with torch.no_grad():
+        want, _ = model.loss(params, batch)
+    assert np.isfinite(loss)
+    assert abs(loss - float(want)) <= 1e-5 * abs(float(want))
+    assert float(port["robust_step/moved"]) > 0
+
+
+def test_robust_train_step_matches_the_reference(runs):
+    """The robust step with every leaf on the coordinate-wise median
+    (``CompressConfig(min_dim=10**6)``: no sketch drawn) against the
+    reference's ``make_robust_train_step`` on its 4-device mesh, from the
+    same parameters and batch: the parameters after the update within
+    1e-5 of max |p|, the loss within 1e-5 relative."""
+    from repro_torch import convert
+
+    inputs, ref, port, _ = runs
+    _, cfg, _, _ = _lm(inputs)
+    want = convert.lm_params_from_reference(nest(ref, "robust_median"),
+                                            cfg, "cpu")
+    _held(port, "robust_median", want)
+    assert _rel(port["robust_median/loss"], ref["robust_median/loss"]) \
+        <= 1e-5
+    assert float(port["robust_median/moved"]) > 0
+
+
+def test_data_parallel_step_matches_one_process(runs):
+    """``make_train_step(comm=...)`` over the 4 ranks (each its shard of
+    the batch, the gradients averaged by all-reduce) against the same step
+    in one process on the whole batch: parameters within 1e-5 of max |p|,
+    the loss within 1e-5 relative."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import make_train_step
+
+    inputs, _, port, _ = runs
+    model, _, params, batch = _lm(inputs)
+    params, _, mets = make_train_step(model, opt.AdamWConfig(**LM_OCFG))(
+        params, opt.init(params), batch)
+    _held(port, "dp_step", params)
+    assert _rel(port["dp_step/loss"], mets["loss"].numpy()) <= 1e-5
+
+
+def test_launcher_over_ranks_matches_one_process(runs):
+    """``launch/train.py`` without ``--robust-agg`` under the 4-rank
+    harness (one ``data`` axis, each rank its shard of the global batch)
+    logs the losses of the same run in one process within 1e-5
+    relative."""
+    from repro_torch.launch import train as launch_train
+
+    want = [e["loss"] for e in launch_train.main(LAUNCH_ARGV)["log"]]
+    got = runs[2]["launcher/losses"]
+    assert len(got) == len(want) == 2
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((256, 512), {"rank": 8, "rounds": 4}),
+    ((256, 512), {"rank": 8, "rounds": 4, "topk_frac": 0.05}),
+    ((8, 8), {"rank": 8, "rounds": 4, "topk_frac": 0.05}),
+    ((3, 256, 512), {}),
+    ((512,), {}),
+])
+def test_compression_ratio_matches_the_reference(shape, kw):
+    """tests/test_multihost.py:64-83's shapes (and a stacked and a 1-D
+    leaf): the static bytes ratio equals the reference's."""
+    from repro.distributed import grad_compress as jgc
+
+    assert gcomp.compression_ratio(shape, gcomp.CompressConfig(**kw)) == \
+        jgc.compression_ratio(shape, jgc.CompressConfig(**kw))
