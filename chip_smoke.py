@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (DCF-PCA, dense-LM serving and training) on
-one CUDA card and check it.
+"""Drive the PyTorch/CUDA port (DCF-PCA, LM serving of the dense, SSM, MoE
+and hybrid families, dense-LM training) on one CUDA card and check it.
 
     python3 chip_smoke.py
 
@@ -25,7 +25,9 @@ CUDA toolkit.  Phases, one JSON line each:
             causal), f32 at the small_lm phase's shape (2, 33, 4, 32,
             causal), at (1, 256, 4, 64, causal), f32 cross (2, 64 x 200,
             2, 64, full) and f32 at the serve_f32 phase's shape (4, 2048,
-            32, 64, causal; row T), each also beside PyTorch's SDPA on the same
+            32, 64, causal; row T), and bf16 at serve_moe's (4, 2048, 16,
+            128) and serve_hybrid's (4, 2048, 64, 128) prefill shapes
+            (rows @moe, @hybrid), each also beside PyTorch's SDPA on the same
             tensors (``library_ms``) and the profiler's device time of the
             kernel alone (``kernel_device_ms``: the CUDA-event ``ms`` of
             back-to-back calls also holds the wrapper's host work where
@@ -229,6 +231,18 @@ CUDA toolkit.  Phases, one JSON line each:
             max|logits|.  The decode step is captured once and replayed
             (one graph launch a step): the replayed ms a step beside an
             eager decode's, and the tokens equal to the eager ones.
+    serve_ssm, serve_moe, serve_hybrid  the SSM, MoE and hybrid families
+            through the same path and gates, bf16, full width, random
+            weights from seed 0, 4 x 2048 prompts, 32 new tokens:
+            mamba2-780m (arXiv:2405.21060, 48 SSD layers; 0 flash
+            launches), qwen2-moe-a2.7b (Qwen1.5-MoE-A2.7B, 24 layers of 60
+            experts top-4 and a shared expert of 5632; 24 flash launches)
+            and jamba-1.5-large-398b at full width cut to n_layers 2,
+            attn_period 2 (one SSD + MLP layer and one attention + MoE
+            layer of 16 experts of 24576; 1 flash launch): its period of 8
+            layers would be ~90 GB of bf16 weights.  Every decode step
+            routes, gathers its experts and updates the SSM states inside
+            the captured graph.
 
 13. train_parity the smoke TinyLlama in fp32: one ``make_train_step`` step
             on the card against the same step on the CPU (loss within 1e-5
@@ -264,8 +278,8 @@ CUDA toolkit.  Phases, one JSON line each:
    5632, "gr_emb": 32000 x 2048, one client, r = 8), with the launches
    those phases made at that shape.
 
-In each of phases 4-9, elastic, table1, wide, batch, batch_fig1, wire, 11
-and 12 a first run warms the libraries, the counts (kernel launches and
+In each of phases 4-9, elastic, table1, wide, batch, batch_fig1, wire, 11,
+12 and the families' serve phases a first run warms the libraries, the counts (kernel launches and
 round graphs' captures and replays) are zeroed just before the counted run
 and read just after it, and one more run goes under torch.profiler
 (``<phase>_profile``): the device busy time and its share of the counted
@@ -327,12 +341,25 @@ FLASH_TOL = {"f32": 2e-5, "bf16": 1e-2}
 # relative to max|logits|.  Every activation is bf16 and the two attentions
 # round differently (P in bf16 against fp32 softmax), so the outputs of the
 # 32 layers drift apart by some bf16 ulps of the residual stream; 5e-2 is a
-# few percent of the logits' range, far below a wrong kernel's error.
+# few percent of the logits' range, far below a wrong kernel's error.  In a
+# model with MoE layers the plain prefill is routed as the flash one was
+# (RoutingHold): a near-tie top-k choice flips on such ulps.
 SERVE_LOGITS_BAR = 5e-2
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "llama3-8b", 4, 2048, 32
 # The fp32 serving path: TinyLlama-1.1B's prefill at 4 x 2048 (arXiv:
 # 2401.02385), the fp32 flash kernel's full-width shape.
 F32_ARCH, F32_NEW = "tinyllama-1.1b", 16
+# The SSM, MoE and hybrid families through the same serve path, bf16, full
+# width: (phase, arch, config cut).  Jamba-1.5-Large's period of 8 layers
+# at full width is ~45B parameters (~90 GB in bf16), past the card's 80
+# GB: its cut keeps every width and both layer kinds of a period (SSD +
+# MLP, attention + MoE) at n_layers 2, attn_period 2.
+FAMILY_SERVES = [
+    ("serve_ssm", "mamba2-780m", {}),
+    ("serve_moe", "qwen2-moe-a2.7b", {}),
+    ("serve_hybrid", "jamba-1.5-large-398b",
+     {"n_layers": 2, "attn_period": 2}),
+]
 SMALL_BATCH, SMALL_PROMPT, SMALL_NEW, SMALL_LOGITS_BAR = 2, 33, 8, 1e-4
 # Paper Table 1 (benchmarks/table1_upper_rank.py:5-6): n -> the paper's
 # singular-value error, the bar of the solve at p = 2r.  The reference
@@ -615,6 +642,14 @@ FLASH_ROWS = [
     ("flash_attention@f32_T",
      (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 64), True, "f32",
      "serve_f32"),
+    # qwen2-moe-a2.7b's prefill (16 heads of 128) and the jamba cut's (64
+    # heads of 128, GQA 8 with K/V repeated).
+    ("flash_attention@moe",
+     (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 128), True, "bf16",
+     "serve_moe"),
+    ("flash_attention@hybrid",
+     (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 64, 128), True, "bf16",
+     "serve_hybrid"),
 ]
 
 
@@ -3027,6 +3062,80 @@ class _EventTimedModel:
                 / (len(self.events) - 2))
 
 
+def _rel_diff(got, want) -> float:
+    """max |got - want| over max |want|, in fp32."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+class RoutingHold:
+    """Holds the MoE layers' routing across two prefills: inside
+    :meth:`record` every ``models.moe._route`` call keeps its expert ids,
+    in call order; inside :meth:`replay` each call takes the recorded ids
+    of its turn (the weights renormalised from this call's own
+    probabilities) and counts the tokens whose expert set differs.
+
+    A top-k choice is discrete: where two experts' probabilities nearly
+    tie, a bf16 ulp of the residual stream (the flash kernel rounds P and
+    O to bf16; the plain attention keeps its softmax in fp32) sends the
+    token to another expert, and that token's hidden state then moves by
+    far more than rounding.  Holding the routing leaves the two prefills
+    apart by the attention's numerics alone, which the logits bar
+    judges; the free comparison and the flips are reported beside it."""
+
+    def __init__(self):
+        self.ids = []
+        self.flips = self.last_flips = self.decisions = 0
+
+    def _patched(self, route):
+        import contextlib
+
+        from repro_torch.models import moe
+
+        @contextlib.contextmanager
+        def ctx():
+            real = moe._route
+            moe._route = lambda params, x, cfg: route(real, params, x, cfg)
+            try:
+                yield self
+            finally:
+                moe._route = real
+        return ctx()
+
+    def record(self):
+        def route(real, params, x, cfg):
+            w, ids, aux = real(params, x, cfg)
+            self.ids.append(ids)
+            return w, ids, aux
+        return self._patched(route)
+
+    def replay(self):
+        import torch
+
+        turn = iter(self.ids)
+
+        def route(real, params, x, cfg):
+            _, ids, aux = real(params, x, cfg)
+            held = next(turn)
+            probs = torch.softmax(x.float() @ params.router, dim=-1)
+            w = probs.gather(-1, held)
+            w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+            moved = (ids.sort(-1).values != held.sort(-1).values).any(-1)
+            self.flips += int(moved.sum())
+            self.last_flips += int(moved[:, -1].sum())
+            self.decisions += moved.numel()
+            return w.to(x.dtype), held, aux
+        return self._patched(route)
+
+    def stats(self) -> dict:
+        """Tokens (summed over MoE layers) whose expert set differed
+        between the flash prefill and the free plain one, and how many of
+        them at the last position (the one the logits read)."""
+        return dict(tokens_rerouted=self.flips,
+                    last_position_rerouted=self.last_flips,
+                    token_decisions=self.decisions)
+
+
 def replay_period_ms(prof) -> dict:
     """The graph replays of a profiled run, from the trace: the device ms
     from one replay's first kernel to the next one's (the mean over the
@@ -3056,15 +3165,18 @@ def replay_period_ms(prof) -> dict:
 
 
 def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
-                new_tokens: int = SERVE_NEW, fp32: bool = False) -> dict:
-    """Phases 11 and 12: ``arch`` at full width and depth through
+                new_tokens: int = SERVE_NEW, fp32: bool = False,
+                cut: dict | None = None) -> dict:
+    """Phases 11 and 12 and the families' serve phases: ``arch`` at full
+    width (and full depth unless ``cut`` replaces config fields) through
     ``generate`` (in fp32 when ``fp32``, else its bf16), 4 prompts of 2048
     tokens and ``new_tokens`` greedy tokens: the decode step captured once
     and replayed.  The prefill ms (CUDA events around it), the replayed
     decode ms a step (the profiled run's replay period on the device,
     :func:`replay_period_ms`), the tokens equal to an eager decode's (its
     ms a step beside, from CUDA events after every step), one graph launch
-    a replayed step (the profiler's ``cudaGraphLaunch`` count)."""
+    a replayed step (the profiler's ``cudaGraphLaunch`` count), and one
+    flash_attention launch per attention layer."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3074,7 +3186,7 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     from repro_torch.models.layers import padded_vocab
     from repro_torch.serving.engine import ServeConfig, generate
 
-    cfg = get_config(arch).replace(flash_attention=True)
+    cfg = get_config(arch).replace(flash_attention=True, **(cut or {}))
     if fp32:
         cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
     model = get_model(cfg)
@@ -3118,12 +3230,25 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     same = bool(torch.equal(tokens, eager_tokens))
     # The same weights and prompt with the config's flash switch off: the
     # plain (chunked, fp32 softmax) attention of every layer.
-    ref_logits, _ = get_model(cfg.replace(flash_attention=False)).prefill(
-        params, prompt)
-    rel = ((logits.float() - ref_logits.float()).abs().max()
-           / ref_logits.float().abs().max()).item()
+    plain = get_model(cfg.replace(flash_attention=False))
+    ref_logits, _ = plain.prefill(params, prompt)
+    rel = rel_free = _rel_diff(logits, ref_logits)
+    routing = None
+    if cfg.moe is not None:
+        # Routed layers: the gate compares the plain prefill routed as the
+        # flash one was (RoutingHold); the free comparison is reported.
+        hold = RoutingHold()
+        with hold.record():
+            flash_logits, _ = model.prefill(params, prompt)
+        with hold.replay():
+            held_logits, _ = plain.prefill(params, prompt)
+        rel = _rel_diff(flash_logits, held_logits)
+        routing = hold.stats()
+        del flash_logits, held_logits
     finite = bool(torch.isfinite(logits.float()).all())
-    want = {"flash_attention": cfg.n_layers}
+    attention_layers = sum(hasattr(layer.mixer, "wq")
+                           for layer in params.layers)
+    want = {"flash_attention": attention_layers}
     in_vocab = bool((tokens >= 0).all()
                     and (tokens < padded_vocab(cfg.vocab)).all())
     replays = new_tokens - 2
@@ -3134,8 +3259,9 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
           and graphs["graph_captures"] == 1
           and graphs["graph_replays"] == replays
           and counts == {k: want.get(k, 0) for k in counts})
-    row = dict(phase=name, arch=cfg.name, layers=cfg.n_layers,
-               d_model=cfg.d_model, dtype=cfg.compute_dtype,
+    row = dict(phase=name, arch=cfg.name, family=cfg.family,
+               layers=cfg.n_layers, attention_layers=attention_layers,
+               cut=cut or None, d_model=cfg.d_model, dtype=cfg.compute_dtype,
                batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=new_tokens,
                setup_s=setup_s, weights_gb=weights_gb, wall_s=wall,
                tokens_per_s=SERVE_BATCH * new_tokens / wall,
@@ -3146,7 +3272,9 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
                eager_decode_ms_per_step=eager_step_ms,
                tokens_equal_eager=same, **graphs,
                peak_mem_gb=peak_gb, logits_rel_diff_vs_plain=rel,
-               bar=SERVE_LOGITS_BAR, finite=finite,
+               bar=SERVE_LOGITS_BAR,
+               logits_rel_diff_vs_plain_free_routing=rel_free,
+               routing_vs_plain=routing, finite=finite,
                launches={k: c for k, c in counts.items() if c},
                expected_launches=want, ok=ok)
     emit(**row)
@@ -3336,8 +3464,8 @@ def probe_phase(device, params) -> dict:
             TRAIN_BATCH, TRAIN_SEQ)
         x = embed(params.embed, tokens, cfg)
         for layer in params.layers[:PROBE_LAYER + 1]:
-            x, _ = blocks.layer_apply(layer, x, cfg=cfg, mode="train",
-                                      positions=positions)
+            x, _, _ = blocks.layer_apply(layer, x, cfg=cfg, mode="train",
+                                         positions=positions)
     hidden = x.to(torch.float32)
     del x
 
@@ -3828,6 +3956,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.append(serve_phase(device))
     torch.cuda.empty_cache()
+    for name, arch, cut in FAMILY_SERVES:
+        phases.append(serve_phase(device, name, arch, cut=cut))
+        torch.cuda.empty_cache()
     phases.append(train_parity_phase(device))
     row, trained = train_phase(device)
     phases.append(row)

@@ -1,8 +1,9 @@
 """Architecture configuration, the port's own copy of
 ``repro/configs/base.py``: the same dataclasses, field names and defaults
 (dtypes stay strings), so that a config carries across by field name.
-``pdtype``/``cdtype`` give torch dtypes.  Only the dense family has a model
-in the port so far (``repro_torch.models.get_model``)."""
+``pdtype``/``cdtype`` give torch dtypes.  The port builds models of the
+dense, ssm, moe (without MLA) and hybrid families
+(``repro_torch.models.get_model``); MLA, vlm and encdec wait (ROADMAP.md)."""
 from __future__ import annotations
 
 import dataclasses
@@ -90,8 +91,8 @@ class ModelConfig:
     remat: str = "full"  # "full" | "dots" | "none"
     # The reference's multi-device and backward-pass options, kept so that
     # configs carry across.  Training reads ``bf16_norm_grad``; ``moe_ep``
-    # and ``seq_parallel`` wait for the families and the model-parallel
-    # meshes that use them (ROADMAP.md).
+    # and ``seq_parallel`` wait for the model-parallel meshes that use them
+    # (ROADMAP.md): on one rank the experts keep the non-EP layout.
     moe_ep: bool = False
     bf16_norm_grad: bool = False
     seq_parallel: bool = False

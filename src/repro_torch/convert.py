@@ -29,7 +29,7 @@ from repro_torch.core.factorized import DCFConfig
 from repro_torch.core.ialm import IALMProblem
 from repro_torch.device import resolve_device
 from repro_torch.distributed.grad_compress import CompressConfig
-from repro_torch.models import get_model
+from repro_torch.models import get_model, lm
 from repro_torch.models.params import Params
 from repro_torch.training.optimizer import AdamWState
 
@@ -128,16 +128,31 @@ def sharded_problem_from_reference(problem: ShardProblem,
     return out
 
 
-def _lm_leaf(tree_np: Any, name: str) -> np.ndarray:
-    """The leaf of the reference's LM tree (``embed``, ``segments[0]``
-    stacked (L, ...) over the layers, ``ln_f``) that the port's parameter
-    ``name`` (``layers.<i>.<...>`` or a top-level path) stands for."""
+def _layer_node(tree_np: Any, cfg: Any, layer: int) -> tuple[Any, int]:
+    """The reference's subtree that stacks layer ``layer``'s leaves, and the
+    layer's index on their leading axis: segment ``i`` of ``stack_plan``
+    for the uniform stacks, ``groups["layer{L % period}"]`` at group
+    ``L // period`` for the hybrid."""
+    if cfg.family == "hybrid":
+        period = cfg.attn_period
+        return tree_np["groups"][f"layer{layer % period}"], layer // period
+    for i, seg in enumerate(lm.stack_plan(cfg)):
+        if layer < seg.count:
+            return tree_np["segments"][i], layer
+        layer -= seg.count
+    raise IndexError(f"{cfg.name} has no layer {layer}")
+
+
+def _lm_leaf(tree_np: Any, name: str, cfg: Any) -> np.ndarray:
+    """The leaf of the reference's LM tree (``embed``, the stacked layers,
+    ``ln_f``) that the port's parameter ``name`` (``layers.<L>.<...>`` or
+    a top-level path) stands for."""
     parts = name.split(".")
     if parts[0] == "layers":
-        node = tree_np["segments"][0]
+        node, index = _layer_node(tree_np, cfg, int(parts[1]))
         for part in parts[2:]:
             node = node[part]
-        return np.asarray(node)[int(parts[1])]
+        return np.asarray(node)[index]
     node = tree_np
     for part in parts:
         node = node[part]
@@ -146,11 +161,12 @@ def _lm_leaf(tree_np: Any, name: str) -> np.ndarray:
 
 def _lm_named(tree_np: Any, cfg: Any, device: torch.device,
               dtype: torch.dtype | None) -> dict[str, torch.Tensor]:
-    """Every parameter name of the dense LM ``cfg`` with its leaf of
-    ``tree_np`` on ``device`` (``dtype`` None: bf16 stays bf16)."""
+    """Every parameter name of the LM ``cfg`` with its leaf of ``tree_np``
+    on ``device`` (``dtype`` None: bf16 stays bf16), each checked against
+    the port's shape."""
     out = {}
     for name, p in get_model(cfg).empty_params("meta").named_parameters():
-        t = _tensor(_lm_leaf(tree_np, name), device, dtype)
+        t = _tensor(_lm_leaf(tree_np, name, cfg), device, dtype)
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{name}: reference shape {tuple(t.shape)}, "
                              f"port {tuple(p.shape)}")
@@ -162,10 +178,13 @@ def _lm_named(tree_np: Any, cfg: Any, device: torch.device,
 def lm_params_from_reference(params_np: Any, cfg: Any,
                              device: torch.device | str | None = None
                              ) -> Params:
-    """The port's parameters of the dense LM ``cfg`` (a port
-    ``ModelConfig``) from the reference's params tree, as numpy arrays:
-    ``embed`` (``table``, ``unembed``), ``segments[0]`` with every leaf
-    stacked (L, ...) over the layers, and ``ln_f``.  Layers are unstacked;
+    """The port's parameters of the LM ``cfg`` (a port ``ModelConfig`` of
+    any family :func:`~repro_torch.models.get_model` builds) from the
+    reference's params tree, as numpy arrays: ``embed`` (``table``,
+    ``unembed``), the layers (every ``segments[i]``, each leaf stacked
+    (count, ...) over the segment's layers, or the hybrid's
+    ``groups["layer{i}"]`` stacked over the groups) and ``ln_f``.  Layers
+    are unstacked into the port's flat list;
     the port keeps the reference's (in, out) weight layout, so nothing is
     transposed.  bf16 leaves cross as their bits.  The parameters land on
     the card unless ``device`` says otherwise."""

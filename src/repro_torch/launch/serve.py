@@ -4,6 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --smoke --batch 4 --prompt-len 32 --new-tokens 32 [--device cpu]
 
+Any arch the port builds: the dense ones, ``mamba2-780m`` (ssm),
+``qwen2-moe-a2.7b`` (moe) and ``jamba-1.5-large-398b`` (hybrid; at full
+size its 398B parameters do not fit one card: ``--smoke`` on the CPU).
+
 Weights come from seed 0 and the prompt from seed 1, each a generator on
 the device.  ``--flash-attention`` sets the config's ``flash_attention``
 field (prefill through the flash kernel).  Runs on the CUDA card unless

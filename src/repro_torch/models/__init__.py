@@ -1,4 +1,5 @@
-"""Model facade, as ``repro/models/__init__.py``, for the dense family:
+"""Model facade, as ``repro/models/__init__.py``, for the dense, ssm, moe
+(without MLA) and hybrid families:
 
     model = get_model(cfg)
     params = model.init_params(seed=0, device=None)  # the card by default
@@ -7,32 +8,62 @@
     logits, caches = model.decode_step(params, tokens, caches, pos)
     loss, metrics = model.loss(params, batch)  # training
 
-Every other family raises ``NotImplementedError`` in :func:`get_model`
-(ROADMAP.md).  ``prefill`` and ``decode_step`` run under
-``torch.no_grad()``, so parameters that a train step made require
-gradients bring no autograd state into serving (or into a captured
-decode graph).
+A per-family table (the reference's ``_FAMILY``) names each family's
+functions.  ``vlm`` and ``encdec``, and deepseek-v2's MLA mixer, raise
+``NotImplementedError`` in :func:`get_model` (ROADMAP.md).  ``init_cache``
+builds each layer's cache kind: a K/V pair for attention, an ``SSMState``
+for SSD.  ``prefill`` and ``decode_step`` run under ``torch.no_grad()``,
+so parameters that a train step made require gradients bring no autograd
+state into serving (or into a captured decode graph).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import blocks, hybrid, lm
 from repro_torch.models.params import Params, materialize
+
+
+class _Family(NamedTuple):
+    specs: Callable
+    loss: Callable
+    prefill: Callable
+    decode: Callable
+    cache_specs: Callable
+
+
+_LM = _Family(lm.lm_specs, lm.lm_loss, lm.lm_prefill, lm.lm_decode_step,
+              lm.lm_cache_specs)
+_FAMILY = {
+    "dense": _LM,
+    "moe": _LM,
+    "ssm": _LM,
+    "hybrid": _Family(hybrid.hybrid_specs, hybrid.hybrid_loss,
+                      hybrid.hybrid_prefill, hybrid.hybrid_decode_step,
+                      hybrid.hybrid_cache_specs),
+}
 
 
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
+    @property
+    def _fns(self) -> _Family:
+        return _FAMILY[self.cfg.family]
+
+    def specs(self) -> dict:
+        return self._fns.specs(self.cfg)
+
     def empty_params(self, device: torch.device | str | None = None
                      ) -> Params:
         """The parameter modules, allocated on ``device`` and not filled."""
-        return Params(lm.lm_specs(self.cfg), resolve_device(device))
+        return Params(self.specs(), resolve_device(device))
 
     def init_params(self, seed: int = 0,
                     device: torch.device | str | None = None) -> Params:
@@ -44,9 +75,8 @@ class Model:
 
     def init_cache(self, batch: int, s_max: int,
                    device: torch.device | str | None = None) -> lm.Caches:
-        device = resolve_device(device)
-        return [(k.initializer(None, device), v.initializer(None, device))
-                for k, v in lm.lm_cache_specs(self.cfg, batch, s_max)]
+        return lm.init_caches(self._fns.cache_specs(self.cfg, batch, s_max),
+                              resolve_device(device))
 
     @torch.no_grad()
     def prefill(self, params, tokens, caches=None):
@@ -54,7 +84,7 @@ class Model:
         none are given."""
         if caches is None:
             caches = self.init_cache(*tokens.shape, tokens.device)
-        return lm.lm_prefill(params, tokens, self.cfg, caches)
+        return self._fns.prefill(params, tokens, self.cfg, caches)
 
     @torch.no_grad()
     def decode_step(self, params, tokens, caches, pos):
@@ -63,14 +93,17 @@ class Model:
         Python int, filled in on the device."""
         if not isinstance(pos, torch.Tensor):
             pos = torch.full((), pos, dtype=torch.int32, device=tokens.device)
-        return lm.lm_decode_step(params, tokens, caches, pos, self.cfg)
+        return self._fns.decode(params, tokens, caches, pos, self.cfg)
 
     def loss(self, params, batch):
         """``(loss, {"ce", "aux"})`` of a batch of ``tokens`` and
-        ``labels`` (``lm.lm_loss``); differentiable in the parameters."""
-        return lm.lm_loss(params, batch, self.cfg)
+        ``labels``; differentiable in the parameters."""
+        return self._fns.loss(params, batch, self.cfg)
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    lm.stack_plan(cfg)  # raises for the families the port does not build
-    return Model(cfg)
+    if cfg.family not in _FAMILY:
+        raise blocks.not_ported(f"the {cfg.family!r} family")
+    model = Model(cfg)
+    model.specs()  # raises for what the port does not build (MLA)
+    return model

@@ -1,13 +1,16 @@
-"""One pre-norm transformer layer, as ``repro/models/blocks.py``.
+"""One pre-norm layer, as ``repro/models/blocks.py``.
 
-A layer is RMSNorm -> self-attention -> residual, RMSNorm -> SwiGLU MLP ->
-residual.  The reference stacks layer parameters on a leading axis under
-``lax.scan``; the port keeps a list of per-layer modules and loops over it
-in Python (``models/lm.py``).  Modes ``train``, ``prefill`` and
-``decode``; training recomputes each layer in backward by ``cfg.remat``
-(:func:`remat`, the reference's ``_remat``).  The other mixers and FFNs
-(MLA, SSD, cross-attention, MoE) raise ``NotImplementedError`` when the
-model is built (ROADMAP.md).
+A layer is RMSNorm -> mixer -> residual, then (unless ``ffn="none"``)
+RMSNorm -> FFN -> residual.  Mixers: ``"attn"`` (causal GQA self-attention)
+and ``"ssm"`` (the Mamba-2 SSD mixer); FFNs: ``"mlp"`` (SwiGLU), ``"moe"``
+(routed experts, which add the router's aux loss) and ``"none"``.  The
+reference stacks layer parameters on a leading axis under ``lax.scan``;
+the port keeps a list of per-layer modules and loops over it in Python
+(``models/lm.py``).  Modes ``train``, ``prefill`` and ``decode``; training
+recomputes each layer in backward by ``cfg.remat`` (:func:`remat`, the
+reference's ``_remat``), the SSD mixer as the attention one.  MLA and
+cross-attention (``mixer="mla"``/``"cross"``, the reference's
+``add_cross``) raise ``NotImplementedError`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -18,10 +21,14 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import rmsnorm, rmsnorm_spec
 from repro_torch.models.mlp import mlp, mlp_specs
 
 MODES = ("train", "prefill", "decode")
+MIXERS = ("attn", "ssm")
+FFNS = ("mlp", "moe", "none")
 
 
 #: ROADMAP.md's Queue 1 item that ports what is refused here.
@@ -29,46 +36,71 @@ FAMILIES_ITEM = 8
 
 
 def not_ported(what: str) -> NotImplementedError:
-    """The refusal of an unported LM feature (the other families, their
-    mixers and FFNs), naming ROADMAP.md's item :data:`FAMILIES_ITEM`."""
+    """The refusal of an unported LM feature (MLA, cross-attention and the
+    families built on them), naming ROADMAP.md's item
+    :data:`FAMILIES_ITEM`."""
     return NotImplementedError(
         f"{what} waits for a later slice of the port (ROADMAP.md, Queue 1 "
-        f"item {FAMILIES_ITEM}); the port serves the dense family")
+        f"item {FAMILIES_ITEM}); the port serves the dense, ssm, moe "
+        f"(without MLA) and hybrid families")
 
 
 def layer_specs(cfg: ModelConfig, *, mixer: str = "attn",
                 ffn: str = "mlp") -> dict:
-    if mixer != "attn":
+    if mixer not in MIXERS:
         raise not_ported(f"the {mixer!r} mixer")
-    if ffn != "mlp":
-        raise not_ported(f"the {ffn!r} FFN")
+    if ffn not in FFNS:
+        raise ValueError(f"unknown ffn {ffn!r}")
     d = cfg.d_model
-    return {"ln1": rmsnorm_spec(d), "mixer": attn_mod.attn_specs(cfg),
-            "ln2": rmsnorm_spec(d), "ffn": mlp_specs(cfg)}
+    spec = {"ln1": rmsnorm_spec(d),
+            "mixer": (attn_mod.attn_specs(cfg) if mixer == "attn"
+                      else ssm_mod.ssm_specs(cfg))}
+    if ffn != "none":
+        spec["ln2"] = rmsnorm_spec(d)
+        spec["ffn"] = (mlp_specs(cfg) if ffn == "mlp"
+                       else moe_mod.moe_specs(cfg))
+    return spec
 
 
 def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
+                mixer: str = "attn", ffn: str = "mlp",
                 positions: torch.Tensor | None = None,
-                pos: torch.Tensor | None = None,
-                cache: tuple[torch.Tensor, torch.Tensor] | None = None):
-    """Returns ``(x, kv)``: in ``prefill`` this layer's prompt K/V, in
-    ``decode`` the caches it updated in place at ``pos`` (a 0-d device
-    tensor), in ``train`` None.  Both norms take ``cfg.bf16_norm_grad``."""
+                pos: torch.Tensor | None = None, cache=None):
+    """Returns ``(x, aux, cache)``, the reference's order: ``aux`` the
+    router's load loss (a 0-d fp32 tensor, 0 without MoE); ``cache`` in
+    ``prefill`` this layer's prompt cache (the un-repeated K/V pair, or an
+    :class:`~repro_torch.models.ssm.SSMState`), in ``decode`` the cache it
+    updated in place (at ``pos``, a 0-d device tensor, for attention), in
+    ``train`` None.  Both norms take ``cfg.bf16_norm_grad``."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     h = rmsnorm(params.ln1, x, cfg.norm_eps, cfg.bf16_norm_grad)
-    if mode == "decode":
-        y = attn_mod.attention_decode(params.mixer, h, cache[0], cache[1],
-                                      pos, cfg)
-        kv = cache
+    if mixer == "attn":
+        if mode == "decode":
+            y = attn_mod.attention_decode(params.mixer, h, cache[0],
+                                          cache[1], pos, cfg)
+        else:
+            y, cache = attn_mod.attention(params.mixer, h, positions, cfg,
+                                          train=mode == "train")
+    elif mixer == "ssm":
+        if mode == "decode":
+            y, cache = ssm_mod.ssd_decode(params.mixer, h, cache, cfg)
+        elif mode == "prefill":
+            y, cache = ssm_mod.ssd_prefill(params.mixer, h, cfg)
+        else:
+            y = ssm_mod.ssd(params.mixer, h, cfg)
     else:
-        y, kv = attn_mod.attention(params.mixer, h, positions, cfg,
-                                   train=mode == "train")
-        if mode == "train":
-            kv = None
+        raise not_ported(f"the {mixer!r} mixer")
     x = x + y
-    h = rmsnorm(params.ln2, x, cfg.norm_eps, cfg.bf16_norm_grad)
-    return x + mlp(params.ffn, h, cfg), kv
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn != "none":
+        h = rmsnorm(params.ln2, x, cfg.norm_eps, cfg.bf16_norm_grad)
+        if ffn == "moe":
+            y, aux = moe_mod.moe_ffn(params.ffn, h, cfg)
+        else:
+            y = mlp(params.ffn, h, cfg)
+        x = x + y
+    return x, aux, (None if mode == "train" else cache)
 
 
 def _dots_saveable(ctx, op, *args, **kwargs):

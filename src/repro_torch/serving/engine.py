@@ -2,9 +2,12 @@
 ``repro/serving/engine.py``.
 
 A fixed batch of request slots decodes in lock-step.  Caches are allocated
-at ``s_max`` and the prefill writes the prompt's K/V into them (the
-reference prefills at the prompt's length and pads out; the values are the
-same).  Sampling is greedy (argmax) or by temperature from an explicit
+at ``s_max``, one a layer of its kind (``Model.init_cache``): the prefill
+writes an attention layer's prompt K/V into ``[:, :S]`` of its sequence
+buffers and copies an SSD layer's state (conv tail and SSM state, which
+have no sequence axis) into its own.  The reference prefills at the
+prompt's length and pads the sequence caches out (``_pad_caches``; SSM
+states pass through); the values are the same.  Sampling is greedy (argmax) or by temperature from an explicit
 ``torch.Generator`` (other bits than ``jax.random``).
 
 The reference runs the whole decode as one jitted ``lax.scan``.  Here, on
@@ -12,7 +15,9 @@ the card, the decode step is captured once in a CUDA graph over static
 buffers (the token, the position as a 0-d device tensor that the graph
 advances, the caches, the logits and the output tokens) and replayed: the
 first decode step runs eagerly, as the warm-up, and the graph then
-replays every later one.  Greedy argmax sits inside the graph; a
+replays every later one; every cache, SSM states included, is updated in
+place, so the graph's buffers carry them.  Greedy argmax sits inside the
+graph; a
 temperature sample runs after each replay from the static logits, with the
 caller's generator, so the tokens are the eager ones.  The prefill stays
 eager.  Generation runs under ``torch.no_grad()``: parameters that a train

@@ -1766,3 +1766,63 @@ def test_probe_launches_and_statistics_on_the_card(cuda):
     for key in ("energy_low_rank", "energy_sparse", "outlier_fraction",
                 "residual"):
         assert abs(float(got[key]) - float(want[key])) <= 1e-3, key
+
+
+# ---------------------------------------------------------------------------
+# The SSM, MoE and hybrid families on the card
+# ---------------------------------------------------------------------------
+FAMILY_ARCHS = ["mamba2-780m", "qwen2-moe-a2.7b", "jamba-1.5-large-398b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILY_ARCHS, ids=["ssm", "moe", "hybrid"])
+def test_family_replayed_decode_gives_the_eager_tokens(cuda, arch):
+    """Each family's smoke model in fp32 with flash prefill: the replayed
+    decode step (routing, gathered experts and the SSM state updated in
+    place, all inside the graph) gives the eager tokens; one capture and
+    max_new_tokens - 2 replays; one flash launch per attention layer a
+    prefill; the card's prefill logits within 1e-4 of max |logits| of the
+    CPU's from the same weights."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import runtime as rt
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServeConfig, generate
+
+    cfg = get_smoke_config(arch).replace(
+        param_dtype="float32", compute_dtype="float32",
+        flash_attention=True)
+    model = get_model(cfg)
+    cpu_params = model.init_params(seed=0, device="cpu")
+    params = copy.deepcopy(cpu_params).to(cuda)
+    prompt = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    scfg = ServeConfig(max_new_tokens=9)
+    want = generate(model, params, prompt.to(cuda), scfg, eager=True)
+    rt.reset_graph_counts()
+    got = generate(model, params, prompt.to(cuda), scfg)
+    assert torch.equal(got, want)
+    assert rt.graph_counts["captures"] == 1
+    assert rt.graph_counts["replays"] == scfg.max_new_tokens - 2
+    before = fa.launches["flash_attention"]
+    logits, _ = model.prefill(params, prompt.to(cuda))
+    attention = sum(hasattr(layer.mixer, "wq") for layer in params.layers)
+    assert fa.launches["flash_attention"] == before + attention
+    cpu_logits, _ = model.prefill(cpu_params, prompt)
+    rel = ((logits.cpu() - cpu_logits).abs().max()
+           / cpu_logits.abs().max()).item()
+    assert rel <= 1e-4, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [16, 64], ids=["moe", "hybrid"])
+def test_flash_bf16_at_the_families_prefill_shapes(cuda, h):
+    """qwen2-moe-a2.7b's prefill (4, 2048, 16, 128) and the jamba cut's
+    (4, 2048, 64, 128), causal, bf16: each query row within its bar."""
+    q, k, v = _flash_inputs(cuda, 4, 2048, 2048, h, 128, torch.bfloat16)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=True)
+    torch.cuda.synchronize()
+    diff = (got.float() - want).abs().amax(dim=(2, 3))
+    row_err = diff / want.abs().amax(dim=(2, 3))
+    assert row_err.max().item() <= FLASH_TOL[torch.bfloat16]

@@ -225,43 +225,51 @@ def test_every_config_matches_reference(arch):
                 jconfigs.supports_shape(theirs, shape)
 
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
-                                  if jconfigs.get_config(a).family != "dense"])
+@pytest.mark.parametrize("arch", [
+    a for a in jconfigs.ARCH_IDS
+    if jconfigs.get_config(a).family in ("vlm", "encdec")
+    or jconfigs.get_config(a).mla is not None])
 def test_other_families_raise_when_built(arch):
+    """The families the port does not build yet (MLA, cross-attention:
+    deepseek-v2, llama-3.2-vision, whisper) raise; the dense, ssm, moe and
+    hybrid ones build (tests/test_torch_hybrid.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_model(configs.get_smoke_config(arch))
 
 
 def test_train_mode_and_other_mixers_raise():
-    """The other mixers and FFNs raise; ``Model.loss`` and ``mode="train"``
-    run (ported: ROADMAP.md Queue 1 item 7)."""
+    """The MLA and cross-attention mixers raise; ``Model.loss`` and
+    ``mode="train"`` run (ported: ROADMAP.md Queue 1 item 7)."""
     cfg = configs.get_smoke_config(ARCH)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         blocks.layer_specs(cfg, mixer="mla")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocks.layer_specs(cfg, ffn="moe")
+        blocks.layer_specs(cfg, mixer="cross")
     model = get_model(cfg)
     params = model.init_params(device="cpu")
     tokens = torch.from_numpy(_prompt(cfg, 1, 8))
     loss, mets = model.loss(params, {"tokens": tokens, "labels": tokens})
     assert torch.isfinite(loss) and set(mets) == {"ce", "aux"}
-    x, kv = blocks.layer_apply(params.layers[0],
-                               torch.zeros(1, 2, cfg.d_model,
-                                           dtype=cfg.cdtype),
-                               cfg=cfg, mode="train",
-                               positions=torch.arange(2)[None])
+    x, aux, kv = blocks.layer_apply(params.layers[0],
+                                    torch.zeros(1, 2, cfg.d_model,
+                                                dtype=cfg.cdtype),
+                                    cfg=cfg, mode="train",
+                                    positions=torch.arange(2)[None])
     assert x.shape == (1, 2, cfg.d_model) and kv is None
+    assert aux.item() == 0.0
 
 
 def test_refusals_name_the_roadmap_item():
-    """Each refusal names the ROADMAP.md Queue 1 item that ports it: the
-    other families, their mixers and FFNs item 8.  Training (item 7) is
-    ported: ``Model.loss`` and ``mode="train"`` refuse nothing."""
+    """Each refusal names the ROADMAP.md Queue 1 item that ports it: MLA,
+    cross-attention and the families built on them item 8.  Training
+    (item 7) is ported: ``Model.loss`` and ``mode="train"`` refuse
+    nothing."""
     cfg = configs.get_smoke_config(ARCH)
     for call, item in (
             (lambda: blocks.layer_specs(cfg, mixer="mla"), 8),
-            (lambda: blocks.layer_specs(cfg, ffn="moe"), 8),
-            (lambda: get_model(configs.get_smoke_config("mamba2-780m")), 8)):
+            (lambda: blocks.layer_specs(cfg, mixer="cross"), 8),
+            (lambda: get_model(configs.get_smoke_config(
+                "deepseek-v2-236b")), 8)):
         with pytest.raises(NotImplementedError) as got:
             call()
         assert f"ROADMAP.md, Queue 1 item {item})" in str(got.value)

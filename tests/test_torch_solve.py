@@ -287,7 +287,7 @@ def test_front_door_on_the_cpu():
                                         p.s0)) < 1e-6
 
 
-STILL_REFUSED = ["compile_policy", "dcf_sharded", "moe_lm", "mamba_lm",
+STILL_REFUSED = ["compile_policy", "dcf_sharded", "mla_lm", "vlm_lm",
                  "batch_faults", "batch_checkpoint", "batch_resume"]
 
 
@@ -296,8 +296,8 @@ def test_what_still_refuses_before_solving(what):
     """What the port does not run refuses before anything starts: an
     unknown ``compile_policy`` raises the reference's ValueError, word for
     word, as does a batch given to the sharded engine; a language model of
-    a family the port does not build (mixture of experts, state space)
-    raises NotImplementedError naming ROADMAP.md; a batch with a fault
+    a family the port does not build (MLA, cross-attention) raises
+    NotImplementedError naming ROADMAP.md; a batch with a fault
     plan or a checkpoint raises the reference's ValueError, word for
     word."""
     from repro_torch import configs, models
@@ -322,7 +322,8 @@ def test_what_still_refuses_before_solving(what):
         assert str(got.value) == str(want.value)
         return
     if what.endswith("_lm"):
-        arch = {"moe_lm": "qwen2-moe-a2.7b", "mamba_lm": "mamba2-780m"}[what]
+        arch = {"mla_lm": "deepseek-v2-236b",
+                "vlm_lm": "llama-3.2-vision-11b"}[what]
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             models.get_model(configs.get_smoke_config(arch))
         return
