@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (DCF-PCA, LM serving of the dense, SSM, MoE
-and hybrid families, dense-LM training) on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port (DCF-PCA, LM serving of every family,
+dense-LM training) on one CUDA card and check it.
 
     python3 chip_smoke.py
 
@@ -26,10 +26,12 @@ CUDA toolkit.  Phases, one JSON line each:
             causal), at (1, 256, 4, 64, causal), f32 cross (2, 64 x 200,
             2, 64, full) and f32 at the serve_f32 phase's shape (4, 2048,
             32, 64, causal; row T), and bf16 at serve_moe's (4, 2048, 16,
-            128) and serve_hybrid's (4, 2048, 64, 128) prefill shapes
-            (rows @moe, @hybrid), each also beside PyTorch's SDPA on the same
-            tensors (``library_ms``) and the profiler's device time of the
-            kernel alone (``kernel_device_ms``: the CUDA-event ``ms`` of
+            128), serve_hybrid's (4, 2048, 64, 128) and serve_encdec's
+            (4, 416, 12, 64) prefill shapes (rows @moe, @hybrid,
+            @whisper; serve_vlm's self layers run row A's), each also
+            beside PyTorch's SDPA on the same tensors (``library_ms``)
+            and the profiler's device time of the kernel alone
+            (``kernel_device_ms``: the CUDA-event ``ms`` of
             back-to-back calls also holds the wrapper's host work where
             that is the longer), its error taken row by row; the fp32 rows
             also state the 3xTF32 tensor-core bound.  Then
@@ -243,6 +245,19 @@ CUDA toolkit.  Phases, one JSON line each:
             layers would be ~90 GB of bf16 weights.  Every decode step
             routes, gathers its experts and updates the SSM states inside
             the captured graph.
+    serve_mla, serve_vlm, serve_encdec  the MLA, cross-attention and
+            encoder-decoder families likewise: deepseek-v2-236b at full
+            width cut to n_layers 4 (the dense first layer and three MoE
+            layers of 160 experts of 1536, top-6, 2 shared; its MLA is
+            plain: 0 flash launches, so the flash-vs-plain gate compares
+            two plain prefills), llama-3.2-vision-11b whole (32 self
+            layers, 32 flash launches; 8 cross layers, plain, their gates
+            set to 0.5; a 4 x 1601 x 4096 context) and whisper-small whole
+            (4 x 416 prompts, 32 new tokens; a 4 x 1500 x 768 context
+            through the 12-layer encoder, plain, inside the prefill; 12
+            flash launches).  Another context must move the logits.  The
+            cross layers' context K/V sit in the caches, read by the
+            captured decode step.
 
 13. train_parity the smoke TinyLlama in fp32: one ``make_train_step`` step
             on the card against the same step on the CPU (loss within 1e-5
@@ -349,17 +364,31 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "llama3-8b", 4, 2048, 32
 # The fp32 serving path: TinyLlama-1.1B's prefill at 4 x 2048 (arXiv:
 # 2401.02385), the fp32 flash kernel's full-width shape.
 F32_ARCH, F32_NEW = "tinyllama-1.1b", 16
-# The SSM, MoE and hybrid families through the same serve path, bf16, full
-# width: (phase, arch, config cut).  Jamba-1.5-Large's period of 8 layers
-# at full width is ~45B parameters (~90 GB in bf16), past the card's 80
-# GB: its cut keeps every width and both layer kinds of a period (SSD +
-# MLP, attention + MoE) at n_layers 2, attn_period 2.
+# The other families through the same serve path, bf16, full width:
+# (phase, arch, config cut, prompt length).  Jamba-1.5-Large's period of 8
+# layers at full width is ~45B parameters (~90 GB in bf16), past the card's
+# 80 GB: its cut keeps every width and both layer kinds of a period (SSD +
+# MLP, attention + MoE) at n_layers 2, attn_period 2.  DeepSeek-V2's 60
+# layers are ~236B parameters (~472 GB): its cut keeps the dense first
+# layer and three MoE layers (160 experts of 1536, top-6, 2 shared) at
+# n_layers 4, ~13.3B parameters.  llama-3.2-vision-11b runs whole (40
+# layers: 8 groups of 4 self and 1 cross layer) with a context of 1601
+# patches; whisper-small whole (12 encoder and 12 decoder layers) with
+# 1500 frames and 4 x 416 prompts, so that prompt and 32 new tokens fill
+# Whisper's decoder context of 448 tokens (n_text_ctx, arXiv:2212.04356).
+WHISPER_PROMPT = 448 - SERVE_NEW
 FAMILY_SERVES = [
-    ("serve_ssm", "mamba2-780m", {}),
-    ("serve_moe", "qwen2-moe-a2.7b", {}),
+    ("serve_ssm", "mamba2-780m", {}, SERVE_PROMPT),
+    ("serve_moe", "qwen2-moe-a2.7b", {}, SERVE_PROMPT),
     ("serve_hybrid", "jamba-1.5-large-398b",
-     {"n_layers": 2, "attn_period": 2}),
+     {"n_layers": 2, "attn_period": 2}, SERVE_PROMPT),
+    ("serve_mla", "deepseek-v2-236b", {"n_layers": 4}, SERVE_PROMPT),
+    ("serve_vlm", "llama-3.2-vision-11b", {}, SERVE_PROMPT),
+    ("serve_encdec", "whisper-small", {}, WHISPER_PROMPT),
 ]
+# Every cross layer's gate after init_params: the reference initialises it
+# to 0, and tanh(0) = 0 would take the cross path out of the logits.
+SERVE_CROSS_GATE = 0.5
 SMALL_BATCH, SMALL_PROMPT, SMALL_NEW, SMALL_LOGITS_BAR = 2, 33, 8, 1e-4
 # Paper Table 1 (benchmarks/table1_upper_rank.py:5-6): n -> the paper's
 # singular-value error, the bar of the solve at p = 2r.  The reference
@@ -650,6 +679,11 @@ FLASH_ROWS = [
     ("flash_attention@hybrid",
      (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 64, 128), True, "bf16",
      "serve_hybrid"),
+    # whisper-small's decoder self-attention (12 heads of 64; 416 rows end
+    # in a part tile).  llama-3.2-vision's self layers run row A's shape.
+    ("flash_attention@whisper",
+     (SERVE_BATCH, WHISPER_PROMPT, WHISPER_PROMPT, 12, 64), True, "bf16",
+     "serve_encdec"),
 ]
 
 
@@ -3039,9 +3073,9 @@ class _EventTimedModel:
         self.events = []
         return self.model.init_cache(*args)
 
-    def prefill(self, *args):
+    def prefill(self, *args, **kw):
         self._event()
-        self.prefill_logits, caches = self.model.prefill(*args)
+        self.prefill_logits, caches = self.model.prefill(*args, **kw)
         self._event()
         return self.prefill_logits, caches
 
@@ -3166,24 +3200,30 @@ def replay_period_ms(prof) -> dict:
 
 def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
                 new_tokens: int = SERVE_NEW, fp32: bool = False,
-                cut: dict | None = None) -> dict:
+                cut: dict | None = None,
+                prompt_len: int = SERVE_PROMPT) -> dict:
     """Phases 11 and 12 and the families' serve phases: ``arch`` at full
     width (and full depth unless ``cut`` replaces config fields) through
-    ``generate`` (in fp32 when ``fp32``, else its bf16), 4 prompts of 2048
-    tokens and ``new_tokens`` greedy tokens: the decode step captured once
-    and replayed.  The prefill ms (CUDA events around it), the replayed
-    decode ms a step (the profiled run's replay period on the device,
-    :func:`replay_period_ms`), the tokens equal to an eager decode's (its
-    ms a step beside, from CUDA events after every step), one graph launch
-    a replayed step (the profiler's ``cudaGraphLaunch`` count), and one
-    flash_attention launch per attention layer."""
+    ``generate`` (in fp32 when ``fp32``, else its bf16), 4 prompts of
+    ``prompt_len`` tokens and ``new_tokens`` greedy tokens: the decode step
+    captured once and replayed.  A ``vlm`` or ``encdec`` model gets a
+    context (standard normal from a seeded generator on the card) and its
+    cross layers' gates are set to :data:`SERVE_CROSS_GATE`; another
+    context must move its prefill's logits.  The prefill ms (CUDA events
+    around it), the replayed decode ms a step (the profiled run's replay
+    period on the device, :func:`replay_period_ms`), the tokens equal to
+    an eager decode's (its ms a step beside, from CUDA events after every
+    step), one graph launch a replayed step (the profiler's
+    ``cudaGraphLaunch`` count), and one flash_attention launch per
+    self-attention layer (none for MLA, cross layers or an encoder)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core import runtime as rt
     from repro_torch.kernels import ops
-    from repro_torch.models import get_model
+    from repro_torch.models import CONTEXT_FAMILIES, get_model
     from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.lm import ctx_len
     from repro_torch.serving.engine import ServeConfig, generate
 
     cfg = get_config(arch).replace(flash_attention=True, **(cut or {}))
@@ -3194,9 +3234,18 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init_params(seed=0, device=device)
-    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
-                           generator=torch.Generator(device=device)
-                           .manual_seed(1), device=device)
+    gates = [layer.gate for layer in params.layers if hasattr(layer, "gate")]
+    with torch.no_grad():
+        for gate in gates:
+            gate.fill_(SERVE_CROSS_GATE)
+    gen = torch.Generator(device=device).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, prompt_len),
+                           generator=gen, device=device)
+    ctx = other_ctx = None
+    if cfg.family in CONTEXT_FAMILIES:
+        ctx, other_ctx = (torch.randn(
+            (SERVE_BATCH, ctx_len(cfg), cfg.d_model), generator=gen,
+            device=device).to(cfg.cdtype) for _ in range(2))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9
@@ -3207,10 +3256,10 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
 
     def serve(eager=False):
         return generate(eager_timed if eager else kept, params, prompt, scfg,
-                        eager=eager)
+                        eager=eager, ctx=ctx)
 
     # Warm the libraries (cuBLAS handles and heuristics) with a short run.
-    generate(model, params, prompt, ServeConfig(max_new_tokens=3))
+    generate(model, params, prompt, ServeConfig(max_new_tokens=3), ctx=ctx)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -3231,7 +3280,7 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     # The same weights and prompt with the config's flash switch off: the
     # plain (chunked, fp32 softmax) attention of every layer.
     plain = get_model(cfg.replace(flash_attention=False))
-    ref_logits, _ = plain.prefill(params, prompt)
+    ref_logits, _ = plain.prefill(params, prompt, ctx=ctx)
     rel = rel_free = _rel_diff(logits, ref_logits)
     routing = None
     if cfg.moe is not None:
@@ -3239,14 +3288,22 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
         # flash one was (RoutingHold); the free comparison is reported.
         hold = RoutingHold()
         with hold.record():
-            flash_logits, _ = model.prefill(params, prompt)
+            flash_logits, _ = model.prefill(params, prompt, ctx=ctx)
         with hold.replay():
-            held_logits, _ = plain.prefill(params, prompt)
+            held_logits, _ = plain.prefill(params, prompt, ctx=ctx)
         rel = _rel_diff(flash_logits, held_logits)
         routing = hold.stats()
         del flash_logits, held_logits
+    # The context reaches the logits (through nonzero gates in a VLM).
+    ctx_moved = None
+    if ctx is not None:
+        moved_logits, _ = model.prefill(params, prompt, ctx=other_ctx)
+        ctx_moved = _rel_diff(moved_logits, logits)
+        del moved_logits
     finite = bool(torch.isfinite(logits.float()).all())
+    # Self-attention layers (a cross layer carries a gate; MLA has no wq).
     attention_layers = sum(hasattr(layer.mixer, "wq")
+                           and not hasattr(layer, "gate")
                            for layer in params.layers)
     want = {"flash_attention": attention_layers}
     in_vocab = bool((tokens >= 0).all()
@@ -3254,15 +3311,21 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     replays = new_tokens - 2
     del ref_logits
     profiled = profile_run(serve)
+    gate_values = [float(g) for g in gates]
     ok = (tuple(tokens.shape) == (SERVE_BATCH, new_tokens) and in_vocab
           and finite and rel <= SERVE_LOGITS_BAR and same
+          and all(g != 0 for g in gate_values)
+          and (ctx_moved is None or ctx_moved > 0)
           and graphs["graph_captures"] == 1
           and graphs["graph_replays"] == replays
           and counts == {k: want.get(k, 0) for k in counts})
     row = dict(phase=name, arch=cfg.name, family=cfg.family,
                layers=cfg.n_layers, attention_layers=attention_layers,
                cut=cut or None, d_model=cfg.d_model, dtype=cfg.compute_dtype,
-               batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=new_tokens,
+               batch=SERVE_BATCH, prompt=prompt_len, new_tokens=new_tokens,
+               ctx_tokens=None if ctx is None else ctx.shape[1],
+               cross_gates=gate_values or None,
+               logits_rel_moved_by_other_ctx=ctx_moved,
                setup_s=setup_s, weights_gb=weights_gb, wall_s=wall,
                tokens_per_s=SERVE_BATCH * new_tokens / wall,
                prefill_ms=prefill_ms,
@@ -3956,8 +4019,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.append(serve_phase(device))
     torch.cuda.empty_cache()
-    for name, arch, cut in FAMILY_SERVES:
-        phases.append(serve_phase(device, name, arch, cut=cut))
+    for name, arch, cut, prompt_len in FAMILY_SERVES:
+        phases.append(serve_phase(device, name, arch, cut=cut,
+                                  prompt_len=prompt_len))
         torch.cuda.empty_cache()
     phases.append(train_parity_phase(device))
     row, trained = train_phase(device)

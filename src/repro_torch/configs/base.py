@@ -1,9 +1,8 @@
 """Architecture configuration, the port's own copy of
 ``repro/configs/base.py``: the same dataclasses, field names and defaults
 (dtypes stay strings), so that a config carries across by field name.
-``pdtype``/``cdtype`` give torch dtypes.  The port builds models of the
-dense, ssm, moe (without MLA) and hybrid families
-(``repro_torch.models.get_model``); MLA, vlm and encdec wait (ROADMAP.md)."""
+``pdtype``/``cdtype`` give torch dtypes.  The port builds models of every
+family (``repro_torch.models.get_model``)."""
 from __future__ import annotations
 
 import dataclasses

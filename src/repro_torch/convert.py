@@ -128,14 +128,24 @@ def sharded_problem_from_reference(problem: ShardProblem,
     return out
 
 
-def _layer_node(tree_np: Any, cfg: Any, layer: int) -> tuple[Any, int]:
+def _layer_node(tree_np: Any, cfg: Any, layer: int
+                ) -> tuple[Any, int | tuple[int, int]]:
     """The reference's subtree that stacks layer ``layer``'s leaves, and the
-    layer's index on their leading axis: segment ``i`` of ``stack_plan``
+    layer's index on their leading axes: segment ``i`` of ``stack_plan``
     for the uniform stacks, ``groups["layer{L % period}"]`` at group
-    ``L // period`` for the hybrid."""
+    ``L // period`` for the hybrid, the VLM's ``groups["self"]`` at
+    (group, position) (two leading axes) or ``groups["cross"]`` at the
+    group, the encoder-decoder's ``decoder`` at ``L``."""
     if cfg.family == "hybrid":
         period = cfg.attn_period
         return tree_np["groups"][f"layer{layer % period}"], layer // period
+    if cfg.family == "vlm":
+        group, at = divmod(layer, cfg.cross.every_k_layers)
+        if at == cfg.cross.every_k_layers - 1:
+            return tree_np["groups"]["cross"], group
+        return tree_np["groups"]["self"], (group, at)
+    if cfg.family == "encdec":
+        return tree_np["decoder"], layer
     for i, seg in enumerate(lm.stack_plan(cfg)):
         if layer < seg.count:
             return tree_np["segments"][i], layer
@@ -145,11 +155,15 @@ def _layer_node(tree_np: Any, cfg: Any, layer: int) -> tuple[Any, int]:
 
 def _lm_leaf(tree_np: Any, name: str, cfg: Any) -> np.ndarray:
     """The leaf of the reference's LM tree (``embed``, the stacked layers,
-    ``ln_f``) that the port's parameter ``name`` (``layers.<L>.<...>`` or
-    a top-level path) stands for."""
+    ``ln_f``; ``encoder`` and ``ln_enc`` of the encoder-decoder) that the
+    port's parameter ``name`` (``layers.<L>.<...>``, ``encoder.<L>.<...>``
+    or a top-level path) stands for."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        node, index = _layer_node(tree_np, cfg, int(parts[1]))
+    if parts[0] in ("layers", "encoder"):
+        layer = int(parts[1])
+        node, index = (_layer_node(tree_np, cfg, layer)
+                       if parts[0] == "layers"
+                       else (tree_np["encoder"], layer))
         for part in parts[2:]:
             node = node[part]
         return np.asarray(node)[index]
@@ -182,9 +196,12 @@ def lm_params_from_reference(params_np: Any, cfg: Any,
     any family :func:`~repro_torch.models.get_model` builds) from the
     reference's params tree, as numpy arrays: ``embed`` (``table``,
     ``unembed``), the layers (every ``segments[i]``, each leaf stacked
-    (count, ...) over the segment's layers, or the hybrid's
-    ``groups["layer{i}"]`` stacked over the groups) and ``ln_f``.  Layers
-    are unstacked into the port's flat list;
+    (count, ...) over the segment's layers; the hybrid's
+    ``groups["layer{i}"]`` stacked over the groups; the VLM's
+    ``groups["self"]`` stacked (groups, self layers, ...) and
+    ``groups["cross"]`` (groups, ...); the encoder-decoder's ``encoder``
+    and ``decoder``, with ``ln_enc``) and ``ln_f``.  Layers are unstacked
+    into the port's flat lists;
     the port keeps the reference's (in, out) weight layout, so nothing is
     transposed.  bf16 leaves cross as their bits.  The parameters land on
     the card unless ``device`` says otherwise."""

@@ -4,9 +4,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --smoke --batch 4 --prompt-len 32 --new-tokens 32 [--device cpu]
 
-Any arch the port builds: the dense ones, ``mamba2-780m`` (ssm),
-``qwen2-moe-a2.7b`` (moe) and ``jamba-1.5-large-398b`` (hybrid; at full
-size its 398B parameters do not fit one card: ``--smoke`` on the CPU).
+The archs whose prefill takes tokens alone: the dense ones,
+``mamba2-780m`` (ssm), ``qwen2-moe-a2.7b`` and ``deepseek-v2-236b`` (moe;
+at full size deepseek-v2's 236B parameters do not fit one card) and
+``jamba-1.5-large-398b`` (hybrid; nor do its 398B: ``--smoke`` on the
+CPU).  ``llama-3.2-vision-11b`` and ``whisper-small`` need a context (image
+patches or audio frames) that the launcher does not make: they raise
+``ValueError``, as the reference's launcher fails at its prefill
+(``serving.engine.generate(..., ctx=...)`` serves them).
 
 Weights come from seed 0 and the prompt from seed 1, each a generator on
 the device.  ``--flash-attention`` sets the config's ``flash_attention``
@@ -22,7 +27,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.models import get_model
+from repro_torch.models import CONTEXT_FAMILIES, get_model
 from repro_torch.serving.engine import ServeConfig, generate
 
 
@@ -40,6 +45,9 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family in CONTEXT_FAMILIES:
+        raise ValueError(f"{args.arch}: the {cfg.family!r} family needs a "
+                         f"ctx, which the launcher does not make")
     if args.flash_attention:
         cfg = cfg.replace(flash_attention=True)
     device = resolve_device(args.device)

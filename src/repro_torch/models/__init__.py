@@ -1,18 +1,21 @@
-"""Model facade, as ``repro/models/__init__.py``, for the dense, ssm, moe
-(without MLA) and hybrid families:
+"""Model facade, as ``repro/models/__init__.py``, for every family
+(dense, moe with or without MLA, ssm, hybrid, vlm and encdec):
 
     model = get_model(cfg)
     params = model.init_params(seed=0, device=None)  # the card by default
     caches = model.init_cache(batch, s_max, device)
-    logits, caches = model.prefill(params, tokens, caches)
+    logits, caches = model.prefill(params, tokens, caches, ctx=None)
     logits, caches = model.decode_step(params, tokens, caches, pos)
     loss, metrics = model.loss(params, batch)  # training
 
 A per-family table (the reference's ``_FAMILY``) names each family's
-functions.  ``vlm`` and ``encdec``, and deepseek-v2's MLA mixer, raise
-``NotImplementedError`` in :func:`get_model` (ROADMAP.md).  ``init_cache``
-builds each layer's cache kind: a K/V pair for attention, an ``SSMState``
-for SSD.  ``prefill`` and ``decode_step`` run under ``torch.no_grad()``,
+functions.  ``init_cache`` builds each layer's cache kind: a K/V pair for
+attention, MLA's latent pair, a cross layer's context K/V (at the
+context's length), an ``SSMState`` for SSD, a ``SelfCrossCache`` for a
+whisper decoder layer.  The ``vlm`` and ``encdec`` prefills take the
+context ``ctx`` (B, T, d_model) that the reference's batch dict carries
+(image patches or audio frames; the towers are stubs); decode takes none.
+``prefill`` and ``decode_step`` run under ``torch.no_grad()``,
 so parameters that a train step made require gradients bring no autograd
 state into serving (or into a captured decode graph).
 """
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks, hybrid, lm
+from repro_torch.models import encdec, hybrid, lm, vision
 from repro_torch.models.params import Params, materialize
 
 
@@ -46,7 +49,14 @@ _FAMILY = {
     "hybrid": _Family(hybrid.hybrid_specs, hybrid.hybrid_loss,
                       hybrid.hybrid_prefill, hybrid.hybrid_decode_step,
                       hybrid.hybrid_cache_specs),
+    "vlm": _Family(vision.vlm_specs, vision.vlm_loss, vision.vlm_prefill,
+                   vision.vlm_decode_step, vision.vlm_cache_specs),
+    "encdec": _Family(encdec.encdec_specs, encdec.encdec_loss,
+                      encdec.encdec_prefill, encdec.encdec_decode_step,
+                      encdec.encdec_cache_specs),
 }
+#: The families whose prefill (and training batch) carries a ``ctx``.
+CONTEXT_FAMILIES = ("vlm", "encdec")
 
 
 @dataclass(frozen=True)
@@ -79,12 +89,19 @@ class Model:
                               resolve_device(device))
 
     @torch.no_grad()
-    def prefill(self, params, tokens, caches=None):
+    def prefill(self, params, tokens, caches=None, ctx=None):
         """Last-position logits and caches; caches sized to the prompt when
-        none are given."""
+        none are given.  ``ctx`` (B, T, d_model) is the context of the
+        ``vlm`` and ``encdec`` families, which need one; the others
+        ignore it."""
+        context = self.cfg.family in CONTEXT_FAMILIES
+        if context and ctx is None:
+            raise ValueError(f"the {self.cfg.family!r} family's prefill "
+                             f"needs a ctx (B, T, d_model)")
         if caches is None:
             caches = self.init_cache(*tokens.shape, tokens.device)
-        return self._fns.prefill(params, tokens, self.cfg, caches)
+        return self._fns.prefill(params, tokens, self.cfg, caches,
+                                 *((ctx,) if context else ()))
 
     @torch.no_grad()
     def decode_step(self, params, tokens, caches, pos):
@@ -97,13 +114,12 @@ class Model:
 
     def loss(self, params, batch):
         """``(loss, {"ce", "aux"})`` of a batch of ``tokens`` and
-        ``labels``; differentiable in the parameters."""
+        ``labels`` (and ``ctx`` for ``vlm`` and ``encdec``);
+        differentiable in the parameters."""
         return self._fns.loss(params, batch, self.cfg)
 
 
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILY:
-        raise blocks.not_ported(f"the {cfg.family!r} family")
-    model = Model(cfg)
-    model.specs()  # raises for what the port does not build (MLA)
-    return model
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return Model(cfg)

@@ -1,19 +1,27 @@
-"""GQA attention for training, prefill and decode, as
-``repro/models/attention.py``.
+"""GQA attention (self and cross) and MLA for training, prefill and
+decode, as ``repro/models/attention.py``.
 
-Training and prefill are causal.  Prefill goes to the flash kernel
-(``kernels/flash_attention.py``) when ``cfg.flash_attention`` is on;
-otherwise, and always in training (the reference's ``allow_flash=(mode !=
-"train")``: the kernel has no backward), to the plain chunked attention,
-which the reference also computes outside Pallas.  In training each query
-chunk is recomputed in backward (the reference's per-chunk
-``jax.checkpoint``), so backward holds one chunk's fp32 scores at a time.
-Decode attends one new token over the whole ``s_max`` cache in fp32, plain
-PyTorch as in the reference, and writes the token's K/V into the cache in
-place.  Its position is a 0-d device tensor, as the reference's traced
-``pos``: no host value enters the step, so a CUDA graph can capture it
-(``serving/engine.py``).  The cache holds the un-repeated KV heads.  MLA
-and cross-attention wait (ROADMAP.md).
+Self-attention is causal unless ``causal=False`` (the whisper encoder);
+given a ``ctx`` (B, T, d), K and V come from it, without RoPE and without a
+mask (cross-attention).  Self-attention outside training goes to the flash
+kernel (``kernels/flash_attention.py``) when the caller allows it and
+``cfg.flash_attention`` is on (the reference's ``allow_flash``, which only
+self-attention layers outside training pass: the kernel has no backward);
+everything else takes the plain chunked attention, which the reference
+also computes outside Pallas.  In training each query chunk is recomputed
+in backward (the reference's per-chunk ``jax.checkpoint``), so backward
+holds one chunk's fp32 scores at a time.  Decode attends one new token over
+the whole ``s_max`` cache in fp32, plain PyTorch as in the reference, and
+writes the token's K/V into the cache in place.  Its position is a 0-d
+device tensor, as the reference's traced ``pos``: no host value enters the
+step, so a CUDA graph can capture it (``serving/engine.py``).  The cache
+holds the un-repeated KV heads.
+
+MLA (DeepSeek-V2) is plain by construction, as in the reference: training
+and prefill decode per-head K/V from the normalised latent and attend over
+query chunks with split nope/rope fp32 scores; decode absorbs ``W_uk`` into
+the query and attends over the latent cache ((B, S_max, kv_lora) and
+(B, S_max, rope_dim)), updated in place at ``pos``.
 """
 from __future__ import annotations
 
@@ -21,7 +29,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.layers import apply_rope, recompute
+from repro_torch.models.layers import (
+    apply_rope, recompute, rmsnorm, rmsnorm_spec,
+)
 from repro_torch.models.params import ParamSpec
 
 Tensor = torch.Tensor
@@ -80,25 +90,31 @@ def _split_heads(x: Tensor, n: int, hd: int) -> Tensor:
 
 
 def attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig,
-              *, train: bool = False) -> tuple[Tensor, tuple[Tensor, Tensor]]:
-    """Causal self-attention over (B, S, d); returns ``(y, (k, v))`` with the
-    un-repeated (B, S, KV, hd) K/V for the cache.  ``train`` never takes the
-    flash kernel."""
+              *, causal: bool = True, ctx: Tensor | None = None,
+              allow_flash: bool = False
+              ) -> tuple[Tensor, tuple[Tensor, Tensor]]:
+    """Self-attention over (B, S, d), or cross-attention over ``ctx`` (B,
+    T, d) when it is given (no RoPE, no mask); returns ``(y, (k, v))`` with
+    the un-repeated (B, S or T, KV, hd) K/V for the cache.  The flash
+    kernel runs only where ``allow_flash`` and ``cfg.flash_attention``."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cd = cfg.cdtype
+    kv_src = x if ctx is None else ctx
     q = _split_heads(x @ params.wq.to(cd), h, hd)
-    k = _split_heads(x @ params.wk.to(cd), kv, hd)
-    v = _split_heads(x @ params.wv.to(cd), kv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = _split_heads(kv_src @ params.wk.to(cd), kv, hd)
+    v = _split_heads(kv_src @ params.wv.to(cd), kv, hd)
+    if ctx is None:  # RoPE only for self-attention
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     cache = (k, v)
     k, v = repeat_kv(k, h // kv), repeat_kv(v, h // kv)
     b, s = q.shape[:2]
     scale = 1.0 / float(hd) ** 0.5
-    if cfg.flash_attention and not train:
-        out = fa.flash_attention(q, k, v, causal=True, scale=scale)
+    causal = causal and ctx is None
+    if allow_flash and cfg.flash_attention:
+        out = fa.flash_attention(q, k, v, causal=causal, scale=scale)
     else:
-        out = _sdpa_chunked(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+        out = _sdpa_chunked(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
                             scale=scale)
     return out.reshape(b, s, h * hd) @ params.wo.to(cd), cache
 
@@ -130,3 +146,141 @@ def attention_decode(params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, cache_v.to(torch.float32))
     return out.to(cd).reshape(b, 1, h * hd) @ params.wo.to(cd)
+
+
+def cross_decode(params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
+                 cfg: ModelConfig) -> Tensor:
+    """One token (B, 1, d) against a cross layer's static (B, T, KV, hd)
+    context K/V (the reference's ``blocks._cross_decode``): plain, one
+    query chunk, no mask; the cache is only read."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cd = cfg.cdtype
+    b = x.shape[0]
+    q = _split_heads(x @ params.wq.to(cd), h, hd)
+    out = _sdpa_chunked(q, repeat_kv(cache_k, h // kv),
+                        repeat_kv(cache_v, h // kv), causal=False,
+                        q_chunk=1, scale=1.0 / float(hd) ** 0.5)
+    return out.reshape(b, 1, h * hd) @ params.wo.to(cd)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+def mla_specs(cfg: ModelConfig) -> dict:
+    mla = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qd = mla.qk_nope_dim + mla.qk_rope_dim
+    return {
+        "wq_a": ParamSpec((d, mla.q_lora_rank), cfg.pdtype),
+        "q_norm": rmsnorm_spec(mla.q_lora_rank),
+        "wq_b": ParamSpec((mla.q_lora_rank, h * qd), cfg.pdtype),
+        "wkv_a": ParamSpec((d, mla.kv_lora_rank + mla.qk_rope_dim),
+                           cfg.pdtype),
+        "kv_norm": rmsnorm_spec(mla.kv_lora_rank),
+        "wkv_b": ParamSpec(
+            (mla.kv_lora_rank, h * (mla.qk_nope_dim + mla.v_head_dim)),
+            cfg.pdtype),
+        "wo": ParamSpec((h * mla.v_head_dim, d), cfg.pdtype),
+    }
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    """1 / sqrt(nope + rope): the query's width, not ``cfg.hd``."""
+    return 1.0 / float(cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim) ** 0.5
+
+
+def _mla_qkv(params, x: Tensor, positions: Tensor, cfg: ModelConfig
+             ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The shared projections: ``q_nope`` (B, S, H, nope), ``q_rope`` (B,
+    S, H, rope) rotated, the normalised latent ``c_kv`` (B, S, kv_lora)
+    and the rotated shared ``k_rope`` (B, S, rope)."""
+    mla, h = cfg.mla, cfg.n_heads
+    cd = cfg.cdtype
+    b, s, _ = x.shape
+    q = rmsnorm(params.q_norm, x @ params.wq_a.to(cd), cfg.norm_eps,
+                cfg.bf16_norm_grad)
+    q = (q @ params.wq_b.to(cd)).reshape(b, s, h, -1)
+    q_nope, q_rope = torch.split(
+        q, [mla.qk_nope_dim, mla.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = torch.split(x @ params.wkv_a.to(cd),
+                               [mla.kv_lora_rank, mla.qk_rope_dim], dim=-1)
+    c_kv = rmsnorm(params.kv_norm, c_kv, cfg.norm_eps, cfg.bf16_norm_grad)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope[:, :, 0, :]
+
+
+def _mla_up(params, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
+    """``wkv_b`` as (kv_lora, H, nope + v), split into ``W_uk`` (..., nope)
+    and ``W_uv`` (..., v)."""
+    mla = cfg.mla
+    wkv_b = params.wkv_b.to(cfg.cdtype).reshape(
+        mla.kv_lora_rank, cfg.n_heads, mla.qk_nope_dim + mla.v_head_dim)
+    return torch.split(wkv_b, [mla.qk_nope_dim, mla.v_head_dim], dim=-1)
+
+
+def _mla_chunk(qn: Tensor, qr: Tensor, kf: Tensor, rf: Tensor, vf: Tensor,
+               c0: int, scale: float) -> Tensor:
+    """One query chunk (rows ``c0`` on): causal split nope/rope scores in
+    fp32 against the decoded K and the shared rope key."""
+    sc = torch.einsum("bqhn,bshn->bhqs", qn.to(torch.float32), kf)
+    sc = sc + torch.einsum("bqhr,bsr->bhqs", qr.to(torch.float32), rf)
+    rows = torch.arange(c0, c0 + qn.shape[1], device=qn.device)
+    mask = rows[:, None] >= torch.arange(kf.shape[1],
+                                         device=qn.device)[None, :]
+    sc = torch.where(mask, sc * scale, NEG_INF)
+    probs = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhqs,bshv->bqhv", probs, vf).to(qn.dtype)
+
+
+def mla_attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig
+                  ) -> tuple[Tensor, tuple[Tensor, Tensor]]:
+    """Training and prefill MLA over (B, S, d): per-head K/V decoded from
+    the latent, query chunks of ``cfg.q_chunk`` (one chunk's (B, H, ck, S)
+    fp32 scores alive at a time, recomputed in backward while autograd
+    records).  Returns ``(y, (c_kv, k_rope))``, the latent cache."""
+    mla, h = cfg.mla, cfg.n_heads
+    cd = cfg.cdtype
+    b, s, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, positions, cfg)
+    w_uk, w_uv = _mla_up(params, cfg)
+    kf = torch.einsum("bsk,khn->bshn", c_kv, w_uk).to(torch.float32)
+    vf = torch.einsum("bsk,khv->bshv", c_kv, w_uv).to(torch.float32)
+    rf = k_rope.to(torch.float32)
+    ck = min(cfg.q_chunk, s)
+    scale = _mla_scale(cfg)
+    out = torch.cat([recompute(_mla_chunk, q_nope[:, c0:c0 + ck],
+                               q_rope[:, c0:c0 + ck], kf, rf, vf, c0, scale)
+                     for c0 in range(0, s, ck)], dim=1)
+    y = out.reshape(b, s, h * mla.v_head_dim) @ params.wo.to(cd)
+    return y, (c_kv, k_rope)
+
+
+def mla_attention_decode(params, x: Tensor, cache_ckv: Tensor,
+                         cache_rope: Tensor, pos: Tensor, cfg: ModelConfig
+                         ) -> Tensor:
+    """Absorbed decode of one token (B, 1, d) at ``pos`` (a 0-d integer
+    tensor on ``x``'s device): ``W_uk`` folds into the query, so the
+    scores and the output are taken over the latent cache itself, which
+    is updated in place at ``pos``."""
+    mla, h = cfg.mla, cfg.n_heads
+    cd = cfg.cdtype
+    b = x.shape[0]
+    s_max = cache_ckv.shape[1]
+    at = pos.reshape(1).to(torch.long)
+    q_nope, q_rope, c_new, r_new = _mla_qkv(params, x, at.expand(b, 1), cfg)
+    cache_ckv.index_copy_(1, at, c_new.to(cache_ckv.dtype))
+    cache_rope.index_copy_(1, at, r_new.to(cache_rope.dtype))
+
+    w_uk, w_uv = _mla_up(params, cfg)
+    q_lat = torch.einsum("bqhn,khn->bqhk", q_nope, w_uk)
+    ckv = cache_ckv.to(torch.float32)
+    sc = torch.einsum("bqhk,bsk->bhqs", q_lat.to(torch.float32), ckv)
+    sc = sc + torch.einsum("bqhr,bsr->bhqs", q_rope.to(torch.float32),
+                           cache_rope.to(torch.float32))
+    mask = torch.arange(s_max, device=x.device) <= pos
+    sc = torch.where(mask, sc * _mla_scale(cfg), NEG_INF)
+    probs = torch.softmax(sc, dim=-1)
+    o_lat = torch.einsum("bhqs,bsk->bqhk", probs, ckv)
+    out = torch.einsum("bqhk,khv->bqhv", o_lat.to(cd), w_uv)
+    return out.reshape(b, 1, h * mla.v_head_dim) @ params.wo.to(cd)

@@ -3,12 +3,16 @@
 
 A fixed batch of request slots decodes in lock-step.  Caches are allocated
 at ``s_max``, one a layer of its kind (``Model.init_cache``): the prefill
-writes an attention layer's prompt K/V into ``[:, :S]`` of its sequence
-buffers and copies an SSD layer's state (conv tail and SSM state, which
-have no sequence axis) into its own.  The reference prefills at the
-prompt's length and pads the sequence caches out (``_pad_caches``; SSM
-states pass through); the values are the same.  Sampling is greedy (argmax) or by temperature from an explicit
-``torch.Generator`` (other bits than ``jax.random``).
+writes an attention layer's prompt K/V (or MLA's latent) into ``[:, :S]``
+of its sequence buffers and copies an SSD layer's state (conv tail and SSM
+state, which have no sequence axis) and a cross layer's context K/V (at
+the context's length) into their own.  The ``vlm`` and ``encdec``
+families take their context ``ctx`` here; only the prefill sees it (the
+reference's ``generate`` passes none, so it cannot serve them).  The
+reference prefills at the prompt's length and pads the sequence caches
+out (``_pad_caches``; SSM states and context K/V pass through); the values
+are the same.  Sampling is greedy (argmax) or by temperature from an
+explicit ``torch.Generator`` (other bits than ``jax.random``).
 
 The reference runs the whole decode as one jitted ``lax.scan``.  Here, on
 the card, the decode step is captured once in a CUDA graph over static
@@ -57,11 +61,13 @@ def _sample(logits: torch.Tensor, generator: torch.Generator | None,
 def generate(model: Model, params, prompt: torch.Tensor,
              scfg: ServeConfig = ServeConfig(),
              generator: torch.Generator | None = None,
-             s_max: int | None = None, *, eager: bool = False
-             ) -> torch.Tensor:
+             s_max: int | None = None, *, eager: bool = False,
+             ctx: torch.Tensor | None = None) -> torch.Tensor:
     """Greedy or temperature decoding of ``prompt`` (B, S_prompt) on its
-    device.  Returns (B, max_new_tokens) int32 token ids (the next token
-    goes back in as int32; the embedding gathers at int32 indices).
+    device, with the context ``ctx`` (B, T, d_model) for the ``vlm`` and
+    ``encdec`` families.  Returns (B, max_new_tokens) int32 token ids (the
+    next token goes back in as int32; the embedding gathers at int32
+    indices).
 
     On a CUDA device the decode steps after the first replay one captured
     step, from ``runtime.MIN_GRAPH_ROUNDS`` decode steps on
@@ -71,7 +77,7 @@ def generate(model: Model, params, prompt: torch.Tensor,
     s_max = s_max or (s_prompt + scfg.max_new_tokens)
     device = prompt.device
     caches = model.init_cache(b, s_max, device)
-    logits, caches = model.prefill(params, prompt, caches)
+    logits, caches = model.prefill(params, prompt, caches, ctx=ctx)
     tok = _sample(logits, generator, scfg.temperature)
     out = torch.empty(b, scfg.max_new_tokens, dtype=torch.int32,
                       device=device)

@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks
+from repro_torch.models import CONTEXT_FAMILIES
+from repro_torch.models.lm import ctx_len
 
 Tensor = torch.Tensor
 
@@ -44,15 +45,14 @@ class DataConfig:
 class SyntheticData:
     """Global batches of ``shape.global_batch`` x ``shape.seq_len`` int32
     ``tokens`` and ``labels`` (the next tokens) on ``device`` (the card
-    unless ``"cpu"``).  Families whose batches carry a ``ctx`` (encoder or
-    image context: ``encdec``, ``vlm``) are refused: the port does not
-    build them."""
+    unless ``"cpu"``).  The ``encdec`` and ``vlm`` families' batches also
+    carry a ``ctx``: (B, n_context_tokens, d_model) standard normal in the
+    compute type (the stub frame or patch embeddings), drawn after the
+    tokens from the batch's generator."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeSpec,
                  data_cfg: DataConfig = DataConfig(),
                  device: torch.device | str | None = None):
-        if cfg.family in ("encdec", "vlm"):
-            raise blocks.not_ported(f"the {cfg.family!r} family's context")
         self.cfg = cfg
         self.shape = shape
         self.data_cfg = data_cfg
@@ -89,5 +89,10 @@ class SyntheticData:
                             noise.gather(1, reset.clamp_min(0)), first)
         labels = self._apply_perm(start, pos - reset)
         tokens = torch.cat([first, labels[:, :-1]], dim=1)
-        return {"tokens": tokens.to(torch.int32),
-                "labels": labels.to(torch.int32)}
+        batch = {"tokens": tokens.to(torch.int32),
+                 "labels": labels.to(torch.int32)}
+        if self.cfg.family in CONTEXT_FAMILIES:
+            batch["ctx"] = torch.randn(
+                (b, ctx_len(self.cfg), self.cfg.d_model), **kw).to(
+                    self.cfg.cdtype)
+        return batch

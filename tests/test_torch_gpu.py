@@ -1826,3 +1826,100 @@ def test_flash_bf16_at_the_families_prefill_shapes(cuda, h):
     diff = (got.float() - want).abs().amax(dim=(2, 3))
     row_err = diff / want.abs().amax(dim=(2, 3))
     assert row_err.max().item() <= FLASH_TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# The MLA, cross-attention and encoder-decoder families on the card
+# ---------------------------------------------------------------------------
+CONTEXT_ARCHS = ["deepseek-v2-236b", "llama-3.2-vision-11b", "whisper-small"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", CONTEXT_ARCHS, ids=["mla", "vlm", "encdec"])
+def test_context_family_replayed_decode_gives_the_eager_tokens(cuda, arch):
+    """Each family's smoke model in fp32 with flash prefill (the VLM's
+    gates at 0.5, a context where the family takes one): the card's
+    prefill and decode logits within 1e-4 of max |logits| of the CPU's
+    from the same weights; one flash launch per self-attention layer a
+    prefill (none for MLA, the cross layers or the encoder); a decode step
+    leaves the context K/V's bytes as the prefill wrote them; the replayed
+    decode gives the eager tokens, with one capture and max_new_tokens - 2
+    replays."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import runtime as rt
+    from repro_torch.models import CONTEXT_FAMILIES, get_model
+    from repro_torch.models.lm import ctx_len
+    from repro_torch.serving.engine import ServeConfig, generate
+
+    cfg = get_smoke_config(arch).replace(
+        param_dtype="float32", compute_dtype="float32",
+        flash_attention=True)
+    model = get_model(cfg)
+    cpu_params = model.init_params(seed=0, device="cpu")
+    with torch.no_grad():
+        for layer in cpu_params.layers:
+            if hasattr(layer, "gate"):
+                layer.gate.fill_(0.5)
+    params = copy.deepcopy(cpu_params).to(cuda)
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (2, 40), generator=g)
+    ctx = (torch.randn(2, ctx_len(cfg), cfg.d_model, generator=g)
+           if cfg.family in CONTEXT_FAMILIES else None)
+    on_card = None if ctx is None else ctx.to(cuda)
+
+    def rel(got, want):
+        return ((got.cpu() - want).abs().max() / want.abs().max()).item()
+
+    before = fa.launches["flash_attention"]
+    caches = model.init_cache(2, 41, cuda)
+    logits, _ = model.prefill(params, prompt.to(cuda), caches, ctx=on_card)
+    self_layers = sum(hasattr(layer.mixer, "wq")
+                      and not hasattr(layer, "gate")
+                      for layer in params.layers)
+    assert self_layers == {"moe": 0, "vlm": 2, "encdec": 2}[cfg.family]
+    assert fa.launches["flash_attention"] == before + self_layers
+    cpu_caches = model.init_cache(2, 41, "cpu")
+    cpu_logits, _ = model.prefill(cpu_params, prompt, cpu_caches, ctx=ctx)
+    assert rel(logits, cpu_logits) <= 1e-4
+
+    def context_kv(cs):
+        """Copies of the cross layers' context K/V (none for MLA)."""
+        if cfg.family == "encdec":
+            return [x.clone() for c in cs for x in c[2:]]
+        return [x.clone() for c, layer in zip(cs, params.layers)
+                if hasattr(layer, "gate") for x in c]
+
+    kept = context_kv(caches)
+    assert len(kept) == {"moe": 0, "vlm": 4, "encdec": 4}[cfg.family]
+    tok = prompt[:, :1]
+    step, _ = model.decode_step(params, tok.to(cuda), caches, 40)
+    cpu_step, _ = model.decode_step(cpu_params, tok, cpu_caches, 40)
+    assert rel(step, cpu_step) <= 1e-4
+    assert all(torch.equal(a, b)
+               for a, b in zip(kept, context_kv(caches), strict=True))
+
+    scfg = ServeConfig(max_new_tokens=9)
+    want = generate(model, params, prompt.to(cuda), scfg, eager=True,
+                    ctx=on_card)
+    rt.reset_graph_counts()
+    got = generate(model, params, prompt.to(cuda), scfg, ctx=on_card)
+    assert torch.equal(got, want)
+    assert rt.graph_counts["captures"] == 1
+    assert rt.graph_counts["replays"] == scfg.max_new_tokens - 2
+
+
+@pytest.mark.gpu
+def test_flash_bf16_at_the_whisper_decoder_shape(cuda):
+    """whisper-small's decoder self-attention (4, 416, 12, 64), causal,
+    bf16 (416 rows end in a part tile): each query row within its bar,
+    and a rerun gives the same bits."""
+    q, k, v = _flash_inputs(cuda, 4, 416, 416, 12, 64, torch.bfloat16)
+    got = fa.flash_attention(q, k, v, causal=True)
+    again = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    diff = (got.float() - want).abs().amax(dim=(2, 3))
+    row_err = diff / want.abs().amax(dim=(2, 3))
+    assert row_err.max().item() <= FLASH_TOL[torch.bfloat16]

@@ -30,7 +30,7 @@ from repro_torch import configs
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.models import blocks, get_model
 from repro_torch.models.layers import padded_vocab
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, Params, materialize
 from repro_torch.serving.engine import ServeConfig, generate
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -230,21 +230,50 @@ def test_every_config_matches_reference(arch):
     if jconfigs.get_config(a).family in ("vlm", "encdec")
     or jconfigs.get_config(a).mla is not None])
 def test_other_families_raise_when_built(arch):
-    """The families the port does not build yet (MLA, cross-attention:
-    deepseek-v2, llama-3.2-vision, whisper) raise; the dense, ssm, moe and
-    hybrid ones build (tests/test_torch_hybrid.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(configs.get_smoke_config(arch))
+    """The MLA and cross-attention families (deepseek-v2,
+    llama-3.2-vision, whisper) build without raising: the full config's
+    parameters (on the meta device) count the reference's, and the smoke
+    config runs a prefill (with a context where the family takes one)
+    to finite logits (tests/test_torch_mla.py, test_torch_vlm.py and
+    test_torch_encdec.py hold them to the reference)."""
+    for get, jget in ((configs.get_config, jconfigs.get_config),
+                      (configs.get_smoke_config, jconfigs.get_smoke_config)):
+        params = get_model(get(arch)).empty_params("meta")
+        assert sum(x.numel() for x in params.parameters()) == \
+            jpm.count_params(jmodels.get_model(jget(arch)).specs())
+    cfg = configs.get_smoke_config(arch)
+    model = get_model(cfg)
+    params = model.init_params(device="cpu")
+    ctx = None
+    if cfg.family in ("vlm", "encdec"):
+        t = (cfg.cross or cfg.encdec).n_context_tokens
+        ctx = torch.randn(1, t, cfg.d_model,
+                          generator=torch.Generator().manual_seed(0))
+    logits, caches = model.prefill(params, torch.from_numpy(
+        _prompt(cfg, 1, 8)), ctx=ctx)
+    assert logits.shape == (1, padded_vocab(cfg.vocab))
+    assert torch.isfinite(logits.float()).all()
+    assert len(caches) == cfg.n_layers
 
 
 def test_train_mode_and_other_mixers_raise():
-    """The MLA and cross-attention mixers raise; ``Model.loss`` and
-    ``mode="train"`` run (ported: ROADMAP.md Queue 1 item 7)."""
+    """The MLA and cross-attention mixers build and run a training layer;
+    an unknown mixer raises ``ValueError``, as in the reference;
+    ``Model.loss`` and ``mode="train"`` run (ROADMAP.md Queue 1 item 7)."""
     cfg = configs.get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocks.layer_specs(cfg, mixer="mla")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocks.layer_specs(cfg, mixer="cross")
+    with pytest.raises(ValueError, match="unknown mixer"):
+        blocks.layer_specs(cfg, mixer="rnn")
+    mla_cfg = configs.get_smoke_config("deepseek-v2-236b")
+    for mixer, c in (("mla", mla_cfg), ("cross", cfg)):
+        layer = materialize(Params(blocks.layer_specs(c, mixer=mixer),
+                                   "cpu"), torch.Generator().manual_seed(0))
+        x = torch.ones(1, 2, c.d_model, dtype=c.cdtype)
+        y, aux, kv = blocks.layer_apply(
+            layer, x, cfg=c, mode="train", mixer=mixer,
+            positions=torch.arange(2)[None],
+            ctx=torch.ones(1, 3, c.d_model, dtype=c.cdtype))
+        assert y.shape == x.shape and torch.isfinite(y.float()).all()
+        assert kv is None and aux.item() == 0.0
     model = get_model(cfg)
     params = model.init_params(device="cpu")
     tokens = torch.from_numpy(_prompt(cfg, 1, 8))
@@ -260,19 +289,13 @@ def test_train_mode_and_other_mixers_raise():
 
 
 def test_refusals_name_the_roadmap_item():
-    """Each refusal names the ROADMAP.md Queue 1 item that ports it: MLA,
-    cross-attention and the families built on them item 8.  Training
-    (item 7) is ported: ``Model.loss`` and ``mode="train"`` refuse
-    nothing."""
+    """Nothing of the LM stack refuses any more: no ``not_ported`` is left,
+    deepseek-v2's MLA stack builds, and training (item 7) refuses nothing:
+    ``Model.loss`` and ``mode="train"`` run."""
+    assert not hasattr(blocks, "not_ported")
+    assert not hasattr(blocks, "FAMILIES_ITEM")
+    get_model(configs.get_smoke_config("deepseek-v2-236b")).specs()
     cfg = configs.get_smoke_config(ARCH)
-    for call, item in (
-            (lambda: blocks.layer_specs(cfg, mixer="mla"), 8),
-            (lambda: blocks.layer_specs(cfg, mixer="cross"), 8),
-            (lambda: get_model(configs.get_smoke_config(
-                "deepseek-v2-236b")), 8)):
-        with pytest.raises(NotImplementedError) as got:
-            call()
-        assert f"ROADMAP.md, Queue 1 item {item})" in str(got.value)
     params = get_model(cfg).init_params(device="cpu")
     tokens = torch.from_numpy(_prompt(cfg, 1, 4))
     get_model(cfg).loss(params, {"tokens": tokens, "labels": tokens})

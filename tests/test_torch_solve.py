@@ -287,7 +287,7 @@ def test_front_door_on_the_cpu():
                                         p.s0)) < 1e-6
 
 
-STILL_REFUSED = ["compile_policy", "dcf_sharded", "mla_lm", "vlm_lm",
+STILL_REFUSED = ["compile_policy", "dcf_sharded", "vlm_lm", "encdec_lm",
                  "batch_faults", "batch_checkpoint", "batch_resume"]
 
 
@@ -295,9 +295,10 @@ STILL_REFUSED = ["compile_policy", "dcf_sharded", "mla_lm", "vlm_lm",
 def test_what_still_refuses_before_solving(what):
     """What the port does not run refuses before anything starts: an
     unknown ``compile_policy`` raises the reference's ValueError, word for
-    word, as does a batch given to the sharded engine; a language model of
-    a family the port does not build (MLA, cross-attention) raises
-    NotImplementedError naming ROADMAP.md; a batch with a fault
+    word, as does a batch given to the sharded engine; a language model
+    whose family reads a context (vlm, encdec) refuses a prefill without
+    one, and the serve launcher (which makes none) refuses it, with a
+    ValueError naming the family, before any layer runs; a batch with a fault
     plan or a checkpoint raises the reference's ValueError, word for
     word."""
     from repro_torch import configs, models
@@ -322,10 +323,18 @@ def test_what_still_refuses_before_solving(what):
         assert str(got.value) == str(want.value)
         return
     if what.endswith("_lm"):
-        arch = {"mla_lm": "deepseek-v2-236b",
-                "vlm_lm": "llama-3.2-vision-11b"}[what]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            models.get_model(configs.get_smoke_config(arch))
+        from repro_torch.launch import serve
+
+        arch = {"vlm_lm": "llama-3.2-vision-11b",
+                "encdec_lm": "whisper-small"}[what]
+        model = models.get_model(configs.get_smoke_config(arch))
+        params = model.empty_params("meta")
+        family = f"'{what[:-3]}' family"
+        with pytest.raises(ValueError, match=family):
+            model.prefill(params, torch.zeros(1, 4, dtype=torch.int32,
+                                              device="meta"))
+        with pytest.raises(ValueError, match=family):
+            serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
         return
     kw = {"batch_faults": {"faults": np.zeros((3, 2), np.int32)},
           "batch_checkpoint": {"checkpoint_dir": "unused"},

@@ -440,10 +440,26 @@ def test_data_matches_a_loop_over_positions():
     assert torch.equal(got["labels"].long(), torch.stack(labels, 1))
 
 
-def test_data_refuses_context_families():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SyntheticData(configs.get_smoke_config("whisper-small"),
-                      ShapeSpec("t", 8, 2, "train"), device="cpu")
+@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-11b"])
+def test_data_refuses_context_families(arch):
+    """The context families' batches carry a ``ctx`` (B, n_context_tokens,
+    d_model) in the compute type, standard normal (mean within 0.05, std
+    within 0.05 of 1 over the smoke sizes' 8192-16384 draws), a pure
+    function of the index; the token families' carry none."""
+    cfg = configs.get_smoke_config(arch)
+    shape = ShapeSpec("t", 8, 2, "train")
+    data = SyntheticData(cfg, shape, device="cpu")
+    batch = data.batch_at(3)
+    t = (cfg.cross or cfg.encdec).n_context_tokens
+    ctx = batch["ctx"]
+    assert ctx.shape == (2, t, cfg.d_model) and ctx.dtype == cfg.cdtype
+    assert abs(ctx.float().mean().item()) < 0.05
+    assert abs(ctx.float().std().item() - 1) < 0.05
+    assert torch.equal(ctx, SyntheticData(cfg, shape, device="cpu")
+                       .batch_at(3)["ctx"])
+    assert not torch.equal(ctx, data.batch_at(4)["ctx"])
+    assert "ctx" not in SyntheticData(configs.get_smoke_config("yi-6b"),
+                                      shape, device="cpu").batch_at(3)
 
 
 # ---------------------------------------------------------------------------
