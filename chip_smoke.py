@@ -14,7 +14,8 @@ CUDA toolkit.  Phases, one JSON line each:
             and the kernels that spill registers, by name.
 2. kernel   every kernel function, in each mask mode and data type a solve
             phase gives it, held against its plain PyTorch version on the
-            card and timed with CUDA events beside its bound and the plain
+            card and timed with CUDA events beside its bound
+            (``repro_torch.roofline``: ``bound``, ``flash_bound``) and the plain
             version's time: at the Fig. 1 shapes (E=10 clients, m=3000,
             n_i=300, r=150; masked ones with 70% observed; the unmasked ones
             again at the cf phase's E=1, m=n=3000) and at the compact-plane
@@ -137,6 +138,8 @@ CUDA toolkit.  Phases, one JSON line each:
             wall, the time of one SVD at this size and at Fig. 1's largest
             (3000 x 3000), and the host syncs of a solve (counted by
             ``torch.cuda.set_sync_debug_mode``).
+   quickstart ``examples/torch_quickstart.py`` on the card (its dcf
+            recovery error under 1e-4), launches counted.
    batch    benchmarks/solver_runtime_bench.py's batch at its full setting
             (:35, :122): 16 problems of 500 x 500, rank 8, 5% corruption,
             E=8 (ragged: the masked kernels), DCFConfig.tuned(8), through
@@ -172,8 +175,17 @@ CUDA toolkit.  Phases, one JSON line each:
             and the wire (top-k 0.1, one round stale): every output and
             trace bit for bit, walls, busy shares and peak memory both
             ways, the same launch counts, one capture and T - 1 replays,
-            and the replayed solve's launch counters against the
-            profiler's device kernels by family.
+            and the exact launch check (``launch_check``) on the solve cut
+            to 12 rounds: the launch counters by family equal the captured
+            graph's kernel nodes (read from the graph at its capture)
+            times its replays plus the eager first round; the profiler's
+            records beside, a shortfall reported as
+            ``trace_lost_by_family``, a surplus a failure.  The full
+            solve's replays are held to the graph's nodes the same way.
+   sanitize a scan-mode dcf solve at Fig. 1's size under the strict
+            sanitizer (``repro_torch.debug``: the sync debug mode at
+            "error"): nothing raises, the bits of an unsanitized solve,
+            600 / 200 launches, the mode restored.
    compile_cache  ``rpca.solve(method="cf", compile_policy="aot")`` at
             three shapes in two buckets: two entry builds with one capture
             each, then no build and no capture on the repeats; first-call,
@@ -191,8 +203,8 @@ CUDA toolkit.  Phases, one JSON line each:
             ``rpca.solve`` of the same problems (the service's tolerance),
             each recovery error under 1e-4, the admission's ms (median and
             p90) split into ``robust_lam``, the fingerprints and the rest,
-            the tick's ms, peak memory, busy share, the counters of 12
-            rounds against the profiler's kernels, the replayed drain bit
+            the tick's ms, peak memory, busy share, the exact launch
+            check over 12 replayed rounds, the replayed drain bit
             for bit an eager one, a poisoned slot's neighbour bit for bit
             a solo run, and IALM / APGM lanes at 160^2 (eager ticks) within
             1e-5 of serial solves.
@@ -233,6 +245,10 @@ CUDA toolkit.  Phases, one JSON line each:
             max|logits|.  The decode step is captured once and replayed
             (one graph launch a step): the replayed ms a step beside an
             eager decode's, and the tokens equal to the eager ones.
+            Every serve phase first emits ``dryrun_<phase>``: the meta
+            device dry run (``launch/dryrun.py``) of its configuration
+            and cut, its weight bytes equal to the materialised model's
+            sum of numel x element_size, the allocator's GB beside.
     serve_ssm, serve_moe, serve_hybrid  the SSM, MoE and hybrid families
             through the same path and gates, bf16, full width, random
             weights from seed 0, 4 x 2048 prompts, 32 new tokens:
@@ -337,12 +353,6 @@ LAM_SAMPLE = 1 << 16
 # cuBLAS), relative error for the per-client scalars.  A bf16 M is upcast
 # exactly on both sides, so it keeps the same tolerances.
 PLANE_TOL, SCALAR_TOL = 1e-4, 1e-5
-# Published H100 SXM peaks (fp32 on the CUDA cores, bf16 dense on the
-# tensor cores, HBM3).
-PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
-# Dense TF32 on the tensor cores (H100 SXM): the bound of a 3xTF32 kernel
-# is three TF32 products at this rate.
-PEAK_TF32_FLOPS = 494.7e12
 # Flash attention vs its plain version in fp32, one query row (b, i) at a
 # time: max over (h, d) of |kernel - plain| over max over (h, d) of |plain|
 # (causal rows differ in scale ~50x between row 0 and row 2047, so a bar on
@@ -745,31 +755,6 @@ def profiled_ms(fn, match: str, launches: int = TIMED_LAUNCHES) -> float:
                ) / 1e3 / launches
 
 
-def bound(fn: str, mode: str, m_bytes: int, e: int, m: int, n: int,
-          r: int) -> tuple[float, str]:
-    """Least time (ms) the card needs for one call: the larger of the FLOP
-    of the rank-r products at the fp32 peak (elementwise work not counted)
-    and the bytes that must move (each input read once: M at ``m_bytes``
-    per entry, a dense mask at 4 and a packed one at 1 bit per entry; each
-    output written once) at the HBM rate."""
-    w_bytes = {"none": 0, "dense": 4 * e * m * n,
-               "packed": e * m * -(-n // 8)}[mode]
-    factors = 4 * (e * m * r + e * n * r + e)
-    flops, out = {
-        "huber_contract_v": (4 * e * m * n * r, e * n * r),
-        "huber_contract_u": (4 * e * m * n * r, e * m * r),
-        "huber_contract_u_diag": (4 * e * m * n * r, e * m * r + 2 * e),
-        "huber_dual_contract": (6 * e * m * n * r,
-                                e * n * r + e * m * r + 2 * e),
-        "residual_shrink": (2 * e * m * n * r, e * m * n),
-        "residual_shrink_psi": (2 * e * m * n * r, 2 * e * m * n),
-    }[fn]
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = (m_bytes * e * m * n + w_bytes + factors + 4 * out) \
-        / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def _kernel_fns(fn: str):
     from repro_torch.kernels import huber_contract as hc
     from repro_torch.kernels import shrinkage as sh
@@ -789,6 +774,8 @@ def check_kernel(fn: str, mode: str, key: str, path: str | None,
     ``path`` names the solve phase that gives the kernel these operands;
     its launches are read from that phase."""
     import torch
+
+    from repro_torch.roofline import bound
 
     kernel, plain = _kernel_fns(fn)
     u, v, blocks, lam, w, packed = operands[key]
@@ -970,23 +957,6 @@ def check_bit_exact(operands: dict) -> dict:
     return row
 
 
-def flash_bound(b: int, sq: int, skv: int, h: int, d: int, causal: bool,
-                dtype: str, peak: float | None = None,
-                products: int = 1) -> tuple[float, str]:
-    """Least time (ms) for one attention call: 4 d FLOP per (query, key)
-    pair this call's mask keeps (row i sees keys j <= i when causal), times
-    ``products``, at ``peak`` (default: the input type's, bf16 tensor cores
-    or fp32 CUDA cores), against Q, K, V read once and O written once at
-    the HBM rate."""
-    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
-    elem = 2 if dtype == "bf16" else 4
-    if peak is None:
-        peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_FP32_FLOPS
-    t_ops = products * 4 * b * h * d * pairs / peak * 1e3
-    t_bytes = elem * b * h * d * 2 * (sq + skv) / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def flash_row_err(got, want) -> float:
     """The largest error of one query row (b, i) relative to that row:
     max over (h, d) of |got - want| over max over (h, d) of |want|."""
@@ -1005,6 +975,7 @@ def check_flash(name: str, shape: tuple, causal: bool, dtype: str,
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.roofline import PEAK_TF32_FLOPS, flash_bound
 
     b, sq, skv, h, d = shape
     g = torch.Generator(device=device).manual_seed(0)
@@ -1141,25 +1112,6 @@ def small_trajectory_check(device) -> dict:
                             for d in convex.values())))
 
 
-#: The port's kernels by family: the launch counters' names and the
-#: substring of the device kernels' names each family launches (one
-#: device kernel a wrapper call; the split sums run as sum_partials_kernel).
-KERNEL_FAMILIES = {
-    "contract_v": (("huber_contract_v",), "contract_v_"),
-    "stripe": (("huber_contract_u", "huber_contract_u_diag",
-                "huber_dual_contract"), "stripe_"),
-    "shrink": (("residual_shrink", "residual_shrink_psi"), "shrink_"),
-}
-
-
-def family_launches(counts: dict[str, int]) -> dict[str, int]:
-    """The launch counters summed by kernel family (every mask mode)."""
-    return {fam: sum(c for k, c in counts.items()
-                     if k.removesuffix("_masked").removesuffix("_packed")
-                     in names)
-            for fam, (names, _) in KERNEL_FAMILIES.items()}
-
-
 def profile_run(run, families: bool = False) -> dict:
     """Where one run's time goes on the card: ``run()`` once under
     torch.profiler.  The device busy time is the sum of kernel times (one
@@ -1167,11 +1119,14 @@ def profile_run(run, families: bool = False) -> dict:
     the most of it and the host's CUDA runtime calls, by count
     (``cudaGraphLaunch`` for each replay) and the replays' device period
     (:func:`replay_period_ms`).  With ``families`` also the
-    device kernels launched, by :data:`KERNEL_FAMILIES` (CUPTI records the
-    kernels a graph replay launches, by name, as any other)."""
+    device kernels the trace recorded, by ``kernels.ops.KERNEL_FAMILIES``
+    (CUPTI records the kernels a graph replay launches, by name, as any
+    other, and may drop records)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1203,24 +1158,63 @@ def profile_run(run, families: bool = False) -> dict:
         profile_read_s=time.perf_counter() - t1,
     )
     if families:
-        out["device_kernels"] = {
-            fam: sum(calls for name, (calls, _) in kernels.items()
-                     if part in name)
-            for fam, (_, part) in KERNEL_FAMILIES.items()}
+        out["device_kernels"] = ops.kernels_by_family(
+            {name: calls for name, (calls, _) in kernels.items()})
     return out
 
 
 def graph_fields() -> dict:
     """The round graphs of the run since ``runtime.reset_graph_counts``:
-    captures, replays, the host's capture and instantiate ms, and the
-    ``cudaMalloc`` calls the captures made (the graph pool growing)."""
+    captures, replays, the host's capture, instantiate and kernel-node read
+    ms, and the ``cudaMalloc`` calls the captures made (the graph pool
+    growing)."""
     from repro_torch.core import runtime as rt
 
     g = rt.graph_counts
     return dict(graph_captures=g["captures"], graph_replays=g["replays"],
                 capture_ms=g["capture_s"] * 1e3,
                 instantiate_ms=g["instantiate_s"] * 1e3,
+                node_read_ms=g["nodes_s"] * 1e3,
                 capture_mallocs=g["capture_mallocs"])
+
+
+def launch_check(run) -> dict:
+    """The exact launch check of one window: ``run()`` once under the
+    profiler, the launch counters and the round graphs' tallies zeroed just
+    before.  Held exactly, by family (``kernels.ops.KERNEL_FAMILIES``): the
+    counters equal the kernel nodes of the replayed graphs times their
+    replays (``runtime.replayed_kernels["nodes"]``: read from each graph at
+    its capture, a count nothing can drop) plus the eager launches of the
+    window (the counters less what the replays added to them, the first
+    round of a solve and anything outside its rounds).  The profiler's
+    records stand beside: a shortfall is reported as
+    ``trace_lost_by_family`` (CUPTI drops records), a surplus fails (a
+    record cannot come from nothing)."""
+    from repro_torch.core import runtime as rt
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    rt.reset_graph_counts()
+    seen = profile_run(run, families=True)["device_kernels"]
+    counted = ops.family_launches(ops.launch_counts())
+    nodes = {fam: rt.replayed_kernels["nodes"].get(fam, 0)
+             for fam in counted}
+    eager = {fam: n - rt.replayed_kernels["counted"].get(fam, 0)
+             for fam, n in counted.items()}
+    lost = {fam: counted[fam] - seen[fam] for fam in counted
+            if counted[fam] > seen[fam]}
+    surplus = {fam: seen[fam] - counted[fam] for fam in counted
+               if seen[fam] > counted[fam]}
+    exact = all(counted[fam] == nodes[fam] + eager[fam] and eager[fam] >= 0
+                for fam in counted)
+    return dict(counters_by_family=counted,
+                graph_kernel_nodes_by_family=nodes,
+                eager_launches_by_family=eager,
+                window_graph_replays=rt.graph_counts["replays"],
+                profiler_kernels_by_family=seen,
+                trace_lost_by_family=lost, trace_surplus_by_family=surplus,
+                launches_exact=exact and not surplus
+                and sum(nodes.values()) > 0)
 
 
 def solve_phase(name: str, device, problem, spec_kw: dict, method: str,
@@ -2235,6 +2229,8 @@ def graphs_phase(device) -> list[dict]:
             way[eager] = dict(out=out, wall_s=wall,
                               counts=ops.launch_counts(),
                               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                              replayed={k: dict(v) for k, v in
+                                        rt.replayed_kernels.items()},
                               **graph_fields())
         same = all(torch.equal(a, b) for a, b in zip(
             rt.leaves(way[True]["out"]), rt.leaves(way[False]["out"]),
@@ -2242,15 +2238,12 @@ def graphs_phase(device) -> list[dict]:
         prof = {True: profile_run(lambda: solve(True)),
                 False: profile_run(lambda: solve(False), families=True)}
         del problem, solve
-        # The counters against the trace on the cut solve (one attempt).
+        # The counters against the graph's nodes (and the trace) on the cut
+        # solve.
         short_cfg, short_problem = build(name, GRAPHS_COUNTED_ROUNDS)
         short = solver_run(short_cfg, short_problem, name == "batch")
         short(False)
-        ops.reset_launch_counts()
-        short(False)
-        counted = family_launches(ops.launch_counts())
-        seen = profile_run(lambda: short(False),
-                           families=True)["device_kernels"]
+        check = launch_check(lambda: short(False))
         del short_problem, short
         g = way[False]
         row = dict(
@@ -2266,6 +2259,7 @@ def graphs_phase(device) -> list[dict]:
             graph_captures=g["graph_captures"],
             graph_replays=g["graph_replays"], capture_ms=g["capture_ms"],
             instantiate_ms=g["instantiate_ms"],
+            node_read_ms=g["node_read_ms"],
             graph_launches=prof[False]["runtime_calls"].get(
                 "cudaGraphLaunch", 0),
             eager_kernel_launches=prof[True]["runtime_calls"].get(
@@ -2273,12 +2267,17 @@ def graphs_phase(device) -> list[dict]:
             replay_kernel_launches=prof[False]["runtime_calls"].get(
                 "cudaLaunchKernel", 0),
             launches={k: c for k, c in g["counts"].items() if c},
-            counted_rounds=GRAPHS_COUNTED_ROUNDS,
-            counters_by_family=counted, profiler_kernels_by_family=seen,
-            full_counters_by_family=family_launches(g["counts"]),
+            counted_rounds=GRAPHS_COUNTED_ROUNDS, **check,
+            full_counters_by_family=ops.family_launches(g["counts"]),
+            full_graph_kernel_nodes_by_family=g["replayed"]["nodes"],
+            full_replays_counted_by_family=g["replayed"]["counted"],
             full_profiler_kernels_by_family=prof[False]["device_kernels"])
         row["ok"] = (same and g["counts"] == way[True]["counts"]
-                     and counted == seen and g["graph_captures"] == 1
+                     and check["launches_exact"]
+                     and check["window_graph_replays"]
+                     == GRAPHS_COUNTED_ROUNDS - 1
+                     and g["replayed"]["nodes"] == g["replayed"]["counted"]
+                     and g["graph_captures"] == 1
                      and g["graph_replays"] == t - 1)
         emit(**row)
         if not row["ok"]:
@@ -2287,6 +2286,102 @@ def graphs_phase(device) -> list[dict]:
         del way, prof
         torch.cuda.empty_cache()
     return rows
+
+
+def sanitize_phase(device) -> dict:
+    """A scan-mode ``dcf`` solve at Fig. 1's size under the strict
+    sanitizer (``repro_torch.debug``: ``torch.cuda.set_sync_debug_mode``
+    at "error", the NaN check after the replays): the problem is built
+    and the result read outside it, and the rounds (one eager, T - 1
+    replays of the captured round) make no host sync, so nothing raises;
+    the carry keeps the bits of an unsanitized solve, the launches are
+    exactly T·K·J / T·K, and ``disable`` restores the sync debug mode."""
+    import importlib
+
+    import torch
+
+    from repro_torch import debug
+    from repro_torch.core import problems as prob
+    from repro_torch.core import runtime as rt
+    from repro_torch.core.factorized import DCFConfig
+    from repro_torch.kernels import ops
+
+    dcf = importlib.import_module("repro_torch.core.dcf_pca")
+    p = prob.generate_problem(0, M_ROWS, N_COLS, RANK, SPARSITY,
+                              device=device)
+    cfg = DCFConfig.tuned(RANK)
+    problem = dcf.make_problem(p.m_obs, cfg, CLIENTS, 0, device=device)
+    solver = dcf.make_solver(cfg)
+    t = cfg.outer_iters
+    want, _ = rt.run(solver, problem, t)
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    ops.reset_launch_counts()
+    rt.reset_graph_counts()
+    error = None
+    t0 = time.perf_counter()
+    debug.enable("strict")
+    try:
+        got, _ = rt.run(solver, problem, t)
+    except RuntimeError as e:  # a host sync under strict
+        got, error = None, repr(e)[:500]
+    finally:
+        debug.disable()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    graphs = graph_fields()
+    restored = torch.cuda.get_sync_debug_mode() == before
+    same = got is not None and all(torch.equal(a, b) for a, b in zip(
+        rt.leaves(got), rt.leaves(want), strict=True))
+    res = solver.finalize(problem, got if got is not None else want)
+    err = metrics_err(SimpleNamespace(l=res[0], s=res[1]), p)
+    want_counts = {k: c for k, c in _want(cfg).items()
+                   if not k.startswith("residual_shrink")}
+    row = dict(phase="sanitize", mode="strict", rounds=t, wall_s=wall,
+               error=err, raised=error, bit_identical=same,
+               sync_debug_mode_restored=restored,
+               launches={k: c for k, c in counts.items() if c},
+               expected_launches=want_counts, **graphs)
+    row["ok"] = (error is None and same and restored and err < ERR_BAR
+                 and counts == {k: want_counts.get(k, 0) for k in counts}
+                 and graphs["graph_captures"] == 1
+                 and graphs["graph_replays"] == t - 1)
+    emit(**row)
+    if not row["ok"]:
+        raise SystemExit("phase sanitize failed")
+    return row
+
+
+def quickstart_phase(device) -> dict:
+    """``examples/torch_quickstart.py`` on the card through its ``main``:
+    the dcf solve (its recovery error asserted under 1e-4), the convex
+    swap, ``auto``, the early stop and the warm refresh; the launch counts
+    zeroed just before and read just after."""
+    import importlib.util
+
+    from repro_torch.kernels import ops
+
+    path = Path(__file__).resolve().parent / "examples" / \
+        "torch_quickstart.py"
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = module.main([])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    row = dict(phase="quickstart", wall_s=wall, **out,
+               launches={k: c for k, c in counts.items() if c})
+    row["ok"] = (out["error"] < ERR_BAR
+                 and counts.get("huber_contract_v", 0) > 0
+                 and counts.get("residual_shrink", 0) > 0)
+    emit(**row)
+    if not row["ok"]:
+        raise SystemExit("phase quickstart failed")
+    row["launches"] = counts
+    return row
 
 
 def compile_cache_phase(device) -> dict:
@@ -2626,11 +2721,7 @@ def service_phase(device) -> dict:
         for _ in range(3):
             short.tick()
 
-    ops.reset_launch_counts()
-    three_ticks()
-    torch.cuda.synchronize()
-    counted = family_launches(ops.launch_counts())
-    seen = profile_run(three_ticks, families=True)["device_kernels"]
+    check = launch_check(three_ticks)
     del short
 
     # The convex lanes: two IALM and two APGM tenants at 160^2, eager ticks.
@@ -2685,8 +2776,7 @@ def service_phase(device) -> dict:
         **graphs, graph_replays_per_tick=SERVICE_ROUNDS_PER_TICK,
         launches={k: c for k, c in counts.items() if c or k in want},
         expected_launches=want,
-        counted_rounds=GRAPHS_COUNTED_ROUNDS, counters_by_family=counted,
-        profiler_kernels_by_family=seen,
+        counted_rounds=GRAPHS_COUNTED_ROUNDS, **check,
         eager_wall_s=eager_wall, replay_is_eager=replay_is_eager,
         poisoned_neighbour_bit_identical=neighbour_same,
         poisoned_slot_quarantined=quarantined,
@@ -2697,7 +2787,9 @@ def service_phase(device) -> dict:
                  and build["graph_captures"] == 1
                  and counts == {k: want.get(k, 0) for k in counts}
                  and row["converged"] and max(errors) < SERVICE_BAR
-                 and counted == seen and replay_is_eager
+                 and check["launches_exact"]
+                 and check["window_graph_replays"] == GRAPHS_COUNTED_ROUNDS
+                 and replay_is_eager
                  and neighbour_same and quarantined
                  and convex_captures == 0
                  and all(r["rel_diff_vs_serial"] <= SERVICE_CONVEX_TOL
@@ -3198,6 +3290,34 @@ def replay_period_ms(prof) -> dict:
                               if busy else None))
 
 
+def dryrun_row(name: str, cfg, cut, params, weights_gb: float,
+               s_max: int) -> dict:
+    """The dry run (``launch/dryrun.py``: the model built on the meta
+    device) of a serve cell's configuration and cut, held to the model the
+    phase materialised: the meta pass's weight bytes equal its parameters'
+    sum of numel x element_size exactly; the allocator's ``weights_gb``
+    and the meta pass's caches at the cell's batch and length beside."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import get_model
+    from repro_torch.models.params import count_params
+
+    made = sum(p.numel() * p.element_size() for p in params.parameters())
+    meta = dryrun.weight_bytes(cfg)
+    cache = dryrun.cache_bytes(cfg, SERVE_BATCH, s_max)
+    row = dict(phase=f"dryrun_{name}", arch=cfg.name, cut=cut or None,
+               param_dtype=cfg.param_dtype,
+               params=count_params(get_model(cfg).specs()),
+               meta_weight_bytes=meta, materialised_weight_bytes=made,
+               weights_gb_allocated=weights_gb,
+               meta_cache_bytes=cache, batch=SERVE_BATCH, s_max=s_max,
+               fits_card=meta + cache <= dryrun.CARD_BYTES,
+               ok=meta == made)
+    emit(**row)
+    if not row["ok"]:
+        raise SystemExit(f"phase dryrun_{name}: meta weights != the model's")
+    return row
+
+
 def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
                 new_tokens: int = SERVE_NEW, fp32: bool = False,
                 cut: dict | None = None,
@@ -3249,6 +3369,7 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9
+    dryrun_row(name, cfg, cut, params, weights_gb, prompt_len + new_tokens)
     scfg = ServeConfig(max_new_tokens=new_tokens)
 
     kept = _EventTimedModel(model)
@@ -4006,6 +4127,7 @@ def main() -> int:
     phases.append(batch_convex_phase(device))
     phases += wire_phase(device)
     phases += graphs_phase(device)
+    phases.append(sanitize_phase(device))
     phases.append(compile_cache_phase(device))
     phases.append(service_phase(device))
     phases.append(service_fig1_phase(device))
@@ -4013,6 +4135,7 @@ def main() -> int:
     phases += table1_phase(device)
     phases.append(wide_phase(device))
     phases.append(convex_phase(device))
+    phases.append(quickstart_phase(device))
     phases.append(small_lm_phase(device))
     phases.append(serve_phase(device, "serve_f32", F32_ARCH, F32_NEW,
                               fp32=True))

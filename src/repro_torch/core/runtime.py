@@ -59,7 +59,9 @@ from typing import Any, Callable, Literal, NamedTuple
 
 import torch
 
-from repro_torch import counters
+from repro_torch import counters, debug
+from repro_torch.core import graph_nodes
+from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
 
@@ -201,17 +203,27 @@ def segment_plan(max_iters: int, checkpoint_every: int) -> list[int]:
 # Rounds over static buffers, eagerly or as one captured CUDA graph
 # ---------------------------------------------------------------------------
 #: Round graphs captured and replayed in this process, the seconds spent
-#: capturing and instantiating them and the ``cudaMalloc`` calls made while
-#: capturing (the port's own counters: a repeat bucket of the compile cache
-#: captures nothing).
+#: capturing and instantiating them and reading their kernel nodes, and the
+#: ``cudaMalloc`` calls made while capturing (the port's own counters: a
+#: repeat bucket of the compile cache captures nothing).
 graph_counts: dict[str, float] = {
     "captures": 0, "replays": 0, "capture_s": 0.0, "instantiate_s": 0.0,
-    "capture_mallocs": 0}
+    "nodes_s": 0.0, "capture_mallocs": 0}
+
+
+#: What the replays since :func:`reset_graph_counts` launched of the port's
+#: RPCA kernels, by family: ``"nodes"``, the graphs' kernel nodes (what the
+#: device ran), and ``"counted"``, what the same replays added to the launch
+#: counters.  A launch window holds ``counters == nodes + eager``, with the
+#: eager launches the counters less ``"counted"``.
+replayed_kernels: dict[str, dict[str, int]] = {"nodes": {}, "counted": {}}
 
 
 def reset_graph_counts() -> None:
     for name in graph_counts:
         graph_counts[name] = 0.0 if name.endswith("_s") else 0
+    for tally in replayed_kernels.values():
+        tally.clear()
 
 
 def leaves(tree: Any) -> list:
@@ -313,7 +325,13 @@ class CapturedRound:
     The host-side counters (:mod:`repro_torch.counters`: the kernels'
     launches, the collectives' calls and bytes) move when a wrapper runs,
     not when a kernel does: the capture's counts (work that has not run)
-    are taken back, and every replay adds them again."""
+    are taken back, and every replay adds them again.  The graph is kept
+    after its capture long enough to read its kernel nodes
+    (:mod:`.graph_nodes`): :attr:`kernel_nodes` holds the port's RPCA
+    kernels among them by family (``kernels.ops.KERNEL_FAMILIES``), what
+    each replay launches on the device whatever the counters say; every
+    replay adds them and the counters' share of the same families to
+    :data:`replayed_kernels`."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device):
         side = _capture_stream(device)
@@ -325,7 +343,9 @@ class CapturedRound:
         before = counters.snapshot()
         held = torch.cuda.memory_allocated(device)
         mallocs = torch.cuda.memory_stats(device).get("num_device_alloc", 0)
-        self.graph = torch.cuda.CUDAGraph()
+        # Kept after capture_end (which then does not instantiate), so its
+        # nodes can be read; instantiated below, inside the timed window.
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         # capture_begin/end rather than torch.cuda.graph, which also
         # synchronises the device, collects garbage and empties the
         # allocator's cache before every capture (tens to hundreds of ms
@@ -345,6 +365,7 @@ class CapturedRound:
                 raise
             t1 = time.perf_counter()
             self.graph.capture_end()
+            self.graph.instantiate()
             t2 = time.perf_counter()
         current.wait_stream(side)
         kept = torch.cuda.memory_allocated(device) - held
@@ -356,6 +377,13 @@ class CapturedRound:
         #: What one replay counts, by registry and counter name.
         self.counts = counters.since(before)
         counters.add(self.counts, -1)
+        #: The port's RPCA kernels among the graph's kernel nodes, by
+        #: family (host work at capture only; a replay reads nothing).
+        t3 = time.perf_counter()
+        self.kernel_nodes = ops.kernels_by_family(
+            graph_nodes.kernel_nodes(self.graph.raw_cuda_graph()))
+        graph_counts["nodes_s"] += time.perf_counter() - t3
+        self._counted = ops.family_launches(self.counts.get("launches", {}))
         graph_counts["captures"] += 1
         graph_counts["capture_s"] += t1 - t0
         graph_counts["instantiate_s"] += t2 - t1
@@ -366,6 +394,11 @@ class CapturedRound:
         self.graph.replay()
         counters.add(self.counts)
         graph_counts["replays"] += 1
+        for key, per_replay in (("nodes", self.kernel_nodes),
+                                ("counted", self._counted)):
+            tally = replayed_kernels[key]
+            for fam, n in per_replay.items():
+                tally[fam] = tally.get(fam, 0) + n
 
 
 class Rounds:
@@ -386,6 +419,8 @@ class Rounds:
         self.graph = graph
         self.state = tree_map(torch.clone, state) if graph else state
         self.captured: CapturedRound | None = None
+        #: Rounds run so far (the host's count).
+        self.rounds_run = 0
 
     def _round(self) -> None:
         new = self.body(self.state)
@@ -395,17 +430,26 @@ class Rounds:
             self.state.update(new)
 
     def advance(self, rounds: int) -> None:
+        """Run ``rounds`` more rounds.  Under the sanitizer
+        (:mod:`repro_torch.debug`) an eager round whose carry holds a NaN
+        raises ``FloatingPointError`` naming it; the captured path checks
+        once after its replays."""
         if rounds <= 0:
             return
+        first = self.rounds_run + 1
+        self.rounds_run += rounds
         if not self.graph:
-            for _ in range(rounds):
+            for k in range(first, self.rounds_run + 1):
                 self._round()
+                debug.check_nan(self.state.get("carry"), f"after round {k}")
             return
         if self.captured is None:
             self.captured = CapturedRound(self._round, self.device)
             rounds -= 1
         for _ in range(rounds):
             self.captured.replay()
+        debug.check_nan(self.state.get("carry"),
+                        f"after rounds {first}-{self.rounds_run} (replayed)")
 
 
 #: The fewest rounds for which a captured round pays: the first runs

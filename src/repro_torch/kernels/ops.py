@@ -144,3 +144,48 @@ def add_launch_counts(delta: dict[str, int]) -> None:
 
 
 counters.register("launches", launch_counts, add_launch_counts)
+
+
+#: The RPCA kernels by family: the launch counters' names (every mask mode)
+#: and the part of the device kernels' names each family launches (one
+#: device kernel a wrapper call; the split sums run as
+#: ``sum_partials_kernel``, in no family).
+KERNEL_FAMILIES = {
+    "contract_v": (("huber_contract_v",), "contract_v_"),
+    "stripe": (("huber_contract_u", "huber_contract_u_diag",
+                "huber_dual_contract"), "stripe_"),
+    "shrink": (("residual_shrink", "residual_shrink_psi"), "shrink_"),
+}
+
+
+def family_launches(counts: dict[str, int]) -> dict[str, int]:
+    """Launch counters (wrapper name -> launches) summed by family."""
+    return {fam: sum(c for k, c in counts.items()
+                     if k.removesuffix("_masked").removesuffix("_packed")
+                     in names)
+            for fam, (names, _) in KERNEL_FAMILIES.items()}
+
+
+def kernel_family(name: str) -> str | None:
+    """The family of a device kernel by its name, mangled (a CUDA graph's
+    node, ``_ZN5repro...17contract_v_kernel...``) or demangled (a profiler
+    record, ``repro::(anonymous namespace)::contract_v_kernel<...>``);
+    ``None`` for every kernel that is not one of the port's RPCA kernels
+    (cuBLAS, PyTorch's own, the split sums)."""
+    if "repro" not in name:
+        return None
+    for fam, (_, part) in KERNEL_FAMILIES.items():
+        if part in name:
+            return fam
+    return None
+
+
+def kernels_by_family(names: dict[str, int]) -> dict[str, int]:
+    """Device kernels (name -> launches) summed by family, every family
+    present."""
+    out = dict.fromkeys(KERNEL_FAMILIES, 0)
+    for name, n in names.items():
+        fam = kernel_family(name)
+        if fam is not None:
+            out[fam] += n
+    return out

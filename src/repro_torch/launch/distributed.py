@@ -2,7 +2,7 @@
 counterpart of ``examples/distributed_rpca.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.distributed --procs 4 \
-        --device cpu [--backend gloo]
+        --device cpu [--backend gloo] [--m 256 --n 320 --rank 8]
 
 Spawns ``--procs`` worker processes on this host
 (``distributed.multihost.launch_workers``), one rank each.  Each rank
@@ -10,11 +10,13 @@ along ``data`` is one of the paper's clients: it holds its column block,
 the consensus average of U is one all-reduce a round, and V_i and S_i
 never leave their rank.  The workers run the example's three solves:
 
-1. the (procs,) data mesh on a 256 x 320, rank-8 problem;
+1. the (procs,) data mesh on a 256 x 320, rank-8 problem (``--m``,
+   ``--n``, ``--rank``);
 2. data x model, (procs / 2, 2), rows split over "model" (an even count
    of at least 4 ranks);
-3. the elastic topology: 256 x 301 (a ragged split behind a mask plane)
-   with Bernoulli(0.6) participation and the weighted consensus.
+3. the elastic topology: 256 x 301, n - 19 columns (a ragged split
+   behind a mask plane) with Bernoulli(0.6) participation and the
+   weighted consensus.
 
 Rank 0 prints each solve's relative error.  The ranks run on the CUDA card
 unless ``--device cpu``; ``--backend`` defaults to gloo on the CPU and to
@@ -40,8 +42,9 @@ procs = dist.get_world_size()
 if device == "cpu":  # the host's cores shared among the ranks
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // procs))
 say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
-problem = prob.generate_problem(1, 256, 320, 8, 0.05, device=device)
-cfg = DCFConfig.tuned(rank=8)
+m, n, rank = {m}, {n}, {rank}
+problem = prob.generate_problem(1, m, n, rank, 0.05, device=device)
+cfg = DCFConfig.tuned(rank=rank)
 
 mesh = _mh.multihost_mesh(("data",), device=device)
 r = rpca.solve(rpca.RPCASpec(problem.m_obs, mesh=mesh),
@@ -58,12 +61,12 @@ if procs >= 4 and procs % 2 == 0:
     err2 = relative_error(r2.l, r2.s, problem.l0, problem.s0)
     say(f"2-D (rows x cols) sharded: err={{float(err2):.2e}}")
 
-ragged = prob.generate_problem(2, 256, 301, 8, 0.05, device=device)
-cfg_e = DCFConfig.elastic(rank=8, participation=0.6)
+ragged = prob.generate_problem(2, m, n - 19, rank, 0.05, device=device)
+cfg_e = DCFConfig.elastic(rank=rank, participation=0.6)
 r3 = rpca.solve(rpca.RPCASpec(ragged.m_obs, mesh=mesh, participation=0.6),
                 method="dcf_sharded", cfg=cfg_e, device=device)
 err3 = relative_error(r3.l, r3.s, ragged.l0, ragged.s0)
-say(f"elastic (n=301 over {{procs}} clients, 60% participation): "
+say(f"elastic (n={{n - 19}} over {{procs}} clients, 60% participation): "
     f"err={{float(err3):.2e}}")
 """
 
@@ -78,11 +81,16 @@ def main(argv=None) -> list[str]:
                     help="process-group backend (default: gloo on the CPU, "
                          "NCCL with a card a rank)")
     ap.add_argument("--timeout", type=int, default=900)
+    ap.add_argument("--m", type=int, default=256)
+    ap.add_argument("--n", type=int, default=320)
+    ap.add_argument("--rank", type=int, default=8)
     args = ap.parse_args(argv)
     backend = args.backend
     if backend is None and args.device == "cpu":
         backend = "gloo"
-    outs = mh.launch_workers(_WORKER.format(device=args.device),
+    code = _WORKER.format(device=args.device, m=args.m, n=args.n,
+                          rank=args.rank)
+    outs = mh.launch_workers(code,
                              num_processes=args.procs, timeout=args.timeout,
                              backend=backend)
     print(f"ranks: {args.procs}")

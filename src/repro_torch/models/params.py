@@ -76,3 +76,32 @@ def materialize(params: nn.Module, generator: torch.Generator | None
                 p = getattr(module, name)
                 p.copy_(spec.initializer(generator, p.device))
     return params
+
+
+def named_specs(tree, prefix: str = "") -> list[tuple[str, ParamSpec]]:
+    """The leaves of a spec tree with the names :class:`Params` gives them
+    (``named_parameters()``'s: a dict's keys, a list's items by index)."""
+    out = []
+    for name, spec in tree.items():
+        full = f"{prefix}{name}"
+        if isinstance(spec, ParamSpec):
+            out.append((full, spec))
+        elif isinstance(spec, list):
+            for i, item in enumerate(spec):
+                out += named_specs(item, f"{full}.{i}.")
+        else:
+            out += named_specs(spec, f"{full}.")
+    return out
+
+
+def count_params(tree) -> int:
+    """Parameters declared by a spec tree (nothing allocated)."""
+    return sum(math.prod(spec.shape) for _, spec in named_specs(tree))
+
+
+def shape_tree(tree) -> dict[str, torch.Tensor]:
+    """Stand-ins of a spec tree's parameters on the meta device, by name:
+    shapes and dtypes, no memory (the reference's ``ShapeDtypeStruct``
+    tree, for a dry run)."""
+    return {name: torch.empty(spec.shape, dtype=spec.dtype, device="meta")
+            for name, spec in named_specs(tree)}

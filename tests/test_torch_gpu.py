@@ -1923,3 +1923,79 @@ def test_flash_bf16_at_the_whisper_decoder_shape(cuda):
     diff = (got.float() - want).abs().amax(dim=(2, 3))
     row_err = diff / want.abs().amax(dim=(2, 3))
     assert row_err.max().item() <= FLASH_TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# Graph kernel nodes, the sanitizer and the dry run (the tooling slice)
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cf", "dcf", "dual", "compact"])
+def test_captured_round_kernel_nodes_match_its_counts(cuda, case):
+    """A captured round's kernel nodes, read from the graph itself, by
+    family equal what its capture counted (``CapturedRound.counts``), and
+    the replays' node tally equals the counters' share; the instantiate
+    time, now an explicit call after capture_end, is still nonzero."""
+    from repro_torch.core import runtime as rt
+
+    mod, problem, cfg = _graph_case(cuda, case)
+    solver = mod.make_solver(cfg)
+    state = rt.single_state(solver, problem, cfg.outer_iters)
+    rt.reset_graph_counts()
+    rounds = rt.Rounds(rt.single_body(solver, problem), state, cuda, True)
+    rounds.advance(cfg.outer_iters)
+    torch.cuda.synchronize()
+    captured = rounds.captured
+    counted = ops.family_launches(captured.counts["launches"])
+    assert captured.kernel_nodes == counted
+    assert sum(counted.values()) > 0
+    replays = rt.graph_counts["replays"]
+    assert replays == cfg.outer_iters - 1
+    assert rt.replayed_kernels["nodes"] == {
+        fam: n * replays for fam, n in counted.items()}
+    assert rt.replayed_kernels["counted"] == rt.replayed_kernels["nodes"]
+    assert rt.graph_counts["instantiate_s"] > 0
+
+
+@pytest.mark.gpu
+def test_strict_sanitizer_passes_a_scan_solve_and_stops_a_host_read(cuda):
+    """Under strict sanitizing a scan-mode solve (one eager round, then
+    replays; no host read while the rounds run) raises nothing and keeps
+    the bits of an unsanitized solve, and a ``.item()`` planted in an
+    eager round raises; ``disable`` restores the sync debug mode."""
+    from repro_torch import debug
+    from repro_torch.core import runtime as rt
+
+    mod, problem, cfg = _graph_case(cuda, "dcf")
+    solver = mod.make_solver(cfg)
+    want, _ = rt.run(solver, problem, cfg.outer_iters)
+    before = torch.cuda.get_sync_debug_mode()
+    debug.enable("strict")
+    try:
+        got, _ = rt.run(solver, problem, cfg.outer_iters)
+
+        def reading_step(p, c, t):
+            float(c.u.sum().item())
+            return solver.step(p, c, t)
+
+        reader = solver._replace(step=reading_step)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            rt.run(reader, problem, 3, eager=True)
+    finally:
+        debug.disable()
+    torch.cuda.synchronize()
+    assert torch.cuda.get_sync_debug_mode() == before
+    _assert_same_bits(rt.leaves(got), rt.leaves(want))
+
+
+@pytest.mark.gpu
+def test_dry_run_weight_bytes_match_the_materialised_model(cuda):
+    """The meta pass's weight bytes for tinyllama-1.1b equal the
+    materialised model's sum of numel x element_size."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import get_model
+
+    cfg = get_config("tinyllama-1.1b")
+    params = get_model(cfg).init_params(seed=0, device=cuda)
+    made = sum(p.numel() * p.element_size() for p in params.parameters())
+    assert dryrun.weight_bytes(cfg) == made
