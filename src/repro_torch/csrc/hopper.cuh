@@ -318,6 +318,14 @@ __device__ __forceinline__ void st_cluster(uint32_t addr, float4 x) {
                "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
                : "memory");
 }
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
 __device__ __forceinline__ float ld_cluster(uint32_t addr) {
   float x;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n"

@@ -112,6 +112,8 @@ using Int = std::integral_constant<int, V>;
 // and RQ = kChunked any r > 512 in chunks of 256 (tile64.cuh's chunked
 // kernels; `chunked` sends r 257-512 there too, which at r 449-512 gives
 // the wide kernels' bits).  kernels/_launch.py passes the same choice.
+// contract_v.cu passes `chunked` for every r > 256 (its chunk kernel) and
+// dispatches its cluster kernel by the rank slice's width instead.
 constexpr int kChunked = 0;
 
 template <typename F>

@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+_declared: set[tuple[str, str]] = set()
 
 
 def _nvcc() -> str:
@@ -106,15 +107,19 @@ def build_log(stem: str) -> str:
 def library(stem: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<stem>.cu``, built if needed, with
     ``signatures`` (entry name -> argtypes) declared; every entry returns
-    a C int."""
+    a C int.  Entries are declared at their first call whichever entry
+    loaded the library (an undeclared entry would take each pointer as a
+    C int)."""
     lib = _libs.get(stem)
     if lib is None:
         build_all()
         lib = ctypes.CDLL(str(library_path(CSRC / f"{stem}.cu")))
-        for name, argtypes in signatures.items():
+        _libs[stem] = lib
+    for name, argtypes in signatures.items():
+        if (stem, name) not in _declared:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        _libs[stem] = lib
+            _declared.add((stem, name))
     return lib
 

@@ -19,11 +19,23 @@ import torch
 #: Ranks one register block of the kernels covers (r <= 32 * 8), and the
 #: width of a rank chunk above it (``kRankChunk`` in ``csrc/tile64.cuh``).
 RANK_CHUNK = 256
-#: Ranks up to which the contractions take r > :data:`RANK_CHUNK` in two
-#: halves staged side by side (their ``*_wide_kernel``); above, in chunks of
-#: :data:`RANK_CHUNK` staged in turn (their ``*_chunk_kernel``), at any
-#: rank.  At r 449-512 the two give the same bits (``csrc/tile64.cuh``).
+#: Ranks up to which the row-stripe contractions and the shrink take
+#: r > :data:`RANK_CHUNK` in two halves staged side by side (their
+#: ``*_wide_kernel``); above, in chunks of :data:`RANK_CHUNK` staged in
+#: turn (their ``*_chunk_kernel``), at any rank.  At r 449-512 the two give
+#: the same bits (``csrc/tile64.cuh``).
 TWO_HALVES_MAX_RANK = 512
+#: ``huber_contract_v`` above :data:`RANK_CHUNK`: the widest rank slice of
+#: one block of ``contract_v_cluster_kernel`` (``kVSliceMax`` in
+#: ``csrc/contract_v.cu``: its V slice, two U-slice buffers, a partial and
+#: Psi fill the 227 KB a block may take) and the most blocks of its
+#: thread-block cluster (``kVClusterMax``, the portable cluster size).
+V_SLICE_MAX = 256
+V_CLUSTER_MAX = 8
+#: Ranks up to which ``huber_contract_v`` takes r > :data:`RANK_CHUNK` in
+#: the cluster kernel (V_CLUSTER_MAX slices of V_SLICE_MAX); above, in the
+#: chunk kernel ``contract_v_chunk_kernel`` (:func:`v_chunked`).
+V_CLUSTER_MAX_RANK = V_CLUSTER_MAX * V_SLICE_MAX
 #: The CUDA grid's limit on its y and z axes.
 GRID_YZ = 65535
 #: Rows and columns of one residual tile (``kT64`` in ``csrc/tile64.cuh``).
@@ -62,18 +74,30 @@ def rank_chunks(r: int) -> int:
 
 
 def chunked(r: int) -> bool:
-    """Whether the contractions take rank ``r`` in chunks staged in turn
-    (above :data:`TWO_HALVES_MAX_RANK`) rather than in one register block
-    or two halves staged side by side."""
+    """Whether the row-stripe contractions and the shrink take rank ``r``
+    in chunks staged in turn (above :data:`TWO_HALVES_MAX_RANK`) rather
+    than in one register block or two halves staged side by side."""
     return r > TWO_HALVES_MAX_RANK
+
+
+def v_chunked(r: int) -> bool:
+    """Whether ``huber_contract_v`` takes rank ``r`` in the chunk kernel
+    ``contract_v_chunk_kernel`` (chunks of :data:`RANK_CHUNK` staged in
+    turn, each block forming the tile's whole Psi: above
+    :data:`V_CLUSTER_MAX_RANK`) rather than in one register block (r <=
+    256) or the cluster kernel ``contract_v_cluster_kernel``."""
+    return r > V_CLUSTER_MAX_RANK
 
 
 def grid_limit_error(e: int, m: int, r: int) -> str | None:
     """Why no kernel grid holds E = ``e`` clients of ``m`` rows at rank
     ``r``, or ``None`` when one does: the grids' y and z axes stop at
-    65535, and the shrink's y axis counts 64-row tiles, the z axes clients
-    (two a client for the two-half contractions at r 257-512).  The chunks
-    above 512 ride the grids' x axis, which sets no limit here."""
+    65535, and the shrink's y axis counts 64-row tiles (``huber_contract_v``'s
+    counts row splits, at most as many), the z axes clients (two a client
+    for the row-stripe contractions' two halves at r 257-512;
+    ``huber_contract_v``'s cluster grid keeps one).  The chunks above 512
+    and ``huber_contract_v``'s rank slices ride the grids' x axis, which
+    sets no limit here."""
     z = e * (2 if RANK_CHUNK < r <= TWO_HALVES_MAX_RANK else 1)
     if z > GRID_YZ:
         return (f"E={e} clients at rank {r} need a grid z axis of {z} "

@@ -40,11 +40,15 @@ reads a value back to the host.  The launches are deterministic (no
 atomics): sums across blocks go through partials added in index order,
 and the splits of a reduction across blocks (``v_splits``, ``u_splits``)
 are pure functions of the shape and the SM count.
-Ranks above 256 take the rank in chunks of at most 256
-(``_launch.rank_chunks``): the grid holds one block for each chunk of the
-output's rank axis, each forming the whole Psi of its tile (two halves
-staged side by side up to r = 512, chunks staged in turn above:
-``_launch.chunked``).
+Ranks above 256: ``huber_contract_v`` splits the rank axis over a
+thread-block cluster of up to 8 blocks a column tile (:func:`v_plan`,
+:func:`v_slices`), which forms each tile's U V^T once and adds the blocks'
+partials in slice order, up to r = 2048; above, chunks of 256 staged in
+turn (``_launch.v_chunked``).  The row-stripe kernels and the shrink take
+the rank in chunks of at most 256 (``_launch.rank_chunks``): the grid
+holds one block for each chunk of the output's rank axis, each forming the
+whole Psi of its tile (two halves staged side by side up to r = 512,
+chunks staged in turn above: ``_launch.chunked``).
 ``huber_contract_u`` is ``huber_contract_u_diag`` with the diagnostics
 compiled out (the same ``Psi V`` bits), and ``huber_dual_contract`` always
 runs its one fused pass where its out_v scratch fits 4 MiB
@@ -58,14 +62,16 @@ raises.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._launch import (
-    MASK_SUFFIX, check_operands, chunked, launch, on_cpu, rank_chunks,
-    signature, sm_count,
+    MASK_SUFFIX, RANK_CHUNK, V_SLICE_MAX, check_operands, chunked, launch,
+    on_cpu, rank_chunks, signature, sm_count, v_chunked,
 )
 
 #: Kernel launches per function and mask mode (CUDA tensors only).
@@ -78,11 +84,11 @@ launches = {
 
 # source stem -> (C entry, extra pointers, extra ints): the pointers after
 # u, v, m, w, lam are the outputs and scratch; the ints are (splits, rows
-# per split) for contract_v, (splits, columns per split) for the others,
-# and the dual's row groups (cluster, groups) after them; every entry then
-# takes the rank route (``_launch.chunked``).
+# per split, cluster, slice) for contract_v (:class:`VPlan`), and (splits,
+# columns per split) for the others, then the dual's row groups (cluster,
+# groups), then their rank route (``_launch.chunked``).
 _ENTRIES = {
-    "contract_v": ("repro_huber_contract_v", 2, 3),
+    "contract_v": ("repro_huber_contract_v", 2, 4),
     "contract_u": ("repro_huber_contract_u", 2, 3),
     "contract_u_diag": ("repro_huber_contract_u_diag", 5, 3),
     "dual": ("repro_huber_dual_contract", 7, 5),
@@ -93,8 +99,10 @@ def _call(stem: str, base: str, op, u, v, m, w, lam, *outputs,
           ints: tuple = ()) -> None:
     entry, pointers, extra = _ENTRIES[stem]
     lib = _build.library(stem, {entry: signature(pointers, extra)})
+    if stem != "contract_v":
+        ints = (*ints, int(chunked(op.r)))
     launch(lib, entry, base + op.suffix, launches, op, u, v, m, w, lam,
-           *outputs, ints=(*ints, int(chunked(op.r))))
+           *outputs, ints=ints)
 
 
 #: Rows and columns of one ``huber_contract_v`` residual tile (``kVRows``
@@ -106,39 +114,129 @@ V_TILE_ROWS = V_TILE_COLS = 64
 U_TILE_ROWS = U_TILE_COLS = 64
 
 
-def _splits(blocks: int, tiles: int, sms: int,
-            per_sm: int = 2) -> tuple[int, int]:
+def _splits(units: int, tiles: int, slots: int) -> tuple[int, int]:
     """``(splits, tiles_per_split)`` of a reduction over ``tiles`` tiles
-    for a grid of ``blocks`` x splits blocks, ``per_sm`` resident on an SM.
-    A split count is costed as ``ceil(blocks * splits / (per_sm sms))``
-    waves, each as long as a block's tiles plus one (staging, writing the
-    partials); the cheapest wins, and among equals the fewest splits (the
-    least partial traffic)."""
+    for a grid of ``units`` x splits units of work (blocks, or clusters),
+    ``slots`` of them resident on the card at once.  A split count is
+    costed as ``ceil(units * splits / slots)`` waves, each as long as a
+    unit's tiles plus one (staging, writing the partials); the cheapest
+    wins, and among equals the fewest splits (the least partial
+    traffic)."""
     best = None
     for want in range(1, tiles + 1):
         per = -(-tiles // want)
         splits = -(-tiles // per)
-        cost = -(-blocks * splits // (per_sm * sms)) * (per + 1)
+        cost = -(-units * splits // slots) * (per + 1)
         if best is None or cost < best[0]:
             best = (cost, splits, per)
     return best[1], best[2]
 
 
+#: Clusters of ``contract_v_cluster_kernel`` resident at once on a 132-SM
+#: H100 (one block an SM), by cluster size: its
+#: ``cudaOccupancyMaxActiveClusters`` (:func:`v_cluster_slots_on_device`).
+#: A cluster stays within one GPC, so clusters of 3 leave 15 SMs idle.
+V_CLUSTER_SLOTS_H100 = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+def v_cluster_slots(cluster: int, sms: int) -> int:
+    """Clusters of ``cluster`` blocks of the cluster kernel resident at once
+    on a card with ``sms`` SMs: the H100's measured counts at 132 SMs,
+    ``sms // cluster`` (their upper bound) elsewhere."""
+    if sms == 132 and cluster in V_CLUSTER_SLOTS_H100:
+        return V_CLUSTER_SLOTS_H100[cluster]
+    return max(1, sms // cluster)
+
+
+def v_cluster_slots_on_device(device: torch.device, cluster: int,
+                              slice_: int = V_SLICE_MAX) -> int:
+    """The card's own count behind :data:`V_CLUSTER_SLOTS_H100`
+    (``cudaOccupancyMaxActiveClusters`` of the cluster kernel with rank
+    slices of ``slice_``); raises where the query fails."""
+    lib = _build.library("contract_v", {
+        "repro_contract_v_cluster_slots": (ctypes.c_int, ctypes.c_int)})
+    with torch.cuda.device(device):
+        slots = lib.repro_contract_v_cluster_slots(cluster, slice_)
+    if slots < 0:
+        raise RuntimeError(f"cluster occupancy query failed for {cluster} "
+                           f"blocks with rank slices of {slice_}")
+    return slots
+
+
 @functools.lru_cache(maxsize=1024)
-def v_splits(e: int, m: int, n: int, sms: int,
-             chunks: int = 1) -> tuple[int, int]:
+def v_splits(e: int, m: int, n: int, sms: int, chunks: int = 1,
+             cluster: int = 0) -> tuple[int, int]:
     """``(splits, rows_per_split)`` of the m reduction in
     ``huber_contract_v`` on a card with ``sms`` SMs: every range a whole
     number of 64-row tiles, none empty, together exactly the m rows.
 
     The grid is (column tiles x splits x clients) blocks, two resident on
     an SM (``csrc/contract_v.cu`` at r <= 160), costed by :func:`_splits`;
-    with rank ``chunks`` (r > 256, :func:`rank_chunks`) that many times the
-    blocks, one resident on an SM.  A pure function of the shape and the SM
+    with rank ``chunks`` (the chunk kernel, :func:`rank_chunks`) that many
+    times the blocks, one resident on an SM; with a ``cluster`` (the
+    cluster kernel, r 257-2048) one cluster of that many blocks a column
+    tile, :func:`v_cluster_slots` clusters resident at once (a cluster's
+    blocks take one SM each).  A pure function of the shape and the SM
     count, so a launch is the same on every run of one card."""
-    splits, per = _splits(e * chunks * -(-n // V_TILE_COLS),
-                          -(-m // V_TILE_ROWS), sms, 2 if chunks == 1 else 1)
+    tiles = -(-m // V_TILE_ROWS)
+    col_tiles = -(-n // V_TILE_COLS)
+    if cluster:
+        splits, per = _splits(e * col_tiles, tiles,
+                              v_cluster_slots(cluster, sms))
+    else:
+        splits, per = _splits(e * chunks * col_tiles, tiles,
+                              (2 if chunks == 1 else 1) * sms)
     return splits, per * V_TILE_ROWS
+
+
+def v_slices(r: int) -> tuple[int, int]:
+    """``(cluster, slice)`` of ``huber_contract_v``'s cluster kernel at
+    rank ``r`` (257 .. ``_launch.V_CLUSTER_MAX_RANK``): the fewest blocks
+    whose slices of at most ``_launch.V_SLICE_MAX`` ranks cover r, and the
+    slices as even as 4-rank groups allow (block c holds ranks [c slice,
+    min((c + 1) slice, r)): 252 + 248 at r = 500, 3 x 200 at r = 600)."""
+    cluster = -(-r // V_SLICE_MAX)
+    return cluster, 4 * -(-(-(-r // 4)) // cluster)
+
+
+def v_cluster_smem_bytes(slice_: int) -> int:
+    """Dynamic shared memory of one block of the cluster kernel with a
+    rank slice of ``slice_`` (``v_cluster_smem_bytes`` in
+    ``csrc/contract_v.cu``): the V slice and two U-slice buffers, each 64
+    rows of 32 RQ + 4 floats (RQ = ceil(slice / 32)), then the 64 x 64
+    partial and Psi."""
+    rq = -(-slice_ // 32)
+    return 4 * (3 * V_TILE_ROWS * (32 * rq + 4)
+                + 2 * V_TILE_ROWS * V_TILE_COLS)
+
+
+class VPlan(NamedTuple):
+    """One ``huber_contract_v`` launch: ``cluster`` blocks a column tile
+    with rank slices of ``slice`` (0, 0 off the cluster route), the
+    ``splits`` row ranges of ``rows`` rows, and the grid (column tiles x
+    blocks a tile, splits, E)."""
+
+    cluster: int
+    slice: int
+    splits: int
+    rows: int
+    grid: tuple[int, int, int]
+
+
+def v_plan(e: int, m: int, n: int, r: int, sms: int) -> VPlan:
+    """The launch of ``huber_contract_v`` at (E, m, n, r) on a card with
+    ``sms`` SMs: one register block up to r = 256, the cluster kernel
+    (:func:`v_slices`) up to ``_launch.V_CLUSTER_MAX_RANK``, the chunk
+    kernel above.  A pure function of the shape and the SM count."""
+    col_tiles = -(-n // V_TILE_COLS)
+    if r <= RANK_CHUNK or v_chunked(r):
+        chunks = rank_chunks(r)
+        splits, rows = v_splits(e, m, n, sms, chunks)
+        return VPlan(0, 0, splits, rows, (col_tiles * chunks, splits, e))
+    cluster, slice_ = v_slices(r)
+    splits, rows = v_splits(e, m, n, sms, cluster=cluster)
+    return VPlan(cluster, slice_, splits, rows,
+                 (col_tiles * cluster, splits, e))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -158,7 +256,8 @@ def u_splits(e: int, m: int, n: int, sms: int,
     ``chunks`` (r > 256) the grid holds that many times the blocks, one
     resident on an SM."""
     splits, per = _splits(e * chunks * -(-m // U_TILE_ROWS),
-                          -(-n // U_TILE_COLS), sms, 2 if chunks == 1 else 1)
+                          -(-n // U_TILE_COLS),
+                          (2 if chunks == 1 else 1) * sms)
     return splits, per * U_TILE_COLS
 
 
@@ -178,12 +277,11 @@ def huber_contract_v(u, v, m, lam, w=None) -> torch.Tensor:
         return huber_contract_v_plain(u, v, m, lam, w)
     op = check_operands(u, v, m, lam, w)
     out = _f32(op.e, op.n, op.r, device=u.device)
-    splits, rows = v_splits(op.e, op.m, op.n, sm_count(u.device),
-                            rank_chunks(op.r))
-    partial = out if splits == 1 else _f32(splits, op.e, op.n, op.r,
-                                           device=u.device)
+    plan = v_plan(op.e, op.m, op.n, op.r, sm_count(u.device))
+    partial = out if plan.splits == 1 else _f32(plan.splits, op.e, op.n,
+                                                op.r, device=u.device)
     _call("contract_v", "huber_contract_v", op, u, v, m, w, lam, out, partial,
-          ints=(splits, rows))
+          ints=(plan.splits, plan.rows, plan.cluster, plan.slice))
     return out
 
 

@@ -592,7 +592,8 @@ def test_dual_bounded_scratch_keeps_u_diag_bits(cuda, r, dtype):
 
 # Ranks 257 .. 512: two rank halves (csrc/tile64.cuh), RQH = ceil(r / 64)
 # register groups each (5, 5, 6, 7, 8, 8), on a small grid and on one with
-# several row ranges (v_splits) and column ranges (u_splits) at E = 1.
+# several row ranges (v_splits) and column ranges (u_splits) at E = 1;
+# huber_contract_v takes its cluster kernel there (two rank slices).
 WIDE_RANKS = [257, 300, 384, 448, 500, 512]
 WIDE_SHAPES = [(2, 200, 133), (1, 700, 650)]
 
@@ -794,17 +795,140 @@ def test_chunk_order_is_the_two_half_order(cuda, monkeypatch, fn, mode,
                                            shape, r):
     """At r 449-512 the two halves are two chunks of 256: the chunked
     kernels (forced by lowering the two-half limit) give the two-half
-    kernels' bits."""
+    kernels' bits.  huber_contract_v has no two-half kernel: its cluster
+    kernel, given the two halves as its rank slices, gives the bits of its
+    chunked kernel (forced by lowering the cluster limit); both sum the
+    slices or chunks in order over the same row splits."""
     from repro_torch.kernels import _launch
 
     u, v, mat, w, lam = _card_inputs(cuda, *shape, r, seed=r)
     args = (u, v, mat, lam, _mask(w, mode))
+    monkeypatch.setattr(hc, "v_slices", lambda rank: (2, 256))
     halves = _as_tuple(getattr(hc, fn)(*args))
     monkeypatch.setattr(_launch, "TWO_HALVES_MAX_RANK", 256)
-    assert _launch.chunked(r)
+    monkeypatch.setattr(_launch, "V_CLUSTER_MAX_RANK", 256)
+    assert _launch.chunked(r) and _launch.v_chunked(r)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert hc.v_plan(*shape, r, sms).cluster == 0
+    assert (hc.v_splits(*shape, sms, 2)
+            == hc.v_splits(*shape, sms, cluster=2))
     chunks = _as_tuple(getattr(hc, fn)(*args))
     for a, b in zip(halves, chunks):
         assert torch.equal(a, b), fn
+
+
+# huber_contract_v's cluster kernel (r 257-2048, csrc/contract_v.cu): 2 to
+# 8 blocks a column tile, each a rank slice of up to 256; one rank above it
+# takes the chunk kernel.  Shapes: WIDE_SHAPES and three clients of 3001
+# ragged rows in several row splits at every rank.
+CLUSTER_RANKS = [257, 300, 448, 500, 512, 513, 600, 768, 1024, 2048, 2049]
+CLUSTER_SHAPES = WIDE_SHAPES + [(3, 3001, 70)]
+CLUSTER_IDS = ["x".join(map(str, s)) for s in CLUSTER_SHAPES]
+
+
+def _contract_v_route(shape, r, sms):
+    """The device kernel one huber_contract_v call launches at this rank,
+    and its plan."""
+    from repro_torch.kernels import _launch
+
+    plan = hc.v_plan(*shape, r, sms)
+    name = ("contract_v_chunk_kernel" if _launch.v_chunked(r)
+            else "contract_v_cluster_kernel")
+    return name, plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", CLUSTER_RANKS)
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES, ids=CLUSTER_IDS)
+@pytest.mark.parametrize("mode", ["none", "dense", "packed"])
+def test_cluster_ranks_match_plain(cuda, mode, shape, r, dtype):
+    """huber_contract_v at every rank route above 256 (the cluster kernel
+    at 2-8 slices, the chunk kernel one rank past them) in every mask mode
+    and M type: one launch a call, within 2e-5 of the plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, plan = _contract_v_route(shape, r, sms)
+    assert (plan.cluster > 0) == (r <= 2048)
+    assert plan.splits > 1 or shape != (3, 3001, 70)
+    name = "huber_contract_v" + {"none": "", "dense": "_masked",
+                                 "packed": "_packed"}[mode]
+    before = ops.launch_counts()
+    got, want = _kernel_and_plain(
+        "huber_contract_v", mode,
+        *_card_inputs(cuda, *shape, r, seed=r, dtype=dtype))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == name) for k in after}
+    _assert_close_new(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", CLUSTER_RANKS)
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES, ids=CLUSTER_IDS)
+def test_cluster_ranks_keep_the_bit_exact_pairs(cuda, shape, r):
+    """huber_contract_v at every rank route above 256: reruns, all-ones
+    mask == no mask and packed == dense, bit for bit, in fp32 and bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        u, v, mat, w, lam = _card_inputs(cuda, *shape, r, seed=r + 1,
+                                         dtype=dtype)
+        none = hc.huber_contract_v(u, v, mat, lam)
+        assert torch.equal(none, hc.huber_contract_v(u, v, mat, lam))
+        assert torch.equal(none, hc.huber_contract_v(u, v, mat, lam,
+                                                     torch.ones_like(w)))
+        assert torch.equal(hc.huber_contract_v(u, v, mat, lam, w),
+                           hc.huber_contract_v(u, v, mat, lam,
+                                               bitmask.pack_mask(w)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slice_", [132, 256], ids=["rq5", "rq8"])
+def test_cluster_slots_are_the_cards(cuda, slice_):
+    """The resident clusters the row splits are costed with
+    (``v_cluster_slots``) are the card's own cudaOccupancyMaxActiveClusters
+    on a 132-SM H100, and never more than the card's elsewhere."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for cluster in range(2, 9):
+        card = hc.v_cluster_slots_on_device(cuda, cluster, slice_)
+        assert 1 <= card <= sms // cluster
+        if sms == 132:
+            assert hc.v_cluster_slots(cluster, sms) == card
+        else:
+            assert hc.v_cluster_slots(cluster, sms) >= card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [150, 300, 500, 600, 2048, 2049])
+@pytest.mark.parametrize("shape", [(1, 700, 650), (3, 3001, 70)],
+                         ids=["1x700x650", "3x3001x70"])
+def test_contract_v_is_one_kernel_node_a_call(cuda, shape, r):
+    """A captured huber_contract_v call is one graph kernel node of the
+    contract_v family, named for its rank route (the cluster kernel at r
+    257-2048, the chunk kernel above), plus the fixed-order sum of the
+    row splits where there are several, and nothing else."""
+    from repro_torch.core import graph_nodes
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    name, plan = _contract_v_route(shape, r, sms)
+    if r <= 256:
+        name = "contract_v_kernel"
+    u, v, mat, w, lam = _card_inputs(cuda, *shape, r, seed=2)
+    hc.huber_contract_v(u, v, mat, lam, w)  # built and loaded
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = hc.huber_contract_v(u, v, mat, lam, w)
+    nodes = graph_nodes.kernel_nodes(graph.raw_cuda_graph())
+    assert ops.kernels_by_family(nodes) == {"contract_v": 1, "stripe": 0,
+                                            "shrink": 0}
+    assert [k for k in nodes if "contract_v_" in k][0].count(name) == 1
+    sums = sum(c for k, c in nodes.items() if "sum_partials_kernel" in k)
+    assert sums == int(plan.splits > 1)
+    assert sum(nodes.values()) == 1 + sums
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, hc.huber_contract_v(u, v, mat, lam, w))
 
 
 def _assert_close_nan(got, want):

@@ -165,9 +165,9 @@ def test_plain_matches_reference(name, r, against):
 @pytest.mark.parametrize("name", ["huber_contract_v", "huber_contract_u_diag",
                                   "huber_dual_contract", "residual_shrink"])
 def test_plain_matches_reference_at_a_wide_rank(name):
-    """At r = 300 (two rank halves on the card) the plain versions against
-    the reference's Pallas kernels in interpret mode (r padded to 384
-    lanes there)."""
+    """At r = 300 (two rank halves or slices on the card) the plain
+    versions against the reference's Pallas kernels in interpret mode (r
+    padded to 384 lanes there)."""
     _check_against_reference(name, 300, "pallas", bf16=False)
 
 
@@ -298,6 +298,104 @@ def test_v_splits_cover_m_in_whole_tiles(e, m, n, sms):
     covered = sum(min(m, start + rows) - start for start in starts)
     assert covered == m
     assert hc.v_splits(e, m, n, sms) == (splits, rows)
+
+
+def test_library_declares_every_entry_it_is_asked_for(monkeypatch):
+    """An entry's ctypes signature is declared at its first call even when
+    another entry loaded the library (an undeclared entry would pass each
+    device pointer as a C int)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    class Entry:
+        argtypes, restype = None, None
+
+    class Lib:
+        first, second = Entry(), Entry()
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_declared", set())
+    monkeypatch.setattr(_build, "build_all", lambda: 0.0)
+    monkeypatch.setattr(_build, "library_path", lambda source: source)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: Lib())
+    lib = _build.library("stub", {"first": (ctypes.c_int,)})
+    assert lib.first.argtypes == [ctypes.c_int]
+    assert _build.library("stub", {"second": (ctypes.c_void_p,)}) is lib
+    assert lib.second.argtypes == [ctypes.c_void_p]
+    assert lib.second.restype is ctypes.c_int
+
+
+# Ranks of huber_contract_v's cluster kernel (257 .. 2048): both ends, the
+# two-slice ranks of Table 1 (500) and the wide phase (600), exact slices
+# of 256 (512, 768, 1024), and one rank past a slice count (513, 1025).
+CLUSTER_RANKS = [257, 300, 448, 500, 512, 513, 600, 768, 1024, 1025, 1792,
+                 2047, 2048]
+
+
+@pytest.mark.parametrize("r", CLUSTER_RANKS)
+def test_v_cluster_slices_fit_a_block(r):
+    """The cluster kernel's rank slices: together exactly r, each a
+    multiple of 4 but the last, none wider than V_SLICE_MAX, none empty,
+    at most 8 blocks a cluster, the fewest that cover r, and a block's
+    shared memory within the 227 KB an H100 block may take."""
+    from repro_torch.kernels import _launch
+
+    cluster, slice_ = hc.v_slices(r)
+    widths = [min(slice_, r - c * slice_) for c in range(cluster)]
+    assert sum(widths) == r and min(widths) >= 1
+    assert all(wd % 4 == 0 for wd in widths[:-1])
+    assert max(widths) == slice_ <= _launch.V_SLICE_MAX
+    assert 2 <= cluster <= _launch.V_CLUSTER_MAX == 8
+    assert cluster == -(-r // _launch.V_SLICE_MAX)
+    assert max(widths) - min(widths) < 4 * cluster  # as even as groups allow
+    assert hc.v_cluster_smem_bytes(slice_) <= 227 * 1024
+    assert not _launch.v_chunked(r)
+    if r in (500, 600):
+        assert widths == {500: [252, 248], 600: [200, 200, 200]}[r]
+
+
+@pytest.mark.parametrize("sms", [1, 78, 114, 132])
+def test_v_cluster_slots_bound_the_card(sms):
+    """The resident clusters the cluster grid's row splits are costed with:
+    at least one, at most one a cluster's SMs, and the H100's measured
+    counts at 132 SMs (66 clusters of 2: every SM busy)."""
+    for cluster in range(2, 9):
+        slots = hc.v_cluster_slots(cluster, sms)
+        assert 1 <= slots <= max(1, sms // cluster)
+    if sms == 132:
+        assert hc.v_cluster_slots(2, sms) == 66
+        assert hc.v_cluster_slots(3, sms) == 39
+
+
+@pytest.mark.parametrize("sms", [1, 78, 132])
+@pytest.mark.parametrize("r", [8, 256, 257, 500, 600, 2048, 2049, 4000])
+@pytest.mark.parametrize("e,m,n", [(10, 5000, 500), (10, 4000, 400),
+                                   (1, 129, 7), (3, 40, 65)])
+def test_v_plan_grid_and_splits(e, m, n, r, sms):
+    """``huber_contract_v``'s launch plan: the cluster kernel from 257 to
+    V_CLUSTER_MAX_RANK (its grid's x a multiple of the cluster, one
+    cluster a column tile), the chunk kernel above and one block a tile
+    at r <= 256; y (the row splits) and z (E) within GRID_YZ; the splits
+    cover m in whole 64-row tiles, none empty; a pure function."""
+    from repro_torch.kernels import _launch
+
+    plan = hc.v_plan(e, m, n, r, sms)
+    x, y, z = plan.grid
+    col_tiles = -(-n // hc.V_TILE_COLS)
+    if 256 < r <= _launch.V_CLUSTER_MAX_RANK:
+        assert (plan.cluster, plan.slice) == hc.v_slices(r)
+        assert x == col_tiles * plan.cluster and x % plan.cluster == 0
+    else:
+        assert plan.cluster == plan.slice == 0
+        assert _launch.v_chunked(r) == (r > 256)
+        assert x == col_tiles * _launch.rank_chunks(r)
+    assert (y, z) == (plan.splits, e) and max(y, z) <= _launch.GRID_YZ
+    rows = plan.rows
+    assert rows % hc.V_TILE_ROWS == 0
+    assert all(s * rows < m for s in range(plan.splits))
+    assert plan.splits * rows >= m > (plan.splits - 1) * rows
+    assert hc.v_plan(e, m, n, r, sms) == plan
 
 
 @pytest.mark.parametrize("sms", [1, 78, 114, 132])

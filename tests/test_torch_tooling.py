@@ -442,7 +442,18 @@ KERNEL_NAMES = [
 ]
 
 
-@pytest.mark.parametrize("name, family", KERNEL_NAMES)
+# huber_contract_v's kernels above r = 256: the cluster kernel (mangled, as
+# a graph node names it) and the chunk kernel (as the profiler does).
+RANK_ROUTE_KERNEL_NAMES = [
+    ("_ZN5repro12_GLOBAL__N_125contract_v_cluster_kernelILi8EfLi0EEEvPKf",
+     "contract_v"),
+    ("void repro::(anonymous namespace)::contract_v_chunk_kernel<float, 0>"
+     "(float const*)", "contract_v"),
+]
+
+
+@pytest.mark.parametrize("name, family",
+                         KERNEL_NAMES + RANK_ROUTE_KERNEL_NAMES)
 def test_kernel_family_of_a_device_kernel(name, family):
     assert ops.kernel_family(name) == family
 
