@@ -48,14 +48,16 @@ CUDA toolkit.  Phases, one JSON line each:
             stripes).
    The kernel rows also hold huber_contract_v, huber_contract_u_diag and
    residual_shrink at paper Table 1's n = 5000 blocks (row "t5": E=10,
-   m=5000, n_i=500, r=500: huber_contract_v in clusters of two rank
-   slices, the others in two rank halves), with the table1 phase's
+   m=5000, n_i=500, r=500: the contractions in clusters of two rank
+   slices, the shrink in two rank halves), with the table1 phase's
    launches, and at the wide phase's blocks (row "t6": E=10, m=4000,
    n_i=400, r=600: clusters of three slices, three rank chunks), with its
-   launches, and huber_contract_v with a dense mask at t6 (no phase); the
-   rows at r > 256 within NEW_PLANE_TOL.  The contract_v_plan line gives
-   huber_contract_v's launch plans at t5 and t6 and the card's resident
-   clusters by size beside the table its row splits are costed with.
+   launches, and huber_contract_v and huber_contract_u_diag with a dense
+   mask at t6 (no phase); the rows at r > 256 within NEW_PLANE_TOL.  The
+   contract_v_plan and stripe_plan lines give huber_contract_v's and the
+   row-stripe kernels' launch plans at t5 and t6 and the card's resident
+   clusters of each cluster kernel by size beside the table its splits are
+   costed with.
 3. small    5 rounds at 160 x 160 on the card against the same rounds of
             the plain versions on the CPU, from one seed, for fused="diag",
             "dual" with a mask, "off", and a packed mask with bf16 M; and
@@ -645,6 +647,7 @@ ROWS = [
     ("huber_contract_u_diag", "none", "t6", "wide"),
     ("residual_shrink", "none", "t6", "wide"),
     ("huber_contract_v", "dense", "t6", None),
+    ("huber_contract_u_diag", "dense", "t6", None),
     ("huber_contract_v", "dense", "bn", "batch"),
     ("huber_contract_u_diag", "dense", "bn", "batch"),
     ("residual_shrink", "dense", "bn", "batch"),
@@ -825,11 +828,13 @@ def check_kernel(fn: str, mode: str, key: str, path: str | None,
     return row
 
 
-def contract_v_plan(device) -> dict:
-    """huber_contract_v's launch plans at the t5 and t6 shapes (cluster,
-    rank slice, row splits, grid) and the card's resident clusters of the
-    cluster kernel by size (cudaOccupancyMaxActiveClusters) beside the
-    counts its row splits are costed with (``v_cluster_slots``)."""
+def cluster_plans(device) -> list[dict]:
+    """The launch plans of huber_contract_v (``contract_v_plan``: cluster,
+    rank slice, row splits, grid) and of the row-stripe kernels
+    (``stripe_plan``: column splits) at the t5 and t6 shapes, each with the
+    card's resident clusters of its cluster kernel by size
+    (cudaOccupancyMaxActiveClusters) beside the counts its splits are
+    costed with (``cluster_slots``)."""
     from repro_torch.kernels import _launch
     from repro_torch.kernels import huber_contract as hc
 
@@ -838,16 +843,21 @@ def contract_v_plan(device) -> dict:
                      max(TABLE1) // 10),
               "t6": (TABLE1_CLIENTS, WIDE_N, WIDE_N // TABLE1_CLIENTS,
                      WIDE_RANK)}
-    card = {c: hc.v_cluster_slots_on_device(device, c)
-            for c in range(2, _launch.V_CLUSTER_MAX + 1)}
-    costed = {c: hc.v_cluster_slots(c, sms) for c in card}
-    row = dict(phase="contract_v_plan", sms=sms,
-               plans={k: hc.v_plan(*s, sms)._asdict()
-                      for k, s in shapes.items()},
-               cluster_slots_card=card, cluster_slots_costed=costed,
-               slots_as_costed=card == costed)
-    emit(**row)
-    return row
+    rows = []
+    for phase, plan, on_device in (
+            ("contract_v_plan", hc.v_plan, hc.v_cluster_slots_on_device),
+            ("stripe_plan", hc.u_plan, hc.u_cluster_slots_on_device)):
+        card = {c: on_device(device, c)
+                for c in range(2, _launch.CLUSTER_MAX + 1)}
+        by_table = {c: hc.cluster_slots(c, sms) for c in card}
+        row = dict(phase=phase, sms=sms,
+                   plans={k: plan(*s, sms)._asdict()
+                          for k, s in shapes.items()},
+                   cluster_slots_card=card, cluster_slots_costed=by_table,
+                   slots_as_costed=card == by_table)
+        emit(**row)
+        rows.append(row)
+    return rows
 
 
 def kernel_operands(device) -> dict:
@@ -4130,7 +4140,7 @@ def main() -> int:
          kernels_compiled=kernels, kernels_with_spills=len(spilling),
          spilling=spilling)
 
-    contract_v_plan(device)
+    cluster_plans(device)
     operands = kernel_operands(device)
     rows = [check_kernel(fn, mode, key, path, operands)
             for fn, mode, key, path in ROWS]

@@ -19,24 +19,21 @@
 // clip(W * R) equals the reference's W * clip(R) for a 0/1 W.
 #include "stripe.cuh"
 
-// Returns cudaGetLastError() of the launches (0 on success); chunked != 0
-// takes r 257-512 in chunks of 256 too (tile.cuh's by_rank).  m is fp32 or
-// bf16 (dtype code), w null, dense or packed (mask code, tile.cuh); the
-// splits' column ranges are whole 64-column tiles; u_partial holds
+// Returns cudaGetLastError() of the launches (0 on success); r > 256 takes
+// the cluster kernel with `slices` blocks of rank slices of `slice`, or
+// with slices == 0 the chunks of 256 (stripe.cuh's stripe_entry).  m is
+// fp32 or bf16 (dtype code), w null, dense or packed (mask code, tile.cuh);
+// the splits' column ranges are whole 64-column tiles; u_partial holds
 // splits * E * M * r floats when splits > 1 (unused otherwise).
 extern "C" int repro_huber_contract_u(const float* u, const float* v,
                                       const void* m, const void* w,
                                       const float* lam, float* out_u,
                                       float* u_partial, int E, int M, int N,
                                       int r, int dtype, int mask, int splits,
-                                      int cols_per_split, int chunked,
-                                      void* stream) {
-  return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
-    using TM = typename decltype(tm)::type;
-    return repro::launch_stripe<decltype(rq)::value, TM, decltype(mk)::value,
-                                false, false>(
-        u, v, static_cast<const TM*>(m), w, lam, out_u, nullptr, nullptr,
-        nullptr, nullptr, u_partial, nullptr, E, M, N, r, splits,
-        cols_per_split, static_cast<cudaStream_t>(stream));
-  }, chunked != 0);
+                                      int cols_per_split, int slices,
+                                      int slice, void* stream) {
+  return repro::stripe_entry<false, false>(
+      u, v, m, w, lam, out_u, nullptr, nullptr, nullptr, nullptr, u_partial,
+      nullptr, E, M, N, r, dtype, mask, splits, cols_per_split, 1, 0, slices,
+      slice, stream);
 }

@@ -20,10 +20,11 @@
 // (reduce.cuh), and so does out_u when the columns are split.
 #include "stripe.cuh"
 
-// Returns cudaGetLastError() of the launches (0 on success); chunked != 0
-// takes r 257-512 in chunks of 256 too (tile.cuh's by_rank).  partial holds
-// 2 * E * ceil(M / 64) * splits floats, u_partial splits * E * M * r when
-// splits > 1.
+// Returns cudaGetLastError() of the launches (0 on success); r > 256 takes
+// the cluster kernel with `slices` blocks of rank slices of `slice`, or
+// with slices == 0 the chunks of 256 (stripe.cuh's stripe_entry).  partial
+// holds 2 * E * ceil(M / 64) * splits floats (times slices on the cluster
+// route), u_partial splits * E * M * r when splits > 1.
 extern "C" int repro_huber_contract_u_diag(const float* u, const float* v,
                                            const void* m, const void* w,
                                            const float* lam, float* out_u,
@@ -31,14 +32,18 @@ extern "C" int repro_huber_contract_u_diag(const float* u, const float* v,
                                            float* partial, float* u_partial,
                                            int E, int M, int N, int r,
                                            int dtype, int mask, int splits,
-                                           int cols_per_split, int chunked,
-                                           void* stream) {
-  return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
-    using TM = typename decltype(tm)::type;
-    return repro::launch_stripe<decltype(rq)::value, TM, decltype(mk)::value,
-                                true, false>(
-        u, v, static_cast<const TM*>(m), w, lam, out_u, nullptr, obj, psi2,
-        partial, u_partial, nullptr, E, M, N, r, splits, cols_per_split,
-        static_cast<cudaStream_t>(stream));
-  }, chunked != 0);
+                                           int cols_per_split, int slices,
+                                           int slice, void* stream) {
+  return repro::stripe_entry<true, false>(
+      u, v, m, w, lam, out_u, nullptr, obj, psi2, partial, u_partial,
+      nullptr, E, M, N, r, dtype, mask, splits, cols_per_split, 1, 0, slices,
+      slice, stream);
+}
+
+// The most clusters of `cluster` blocks of the cluster kernel (rank slices
+// of `slice`) resident at once on the current device
+// (cudaOccupancyMaxActiveClusters), or -1 on an error: one block an SM
+// whatever the flavour, so this flavour's count is the three's.
+extern "C" int repro_stripe_cluster_slots(int cluster, int slice) {
+  return repro::stripe_cluster_slots<true, false>(cluster, slice);
 }

@@ -201,18 +201,8 @@ contract_v_kernel(const float* __restrict__ u, const float* __restrict__ v,
 // blocks a column tile, block c owning the rank slice [c slice, min((c + 1)
 // slice, r)) (kernels/huber_contract.py::v_slices).  Its V slice stays
 // staged for the whole row range beside two U-slice buffers, the tile's
-// partial U_c V_c^T and Psi: 227 KB at RQ = 8, one block an SM.
-constexpr int kVSliceMax = 256;   // widest slice: 32 RQ ranks at RQ = 8
-constexpr int kVClusterMax = 8;   // blocks a cluster (portable on Hopper)
-constexpr int kVClusterMinRQ = 5; // slices of r > 256 over <= 8 blocks
-                                  // are at least 129 ranks wide
-
-template <int RQ>
-__host__ __device__ constexpr size_t v_cluster_smem_bytes() {
-  return sizeof(float) * (3 * kT64 * ld64<RQ>() + 2 * kT64 * kT64);
-}
-static_assert(v_cluster_smem_bytes<8>() <= 232448,
-              "a cluster block must fit the 227 KB an H100 block may take");
+// partial U_c V_c^T and Psi (tile64.cuh's cluster_smem_bytes): 227 KB at
+// RQ = 8, one block an SM.
 
 // Offset of entry (i, j) of a 64 x 64 tile stored with row stride 64 and
 // its columns XOR-swizzled by 8 (i % 4): the 4 x 8 threads of a warp that
@@ -220,53 +210,6 @@ static_assert(v_cluster_smem_bytes<8>() <= 232448,
 // and float4 accesses along a row stay contiguous.
 __device__ __forceinline__ int swz64(int i, int j) {
   return i * kT64 + (j ^ ((i & 3) << 3));
-}
-
-// Whether (cluster, slice) cut r into slices as the cluster kernel takes
-// them: slice a multiple of 4 (so every slice but the last holds whole
-// 4-rank groups and starts 16-byte aligned), none wider than kVSliceMax,
-// the last one not empty.
-__host__ __device__ inline bool v_slices_valid(int r, int cluster,
-                                               int slice) {
-  return cluster >= 1 && cluster <= kVClusterMax && slice >= 4 &&
-         slice <= kVSliceMax && slice % 4 == 0 &&
-         (cluster - 1) * slice < r && r <= cluster * slice;
-}
-
-// Stage rows [row0, row0 + 64) of ranks [k0, k0 + kw) of a (nrows, r)
-// row-major factor into dst (64 x ld64<RQ>()) by cp.async in the widest
-// pieces r and the factor's address allow, up to kw rounded up to 4
-// (zeros past kw and past nrows); the columns beyond stay as they are.
-template <int RQ, int BYTES>
-__device__ __forceinline__ void stage_slice_pieces(float* dst,
-                                                   const float* src,
-                                                   int row0, int nrows,
-                                                   int r, int k0, int kw) {
-  constexpr int W = BYTES / 4;
-  constexpr int LD = ld64<RQ>();
-  const int rp = ((kw + 3) & ~3) / W;  // pieces a row
-  for (int idx = threadIdx.x; idx < kT64 * rp; idx += kT64Threads) {
-    const int ii = idx / rp;
-    const int k = (idx - ii * rp) * W;
-    const int row = row0 + ii;
-    const bool ok = row < nrows && k < kw;
-    cp_async<BYTES>(dst + ii * LD + k,
-                    ok ? src + static_cast<size_t>(row) * r + k0 + k : src,
-                    ok);
-  }
-}
-
-template <int RQ>
-__device__ __forceinline__ void stage_slice(float* dst, const float* src,
-                                            int row0, int nrows, int r,
-                                            int k0, int kw) {
-  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
-  if (r % 4 == 0 && at % 16 == 0)
-    stage_slice_pieces<RQ, 16>(dst, src, row0, nrows, r, k0, kw);
-  else if (r % 2 == 0 && at % 8 == 0)
-    stage_slice_pieces<RQ, 8>(dst, src, row0, nrows, r, k0, kw);
-  else
-    stage_slice_pieces<RQ, 4>(dst, src, row0, nrows, r, k0, kw);
 }
 
 // Grid (column tiles x cluster, row splits, E), clusters (cluster, 1, 1):
@@ -339,11 +282,7 @@ contract_v_cluster_kernel(const float* __restrict__ u,
   const int row_end = min(M, row_begin + rows_per_split);
   // The columns past the slice's 4-rank groups are read only into register
   // columns that are never written out; zero them once all the same.
-  for (int idx = threadIdx.x; idx < 3 * kT64 * (LD - 4 * w4);
-       idx += kT64Threads) {
-    const int row = idx / (LD - 4 * w4);
-    Vs[row * LD + 4 * w4 + (idx - row * (LD - 4 * w4))] = 0.f;
-  }
+  zero_past_slice<RQ>(Vs, 3 * kT64, w4);
   stage_slice<RQ>(Vs, ve, j0, N, r, k0, kw);
   stage_slice<RQ>(Ub, ue, row_begin, M, r, k0, kw);
   cp_async_commit();
@@ -393,29 +332,13 @@ contract_v_cluster_kernel(const float* __restrict__ u,
       const int q = threadIdx.x + kT64Threads * g;
       if (q >= share4) continue;
       const int at = swz64(share_row0 + q / 16, 4 * (q % 16));
-      float4 part[kVClusterMax];
-#pragma unroll
-      for (int b = 0; b < kVClusterMax; ++b)
-        if (b < cluster)
-          part[b] = hopper::ld_cluster4(hopper::cluster_addr(Pp + at, b));
-      float4 lo = part[0];
-#pragma unroll
-      for (int b = 1; b < kVClusterMax; ++b)
-        if (b < cluster) {
-          lo.x += part[b].x;
-          lo.y += part[b].y;
-          lo.z += part[b].z;
-          lo.w += part[b].w;
-        }
+      const float4 lo = hopper::cluster_sum4(Pp + at, cluster);
       const float4 psi = make_float4(
           apply_mask<MASK>(wt[g][0], clip(x[g][0] - lo.x, lam_e)),
           apply_mask<MASK>(wt[g][1], clip(x[g][1] - lo.y, lam_e)),
           apply_mask<MASK>(wt[g][2], clip(x[g][2] - lo.z, lam_e)),
           apply_mask<MASK>(wt[g][3], clip(x[g][3] - lo.w, lam_e)));
-#pragma unroll
-      for (int b = 0; b < kVClusterMax; ++b)
-        if (b < cluster)
-          hopper::st_cluster(hopper::cluster_addr(Ps + at, b), psi);
+      hopper::cluster_store4(Ps + at, cluster, psi);
     }
     hopper::cluster_sync();  // Psi whole in every block; partials read
 
@@ -458,25 +381,6 @@ contract_v_cluster_kernel(const float* __restrict__ u,
   }
 }
 
-// The launch configuration of contract_v_cluster_kernel; attr must outlive
-// config.
-template <int RQ>
-cudaLaunchConfig_t v_cluster_config(cudaLaunchAttribute* attr, dim3 grid,
-                                    int cluster, cudaStream_t stream) {
-  cudaLaunchConfig_t config = {};
-  config.gridDim = grid;
-  config.blockDim = dim3(kT64Threads);
-  config.dynamicSmemBytes = v_cluster_smem_bytes<RQ>();
-  config.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  return config;
-}
-
 template <int RQ, typename TM, int MASK>
 cudaError_t launch_v_cluster(const float* u, const float* v, const TM* m,
                              const void* w, const float* lam, float* out,
@@ -484,7 +388,7 @@ cudaError_t launch_v_cluster(const float* u, const float* v, const TM* m,
                              int splits, int rows_per_split, int cluster,
                              int slice, cudaStream_t stream) {
   auto kernel = contract_v_cluster_kernel<RQ, TM, MASK>;
-  constexpr size_t smem = v_cluster_smem_bytes<RQ>();
+  constexpr size_t smem = cluster_smem_bytes<RQ>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -492,9 +396,9 @@ cudaError_t launch_v_cluster(const float* u, const float* v, const TM* m,
   const long long tiles = (N + kVCols - 1) / kVCols;
   float* dst = splits == 1 ? out : partial;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t config = v_cluster_config<RQ>(
+  const cudaLaunchConfig_t config = cluster_launch_config(
       attr, dim3(static_cast<unsigned>(tiles * cluster), splits, E), cluster,
-      stream);
+      smem, stream);
   err = cudaLaunchKernelEx(&config, kernel, u, v, m, w, lam, dst, E, M, N,
                            r, rows_per_split, cluster, slice);
   if (err != cudaSuccess) return err;
@@ -671,7 +575,7 @@ cudaError_t launch_v(const float* u, const float* v, const TM* m,
 // splits' row ranges are whole 64-row tiles; partial holds splits * E * N * r
 // floats when splits > 1 (unused otherwise).  r <= 256 takes one register
 // block (contract_v_kernel); above, cluster > 0 takes the cluster kernel
-// with rank slices of `slice` (v_slices_valid), and cluster == 0 the
+// with rank slices of `slice` (slices_valid), and cluster == 0 the
 // chunks of 256 (contract_v_chunk_kernel; kernels/_launch.py::v_chunked).
 extern "C" int repro_huber_contract_v(const float* u, const float* v,
                                       const void* m, const void* w,
@@ -684,7 +588,7 @@ extern "C" int repro_huber_contract_v(const float* u, const float* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   if (r > repro::kRankChunk && cluster > 0) {
-    if (!repro::v_slices_valid(r, cluster, slice))
+    if (!repro::slices_valid(r, cluster, slice))
       return static_cast<int>(cudaErrorInvalidValue);
     // One register block of the slice's width: RQ = ceil(slice / 32).
     return repro::dispatch(slice, dtype, mask,
@@ -692,7 +596,7 @@ extern "C" int repro_huber_contract_v(const float* u, const float* v,
       using TM = typename decltype(tm)::type;
       constexpr int RQ = decltype(rq)::value;
       constexpr int MASK = decltype(mk)::value;
-      if constexpr (RQ >= repro::kVClusterMinRQ && RQ <= 8)
+      if constexpr (RQ >= repro::kClusterMinRQ && RQ <= 8)
         return repro::launch_v_cluster<RQ, TM, MASK>(
             u, v, static_cast<const TM*>(m), w, lam, out, partial, E, M, N,
             r, splits, rows_per_split, cluster, slice, st);
@@ -724,26 +628,15 @@ extern "C" int repro_huber_contract_v(const float* u, const float* v,
 // slices of `slice`) resident at once on the current device
 // (cudaOccupancyMaxActiveClusters), or -1 on an error.
 extern "C" int repro_contract_v_cluster_slots(int cluster, int slice) {
-  if (cluster < 1 || cluster > repro::kVClusterMax) return -1;
   int slots = -1;
-  const cudaError_t err = static_cast<cudaError_t>(repro::dispatch(
-      slice, repro::kFloat32, repro::kNoMask,
-      [&](auto rq, auto, auto) -> cudaError_t {
-        constexpr int RQ = decltype(rq)::value;
-        if constexpr (RQ >= repro::kVClusterMinRQ && RQ <= 8) {
-          auto kernel = repro::contract_v_cluster_kernel<RQ, float,
-                                                         repro::kNoMask>;
-          cudaError_t e = cudaFuncSetAttribute(
-              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-              static_cast<int>(repro::v_cluster_smem_bytes<RQ>()));
-          if (e != cudaSuccess) return e;
-          cudaLaunchAttribute attr[1];
-          const cudaLaunchConfig_t config = repro::v_cluster_config<RQ>(
-              attr, dim3(cluster), cluster, nullptr);
-          return cudaOccupancyMaxActiveClusters(&slots, kernel, &config);
-        } else {
-          return cudaErrorInvalidValue;
-        }
-      }));
-  return err == cudaSuccess ? slots : -1;
+  repro::dispatch(slice, repro::kFloat32, repro::kNoMask,
+                  [&](auto rq, auto, auto) {
+    constexpr int RQ = decltype(rq)::value;
+    if constexpr (RQ >= repro::kClusterMinRQ && RQ <= 8)
+      slots = repro::max_active_clusters(
+          repro::contract_v_cluster_kernel<RQ, float, repro::kNoMask>,
+          repro::cluster_smem_bytes<RQ>(), cluster);
+    return cudaSuccess;
+  });
+  return slots;
 }

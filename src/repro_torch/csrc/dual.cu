@@ -27,12 +27,14 @@
 // tiles.  One launch sequence always: there is no two-pass route.
 #include "stripe.cuh"
 
-// Returns cudaGetLastError() of the launches (0 on success); chunked != 0
-// takes r 257-512 in chunks of 256 too (tile.cuh's by_rank).  diag_partial
-// holds 2 * E * ceil(M / 64) * splits floats, u_partial splits * E * M * r
-// when splits > 1, v_partial groups * E * N * r when groups > 1 (unused
-// otherwise: out_v is written directly); the row groups are `groups`
-// clusters of `cluster` stripes.
+// Returns cudaGetLastError() of the launches (0 on success); r > 256 takes
+// the cluster kernel with `slices` blocks of rank slices of `slice`, or
+// with slices == 0 the chunks of 256 (stripe.cuh's stripe_entry).
+// diag_partial holds 2 * E * ceil(M / 64) * splits floats (times slices on
+// the cluster route), u_partial splits * E * M * r when splits > 1,
+// v_partial groups * E * N * r when groups > 1 (unused otherwise: out_v is
+// written directly); the row groups are `groups` clusters of `cluster`
+// stripes.
 extern "C" int repro_huber_dual_contract(const float* u, const float* v,
                                          const void* m, const void* w,
                                          const float* lam, float* out_v,
@@ -42,14 +44,10 @@ extern "C" int repro_huber_dual_contract(const float* u, const float* v,
                                          int E, int M, int N, int r,
                                          int dtype, int mask, int splits,
                                          int cols_per_split, int cluster,
-                                         int groups, int chunked,
+                                         int groups, int slices, int slice,
                                          void* stream) {
-  return repro::dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
-    using TM = typename decltype(tm)::type;
-    return repro::launch_stripe<decltype(rq)::value, TM, decltype(mk)::value,
-                                true, true>(
-        u, v, static_cast<const TM*>(m), w, lam, out_u, out_v, obj, psi2,
-        diag_partial, u_partial, v_partial, E, M, N, r, splits,
-        cols_per_split, static_cast<cudaStream_t>(stream), cluster, groups);
-  }, chunked != 0);
+  return repro::stripe_entry<true, true>(
+      u, v, m, w, lam, out_u, out_v, obj, psi2, diag_partial, u_partial,
+      v_partial, E, M, N, r, dtype, mask, splits, cols_per_split, cluster,
+      groups, slices, slice, stream);
 }

@@ -335,5 +335,34 @@ __device__ __forceinline__ float ld_cluster(uint32_t addr) {
   return x;
 }
 
+// The float4 at `smem` (this block's shared memory) summed over the
+// cluster's first `blocks` (<= 8) blocks in block order, ((p0 + p1) + p2)
+// + ...: every load is issued before the first add.
+__device__ __forceinline__ float4 cluster_sum4(const float* smem,
+                                               int blocks) {
+  float4 part[8];
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+    if (b < blocks) part[b] = ld_cluster4(cluster_addr(smem, b));
+  float4 s = part[0];
+#pragma unroll
+  for (int b = 1; b < 8; ++b)
+    if (b < blocks) {
+      s.x += part[b].x;
+      s.y += part[b].y;
+      s.z += part[b].z;
+      s.w += part[b].w;
+    }
+  return s;
+}
+
+// x stored at `smem` in each of the cluster's first `blocks` (<= 8) blocks.
+__device__ __forceinline__ void cluster_store4(float* smem, int blocks,
+                                               float4 x) {
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+    if (b < blocks) st_cluster(cluster_addr(smem, b), x);
+}
+
 }  // namespace hopper
 }  // namespace repro

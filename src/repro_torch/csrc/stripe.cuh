@@ -49,12 +49,19 @@
 //     faster than one block with two stages); elsewhere one block with
 //     two stages.
 // The rank loop of U V^T stops at r rounded up to 4; the contractions'
-// register blocks cover 32 RQ ranks.  Ranks 257-512 (stripe_wide_kernel)
-// take the rank axis in two halves (tile64.cuh): a grid axis over the
-// output's rank halves, each block forming the tile's whole Psi and
-// contracting it against its half of V (and of U for out_v).  Ranks above
-// 512 (stripe_chunk_kernel) take it in chunks of 256 the same way, the
-// chunk axis folded into the grid's x, each chunk's U and V staged in turn.
+// register blocks cover 32 RQ ranks.  Ranks 257-2048
+// (stripe_cluster_kernel) split the rank axis over a thread-block cluster
+// of C = ceil(r / 256) blocks a stripe, block c owning slice c of U and V
+// (as even as 4-rank groups allow: 252 + 248 at r = 500, 3 x 200 at 600):
+// per column tile each block forms its partial U_c V_c^T once, the cluster
+// adds the partials in slice order through distributed shared memory (each
+// block a share of the tile, written into every block's Psi^T), and each
+// block contracts Psi V_c (and Psi^T U_c) for its slice only, while the
+// next tile's V slice lands in a second stage.  Ranks above 2048
+// (stripe_chunk_kernel) take the rank axis in chunks of 256, the chunk axis
+// folded into the grid's x, each block forming the tile's whole Psi
+// (tile64.cuh's chunked_low: each chunk's U and V staged in turn) and
+// contracting it against its chunk.
 //
 // The dual's out_v scratch does not grow with m: its stripes form row
 // groups (kernels/huber_contract.py::dual_plan), each a thread-block
@@ -385,41 +392,103 @@ stripe_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
-// Ranks 257 .. 512 in two halves (tile64.cuh): U's two halves (staged once),
-// one half of a V tile, Psi^T.  217 KB at RQH = 8: one block an SM.
-template <int RQH>
-__host__ __device__ constexpr size_t stripe_wide_smem_bytes() {
-  return sizeof(float) * (3 * kT64 * ld64<RQH>() + kT64 * kPsiTLd);
+// Ranks 257 .. 2048 (tile64.cuh's rank slices): one thread-block cluster of
+// `cluster` blocks a (stripe, column split, client), block c owning the
+// rank slice c (kernels/huber_contract.py::u_slices).  Its U stripe slice
+// stays staged for the whole column range beside two V-slice stages, the
+// tile's partial U_c V_c^T and Psi^T (tile64.cuh's cluster_smem_bytes):
+// 227 KB at RQ = 8, one block an SM.
+
+// Offset of entry (j, i) of a 64 x 64 tile stored transposed (row j holds
+// column j of the tile, Psi^T and the partial) with row stride 64 and its
+// entries XOR-swizzled by 4 (j % 8).  stripe_kernel's Psi^T pads its rows
+// to 68 instead, which would take the cluster block 1 KB past the 227 KB:
+// with the swizzle the 4 x 8 threads of a warp that store U V^T patches
+// hit 32 banks, and every float4 along i (4 rows of one column: the Psi
+// sum's, Psi V's and Psi^T U's accesses) stays contiguous.
+__device__ __forceinline__ int swz_t(int j, int i) {
+  return j * kT64 + (i ^ ((j & 7) << 2));
 }
 
-// Grid (stripes, column splits, 2 E): block z = 2 e + h writes the rank
-// half h of out_u[e] (and of its out_v plane), ranks [h k0, ...) with
-// k0 = 32 RQH.  Each of the two blocks of a stripe forms the whole Psi of a
-// tile (U V^T over both halves: its only redundant work) and contracts it
-// against its half of V (and of U).  Per column tile: V's other half is
-// staged (under the previous tile's end), its patch summed; then V's own
-// half, its patch, Psi^T, Psi V_h (and Psi^T U_h).  The scalars come from
-// the same Psi in both blocks; the h = 0 block writes them.  The dual's
-// row groups are single stripes here (no room for a cluster's receive
-// buffers: kernels/huber_contract.py::dual_plan).
-template <int RQH, typename TM, int MASK, bool WITH_DIAG, bool WITH_V>
-__global__ void __launch_bounds__(kT64Threads, 1)
-stripe_wide_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                   const TM* __restrict__ m, const void* __restrict__ w,
-                   const float* __restrict__ lam, float* __restrict__ out_u,
-                   float* __restrict__ diag_partial,
-                   float* __restrict__ v_target, int E, int M, int N, int r,
-                   int cols_per_split, int cluster) {
-  constexpr int LD = ld64<RQH>();
-  constexpr int K0 = wide_half(RQH);
-  extern __shared__ float4 smem4[];
-  float* Ua = reinterpret_cast<float*>(smem4);  // kT64 x LD, ranks < K0
-  float* Ub = Ua + kT64 * LD;                   // kT64 x LD, ranks >= K0
-  float* Vs = Ub + kT64 * LD;                   // kT64 x LD, one half
-  float* PsT = Vs + kT64 * LD;                  // kT64 x kPsiTLd
+// Writes a thread's register block blk[cc][q][s] of the cluster kernel's
+// contractions to rows row0 + 4 cq + cc (below rows) and ranks
+// 4 (kl + 16 q) + s (below kw) of dst, row stride r: a float4 for each
+// whole 4-rank group where dst's rows are 16-byte aligned, scalars
+// otherwise.
+template <int QH>
+__device__ __forceinline__ void store_block(float* dst,
+                                            const float (&blk)[4][QH][4],
+                                            int row0, int rows, int r,
+                                            int kw, int cq, int kl) {
+  const bool vec = r % 4 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) {
+    const int i = row0 + 4 * cq + cc;
+    if (i >= rows) continue;
+#pragma unroll
+    for (int q = 0; q < QH; ++q) {
+      const int k = 4 * (kl + 16 * q);
+      float* at = dst + static_cast<size_t>(i) * r + k;
+      if (vec && k + 3 < kw) {
+        *reinterpret_cast<float4*>(at) = make_float4(
+            blk[cc][q][0], blk[cc][q][1], blk[cc][q][2], blk[cc][q][3]);
+      } else {
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          if (k + s < kw) at[s] = blk[cc][q][s];
+      }
+    }
+  }
+}
 
-  const int stripe = blockIdx.x, split = blockIdx.y;
-  const int e = blockIdx.z >> 1, h = blockIdx.z & 1;
+// Grid (stripes x cluster, column splits, E), clusters (cluster, 1, 1):
+// block x = cluster s + c writes the rank slice c of out_u[e] (and of the
+// stripe's out_v plane) for stripe s.  Per 64-column tile of its range a
+// block
+//   1. loads its share of M (and W): columns [64 c / C, 64 (c + 1) / C) of
+//      the tile (C = cluster: 22 + 21 + 21 at C = 3), a thread 4 rows of
+//      one column, a warp's loads along rows;
+//   2. waits for its V slice of the tile, and starts staging the next
+//      tile's into the other stage (it lands under steps 3-5);
+//   3. forms its partial U_c V_c^T (patch44 over its slice) in shared
+//      memory, transposed; cluster barrier;
+//   4. adds its share's entries of the C partials in slice order through
+//      distributed shared memory, low = ((P_0 + P_1) + P_2) + ..., forms
+//      R_W = W (M - low), Psi = clip(R_W, +-lam) and (WITH_DIAG) the
+//      diagnostics of those entries, and writes them into every block's
+//      Psi^T; cluster barrier;
+//   5. contracts Psi V_c into a register block of 32 RQ ranks: each thread
+//      4 rows x 4 rank groups a step (one float4 of Psi^T and four of V
+//      for 64 FMAs); WITH_V also Psi^T U_c, this stripe's share of the
+//      tile's out_v (4 columns x 4 rank groups, a 4 x 4 block of Psi^T
+//      and 16 float4 of U for 256 FMAs a step of 4 rows).
+// U V^T is formed once a tile, and each contraction covers the C slices
+// once.  Each block sums a share of the entries rather than all of the
+// tile: M and W are read once and a block moves 2 x 16 KB of distributed
+// shared memory a tile whatever C.  The diagnostics sum over the entries
+// a block formed, one partial a block (stripes x splits x C a client,
+// summed in index order by the sum launch).  The dual's row groups are
+// single stripes here (kernels/huber_contract.py::dual_plan).
+template <int RQ, typename TM, int MASK, bool WITH_DIAG, bool WITH_V>
+__global__ void __launch_bounds__(kT64Threads, 1)
+stripe_cluster_kernel(const float* __restrict__ u,
+                      const float* __restrict__ v, const TM* __restrict__ m,
+                      const void* __restrict__ w,
+                      const float* __restrict__ lam,
+                      float* __restrict__ out_u,
+                      float* __restrict__ diag_partial,
+                      float* __restrict__ v_target, int E, int M, int N,
+                      int r, int cols_per_split, int cluster, int slice) {
+  constexpr int LD = ld64<RQ>();
+  extern __shared__ float4 smem4[];
+  float* Us = reinterpret_cast<float*>(smem4);  // kT64 x LD, U's slice
+  float* Vring = Us + kT64 * LD;                // 2 x kT64 x LD, V's slice
+  float* Pp = Vring + 2 * kT64 * LD;            // 64 x 64 partial (swz_t)
+  float* PsT = Pp + kT64 * kT64;                // 64 x 64 Psi^T (swz_t)
+
+  const int c = blockIdx.x % cluster;
+  const int stripe = blockIdx.x / cluster;
+  const int split = blockIdx.y, e = blockIdx.z;
   const int i0 = stripe * kT64;
   const int col_begin = split * cols_per_split;
   const int col_end = min(N, col_begin + cols_per_split);
@@ -428,162 +497,184 @@ stripe_wide_kernel(const float* __restrict__ u, const float* __restrict__ v,
   const ClientPlanes<TM, MASK> planes(m, w, e, M, N);
   const float lam_e = lam[e];
   const float half_lam2 = 0.5f * lam_e * lam_e;
-  // This block's rank half [hk, hk + hw) and the other one [ok, ok + ow).
-  const int hk = h ? K0 : 0, hw = h ? r - K0 : K0;
-  const int ok = h ? 0 : K0, ow = h ? K0 : r - K0;
-  const float* u_own = h ? Ub : Ua;
-  const float* u_other = h ? Ua : Ub;
+  // This block's rank slice [k0, k0 + kw) and its rank groups of U V^T.
+  const int k0 = c * slice, kw = min(slice, r - k0);
+  const int w4 = (kw + 3) / 4;
+  // This block's share of the tile: columns [share_col0, + ncols); thread
+  // q < 16 ncols takes rows 4 (q / ncols) .. + 3 of column q % ncols of it
+  // (g = 0, 1 for q = tid, tid + 256).
+  const int share_col0 = c * kT64 / cluster;
+  const int ncols = (c + 1) * kT64 / cluster - share_col0;
+  int sj[2], si[2];
+  bool sok[2];
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int q = threadIdx.x + kT64Threads * g;
+    sok[g] = q < 16 * ncols;
+    si[g] = 4 * (q / ncols);
+    sj[g] = share_col0 + q % ncols;
+  }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // U V^T patch: rows ti + 16 a, columns tj + 16 b; a warp is 4 x 8 threads.
   const int ti = (warp >> 1) * 4 + (lane >> 3);
   const int tj = (warp & 1) * 8 + (lane & 7);
-  const int cr = warp * 4 + (lane >> 3);
-  const int ck = lane & 7;
+  // Contraction blocks: rows (Psi V) or columns (Psi^T U) 4 cq + cc, rank
+  // groups kl + 16 q; kl < 8 (the groups an odd RQ leaves out of its last
+  // q) holds for warps 0-3 alone, one of the two warps of each SM
+  // sub-partition.
+  const int cq = (warp & 1) * 8 + (lane >> 2);
+  const int kl = (warp >> 1) * 4 + (lane & 3);
 
-  stage_window<RQH>(Ua, ue, i0, M, r, 0, K0);
-  stage_window<RQH>(Ub, ue, i0, M, r, K0, r - K0);
-  stage_window<RQH>(Vs, ve, col_begin, N, r, ok, ow);
+  // The columns past the slice's 4-rank groups are read only into register
+  // columns that are never written out; zero them once all the same.
+  zero_past_slice<RQ>(Us, 3 * kT64, w4);
+  stage_slice<RQ>(Us, ue, i0, M, r, k0, kw);
+  stage_slice<RQ>(Vring, ve, col_begin, N, r, k0, kw);
   cp_async_commit();
 
-  float acc[2][RQH][4];
+  constexpr int QH = (RQ + 1) / 2;  // 16 rank groups a step: 8 RQ in all
+  float acc[4][QH][4];
 #pragma unroll
-  for (int c = 0; c < 2; ++c)
+  for (int cc = 0; cc < 4; ++cc)
 #pragma unroll
-    for (int q = 0; q < RQH; ++q)
+    for (int q = 0; q < QH; ++q)
 #pragma unroll
-      for (int s = 0; s < 4; ++s) acc[c][q][s] = 0.f;
+      for (int s = 0; s < 4; ++s) acc[cc][q][s] = 0.f;
   float obj = 0.f, psi2 = 0.f;
 
-  for (int j0 = col_begin; j0 < col_end; j0 += kT64) {
-    float x[4][4], wt[4][4];
+  for (int j0 = col_begin, t = 0; j0 < col_end; j0 += kT64, ++t) {
+    const float* Vs = Vring + (t & 1) * kT64 * LD;
+    // This thread's M (and W) entries of the share, loaded before the wait
+    // and the FMAs that hide their latency.
+    float x[2][4], wt[2][4];
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        x[g][s] = wt[g][s] = 0.f;
+        if (sok[g])
+          planes.load(i0 + si[g] + s, j0 + sj[g], x[g][s], wt[g][s]);
+      }
+    cp_async_wait_all();
+    __syncthreads();  // this tile's V slice staged; the last one's read
+    if (j0 + kT64 < col_end) {
+      stage_slice<RQ>(Vring + ((t + 1) & 1) * kT64 * LD, ve, j0 + kT64, N,
+                      r, k0, kw);
+      cp_async_commit();
+    }
+
+    float low[4][4];
+    patch44<RQ, 4>(Us, Vs, ti, tj, w4, low);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b)
-        planes.load(i0 + ti + 16 * a, j0 + tj + 16 * b, x[a][b], wt[a][b]);
-    cp_async_wait_all();
-    __syncthreads();  // V's other half of this tile (and U) staged
-    float lo[4][4], lh[4][4];
-    patch44<RQH>(u_other, Vs, ti, tj, (ow + 3) / 4, lo);
-    __syncthreads();  // nobody reads V's other half any more
-    stage_window<RQH>(Vs, ve, j0, N, r, hk, hw);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    patch44<RQH>(u_own, Vs, ti, tj, (hw + 3) / 4, lh);
+        Pp[swz_t(tj + 16 * b, ti + 16 * a)] = low[a][b];
+    hopper::cluster_sync();  // every block's partial written
+
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int g = 0; g < 2; ++g) {
+      if (!sok[g]) continue;
+      const int at = swz_t(sj[g], si[g]);
+      const float4 lo = hopper::cluster_sum4(Pp + at, cluster);
+      const float los[4] = {lo.x, lo.y, lo.z, lo.w};
+      float ps[4];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float rw = apply_mask<MASK>(
-            wt[a][b], x[a][b] - (lo[a][b] + lh[a][b]));
-        const float psi = clip(rw, lam_e);
+      for (int s = 0; s < 4; ++s) {
+        const float rw = apply_mask<MASK>(wt[g][s], x[g][s] - los[s]);
+        ps[s] = clip(rw, lam_e);
         if (WITH_DIAG) {
           const float ab = fabsf(rw);
           obj += (ab <= lam_e) ? 0.5f * rw * rw : lam_e * ab - half_lam2;
-          psi2 = fmaf(psi, psi, psi2);
+          psi2 = fmaf(ps[s], ps[s], psi2);
         }
-        PsT[(tj + 16 * b) * kPsiTLd + ti + 16 * a] = psi;
       }
-    __syncthreads();
+      hopper::cluster_store4(PsT + at, cluster,
+                             make_float4(ps[0], ps[1], ps[2], ps[3]));
+    }
+    hopper::cluster_sync();  // Psi^T whole in every block; partials read
 
-    // acc[c][q] += sum_jj Psi[2 cr + c, jj] * V[jj, hk + 4 (ck + 8 q) ..]
+    // acc[cc][q] += sum_jj Psi[4 cq + cc, jj] * V[jj, k0 + 4 (kl + 16 q) ..]
+    // (unrolled 16 deep: with store_block's float4 stores, the kernel ran
+    // faster on an H100 than at 2, 4, 8, 32 or 64 deep, with the same bits)
+#pragma unroll 16
     for (int jj = 0; jj < kT64; ++jj) {
-      const float2 p =
-          *reinterpret_cast<const float2*>(PsT + jj * kPsiTLd + 2 * cr);
+      const float4 p =
+          *reinterpret_cast<const float4*>(PsT + swz_t(jj, 4 * cq));
+      const float pc[4] = {p.x, p.y, p.z, p.w};
       const float* vrow = Vs + jj * LD;
 #pragma unroll
-      for (int q = 0; q < RQH; ++q) {
-        const float4 vq =
-            *reinterpret_cast<const float4*>(vrow + 4 * (ck + 8 * q));
-        acc[0][q][0] = fmaf(p.x, vq.x, acc[0][q][0]);
-        acc[0][q][1] = fmaf(p.x, vq.y, acc[0][q][1]);
-        acc[0][q][2] = fmaf(p.x, vq.z, acc[0][q][2]);
-        acc[0][q][3] = fmaf(p.x, vq.w, acc[0][q][3]);
-        acc[1][q][0] = fmaf(p.y, vq.x, acc[1][q][0]);
-        acc[1][q][1] = fmaf(p.y, vq.y, acc[1][q][1]);
-        acc[1][q][2] = fmaf(p.y, vq.z, acc[1][q][2]);
-        acc[1][q][3] = fmaf(p.y, vq.w, acc[1][q][3]);
+      for (int q = 0; q < QH; ++q) {
+        if (RQ % 2 == 0 || q < QH - 1 || kl < 8) {
+          const float4 vq =
+              *reinterpret_cast<const float4*>(vrow + 4 * (kl + 16 * q));
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            acc[cc][q][0] = fmaf(pc[cc], vq.x, acc[cc][q][0]);
+            acc[cc][q][1] = fmaf(pc[cc], vq.y, acc[cc][q][1]);
+            acc[cc][q][2] = fmaf(pc[cc], vq.z, acc[cc][q][2]);
+            acc[cc][q][3] = fmaf(pc[cc], vq.w, acc[cc][q][3]);
+          }
+        }
       }
     }
 
     if constexpr (WITH_V) {
-      // This stripe's share of out_v[e] for the tile's 64 columns, ranks
-      // of half h, written to the stripe's own plane.
-      float pv[2][RQH][4];
+      // pv[cc][q] = sum_ii Psi[ii, 4 cq + cc] * U[ii, k0 + 4 (kl + 16 q) ..]:
+      // this stripe's share of out_v for the tile's 64 columns, ranks of
+      // slice c, written to the stripe's own plane.
+      float pv[4][QH][4];
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
+      for (int cc = 0; cc < 4; ++cc)
 #pragma unroll
-        for (int q = 0; q < RQH; ++q)
+        for (int q = 0; q < QH; ++q)
 #pragma unroll
-          for (int s = 0; s < 4; ++s) pv[c][q][s] = 0.f;
-      const float* p0row = PsT + (2 * cr) * kPsiTLd;
-      const float* p1row = p0row + kPsiTLd;
-      for (int ii = 0; ii < kT64; ii += 2) {
-        const float2 p0 = *reinterpret_cast<const float2*>(p0row + ii);
-        const float2 p1 = *reinterpret_cast<const float2*>(p1row + ii);
+          for (int s = 0; s < 4; ++s) pv[cc][q][s] = 0.f;
+      for (int ii = 0; ii < kT64; ii += 4) {
+        float4 p[4];
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const float a0 = hh ? p0.y : p0.x;
-          const float a1 = hh ? p1.y : p1.x;
-          const float* urow = u_own + (ii + hh) * LD;
+        for (int cc = 0; cc < 4; ++cc)
+          p[cc] = *reinterpret_cast<const float4*>(PsT +
+                                                   swz_t(4 * cq + cc, ii));
 #pragma unroll
-          for (int q = 0; q < RQH; ++q) {
-            const float4 uq =
-                *reinterpret_cast<const float4*>(urow + 4 * (ck + 8 * q));
-            pv[0][q][0] = fmaf(a0, uq.x, pv[0][q][0]);
-            pv[0][q][1] = fmaf(a0, uq.y, pv[0][q][1]);
-            pv[0][q][2] = fmaf(a0, uq.z, pv[0][q][2]);
-            pv[0][q][3] = fmaf(a0, uq.w, pv[0][q][3]);
-            pv[1][q][0] = fmaf(a1, uq.x, pv[1][q][0]);
-            pv[1][q][1] = fmaf(a1, uq.y, pv[1][q][1]);
-            pv[1][q][2] = fmaf(a1, uq.z, pv[1][q][2]);
-            pv[1][q][3] = fmaf(a1, uq.w, pv[1][q][3]);
+        for (int h = 0; h < 4; ++h) {
+          float a[4];
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc)
+            a[cc] = h == 0 ? p[cc].x : h == 1 ? p[cc].y
+                  : h == 2 ? p[cc].z : p[cc].w;
+          const float* urow = Us + (ii + h) * LD;
+#pragma unroll
+          for (int q = 0; q < QH; ++q) {
+            if (RQ % 2 == 0 || q < QH - 1 || kl < 8) {
+              const float4 uq =
+                  *reinterpret_cast<const float4*>(urow + 4 * (kl + 16 * q));
+#pragma unroll
+              for (int cc = 0; cc < 4; ++cc) {
+                pv[cc][q][0] = fmaf(a[cc], uq.x, pv[cc][q][0]);
+                pv[cc][q][1] = fmaf(a[cc], uq.y, pv[cc][q][1]);
+                pv[cc][q][2] = fmaf(a[cc], uq.z, pv[cc][q][2]);
+                pv[cc][q][3] = fmaf(a[cc], uq.w, pv[cc][q][3]);
+              }
+            }
           }
         }
       }
-      float* dst =
-          v_target + (static_cast<size_t>(stripe) * E + e) * N * r + hk;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int j = j0 + 2 * cr + c;
-        if (j >= N) continue;
-#pragma unroll
-        for (int q = 0; q < RQH; ++q)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            const int k = 4 * (ck + 8 * q) + s;
-            if (k < hw) dst[static_cast<size_t>(j) * r + k] = pv[c][q][s];
-          }
-      }
-    }
-    __syncthreads();  // nobody reads this V half or Psi^T any more
-    if (j0 + kT64 < col_end) {
-      stage_window<RQH>(Vs, ve, j0 + kT64, N, r, ok, ow);
-      cp_async_commit();
+      store_block<QH>(
+          v_target + (static_cast<size_t>(stripe) * E + e) * N * r + k0, pv,
+          j0, N, r, kw, cq, kl);
     }
   }
 
   // out_u itself with one split, else this split's partial plane.
-  float* dst =
-      out_u + (static_cast<size_t>(split) * E + e) * M * r + hk;
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int i = i0 + 2 * cr + c;
-    if (i >= M) continue;
-#pragma unroll
-    for (int q = 0; q < RQH; ++q)
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int k = 4 * (ck + 8 * q) + s;
-        if (k < hw) dst[static_cast<size_t>(i) * r + k] = acc[c][q][s];
-      }
-  }
+  store_block<QH>(out_u + (static_cast<size_t>(split) * E + e) * M * r + k0,
+                  acc, i0, M, r, kw, cq, kl);
 
-  if (WITH_DIAG && h == 0) {
-    // Block sum of the two scalars, as stripe_kernel's (after the last
-    // barrier of the tile loop, nobody reads Psi^T).
-    float* red = PsT;
+  if (WITH_DIAG) {
+    // Block sum of the two scalars, as stripe_kernel's, in the partial
+    // tile: after the last cluster barrier nobody reads it.
+    float* red = Pp;
     red[threadIdx.x] = obj;
     red[kT64Threads + threadIdx.x] = psi2;
     __syncthreads();
@@ -594,10 +685,9 @@ stripe_wide_kernel(const float* __restrict__ u, const float* __restrict__ v,
       }
       __syncthreads();
     }
-    const int n_stripes = (M + kT64 - 1) / kT64;
-    if (threadIdx.x == 0 && stripe < n_stripes) {
-      const int blocks = n_stripes * gridDim.y;
-      const int b = stripe * gridDim.y + split;
+    if (threadIdx.x == 0) {
+      const int blocks = gridDim.x * gridDim.y;  // per client
+      const int b = (stripe * gridDim.y + split) * cluster + c;
       diag_partial[static_cast<size_t>(e) * blocks + b] = red[0];
       diag_partial[static_cast<size_t>(E + e) * blocks + b] =
           red[kT64Threads];
@@ -605,8 +695,8 @@ stripe_wide_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
-// Ranks above 512 in chunks of 256 (tile64.cuh): one chunk of U and one of
-// V at a time, Psi^T.  147 KB: one block an SM.
+// Ranks above 2048 in chunks of 256 (tile64.cuh): one chunk of U and one
+// of V at a time, Psi^T.  147 KB: one block an SM.
 __host__ __device__ constexpr size_t stripe_chunk_smem_bytes() {
   return sizeof(float) * (2 * kT64 * ld64<kChunkRQ>() + kT64 * kPsiTLd);
 }
@@ -617,8 +707,10 @@ __host__ __device__ constexpr size_t stripe_chunk_smem_bytes() {
 // (U V^T over every chunk, in chunk order: chunked_low), stages V's (and
 // for out_v U's) chunk c again unless it is the last one (still staged),
 // and contracts.  The scalars come from the same Psi in every block; the
-// c = 0 block writes them.  The dual's row groups are single stripes (as
-// in stripe_wide_kernel).
+// c = 0 block writes them.  The dual's row groups are single stripes.  Its
+// U V^T work is C times one pass's; at r 449-512 (the cluster limit
+// lowered) it gives the cluster kernel's out_u and out_v bits with slices
+// of 256.
 template <typename TM, int MASK, bool WITH_DIAG, bool WITH_V>
 __global__ void __launch_bounds__(kT64Threads, 1)
 stripe_chunk_kernel(const float* __restrict__ u, const float* __restrict__ v,
@@ -808,50 +900,78 @@ stripe_chunk_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
-// Number of 64-row stripes.  diag_partial holds 2 E stripes splits floats,
-// u_partial splits E M r (when splits > 1), v_partial groups E N r (when
-// groups > 1).
+// Number of 64-row stripes.
 inline int stripes(int M) { return (M + kT64 - 1) / kT64; }
 
-// The stripe kernel, then one launch of the fixed-order sums of its
-// partials: out_u from u_partial (splits > 1), out_v from v_partial
-// (WITH_V, groups > 1), obj and psi2 from diag_partial (WITH_DIAG).  The
-// splits' column ranges are whole 64-column tiles, none empty.  WITH_V
-// takes kernels/huber_contract.py::dual_plan's row groups: `groups`
+// Whether the column splits and row groups describe a launch: the splits'
+// column ranges whole 64-column tiles, none empty; WITH_V `groups`
 // clusters of `cluster` stripes (1, 2, 4 or 8), together every stripe,
-// none empty; the u flavours one stripe a block.
+// none empty.
+inline bool stripe_layout_valid(int M, int N, int splits, int cols_per_split,
+                                int cluster, int groups) {
+  const int tiles = stripes(M);
+  return splits >= 1 && cols_per_split % kT64 == 0 &&
+         (splits - 1) * cols_per_split < N &&
+         static_cast<long long>(splits) * cols_per_split >= N &&
+         (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
+         groups >= 1 && groups * cluster >= tiles &&
+         (groups - 1) * cluster < tiles;
+}
+
+// One launch of the fixed-order sums of a stripe kernel's partials that the
+// flavour needs: out_u from u_partial (splits > 1), out_v from v_partial
+// (WITH_V, groups > 1), obj and psi2 from diag_partial (WITH_DIAG; `blocks`
+// partials a client).  u_partial holds splits E M r floats, v_partial
+// groups E N r, diag_partial 2 E blocks.
+template <bool WITH_DIAG, bool WITH_V>
+cudaError_t launch_stripe_sums(float* out_u, float* out_v, float* obj,
+                               float* psi2, const float* diag_partial,
+                               const float* u_partial,
+                               const float* v_partial, int E, int M, int N,
+                               int r, int splits, int groups, size_t blocks,
+                               cudaStream_t stream) {
+  SumJobs jobs{};
+  if (splits > 1)
+    jobs.job[jobs.n++] = sum_over_splits(
+        u_partial, out_u, static_cast<size_t>(E) * M * r, splits);
+  if (WITH_V && groups > 1)
+    jobs.job[jobs.n++] = sum_over_splits(
+        v_partial, out_v, static_cast<size_t>(E) * N * r, groups);
+  if (WITH_DIAG) {
+    // diag_partial: (2, E, blocks).
+    jobs.job[jobs.n++] = SumJob{diag_partial, obj, static_cast<size_t>(E),
+                                blocks, 1, static_cast<int>(blocks)};
+    jobs.job[jobs.n++] = SumJob{diag_partial + E * blocks, psi2,
+                                static_cast<size_t>(E), blocks, 1,
+                                static_cast<int>(blocks)};
+  }
+  return jobs.n > 0 ? launch_sums(jobs, stream) : cudaSuccess;
+}
+
+// stripe_kernel (RQ <= 8) or stripe_chunk_kernel (RQ == kChunked), then the
+// sums.  WITH_V takes kernels/huber_contract.py::dual_plan's row groups
+// (clusters of stripes only for stripe_kernel); the u flavours one stripe a
+// block.  diag_partial holds 2 E stripes splits floats.
 template <int RQ, typename TM, int MASK, bool WITH_DIAG, bool WITH_V>
 cudaError_t launch_stripe(const float* u, const float* v, const TM* m,
                           const void* w, const float* lam, float* out_u,
                           float* out_v, float* obj, float* psi2,
                           float* diag_partial, float* u_partial,
                           float* v_partial, int E, int M, int N, int r,
-                          int splits, int cols_per_split,
-                          cudaStream_t stream, int cluster = 1,
-                          int groups = 0) {
+                          int splits, int cols_per_split, int cluster,
+                          int groups, cudaStream_t stream) {
   const int tiles = stripes(M);
   if (!WITH_V) {
     cluster = 1;
     groups = tiles;
   }
-  if (splits < 1 || cols_per_split % kT64 != 0 ||
-      (splits - 1) * cols_per_split >= N ||
-      static_cast<long long>(splits) * cols_per_split < N ||
-      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
-      groups < 1 || groups * cluster < tiles ||
-      (groups - 1) * cluster >= tiles)
-    return cudaErrorInvalidValue;
-  // RQ > 8: two rank halves of RQ / 2 register groups; kChunked: chunks
-  // of 256 (tile.cuh's by_rank); either way one stripe a row group.
   constexpr bool kChunks = RQ == kChunked;
-  constexpr bool kWide = RQ > 8;
-  if ((kWide || kChunks) && cluster != 1) return cudaErrorInvalidValue;
+  if (!stripe_layout_valid(M, N, splits, cols_per_split, cluster, groups) ||
+      (kChunks && cluster != 1))
+    return cudaErrorInvalidValue;
   auto kernel = stripe_chunk_kernel<TM, MASK, WITH_DIAG, WITH_V>;
   size_t smem = stripe_chunk_smem_bytes();
-  if constexpr (kWide) {
-    kernel = stripe_wide_kernel<RQ / 2, TM, MASK, WITH_DIAG, WITH_V>;
-    smem = stripe_wide_smem_bytes<RQ / 2>();
-  } else if constexpr (!kChunks) {
+  if constexpr (!kChunks) {
     kernel = stripe_kernel<RQ, TM, MASK, WITH_DIAG, WITH_V>;
     smem = stripe_smem_bytes<RQ, stripe_stages<RQ, WITH_V>()>() +
            (cluster > 1 ? sizeof(float) * recv_floats<RQ>() : 0);
@@ -862,26 +982,18 @@ cudaError_t launch_stripe(const float* u, const float* v, const TM* m,
   float* u_dst = splits == 1 ? out_u : u_partial;
   float* v_dst = groups > 1 ? v_partial : out_v;
   const dim3 grid(groups * cluster * (kChunks ? rank_chunks(r) : 1), splits,
-                  kWide ? 2 * E : E);
+                  E);
   if (cluster == 1) {
     kernel<<<grid, kT64Threads, smem, stream>>>(
         u, v, m, w, lam, u_dst, diag_partial, v_dst, E, M, N, r,
         cols_per_split, cluster);
   } else {
-    cudaLaunchConfig_t config = {};
-    config.gridDim = grid;
-    config.blockDim = dim3(kT64Threads);
-    config.dynamicSmemBytes = smem;
-    config.stream = stream;
     cudaLaunchAttribute attr[2];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config =
+        cluster_launch_config(attr, grid, cluster, smem, stream);
     attr[1].id = cudaLaunchAttributeClusterSchedulingPolicyPreference;
     attr[1].val.clusterSchedulingPolicyPreference =
         cudaClusterSchedulingPolicyLoadBalancing;
-    config.attrs = attr;
     config.numAttrs = 2;
     err = cudaLaunchKernelEx(&config, kernel, u, v, m, w, lam, u_dst,
                              diag_partial, v_dst, E, M, N, r,
@@ -890,25 +1002,116 @@ cudaError_t launch_stripe(const float* u, const float* v, const TM* m,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // One launch of the fixed-order sums that this flavour needs.
-  SumJobs jobs{};
-  if (splits > 1)
-    jobs.job[jobs.n++] = sum_over_splits(
-        u_partial, out_u, static_cast<size_t>(E) * M * r, splits);
-  if (WITH_V && groups > 1)
-    jobs.job[jobs.n++] = sum_over_splits(
-        v_partial, out_v, static_cast<size_t>(E) * N * r, groups);
-  if (WITH_DIAG) {
-    // diag_partial: (2, E, blocks) with blocks = tiles * splits a client.
-    const size_t blocks = static_cast<size_t>(tiles) * splits;
-    jobs.job[jobs.n++] = SumJob{diag_partial, obj, static_cast<size_t>(E),
-                                blocks, 1, static_cast<int>(blocks)};
-    jobs.job[jobs.n++] = SumJob{diag_partial + E * blocks, psi2,
-                                static_cast<size_t>(E), blocks, 1,
-                                static_cast<int>(blocks)};
+  return launch_stripe_sums<WITH_DIAG, WITH_V>(
+      out_u, out_v, obj, psi2, diag_partial, u_partial, v_partial, E, M, N,
+      r, splits, groups, static_cast<size_t>(tiles) * splits, stream);
+}
+
+// stripe_cluster_kernel with rank slices of `slice` over clusters of
+// `slices` blocks, then the sums.  WITH_V's row groups are single stripes
+// (cluster 1, groups = stripes); diag_partial holds 2 E stripes splits
+// slices floats.
+template <int RQ, typename TM, int MASK, bool WITH_DIAG, bool WITH_V>
+cudaError_t launch_stripe_cluster(const float* u, const float* v,
+                                  const TM* m, const void* w,
+                                  const float* lam, float* out_u,
+                                  float* out_v, float* obj, float* psi2,
+                                  float* diag_partial, float* u_partial,
+                                  float* v_partial, int E, int M, int N,
+                                  int r, int splits, int cols_per_split,
+                                  int cluster, int groups, int slices,
+                                  int slice, cudaStream_t stream) {
+  const int tiles = stripes(M);
+  if (!WITH_V) {
+    cluster = 1;
+    groups = tiles;
   }
-  if (jobs.n > 0) err = launch_sums(jobs, stream);
-  return err;
+  if (!stripe_layout_valid(M, N, splits, cols_per_split, cluster, groups) ||
+      cluster != 1)
+    return cudaErrorInvalidValue;
+  auto kernel = stripe_cluster_kernel<RQ, TM, MASK, WITH_DIAG, WITH_V>;
+  constexpr size_t smem = cluster_smem_bytes<RQ>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  float* u_dst = splits == 1 ? out_u : u_partial;
+  float* v_dst = groups > 1 ? v_partial : out_v;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t config = cluster_launch_config(
+      attr, dim3(tiles * slices, splits, E), slices, smem, stream);
+  err = cudaLaunchKernelEx(&config, kernel, u, v, m, w, lam, u_dst,
+                           diag_partial, v_dst, E, M, N, r, cols_per_split,
+                           slices, slice);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_stripe_sums<WITH_DIAG, WITH_V>(
+      out_u, out_v, obj, psi2, diag_partial, u_partial, v_partial, E, M, N,
+      r, splits, groups, static_cast<size_t>(tiles) * splits * slices,
+      stream);
+}
+
+// The C entries' launch of one flavour: m is fp32 or bf16 (dtype code), w
+// null, dense or packed (mask code, tile.cuh).  r <= 256 takes one register
+// block (stripe_kernel); above, slices > 0 the cluster kernel with rank
+// slices of `slice` (slices_valid), slices == 0 the chunks of 256
+// (stripe_chunk_kernel: kernels/_launch.py::u_chunked).  Returns
+// cudaGetLastError() of the launches (0 on success).
+template <bool WITH_DIAG, bool WITH_V>
+int stripe_entry(const float* u, const float* v, const void* m,
+                 const void* w, const float* lam, float* out_u,
+                 float* out_v, float* obj, float* psi2, float* diag_partial,
+                 float* u_partial, float* v_partial, int E, int M, int N,
+                 int r, int dtype, int mask, int splits, int cols_per_split,
+                 int cluster, int groups, int slices, int slice,
+                 void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (r > kRankChunk && slices > 0) {
+    if (!slices_valid(r, slices, slice))
+      return static_cast<int>(cudaErrorInvalidValue);
+    // One register block of the slice's width: RQ = ceil(slice / 32).
+    return dispatch(slice, dtype, mask, [&](auto rq, auto tm, auto mk) {
+      using TM = typename decltype(tm)::type;
+      constexpr int RQ = decltype(rq)::value;
+      if constexpr (RQ >= kClusterMinRQ && RQ <= 8)
+        return launch_stripe_cluster<RQ, TM, decltype(mk)::value, WITH_DIAG,
+                                     WITH_V>(
+            u, v, static_cast<const TM*>(m), w, lam, out_u, out_v, obj,
+            psi2, diag_partial, u_partial, v_partial, E, M, N, r, splits,
+            cols_per_split, cluster, groups, slices, slice, st);
+      else
+        return cudaErrorInvalidValue;
+    });
+  }
+  return dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
+    using TM = typename decltype(tm)::type;
+    constexpr int RQ = decltype(rq)::value;
+    if constexpr (RQ <= 8)  // kChunked is 0
+      return launch_stripe<RQ, TM, decltype(mk)::value, WITH_DIAG, WITH_V>(
+          u, v, static_cast<const TM*>(m), w, lam, out_u, out_v, obj, psi2,
+          diag_partial, u_partial, v_partial, E, M, N, r, splits,
+          cols_per_split, cluster, groups, st);
+    else
+      return cudaErrorInvalidValue;
+  }, r > kRankChunk);
+}
+
+// The most clusters of `cluster` blocks of stripe_cluster_kernel (this
+// flavour, rank slices of `slice`) resident at once on the current device
+// (cudaOccupancyMaxActiveClusters), or -1 on an error.
+template <bool WITH_DIAG, bool WITH_V>
+int stripe_cluster_slots(int cluster, int slice) {
+  int slots = -1;
+  dispatch(slice, kFloat32, kNoMask, [&](auto rq, auto, auto) {
+    constexpr int RQ = decltype(rq)::value;
+    if constexpr (RQ >= kClusterMinRQ && RQ <= 8)
+      slots = max_active_clusters(
+          stripe_cluster_kernel<RQ, float, kNoMask, WITH_DIAG, WITH_V>,
+          cluster_smem_bytes<RQ>(), cluster);
+    return cudaSuccess;
+  });
+  return slots;
 }
 
 }  // namespace repro

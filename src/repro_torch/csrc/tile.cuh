@@ -108,12 +108,12 @@ using Int = std::integral_constant<int, V>;
 
 // RQ = ceil(r / 32) = 1 .. 8 covers r <= 256 in one register block of 32 RQ
 // ranks; above, RQ = 2 RQH with RQH = ceil(r / 64) = 5 .. 8 (10, 12, 14, 16)
-// covers r <= 512 in two rank halves of 32 RQH (tile64.cuh's wide kernels),
-// and RQ = kChunked any r > 512 in chunks of 256 (tile64.cuh's chunked
-// kernels; `chunked` sends r 257-512 there too, which at r 449-512 gives
-// the wide kernels' bits).  kernels/_launch.py passes the same choice.
-// contract_v.cu passes `chunked` for every r > 256 (its chunk kernel) and
-// dispatches its cluster kernel by the rank slice's width instead.
+// covers r <= 512 in two rank halves of 32 RQH (tile64.cuh's wide kernel,
+// the shrink's), and RQ = kChunked any r > 512 in chunks of 256
+// (tile64.cuh's chunked kernels).  `chunked` sends r 257-512 there too:
+// contract_v.cu and stripe.cuh pass it for every r > 256 on their chunk
+// route and dispatch their cluster kernels by the rank slice's width
+// instead.
 constexpr int kChunked = 0;
 
 template <typename F>

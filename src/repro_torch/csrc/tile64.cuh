@@ -80,8 +80,7 @@ __device__ __forceinline__ void stage_async(float* dst, const float* src,
     stage_pieces<RQ, 4>(dst, src, row0, nrows, r);
 }
 
-// Ranks 257 .. 512 (the "wide" kernels: contract_v.cu, stripe.cuh,
-// shrink.cu).  A 64-row slice of U and one of V at r = 512 take 132 KB each,
+// Ranks 257 .. 512 (the "wide" kernel: shrink.cu's).  A 64-row slice of U and one of V at r = 512 take 132 KB each,
 // more than a block's 227 KB together, and a 32 RQ-rank register block of
 // the contractions would take 128 fp32 registers a thread.  So the rank
 // axis is taken in two halves: half 0 holds ranks [0, 32 RQH), half 1 ranks
@@ -92,7 +91,8 @@ __device__ __forceinline__ void stage_async(float* dst, const float* src,
 // stage the halves in either order and still get the same bits.
 __host__ __device__ constexpr int wide_half(int rqh) { return 32 * rqh; }
 
-// Ranks above 512 (the "chunked" kernels): the rank axis in chunks of
+// Ranks above 512 (the "chunked" kernels: the shrink's, and above 2048
+// contract_v.cu's and stripe.cuh's): the rank axis in chunks of
 // kRankChunk, chunk c holding ranks
 // [256 c, min(256 (c + 1), r)), each staged into a slice of
 // ld64<kChunkRQ>() floats a row (the last one zero-padded).  Three slices of
@@ -107,6 +107,129 @@ constexpr int kRankChunk = 256;
 constexpr int kChunkRQ = kRankChunk / 32;
 __host__ __device__ constexpr int rank_chunks(int r) {
   return (r + kRankChunk - 1) / kRankChunk;
+}
+
+// Ranks 257 .. 2048 (the "cluster" kernels: contract_v.cu, stripe.cuh):
+// the rank axis cut into slices over a thread-block cluster of up to 8
+// blocks, block c holding ranks [c slice, min((c + 1) slice, r)).  Each
+// block forms its slice's partial U V^T patch in rank order from zero and
+// the cluster adds the partials in slice order, ((p0 + p1) + p2) + ...,
+// so slices of 256 sum as the chunks above do.
+constexpr int kSliceMax = 256;   // widest slice: 32 RQ ranks at RQ = 8
+constexpr int kClusterMax = 8;   // blocks a cluster (portable on Hopper)
+constexpr int kClusterMinRQ = 5; // slices of r > 256 over <= 8 blocks
+                                 // are at least 129 ranks wide
+
+// Dynamic shared memory of one block of a cluster kernel at RQ = ceil(slice
+// / 32): one factor's slice resident and two stages of the other's (64 rows
+// of ld64<RQ>() floats each), then a 64 x 64 partial and a 64 x 64 Psi,
+// both unpadded (XOR-swizzled against bank conflicts instead).
+template <int RQ>
+__host__ __device__ constexpr size_t cluster_smem_bytes() {
+  return sizeof(float) * (3 * kT64 * ld64<RQ>() + 2 * kT64 * kT64);
+}
+static_assert(cluster_smem_bytes<8>() == 232448,
+              "a cluster block takes exactly the 227 KB an H100 block may");
+
+// Whether (cluster, slice) cut r into slices as the cluster kernels take
+// them: slice a multiple of 4 (so every slice but the last holds whole
+// 4-rank groups and starts 16-byte aligned), none wider than kSliceMax,
+// the last one not empty.
+__host__ __device__ inline bool slices_valid(int r, int cluster, int slice) {
+  return cluster >= 1 && cluster <= kClusterMax && slice >= 4 &&
+         slice <= kSliceMax && slice % 4 == 0 &&
+         (cluster - 1) * slice < r && r <= cluster * slice;
+}
+
+// Stage rows [row0, row0 + 64) of ranks [k0, k0 + kw) of a (nrows, r)
+// row-major factor into dst (64 x ld64<RQ>()) by cp.async in the widest
+// pieces r and the factor's address allow, up to kw rounded up to 4
+// (zeros past kw and past nrows); the columns beyond stay as they are.
+template <int RQ, int BYTES>
+__device__ __forceinline__ void stage_slice_pieces(float* dst,
+                                                   const float* src,
+                                                   int row0, int nrows,
+                                                   int r, int k0, int kw) {
+  constexpr int W = BYTES / 4;
+  constexpr int LD = ld64<RQ>();
+  const int rp = ((kw + 3) & ~3) / W;  // pieces a row
+  for (int idx = threadIdx.x; idx < kT64 * rp; idx += kT64Threads) {
+    const int ii = idx / rp;
+    const int k = (idx - ii * rp) * W;
+    const int row = row0 + ii;
+    const bool ok = row < nrows && k < kw;
+    cp_async<BYTES>(dst + ii * LD + k,
+                    ok ? src + static_cast<size_t>(row) * r + k0 + k : src,
+                    ok);
+  }
+}
+
+template <int RQ>
+__device__ __forceinline__ void stage_slice(float* dst, const float* src,
+                                            int row0, int nrows, int r,
+                                            int k0, int kw) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
+  if (r % 4 == 0 && at % 16 == 0)
+    stage_slice_pieces<RQ, 16>(dst, src, row0, nrows, r, k0, kw);
+  else if (r % 2 == 0 && at % 8 == 0)
+    stage_slice_pieces<RQ, 8>(dst, src, row0, nrows, r, k0, kw);
+  else
+    stage_slice_pieces<RQ, 4>(dst, src, row0, nrows, r, k0, kw);
+}
+
+// The launch configuration of a cluster kernel: clusters of `cluster`
+// blocks along x, kT64Threads threads and `smem` bytes of dynamic shared
+// memory a block; attr (one attribute, at least) must outlive it.
+inline cudaLaunchConfig_t cluster_launch_config(cudaLaunchAttribute* attr,
+                                                dim3 grid, int cluster,
+                                                size_t smem,
+                                                cudaStream_t stream) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kT64Threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+// The most clusters of `cluster` blocks of `kernel` (`smem` bytes of dynamic
+// shared memory a block) resident at once on the current device
+// (cudaOccupancyMaxActiveClusters), or -1 on an error.
+template <typename Kernel>
+int max_active_clusters(Kernel kernel, size_t smem, int cluster) {
+  if (cluster < 1 || cluster > kClusterMax ||
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return -1;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t config =
+      cluster_launch_config(attr, dim3(cluster), cluster, smem, nullptr);
+  int slots = -1;
+  return cudaOccupancyMaxActiveClusters(&slots, kernel, &config) ==
+                 cudaSuccess
+             ? slots
+             : -1;
+}
+
+// Zero columns [4 w4, ld64<RQ>()) of `rows` consecutive staged rows at dst:
+// the register blocks of the cluster kernels' contractions read 32 RQ
+// ranks, past a slice's 4-rank groups, into columns never written out.
+template <int RQ>
+__device__ __forceinline__ void zero_past_slice(float* dst, int rows,
+                                                int w4) {
+  constexpr int LD = ld64<RQ>();
+  const int pad = LD - 4 * w4;
+  for (int idx = threadIdx.x; idx < rows * pad; idx += kT64Threads) {
+    const int row = idx / pad;
+    dst[row * LD + 4 * w4 + (idx - row * pad)] = 0.f;
+  }
 }
 
 // Stage rows [row0, row0 + 64) of ranks [k0, k0 + kw) of a (nrows, r)

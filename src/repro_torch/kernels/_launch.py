@@ -19,23 +19,28 @@ import torch
 #: Ranks one register block of the kernels covers (r <= 32 * 8), and the
 #: width of a rank chunk above it (``kRankChunk`` in ``csrc/tile64.cuh``).
 RANK_CHUNK = 256
-#: Ranks up to which the row-stripe contractions and the shrink take
-#: r > :data:`RANK_CHUNK` in two halves staged side by side (their
-#: ``*_wide_kernel``); above, in chunks of :data:`RANK_CHUNK` staged in
-#: turn (their ``*_chunk_kernel``), at any rank.  At r 449-512 the two give
-#: the same bits (``csrc/tile64.cuh``).
+#: Ranks up to which the shrink takes r > :data:`RANK_CHUNK` in two halves
+#: staged side by side (``shrink_wide_kernel``); above, in chunks of
+#: :data:`RANK_CHUNK` staged in turn (``shrink_chunk_kernel``), at any
+#: rank (:func:`chunked`).
 TWO_HALVES_MAX_RANK = 512
-#: ``huber_contract_v`` above :data:`RANK_CHUNK`: the widest rank slice of
-#: one block of ``contract_v_cluster_kernel`` (``kVSliceMax`` in
-#: ``csrc/contract_v.cu``: its V slice, two U-slice buffers, a partial and
-#: Psi fill the 227 KB a block may take) and the most blocks of its
-#: thread-block cluster (``kVClusterMax``, the portable cluster size).
-V_SLICE_MAX = 256
-V_CLUSTER_MAX = 8
+#: The contractions above :data:`RANK_CHUNK` (``contract_v_cluster_kernel``
+#: and ``stripe_cluster_kernel``): the widest rank slice of one block of a
+#: cluster (``kSliceMax`` in ``csrc/tile64.cuh``: a factor slice, two
+#: stages of the other factor's, a partial and Psi fill the 227 KB a block
+#: may take) and the most blocks of its thread-block cluster
+#: (``kClusterMax``, the portable cluster size).
+SLICE_MAX = 256
+CLUSTER_MAX = 8
 #: Ranks up to which ``huber_contract_v`` takes r > :data:`RANK_CHUNK` in
-#: the cluster kernel (V_CLUSTER_MAX slices of V_SLICE_MAX); above, in the
+#: its cluster kernel (CLUSTER_MAX slices of SLICE_MAX); above, in the
 #: chunk kernel ``contract_v_chunk_kernel`` (:func:`v_chunked`).
-V_CLUSTER_MAX_RANK = V_CLUSTER_MAX * V_SLICE_MAX
+V_CLUSTER_MAX_RANK = CLUSTER_MAX * SLICE_MAX
+#: The same for the row-stripe contractions (``huber_contract_u``,
+#: ``huber_contract_u_diag``, ``huber_dual_contract``): their cluster
+#: kernel ``stripe_cluster_kernel`` up to this rank, ``stripe_chunk_kernel``
+#: above (:func:`u_chunked`).
+U_CLUSTER_MAX_RANK = CLUSTER_MAX * SLICE_MAX
 #: The CUDA grid's limit on its y and z axes.
 GRID_YZ = 65535
 #: Rows and columns of one residual tile (``kT64`` in ``csrc/tile64.cuh``).
@@ -74,10 +79,19 @@ def rank_chunks(r: int) -> int:
 
 
 def chunked(r: int) -> bool:
-    """Whether the row-stripe contractions and the shrink take rank ``r``
-    in chunks staged in turn (above :data:`TWO_HALVES_MAX_RANK`) rather
-    than in one register block or two halves staged side by side."""
+    """Whether the shrink takes rank ``r`` in chunks staged in turn (above
+    :data:`TWO_HALVES_MAX_RANK`) rather than in one register block or two
+    halves staged side by side (``csrc/shrink.cu`` routes by rank alone)."""
     return r > TWO_HALVES_MAX_RANK
+
+
+def u_chunked(r: int) -> bool:
+    """Whether the row-stripe contractions take rank ``r`` in the chunk
+    kernel ``stripe_chunk_kernel`` (chunks of :data:`RANK_CHUNK` staged in
+    turn, each block forming the tile's whole Psi: above
+    :data:`U_CLUSTER_MAX_RANK`) rather than in one register block (r <=
+    256) or the cluster kernel ``stripe_cluster_kernel``."""
+    return r > U_CLUSTER_MAX_RANK
 
 
 def v_chunked(r: int) -> bool:
@@ -93,14 +107,11 @@ def grid_limit_error(e: int, m: int, r: int) -> str | None:
     """Why no kernel grid holds E = ``e`` clients of ``m`` rows at rank
     ``r``, or ``None`` when one does: the grids' y and z axes stop at
     65535, and the shrink's y axis counts 64-row tiles (``huber_contract_v``'s
-    counts row splits, at most as many), the z axes clients (two a client
-    for the row-stripe contractions' two halves at r 257-512;
-    ``huber_contract_v``'s cluster grid keeps one).  The chunks above 512
-    and ``huber_contract_v``'s rank slices ride the grids' x axis, which
-    sets no limit here."""
-    z = e * (2 if RANK_CHUNK < r <= TWO_HALVES_MAX_RANK else 1)
-    if z > GRID_YZ:
-        return (f"E={e} clients at rank {r} need a grid z axis of {z} "
+    counts row splits, at most as many), every z axis one block a client.
+    The rank chunks, halves and slices ride the grids' x axis or a block's
+    own loop, which set no limit here."""
+    if e > GRID_YZ:
+        return (f"E={e} clients at rank {r} need a grid z axis of {e} "
                 f"blocks; CUDA allows {GRID_YZ}")
     tiles = -(-m // TILE)
     if tiles > GRID_YZ:

@@ -40,15 +40,13 @@ reads a value back to the host.  The launches are deterministic (no
 atomics): sums across blocks go through partials added in index order,
 and the splits of a reduction across blocks (``v_splits``, ``u_splits``)
 are pure functions of the shape and the SM count.
-Ranks above 256: ``huber_contract_v`` splits the rank axis over a
-thread-block cluster of up to 8 blocks a column tile (:func:`v_plan`,
-:func:`v_slices`), which forms each tile's U V^T once and adds the blocks'
-partials in slice order, up to r = 2048; above, chunks of 256 staged in
-turn (``_launch.v_chunked``).  The row-stripe kernels and the shrink take
-the rank in chunks of at most 256 (``_launch.rank_chunks``): the grid
-holds one block for each chunk of the output's rank axis, each forming the
-whole Psi of its tile (two halves staged side by side up to r = 512,
-chunks staged in turn above: ``_launch.chunked``).
+Ranks above 256: ``huber_contract_v`` and the row-stripe kernels split the
+rank axis over a thread-block cluster of up to 8 blocks a column tile or a
+row stripe (:func:`v_plan`, :func:`u_plan`, their rank slices
+:func:`v_slices`, :func:`u_slices`), which forms each tile's U V^T once
+and adds the blocks' partials in slice order, up to r = 2048; above,
+chunks of 256 staged in turn (``_launch.v_chunked``, ``_launch.u_chunked``),
+each block forming the tile's whole Psi.
 ``huber_contract_u`` is ``huber_contract_u_diag`` with the diagnostics
 compiled out (the same ``Psi V`` bits), and ``huber_dual_contract`` always
 runs its one fused pass where its out_v scratch fits 4 MiB
@@ -70,8 +68,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._launch import (
-    MASK_SUFFIX, RANK_CHUNK, V_SLICE_MAX, check_operands, chunked, launch,
-    on_cpu, rank_chunks, signature, sm_count, v_chunked,
+    MASK_SUFFIX, RANK_CHUNK, SLICE_MAX, check_operands, launch, on_cpu,
+    rank_chunks, signature, sm_count, u_chunked, v_chunked,
 )
 
 #: Kernel launches per function and mask mode (CUDA tensors only).
@@ -86,12 +84,12 @@ launches = {
 # u, v, m, w, lam are the outputs and scratch; the ints are (splits, rows
 # per split, cluster, slice) for contract_v (:class:`VPlan`), and (splits,
 # columns per split) for the others, then the dual's row groups (cluster,
-# groups), then their rank route (``_launch.chunked``).
+# groups), then their rank slices (cluster, slice: :class:`UPlan`).
 _ENTRIES = {
     "contract_v": ("repro_huber_contract_v", 2, 4),
-    "contract_u": ("repro_huber_contract_u", 2, 3),
-    "contract_u_diag": ("repro_huber_contract_u_diag", 5, 3),
-    "dual": ("repro_huber_dual_contract", 7, 5),
+    "contract_u": ("repro_huber_contract_u", 2, 4),
+    "contract_u_diag": ("repro_huber_contract_u_diag", 5, 4),
+    "dual": ("repro_huber_dual_contract", 7, 6),
 }
 
 
@@ -99,8 +97,6 @@ def _call(stem: str, base: str, op, u, v, m, w, lam, *outputs,
           ints: tuple = ()) -> None:
     entry, pointers, extra = _ENTRIES[stem]
     lib = _build.library(stem, {entry: signature(pointers, extra)})
-    if stem != "contract_v":
-        ints = (*ints, int(chunked(op.r)))
     launch(lib, entry, base + op.suffix, launches, op, u, v, m, w, lam,
            *outputs, ints=ints)
 
@@ -132,26 +128,29 @@ def _splits(units: int, tiles: int, slots: int) -> tuple[int, int]:
     return best[1], best[2]
 
 
-#: Clusters of ``contract_v_cluster_kernel`` resident at once on a 132-SM
-#: H100 (one block an SM), by cluster size: its
-#: ``cudaOccupancyMaxActiveClusters`` (:func:`v_cluster_slots_on_device`).
-#: A cluster stays within one GPC, so clusters of 3 leave 15 SMs idle.
-V_CLUSTER_SLOTS_H100 = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+#: Clusters of a cluster kernel (``contract_v_cluster_kernel``,
+#: ``stripe_cluster_kernel``: one block an SM each) resident at once on a
+#: 132-SM H100, by cluster size: their ``cudaOccupancyMaxActiveClusters``
+#: (:func:`v_cluster_slots_on_device`, :func:`u_cluster_slots_on_device`,
+#: the same counts for both).  A cluster stays within one GPC, so clusters
+#: of 3 leave 15 SMs idle.
+CLUSTER_SLOTS_H100 = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 
 
-def v_cluster_slots(cluster: int, sms: int) -> int:
-    """Clusters of ``cluster`` blocks of the cluster kernel resident at once
+def cluster_slots(cluster: int, sms: int) -> int:
+    """Clusters of ``cluster`` blocks of a cluster kernel resident at once
     on a card with ``sms`` SMs: the H100's measured counts at 132 SMs,
     ``sms // cluster`` (their upper bound) elsewhere."""
-    if sms == 132 and cluster in V_CLUSTER_SLOTS_H100:
-        return V_CLUSTER_SLOTS_H100[cluster]
+    if sms == 132 and cluster in CLUSTER_SLOTS_H100:
+        return CLUSTER_SLOTS_H100[cluster]
     return max(1, sms // cluster)
 
 
 def v_cluster_slots_on_device(device: torch.device, cluster: int,
-                              slice_: int = V_SLICE_MAX) -> int:
-    """The card's own count behind :data:`V_CLUSTER_SLOTS_H100`
-    (``cudaOccupancyMaxActiveClusters`` of the cluster kernel with rank
+                              slice_: int = SLICE_MAX) -> int:
+    """The card's own count behind :data:`CLUSTER_SLOTS_H100` for
+    ``huber_contract_v`` (``cudaOccupancyMaxActiveClusters`` of its cluster
+    kernel with rank
     slices of ``slice_``); raises where the query fails."""
     lib = _build.library("contract_v", {
         "repro_contract_v_cluster_slots": (ctypes.c_int, ctypes.c_int)})
@@ -175,36 +174,41 @@ def v_splits(e: int, m: int, n: int, sms: int, chunks: int = 1,
     with rank ``chunks`` (the chunk kernel, :func:`rank_chunks`) that many
     times the blocks, one resident on an SM; with a ``cluster`` (the
     cluster kernel, r 257-2048) one cluster of that many blocks a column
-    tile, :func:`v_cluster_slots` clusters resident at once (a cluster's
+    tile, :func:`cluster_slots` clusters resident at once (a cluster's
     blocks take one SM each).  A pure function of the shape and the SM
     count, so a launch is the same on every run of one card."""
     tiles = -(-m // V_TILE_ROWS)
     col_tiles = -(-n // V_TILE_COLS)
     if cluster:
         splits, per = _splits(e * col_tiles, tiles,
-                              v_cluster_slots(cluster, sms))
+                              cluster_slots(cluster, sms))
     else:
         splits, per = _splits(e * chunks * col_tiles, tiles,
                               (2 if chunks == 1 else 1) * sms)
     return splits, per * V_TILE_ROWS
 
 
-def v_slices(r: int) -> tuple[int, int]:
-    """``(cluster, slice)`` of ``huber_contract_v``'s cluster kernel at
-    rank ``r`` (257 .. ``_launch.V_CLUSTER_MAX_RANK``): the fewest blocks
-    whose slices of at most ``_launch.V_SLICE_MAX`` ranks cover r, and the
-    slices as even as 4-rank groups allow (block c holds ranks [c slice,
-    min((c + 1) slice, r)): 252 + 248 at r = 500, 3 x 200 at r = 600)."""
-    cluster = -(-r // V_SLICE_MAX)
+def _rank_slices(r: int) -> tuple[int, int]:
+    """``(cluster, slice)``: the fewest blocks whose slices of at most
+    ``_launch.SLICE_MAX`` ranks cover r, and the slices as even as 4-rank
+    groups allow (block c holds ranks [c slice, min((c + 1) slice, r)):
+    252 + 248 at r = 500, 3 x 200 at r = 600)."""
+    cluster = -(-r // SLICE_MAX)
     return cluster, 4 * -(-(-(-r // 4)) // cluster)
 
 
-def v_cluster_smem_bytes(slice_: int) -> int:
-    """Dynamic shared memory of one block of the cluster kernel with a
-    rank slice of ``slice_`` (``v_cluster_smem_bytes`` in
-    ``csrc/contract_v.cu``): the V slice and two U-slice buffers, each 64
+def v_slices(r: int) -> tuple[int, int]:
+    """``(cluster, slice)`` of ``huber_contract_v``'s cluster kernel at
+    rank ``r`` (257 .. ``_launch.V_CLUSTER_MAX_RANK``): :func:`_rank_slices`."""
+    return _rank_slices(r)
+
+
+def cluster_smem_bytes(slice_: int) -> int:
+    """Dynamic shared memory of one block of a cluster kernel with a rank
+    slice of ``slice_`` (``cluster_smem_bytes`` in ``csrc/tile64.cuh``):
+    one factor's slice resident and two stages of the other's, each 64
     rows of 32 RQ + 4 floats (RQ = ceil(slice / 32)), then the 64 x 64
-    partial and Psi."""
+    partial and Psi (the stripe's Psi^T swizzled, not padded)."""
     rq = -(-slice_ // 32)
     return 4 * (3 * V_TILE_ROWS * (32 * rq + 4)
                 + 2 * V_TILE_ROWS * V_TILE_COLS)
@@ -239,9 +243,25 @@ def v_plan(e: int, m: int, n: int, r: int, sms: int) -> VPlan:
                  (col_tiles * cluster, splits, e))
 
 
+def u_cluster_slots_on_device(device: torch.device, cluster: int,
+                              slice_: int = SLICE_MAX) -> int:
+    """The card's own count behind :data:`CLUSTER_SLOTS_H100` for the
+    row-stripe kernels (``cudaOccupancyMaxActiveClusters`` of
+    ``stripe_cluster_kernel`` with rank slices of ``slice_``); raises where
+    the query fails."""
+    lib = _build.library("contract_u_diag", {
+        "repro_stripe_cluster_slots": (ctypes.c_int, ctypes.c_int)})
+    with torch.cuda.device(device):
+        slots = lib.repro_stripe_cluster_slots(cluster, slice_)
+    if slots < 0:
+        raise RuntimeError(f"cluster occupancy query failed for {cluster} "
+                           f"stripe blocks with rank slices of {slice_}")
+    return slots
+
+
 @functools.lru_cache(maxsize=1024)
-def u_splits(e: int, m: int, n: int, sms: int,
-             chunks: int = 1) -> tuple[int, int]:
+def u_splits(e: int, m: int, n: int, sms: int, chunks: int = 1,
+             cluster: int = 0) -> tuple[int, int]:
     """``(splits, cols_per_split)`` of the n reduction in the row-stripe
     kernels (``huber_contract_u``, ``huber_contract_u_diag``,
     ``huber_dual_contract``) on a card with ``sms`` SMs: every range a
@@ -253,12 +273,56 @@ def u_splits(e: int, m: int, n: int, sms: int,
     3000 rows are 47 stripes).  A pure function of the shape and the SM
     count, and the three kernels take the same splits, so they share every
     sum of ``Psi V`` and of the diagnostics bit for bit.  With rank
-    ``chunks`` (r > 256) the grid holds that many times the blocks, one
-    resident on an SM."""
-    splits, per = _splits(e * chunks * -(-m // U_TILE_ROWS),
-                          -(-n // U_TILE_COLS),
-                          (2 if chunks == 1 else 1) * sms)
+    ``chunks`` (the chunk kernel, r > 2048) the grid holds that many times
+    the blocks, one resident on an SM; with a ``cluster`` (the cluster
+    kernel, r 257-2048) one cluster of that many blocks a stripe,
+    :func:`cluster_slots` clusters resident at once."""
+    stripes = -(-m // U_TILE_ROWS)
+    col_tiles = -(-n // U_TILE_COLS)
+    if cluster:
+        splits, per = _splits(e * stripes, col_tiles,
+                              cluster_slots(cluster, sms))
+    else:
+        splits, per = _splits(e * chunks * stripes, col_tiles,
+                              (2 if chunks == 1 else 1) * sms)
     return splits, per * U_TILE_COLS
+
+
+def u_slices(r: int) -> tuple[int, int]:
+    """``(cluster, slice)`` of the row-stripe cluster kernel at rank ``r``
+    (257 .. ``_launch.U_CLUSTER_MAX_RANK``): :func:`_rank_slices`, as
+    ``huber_contract_v``'s."""
+    return _rank_slices(r)
+
+
+class UPlan(NamedTuple):
+    """One row-stripe launch: ``cluster`` blocks a stripe with rank slices
+    of ``slice`` (0, 0 off the cluster route), the ``splits`` column ranges
+    of ``cols`` columns, and the grid (stripes x blocks a stripe, splits,
+    E)."""
+
+    cluster: int
+    slice: int
+    splits: int
+    cols: int
+    grid: tuple[int, int, int]
+
+
+def u_plan(e: int, m: int, n: int, r: int, sms: int) -> UPlan:
+    """The launch of the row-stripe kernels (``huber_contract_u``,
+    ``huber_contract_u_diag``, ``huber_dual_contract``) at (E, m, n, r) on
+    a card with ``sms`` SMs: one register block up to r = 256, the cluster
+    kernel (:func:`u_slices`) up to ``_launch.U_CLUSTER_MAX_RANK``, the
+    chunk kernel above.  A pure function of the shape and the SM count."""
+    stripes = -(-m // U_TILE_ROWS)
+    if r <= RANK_CHUNK or u_chunked(r):
+        chunks = rank_chunks(r)
+        splits, cols = u_splits(e, m, n, sms, chunks)
+        return UPlan(0, 0, splits, cols, (stripes * chunks, splits, e))
+    cluster, slice_ = u_slices(r)
+    splits, cols = u_splits(e, m, n, sms, cluster=cluster)
+    return UPlan(cluster, slice_, splits, cols,
+                 (stripes * cluster, splits, e))
 
 
 def _f32(*shape, device) -> torch.Tensor:
@@ -291,20 +355,21 @@ def huber_contract_u_plain(u, v, m, lam, w=None) -> torch.Tensor:
     return ref.huber_contract_u_masked(u, v, m, w, lam)
 
 
-def _u_scratch(op, device) -> tuple[tuple[int, int], torch.Tensor | None]:
-    """The column splits of a row-stripe launch and the (splits, E, m, r)
-    partial planes of out_u they need (none with one split)."""
-    splits, cols = u_splits(op.e, op.m, op.n, sm_count(device),
-                            rank_chunks(op.r))
-    partial = None if splits == 1 else _f32(splits, op.e, op.m, op.r,
-                                            device=device)
-    return (splits, cols), partial
+def _u_scratch(op, device) -> tuple[UPlan, torch.Tensor | None]:
+    """The plan of a row-stripe launch and the (splits, E, m, r) partial
+    planes of out_u its column splits need (none with one split)."""
+    plan = u_plan(op.e, op.m, op.n, op.r, sm_count(device))
+    partial = None if plan.splits == 1 else _f32(
+        plan.splits, op.e, op.m, op.r, device=device)
+    return plan, partial
 
 
-def _diag_partial(op, splits: int, device) -> torch.Tensor:
-    """Per-block partials of the two diagnostics: 2 x E x stripes x
-    splits."""
-    return _f32(2 * op.e * -(-op.m // U_TILE_ROWS) * splits, device=device)
+def _diag_partial(op, plan: UPlan, device) -> torch.Tensor:
+    """Per-block partials of the two diagnostics: 2 x E x stripes x splits
+    (x the cluster's blocks on the cluster route, each summing the entries
+    it formed)."""
+    blocks = -(-op.m // U_TILE_ROWS) * plan.splits * max(1, plan.cluster)
+    return _f32(2 * op.e * blocks, device=device)
 
 
 def huber_contract_u(u, v, m, lam, w=None) -> torch.Tensor:
@@ -313,9 +378,9 @@ def huber_contract_u(u, v, m, lam, w=None) -> torch.Tensor:
         return huber_contract_u_plain(u, v, m, lam, w)
     op = check_operands(u, v, m, lam, w)
     out_u = _f32(op.e, op.m, op.r, device=u.device)
-    ints, u_partial = _u_scratch(op, u.device)
+    plan, u_partial = _u_scratch(op, u.device)
     _call("contract_u", "huber_contract_u", op, u, v, m, w, lam, out_u,
-          u_partial, ints=ints)
+          u_partial, ints=(plan.splits, plan.cols, plan.cluster, plan.slice))
     return out_u
 
 
@@ -334,10 +399,10 @@ def huber_contract_u_diag(u, v, m, lam, w=None):
     dev = u.device
     out_u = _f32(op.e, op.m, op.r, device=dev)
     diag = _f32(2, op.e, device=dev)
-    ints, u_partial = _u_scratch(op, dev)
+    plan, u_partial = _u_scratch(op, dev)
     _call("contract_u_diag", "huber_contract_u_diag", op, u, v, m, w, lam,
-          out_u, diag[0], diag[1], _diag_partial(op, ints[0], dev),
-          u_partial, ints=ints)
+          out_u, diag[0], diag[1], _diag_partial(op, plan, dev), u_partial,
+          ints=(plan.splits, plan.cols, plan.cluster, plan.slice))
     return out_u, diag[0], diag[1]
 
 
@@ -357,7 +422,7 @@ DUAL_CLUSTERS = (1, 2, 4, 8)
 #: cluster's receive buffers (2 x 64 x 32 RQ floats) fit a block's shared
 #: memory beside its U stripe, two V stages and Psi^T only up to RQ = 5
 #: (225 KB of 227; 266 KB at RQ = 6), and not at all beside the rank
-#: chunks of r > 256.
+#: slices or chunks of r > 256.
 DUAL_CLUSTER_MAX_RANK = 160
 
 
@@ -412,11 +477,12 @@ def huber_dual_contract(u, v, m, lam, w=None):
     out_v = _f32(op.e, op.n, op.r, device=dev)
     out_u = _f32(op.e, op.m, op.r, device=dev)
     diag = _f32(2, op.e, device=dev)
-    ints, u_partial = _u_scratch(op, dev)
+    u_launch, u_partial = _u_scratch(op, dev)
     cluster, groups = plan
     scratch = dual_scratch_shape(op.e, op.n, op.r)
     v_partial = None if scratch is None else _f32(*scratch, device=dev)
     _call("dual", "huber_dual_contract", op, u, v, m, w, lam, out_v, out_u,
-          diag[0], diag[1], _diag_partial(op, ints[0], dev), u_partial,
-          v_partial, ints=(*ints, cluster, groups))
+          diag[0], diag[1], _diag_partial(op, u_launch, dev), u_partial,
+          v_partial, ints=(u_launch.splits, u_launch.cols, cluster, groups,
+                           u_launch.cluster, u_launch.slice))
     return out_v, out_u, diag[0], diag[1]

@@ -7,11 +7,11 @@ compare two saved files bit for bit.
 ``save`` runs the public wrappers (``huber_contract_v``, ``_u``,
 ``_u_diag``, ``huber_dual_contract``, ``residual_shrink``, ``_psi``) in
 every mask mode (none, dense, bit-packed) and data type (fp32, bf16 M) at
-ranks 1 to 512 (one register block, two halves) on three shapes, from
-inputs made from a seed, and saves the outputs on the host.  ``compare``
-prints one JSON line: the cases compared and those whose bits differ.  Run
-``save`` for two checkouts (for example the parent's, unpacked with
-``git archive``) on one card, then ``compare``.  ``save`` needs a CUDA
+ranks 1 to 512 (one register block; two rank slices or halves) on three
+shapes, from inputs made from a seed, and saves the outputs on the host.
+``compare`` prints one JSON line: the cases compared and those whose bits
+differ.  Run ``save`` for two checkouts (for example the parent's, unpacked
+with ``git archive``) on one card, then ``compare``.  ``save`` needs a CUDA
 card and exits 2 without one.
 """
 from __future__ import annotations

@@ -20,7 +20,8 @@ takes no packed mask unpacks it there) at F, C, D and D16, and
 Table 1's n = 5000 blocks (T5: E=10, m=5000, n_i=500, r=500) and at
 ``chip_smoke.py``'s wide blocks (T6: E=10, m=4000, n_i=400, r=600; a tree
 whose kernels refuse the rank prints the refusal instead), and
-``huber_contract_v`` there with a dense mask (T6d).  With
+``huber_contract_v`` and ``huber_contract_u_diag`` there with a dense mask
+(T6d).  With
 ``--only`` a comma-separated list of row-name prefixes picks rows (for
 example ``--only residual_shrink,flash_attention/T``).  Each row gives the
 CUDA-event time per call over 20 calls after 3 of warm-up (``ms``: what a
@@ -53,12 +54,12 @@ SHAPES = {  # (E, m, n_i, r, dtype, mask)
     "D": (4, 2048, 512, 64, torch.float32, "dense"),
     "D16": (4, 2048, 512, 64, torch.bfloat16, "packed"),
     "D16n": (4, 2048, 512, 64, torch.bfloat16, "none"),
-    # Paper Table 1 at n = 5000 (p = 2r = 500), E = 10: two rank halves
-    # (huber_contract_v: a cluster of two rank slices).
+    # Paper Table 1 at n = 5000 (p = 2r = 500), E = 10: the contractions in
+    # a cluster of two rank slices, the shrink in two rank halves.
     "T5": (10, 5000, 500, 500, torch.float32, "none"),
-    # chip_smoke.py's wide phase (n = 4000, p = 600), E = 10: three chunks
-    # (huber_contract_v: a cluster of three rank slices), and with a dense
-    # mask (huber_contract_v only).
+    # chip_smoke.py's wide phase (n = 4000, p = 600), E = 10: the
+    # contractions in a cluster of three rank slices, the shrink in three
+    # chunks, and with a dense mask (the contractions only).
     "T6": (10, 4000, 400, 600, torch.float32, "none"),
     "T6d": (10, 4000, 400, 600, torch.float32, "dense"),
 }
@@ -74,7 +75,7 @@ CONTRACT_ROWS = [  # (function, shape)
     ("huber_contract_v", "T5"), ("huber_contract_u_diag", "T5"),
     ("residual_shrink", "T5"), ("huber_contract_v", "T6"),
     ("huber_contract_u_diag", "T6"), ("residual_shrink", "T6"),
-    ("huber_contract_v", "T6d"),
+    ("huber_contract_v", "T6d"), ("huber_contract_u_diag", "T6d"),
 ]
 CALLS, WARMUP = 20, 3
 

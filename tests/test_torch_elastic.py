@@ -626,7 +626,8 @@ def test_rank_chunks(r, chunks, chunked):
 def test_grid_limits_are_plain_functions():
     assert _launch.grid_limit_error(10, 4000, 600) is None
     assert _launch.grid_limit_error(40000, 64, 600) is None  # chunks on x
-    assert "z axis" in _launch.grid_limit_error(40000, 64, 300)
+    assert _launch.grid_limit_error(40000, 64, 300) is None  # slices on x
+    assert "z axis" in _launch.grid_limit_error(70000, 64, 300)
     assert _launch.grid_limit_error(40000, 64, 200) is None
     assert "y axis" in _launch.grid_limit_error(1, 64 * 65536, 64)
     from repro_torch.core import factorized as fz
@@ -634,9 +635,9 @@ def test_grid_limits_are_plain_functions():
     cuda = torch.device("cuda")
     fz.check_grid(DCFConfig.tuned(300), 10, 4000, cuda)
     with pytest.raises(ValueError, match="cannot take this problem"):
-        fz.check_grid(DCFConfig.tuned(300), 40000, 64, cuda)
-    fz.check_grid(DCFConfig.tuned(300, impl="ref"), 40000, 64, cuda)
-    fz.check_grid(DCFConfig.tuned(300), 40000, 64, torch.device("cpu"))
+        fz.check_grid(DCFConfig.tuned(300), 70000, 64, cuda)
+    fz.check_grid(DCFConfig.tuned(300, impl="ref"), 70000, 64, cuda)
+    fz.check_grid(DCFConfig.tuned(300), 70000, 64, torch.device("cpu"))
 
 
 def test_splits_at_three_chunks_fill_the_card():

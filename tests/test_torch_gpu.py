@@ -195,8 +195,8 @@ def test_kernel_wrappers_refuse_bad_operands(cuda):
     with pytest.raises(ValueError, match="unsupported sizes"):
         hc.huber_contract_v(torch.zeros(2, 40, 0, device=cuda),
                             torch.zeros(2, 24, 0, device=cuda), mat, lam)
-    with pytest.raises(ValueError, match="z axis"):  # two halves, 2 E > 65535
-        e = 40000
+    with pytest.raises(ValueError, match="z axis"):  # E > 65535 clients
+        e = 65536
         hc.huber_contract_v(torch.zeros(e, 1, 300, device=cuda),
                             torch.zeros(e, 1, 300, device=cuda),
                             torch.zeros(e, 1, 1, device=cuda),
@@ -590,10 +590,11 @@ def test_dual_bounded_scratch_keeps_u_diag_bits(cuda, r, dtype):
             assert torch.equal(a, b)
 
 
-# Ranks 257 .. 512: two rank halves (csrc/tile64.cuh), RQH = ceil(r / 64)
-# register groups each (5, 5, 6, 7, 8, 8), on a small grid and on one with
-# several row ranges (v_splits) and column ranges (u_splits) at E = 1;
-# huber_contract_v takes its cluster kernel there (two rank slices).
+# Ranks 257 .. 512, on a small grid and on one with several row ranges
+# (v_splits) and column ranges (u_splits) at E = 1: the contractions take
+# their cluster kernels there (two rank slices), the shrink two rank halves
+# (csrc/tile64.cuh), RQH = ceil(r / 64) register groups each (5, 5, 6, 7,
+# 8, 8).
 WIDE_RANKS = [257, 300, 384, 448, 500, 512]
 WIDE_SHAPES = [(2, 200, 133), (1, 700, 650)]
 
@@ -714,8 +715,10 @@ def test_svt_on_the_card_matches_the_cpu(cuda):
             / torch.linalg.norm(want)).item() <= 1e-5
 
 
-# Ranks above 512: chunks of 256 staged in turn (csrc/tile64.cuh), three
-# (513, 600, 768) and four (1024), the last one narrow but at 768 and 1024.
+# Ranks above 512: the shrink's chunks of 256 staged in turn
+# (csrc/tile64.cuh), three (513, 600, 768) and four (1024), the last one
+# narrow but at 768 and 1024; the contractions' cluster kernels of three
+# and four rank slices.
 CHUNK_RANKS = [513, 600, 768, 1024]
 
 
@@ -793,28 +796,39 @@ def test_chunked_ranks_keep_the_bit_exact_pairs(cuda, shape):
                               if c[0] in CONTRACTIONS])
 def test_chunk_order_is_the_two_half_order(cuda, monkeypatch, fn, mode,
                                            shape, r):
-    """At r 449-512 the two halves are two chunks of 256: the chunked
-    kernels (forced by lowering the two-half limit) give the two-half
-    kernels' bits.  huber_contract_v has no two-half kernel: its cluster
-    kernel, given the two halves as its rank slices, gives the bits of its
-    chunked kernel (forced by lowering the cluster limit); both sum the
-    slices or chunks in order over the same row splits."""
+    """At r 449-512 two rank slices of 256 are two chunks of 256: each
+    contraction's cluster kernel, given them as its slices, gives the
+    planes' bits of its chunk kernel (forced by lowering the cluster
+    limits); both sum the slices or chunks in order over the same row or
+    column splits.  The row-stripe kernels' diagnostics sum other partials
+    (the cluster kernel's blocks each a share of the tile's entries, the
+    chunk kernel's first block all of them), so they agree within
+    SCALAR_RTOL."""
     from repro_torch.kernels import _launch
 
     u, v, mat, w, lam = _card_inputs(cuda, *shape, r, seed=r)
     args = (u, v, mat, lam, _mask(w, mode))
     monkeypatch.setattr(hc, "v_slices", lambda rank: (2, 256))
-    halves = _as_tuple(getattr(hc, fn)(*args))
-    monkeypatch.setattr(_launch, "TWO_HALVES_MAX_RANK", 256)
-    monkeypatch.setattr(_launch, "V_CLUSTER_MAX_RANK", 256)
-    assert _launch.chunked(r) and _launch.v_chunked(r)
+    monkeypatch.setattr(hc, "u_slices", lambda rank: (2, 256))
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert hc.u_plan(*shape, r, sms)[:2] == (2, 256)
+    slices = _as_tuple(getattr(hc, fn)(*args))
+    monkeypatch.setattr(_launch, "V_CLUSTER_MAX_RANK", 256)
+    monkeypatch.setattr(_launch, "U_CLUSTER_MAX_RANK", 256)
+    assert _launch.v_chunked(r) and _launch.u_chunked(r)
     assert hc.v_plan(*shape, r, sms).cluster == 0
+    assert hc.u_plan(*shape, r, sms).cluster == 0
     assert (hc.v_splits(*shape, sms, 2)
             == hc.v_splits(*shape, sms, cluster=2))
+    assert (hc.u_splits(*shape, sms, 2)
+            == hc.u_splits(*shape, sms, cluster=2))
     chunks = _as_tuple(getattr(hc, fn)(*args))
-    for a, b in zip(halves, chunks):
-        assert torch.equal(a, b), fn
+    assert len(slices) == len(chunks)
+    for a, b in zip(slices, chunks):
+        if a.ndim == 1:
+            torch.testing.assert_close(a, b, rtol=SCALAR_RTOL, atol=0)
+        else:
+            assert torch.equal(a, b), fn
 
 
 # huber_contract_v's cluster kernel (r 257-2048, csrc/contract_v.cu): 2 to
@@ -885,17 +899,136 @@ def test_cluster_ranks_keep_the_bit_exact_pairs(cuda, shape, r):
 @pytest.mark.gpu
 @pytest.mark.parametrize("slice_", [132, 256], ids=["rq5", "rq8"])
 def test_cluster_slots_are_the_cards(cuda, slice_):
-    """The resident clusters the row splits are costed with
-    (``v_cluster_slots``) are the card's own cudaOccupancyMaxActiveClusters
-    on a 132-SM H100, and never more than the card's elsewhere."""
+    """The resident clusters huber_contract_v's row splits and the
+    row-stripe kernels' column splits are costed with (``cluster_slots``)
+    are each cluster kernel's own cudaOccupancyMaxActiveClusters on a
+    132-SM H100, and never more than the card's elsewhere."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for cluster in range(2, 9):
-        card = hc.v_cluster_slots_on_device(cuda, cluster, slice_)
-        assert 1 <= card <= sms // cluster
-        if sms == 132:
-            assert hc.v_cluster_slots(cluster, sms) == card
-        else:
-            assert hc.v_cluster_slots(cluster, sms) >= card
+        for on_device in (hc.v_cluster_slots_on_device,
+                          hc.u_cluster_slots_on_device):
+            card = on_device(cuda, cluster, slice_)
+            assert 1 <= card <= sms // cluster
+            if sms == 132:
+                assert hc.cluster_slots(cluster, sms) == card
+            else:
+                assert hc.cluster_slots(cluster, sms) >= card
+
+
+STRIPE_IDS = ["huber_contract_u", "huber_contract_u_diag",
+              "huber_dual_contract"]
+# The row-stripe kernels' cluster shapes: CLUSTER_SHAPES (several column
+# ranges at 1 x 700 x 650 up to four slices) and two clients of three
+# ragged stripes, where the dual takes its one pass at every rank.
+STRIPE_CLUSTER_SHAPES = CLUSTER_SHAPES + [(2, 130, 77)]
+STRIPE_CLUSTER_IDS = ["x".join(map(str, s)) for s in STRIPE_CLUSTER_SHAPES]
+
+
+def _stripe_names(fn, mode, shape, r):
+    """The launch counters one call of a row-stripe flavour moves: its own,
+    or past the dual's 4 MiB of out_v scratch the two passes'."""
+    suffix = {"none": "", "dense": "_masked", "packed": "_packed"}[mode]
+    if fn == "huber_dual_contract" and hc.dual_plan(*shape, r) is None:
+        return ["huber_contract_v" + suffix, "huber_contract_u_diag" + suffix]
+    return [fn + suffix]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", CLUSTER_RANKS)
+@pytest.mark.parametrize("shape", STRIPE_CLUSTER_SHAPES,
+                         ids=STRIPE_CLUSTER_IDS)
+@pytest.mark.parametrize("mode", ["none", "dense", "packed"])
+@pytest.mark.parametrize("fn", STRIPE_IDS)
+def test_stripe_cluster_ranks_match_plain(cuda, fn, mode, shape, r, dtype):
+    """The three row-stripe flavours at every rank route above 256 (the
+    cluster kernel at 2-8 slices, the chunk kernel one rank past them) in
+    every mask mode and M type: one launch a call (the dual's two passes
+    past its scratch), within 2e-5 of the plain version and the scalars
+    within 1e-5 relative."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = hc.u_plan(*shape, r, sms)
+    assert (plan.cluster > 0) == (r <= 2048)
+    if shape == (1, 700, 650) and r <= 1024:
+        assert plan.splits > 1
+    if shape == (2, 130, 77):
+        assert hc.dual_plan(*shape, r) is not None
+    names = _stripe_names(fn, mode, shape, r)
+    before = ops.launch_counts()
+    got, want = _kernel_and_plain(
+        fn, mode, *_card_inputs(cuda, *shape, r, seed=r, dtype=dtype))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k in names) for k in after}
+    _assert_close_new(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", CLUSTER_RANKS)
+@pytest.mark.parametrize("shape", STRIPE_CLUSTER_SHAPES,
+                         ids=STRIPE_CLUSTER_IDS)
+def test_stripe_cluster_ranks_keep_the_bit_exact_pairs(cuda, shape, r):
+    """The row-stripe flavours at every rank route above 256, in fp32 and
+    bf16: reruns, all-ones mask == no mask and packed == dense; u == u_diag
+    (off == diag) and the dual's out_u, obj and psi2 are u_diag's, bit for
+    bit."""
+    for dtype in (torch.float32, torch.bfloat16):
+        u, v, mat, w, lam = _card_inputs(cuda, *shape, r, seed=r + 1,
+                                         dtype=dtype)
+        packed = bitmask.pack_mask(w)
+        for fn in STRIPE_IDS:
+            f = getattr(hc, fn)
+            none = _as_tuple(f(u, v, mat, lam))
+            for a, b, c in zip(none, _as_tuple(f(u, v, mat, lam)),
+                               _as_tuple(f(u, v, mat, lam,
+                                           torch.ones_like(w)))):
+                assert torch.equal(a, b) and torch.equal(a, c), fn
+            for a, b in zip(_as_tuple(f(u, v, mat, lam, w)),
+                            _as_tuple(f(u, v, mat, lam, packed))):
+                assert torch.equal(a, b), fn
+        for wm in (None, w, packed):
+            out_u, obj, psi2 = hc.huber_contract_u_diag(u, v, mat, lam, wm)
+            assert torch.equal(hc.huber_contract_u(u, v, mat, lam, wm),
+                               out_u)
+            _, dual_u, dual_obj, dual_psi2 = hc.huber_dual_contract(
+                u, v, mat, lam, wm)
+            assert torch.equal(dual_u, out_u)
+            assert torch.equal(dual_obj, obj)
+            assert torch.equal(dual_psi2, psi2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [150, 300, 500, 600, 2048, 2049])
+@pytest.mark.parametrize("shape", [(1, 700, 650), (3, 3001, 70)],
+                         ids=["1x700x650", "3x3001x70"])
+def test_stripe_is_one_kernel_node_a_call(cuda, shape, r):
+    """A captured huber_contract_u_diag call is one graph kernel node of
+    the stripe family, named for its rank route (stripe_kernel up to 256,
+    the cluster kernel at 257-2048, the chunk kernel above), and one
+    fixed-order sum (the diagnostics, with out_u's splits), nothing
+    else."""
+    from repro_torch.core import graph_nodes
+
+    name = ("stripe_kernel" if r <= 256 else "stripe_cluster_kernel"
+            if r <= 2048 else "stripe_chunk_kernel")
+    u, v, mat, w, lam = _card_inputs(cuda, *shape, r, seed=2)
+    hc.huber_contract_u_diag(u, v, mat, lam, w)  # built and loaded
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = hc.huber_contract_u_diag(u, v, mat, lam, w)
+    nodes = graph_nodes.kernel_nodes(graph.raw_cuda_graph())
+    assert ops.kernels_by_family(nodes) == {"contract_v": 0, "stripe": 1,
+                                            "shrink": 0}
+    stripe = [k for k in nodes if "stripe_" in k][0]
+    assert stripe.count(name) == 1
+    assert sum(c for k, c in nodes.items() if "sum_partials_kernel" in k) == 1
+    assert sum(nodes.values()) == 2
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in out)
 
 
 @pytest.mark.gpu

@@ -336,7 +336,7 @@ CLUSTER_RANKS = [257, 300, 448, 500, 512, 513, 600, 768, 1024, 1025, 1792,
 @pytest.mark.parametrize("r", CLUSTER_RANKS)
 def test_v_cluster_slices_fit_a_block(r):
     """The cluster kernel's rank slices: together exactly r, each a
-    multiple of 4 but the last, none wider than V_SLICE_MAX, none empty,
+    multiple of 4 but the last, none wider than SLICE_MAX, none empty,
     at most 8 blocks a cluster, the fewest that cover r, and a block's
     shared memory within the 227 KB an H100 block may take."""
     from repro_torch.kernels import _launch
@@ -345,11 +345,11 @@ def test_v_cluster_slices_fit_a_block(r):
     widths = [min(slice_, r - c * slice_) for c in range(cluster)]
     assert sum(widths) == r and min(widths) >= 1
     assert all(wd % 4 == 0 for wd in widths[:-1])
-    assert max(widths) == slice_ <= _launch.V_SLICE_MAX
-    assert 2 <= cluster <= _launch.V_CLUSTER_MAX == 8
-    assert cluster == -(-r // _launch.V_SLICE_MAX)
+    assert max(widths) == slice_ <= _launch.SLICE_MAX
+    assert 2 <= cluster <= _launch.CLUSTER_MAX == 8
+    assert cluster == -(-r // _launch.SLICE_MAX)
     assert max(widths) - min(widths) < 4 * cluster  # as even as groups allow
-    assert hc.v_cluster_smem_bytes(slice_) <= 227 * 1024
+    assert hc.cluster_smem_bytes(slice_) <= 227 * 1024
     assert not _launch.v_chunked(r)
     if r in (500, 600):
         assert widths == {500: [252, 248], 600: [200, 200, 200]}[r]
@@ -357,15 +357,16 @@ def test_v_cluster_slices_fit_a_block(r):
 
 @pytest.mark.parametrize("sms", [1, 78, 114, 132])
 def test_v_cluster_slots_bound_the_card(sms):
-    """The resident clusters the cluster grid's row splits are costed with:
-    at least one, at most one a cluster's SMs, and the H100's measured
-    counts at 132 SMs (66 clusters of 2: every SM busy)."""
+    """The resident clusters the cluster grids' row and column splits are
+    costed with: at least one, at most one a cluster's SMs, and the H100's
+    measured counts at 132 SMs (66 clusters of 2: every SM busy; clusters
+    stay inside one GPC: 39 of 3, not 44)."""
     for cluster in range(2, 9):
-        slots = hc.v_cluster_slots(cluster, sms)
+        slots = hc.cluster_slots(cluster, sms)
         assert 1 <= slots <= max(1, sms // cluster)
     if sms == 132:
-        assert hc.v_cluster_slots(2, sms) == 66
-        assert hc.v_cluster_slots(3, sms) == 39
+        assert hc.cluster_slots(2, sms) == 66
+        assert hc.cluster_slots(3, sms) == 39
 
 
 @pytest.mark.parametrize("sms", [1, 78, 132])
@@ -396,6 +397,124 @@ def test_v_plan_grid_and_splits(e, m, n, r, sms):
     assert all(s * rows < m for s in range(plan.splits))
     assert plan.splits * rows >= m > (plan.splits - 1) * rows
     assert hc.v_plan(e, m, n, r, sms) == plan
+
+
+@pytest.mark.parametrize("r", CLUSTER_RANKS)
+def test_u_cluster_slices_fit_a_block(r):
+    """The row-stripe cluster kernel's rank slices: together exactly r,
+    each a multiple of 4 but the last, none wider than SLICE_MAX, none
+    empty, at most 8 blocks a cluster, the fewest that cover r, and a
+    block's shared memory (its U slice, two V stages, the partial and an
+    unpadded Psi^T) within the 232,448 bytes an H100 block may take."""
+    from repro_torch.kernels import _launch
+
+    cluster, slice_ = hc.u_slices(r)
+    widths = [min(slice_, r - c * slice_) for c in range(cluster)]
+    assert sum(widths) == r and min(widths) >= 1
+    assert all(wd % 4 == 0 for wd in widths[:-1])
+    assert max(widths) == slice_ <= _launch.SLICE_MAX
+    assert 2 <= cluster <= _launch.CLUSTER_MAX == 8
+    assert cluster == -(-r // _launch.SLICE_MAX)
+    assert max(widths) - min(widths) < 4 * cluster  # as even as groups allow
+    assert hc.cluster_smem_bytes(slice_) <= 232448
+    assert hc.cluster_smem_bytes(256) == 232448  # exactly, at a full slice
+    assert not _launch.u_chunked(r)
+    if r in (500, 600):
+        assert widths == {500: [252, 248], 600: [200, 200, 200]}[r]
+
+
+@pytest.mark.parametrize("sms", [1, 78, 132])
+@pytest.mark.parametrize("r", [8, 256, 257, 500, 600, 2048, 2049, 4000])
+@pytest.mark.parametrize("e,m,n", [(10, 5000, 500), (10, 4000, 400),
+                                   (1, 129, 7), (3, 40, 65)])
+def test_u_plan_grid_and_splits(e, m, n, r, sms):
+    """The row-stripe kernels' launch plan: the cluster kernel from 257 to
+    U_CLUSTER_MAX_RANK (its grid's x a multiple of the cluster, one
+    cluster a stripe), the chunk kernel above and one block a stripe at r
+    <= 256; y (the column splits) and z (E) within GRID_YZ; the splits
+    cover n in whole 64-column tiles, none empty; a pure function."""
+    from repro_torch.kernels import _launch
+
+    plan = hc.u_plan(e, m, n, r, sms)
+    x, y, z = plan.grid
+    stripes = -(-m // hc.U_TILE_ROWS)
+    if 256 < r <= _launch.U_CLUSTER_MAX_RANK:
+        assert (plan.cluster, plan.slice) == hc.u_slices(r)
+        assert x == stripes * plan.cluster and x % plan.cluster == 0
+        assert (plan.splits, plan.cols) == hc.u_splits(
+            e, m, n, sms, cluster=plan.cluster)
+    else:
+        assert plan.cluster == plan.slice == 0
+        assert _launch.u_chunked(r) == (r > 256)
+        assert x == stripes * _launch.rank_chunks(r)
+    assert (y, z) == (plan.splits, e) and max(y, z) <= _launch.GRID_YZ
+    cols = plan.cols
+    assert cols % hc.U_TILE_COLS == 0
+    assert all(s * cols < n for s in range(plan.splits))
+    assert plan.splits * cols >= n > (plan.splits - 1) * cols
+    assert hc.u_plan(e, m, n, r, sms) == plan
+
+
+@pytest.mark.parametrize("r", [8, 256, 257, 300, 512, 513, 2048, 4000])
+def test_grid_limit_counts_one_block_a_client(r):
+    """Every kernel grid's z axis holds one block a client at every rank
+    (the rank slices, halves and chunks ride x or a block's own loop), so
+    E = 65535 fits and one more does not."""
+    from repro_torch.kernels import _launch
+
+    assert _launch.grid_limit_error(_launch.GRID_YZ, 64, r) is None
+    assert "z axis" in _launch.grid_limit_error(_launch.GRID_YZ + 1, 64, r)
+
+
+@pytest.mark.parametrize("r", [150, 300, 600, 2049])
+@pytest.mark.parametrize("fn", ["huber_contract_u", "huber_contract_u_diag",
+                                "huber_dual_contract"])
+def test_stripe_launch_follows_u_plan(monkeypatch, fn, r):
+    """What a row-stripe wrapper hands its C entry on the card, with the
+    entry replaced: the column splits and the rank slices of ``u_plan``
+    (the dual also its row groups), out_u's partial planes with several
+    splits, and per-block diagnostics partials for every block of the grid
+    (stripes x splits x the cluster's blocks)."""
+    from repro_torch.kernels import _build, _launch
+
+    e, m, n = 2, 130, 200
+    sms = 5
+    calls = []
+
+    def fake_launch(lib, entry, name, counts, op, u, v, mat, w, lam,
+                    *outputs, ints=()):
+        calls.append((entry, name, outputs, ints))
+
+    monkeypatch.setattr(hc, "on_cpu", lambda u: False)
+    monkeypatch.setattr(hc, "check_operands",
+                        lambda u, v, mat, lam, w=None: _launch.Operands(
+                            *u.shape[:2], v.shape[1], u.shape[2], 0, 0))
+    monkeypatch.setattr(hc, "sm_count", lambda device: sms)
+    monkeypatch.setattr(hc, "launch", fake_launch)
+    monkeypatch.setattr(_build, "library", lambda stem, sigs: None)
+    u, v = torch.zeros(e, m, r), torch.zeros(e, n, r)
+    getattr(hc, fn)(u, v, torch.zeros(e, m, n), torch.ones(e))
+    plan = hc.u_plan(e, m, n, r, sms)
+    if fn == "huber_dual_contract" and hc.dual_plan(e, m, n, r) is None:
+        assert [c[0] for c in calls] == ["repro_huber_contract_v",
+                                         "repro_huber_contract_u_diag"]
+        calls = calls[1:]
+    (entry, name, outputs, ints), = calls
+    assert name == ("huber_contract_u_diag" if entry.endswith("u_diag")
+                    else fn)
+    assert ints[:2] == (plan.splits, plan.cols)
+    assert ints[-2:] == (plan.cluster, plan.slice)
+    assert (plan.cluster > 0) == (256 < r <= 2048)
+    if entry == "repro_huber_dual_contract":
+        assert ints[2:4] == hc.dual_plan(e, m, n, r)
+    u_partial = outputs[1] if entry == "repro_huber_contract_u" else (
+        outputs[4] if entry.endswith("u_diag") else outputs[5])
+    assert (u_partial is None) == (plan.splits == 1)
+    if entry != "repro_huber_contract_u":
+        diag = outputs[3] if entry.endswith("u_diag") else outputs[4]
+        blocks = plan.grid[0] * plan.grid[1] if plan.cluster else \
+            -(-m // 64) * plan.splits
+        assert diag.numel() == 2 * e * blocks
 
 
 @pytest.mark.parametrize("sms", [1, 78, 114, 132])

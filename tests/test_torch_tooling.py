@@ -442,13 +442,21 @@ KERNEL_NAMES = [
 ]
 
 
-# huber_contract_v's kernels above r = 256: the cluster kernel (mangled, as
-# a graph node names it) and the chunk kernel (as the profiler does).
+# The contractions' kernels above r = 256: the cluster kernels (mangled, as
+# a graph node names them, and demangled, as the profiler does) and the
+# chunk kernels.
 RANK_ROUTE_KERNEL_NAMES = [
     ("_ZN5repro12_GLOBAL__N_125contract_v_cluster_kernelILi8EfLi0EEEvPKf",
      "contract_v"),
     ("void repro::(anonymous namespace)::contract_v_chunk_kernel<float, 0>"
      "(float const*)", "contract_v"),
+    ("_ZN5repro21stripe_cluster_kernelILi8EfLi0ELb1ELb0EEEvPKfS2_S2_",
+     "stripe"),
+    ("void repro::stripe_cluster_kernel<7, __nv_bfloat16, 2, true, true>"
+     "(float const*)", "stripe"),
+    ("_ZN5repro19stripe_chunk_kernelIfLi1ELb0ELb0EEEvPKfS2_S2_", "stripe"),
+    ("void repro::stripe_chunk_kernel<float, 0, true, false>(float const*)",
+     "stripe"),
 ]
 
 
