@@ -49,15 +49,21 @@ CUDA toolkit.  Phases, one JSON line each:
    The kernel rows also hold huber_contract_v, huber_contract_u_diag and
    residual_shrink at paper Table 1's n = 5000 blocks (row "t5": E=10,
    m=5000, n_i=500, r=500: the contractions in clusters of two rank
-   slices, the shrink in two rank halves), with the table1 phase's
-   launches, and at the wide phase's blocks (row "t6": E=10, m=4000,
-   n_i=400, r=600: clusters of three slices, three rank chunks), with its
-   launches, and huber_contract_v and huber_contract_u_diag with a dense
-   mask at t6 (no phase); the rows at r > 256 within NEW_PLANE_TOL.  The
+   slices, the shrink in its stream kernel's 16 slabs of 32 ranks), with
+   the table1 phase's launches, and at the wide phase's blocks (row "t6":
+   E=10, m=4000, n_i=400, r=600: clusters of three slices, 19 slabs), with
+   its launches, and huber_contract_v, huber_contract_u_diag and
+   residual_shrink with a dense mask at t6 and residual_shrink_psi at t5
+   (no phase); the rows at r > 256 within NEW_PLANE_TOL.  The shrink rows
+   at t5 and t6 also time ``torch.baddbmm(M, U, V^T, alpha=-1)``
+   (``r_only_ms``: one cuBLAS call that forms R alone, without the
+   shrink; a yardstick the port never calls).  The
    contract_v_plan and stripe_plan lines give huber_contract_v's and the
    row-stripe kernels' launch plans at t5 and t6 and the card's resident
    clusters of each cluster kernel by size beside the table its splits are
-   costed with.
+   costed with; the shrink_plan line the shrink's plans there and the
+   card's resident blocks of each stream kernel instance beside the
+   planned two.
 3. small    5 rounds at 160 x 160 on the card against the same rounds of
             the plain versions on the CPU, from one seed, for fused="diag",
             "dual" with a mask, "off", and a packed mask with bf16 M; and
@@ -592,7 +598,7 @@ SUFFIX = {"none": "", "dense": "_masked", "packed": "_packed"}
 # the kernel these operands or None).  Operand sets: "fig1" (E=10, m=3000,
 # n_i=300, r=150), "cf" (E=1, m=n=3000), "d32" / "d16" (E=4, m=2048,
 # n_i=512, r=64, fp32 / bf16 M), "t5" (E=10, m=5000, n_i=500, r=500),
-# "t6" (E=10, m=4000, n_i=400, r=600: three rank slices or chunks), "bn"
+# "t6" (E=10, m=4000, n_i=400, r=600: three rank slices), "bn"
 # (the batch phase's B·E = 128 clients, m=500, n_i=63, r=8, the padding
 # mask), "b4" (batch_fig1's 4 x 10 = 40 clients, m=3000, n_i=300, r=150),
 # "sv" (the service phase's slot table: 16 slots, m=n=500, r=8, the
@@ -648,6 +654,8 @@ ROWS = [
     ("residual_shrink", "none", "t6", "wide"),
     ("huber_contract_v", "dense", "t6", None),
     ("huber_contract_u_diag", "dense", "t6", None),
+    ("residual_shrink", "dense", "t6", None),
+    ("residual_shrink_psi", "none", "t5", None),
     ("huber_contract_v", "dense", "bn", "batch"),
     ("huber_contract_u_diag", "dense", "bn", "batch"),
     ("residual_shrink", "dense", "bn", "batch"),
@@ -809,6 +817,9 @@ def check_kernel(fn: str, mode: str, key: str, path: str | None,
         rel_err = max(rel_err, rel)
     ms = cuda_ms(lambda: kernel(*args))
     plain_ms = cuda_ms(lambda: plain(*args))
+    r_only_ms = None
+    if fn.startswith("residual_shrink") and key in ("t5", "t6"):
+        r_only_ms = cuda_ms(lambda: torch.baddbmm(blocks, u, v.mT, alpha=-1))
     e, m, n = blocks.shape
     r = u.shape[-1]
     bound_ms, bound_by = bound(fn, mode, blocks.element_size(), e, m, n, r)
@@ -820,7 +831,8 @@ def check_kernel(fn: str, mode: str, key: str, path: str | None,
                dtype=dtype, max_abs_err=abs_err, max_rel_err=rel_err,
                plane_tol=plane_tol, ok=ok,
                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=None, shape=[e, m, n, r])
+               bound_by=bound_by, library_ms=None, r_only_ms=r_only_ms,
+               shape=[e, m, n, r])
     emit(phase="kernel", **row)
     if not ok:
         raise SystemExit(f"kernel {row['name']} disagrees with its plain "
@@ -834,9 +846,12 @@ def cluster_plans(device) -> list[dict]:
     (``stripe_plan``: column splits) at the t5 and t6 shapes, each with the
     card's resident clusters of its cluster kernel by size
     (cudaOccupancyMaxActiveClusters) beside the counts its splits are
-    costed with (``cluster_slots``)."""
+    costed with (``cluster_slots``); and the shrink's (``shrink_plan``:
+    route, tile, slabs, grid, waves) with the card's resident blocks of
+    each stream kernel instance beside the planned ones."""
     from repro_torch.kernels import _launch
     from repro_torch.kernels import huber_contract as hc
+    from repro_torch.kernels import shrinkage as sh
 
     sms = _launch.sm_count(device)
     shapes = {"t5": (TABLE1_CLIENTS, max(TABLE1), max(TABLE1) // 10,
@@ -857,6 +872,16 @@ def cluster_plans(device) -> list[dict]:
                    slots_as_costed=card == by_table)
         emit(**row)
         rows.append(row)
+    card = {f"dtype{d}/mask{mk}/psi{int(psi)}":
+            sh.stream_resident_on_device(device, d, mk, psi)
+            for d in (0, 1) for mk in (0, 1, 2) for psi in (False, True)}
+    row = dict(phase="shrink_plan", sms=sms,
+               plans={k: sh.shrink_plan(*s, sms)._asdict()
+                      for k, s in shapes.items()},
+               resident_card=card, resident_planned=sh.STREAM_RESIDENT,
+               resident_as_planned=set(card.values()) == {sh.STREAM_RESIDENT})
+    emit(**row)
+    rows.append(row)
     return rows
 
 

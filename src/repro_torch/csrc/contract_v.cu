@@ -614,14 +614,11 @@ extern "C" int repro_huber_contract_v(const float* u, const float* v,
           return repro::launch_v_chunked<TM, MASK>(
               u, v, static_cast<const TM*>(m), w, lam, out, partial, E, M, N,
               r, splits, rows_per_split, st);
-        else if constexpr (RQ <= 8)
+        else
           return repro::launch_v<RQ, TM, MASK>(
               u, v, static_cast<const TM*>(m), w, lam, out, partial, E, M, N,
               r, splits, rows_per_split, st);
-        else
-          return cudaErrorInvalidValue;
-      },
-      r > repro::kRankChunk);
+      });
 }
 
 // The most clusters of `cluster` blocks of contract_v_cluster_kernel (rank

@@ -1087,14 +1087,11 @@ int stripe_entry(const float* u, const float* v, const void* m,
   return dispatch(r, dtype, mask, [&](auto rq, auto tm, auto mk) {
     using TM = typename decltype(tm)::type;
     constexpr int RQ = decltype(rq)::value;
-    if constexpr (RQ <= 8)  // kChunked is 0
-      return launch_stripe<RQ, TM, decltype(mk)::value, WITH_DIAG, WITH_V>(
-          u, v, static_cast<const TM*>(m), w, lam, out_u, out_v, obj, psi2,
-          diag_partial, u_partial, v_partial, E, M, N, r, splits,
-          cols_per_split, cluster, groups, st);
-    else
-      return cudaErrorInvalidValue;
-  }, r > kRankChunk);
+    return launch_stripe<RQ, TM, decltype(mk)::value, WITH_DIAG, WITH_V>(
+        u, v, static_cast<const TM*>(m), w, lam, out_u, out_v, obj, psi2,
+        diag_partial, u_partial, v_partial, E, M, N, r, splits,
+        cols_per_split, cluster, groups, st);
+  });
 }
 
 // The most clusters of `cluster` blocks of stripe_cluster_kernel (this

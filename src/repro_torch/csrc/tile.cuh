@@ -107,19 +107,15 @@ template <int V>
 using Int = std::integral_constant<int, V>;
 
 // RQ = ceil(r / 32) = 1 .. 8 covers r <= 256 in one register block of 32 RQ
-// ranks; above, RQ = 2 RQH with RQH = ceil(r / 64) = 5 .. 8 (10, 12, 14, 16)
-// covers r <= 512 in two rank halves of 32 RQH (tile64.cuh's wide kernel,
-// the shrink's), and RQ = kChunked any r > 512 in chunks of 256
-// (tile64.cuh's chunked kernels).  `chunked` sends r 257-512 there too:
-// contract_v.cu and stripe.cuh pass it for every r > 256 on their chunk
-// route and dispatch their cluster kernels by the rank slice's width
-// instead.
+// ranks; RQ = kChunked stands for every r > 256, which each kernel takes
+// its own way (contract_v.cu and stripe.cuh in chunks of 256 above 2048,
+// dispatching their cluster kernels by the rank slice's width instead;
+// shrink.cu does not dispatch by rank there).
 constexpr int kChunked = 0;
 
 template <typename F>
-cudaError_t by_rank(int r, bool chunked, F&& f) {
+cudaError_t by_rank(int r, F&& f) {
   if (r < 1) return cudaErrorInvalidValue;
-  if (r > 512 || (chunked && r > 256)) return f(Int<kChunked>{});
   switch ((r + 31) / 32) {
     case 1: return f(Int<1>{});
     case 2: return f(Int<2>{});
@@ -129,14 +125,7 @@ cudaError_t by_rank(int r, bool chunked, F&& f) {
     case 6: return f(Int<6>{});
     case 7: return f(Int<7>{});
     case 8: return f(Int<8>{});
-    default: break;
-  }
-  switch ((r + 63) / 64) {
-    case 5: return f(Int<10>{});
-    case 6: return f(Int<12>{});
-    case 7: return f(Int<14>{});
-    case 8: return f(Int<16>{});
-    default: return cudaErrorInvalidValue;
+    default: return f(Int<kChunked>{});
   }
 }
 
@@ -159,16 +148,24 @@ cudaError_t by_mask(int mask, F&& f) {
   }
 }
 
+// f(TypeTag<TM>, Int<MASK>) for the type of M and the mask mode; returns
+// f's cudaError_t as an int (cudaErrorInvalidValue for a code no
+// instantiation covers).
+template <typename F>
+int dispatch_planes(int dtype, int mask, F&& f) {
+  return static_cast<int>(by_dtype(dtype, [&](auto tm) {
+    return by_mask(mask, [&](auto mk) { return f(tm, mk); });
+  }));
+}
+
 // f(Int<RQ>, TypeTag<TM>, Int<MASK>) for by_rank's RQ, the type of M and
 // the mask mode; returns f's cudaError_t as an int (cudaErrorInvalidValue
 // for a code or rank no instantiation covers).
 template <typename F>
-int dispatch(int r, int dtype, int mask, F&& f, bool chunked = false) {
-  return static_cast<int>(by_dtype(dtype, [&](auto tm) {
-    return by_mask(mask, [&](auto mk) {
-      return by_rank(r, chunked, [&](auto rq) { return f(rq, tm, mk); });
-    });
-  }));
+int dispatch(int r, int dtype, int mask, F&& f) {
+  return dispatch_planes(dtype, mask, [&](auto tm, auto mk) {
+    return by_rank(r, [&](auto rq) { return f(rq, tm, mk); });
+  });
 }
 
 }  // namespace repro

@@ -1,6 +1,7 @@
 // Shared pieces of the 64 x 64 fp32 residual-tile kernels on the CUDA cores
-// (contract_v.cu and stripe.cuh): factor slices staged by cp.async, and the
-// 4 x 4 U V^T patch each of a block's 256 threads computes.
+// (contract_v.cu, stripe.cuh and shrink.cu up to r = 256): factor slices
+// staged by cp.async, and the 4 x 4 U V^T patch each of a block's 256
+// threads computes.
 //
 // A staged slice holds 64 factor rows row-major, the rank axis padded with
 // zeros to 32 RQ and the row stride 32 RQ + 4 floats (an odd number of
@@ -45,6 +46,11 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Stage rows [row0, row0 + 64) of a (nrows, r) row-major factor into dst
 // (64 x ld64<RQ>()) asynchronously in pieces of BYTES (r a multiple of
@@ -80,20 +86,8 @@ __device__ __forceinline__ void stage_async(float* dst, const float* src,
     stage_pieces<RQ, 4>(dst, src, row0, nrows, r);
 }
 
-// Ranks 257 .. 512 (the "wide" kernel: shrink.cu's).  A 64-row slice of U and one of V at r = 512 take 132 KB each,
-// more than a block's 227 KB together, and a 32 RQ-rank register block of
-// the contractions would take 128 fp32 registers a thread.  So the rank
-// axis is taken in two halves: half 0 holds ranks [0, 32 RQH), half 1 ranks
-// [32 RQH, r), RQH = ceil(r / 64) <= 8, each staged into a slice of
-// ld64<RQH>() floats a row.  Every residual entry is summed as
-// low = low(half 0) + low(half 1), each half's patch in rank order from
-// zero: one fp32 add of two terms, which is commutative, so a block may
-// stage the halves in either order and still get the same bits.
-__host__ __device__ constexpr int wide_half(int rqh) { return 32 * rqh; }
-
-// Ranks above 512 (the "chunked" kernels: the shrink's, and above 2048
-// contract_v.cu's and stripe.cuh's): the rank axis in chunks of
-// kRankChunk, chunk c holding ranks
+// Ranks above 2048 (the "chunked" kernels of contract_v.cu and
+// stripe.cuh): the rank axis in chunks of kRankChunk, chunk c holding ranks
 // [256 c, min(256 (c + 1), r)), each staged into a slice of
 // ld64<kChunkRQ>() floats a row (the last one zero-padded).  Three slices of
 // 66.5 KB and a Psi tile pass a block's 227 KB, so a block no longer keeps
@@ -101,8 +95,7 @@ __host__ __device__ constexpr int wide_half(int rqh) { return 32 * rqh; }
 // of V at a time.  Every residual entry sums the chunks' patches in one
 // fixed order, low = ((low(c0) + low(c1)) + low(c2)) + ..., each patch in
 // rank order from zero (fp32 addition is not associative, so with three
-// terms no block may take its own chunk first).  At two chunks of 256 this
-// is the two-half order above, so r 449-512 give the same bits either way.
+// terms no block may take its own chunk first).
 constexpr int kRankChunk = 256;
 constexpr int kChunkRQ = kRankChunk / 32;
 __host__ __device__ constexpr int rank_chunks(int r) {

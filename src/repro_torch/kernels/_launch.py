@@ -19,11 +19,6 @@ import torch
 #: Ranks one register block of the kernels covers (r <= 32 * 8), and the
 #: width of a rank chunk above it (``kRankChunk`` in ``csrc/tile64.cuh``).
 RANK_CHUNK = 256
-#: Ranks up to which the shrink takes r > :data:`RANK_CHUNK` in two halves
-#: staged side by side (``shrink_wide_kernel``); above, in chunks of
-#: :data:`RANK_CHUNK` staged in turn (``shrink_chunk_kernel``), at any
-#: rank (:func:`chunked`).
-TWO_HALVES_MAX_RANK = 512
 #: The contractions above :data:`RANK_CHUNK` (``contract_v_cluster_kernel``
 #: and ``stripe_cluster_kernel``): the widest rank slice of one block of a
 #: cluster (``kSliceMax`` in ``csrc/tile64.cuh``: a factor slice, two
@@ -45,6 +40,10 @@ U_CLUSTER_MAX_RANK = CLUSTER_MAX * SLICE_MAX
 GRID_YZ = 65535
 #: Rows and columns of one residual tile (``kT64`` in ``csrc/tile64.cuh``).
 TILE = 64
+#: Rows and columns of one output tile of the shrink above
+#: :data:`RANK_CHUNK` (``shrink_stream_kernel``: ``kStreamRows`` and
+#: ``kStreamCols`` in ``csrc/shrink.cu``).
+STREAM_ROWS, STREAM_COLS = 128, 64
 #: Codes of M's data type and of the mask mode (``DType`` and ``MaskMode``
 #: in ``csrc/tile.cuh``).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,18 +70,10 @@ class Operands(NamedTuple):
 
 
 def rank_chunks(r: int) -> int:
-    """Rank chunks a contraction takes at rank ``r``: ``ceil(r / 256)``,
-    so 1 up to :data:`RANK_CHUNK` and 2 up to 512 (the two halves); the
-    grid holds that many blocks a tile, one for each chunk of the output's
-    rank axis."""
+    """Rank chunks a contraction's chunk kernel takes at rank ``r``:
+    ``ceil(r / 256)``, so 1 up to :data:`RANK_CHUNK`; the grid holds that
+    many blocks a tile, one for each chunk of the output's rank axis."""
     return -(-r // RANK_CHUNK)
-
-
-def chunked(r: int) -> bool:
-    """Whether the shrink takes rank ``r`` in chunks staged in turn (above
-    :data:`TWO_HALVES_MAX_RANK`) rather than in one register block or two
-    halves staged side by side (``csrc/shrink.cu`` routes by rank alone)."""
-    return r > TWO_HALVES_MAX_RANK
 
 
 def u_chunked(r: int) -> bool:
@@ -106,16 +97,18 @@ def v_chunked(r: int) -> bool:
 def grid_limit_error(e: int, m: int, r: int) -> str | None:
     """Why no kernel grid holds E = ``e`` clients of ``m`` rows at rank
     ``r``, or ``None`` when one does: the grids' y and z axes stop at
-    65535, and the shrink's y axis counts 64-row tiles (``huber_contract_v``'s
-    counts row splits, at most as many), every z axis one block a client.
-    The rank chunks, halves and slices ride the grids' x axis or a block's
-    own loop, which set no limit here."""
+    65535, and the shrink's y axis counts its row tiles (64 rows up to
+    r = 256, :data:`STREAM_ROWS` above; ``huber_contract_v``'s counts row
+    splits, at most as many 64-row tiles, and few), every z axis one block
+    a client.  The rank chunks and slices ride the grids' x axis or a
+    block's own loop, which set no limit here."""
     if e > GRID_YZ:
         return (f"E={e} clients at rank {r} need a grid z axis of {e} "
                 f"blocks; CUDA allows {GRID_YZ}")
-    tiles = -(-m // TILE)
+    rows = TILE if r <= RANK_CHUNK else STREAM_ROWS
+    tiles = -(-m // rows)
     if tiles > GRID_YZ:
-        return (f"m={m} rows are {tiles} tiles of {TILE}; the CUDA grid's "
+        return (f"m={m} rows are {tiles} tiles of {rows}; the CUDA grid's "
                 f"y axis allows {GRID_YZ}")
     return None
 

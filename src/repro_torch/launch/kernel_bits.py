@@ -7,10 +7,11 @@ compare two saved files bit for bit.
 ``save`` runs the public wrappers (``huber_contract_v``, ``_u``,
 ``_u_diag``, ``huber_dual_contract``, ``residual_shrink``, ``_psi``) in
 every mask mode (none, dense, bit-packed) and data type (fp32, bf16 M) at
-ranks 1 to 512 (one register block; two rank slices or halves) on three
-shapes, from inputs made from a seed, and saves the outputs on the host.
-``compare`` prints one JSON line: the cases compared and those whose bits
-differ.  Run ``save`` for two checkouts (for example the parent's, unpacked
+ranks 1 to 512 (one register block; two rank slices, or the shrink's
+stream kernel) on three shapes, from inputs made from a seed, and saves
+the outputs on the host.  ``compare`` prints one JSON line: the cases
+compared, those whose bits differ (the first 50) and their count by
+function and rank.  Run ``save`` for two checkouts (for example the parent's, unpacked
 with ``git archive``) on one card, then ``compare``.  ``save`` needs a CUDA
 card and exits 2 without one.
 """
@@ -67,8 +68,12 @@ def compare(a_path: str, b_path: str) -> int:
     a, b = torch.load(a_path), torch.load(b_path)
     differ = [k for k in a if k not in b or not all(
         torch.equal(x, y) for x, y in zip(a[k], b[k]))]
+    by_rank = {}
+    for k in differ:
+        fn, _, _, r, _ = k.split("/", 4)
+        by_rank[f"{fn}/{r}"] = by_rank.get(f"{fn}/{r}", 0) + 1
     print(json.dumps(dict(compared=len(a), differ=len(differ),
-                          cases=differ[:50])))
+                          cases=differ[:50], by_function_rank=by_rank)))
     return 0 if not differ else 1
 
 

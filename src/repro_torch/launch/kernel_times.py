@@ -19,9 +19,12 @@ takes no packed mask unpacks it there) at F, C, D and D16, and
 ``huber_contract_v``, ``huber_contract_u_diag`` and the shrink at paper
 Table 1's n = 5000 blocks (T5: E=10, m=5000, n_i=500, r=500) and at
 ``chip_smoke.py``'s wide blocks (T6: E=10, m=4000, n_i=400, r=600; a tree
-whose kernels refuse the rank prints the refusal instead), and
-``huber_contract_v`` and ``huber_contract_u_diag`` there with a dense mask
-(T6d).  With
+whose kernels refuse the rank prints the refusal instead), the same three
+there with a dense mask (T6d), and ``residual_shrink_psi`` at T5.  The
+shrink rows at T5, T6 and T6d also time ``torch.baddbmm(M, U, V^T,
+alpha=-1)`` on the same operands (``r_only_ms``: one cuBLAS call that
+forms R alone, without the shrink; a yardstick the port never calls).
+With
 ``--only`` a comma-separated list of row-name prefixes picks rows (for
 example ``--only residual_shrink,flash_attention/T``).  Each row gives the
 CUDA-event time per call over 20 calls after 3 of warm-up (``ms``: what a
@@ -55,11 +58,12 @@ SHAPES = {  # (E, m, n_i, r, dtype, mask)
     "D16": (4, 2048, 512, 64, torch.bfloat16, "packed"),
     "D16n": (4, 2048, 512, 64, torch.bfloat16, "none"),
     # Paper Table 1 at n = 5000 (p = 2r = 500), E = 10: the contractions in
-    # a cluster of two rank slices, the shrink in two rank halves.
+    # a cluster of two rank slices, the shrink in its stream kernel (16
+    # slabs of 32 ranks, 3200 tiles of 128 x 64).
     "T5": (10, 5000, 500, 500, torch.float32, "none"),
     # chip_smoke.py's wide phase (n = 4000, p = 600), E = 10: the
-    # contractions in a cluster of three rank slices, the shrink in three
-    # chunks, and with a dense mask (the contractions only).
+    # contractions in a cluster of three rank slices, the shrink in 19
+    # slabs (2240 tiles), and with a dense mask.
     "T6": (10, 4000, 400, 600, torch.float32, "none"),
     "T6d": (10, 4000, 400, 600, torch.float32, "dense"),
 }
@@ -76,6 +80,7 @@ CONTRACT_ROWS = [  # (function, shape)
     ("residual_shrink", "T5"), ("huber_contract_v", "T6"),
     ("huber_contract_u_diag", "T6"), ("residual_shrink", "T6"),
     ("huber_contract_v", "T6d"), ("huber_contract_u_diag", "T6d"),
+    ("residual_shrink", "T6d"), ("residual_shrink_psi", "T5"),
 ]
 CALLS, WARMUP = 20, 3
 
@@ -127,11 +132,12 @@ def device_ms(fn) -> tuple[float, dict[str, float]]:
     return sum(by_name.values()), by_name
 
 
-def emit(tree: str, row: str, run, smi: str) -> None:
+def emit(tree: str, row: str, run, smi: str, **extra) -> None:
     ms = event_ms(run)
     total, by_name = device_ms(run)
     print(json.dumps(dict(tree=tree, row=row, ms=ms, device_ms=total,
-                          host_us=host_us(run), kernels=by_name, card=smi)),
+                          host_us=host_us(run), kernels=by_name, card=smi,
+                          **extra)),
           flush=True)
 
 
@@ -190,7 +196,11 @@ def main() -> int:
             print(json.dumps(dict(tree=tree, row=f"{fn}/{name}",
                                   refused=str(exc), card=smi)), flush=True)
             continue
-        emit(tree, f"{fn}/{name}", run, smi)
+        extra = {}
+        if fn.startswith("residual_shrink") and name.startswith("T"):
+            extra["r_only_ms"] = event_ms(
+                lambda: torch.baddbmm(mat.float(), u, v.mT, alpha=-1))
+        emit(tree, f"{fn}/{name}", run, smi, **extra)
         del u, v, mat, w
     return 0
 

@@ -612,15 +612,18 @@ def test_default_cfg_with_a_schedule_is_the_elastic_preset():
 # ---------------------------------------------------------------------------
 # Ranks above 512 on the card: the plain functions behind the kernels' grid
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("r,chunks,chunked", [(1, 1, False), (256, 1, False),
-                                              (257, 2, False),
-                                              (512, 2, False),
-                                              (513, 3, True), (600, 3, True),
-                                              (1024, 4, True),
-                                              (1025, 5, True)])
-def test_rank_chunks(r, chunks, chunked):
+@pytest.mark.parametrize("r,chunks,route", [(1, 1, "base"), (256, 1, "base"),
+                                            (257, 2, "stream"),
+                                            (512, 2, "stream"),
+                                            (513, 3, "stream"),
+                                            (600, 3, "stream"),
+                                            (1024, 4, "stream"),
+                                            (1025, 5, "stream")])
+def test_rank_chunks(r, chunks, route):
+    from repro_torch.kernels import shrinkage
+
     assert _launch.rank_chunks(r) == chunks
-    assert _launch.chunked(r) is chunked
+    assert shrinkage.shrink_plan(10, 4000, 400, r, 132).route == route
 
 
 def test_grid_limits_are_plain_functions():
@@ -630,6 +633,9 @@ def test_grid_limits_are_plain_functions():
     assert "z axis" in _launch.grid_limit_error(70000, 64, 300)
     assert _launch.grid_limit_error(40000, 64, 200) is None
     assert "y axis" in _launch.grid_limit_error(1, 64 * 65536, 64)
+    # above r = 256 the shrink's y axis counts 128-row tiles
+    assert _launch.grid_limit_error(1, 64 * 65536, 300) is None
+    assert "y axis" in _launch.grid_limit_error(1, 128 * 65536, 300)
     from repro_torch.core import factorized as fz
 
     cuda = torch.device("cuda")

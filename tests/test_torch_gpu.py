@@ -592,9 +592,10 @@ def test_dual_bounded_scratch_keeps_u_diag_bits(cuda, r, dtype):
 
 # Ranks 257 .. 512, on a small grid and on one with several row ranges
 # (v_splits) and column ranges (u_splits) at E = 1: the contractions take
-# their cluster kernels there (two rank slices), the shrink two rank halves
-# (csrc/tile64.cuh), RQH = ceil(r / 64) register groups each (5, 5, 6, 7,
-# 8, 8).
+# their cluster kernels there (two rank slices), the shrink its stream
+# kernel (csrc/shrink.cu: 128 x 64 tiles, 9 to 16 slabs of 32 ranks, the
+# last one partial but at 384, 448 and 512).  Both shapes end in a
+# partial tile of every kernel.
 WIDE_RANKS = [257, 300, 384, 448, 500, 512]
 WIDE_SHAPES = [(2, 200, 133), (1, 700, 650)]
 
@@ -715,10 +716,9 @@ def test_svt_on_the_card_matches_the_cpu(cuda):
             / torch.linalg.norm(want)).item() <= 1e-5
 
 
-# Ranks above 512: the shrink's chunks of 256 staged in turn
-# (csrc/tile64.cuh), three (513, 600, 768) and four (1024), the last one
-# narrow but at 768 and 1024; the contractions' cluster kernels of three
-# and four rank slices.
+# Ranks above 512: the shrink's stream kernel at 17 to 32 slabs of 32
+# ranks (513: one rank in the last slab); the contractions' cluster kernels
+# of three and four rank slices.
 CHUNK_RANKS = [513, 600, 768, 1024]
 
 
@@ -784,6 +784,81 @@ def test_chunked_ranks_keep_the_bit_exact_pairs(cuda, shape):
     e, m, n = shape
     assert (hc.dual_plan(e, m, n, 600) is None) == (m == 700)
     _bit_exact_pairs(*_card_inputs(cuda, *shape, 600, seed=6))
+
+
+# The shrink's stream kernel past the contractions' cluster ranks (2049:
+# one rank in the last slab; 2304: 72 whole slabs) on WIDE_SHAPES and on a
+# single partial 128-row tile (3 clients of 127 x 70), which also takes
+# every rank of WIDE_RANKS and CHUNK_RANKS.  The last column tile of each
+# holds at most 16 columns and sums only its two column groups inside the
+# plane; at 2 x 130 x 90 (26 columns) it sums all eight.
+STREAM_RANKS = [2049, 2304]
+STREAM_EDGE = (3, 127, 70)
+STREAM_GROUPS = (2, 130, 90)
+STREAM_CASES = ([(s, r) for s in WIDE_SHAPES for r in STREAM_RANKS]
+                + [(STREAM_EDGE, r)
+                   for r in WIDE_RANKS + CHUNK_RANKS + STREAM_RANKS]
+                + [(STREAM_GROUPS, r) for r in (300, 600)])
+STREAM_IDS = [f"{'x'.join(map(str, s))}-r{r}" for s, r in STREAM_CASES]
+SHRINK_CASES = [c for c in CASES if c[0].startswith("residual_shrink")]
+SHRINK_IDS = [i for c, i in zip(CASES, IDS) if c in SHRINK_CASES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,r", STREAM_CASES, ids=STREAM_IDS)
+@pytest.mark.parametrize("fn,mode", SHRINK_CASES, ids=SHRINK_IDS)
+def test_stream_ranks_match_plain(cuda, fn, mode, shape, r, dtype):
+    """The shrink and its psi mode on the stream route (every mask mode,
+    fp32 and bf16 M) within 2e-5 of the plain version, one launch of the
+    kernel a call."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sh.shrink_plan(*shape, r, sms).route == "stream"
+    name = fn + {"none": "", "dense": "_masked", "packed": "_packed"}[mode]
+    before = ops.launch_counts()
+    got, want = _kernel_and_plain(
+        fn, mode, *_card_inputs(cuda, *shape, r, seed=r, dtype=dtype))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == name) for k in after}
+    _assert_close_new(got, want)
+
+
+@pytest.mark.gpu
+def test_stream_resident_blocks_are_the_cards(cuda):
+    """shrink_plan's resident blocks of the stream kernel (its waves) are
+    every instance's own cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    for dtype in (0, 1):
+        for mask in (0, 1, 2):
+            for psi in (False, True):
+                assert sh.stream_resident_on_device(
+                    cuda, dtype, mask, psi) == sh.STREAM_RESIDENT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,r", STREAM_CASES, ids=STREAM_IDS)
+def test_stream_ranks_keep_the_bit_exact_pairs(cuda, shape, r):
+    """The shrink's bit-exact pairs on the stream route, in fp32 and bf16:
+    reruns, all-ones mask == no mask, packed == dense, and the psi mode's S
+    is the shrink's, bit for bit."""
+    for dtype in (torch.float32, torch.bfloat16):
+        u, v, mat, w, lam = _card_inputs(cuda, *shape, r, seed=r + 1,
+                                         dtype=dtype)
+        packed = bitmask.pack_mask(w)
+        for f in (sh.residual_shrink, sh.residual_shrink_psi):
+            none = _as_tuple(f(u, v, mat, lam))
+            for a, b, c in zip(none, _as_tuple(f(u, v, mat, lam)),
+                               _as_tuple(f(u, v, mat, lam,
+                                           torch.ones_like(w)))):
+                assert torch.equal(a, b) and torch.equal(a, c)
+            for a, b in zip(_as_tuple(f(u, v, mat, lam, w)),
+                            _as_tuple(f(u, v, mat, lam, packed))):
+                assert torch.equal(a, b)
+        for wm in (None, w, packed):
+            s, _ = sh.residual_shrink_psi(u, v, mat, lam, wm)
+            assert torch.equal(s, sh.residual_shrink(u, v, mat, lam, wm))
 
 
 @pytest.mark.gpu
@@ -1062,6 +1137,31 @@ def test_contract_v_is_one_kernel_node_a_call(cuda, shape, r):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, hc.huber_contract_v(u, v, mat, lam, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [150, 300, 600, 2049])
+def test_shrink_is_one_kernel_node_a_call(cuda, r):
+    """A captured residual_shrink call is one graph kernel node of the
+    shrink family, named for its rank route (shrink_kernel up to 256,
+    shrink_stream_kernel above), and nothing else."""
+    from repro_torch.core import graph_nodes
+
+    name = "shrink_kernel" if r <= 256 else "shrink_stream_kernel"
+    u, v, mat, w, lam = _card_inputs(cuda, 1, 700, 650, r, seed=2)
+    sh.residual_shrink(u, v, mat, lam, w)  # built and loaded
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = sh.residual_shrink(u, v, mat, lam, w)
+    nodes = graph_nodes.kernel_nodes(graph.raw_cuda_graph())
+    assert ops.kernels_by_family(nodes) == {"contract_v": 0, "stripe": 0,
+                                            "shrink": 1}
+    assert sum(nodes.values()) == 1
+    assert next(iter(nodes)).count(name) == 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, sh.residual_shrink(u, v, mat, lam, w))
 
 
 def _assert_close_nan(got, want):

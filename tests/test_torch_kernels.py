@@ -399,6 +399,95 @@ def test_v_plan_grid_and_splits(e, m, n, r, sms):
     assert hc.v_plan(e, m, n, r, sms) == plan
 
 
+# The shrink's launch plan at paper Table 1's n = 5000 blocks (T5), the
+# wide phase's (T6), the batch phase's 128 clients (Bn) and Fig. 1's (F),
+# at their own ranks and at each side of every rank route.
+SHRINK_PLAN_SHAPES = {"T5": (10, 5000, 500), "T6": (10, 4000, 400),
+                      "Bn": (128, 500, 63), "F": (10, 3000, 300)}
+
+
+@pytest.mark.parametrize("sms", [78, 132])
+@pytest.mark.parametrize("r", [8, 150, 256, 257, 500, 512, 513, 600, 2048,
+                               4096])
+@pytest.mark.parametrize("shape", list(SHRINK_PLAN_SHAPES.values()),
+                         ids=list(SHRINK_PLAN_SHAPES))
+def test_shrink_plan(shape, r, sms):
+    """The shrink's launch plan: ``shrink_kernel`` (64 x 64 tiles, the whole
+    rank staged at once, two blocks an SM up to r = 192) up to r = 256 and
+    ``shrink_stream_kernel`` (128 x 64 tiles, a ring of two 32-rank
+    slabs) above; its grid covers the plane in whole tiles with E on z,
+    within the CUDA grid's limits; a block's shared memory fits the
+    232,448 bytes an H100 block may take, and the resident blocks the SM's
+    228 KB; the slabs cover r; a pure function."""
+    from repro_torch.kernels import _launch
+
+    e, m, n = shape
+    plan = sh.shrink_plan(e, m, n, r, sms)
+    assert plan.route == ("base" if r <= 256 else "stream")
+    if plan.route == "stream":
+        assert (plan.rows, plan.cols) == (_launch.STREAM_ROWS,
+                                         _launch.STREAM_COLS) == (128, 64)
+        assert (plan.slab, plan.stages, plan.threads) == (32, 2, 128)
+        assert plan.stages * plan.slab < r  # the ring streams the rank
+        assert plan.resident == 2
+    else:
+        assert (plan.rows, plan.cols, plan.threads) == (64, 64, 256)
+        assert plan.stages == 1 and plan.slab == 32 * -(-r // 32)
+        assert plan.resident == (2 if r <= 192 else 1)
+    slabs = -(-r // plan.slab)  # the last one zero-padded
+    assert slabs * plan.slab >= r > (slabs - 1) * plan.slab
+    x, y, z = plan.grid
+    assert x * plan.cols >= n > (x - 1) * plan.cols
+    assert y * plan.rows >= m > (y - 1) * plan.rows
+    assert z == e and max(y, z) <= _launch.GRID_YZ
+    if plan.route == "stream":  # 128-byte rows, swizzled; an mbarrier a stage
+        assert plan.slab * 4 == 128
+        assert plan.smem == (1024 + 4 * plan.stages * (plan.rows + plan.cols)
+                             * plan.slab + 8 * plan.stages)
+    else:  # both factors' rows, padded to an odd number of float4
+        assert plan.smem == 4 * 2 * 64 * (plan.slab + 4)
+    assert plan.smem <= 232448
+    assert plan.resident * (plan.smem + 1024) <= 233472
+    assert plan.waves == x * y * z / (plan.resident * sms)
+    assert sh.shrink_plan(e, m, n, r, sms) == plan
+    if (shape, r) == ((10, 5000, 500), 500):
+        assert plan.grid == (8, 40, 10)  # 3200 blocks
+    if (shape, r) == ((10, 4000, 400), 600):
+        assert plan.grid == (7, 32, 10)  # 2240 blocks
+
+
+@pytest.mark.parametrize("r", [150, 256, 257, 600, 2049])
+@pytest.mark.parametrize("fn", ["residual_shrink", "residual_shrink_psi"])
+def test_shrink_launch_follows_shrink_plan(monkeypatch, fn, r):
+    """What a shrink wrapper hands its C entry on the card, with the entry
+    replaced: the route code of ``shrink_plan`` (0 base, 1 stream) after
+    the operand sizes and codes, and S (and Psi) as outputs."""
+    from repro_torch.kernels import _build, _launch
+
+    e, m, n = 2, 130, 200
+    calls = []
+
+    def fake_launch(lib, entry, name, counts, op, u, v, mat, w, lam,
+                    *outputs, ints=()):
+        calls.append((entry, name, outputs, ints))
+
+    monkeypatch.setattr(sh, "on_cpu", lambda u: False)
+    monkeypatch.setattr(sh, "check_operands",
+                        lambda u, v, mat, lam, w=None: _launch.Operands(
+                            *u.shape[:2], v.shape[1], u.shape[2], 0, 0))
+    monkeypatch.setattr(sh, "sm_count", lambda device: 132)
+    monkeypatch.setattr(sh, "launch", fake_launch)
+    monkeypatch.setattr(_build, "library", lambda stem, sigs: None)
+    getattr(sh, fn)(torch.zeros(e, m, r), torch.zeros(e, n, r),
+                    torch.zeros(e, m, n), torch.ones(e))
+    (entry, name, outputs, ints), = calls
+    assert (entry, name) == ("repro_" + fn, fn)
+    assert ints == (sh.ROUTES[sh.shrink_plan(e, m, n, r, 132).route],)
+    assert ints == ((0,) if r <= 256 else (1,))
+    assert len(outputs) == (2 if fn.endswith("psi") else 1)
+    assert all(o.shape == (e, m, n) for o in outputs)
+
+
 @pytest.mark.parametrize("r", CLUSTER_RANKS)
 def test_u_cluster_slices_fit_a_block(r):
     """The row-stripe cluster kernel's rank slices: together exactly r,

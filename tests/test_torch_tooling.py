@@ -222,6 +222,7 @@ KERNEL_BOUNDS = [
     (SH, "none", "C", "0.0403", "operations"),
     (SH, "none", "T5", "0.3731", "operations"),
     (SH, "none", "T6", "0.2866", "operations"),
+    (SH, "dense", "T6", "0.2866", "operations"),
     (SH, "none", "SH", "0.0040", "operations"),
     (SH, "none", "SR", "0.0101", "operations"),
     (SH, "none", "PR", "0.0804", "bytes"),
@@ -234,6 +235,7 @@ KERNEL_BOUNDS = [
     (SH, "dense", "G256_1", "0.0005", "bytes"),
     (SH, "packed", "D16", "0.0085", "bytes"),
     (PSI, "none", "F", "0.0403", "operations"),
+    (PSI, "none", "T5", "0.3731", "operations"),
     (PSI, "none", "D16", "0.0133", "bytes"),
     (PSI, "dense", "D", "0.0208", "bytes"),
 ]
@@ -442,9 +444,9 @@ KERNEL_NAMES = [
 ]
 
 
-# The contractions' kernels above r = 256: the cluster kernels (mangled, as
-# a graph node names them, and demangled, as the profiler does) and the
-# chunk kernels.
+# The kernels above r = 256: the contractions' cluster kernels (mangled, as
+# a graph node names them, and demangled, as the profiler does) and chunk
+# kernels, and the shrink's stream kernel.
 RANK_ROUTE_KERNEL_NAMES = [
     ("_ZN5repro12_GLOBAL__N_125contract_v_cluster_kernelILi8EfLi0EEEvPKf",
      "contract_v"),
@@ -457,6 +459,11 @@ RANK_ROUTE_KERNEL_NAMES = [
     ("_ZN5repro19stripe_chunk_kernelIfLi1ELb0ELb0EEEvPKfS2_S2_", "stripe"),
     ("void repro::stripe_chunk_kernel<float, 0, true, false>(float const*)",
      "stripe"),
+    ("_ZN5repro41_GLOBAL__N__eabbe2f4_9_shrink_cu_b032f06a20shrink_stream_"
+     "kernelIfLi0ELb0EEEv10CUtensorMapS3_iPKfS5_PKT_PKvS5_PfSB_iii",
+     "shrink"),
+    ("void repro::(anonymous namespace)::shrink_stream_kernel<__nv_bfloat16,"
+     " 2, true>(CUtensorMap, CUtensorMap, int, float const*)", "shrink"),
 ]
 
 
