@@ -23,7 +23,8 @@ CUDA toolkit.  Phases, one JSON line each:
             M; dense and bit-packed masks); residual_shrink_psi at fig1
             (none, f32), d32 (dense) and d16 (none, bf16); flash_attention
             bf16 at the serve phase's shape (B=4, S=2048, H=32, d=128,
-            causal), f32 at the small_lm phase's shape (2, 33, 4, 32,
+            causal; row @tp, serve_tp's per-rank (4, 2048, 16, 128)),
+            f32 at the small_lm phase's shape (2, 33, 4, 32,
             causal), at (1, 256, 4, 64, causal), f32 cross (2, 64 x 200,
             2, 64, full) and f32 at the serve_f32 phase's shape (4, 2048,
             32, 64, causal; row T), and bf16 at serve_moe's (4, 2048, 16,
@@ -258,6 +259,19 @@ CUDA toolkit.  Phases, one JSON line each:
             max|logits|.  The decode step is captured once and replayed
             (one graph launch a step): the replayed ms a step beside an
             eager decode's, and the tokens equal to the eager ones.
+    serve_tp Llama-3-8B as serve, over a (1, 2) ("data", "model") mesh:
+            2 gloo ranks sharing the card (``multihost.launch_workers``),
+            tensor parallel (``models.parallel``), each drawing serve's
+            weights from serve's seed and keeping its slices: the weight
+            and KV-cache GB a rank (about half of serve's), exactly 32
+            flash_attention launches a rank at 16 heads in ``generate``
+            (decode eager: gloo runs its collectives on the host, and
+            ``generate`` says so), the same tokens on both ranks, and,
+            fed serve's tokens, the prefill's and every decode step's
+            logits within 8e-2 of serve's and the greedy tokens equal to
+            serve's wherever serve's top-2 margin passes 0.16; prefill and
+            decode ms and the collectives' calls, bytes and seconds a
+            prefill and a step (``multihost.wire_counts``).
             Every serve phase first emits ``dryrun_<phase>``: the meta
             device dry run (``launch/dryrun.py``) of its configuration
             and cut, its weight bytes equal to the materialised model's
@@ -349,6 +363,8 @@ from pathlib import Path
 from types import SimpleNamespace
 
 SRC = Path(__file__).resolve().parent / "src"
+# serve's prompt, tokens and logits for serve_tp's workers (gitignored).
+SERVE_TP_DIR = Path(__file__).resolve().parent / "build" / "serve_tp"
 
 # The Fig. 1 slice: the paper's setting at its largest size.
 M_ROWS, N_COLS, RANK, SPARSITY, CLIENTS = 3000, 3000, 150, 0.05, 10
@@ -386,6 +402,21 @@ FLASH_TOL = {"f32": 2e-5, "bf16": 1e-2}
 # (RoutingHold): a near-tie top-k choice flips on such ulps.
 SERVE_LOGITS_BAR = 5e-2
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "llama3-8b", 4, 2048, 32
+# serve_tp: serve's model over SERVE_TP_RANKS model ranks.  Its logits,
+# fed serve's tokens, against serve's, entry by entry within rtol = atol =
+# 8e-2 (|tp - serve| <= 8e-2 + 8e-2 |serve|), the bf16 tolerance of
+# tests/test_torch_lm.py (tests/test_models_smoke.py:100).  A rank's
+# products have other shapes than serve's (h/t heads, ff/t columns, the
+# row-parallel wo and w_down summed over the ranks in fp32), so bf16
+# outputs round differently and the 32 layers' residual stream drifts by
+# bf16 ulps: at most 0.086 from serve's on the H100 (0.102 with the
+# partial sums rounded to bf16 before the all-reduce, past the bound;
+# PERF.md §6), beside serve's own flash-vs-plain 0.0196 of max
+# |logits|.  A greedy token is held to serve's where serve's top-2 margin
+# passes twice the atol.
+SERVE_TP_RANKS, SERVE_TP_BAR = 2, 8e-2
+SERVE_TP_MARGIN = 2 * SERVE_TP_BAR
+SERVE_TP_TIMEOUT = 600
 # The fp32 serving path: TinyLlama-1.1B's prefill at 4 x 2048 (arXiv:
 # 2401.02385), the fp32 flash kernel's full-width shape.
 F32_ARCH, F32_NEW = "tinyllama-1.1b", 16
@@ -693,6 +724,10 @@ FLASH_ROWS = [
     ("flash_attention",
      (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 128), True, "bf16",
      "serve"),
+    # serve_tp's prefill on a rank: Llama-3-8B's 32 heads over 2 ranks.
+    ("flash_attention@tp",
+     (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32 // SERVE_TP_RANKS, 128),
+     True, "bf16", "serve_tp"),
     ("flash_attention@f32_small_lm",
      (SMALL_BATCH, SMALL_PROMPT, SMALL_PROMPT, 4, 32), True, "f32",
      "small_lm"),
@@ -3219,11 +3254,14 @@ class _EventTimedModel:
     of an eager one (a replayed run calls ``decode_step`` only to capture
     it, where no event may be recorded)."""
 
-    def __init__(self, model, step_events: bool = False):
+    def __init__(self, model, step_events: bool = False,
+                 keep_steps: bool = False):
         self.model = model
         self.step_events = step_events
+        self.keep_steps = keep_steps
         self.events = []
         self.prefill_logits = None
+        self.step_logits = []
 
     def _event(self):
         import torch
@@ -3232,9 +3270,13 @@ class _EventTimedModel:
         event.record()
         self.events.append(event)
 
-    def init_cache(self, *args):
+    def tensor_parallel(self, rules=None):
+        return self.model.tensor_parallel(rules)
+
+    def init_cache(self, *args, **kw):
         self.events = []
-        return self.model.init_cache(*args)
+        self.step_logits = []
+        return self.model.init_cache(*args, **kw)
 
     def prefill(self, *args, **kw):
         self._event()
@@ -3242,10 +3284,12 @@ class _EventTimedModel:
         self._event()
         return self.prefill_logits, caches
 
-    def decode_step(self, *args):
-        out = self.model.decode_step(*args)
+    def decode_step(self, *args, **kw):
+        out = self.model.decode_step(*args, **kw)
         if self.step_events:
             self._event()
+        if self.keep_steps:
+            self.step_logits.append(out[0].clone())
         return out
 
     def prefill_ms(self) -> float:
@@ -3444,7 +3488,8 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     scfg = ServeConfig(max_new_tokens=new_tokens)
 
     kept = _EventTimedModel(model)
-    eager_timed = _EventTimedModel(model, step_events=True)
+    eager_timed = _EventTimedModel(model, step_events=True,
+                                   keep_steps=name == "serve")
 
     def serve(eager=False):
         return generate(eager_timed if eager else kept, params, prompt, scfg,
@@ -3469,6 +3514,14 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     torch.cuda.synchronize()
     eager_step_ms = eager_timed.step_ms()
     same = bool(torch.equal(tokens, eager_tokens))
+    if name == "serve":  # serve_tp's yardstick
+        SERVE_TP_DIR.mkdir(parents=True, exist_ok=True)
+        torch.save(dict(prompt=prompt.cpu(), tokens=tokens.cpu(),
+                        prefill=logits.cpu(),
+                        steps=torch.stack(eager_timed.step_logits).cpu(),
+                        weights_gb=weights_gb),
+                   SERVE_TP_DIR / "serve.pt")
+        eager_timed.step_logits = []
     # The same weights and prompt with the config's flash switch off: the
     # plain (chunked, fp32 softmax) attention of every layer.
     plain = get_model(cfg.replace(flash_attention=False))
@@ -3541,6 +3594,245 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     if not ok:
         raise SystemExit(f"phase {name} failed")
     row["launches"] = counts
+    return row
+
+
+SERVE_TP_WORKER = r"""
+import json, os, time
+import torch
+from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import rules_for_mesh
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.models import get_model
+from repro_torch.models.attention import head_layout
+from repro_torch.serving.engine import ServeConfig, generate
+
+torch.backends.cuda.matmul.allow_tf32 = False
+_mh.SYNC_TIMING = True  # collective seconds without the step's queue
+env = json.loads(os.environ["SERVE_TP_ENV"])
+device = torch.device("cuda")
+mesh = _mh.multihost_mesh(("data", "model"), (1, env["ranks"]),
+                          device=device)
+rules = rules_for_mesh(mesh)
+cfg = get_config(env["arch"]).replace(flash_attention=True)
+model = get_model(cfg)
+tp = model.tensor_parallel(rules)
+torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
+params = model.init_params(seed=0, device=device, rules=rules)
+torch.cuda.synchronize()
+setup_s = time.perf_counter() - t0
+weights_gb = sum(p.numel() * p.element_size()
+                 for p in params.parameters()) / 1e9
+serve = torch.load(env["serve"])
+prompt = serve["prompt"].to(device)
+served = serve["tokens"].to(device)
+b, s = prompt.shape
+new = served.shape[1]
+
+
+def event():
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+# Fed serve's tokens (this run also warms the libraries): the prefill's
+# and every decode step's logits against serve's, and the greedy tokens.
+caches = model.init_cache(b, s + new, device, rules=rules)
+cache_gb = sum(x.numel() * x.element_size()
+               for c in caches for x in c) / 1e9
+logits, _ = model.prefill(params, prompt, caches, rules=rules)
+forced = [logits.cpu()]
+for i in range(new - 1):
+    step, _ = model.decode_step(params, served[:, i:i + 1], caches, s + i,
+                                rules=rules)
+    forced.append(step.cpu())
+wants = [serve["prefill"]] + list(serve["steps"])
+abs_err, rel_err, excess = [], [], []
+held, differ, served_argmax = 0, 0, True
+for col, (got, want) in enumerate(zip(forced, wants, strict=True)):
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    abs_err.append(float(diff.max()))
+    rel_err.append(abs_err[-1] / float(want.abs().max()))
+    # Past the allclose bound |diff| <= bar + bar |want|: <= 0 passes.
+    excess.append(float((diff - env["bar"] * want.abs()).max()) - env["bar"])
+    top = want.topk(2, dim=-1).values
+    sure = (top[:, 0] - top[:, 1]) > env["margin"]
+    argmax = want.argmax(-1)
+    served_argmax &= bool((argmax == serve["tokens"][:, col]).all())
+    held += int(sure.sum())
+    differ += int((sure & (got.argmax(-1) != argmax)).sum())
+finite = all(bool(torch.isfinite(x.float()).all()) for x in forced)
+del forced, caches
+
+
+class Timed:
+    # generate's model, with CUDA events around the prefill and after
+    # every (eager) decode step.
+    def __init__(self):
+        self.events = []
+
+    def tensor_parallel(self, rules=None):
+        return model.tensor_parallel(rules)
+
+    def init_cache(self, *args, **kw):
+        return model.init_cache(*args, **kw)
+
+    def prefill(self, *args, **kw):
+        self.events.append(event())
+        out = model.prefill(*args, **kw)
+        self.events.append(event())
+        return out
+
+    def decode_step(self, *args, **kw):
+        out = model.decode_step(*args, **kw)
+        self.events.append(event())
+        return out
+
+
+shapes = set()
+real_flash = fa.flash_attention
+
+
+def flash(q, k, v, **kw):
+    shapes.add(tuple(q.shape))
+    return real_flash(q, k, v, **kw)
+
+
+fa.flash_attention = flash
+timed = Timed()
+torch.cuda.synchronize()
+ops.reset_launch_counts()
+_mh.wire_counts(reset=True)
+t0 = time.perf_counter()
+tokens, info = generate(timed, params, prompt,
+                        ServeConfig(max_new_tokens=new), rules=rules,
+                        return_info=True)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+counts = {k: c for k, c in ops.launch_counts().items() if c}
+wire = _mh.wire_counts(reset=True)
+fa.flash_attention = real_flash
+ev = timed.events
+steps = len(ev) - 2
+print("SERVE_TP " + json.dumps(dict(
+    rank=tp.index, ranks=tp.size, heads=head_layout(cfg, tp.size,
+                                                    tp.index).heads,
+    kv_heads=head_layout(cfg, tp.size, tp.index).kv_heads,
+    setup_s=setup_s, weights_gb=weights_gb, cache_gb=cache_gb,
+    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+    launches=counts, flash_shapes=sorted(shapes), info=info,
+    tokens=tokens.cpu().tolist(), wall_s=wall,
+    prefill_ms=ev[0].elapsed_time(ev[1]),
+    decode_ms_per_step=ev[1].elapsed_time(ev[-1]) / steps,
+    wire=wire, forced_abs_err=abs_err, forced_rel_err=rel_err,
+    forced_excess=excess,
+    margin_held=held, margin_differ=differ,
+    served_tokens_are_argmax=served_argmax, finite=finite)), flush=True)
+"""
+
+
+def serve_tp_phase(device, serve_row: dict) -> dict:
+    """``serve_tp``: :data:`SERVE_TP_WORKER` on :data:`SERVE_TP_RANKS` gloo
+    ranks sharing the card (``multihost.launch_workers``), each serving
+    serve's Llama-3-8B over a (1, 2) ("data", "model") mesh from serve's
+    weights seed, fed serve's prompt (``SERVE_TP_DIR/serve.pt``, written
+    by serve).  Gates: every rank's weights about half of serve's, exactly
+    one flash_attention launch a layer at h/t heads in ``generate``, the
+    decode eager (gloo) and saying so, the same in-vocabulary tokens on
+    every rank; fed serve's tokens, every step's logits within
+    :data:`SERVE_TP_BAR` of serve's and the greedy token serve's wherever
+    serve's top-2 margin passes :data:`SERVE_TP_MARGIN`.  The prefill ms,
+    eager decode ms a step and the collectives a prefill + decode beside
+    serve's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import multihost as mh
+    from repro_torch.models.layers import padded_vocab
+
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.empty_cache()
+    env = dict(arch=SERVE_ARCH, ranks=SERVE_TP_RANKS,
+               serve=str(SERVE_TP_DIR / "serve.pt"), margin=SERVE_TP_MARGIN,
+               bar=SERVE_TP_BAR)
+    t0 = time.perf_counter()
+    outs = mh.launch_workers(SERVE_TP_WORKER, num_processes=SERVE_TP_RANKS,
+                             backend="gloo", timeout=SERVE_TP_TIMEOUT,
+                             extra_env={"SERVE_TP_ENV": json.dumps(env)})
+    wall = time.perf_counter() - t0
+    rows = sorted((json.loads(ln[len("SERVE_TP "):]) for out in outs
+                   for ln in out.splitlines()
+                   if ln.startswith("SERVE_TP ")),
+                  key=lambda r: r["rank"])
+    heads = cfg.n_heads // SERVE_TP_RANKS
+    want = {"flash_attention": cfg.n_layers}
+    shape = [SERVE_BATCH, SERVE_PROMPT, heads, cfg.hd]
+    pv = padded_vocab(cfg.vocab)
+    same_tokens = len({json.dumps(r["tokens"]) for r in rows}) == 1
+    in_vocab = all(0 <= t < pv for r in rows for ln in r["tokens"]
+                   for t in ln)
+    weight_share = [r["weights_gb"] / serve_row["weights_gb"] for r in rows]
+    served = torch.load(SERVE_TP_DIR / "serve.pt")["tokens"].tolist()
+    steps = SERVE_NEW - 1
+    ok = (len(rows) == SERVE_TP_RANKS and same_tokens and in_vocab
+          and all(r["launches"] == want and r["heads"] == heads
+                  and r["flash_shapes"] == [shape]
+                  and r["info"]["decode"] == "eager"
+                  and max(r["forced_excess"]) <= 0
+                  and r["margin_differ"] == 0 and r["finite"]
+                  and r["served_tokens_are_argmax"] for r in rows)
+          and all(0.45 <= x <= 0.55 for x in weight_share))
+    r0 = rows[0] if rows else {}
+    wire = r0.get("wire", {})
+    row = dict(
+        phase="serve_tp", arch=SERVE_ARCH, ranks=len(rows),
+        mesh={"data": 1, "model": SERVE_TP_RANKS}, backend="gloo",
+        layers=cfg.n_layers, heads_per_rank=[r["heads"] for r in rows],
+        kv_heads_per_rank=[r["kv_heads"] for r in rows],
+        batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        weights_gb_per_rank=[r["weights_gb"] for r in rows],
+        serve_weights_gb=serve_row["weights_gb"],
+        weight_share_of_serve=weight_share,
+        cache_gb_per_rank=[r["cache_gb"] for r in rows],
+        peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in rows],
+        setup_s_per_rank=[r["setup_s"] for r in rows], wall_s=wall,
+        generate_wall_s_per_rank=[r["wall_s"] for r in rows],
+        prefill_ms_per_rank=[r["prefill_ms"] for r in rows],
+        eager_decode_ms_per_step_per_rank=[r["decode_ms_per_step"]
+                                           for r in rows],
+        serve_prefill_ms=serve_row["prefill_ms"],
+        serve_decode_ms_per_step=serve_row["decode_ms_per_step"],
+        serve_eager_decode_ms_per_step=serve_row["eager_decode_ms_per_step"],
+        decode=r0.get("info"),
+        collectives_in_generate=wire,
+        all_reduce_calls_per_forward=wire.get("all_reduce_calls", 0)
+        / SERVE_NEW,
+        collective_bytes_per_forward=(wire.get("all_reduce_bytes", 0)
+                                      + wire.get("all_gather_bytes", 0))
+        / SERVE_NEW,
+        collective_s_per_rank=[r["wire"]["seconds"] for r in rows],
+        flash_shapes=r0.get("flash_shapes"),
+        launches_per_rank=[r["launches"] for r in rows],
+        expected_launches_per_rank=want,
+        forced_logits_abs_err_max=[max(r["forced_abs_err"]) for r in rows],
+        forced_logits_rel_err_max=[max(r["forced_rel_err"]) for r in rows],
+        forced_allclose_excess_max=[max(r["forced_excess"]) for r in rows],
+        forced_logits_abs_err_by_step=r0.get("forced_abs_err"),
+        bar=SERVE_TP_BAR, margin=SERVE_TP_MARGIN,
+        tokens_held_by_margin=[r["margin_held"] for r in rows],
+        tokens_differing_where_held=[r["margin_differ"] for r in rows],
+        free_tokens_equal_serve=bool(rows) and rows[0]["tokens"] == served,
+        same_tokens_on_ranks=same_tokens, decode_steps=steps,
+        note="2 ranks share one card and meet through gloo on the host: "
+             "walls are correctness runs, not speed", ok=ok)
+    emit(**row)
+    if not ok:
+        raise SystemExit("phase serve_tp failed")
+    row["launches"] = rows[0]["launches"]
     return row
 
 
@@ -4214,6 +4506,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.append(serve_phase(device))
     torch.cuda.empty_cache()
+    phases.append(serve_tp_phase(device, phases[-1]))
     for name, arch, cut, prompt_len in FAMILY_SERVES:
         phases.append(serve_phase(device, name, arch, cut=cut,
                                   prompt_len=prompt_len))

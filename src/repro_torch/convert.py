@@ -8,7 +8,8 @@ make_problem``, ``cf_pca.make_problem``, or the convex solvers'
 read by name and converted through numpy; nothing of the reference is
 imported.  A bf16 data plane stays bf16 and a bit-packed mask stays uint8.
 LM weights likewise: the reference materialises them, the port takes them
-(:func:`lm_params_from_reference`), and so with training state: a gradient
+(:func:`lm_params_from_reference`; a rank's slices of them over a model
+axis), and so with training state: a gradient
 tree and an ``AdamWState`` (:func:`lm_grads_from_reference`,
 :func:`adamw_state_from_reference`).  A rank of the sharded engine takes its
 share of the reference's initial factors
@@ -30,7 +31,7 @@ from repro_torch.core.ialm import IALMProblem
 from repro_torch.device import resolve_device
 from repro_torch.distributed.grad_compress import CompressConfig
 from repro_torch.models import get_model, lm
-from repro_torch.models.params import Params
+from repro_torch.models.params import Params, module_specs, shard_tensor
 from repro_torch.training.optimizer import AdamWState
 
 
@@ -190,8 +191,8 @@ def _lm_named(tree_np: Any, cfg: Any, device: torch.device,
 
 @torch.no_grad()
 def lm_params_from_reference(params_np: Any, cfg: Any,
-                             device: torch.device | str | None = None
-                             ) -> Params:
+                             device: torch.device | str | None = None,
+                             rules: Any = None) -> Params:
     """The port's parameters of the LM ``cfg`` (a port ``ModelConfig`` of
     any family :func:`~repro_torch.models.get_model` builds) from the
     reference's params tree, as numpy arrays: ``embed`` (``table``,
@@ -204,12 +205,16 @@ def lm_params_from_reference(params_np: Any, cfg: Any,
     into the port's flat lists;
     the port keeps the reference's (in, out) weight layout, so nothing is
     transposed.  bf16 leaves cross as their bits.  The parameters land on
-    the card unless ``device`` says otherwise."""
+    the card unless ``device`` says otherwise.  With ``rules`` over a model
+    axis larger than 1 (``sharding.rules_for_mesh``), the per-rank form:
+    each leaf sliced by its spec's axes to this rank's part
+    (``Model.empty_params(device, rules)``)."""
     device = resolve_device(device)
-    params = get_model(cfg).empty_params(device)
+    params = get_model(cfg).empty_params(device, rules)
     named = _lm_named(params_np, cfg, device, None)
+    specs = module_specs(params)
     for name, p in params.named_parameters():
-        p.copy_(named[name].to(p.dtype))
+        p.copy_(shard_tensor(named[name], specs[name]).to(p.dtype))
     return params
 
 

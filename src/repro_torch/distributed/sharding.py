@@ -12,17 +12,23 @@ them to mesh axes:
     "sp"           sequence dim (long-ctx KV)      "model"
     "ep"           expert dim                      "model"
 
-The port runs data parallelism by ranks: one process a rank (the
-``torch.distributed`` harness of ``distributed.multihost``), each rank
-holding its shard of the batch and the whole parameters, as the
-reference's robust step requires.  So :func:`constrain` is the identity
-wherever every logical axis resolves to ``None``, to a data axis (the
-rules' ``dp``/``fsdp`` axes: parameters and optimizer state stay
-replicated, not ZeRO-sharded), or to a mesh axis of size 1; a binding that
-needs tensor, sequence or expert parallelism over a mesh axis larger than
-1 raises ``NotImplementedError`` (one card cannot hold such a mesh;
-ROADMAP.md).  The model functions take no rules: only the train steps and
-the training launcher do.
+The port runs one process a rank (the ``torch.distributed`` harness of
+``distributed.multihost``).  Along the data axes each rank holds its
+shard of the batch and the whole parameters, as the reference's robust
+step requires: parameters and optimizer state stay replicated, not
+ZeRO-sharded.  Along the model axis the dense family serves with tensor
+parallelism (``models.parallel``): the ``tp``-tagged weight dims are
+split by the reference's rule (``models.params.shard_specs``), and the
+decode cache, which the reference splits by sequence (``sp``), is split
+by KV head, which gives the same numbers and the same 1/t of memory.
+:meth:`ShardingRules.check` lets ``tp`` and ``sp`` over a model axis
+larger than 1 pass on that path (``serving=`` the config), and raises
+``NotImplementedError`` naming ROADMAP.md, at build, for everything else
+over such an axis: expert parallelism (``ep``), the families other than
+dense, a cache that only a sequence split could place (more ranks than KV
+heads where ``wk``/``wv`` are split), and any train step.
+:func:`constrain` is the identity wherever it does not raise: a rank's
+tensors are its own shards already.
 """
 from __future__ import annotations
 
@@ -50,6 +56,15 @@ class ShardingRules:
     ep: Any = None
     mesh_sizes: tuple[tuple[str, int], ...] = ()
 
+    @property
+    def mesh(self):
+        """The ``DeviceMesh`` the rules were made for, where
+        :func:`rules_for_mesh` made them (a tensor-parallel rank's
+        collectives run over it), else None.  An attribute, not a field:
+        it takes no part in comparisons, and ``dataclasses.replace``
+        drops it."""
+        return self.__dict__.get("_mesh")
+
     def resolve(self, logical: str | None):
         if logical is None:
             return None
@@ -74,19 +89,48 @@ class ShardingRules:
             out *= sizes.get(name, 1)
         return out
 
-    def check(self, *axes: str | None) -> None:
-        """Raise where a logical axis in ``axes`` would shard over a mesh
-        axis larger than 1 outside the data axes."""
+    def check(self, *axes: str | None, serving=None) -> None:
+        """Raise ``NotImplementedError`` (naming ROADMAP.md) where a
+        logical axis in ``axes`` would shard over a mesh axis larger than
+        1 outside the data axes.  With ``serving`` a model config, ``tp``
+        and ``sp`` pass where the port serves that config over the model
+        axis: the dense family, its KV heads placed by
+        :func:`~repro_torch.models.attention.head_layout`."""
         for a in axes:
             if a is None or a in DATA_AXES:
                 continue
             bound = self.resolve(a)
-            if self.size(bound) > 1:
-                raise NotImplementedError(
-                    f"logical axis {a!r} binds mesh axis {bound!r} of size "
-                    f"{self.size(bound)}: tensor, sequence and expert "
-                    f"parallelism wait for a later slice of the port "
-                    f"(ROADMAP.md); the port runs data parallelism by ranks")
+            ranks = self.size(bound)
+            if ranks <= 1:
+                continue
+            if serving is not None and a in ("tp", "sp"):
+                _check_serving(serving, ranks)
+                continue
+            raise NotImplementedError(
+                f"logical axis {a!r} binds mesh axis {bound!r} of size "
+                f"{ranks}: the port splits weights over a model axis only "
+                f"to serve the dense family; expert parallelism and "
+                f"training under tp wait for later slices (ROADMAP.md, "
+                f"Queue 1, items 11-12)")
+
+
+#: The ROADMAP.md item that will bring each family over a model axis.
+_FAMILY_ITEM = {"moe": 12, "ssm": 13, "hybrid": 13, "vlm": 13,
+                "encdec": 13}
+
+
+def _check_serving(cfg, ranks: int) -> None:
+    """Raise unless the port serves ``cfg`` over ``ranks`` model ranks."""
+    if cfg.family != "dense" or cfg.mla is not None:
+        item = 13 if cfg.mla is not None else _FAMILY_ITEM[cfg.family]
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family over a model axis of "
+            f"{ranks} ranks waits for a later slice of the port "
+            f"(ROADMAP.md, Queue 1, item {item}); only the dense family "
+            f"serves with tensor parallelism")
+    from repro_torch.models.attention import head_layout
+
+    head_layout(cfg, ranks, 0)
 
 
 # Standard bindings ----------------------------------------------------------
@@ -114,15 +158,17 @@ def rules_for_mesh(mesh) -> ShardingRules:
         rules = SINGLE_POD
     else:
         rules = SINGLE_DEVICE
-    return dataclasses.replace(rules, mesh_sizes=sizes)
+    rules = dataclasses.replace(rules, mesh_sizes=sizes)
+    object.__setattr__(rules, "_mesh", mesh)
+    return rules
 
 
 def constrain(x: torch.Tensor, rules: ShardingRules,
               *axes: str | None) -> torch.Tensor:
     """The reference's ``with_sharding_constraint`` under logical names:
-    ``x`` itself (each rank holds whole tensors), after checking that no
-    axis needs a model-parallel split (:meth:`ShardingRules.check`).
-    Only the tests call it until a model-parallel slice of the port puts
-    it in the model's functions."""
+    ``x`` itself (a rank's tensor is its shard already), after checking
+    that no axis needs a model-parallel split outside the dense serving
+    path (:meth:`ShardingRules.check`, which the model's entry points
+    call with ``serving=``)."""
     rules.check(*axes)
     return x

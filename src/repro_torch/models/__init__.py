@@ -18,6 +18,19 @@ context ``ctx`` (B, T, d_model) that the reference's batch dict carries
 ``prefill`` and ``decode_step`` run under ``torch.no_grad()``,
 so parameters that a train step made require gradients bring no autograd
 state into serving (or into a captured decode graph).
+
+``empty_params``, ``init_params``, ``init_cache``, ``prefill`` and
+``decode_step`` take the reference's ``rules`` (its
+``models/__init__.py:38-42``), default None: one device, or data ranks
+that each hold the whole model.  Rules from
+``distributed.sharding.rules_for_mesh(mesh)`` over a mesh whose ``model``
+axis has t > 1 ranks serve the dense family tensor-parallel
+(``models.parallel``): each rank holds its slices of the split weights
+(drawn, by ``init_params``, as the whole tensors one rank would draw) and
+its KV heads' cache, and every rank gets the whole logits.  Every rank of
+the mesh makes the same calls in the same order.  Anything else over such
+an axis raises ``NotImplementedError`` naming ROADMAP.md when its
+parameters are built.
 """
 from __future__ import annotations
 
@@ -29,7 +42,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, hybrid, lm, vision
-from repro_torch.models.params import Params, materialize
+from repro_torch.models.params import Params, materialize, shard_specs
+from repro_torch.models.parallel import TensorParallel, tensor_parallel
 
 
 class _Family(NamedTuple):
@@ -68,28 +82,51 @@ class Model:
         return _FAMILY[self.cfg.family]
 
     def specs(self) -> dict:
+        """The whole model's spec tree (whole shapes, logical axes)."""
         return self._fns.specs(self.cfg)
 
-    def empty_params(self, device: torch.device | str | None = None
-                     ) -> Params:
-        """The parameter modules, allocated on ``device`` and not filled."""
-        return Params(self.specs(), resolve_device(device))
+    def tensor_parallel(self, rules=None) -> TensorParallel | None:
+        """This rank's context over the rules' model axis, or None where it
+        has one rank (``models.parallel.tensor_parallel``)."""
+        return tensor_parallel(self.cfg, rules)
+
+    def empty_params(self, device: torch.device | str | None = None,
+                     rules=None) -> Params:
+        """The parameter modules, allocated on ``device`` and not filled:
+        this rank's slices over a model axis."""
+        specs = self.specs()
+        tp = self.tensor_parallel(rules)
+        if tp is not None:
+            specs = shard_specs(specs, rules, tp.coords)
+        return Params(specs, resolve_device(device))
 
     def init_params(self, seed: int = 0,
-                    device: torch.device | str | None = None) -> Params:
+                    device: torch.device | str | None = None,
+                    rules=None) -> Params:
         """Random parameters, made on ``device`` by a generator there seeded
-        with ``seed``."""
+        with ``seed``; over a model axis each rank draws every whole tensor
+        and keeps its slice, so the ranks hold one rank's weights."""
         device = resolve_device(device)
-        return materialize(self.empty_params(device),
+        return materialize(self.empty_params(device, rules),
                            torch.Generator(device=device).manual_seed(seed))
 
     def init_cache(self, batch: int, s_max: int,
-                   device: torch.device | str | None = None) -> lm.Caches:
-        return lm.init_caches(self._fns.cache_specs(self.cfg, batch, s_max),
-                              resolve_device(device))
+                   device: torch.device | str | None = None,
+                   rules=None) -> lm.Caches:
+        tp = self.tensor_parallel(rules)
+        specs = self._fns.cache_specs(self.cfg, batch, s_max,
+                                      **self._tp_kw(tp))
+        return lm.init_caches(specs, resolve_device(device))
+
+    @staticmethod
+    def _tp_kw(tp: TensorParallel | None) -> dict:
+        """The dense functions' ``tp`` argument, only where there is one
+        (the other families take none: they are refused over a model
+        axis)."""
+        return {} if tp is None else {"tp": tp}
 
     @torch.no_grad()
-    def prefill(self, params, tokens, caches=None, ctx=None):
+    def prefill(self, params, tokens, caches=None, ctx=None, rules=None):
         """Last-position logits and caches; caches sized to the prompt when
         none are given.  ``ctx`` (B, T, d_model) is the context of the
         ``vlm`` and ``encdec`` families, which need one; the others
@@ -99,18 +136,20 @@ class Model:
             raise ValueError(f"the {self.cfg.family!r} family's prefill "
                              f"needs a ctx (B, T, d_model)")
         if caches is None:
-            caches = self.init_cache(*tokens.shape, tokens.device)
+            caches = self.init_cache(*tokens.shape, tokens.device, rules)
         return self._fns.prefill(params, tokens, self.cfg, caches,
-                                 *((ctx,) if context else ()))
+                                 *((ctx,) if context else ()),
+                                 **self._tp_kw(self.tensor_parallel(rules)))
 
     @torch.no_grad()
-    def decode_step(self, params, tokens, caches, pos):
+    def decode_step(self, params, tokens, caches, pos, rules=None):
         """Logits of ``tokens`` (B, 1) at position ``pos``: a 0-d integer
         tensor on their device (as the reference's traced ``pos``), or a
         Python int, filled in on the device."""
         if not isinstance(pos, torch.Tensor):
             pos = torch.full((), pos, dtype=torch.int32, device=tokens.device)
-        return self._fns.decode(params, tokens, caches, pos, self.cfg)
+        return self._fns.decode(params, tokens, caches, pos, self.cfg,
+                                **self._tp_kw(self.tensor_parallel(rules)))
 
     def loss(self, params, batch):
         """``(loss, {"ce", "aux"})`` of a batch of ``tokens`` and

@@ -17,6 +17,15 @@ device tensor, as the reference's traced ``pos``: no host value enters the
 step, so a CUDA graph can capture it (``serving/engine.py``).  The cache
 holds the un-repeated KV heads.
 
+Over a model axis (``tp``, a ``models.parallel.TensorParallel``) a rank
+attends with its own query heads (:func:`head_layout`): h/t of them when
+``wq`` is split, and the KV heads they use, from its shard of ``wk``/``wv``
+where those are split (t must divide the KV heads) or from their columns
+where they stay whole.  The flash kernel gets those heads; ``wo`` is split
+by rows, so the rank's product is a partial sum, added over the model
+ranks by one all-reduce (``TensorParallel.row_parallel``).  Decode works on the rank's KV-head cache with
+no collective inside attention and the one after ``wo``.
+
 MLA (DeepSeek-V2) is plain by construction, as in the reference: training
 and prefill decode per-head K/V from the normalised latent and attend over
 query chunks with split nope/rope fp32 scores; decode absorbs ``W_uk`` into
@@ -25,12 +34,14 @@ the query and attends over the latent cache ((B, S_max, kv_lora) and
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.layers import (
-    apply_rope, recompute, rmsnorm, rmsnorm_spec,
+    apply_rope, axis_if, recompute, rmsnorm, rmsnorm_spec, tp_ok,
 )
 from repro_torch.models.params import ParamSpec
 
@@ -40,12 +51,92 @@ NEG_INF = -1e30
 
 def attn_specs(cfg: ModelConfig) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q_tp = axis_if(tp_ok(h * hd), "tp")
+    kv_tp = axis_if(tp_ok(kv * hd), "tp")
     return {
-        "wq": ParamSpec((d, h * hd), cfg.pdtype),
-        "wk": ParamSpec((d, kv * hd), cfg.pdtype),
-        "wv": ParamSpec((d, kv * hd), cfg.pdtype),
-        "wo": ParamSpec((h * hd, d), cfg.pdtype),
+        "wq": ParamSpec((d, h * hd), cfg.pdtype, axes=("fsdp", q_tp)),
+        "wk": ParamSpec((d, kv * hd), cfg.pdtype, axes=("fsdp", kv_tp)),
+        "wv": ParamSpec((d, kv * hd), cfg.pdtype, axes=("fsdp", kv_tp)),
+        "wo": ParamSpec((h * hd, d), cfg.pdtype, axes=(q_tp, "fsdp")),
     }
+
+
+class HeadLayout(NamedTuple):
+    """The heads one rank of ``t`` attends with: query heads ``q0`` to
+    ``q0 + heads``, KV heads ``kv0`` to ``kv0 + kv_heads`` (the ones its
+    cache holds), ``q_split`` where its ``wq``/``wo`` are its slices and
+    ``kv_split`` where its ``wk``/``wv`` are (else they are whole and the
+    rank takes the columns of its KV heads)."""
+    heads: int
+    q0: int
+    kv_heads: int
+    kv0: int
+    q_split: bool
+    kv_split: bool
+
+    @property
+    def group(self) -> int:
+        """Query heads a KV head serves on this rank."""
+        return self.heads // self.kv_heads
+
+
+def head_layout(cfg: ModelConfig, ranks: int = 1, index: int = 0
+                ) -> HeadLayout:
+    """Rank ``index`` of ``ranks`` on the model axis.  A tagged dim splits
+    where its size divides by ``ranks`` (``params.shard_parts``).  Raises
+    ``NotImplementedError`` naming ROADMAP.md where the heads cannot be
+    placed whole: a split that cuts a head, or split ``wk``/``wv`` over
+    more ranks than KV heads, whose cache only the reference's sequence
+    split (``sp``) could place."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q_split = ranks > 1 and tp_ok(h * hd) and h * hd % ranks == 0
+    kv_split = ranks > 1 and tp_ok(kv * hd) and kv * hd % ranks == 0
+    if q_split and h % ranks:
+        raise NotImplementedError(
+            f"{cfg.name}: {h} query heads do not split over {ranks} model "
+            f"ranks (ROADMAP.md, Queue 1, item 14)")
+    if kv_split and (kv % ranks or not q_split):
+        raise NotImplementedError(
+            f"{cfg.name}: wk/wv split over {ranks} model ranks would cut "
+            f"its {kv} KV heads; only a sequence split (sp) of the cache "
+            f"could place them, which waits for a later slice (ROADMAP.md, "
+            f"Queue 1, item 14)")
+    heads = h // ranks if q_split else h
+    q0 = index * heads if q_split else 0
+    if kv_split:
+        return HeadLayout(heads, q0, kv // ranks, index * (kv // ranks),
+                          True, True)
+    g = h // kv
+    if heads % g and g % heads:
+        raise NotImplementedError(
+            f"{cfg.name}: {heads} query heads a rank straddle its KV "
+            f"groups of {g} (ROADMAP.md, Queue 1, item 14)")
+    return HeadLayout(heads, q0, max(1, heads // g), q0 // g, q_split,
+                      False)
+
+
+def _kv_weights(params, lay: HeadLayout, cfg: ModelConfig
+                ) -> tuple[Tensor, Tensor]:
+    """``wk``, ``wv`` of the rank's KV heads: its shards, or the columns
+    of those heads where the weights are whole."""
+    wk, wv = params.wk, params.wv
+    if lay.kv_split or lay.kv_heads == cfg.n_kv_heads:
+        return wk, wv
+    cols = slice(lay.kv0 * cfg.hd, (lay.kv0 + lay.kv_heads) * cfg.hd)
+    return wk[:, cols], wv[:, cols]
+
+
+def _layout(cfg: ModelConfig, tp) -> HeadLayout:
+    return head_layout(cfg) if tp is None else head_layout(
+        cfg, tp.size, tp.index)
+
+
+def _out_proj(params, out: Tensor, lay: HeadLayout, cfg: ModelConfig,
+              tp) -> Tensor:
+    """(B, S, heads * hd) @ ``wo``, summed over the model ranks where
+    ``wo`` holds the rank's rows."""
+    wo = params.wo.to(cfg.cdtype)
+    return tp.row_parallel(out, wo) if lay.q_split else out @ wo
 
 
 def _sdpa_chunk(qc: Tensor, kf: Tensor, vf: Tensor, c0: int, causal: bool,
@@ -91,23 +182,26 @@ def _split_heads(x: Tensor, n: int, hd: int) -> Tensor:
 
 def attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig,
               *, causal: bool = True, ctx: Tensor | None = None,
-              allow_flash: bool = False
+              allow_flash: bool = False, tp=None
               ) -> tuple[Tensor, tuple[Tensor, Tensor]]:
     """Self-attention over (B, S, d), or cross-attention over ``ctx`` (B,
     T, d) when it is given (no RoPE, no mask); returns ``(y, (k, v))`` with
-    the un-repeated (B, S or T, KV, hd) K/V for the cache.  The flash
-    kernel runs only where ``allow_flash`` and ``cfg.flash_attention``."""
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    the un-repeated (B, S or T, KV, hd) K/V for the cache (the rank's KV
+    heads over a model axis ``tp``).  The flash kernel runs only where
+    ``allow_flash`` and ``cfg.flash_attention``."""
+    lay = _layout(cfg, tp)
+    hd = cfg.hd
     cd = cfg.cdtype
     kv_src = x if ctx is None else ctx
-    q = _split_heads(x @ params.wq.to(cd), h, hd)
-    k = _split_heads(kv_src @ params.wk.to(cd), kv, hd)
-    v = _split_heads(kv_src @ params.wv.to(cd), kv, hd)
+    wk, wv = _kv_weights(params, lay, cfg)
+    q = _split_heads(x @ params.wq.to(cd), lay.heads, hd)
+    k = _split_heads(kv_src @ wk.to(cd), lay.kv_heads, hd)
+    v = _split_heads(kv_src @ wv.to(cd), lay.kv_heads, hd)
     if ctx is None:  # RoPE only for self-attention
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     cache = (k, v)
-    k, v = repeat_kv(k, h // kv), repeat_kv(v, h // kv)
+    k, v = repeat_kv(k, lay.group), repeat_kv(v, lay.group)
     b, s = q.shape[:2]
     scale = 1.0 / float(hd) ** 0.5
     causal = causal and ctx is None
@@ -116,26 +210,29 @@ def attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig,
     else:
         out = _sdpa_chunked(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
                             scale=scale)
-    return out.reshape(b, s, h * hd) @ params.wo.to(cd), cache
+    return _out_proj(params, out.reshape(b, s, lay.heads * hd), lay, cfg,
+                     tp), cache
 
 
 def attention_decode(params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
-                     pos: Tensor, cfg: ModelConfig) -> Tensor:
+                     pos: Tensor, cfg: ModelConfig, tp=None) -> Tensor:
     """One new token (B, 1, d) at position ``pos`` (a 0-d integer tensor on
-    ``x``'s device) against the (B, S_max, KV, hd) caches, which it updates
-    in place at ``pos``."""
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    g = h // kv
+    ``x``'s device) against the (B, S_max, KV, hd) caches (the rank's KV
+    heads over a model axis ``tp``), which it updates in place at
+    ``pos``."""
+    lay = _layout(cfg, tp)
+    h, kv, hd, g = lay.heads, lay.kv_heads, cfg.hd, lay.group
     cd = cfg.cdtype
     b = x.shape[0]
     s_max = cache_k.shape[1]
     at = pos.reshape(1).to(torch.long)
     positions = at.expand(b, 1)
+    wk, wv = _kv_weights(params, lay, cfg)
     q = apply_rope(_split_heads(x @ params.wq.to(cd), h, hd), positions,
                    cfg.rope_theta)
-    k_new = apply_rope(_split_heads(x @ params.wk.to(cd), kv, hd), positions,
+    k_new = apply_rope(_split_heads(x @ wk.to(cd), kv, hd), positions,
                        cfg.rope_theta)
-    v_new = _split_heads(x @ params.wv.to(cd), kv, hd)
+    v_new = _split_heads(x @ wv.to(cd), kv, hd)
     cache_k.index_copy_(1, at, k_new.to(cache_k.dtype))
     cache_v.index_copy_(1, at, v_new.to(cache_v.dtype))
 
@@ -145,7 +242,7 @@ def attention_decode(params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, cache_v.to(torch.float32))
-    return out.to(cd).reshape(b, 1, h * hd) @ params.wo.to(cd)
+    return _out_proj(params, out.to(cd).reshape(b, 1, h * hd), lay, cfg, tp)
 
 
 def cross_decode(params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
@@ -171,16 +268,19 @@ def mla_specs(cfg: ModelConfig) -> dict:
     d, h = cfg.d_model, cfg.n_heads
     qd = mla.qk_nope_dim + mla.qk_rope_dim
     return {
-        "wq_a": ParamSpec((d, mla.q_lora_rank), cfg.pdtype),
+        "wq_a": ParamSpec((d, mla.q_lora_rank), cfg.pdtype,
+                          axes=("fsdp", None)),
         "q_norm": rmsnorm_spec(mla.q_lora_rank),
-        "wq_b": ParamSpec((mla.q_lora_rank, h * qd), cfg.pdtype),
+        "wq_b": ParamSpec((mla.q_lora_rank, h * qd), cfg.pdtype,
+                          axes=(None, "tp")),
         "wkv_a": ParamSpec((d, mla.kv_lora_rank + mla.qk_rope_dim),
-                           cfg.pdtype),
+                           cfg.pdtype, axes=("fsdp", None)),
         "kv_norm": rmsnorm_spec(mla.kv_lora_rank),
         "wkv_b": ParamSpec(
             (mla.kv_lora_rank, h * (mla.qk_nope_dim + mla.v_head_dim)),
-            cfg.pdtype),
-        "wo": ParamSpec((h * mla.v_head_dim, d), cfg.pdtype),
+            cfg.pdtype, axes=(None, "tp")),
+        "wo": ParamSpec((h * mla.v_head_dim, d), cfg.pdtype,
+                        axes=("tp", "fsdp")),
     }
 
 

@@ -19,6 +19,12 @@ the flash kernel (the reference's ``allow_flash``).
 A cross layer's cache is the context's K/V, (B, T, KV, hd) each: the
 prefill writes it, decode only reads it.  An ``add_cross`` layer's cache is
 a :class:`SelfCrossCache` of its self-attention K/V and that context K/V.
+
+Over a model axis (``tp``, a ``models.parallel.TensorParallel``) the dense
+layer (``"attn"`` and ``"mlp"``) runs tensor-parallel: attention on the
+rank's heads and the MLP on its columns, each followed by one all-reduce.
+The other mixers and FFNs raise: their families are refused at build
+(``ShardingRules.check``).
 """
 from __future__ import annotations
 
@@ -64,7 +70,7 @@ def layer_specs(cfg: ModelConfig, *, mixer: str = "attn",
                       "mla": attn_mod.mla_specs,
                       "ssm": ssm_mod.ssm_specs}[mixer](cfg)}
     if mixer == "cross":
-        spec["gate"] = ParamSpec((), torch.float32, init="zeros")
+        spec["gate"] = ParamSpec((), torch.float32, init="zeros", axes=())
     if add_cross:
         spec["ln_cross"] = rmsnorm_spec(d)
         spec["cross"] = attn_mod.attn_specs(cfg)
@@ -76,14 +82,14 @@ def layer_specs(cfg: ModelConfig, *, mixer: str = "attn",
 
 
 def _mixer(params, h: torch.Tensor, cfg: ModelConfig, mode: str, mixer: str,
-           positions, pos, cache, ctx, causal: bool):
+           positions, pos, cache, ctx, causal: bool, tp=None):
     """The mixer's output and its cache (None in training)."""
     if mixer == "attn":
         if mode == "decode":
             return attn_mod.attention_decode(params, h, cache[0], cache[1],
-                                             pos, cfg), cache
+                                             pos, cfg, tp), cache
         return attn_mod.attention(params, h, positions, cfg, causal=causal,
-                                  allow_flash=mode != "train")
+                                  allow_flash=mode != "train", tp=tp)
     if mixer == "mla":
         if mode == "decode":
             return attn_mod.mla_attention_decode(params, h, cache[0],
@@ -108,7 +114,7 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
                 positions: torch.Tensor | None = None,
                 pos: torch.Tensor | None = None, cache=None,
                 ctx: torch.Tensor | None = None, causal: bool = True,
-                add_cross: bool = False):
+                add_cross: bool = False, tp=None):
     """Returns ``(x, aux, cache)``, the reference's order: ``aux`` the
     router's load loss (a 0-d fp32 tensor, 0 without MoE); ``cache`` in
     ``prefill`` this layer's prompt cache (the un-repeated K/V pair, MLA's
@@ -118,13 +124,18 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
     updated in place (at ``pos``, a 0-d device tensor; context K/V are
     only read), in ``train`` None.  ``ctx`` (B, T, d) is the context of
     cross-attention (prefill and training); ``causal`` applies to
-    self-attention.  Every norm takes ``cfg.bf16_norm_grad``."""
+    self-attention.  Every norm takes ``cfg.bf16_norm_grad``.  ``tp``
+    (a model axis) serves the dense layer only."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
+    if tp is not None and (mixer, ffn, add_cross) != ("attn", "mlp", False):
+        raise NotImplementedError(
+            f"a {mixer}/{ffn} layer over a model axis waits for a later "
+            f"slice of the port (ROADMAP.md, Queue 1)")
     h = rmsnorm(params.ln1, x, cfg.norm_eps, cfg.bf16_norm_grad)
     self_cache = cache[:2] if add_cross and mode == "decode" else cache
     y, new = _mixer(params.mixer, h, cfg, mode, mixer, positions, pos,
-                    self_cache, ctx, causal)
+                    self_cache, ctx, causal, tp)
     if mixer == "cross":
         y = torch.tanh(params.gate).to(y.dtype) * y
     x = x + y
@@ -145,7 +156,7 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
         if ffn == "moe":
             y, aux = moe_mod.moe_ffn(params.ffn, h, cfg)
         else:
-            y = mlp(params.ffn, h, cfg)
+            y = mlp(params.ffn, h, cfg, tp)
         x = x + y
     return x, aux, (None if mode == "train" else new)
 

@@ -1,6 +1,13 @@
 """Shared model primitives: RMSNorm (with the reference's bf16-gradient
 variant), RoPE, embeddings and the chunked cross-entropy of training, as
-``repro/models/layers.py``."""
+``repro/models/layers.py``, and the reference's gates of which dims carry
+the ``tp`` and ``fsdp`` tags (:data:`TP_SIZE`, :func:`tp_ok`).
+
+Over a model axis (a ``models.parallel.TensorParallel`` context ``tp``)
+the embedding table is split by vocabulary rows: :func:`embed` gathers the
+rank's rows (zeros for tokens outside them) and sums over the model
+ranks, and :func:`logits` computes the rank's vocabulary slice and
+gathers the whole, so that every rank samples from the same logits."""
 from __future__ import annotations
 
 import torch
@@ -13,13 +20,33 @@ from repro_torch.models.params import ParamSpec
 Tensor = torch.Tensor
 
 
+# The reference's production meshes fix the tensor-parallel degree, and its
+# ParamSpec axes are chosen against it: a dim not divisible by TP_SIZE
+# carries no "tp" tag (layers.py:21-38).  Which ranks a tagged dim then
+# splits over is the mesh's (params.shard_parts).
+TP_SIZE = 16
+FSDP_SIZE = 32  # pod x data in the multi-pod mesh (16 single-pod divides it)
+
+
+def tp_ok(dim: int) -> bool:
+    return dim % TP_SIZE == 0
+
+
+def fsdp_ok(dim: int) -> bool:
+    return dim % FSDP_SIZE == 0
+
+
+def axis_if(cond: bool, name: str) -> str | None:
+    return name if cond else None
+
+
 def padded_vocab(vocab: int) -> int:
     """Pad embedding tables to a multiple of 256, as the reference."""
     return -(-vocab // 256) * 256
 
 
 def rmsnorm_spec(d: int) -> ParamSpec:
-    return ParamSpec((d,), torch.float32, init="ones")
+    return ParamSpec((d,), torch.float32, init="ones", axes=(None,))
 
 
 def rmsnorm(w: Tensor, x: Tensor, eps: float = 1e-5,
@@ -95,20 +122,47 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
 
 def embed_specs(cfg: ModelConfig) -> dict:
     pv = padded_vocab(cfg.vocab)
-    spec = {"table": ParamSpec((pv, cfg.d_model), cfg.pdtype, scale=1.0)}
+    d_fsdp = axis_if(fsdp_ok(cfg.d_model), "fsdp")
+    spec = {"table": ParamSpec((pv, cfg.d_model), cfg.pdtype, scale=1.0,
+                               axes=("tp", d_fsdp))}
     if not cfg.tie_embeddings:
-        spec["unembed"] = ParamSpec((cfg.d_model, pv), cfg.pdtype)
+        spec["unembed"] = ParamSpec((cfg.d_model, pv), cfg.pdtype,
+                                    axes=(d_fsdp, "tp"))
     return spec
 
 
-def embed(params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    return params.table[tokens].to(cfg.cdtype)
+def _vocab_split(params, name: str, tp) -> bool:
+    """Whether ``params.<name>`` holds this rank's vocabulary slice."""
+    return tp is not None and params.specs[name].part is not None
+
+
+def embed(params, tokens: Tensor, cfg: ModelConfig, tp=None) -> Tensor:
+    """The tokens' rows of the table in the compute type; over a model
+    axis a vocab-parallel lookup: the rank's rows where the token falls in
+    its slice, zeros elsewhere, summed over the model ranks."""
+    if not _vocab_split(params, "table", tp):
+        return params.table[tokens].to(cfg.cdtype)
+    rows = params.table.shape[0]
+    local = tokens - tp.index * rows
+    inside = (local >= 0) & (local < rows)
+    x = params.table[local.clamp(0, rows - 1)].to(cfg.cdtype)
+    return tp.all_reduce(torch.where(inside[..., None], x, 0))
 
 
 def unembed_matrix(params) -> Tensor:
     if hasattr(params, "unembed"):
         return params.unembed
     return params.table.T
+
+
+def logits(params, x: Tensor, tp=None) -> Tensor:
+    """``x @ unembed`` in ``x``'s type; over a model axis the rank's
+    vocabulary slice, gathered into the whole (padded) vocabulary."""
+    out = x @ unembed_matrix(params).to(x.dtype)
+    name = "unembed" if hasattr(params, "unembed") else "table"
+    if _vocab_split(params, name, tp):
+        out = tp.gather_last(out)
+    return out
 
 
 def _chunk_nll(xc: Tensor, w_unembed: Tensor, lc: Tensor) -> Tensor:

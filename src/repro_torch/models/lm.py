@@ -28,6 +28,13 @@ would freeze the state).  ``plan_loss``
 is the training objective: the chunked cross-entropy of the final hidden
 states plus the routers' aux loss summed over layers, each layer
 recomputed in backward by ``cfg.remat``.
+
+Over a model axis (``tp``, a ``models.parallel.TensorParallel``; the
+dense family only) the same loops run on a rank's slices: the embedding
+and the logits are vocab-parallel (``layers.embed``, ``layers.logits``),
+each layer tensor-parallel (``blocks.layer_apply``), and a rank's
+attention cache holds its KV heads (``attention.head_layout``), so
+:func:`plan_cache_specs` gives (B, S_max, KV_rank, hd).
 """
 from __future__ import annotations
 
@@ -37,9 +44,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
+from repro_torch.models.attention import head_layout
 from repro_torch.models.layers import (
-    chunked_cross_entropy, embed, embed_specs, rmsnorm, rmsnorm_spec,
-    unembed_matrix,
+    chunked_cross_entropy, embed, embed_specs, logits, rmsnorm,
+    rmsnorm_spec, unembed_matrix,
 )
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.ssm import SSMState, _dims
@@ -86,11 +94,13 @@ def plan_specs(cfg: ModelConfig, plan: Plan) -> dict:
 
 
 def _mixer_cache_spec(cfg: ModelConfig, mixer: str, batch: int,
-                      s_max: int) -> tuple[ParamSpec, ...]:
+                      s_max: int, tp=None) -> tuple[ParamSpec, ...]:
     cd = cfg.cdtype
     if mixer in ("attn", "cross"):
         t = s_max if mixer == "attn" else ctx_len(cfg)
-        kv = ParamSpec((batch, t, cfg.n_kv_heads, cfg.hd), cd, init="zeros")
+        heads = (cfg.n_kv_heads if tp is None
+                 else head_layout(cfg, tp.size, tp.index).kv_heads)
+        kv = ParamSpec((batch, t, heads, cfg.hd), cd, init="zeros")
         return (kv, kv)
     if mixer == "mla":
         return (ParamSpec((batch, s_max, cfg.mla.kv_lora_rank), cd,
@@ -118,8 +128,9 @@ def ctx_len(cfg: ModelConfig) -> int:
 
 
 def plan_cache_specs(cfg: ModelConfig, plan: Plan, batch: int,
-                     s_max: int) -> list[tuple[ParamSpec, ...]]:
-    return [_mixer_cache_spec(cfg, m, batch, s_max) for m, _ in plan]
+                     s_max: int, tp=None) -> list[tuple[ParamSpec, ...]]:
+    """Each layer's cache specs; a rank's KV heads over a model axis."""
+    return [_mixer_cache_spec(cfg, m, batch, s_max, tp) for m, _ in plan]
 
 
 def init_caches(specs: list[tuple[ParamSpec, ...]],
@@ -184,44 +195,44 @@ def plan_loss(params, batch: dict, cfg: ModelConfig, plan: Plan, *,
 
 def plan_prefill(params, tokens: Tensor, cfg: ModelConfig, caches: Caches,
                  plan: Plan, *, ctx: Tensor | None = None,
-                 add_cross: bool = False) -> tuple[Tensor, Caches]:
+                 add_cross: bool = False, tp=None) -> tuple[Tensor, Caches]:
     """Forward over the prompt (B, S); writes each layer's cache into its
     buffers and returns the last position's logits (B, V_pad) in the
-    compute type, and the caches.  ``ctx`` (B, T, d) is the cross
-    context."""
+    compute type (whole on every rank over a model axis ``tp``), and the
+    caches.  ``ctx`` (B, T, d) is the cross context."""
     positions = _positions(tokens)
-    x = embed(params.embed, tokens, cfg)
+    x = embed(params.embed, tokens, cfg, tp)
     for layer, (mixer, ffn), cache in zip(params.layers, plan, caches,
                                           strict=True):
         x, _, new = blocks.layer_apply(layer, x, cfg=cfg, mode="prefill",
                                        mixer=mixer, ffn=ffn,
                                        positions=positions, ctx=ctx,
-                                       add_cross=add_cross)
+                                       add_cross=add_cross, tp=tp)
         # K/V (B, S, KV, hd) into [:, :S] of the (B, S_max, ...) buffers;
         # context K/V (B, T, ...) fill theirs, as an SSM state's conv tail
         # and state do.
         for buf, val in zip(cache, new, strict=True):
             buf[:, :val.shape[1]] = val
     x = rmsnorm(params.ln_f, x[:, -1:], cfg.norm_eps)
-    logits = x @ unembed_matrix(params.embed).to(x.dtype)
-    return logits[:, 0], caches
+    return logits(params.embed, x, tp)[:, 0], caches
 
 
 def plan_decode_step(params, tokens: Tensor, caches: Caches, pos: Tensor,
                      cfg: ModelConfig, plan: Plan, *,
-                     add_cross: bool = False) -> tuple[Tensor, Caches]:
+                     add_cross: bool = False, tp=None
+                     ) -> tuple[Tensor, Caches]:
     """One decode step: tokens (B, 1) at position ``pos`` (a 0-d integer
     tensor on the tokens' device); every sequence cache is updated in
     place, context K/V only read."""
-    x = embed(params.embed, tokens, cfg)
+    x = embed(params.embed, tokens, cfg, tp)
     for layer, (mixer, ffn), cache in zip(params.layers, plan, caches,
                                           strict=True):
         x, _, _ = blocks.layer_apply(layer, x, cfg=cfg, mode="decode",
                                      mixer=mixer, ffn=ffn, pos=pos,
-                                     cache=cache, add_cross=add_cross)
+                                     cache=cache, add_cross=add_cross,
+                                     tp=tp)
     x = rmsnorm(params.ln_f, x, cfg.norm_eps)
-    logits = x @ unembed_matrix(params.embed).to(x.dtype)
-    return logits[:, 0], caches
+    return logits(params.embed, x, tp)[:, 0], caches
 
 
 # ---------------------------------------------------------------------------
@@ -231,9 +242,9 @@ def lm_specs(cfg: ModelConfig) -> dict:
     return plan_specs(cfg, layer_plan(cfg))
 
 
-def lm_cache_specs(cfg: ModelConfig, batch: int, s_max: int
+def lm_cache_specs(cfg: ModelConfig, batch: int, s_max: int, tp=None
                    ) -> list[tuple[ParamSpec, ...]]:
-    return plan_cache_specs(cfg, layer_plan(cfg), batch, s_max)
+    return plan_cache_specs(cfg, layer_plan(cfg), batch, s_max, tp)
 
 
 def lm_loss(params, batch: dict, cfg: ModelConfig
@@ -241,12 +252,12 @@ def lm_loss(params, batch: dict, cfg: ModelConfig
     return plan_loss(params, batch, cfg, layer_plan(cfg))
 
 
-def lm_prefill(params, tokens: Tensor, cfg: ModelConfig, caches: Caches
-               ) -> tuple[Tensor, Caches]:
-    return plan_prefill(params, tokens, cfg, caches, layer_plan(cfg))
+def lm_prefill(params, tokens: Tensor, cfg: ModelConfig, caches: Caches,
+               tp=None) -> tuple[Tensor, Caches]:
+    return plan_prefill(params, tokens, cfg, caches, layer_plan(cfg), tp=tp)
 
 
 def lm_decode_step(params, tokens: Tensor, caches: Caches, pos: Tensor,
-                   cfg: ModelConfig) -> tuple[Tensor, Caches]:
+                   cfg: ModelConfig, tp=None) -> tuple[Tensor, Caches]:
     return plan_decode_step(params, tokens, caches, pos, cfg,
-                            layer_plan(cfg))
+                            layer_plan(cfg), tp=tp)

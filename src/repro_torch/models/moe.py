@@ -27,20 +27,33 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import TP_SIZE, axis_if, tp_ok
 from repro_torch.models.mlp import mlp, mlp_specs
 from repro_torch.models.params import ParamSpec
 
 Tensor = torch.Tensor
 
 
+def _use_ep(cfg: ModelConfig) -> bool:
+    """The reference's expert-parallel layout (moe.py:35-38)."""
+    return bool(cfg.moe_ep) and cfg.moe.num_experts % TP_SIZE == 0
+
+
 def moe_specs(cfg: ModelConfig) -> dict:
     moe = cfg.moe
     d, ff, e = cfg.d_model, moe.d_ff_expert, moe.num_experts
+    # The reference's axes (declarations: the port refuses MoE over a
+    # model axis larger than 1 at build).
+    if _use_ep(cfg):
+        up = down = ("ep", None, None)
+    else:
+        ff_tp = axis_if(tp_ok(ff), "tp")
+        up, down = (None, "fsdp", ff_tp), (None, ff_tp, "fsdp")
     spec = {
-        "router": ParamSpec((d, e), torch.float32),
-        "w_gate": ParamSpec((e, d, ff), cfg.pdtype),
-        "w_up": ParamSpec((e, d, ff), cfg.pdtype),
-        "w_down": ParamSpec((e, ff, d), cfg.pdtype),
+        "router": ParamSpec((d, e), torch.float32, axes=(None, None)),
+        "w_gate": ParamSpec((e, d, ff), cfg.pdtype, axes=up),
+        "w_up": ParamSpec((e, d, ff), cfg.pdtype, axes=up),
+        "w_down": ParamSpec((e, ff, d), cfg.pdtype, axes=down),
     }
     if moe.num_shared:
         spec["shared"] = mlp_specs(cfg, d_ff=moe.d_ff_shared)

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import axis_if, rmsnorm, tp_ok
 from repro_torch.models.params import ParamSpec
 
 Tensor = torch.Tensor
@@ -52,20 +52,27 @@ def ssm_specs(cfg: ModelConfig) -> dict:
     d_in, heads, _ = _dims(cfg)
     gn = s.n_groups * s.d_state
     f32 = torch.float32
+    # The reference's axes (declarations: the port refuses SSD over a
+    # model axis larger than 1 at build).
+    in_tp = axis_if(tp_ok(d_in), "tp")
+    rep = (None,)
     return {
-        "w_z": ParamSpec((d, d_in), cfg.pdtype),
-        "w_x": ParamSpec((d, d_in), cfg.pdtype),
-        "w_b": ParamSpec((d, gn), cfg.pdtype),
-        "w_c": ParamSpec((d, gn), cfg.pdtype),
-        "w_dt": ParamSpec((d, heads), cfg.pdtype),
-        "conv_x": ParamSpec((s.d_conv, d_in), cfg.pdtype, scale=0.5),
-        "conv_b": ParamSpec((s.d_conv, gn), cfg.pdtype, scale=0.5),
-        "conv_c": ParamSpec((s.d_conv, gn), cfg.pdtype, scale=0.5),
-        "a_log": ParamSpec((heads,), f32, init="zeros"),
-        "dt_bias": ParamSpec((heads,), f32, init="zeros"),
-        "d_skip": ParamSpec((heads,), f32, init="ones"),
-        "gate_norm": ParamSpec((d_in,), f32, init="ones"),
-        "out_proj": ParamSpec((d_in, d), cfg.pdtype),
+        "w_z": ParamSpec((d, d_in), cfg.pdtype, axes=("fsdp", in_tp)),
+        "w_x": ParamSpec((d, d_in), cfg.pdtype, axes=("fsdp", in_tp)),
+        "w_b": ParamSpec((d, gn), cfg.pdtype, axes=("fsdp", None)),
+        "w_c": ParamSpec((d, gn), cfg.pdtype, axes=("fsdp", None)),
+        "w_dt": ParamSpec((d, heads), cfg.pdtype, axes=("fsdp", None)),
+        "conv_x": ParamSpec((s.d_conv, d_in), cfg.pdtype, scale=0.5,
+                            axes=(None, in_tp)),
+        "conv_b": ParamSpec((s.d_conv, gn), cfg.pdtype, scale=0.5,
+                            axes=(None, None)),
+        "conv_c": ParamSpec((s.d_conv, gn), cfg.pdtype, scale=0.5,
+                            axes=(None, None)),
+        "a_log": ParamSpec((heads,), f32, init="zeros", axes=rep),
+        "dt_bias": ParamSpec((heads,), f32, init="zeros", axes=rep),
+        "d_skip": ParamSpec((heads,), f32, init="ones", axes=rep),
+        "gate_norm": ParamSpec((d_in,), f32, init="ones", axes=rep),
+        "out_proj": ParamSpec((d_in, d), cfg.pdtype, axes=(in_tp, "fsdp")),
     }
 
 

@@ -29,6 +29,19 @@ step made require gradients bring no autograd state into the captured
 step.  On the CPU (or with ``eager=True``, which only the tests and
 ``chip_smoke.py`` use) every step runs eagerly through the same step
 function.  Tokens stay on the device until the caller reads them.
+
+With the reference's ``rules`` over a mesh whose model axis has t > 1
+ranks (``sharding.rules_for_mesh``), every rank of the mesh calls
+``generate`` with the same prompt and its own slices of the parameters
+(``Model.init_params(seed, device, rules)``): the dense family's prefill
+and decode run tensor-parallel (``models.parallel``), every rank samples
+from the whole logits, and every rank returns the same tokens (a
+temperature sample needs the same generator state on every rank).  The
+decode step is captured only where its collectives can be
+(``MeshComm.capturable``: NCCL); over gloo, whose collectives run on the
+host, every step runs eagerly.  ``return_info=True`` returns, beside the
+tokens, how the decode ran (``{"decode": "captured" | "eager", "why":
+...}``).
 """
 from __future__ import annotations
 
@@ -62,7 +75,8 @@ def generate(model: Model, params, prompt: torch.Tensor,
              scfg: ServeConfig = ServeConfig(),
              generator: torch.Generator | None = None,
              s_max: int | None = None, *, eager: bool = False,
-             ctx: torch.Tensor | None = None) -> torch.Tensor:
+             ctx: torch.Tensor | None = None, rules=None,
+             return_info: bool = False):
     """Greedy or temperature decoding of ``prompt`` (B, S_prompt) on its
     device, with the context ``ctx`` (B, T, d_model) for the ``vlm`` and
     ``encdec`` families.  Returns (B, max_new_tokens) int32 token ids (the
@@ -71,13 +85,16 @@ def generate(model: Model, params, prompt: torch.Tensor,
 
     On a CUDA device the decode steps after the first replay one captured
     step, from ``runtime.MIN_GRAPH_ROUNDS`` decode steps on
-    (``eager=True`` runs them all eagerly)."""
+    (``eager=True`` runs them all eagerly), unless the ``rules``' model
+    axis runs collectives that cannot be captured (gloo)."""
     b, s_prompt = prompt.shape
     steps = scfg.max_new_tokens - 1
     s_max = s_max or (s_prompt + scfg.max_new_tokens)
     device = prompt.device
-    caches = model.init_cache(b, s_max, device)
-    logits, caches = model.prefill(params, prompt, caches, ctx=ctx)
+    tp = model.tensor_parallel(rules)
+    caches = model.init_cache(b, s_max, device, rules=rules)
+    logits, caches = model.prefill(params, prompt, caches, ctx=ctx,
+                                   rules=rules)
     tok = _sample(logits, generator, scfg.temperature)
     out = torch.empty(b, scfg.max_new_tokens, dtype=torch.int32,
                       device=device)
@@ -94,7 +111,7 @@ def generate(model: Model, params, prompt: torch.Tensor,
 
     def decode() -> None:
         step_logits, _ = model.decode_step(params, state["tok"], caches,
-                                           state["pos"])
+                                           state["pos"], rules=rules)
         state["logits"].copy_(step_logits)
         if greedy:
             nxt = _sample(step_logits, None, 0.0)
@@ -110,9 +127,12 @@ def generate(model: Model, params, prompt: torch.Tensor,
             out[:, col] = nxt
             state["tok"].copy_(nxt[:, None])
 
-    use_graph = (device.type == "cuda" and not eager
-                 and steps >= rt.MIN_GRAPH_ROUNDS)
-    if use_graph:
+    why = ("not a CUDA device" if device.type != "cuda"
+           else "eager=True" if eager
+           else f"{steps} decode steps" if steps < rt.MIN_GRAPH_ROUNDS
+           else "the model axis's collectives run on the host (gloo)"
+           if tp is not None and not tp.comm.capturable else None)
+    if why is None:
         graph = rt.CapturedRound(decode, device)  # runs the first step
         sample(1)
         for col in range(2, steps + 1):
@@ -122,4 +142,6 @@ def generate(model: Model, params, prompt: torch.Tensor,
         for col in range(1, steps + 1):
             decode()
             sample(col)
+    if return_info:
+        return out, {"decode": "eager" if why else "captured", "why": why}
     return out

@@ -1984,6 +1984,73 @@ def test_one_nccl_rank_replays_its_captured_round(cuda):
 
 
 # ---------------------------------------------------------------------------
+# Dense-LM serving over a model axis: two gloo ranks on the card
+# ---------------------------------------------------------------------------
+_TP_CARD = """
+import json
+import torch
+from repro_torch import configs
+from repro_torch.distributed.sharding import rules_for_mesh
+from repro_torch.kernels import ops
+from repro_torch.models import get_model
+from repro_torch.serving.engine import ServeConfig, generate
+
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+cfg = configs.get_smoke_config("llama3-8b").replace(
+    param_dtype="float32", compute_dtype="float32", flash_attention=True)
+mesh = _mh.multihost_mesh(("data", "model"), (1, 2), device=dev)
+rules = rules_for_mesh(mesh)
+model = get_model(cfg)
+params = model.init_params(0, dev, rules=rules)
+prompt = torch.randint(0, cfg.vocab, (2, 16),
+                       generator=torch.Generator().manual_seed(1)).to(dev)
+ops.reset_launch_counts()
+tokens, info = generate(model, params, prompt, ServeConfig(max_new_tokens=8),
+                        rules=rules, return_info=True)
+torch.cuda.synchronize()
+print("CARD " + json.dumps(dict(
+    tokens=tokens.cpu().tolist(), info=info,
+    launches={k: c for k, c in ops.launch_counts().items() if c},
+    wq=list(params.layers[0].mixer.wq.shape))))
+"""
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_serve_over_a_model_axis(cuda):
+    """The smoke Llama in fp32 over a (1, 2) mesh, two gloo ranks sharing
+    the card, each drawing the single-device weights and keeping its
+    slices: every rank's greedy tokens are the single-device run's on the
+    card, its flash kernel ran once a layer on half the heads, and the
+    decode ran eagerly (gloo), saying so."""
+    from repro_torch import configs
+    from repro_torch.distributed import multihost as mh
+    from repro_torch.kernels import _build
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServeConfig, generate
+
+    _build.build_all()
+    cfg = configs.get_smoke_config("llama3-8b").replace(
+        param_dtype="float32", compute_dtype="float32", flash_attention=True)
+    model = get_model(cfg)
+    params = model.init_params(0, cuda)
+    prompt = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    want = generate(model, params, prompt.to(cuda),
+                    ServeConfig(max_new_tokens=8)).cpu().tolist()
+    outs = mh.launch_workers(_TP_CARD, num_processes=2, backend="gloo",
+                             timeout=600)
+    rows = [json.loads(next(ln for ln in out.splitlines()
+                            if ln.startswith("CARD "))[len("CARD "):])
+            for out in outs]
+    for r in rows:
+        assert r["tokens"] == want
+        assert r["launches"] == {"flash_attention": cfg.n_layers}
+        assert r["wq"] == [cfg.d_model, cfg.n_heads * cfg.hd // 2]
+        assert r["info"]["decode"] == "eager"
+        assert "gloo" in r["info"]["why"]
+
+# ---------------------------------------------------------------------------
 # LM training: the train step, the robust aggregation, the probe
 # ---------------------------------------------------------------------------
 def _smoke_f32(**kw):
