@@ -23,7 +23,8 @@ CUDA toolkit.  Phases, one JSON line each:
             M; dense and bit-packed masks); residual_shrink_psi at fig1
             (none, f32), d32 (dense) and d16 (none, bf16); flash_attention
             bf16 at the serve phase's shape (B=4, S=2048, H=32, d=128,
-            causal; row @tp, serve_tp's per-rank (4, 2048, 16, 128)),
+            causal; row @tp, serve_tp's per-rank (4, 2048, 16, 128); row
+            @moe_tp, serve_moe_tp's per-rank (4, 2048, 8, 128)),
             f32 at the small_lm phase's shape (2, 33, 4, 32,
             causal), at (1, 256, 4, 64, causal), f32 cross (2, 64 x 200,
             2, 64, full) and f32 at the serve_f32 phase's shape (4, 2048,
@@ -287,7 +288,33 @@ CUDA toolkit.  Phases, one JSON line each:
             layer of 16 experts of 24576; 1 flash launch): its period of 8
             layers would be ~90 GB of bf16 weights.  Every decode step
             routes, gathers its experts and updates the SSM states inside
-            the captured graph.
+            the captured graph.  serve_moe keeps its prompt, tokens,
+            logits and its routing ids a layer and a step for
+            serve_moe_tp (``SERVE_TP_DIR/serve_moe.pt``), with the logits
+            of the fp32 model of the same weights fed its tokens under
+            its routing, and its own distance to them
+            (``logits_vs_fp32_model``).
+    serve_moe_tp qwen2-moe-a2.7b as serve_moe, over the same (1, 2) mesh
+            on 2 gloo ranks sharing the card: the experts split by ff
+            columns (704 of 1408 a rank), the shared expert by columns,
+            attention on 8 of 16 heads; each rank's weights 0.45-0.55 of
+            serve_moe's, exactly 24 flash_attention launches a rank at
+            (4, 2048, 8, 128), the decode eager and saying why (gloo), the
+            same tokens on both ranks, the routing ids identical on both
+            ranks at every layer and step (a hash), one all-reduce an MoE
+            layer (the collective counters) and the collective bytes a
+            forward; fed serve_moe's tokens and held to its routing (each
+            layer takes serve_moe's expert ids of that call, weighted by
+            its own probabilities, as RoutingHold does), every step's
+            logits within 8e-2 of the fp32 model's, or past that bound by
+            no more than serve_moe's own logits are (TP_FP32_GATE; the
+            distance to serve_moe's logits beside), and the greedy token
+            serve_moe's wherever its top-2 margin passes 0.16; the free
+            run's routing flips against serve_moe beside, not gated.  The
+            same cohort serves a 16-expert moe_ep variant of the qwen2-moe
+            smoke config in fp32 (8 whole experts a rank): its prefill and
+            decode logits within 1e-4 of the same config's single-rank
+            run on the card and its tokens the same.
     serve_mla, serve_vlm, serve_encdec  the MLA, cross-attention and
             encoder-decoder families likewise: deepseek-v2-236b at full
             width cut to n_layers 4 (the dense first layer and three MoE
@@ -362,8 +389,10 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
-SRC = Path(__file__).resolve().parent / "src"
-# serve's prompt, tokens and logits for serve_tp's workers (gitignored).
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+# serve's and serve_moe's prompts, tokens and logits (and serve_moe's
+# routing) for the workers of serve_tp and serve_moe_tp (gitignored).
 SERVE_TP_DIR = Path(__file__).resolve().parent / "build" / "serve_tp"
 
 # The Fig. 1 slice: the paper's setting at its largest size.
@@ -417,6 +446,27 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "llama3-8b", 4, 2048, 32
 SERVE_TP_RANKS, SERVE_TP_BAR = 2, 8e-2
 SERVE_TP_MARGIN = 2 * SERVE_TP_BAR
 SERVE_TP_TIMEOUT = 600
+# serve_moe_tp: serve_moe's model over the same ranks, under the same bars,
+# fed serve_moe's tokens and held to its routing (RoutingHold).  Beside it
+# the expert-parallel layout, which no config served over the model axis
+# takes at full width (qwen's 60 experts are not a multiple of TP_SIZE;
+# deepseek-v2 and jamba, whose are, wait for MLA and the hybrid over the
+# model axis): the qwen2-moe smoke config with 16 experts and moe_ep in
+# fp32, held to its single-rank run on the card within the fp32 LM
+# tolerance (tests/test_torch_lm.py), its tokens exactly.
+# TP_FP32_GATE: serve_moe's own bf16 logits are as far from the fp32 model
+# of its weights (the same tokens and routing, every product and
+# activation in fp32) as two bf16 runs of other GEMM shapes are from each
+# other: on an NVIDIA H100 80GB HBM3 at 700 W serve_moe's logits miss
+# rtol = atol = 8e-2 against it by 0.0049 (max |diff| 0.0985 at max
+# |logits| 4.94), serve_moe_tp's meet it (0.0976, 0.0006 inside) and miss
+# serve_moe's by 0.0128 (0.1016; PERF.md §6).  The bar against
+# serve_moe's logits is below the bf16 noise of a 24-layer MoE, so
+# serve_moe_tp is held to the fp32 model: within SERVE_TP_BAR of it, or
+# past it by no more than serve_moe is.  The comparison with serve_moe's
+# logits is reported beside it.
+MOE_TP_ARCH = "qwen2-moe-a2.7b"
+EP_EXPERTS, EP_BATCH, EP_PROMPT, EP_NEW, EP_TOL = 16, 2, 64, 8, 1e-4
 # The fp32 serving path: TinyLlama-1.1B's prefill at 4 x 2048 (arXiv:
 # 2401.02385), the fp32 flash kernel's full-width shape.
 F32_ARCH, F32_NEW = "tinyllama-1.1b", 16
@@ -442,6 +492,9 @@ FAMILY_SERVES = [
     ("serve_vlm", "llama-3.2-vision-11b", {}, SERVE_PROMPT),
     ("serve_encdec", "whisper-small", {}, WHISPER_PROMPT),
 ]
+# The serve phases whose prompt, tokens and eager logits (and routing)
+# a model-axis phase is held to: phase -> file under SERVE_TP_DIR.
+TP_YARDSTICKS = {"serve": "serve.pt", "serve_moe": "serve_moe.pt"}
 # Every cross layer's gate after init_params: the reference initialises it
 # to 0, and tanh(0) = 0 would take the cross path out of the logits.
 SERVE_CROSS_GATE = 0.5
@@ -724,10 +777,14 @@ FLASH_ROWS = [
     ("flash_attention",
      (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 128), True, "bf16",
      "serve"),
-    # serve_tp's prefill on a rank: Llama-3-8B's 32 heads over 2 ranks.
+    # serve_tp's prefill on a rank: Llama-3-8B's 32 heads over 2 ranks;
+    # serve_moe_tp's: qwen2-moe-a2.7b's 16 heads over 2 ranks.
     ("flash_attention@tp",
      (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32 // SERVE_TP_RANKS, 128),
      True, "bf16", "serve_tp"),
+    ("flash_attention@moe_tp",
+     (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16 // SERVE_TP_RANKS, 128),
+     True, "bf16", "serve_moe_tp"),
     ("flash_attention@f32_small_lm",
      (SMALL_BATCH, SMALL_PROMPT, SMALL_PROMPT, 4, 32), True, "f32",
      "small_lm"),
@@ -3310,22 +3367,26 @@ def _rel_diff(got, want) -> float:
 
 
 class RoutingHold:
-    """Holds the MoE layers' routing across two prefills: inside
+    """Holds the MoE layers' routing across two runs: inside
     :meth:`record` every ``models.moe._route`` call keeps its expert ids,
-    in call order; inside :meth:`replay` each call takes the recorded ids
-    of its turn (the weights renormalised from this call's own
-    probabilities) and counts the tokens whose expert set differs.
+    in call order (``ids``, or given: another process's, as serve_moe_tp's
+    workers load serve_moe's); inside :meth:`replay` each call takes the
+    recorded ids of its turn (the weights renormalised from this call's
+    own probabilities), inside :meth:`compare` it keeps its own; both
+    count the tokens whose expert set differs from the recorded one and
+    keep every call's own ids (``seen``, hashed by :meth:`digest`).
 
     A top-k choice is discrete: where two experts' probabilities nearly
     tie, a bf16 ulp of the residual stream (the flash kernel rounds P and
     O to bf16; the plain attention keeps its softmax in fp32) sends the
     token to another expert, and that token's hidden state then moves by
-    far more than rounding.  Holding the routing leaves the two prefills
-    apart by the attention's numerics alone, which the logits bar
-    judges; the free comparison and the flips are reported beside it."""
+    far more than rounding.  Holding the routing leaves the two runs
+    apart by their numerics alone, which a logits bar judges; the free
+    comparison and the flips are reported beside it."""
 
-    def __init__(self):
-        self.ids = []
+    def __init__(self, ids=None):
+        self.ids = [] if ids is None else list(ids)
+        self.seen = []
         self.flips = self.last_flips = self.decisions = 0
 
     def _patched(self, route):
@@ -3335,6 +3396,8 @@ class RoutingHold:
 
         @contextlib.contextmanager
         def ctx():
+            self.seen = []
+            self.flips = self.last_flips = self.decisions = 0
             real = moe._route
             moe._route = lambda params, x, cfg: route(real, params, x, cfg)
             try:
@@ -3350,31 +3413,93 @@ class RoutingHold:
             return w, ids, aux
         return self._patched(route)
 
-    def replay(self):
+    def _routed(self, hold: bool):
         import torch
 
         turn = iter(self.ids)
 
         def route(real, params, x, cfg):
-            _, ids, aux = real(params, x, cfg)
-            held = next(turn)
-            probs = torch.softmax(x.float() @ params.router, dim=-1)
-            w = probs.gather(-1, held)
-            w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+            w, ids, aux = real(params, x, cfg)
+            self.seen.append(ids)
+            held = next(turn, None)
+            if held is None:
+                return w, ids, aux
+            held = held.to(ids.device, torch.int64)
             moved = (ids.sort(-1).values != held.sort(-1).values).any(-1)
             self.flips += int(moved.sum())
             self.last_flips += int(moved[:, -1].sum())
             self.decisions += moved.numel()
+            if not hold:
+                return w, ids, aux
+            probs = torch.softmax(x.float() @ params.router, dim=-1)
+            w = probs.gather(-1, held)
+            w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
             return w.to(x.dtype), held, aux
         return self._patched(route)
 
+    def replay(self):
+        return self._routed(hold=True)
+
+    def compare(self):
+        return self._routed(hold=False)
+
+    def digest(self) -> str:
+        """A hash of every call's own ids since the last replay or
+        compare began, in call order."""
+        import hashlib
+
+        import torch
+
+        h = hashlib.sha256()
+        for ids in self.seen:
+            h.update(ids.to(torch.int64).cpu().numpy().tobytes())
+        return h.hexdigest()
+
     def stats(self) -> dict:
         """Tokens (summed over MoE layers) whose expert set differed
-        between the flash prefill and the free plain one, and how many of
-        them at the last position (the one the logits read)."""
+        from the recorded one, and how many of them at the last position
+        (the one the prefill's logits read)."""
         return dict(tokens_rerouted=self.flips,
                     last_position_rerouted=self.last_flips,
-                    token_decisions=self.decisions)
+                    token_decisions=self.decisions, calls=len(self.seen))
+
+
+def fp32_model_logits(cfg, params, prompt, tokens, ids) -> "torch.Tensor":
+    """The fp32 model of a served MoE run: the same (bf16) weights, each
+    upcast where it is used, every activation and product in fp32 (TF32
+    off; the flash kernel's fp32 path), fed the run's tokens and held to
+    its routing ``ids`` (a call each): the prefill's and every decode
+    step's logits, (steps, B, V) fp32 on the host."""
+    import torch
+
+    from repro_torch.models import get_model
+
+    model = get_model(cfg.replace(compute_dtype="float32"))
+    b, s = prompt.shape
+    new = tokens.shape[1]
+    with RoutingHold(ids).replay():
+        caches = model.init_cache(b, s + new, prompt.device)
+        logits, _ = model.prefill(params, prompt, caches)
+        out = [logits.float().cpu()]
+        for i in range(new - 1):
+            step, _ = model.decode_step(params, tokens[:, i:i + 1], caches,
+                                        s + i)
+            out.append(step.float().cpu())
+    return torch.stack(out)
+
+
+def allclose_excess(got, want, bar: float) -> dict:
+    """How far ``got`` (a list or stack of logits) is past the allclose
+    bound |got - want| <= bar + bar |want| (<= 0 passes): the largest
+    excess, the largest and the mean |got - want|."""
+    excess, big, mean = [], 0.0, 0.0
+    for g, w in zip(got, want, strict=True):
+        g, w = g.float(), w.float()
+        d = (g - w).abs()
+        excess.append(float((d - bar * w.abs()).max()) - bar)
+        big = max(big, float(d.max()))
+        mean += float(d.mean()) / len(want)
+    return dict(excess=max(excess), abs_max=big, abs_mean=mean)
 
 
 def replay_period_ms(prof) -> dict:
@@ -3488,8 +3613,9 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     scfg = ServeConfig(max_new_tokens=new_tokens)
 
     kept = _EventTimedModel(model)
+    yardstick = TP_YARDSTICKS.get(name)
     eager_timed = _EventTimedModel(model, step_events=True,
-                                   keep_steps=name == "serve")
+                                   keep_steps=yardstick is not None)
 
     def serve(eager=False):
         return generate(eager_timed if eager else kept, params, prompt, scfg,
@@ -3510,18 +3636,32 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     logits = kept.prefill_logits
     prefill_ms = kept.prefill_ms()
-    eager_tokens = serve(eager=True)
+    # The eager run's routing ids, a call each (a model with MoE layers):
+    # what serve_moe_tp's ranks are held to.
+    eager_routing = RoutingHold()
+    with eager_routing.record():
+        eager_tokens = serve(eager=True)
     torch.cuda.synchronize()
     eager_step_ms = eager_timed.step_ms()
     same = bool(torch.equal(tokens, eager_tokens))
-    if name == "serve":  # serve_tp's yardstick
+    vs_fp32 = None
+    if yardstick is not None:  # a model-axis phase's yardstick
         SERVE_TP_DIR.mkdir(parents=True, exist_ok=True)
-        torch.save(dict(prompt=prompt.cpu(), tokens=tokens.cpu(),
-                        prefill=logits.cpu(),
-                        steps=torch.stack(eager_timed.step_logits).cpu(),
-                        weights_gb=weights_gb),
-                   SERVE_TP_DIR / "serve.pt")
+        fed = [logits.cpu()] + [x.cpu() for x in eager_timed.step_logits]
+        saved = dict(prompt=prompt.cpu(), tokens=tokens.cpu(),
+                     prefill=fed[0], steps=torch.stack(fed[1:]),
+                     routes=[ids.to(torch.int16).cpu()
+                             for ids in eager_routing.ids],
+                     weights_gb=weights_gb)
+        if cfg.moe is not None:
+            saved["fp32"] = fp32_model_logits(cfg, params, prompt, tokens,
+                                              eager_routing.ids)
+            vs_fp32 = allclose_excess(fed, saved["fp32"], SERVE_TP_BAR)
+            saved["fp32_excess"] = vs_fp32["excess"]
+        torch.save(saved, SERVE_TP_DIR / yardstick)
         eager_timed.step_logits = []
+        del fed, saved
+    del eager_routing
     # The same weights and prompt with the config's flash switch off: the
     # plain (chunked, fp32 softmax) attention of every layer.
     plain = get_model(cfg.replace(flash_attention=False))
@@ -3583,6 +3723,7 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
                bar=SERVE_LOGITS_BAR,
                logits_rel_diff_vs_plain_free_routing=rel_free,
                routing_vs_plain=routing, finite=finite,
+               logits_vs_fp32_model=vs_fp32,
                launches={k: c for k, c in counts.items() if c},
                expected_launches=want, ok=ok)
     emit(**row)
@@ -3598,13 +3739,16 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
 
 
 SERVE_TP_WORKER = r"""
-import json, os, time
+import contextlib, dataclasses, json, os, sys, time
 import torch
-from repro_torch.configs import get_config
+sys.path.insert(0, os.environ["SERVE_TP_ROOT"])
+from chip_smoke import RoutingHold
+from repro_torch import configs
 from repro_torch.distributed.sharding import rules_for_mesh
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models import get_model
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import head_layout
 from repro_torch.serving.engine import ServeConfig, generate
 
@@ -3615,7 +3759,7 @@ device = torch.device("cuda")
 mesh = _mh.multihost_mesh(("data", "model"), (1, env["ranks"]),
                           device=device)
 rules = rules_for_mesh(mesh)
-cfg = get_config(env["arch"]).replace(flash_attention=True)
+cfg = configs.get_config(env["arch"]).replace(flash_attention=True)
 model = get_model(cfg)
 tp = model.tensor_parallel(rules)
 torch.cuda.reset_peak_memory_stats()
@@ -3638,20 +3782,45 @@ def event():
     return e
 
 
-# Fed serve's tokens (this run also warms the libraries): the prefill's
-# and every decode step's logits against serve's, and the greedy tokens.
-caches = model.init_cache(b, s + new, device, rules=rules)
-cache_gb = sum(x.numel() * x.element_size()
-               for c in caches for x in c) / 1e9
-logits, _ = model.prefill(params, prompt, caches, rules=rules)
-forced = [logits.cpu()]
-for i in range(new - 1):
-    step, _ = model.decode_step(params, served[:, i:i + 1], caches, s + i,
-                                rules=rules)
-    forced.append(step.cpu())
+moe = cfg.moe is not None
+hold = RoutingHold(serve.get("routes"))
+
+
+def routing():
+    return dict(**hold.stats(), hash=hold.digest())
+
+
+moe_all_reduces = []
+real_ffn = moe_mod.moe_ffn
+
+
+def moe_ffn(*args, **kw):
+    # The all-reduces one MoE layer makes (the collective counters).
+    before = _mh.wire_counts()["all_reduce_calls"]
+    out = real_ffn(*args, **kw)
+    moe_all_reduces.append(_mh.wire_counts()["all_reduce_calls"] - before)
+    return out
+
+
+moe_mod.moe_ffn = moe_ffn
+# Fed serve's tokens (this run also warms the libraries), held to its
+# routing where the model routes (chip_smoke's RoutingHold on the ids
+# serve_moe recorded): the prefill's and every decode step's logits
+# against serve's, and the greedy tokens.
+with hold.replay() if moe else contextlib.nullcontext():
+    caches = model.init_cache(b, s + new, device, rules=rules)
+    cache_gb = sum(x.numel() * x.element_size()
+                   for c in caches for x in c) / 1e9
+    logits, _ = model.prefill(params, prompt, caches, rules=rules)
+    forced = [logits.cpu()]
+    for i in range(new - 1):
+        step, _ = model.decode_step(params, served[:, i:i + 1], caches,
+                                    s + i, rules=rules)
+        forced.append(step.cpu())
+held = routing() if moe else None
 wants = [serve["prefill"]] + list(serve["steps"])
 abs_err, rel_err, excess = [], [], []
-held, differ, served_argmax = 0, 0, True
+held_tokens, differ, served_argmax = 0, 0, True
 for col, (got, want) in enumerate(zip(forced, wants, strict=True)):
     got, want = got.float(), want.float()
     diff = (got - want).abs()
@@ -3663,9 +3832,19 @@ for col, (got, want) in enumerate(zip(forced, wants, strict=True)):
     sure = (top[:, 0] - top[:, 1]) > env["margin"]
     argmax = want.argmax(-1)
     served_argmax &= bool((argmax == serve["tokens"][:, col]).all())
-    held += int(sure.sum())
+    held_tokens += int(sure.sum())
     differ += int((sure & (got.argmax(-1) != argmax)).sum())
 finite = all(bool(torch.isfinite(x.float()).all()) for x in forced)
+# Against the fp32 model of the same weights, tokens and routing, where the
+# serve phase made one (an MoE model's).
+vs_fp32 = None
+if "fp32" in serve:
+    vs_fp32 = []
+    for got, want in zip(forced, serve["fp32"], strict=True):
+        d = (got.float() - want).abs()
+        vs_fp32.append(dict(
+            excess=float((d - env["bar"] * want.abs()).max()) - env["bar"],
+            abs_max=float(d.max()), abs_mean=float(d.mean())))
 del forced, caches
 
 
@@ -3703,22 +3882,26 @@ def flash(q, k, v, **kw):
 
 
 fa.flash_attention = flash
+moe_all_reduces.clear()
 timed = Timed()
-torch.cuda.synchronize()
-ops.reset_launch_counts()
-_mh.wire_counts(reset=True)
-t0 = time.perf_counter()
-tokens, info = generate(timed, params, prompt,
-                        ServeConfig(max_new_tokens=new), rules=rules,
-                        return_info=True)
-torch.cuda.synchronize()
-wall = time.perf_counter() - t0
-counts = {k: c for k, c in ops.launch_counts().items() if c}
-wire = _mh.wire_counts(reset=True)
+# The free run's routing: every call's own ids, compared with serve's.
+with hold.compare() if moe else contextlib.nullcontext():
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    _mh.wire_counts(reset=True)
+    t0 = time.perf_counter()
+    tokens, info = generate(timed, params, prompt,
+                            ServeConfig(max_new_tokens=new), rules=rules,
+                            return_info=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: c for k, c in ops.launch_counts().items() if c}
+    wire = _mh.wire_counts(reset=True)
 fa.flash_attention = real_flash
+free = routing() if moe else None
 ev = timed.events
 steps = len(ev) - 2
-print("SERVE_TP " + json.dumps(dict(
+row = dict(
     rank=tp.index, ranks=tp.size, heads=head_layout(cfg, tp.size,
                                                     tp.index).heads,
     kv_heads=head_layout(cfg, tp.size, tp.index).kv_heads,
@@ -3730,39 +3913,104 @@ print("SERVE_TP " + json.dumps(dict(
     decode_ms_per_step=ev[1].elapsed_time(ev[-1]) / steps,
     wire=wire, forced_abs_err=abs_err, forced_rel_err=rel_err,
     forced_excess=excess,
-    margin_held=held, margin_differ=differ,
-    served_tokens_are_argmax=served_argmax, finite=finite)), flush=True)
+    margin_held=held_tokens, margin_differ=differ,
+    served_tokens_are_argmax=served_argmax, finite=finite,
+    vs_fp32=vs_fp32, held_routing=held, free_routing=free,
+    moe_all_reduces=sorted(set(moe_all_reduces)),
+    moe_layer_calls=len(moe_all_reduces))
+del params
+torch.cuda.empty_cache()
+
+if env.get("ep"):
+    # Expert parallelism: the smoke config with 16 experts and moe_ep in
+    # fp32, 8 whole experts a rank, against the same config on one rank
+    # (the whole weights, drawn from the same seed) on the card.
+    base = configs.get_smoke_config(env["arch"])
+    ecfg = base.replace(
+        param_dtype="float32", compute_dtype="float32",
+        flash_attention=True, moe_ep=True,
+        moe=dataclasses.replace(base.moe, num_experts=env["ep"]["experts"]))
+    emodel = get_model(ecfg)
+    one = emodel.init_params(seed=0, device=device)
+    mine = emodel.init_params(seed=0, device=device, rules=rules)
+    eb, es, en = env["ep"]["batch"], env["ep"]["prompt"], env["ep"]["new"]
+    eprompt = torch.randint(0, ecfg.vocab, (eb, es),
+                            generator=torch.Generator().manual_seed(3)
+                            ).to(device)
+
+    def fed(params, **kw):
+        caches = emodel.init_cache(eb, es + en, device, **kw)
+        logits, _ = emodel.prefill(params, eprompt, caches, **kw)
+        out = [logits]
+        for i in range(en - 1):
+            step, _ = emodel.decode_step(params, want_tokens[:, i:i + 1],
+                                         caches, es + i, **kw)
+            out.append(step)
+        return torch.stack(out).float()
+
+    # The one-rank run unrecorded: its decode is captured, and a capture
+    # must not keep the ids it allocates alive.
+    want_tokens = generate(emodel, one, eprompt,
+                           ServeConfig(max_new_tokens=en))
+    want = fed(one)
+    hold = RoutingHold()
+    with hold.compare():
+        got_tokens = generate(emodel, mine, eprompt,
+                              ServeConfig(max_new_tokens=en), rules=rules)
+    ep_routing = routing()
+    got = fed(mine, rules=rules)
+    row["ep"] = dict(
+        experts=ecfg.moe.num_experts,
+        experts_per_rank=tuple(mine.layers[0].ffn.w_gate.shape)[0],
+        abs_err=float((got - want).abs().max()),
+        excess=float(((got - want).abs() - env["ep"]["tol"]
+                      * want.abs()).max()) - env["ep"]["tol"],
+        tokens_equal=bool(torch.equal(got_tokens, want_tokens)),
+        routing=ep_routing)
+print("SERVE_TP " + json.dumps(row), flush=True)
 """
 
 
-def serve_tp_phase(device, serve_row: dict) -> dict:
-    """``serve_tp``: :data:`SERVE_TP_WORKER` on :data:`SERVE_TP_RANKS` gloo
-    ranks sharing the card (``multihost.launch_workers``), each serving
-    serve's Llama-3-8B over a (1, 2) ("data", "model") mesh from serve's
-    weights seed, fed serve's prompt (``SERVE_TP_DIR/serve.pt``, written
-    by serve).  Gates: every rank's weights about half of serve's, exactly
+def serve_tp_phase(device, serve_row: dict, name: str = "serve_tp",
+                   arch: str = SERVE_ARCH) -> dict:
+    """``serve_tp`` and ``serve_moe_tp``: :data:`SERVE_TP_WORKER` on
+    :data:`SERVE_TP_RANKS` gloo ranks sharing the card
+    (``multihost.launch_workers``), each serving the serve phase's model
+    (``serve_row``: Llama-3-8B's serve, or qwen2-moe-a2.7b's serve_moe)
+    over a (1, 2) ("data", "model") mesh from its weights seed, fed its
+    prompt (``SERVE_TP_DIR`` / :data:`TP_YARDSTICKS`, written by it).
+    Gates: every rank's weights about half of the serve phase's, exactly
     one flash_attention launch a layer at h/t heads in ``generate``, the
     decode eager (gloo) and saying so, the same in-vocabulary tokens on
-    every rank; fed serve's tokens, every step's logits within
-    :data:`SERVE_TP_BAR` of serve's and the greedy token serve's wherever
-    serve's top-2 margin passes :data:`SERVE_TP_MARGIN`.  The prefill ms,
-    eager decode ms a step and the collectives a prefill + decode beside
-    serve's."""
+    every rank; fed the serve phase's tokens (and, for an MoE model, held
+    to its routing), every step's logits within :data:`SERVE_TP_BAR` of
+    its logits and the greedy token its token wherever its top-2 margin
+    passes :data:`SERVE_TP_MARGIN`.  An MoE model also: the routing ids
+    identical on every rank at every layer and step (a hash of each
+    run's), one all-reduce an MoE layer, and the expert-parallel smoke
+    cohort (:data:`EP_EXPERTS` experts, ``moe_ep``) within
+    :data:`EP_TOL` of its single-rank run with its tokens.  The prefill
+    ms, eager decode ms a step and the collectives a prefill + decode
+    beside the serve phase's."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.distributed import multihost as mh
     from repro_torch.models.layers import padded_vocab
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
+    moe = cfg.moe is not None
+    yardstick = SERVE_TP_DIR / TP_YARDSTICKS[serve_row["phase"]]
     torch.cuda.empty_cache()
-    env = dict(arch=SERVE_ARCH, ranks=SERVE_TP_RANKS,
-               serve=str(SERVE_TP_DIR / "serve.pt"), margin=SERVE_TP_MARGIN,
-               bar=SERVE_TP_BAR)
+    env = dict(arch=arch, ranks=SERVE_TP_RANKS, serve=str(yardstick),
+               margin=SERVE_TP_MARGIN, bar=SERVE_TP_BAR,
+               ep=dict(experts=EP_EXPERTS, batch=EP_BATCH, prompt=EP_PROMPT,
+                       new=EP_NEW, tol=EP_TOL) if moe else None)
     t0 = time.perf_counter()
     outs = mh.launch_workers(SERVE_TP_WORKER, num_processes=SERVE_TP_RANKS,
                              backend="gloo", timeout=SERVE_TP_TIMEOUT,
-                             extra_env={"SERVE_TP_ENV": json.dumps(env)})
+                             extra_env={"SERVE_TP_ENV": json.dumps(env),
+                                        "SERVE_TP_ROOT": str(ROOT)})
     wall = time.perf_counter() - t0
     rows = sorted((json.loads(ln[len("SERVE_TP "):]) for out in outs
                    for ln in out.splitlines()
@@ -3776,20 +4024,70 @@ def serve_tp_phase(device, serve_row: dict) -> dict:
     in_vocab = all(0 <= t < pv for r in rows for ln in r["tokens"]
                    for t in ln)
     weight_share = [r["weights_gb"] / serve_row["weights_gb"] for r in rows]
-    served = torch.load(SERVE_TP_DIR / "serve.pt")["tokens"].tolist()
+    saved = torch.load(yardstick)
+    served = saved["tokens"].tolist()
     steps = SERVE_NEW - 1
+    # The logits gate.  Without an fp32 model (serve's): every step within
+    # the bar of the serve phase's logits.  With one (serve_moe's): within
+    # the bar of the fp32 model, or past it by no more than the serve
+    # phase's own bf16 logits are; beside it the comparison with the
+    # serve phase's logits (TP_FP32_GATE).
+    fp32_bar = None if "fp32" not in saved else max(0.0,
+                                                    saved["fp32_excess"])
+
+    def logits_ok(r):
+        if fp32_bar is None:
+            return max(r["forced_excess"]) <= 0
+        return max(x["excess"] for x in r["vs_fp32"]) <= fp32_bar
+
     ok = (len(rows) == SERVE_TP_RANKS and same_tokens and in_vocab
           and all(r["launches"] == want and r["heads"] == heads
                   and r["flash_shapes"] == [shape]
                   and r["info"]["decode"] == "eager"
-                  and max(r["forced_excess"]) <= 0
+                  and "gloo" in r["info"]["why"]
+                  and logits_ok(r)
                   and r["margin_differ"] == 0 and r["finite"]
                   and r["served_tokens_are_argmax"] for r in rows)
           and all(0.45 <= x <= 0.55 for x in weight_share))
     r0 = rows[0] if rows else {}
     wire = r0.get("wire", {})
+    moe_fields = {}
+    if moe:
+        # One routing a call on both ranks, in the held run and the free
+        # one (calls: a prefill and 31 steps, 24 MoE layers each).
+        calls = cfg.n_layers * SERVE_NEW
+        routing_same = all(
+            len({r[run]["hash"] for r in rows}) == 1
+            and all(r[run]["calls"] == calls for r in rows)
+            for run in ("held_routing", "free_routing"))
+        one_reduce = all(r["moe_all_reduces"] == [1]
+                         and r["moe_layer_calls"] == calls for r in rows)
+        ep = [r["ep"] for r in rows]
+        ep_ok = (len({e["routing"]["hash"] for e in ep}) == 1
+                 and all(e["excess"] <= 0 and e["tokens_equal"]
+                         and e["experts_per_rank"]
+                         == EP_EXPERTS // SERVE_TP_RANKS for e in ep))
+        ok = ok and routing_same and one_reduce and ep_ok
+        moe_fields = dict(
+            experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+            expert_ff_per_rank=cfg.moe.d_ff_expert // SERVE_TP_RANKS,
+            routing_identical_on_ranks=routing_same,
+            routing_hash_held=[r["held_routing"]["hash"][:16] for r in rows],
+            routing_hash_free=[r["free_routing"]["hash"][:16] for r in rows],
+            routing_calls=calls,
+            held_run_own_choice_flips=[r["held_routing"]["tokens_rerouted"]
+                                       for r in rows],
+            free_run_flips_vs_yardstick=[r["free_routing"]["tokens_rerouted"]
+                                         for r in rows],
+            token_decisions=r0["free_routing"]["token_decisions"],
+            all_reduces_per_moe_layer=r0["moe_all_reduces"],
+            one_all_reduce_per_moe_layer=one_reduce,
+            ep_cohort=dict(arch=f"{arch} smoke", dtype="float32",
+                           experts=EP_EXPERTS, batch=EP_BATCH,
+                           prompt=EP_PROMPT, new_tokens=EP_NEW, tol=EP_TOL,
+                           per_rank=ep, ok=ep_ok))
     row = dict(
-        phase="serve_tp", arch=SERVE_ARCH, ranks=len(rows),
+        phase=name, arch=arch, ranks=len(rows),
         mesh={"data": 1, "model": SERVE_TP_RANKS}, backend="gloo",
         layers=cfg.n_layers, heads_per_rank=[r["heads"] for r in rows],
         kv_heads_per_rank=[r["kv_heads"] for r in rows],
@@ -3822,16 +4120,26 @@ def serve_tp_phase(device, serve_row: dict) -> dict:
         forced_logits_rel_err_max=[max(r["forced_rel_err"]) for r in rows],
         forced_allclose_excess_max=[max(r["forced_excess"]) for r in rows],
         forced_logits_abs_err_by_step=r0.get("forced_abs_err"),
+        logits_gate="fp32 model" if fp32_bar is not None else name[:-3],
+        serve_vs_fp32_model_excess=None if fp32_bar is None
+        else saved["fp32_excess"],
+        forced_vs_fp32_model_excess_max=None if fp32_bar is None
+        else [max(x["excess"] for x in r["vs_fp32"]) for r in rows],
+        forced_vs_fp32_model_abs_max=None if fp32_bar is None
+        else [max(x["abs_max"] for x in r["vs_fp32"]) for r in rows],
+        forced_vs_fp32_model_abs_mean=None if fp32_bar is None
+        else [sum(x["abs_mean"] for x in r["vs_fp32"]) / len(r["vs_fp32"])
+              for r in rows],
         bar=SERVE_TP_BAR, margin=SERVE_TP_MARGIN,
         tokens_held_by_margin=[r["margin_held"] for r in rows],
         tokens_differing_where_held=[r["margin_differ"] for r in rows],
         free_tokens_equal_serve=bool(rows) and rows[0]["tokens"] == served,
-        same_tokens_on_ranks=same_tokens, decode_steps=steps,
+        same_tokens_on_ranks=same_tokens, decode_steps=steps, **moe_fields,
         note="2 ranks share one card and meet through gloo on the host: "
              "walls are correctness runs, not speed", ok=ok)
     emit(**row)
     if not ok:
-        raise SystemExit("phase serve_tp failed")
+        raise SystemExit(f"phase {name} failed")
     row["launches"] = rows[0]["launches"]
     return row
 
@@ -4511,6 +4819,9 @@ def main() -> int:
         phases.append(serve_phase(device, name, arch, cut=cut,
                                   prompt_len=prompt_len))
         torch.cuda.empty_cache()
+        if name == "serve_moe":
+            phases.append(serve_tp_phase(device, phases[-1], "serve_moe_tp",
+                                         MOE_TP_ARCH))
     phases.append(train_parity_phase(device))
     row, trained = train_phase(device)
     phases.append(row)

@@ -107,14 +107,16 @@ def _float_on(x, device: torch.device) -> Tensor:
 
 
 def _data_on(x, device: torch.device) -> Tensor:
-    """The data plane on ``device``: bf16 stays bf16 (the compact plane),
-    every other float type becomes fp32."""
+    """The data plane on ``device``: bf16 stays bf16 (the compact plane);
+    float16, float32 and float64 become fp32 (every float16 value is exact
+    in fp32, and the reference computes a float16 plane in fp32)."""
     x = torch.as_tensor(x)
     if x.dtype == torch.bfloat16:
         return x.to(device=device).contiguous()
-    if x.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"data of dtype {x.dtype}: the port runs fp32 or bf16 data")
+    if x.dtype not in (torch.float16, torch.float32, torch.float64):
+        raise TypeError(
+            f"data of dtype {x.dtype}: the solvers take float16, bfloat16, "
+            f"float32 or float64 data")
     return _float_on(x, device)
 
 

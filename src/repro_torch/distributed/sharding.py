@@ -16,19 +16,22 @@ The port runs one process a rank (the ``torch.distributed`` harness of
 ``distributed.multihost``).  Along the data axes each rank holds its
 shard of the batch and the whole parameters, as the reference's robust
 step requires: parameters and optimizer state stay replicated, not
-ZeRO-sharded.  Along the model axis the dense family serves with tensor
-parallelism (``models.parallel``): the ``tp``-tagged weight dims are
-split by the reference's rule (``models.params.shard_specs``), and the
-decode cache, which the reference splits by sequence (``sp``), is split
-by KV head, which gives the same numbers and the same 1/t of memory.
-:meth:`ShardingRules.check` lets ``tp`` and ``sp`` over a model axis
-larger than 1 pass on that path (``serving=`` the config), and raises
-``NotImplementedError`` naming ROADMAP.md, at build, for everything else
-over such an axis: expert parallelism (``ep``), the families other than
-dense, a cache that only a sequence split could place (more ranks than KV
-heads where ``wk``/``wv`` are split), and any train step.
-:func:`constrain` is the identity wherever it does not raise: a rank's
-tensors are its own shards already.
+ZeRO-sharded.  Along the model axis the dense and MoE families serve with
+tensor parallelism (``models.parallel``): the ``tp``-tagged weight dims
+(heads, MLP columns, the experts' ff columns, the vocabulary) are split
+by the reference's rule (``models.params.shard_specs``), the experts by
+expert (``ep``) where the reference's ``_use_ep`` holds, and the decode
+cache, which the reference splits by sequence (``sp``), is split by KV
+head, which gives the same numbers and the same 1/t of memory.
+:meth:`ShardingRules.check` lets ``tp``, ``sp`` and ``ep`` over a model
+axis larger than 1 pass on that path (``serving=`` the config), and
+raises ``NotImplementedError`` naming ROADMAP.md and its item, at build,
+for everything else over such an axis: the families other than dense and
+MoE and the MLA mixer (item 13), a cache that only a sequence split could
+place (more ranks than KV heads where ``wk``/``wv`` are split; item 14),
+experts that the model ranks do not divide (item 15), and any train step
+(item 11).  :func:`constrain` is the identity wherever it does not raise:
+a rank's tensors are its own shards already.
 """
 from __future__ import annotations
 
@@ -94,8 +97,10 @@ class ShardingRules:
         logical axis in ``axes`` would shard over a mesh axis larger than
         1 outside the data axes.  With ``serving`` a model config, ``tp``
         and ``sp`` pass where the port serves that config over the model
-        axis: the dense family, its KV heads placed by
-        :func:`~repro_torch.models.attention.head_layout`."""
+        axis (the dense and MoE families, their KV heads placed by
+        :func:`~repro_torch.models.attention.head_layout`), and ``ep``
+        where the config splits its experts by expert (the reference's
+        ``_use_ep``) over ranks that divide them."""
         for a in axes:
             if a is None or a in DATA_AXES:
                 continue
@@ -103,34 +108,53 @@ class ShardingRules:
             ranks = self.size(bound)
             if ranks <= 1:
                 continue
-            if serving is not None and a in ("tp", "sp"):
+            if serving is not None and a in ("tp", "sp", "ep"):
                 _check_serving(serving, ranks)
+                if a == "ep":
+                    _check_experts(serving, ranks)
                 continue
             raise NotImplementedError(
                 f"logical axis {a!r} binds mesh axis {bound!r} of size "
                 f"{ranks}: the port splits weights over a model axis only "
-                f"to serve the dense family; expert parallelism and "
-                f"training under tp wait for later slices (ROADMAP.md, "
-                f"Queue 1, items 11-12)")
+                f"to serve the dense and MoE families; a train step over "
+                f"it waits for a later slice (ROADMAP.md, Queue 1, "
+                f"item 11)")
 
 
 #: The ROADMAP.md item that will bring each family over a model axis.
-_FAMILY_ITEM = {"moe": 12, "ssm": 13, "hybrid": 13, "vlm": 13,
-                "encdec": 13}
+_FAMILY_ITEM = {"ssm": 13, "hybrid": 13, "vlm": 13, "encdec": 13}
 
 
 def _check_serving(cfg, ranks: int) -> None:
     """Raise unless the port serves ``cfg`` over ``ranks`` model ranks."""
-    if cfg.family != "dense" or cfg.mla is not None:
+    if cfg.family not in ("dense", "moe") or cfg.mla is not None:
         item = 13 if cfg.mla is not None else _FAMILY_ITEM[cfg.family]
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family over a model axis of "
-            f"{ranks} ranks waits for a later slice of the port "
-            f"(ROADMAP.md, Queue 1, item {item}); only the dense family "
-            f"serves with tensor parallelism")
+            f"{cfg.name}: the {cfg.family!r} family"
+            f"{' with MLA' if cfg.mla is not None else ''} over a model "
+            f"axis of {ranks} ranks waits for a later slice of the port "
+            f"(ROADMAP.md, Queue 1, item {item}); only the dense and MoE "
+            f"families serve with tensor parallelism")
     from repro_torch.models.attention import head_layout
 
     head_layout(cfg, ranks, 0)
+
+
+def _check_experts(cfg, ranks: int) -> None:
+    """Raise unless ``cfg``'s experts split by expert over ``ranks``: the
+    reference's ``_use_ep`` holds and the ranks divide the experts (where
+    they do not, each rank would hold every expert)."""
+    from repro_torch.models.moe import _use_ep
+
+    if cfg.moe is None or not _use_ep(cfg) \
+            or cfg.moe.num_experts % ranks:
+        experts = 0 if cfg.moe is None else cfg.moe.num_experts
+        raise NotImplementedError(
+            f"{cfg.name}: expert parallelism ('ep') over {ranks} model "
+            f"ranks serves a config whose experts split by expert "
+            f"(moe_ep, experts a multiple of TP_SIZE) into equal shares; "
+            f"{experts} experts with moe_ep={cfg.moe_ep} wait for a later "
+            f"slice (ROADMAP.md, Queue 1, item 15)")
 
 
 # Standard bindings ----------------------------------------------------------

@@ -24,7 +24,7 @@ state into serving (or into a captured decode graph).
 ``models/__init__.py:38-42``), default None: one device, or data ranks
 that each hold the whole model.  Rules from
 ``distributed.sharding.rules_for_mesh(mesh)`` over a mesh whose ``model``
-axis has t > 1 ranks serve the dense family tensor-parallel
+axis has t > 1 ranks serve the dense and MoE families tensor-parallel
 (``models.parallel``): each rank holds its slices of the split weights
 (drawn, by ``init_params``, as the whole tensors one rank would draw) and
 its KV heads' cache, and every rank gets the whole logits.  Every rank of
@@ -120,9 +120,9 @@ class Model:
 
     @staticmethod
     def _tp_kw(tp: TensorParallel | None) -> dict:
-        """The dense functions' ``tp`` argument, only where there is one
-        (the other families take none: they are refused over a model
-        axis)."""
+        """The uniform-stack functions' ``tp`` argument, only where there
+        is one (the other families take none: they are refused over a
+        model axis)."""
         return {} if tp is None else {"tp": tp}
 
     @torch.no_grad()

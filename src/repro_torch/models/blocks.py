@@ -20,11 +20,12 @@ A cross layer's cache is the context's K/V, (B, T, KV, hd) each: the
 prefill writes it, decode only reads it.  An ``add_cross`` layer's cache is
 a :class:`SelfCrossCache` of its self-attention K/V and that context K/V.
 
-Over a model axis (``tp``, a ``models.parallel.TensorParallel``) the dense
-layer (``"attn"`` and ``"mlp"``) runs tensor-parallel: attention on the
-rank's heads and the MLP on its columns, each followed by one all-reduce.
-The other mixers and FFNs raise: their families are refused at build
-(``ShardingRules.check``).
+Over a model axis (``tp``, a ``models.parallel.TensorParallel``) the
+dense and MoE layers (``"attn"`` with ``"mlp"`` or ``"moe"``) run
+tensor-parallel: attention on the rank's heads, the MLP on its columns
+and the MoE on its share of the experts (``models.moe``), each followed
+by one all-reduce.  The other mixers raise: their families are refused at
+build (``ShardingRules.check``).
 """
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ from repro_torch.models.params import ParamSpec
 MODES = ("train", "prefill", "decode")
 MIXERS = ("attn", "mla", "ssm", "cross")
 FFNS = ("mlp", "moe", "none")
+#: The layers (mixer, ffn, add_cross) that run over a model axis.
+TP_LAYERS = (("attn", "mlp", False), ("attn", "moe", False))
 
 
 class SelfCrossCache(NamedTuple):
@@ -125,13 +128,13 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
     only read), in ``train`` None.  ``ctx`` (B, T, d) is the context of
     cross-attention (prefill and training); ``causal`` applies to
     self-attention.  Every norm takes ``cfg.bf16_norm_grad``.  ``tp``
-    (a model axis) serves the dense layer only."""
+    (a model axis) serves the dense and MoE layers only."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    if tp is not None and (mixer, ffn, add_cross) != ("attn", "mlp", False):
+    if tp is not None and (mixer, ffn, add_cross) not in TP_LAYERS:
         raise NotImplementedError(
             f"a {mixer}/{ffn} layer over a model axis waits for a later "
-            f"slice of the port (ROADMAP.md, Queue 1)")
+            f"slice of the port (ROADMAP.md, Queue 1, item 13)")
     h = rmsnorm(params.ln1, x, cfg.norm_eps, cfg.bf16_norm_grad)
     self_cache = cache[:2] if add_cross and mode == "decode" else cache
     y, new = _mixer(params.mixer, h, cfg, mode, mixer, positions, pos,
@@ -154,7 +157,7 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
     if ffn != "none":
         h = rmsnorm(params.ln2, x, cfg.norm_eps, cfg.bf16_norm_grad)
         if ffn == "moe":
-            y, aux = moe_mod.moe_ffn(params.ffn, h, cfg)
+            y, aux = moe_mod.moe_ffn(params.ffn, h, cfg, tp=tp)
         else:
             y = mlp(params.ffn, h, cfg, tp)
         x = x + y

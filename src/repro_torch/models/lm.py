@@ -30,7 +30,7 @@ states plus the routers' aux loss summed over layers, each layer
 recomputed in backward by ``cfg.remat``.
 
 Over a model axis (``tp``, a ``models.parallel.TensorParallel``; the
-dense family only) the same loops run on a rank's slices: the embedding
+dense and MoE families) the same loops run on a rank's slices: the embedding
 and the logits are vocab-parallel (``layers.embed``, ``layers.logits``),
 each layer tensor-parallel (``blocks.layer_apply``), and a rank's
 attention cache holds its KV heads (``attention.head_layout``), so

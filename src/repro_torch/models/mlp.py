@@ -1,8 +1,10 @@
 """Dense MLP (SwiGLU, llama-style), as ``repro/models/mlp.py``, with the
 reference's Megatron axes: over a model axis ``w_gate``/``w_up`` hold the
 rank's columns and ``w_down`` its rows, so the rank's output is a partial
-sum, added over the model ranks by one all-reduce
-(``TensorParallel.row_parallel``)."""
+sum (:func:`mlp_partial`, in fp32), added over the model ranks by one
+all-reduce (``TensorParallel.reduce_partial``).  An MoE layer's shared
+expert adds its partial to the routed experts' before their one
+all-reduce."""
 from __future__ import annotations
 
 import torch
@@ -10,6 +12,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import axis_if, tp_ok
+from repro_torch.models.parallel import fp32_product
 from repro_torch.models.params import ParamSpec
 
 
@@ -24,11 +27,24 @@ def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     }
 
 
-def mlp(params, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
+def is_split(params) -> bool:
+    """Whether this rank holds a slice of the MLP's ff columns (else the
+    whole MLP: one rank, or an ff the model ranks do not divide)."""
+    return params.specs["w_down"].part is not None
+
+
+def _hidden(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     cd = cfg.cdtype
-    g = x @ params.w_gate.to(cd)
-    u = x @ params.w_up.to(cd)
-    h, w_down = F.silu(g) * u, params.w_down.to(cd)
-    if tp is not None and params.specs["w_down"].part is not None:
-        return tp.row_parallel(h, w_down)
-    return h @ w_down
+    return F.silu(x @ params.w_gate.to(cd)) * (x @ params.w_up.to(cd))
+
+
+def mlp_partial(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """This rank's fp32 partial of the MLP's output: ``w_down``'s product
+    over the rank's rows, accumulated in fp32 and not reduced."""
+    return fp32_product(_hidden(params, x, cfg), params.w_down.to(cfg.cdtype))
+
+
+def mlp(params, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    if tp is not None and is_split(params):
+        return tp.reduce_partial(mlp_partial(params, x, cfg), cfg.cdtype)
+    return _hidden(params, x, cfg) @ params.w_down.to(cfg.cdtype)

@@ -16,10 +16,30 @@ data-dependent shape or reads a value back to the host (no ``nonzero``, no
 boolean-mask indexing, no ``.item()``), so a decode that routes can be
 captured in a CUDA graph.  Top-k takes ties as ``jax.lax.top_k`` (a stable
 descending sort: the lower expert first), and the aux loss's counts are
-integer sums, the same on every run.  Expert parallelism (``moe_ep``)
-needs a model-parallel mesh; on one rank the experts keep the non-EP
-layout.  Plain PyTorch, as the reference computes MoE outside any Pallas
-kernel.
+integer sums, the same on every run.  Plain PyTorch, as the reference
+computes MoE outside any Pallas kernel.
+
+Over a model axis (``tp``, a ``models.parallel.TensorParallel``) a rank
+holds the reference's slice of the experts (``moe_specs``' axes):
+
+* by ff columns (every shipped config): ``w_gate``/``w_up`` (E, d, ff/t)
+  and ``w_down`` (E, ff/t, d); the rank runs every expert on its columns;
+* by expert where the reference's ``_use_ep`` holds (``moe_ep`` and
+  experts a multiple of ``TP_SIZE``): (E/t, d, ff) each; the rank runs its
+  experts on its slice of the replicated dispatch buffer, the slot gather
+  reads only its slots (the rest masked to zero), and the decode gather
+  takes only its experts for each token (the rest zeroed).
+
+Either way ``w_down``'s product is accumulated in fp32, the routed output
+is combined (slot gather, routing weight, sum over k) into a (B, S, d)
+fp32 partial, the shared expert's partial joins it, and one all-reduce a
+layer sums them (``TensorParallel.reduce_partial``): the combine is linear
+in the experts' outputs, so reducing (B, S, d) moves k·E·cap/(S·k) times
+fewer bytes than reducing the (B, E·cap, d) buffer.  The router runs on
+the replicated residual stream, so every rank routes every token alike
+as long as every all-reduce hands every rank the same bits.  A weight the
+model ranks do not divide stays whole (``params.shard_parts``) and is
+computed whole on every rank, outside the sum.
 """
 from __future__ import annotations
 
@@ -28,7 +48,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import TP_SIZE, axis_if, tp_ok
-from repro_torch.models.mlp import mlp, mlp_specs
+from repro_torch.models.mlp import is_split, mlp, mlp_partial, mlp_specs
+from repro_torch.models.parallel import fp32_product
 from repro_torch.models.params import ParamSpec
 
 Tensor = torch.Tensor
@@ -42,8 +63,6 @@ def _use_ep(cfg: ModelConfig) -> bool:
 def moe_specs(cfg: ModelConfig) -> dict:
     moe = cfg.moe
     d, ff, e = cfg.d_model, moe.d_ff_expert, moe.num_experts
-    # The reference's axes (declarations: the port refuses MoE over a
-    # model axis larger than 1 at build).
     if _use_ep(cfg):
         up = down = ("ep", None, None)
     else:
@@ -109,6 +128,18 @@ def _slots(ids: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
     return torch.where(keep, flat_ids * cap + rank, trash), keep
 
 
+def _dispatch(x: Tensor, slot: Tensor, cfg: ModelConfig) -> Tensor:
+    """The (B, E, cap, d) buffer: each kept assignment's token in its
+    slot, zeros elsewhere."""
+    b, s, d = x.shape
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    cap = capacity(cfg, s)
+    xk = x.repeat_interleave(k, dim=1)  # (B, S k, d): a token per assignment
+    buf = torch.zeros(b, e * cap + s * k, d, dtype=x.dtype, device=x.device)
+    buf = buf.scatter(1, slot[..., None].expand(b, s * k, d), xk)
+    return buf[:, :e * cap].reshape(b, e, cap, d)
+
+
 def _moe_grouped(params, x: Tensor, w: Tensor, ids: Tensor,
                  cfg: ModelConfig) -> Tensor:
     """Capacity dispatch, group = batch row."""
@@ -116,11 +147,7 @@ def _moe_grouped(params, x: Tensor, w: Tensor, ids: Tensor,
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     cap = capacity(cfg, s)
     slot, keep = _slots(ids, cfg)
-
-    xk = x.repeat_interleave(k, dim=1)  # (B, S k, d): a token per assignment
-    buf = torch.zeros(b, e * cap + s * k, d, dtype=x.dtype, device=x.device)
-    buf = buf.scatter(1, slot[..., None].expand(b, s * k, d), xk)
-    buf = buf[:, :e * cap].reshape(b, e, cap, d)
+    buf = _dispatch(x, slot, cfg)
 
     cd = cfg.cdtype
     g = torch.einsum("becd,edf->becf", buf, params.w_gate.to(cd))
@@ -163,19 +190,106 @@ def _moe_gather(params, x: Tensor, w: Tensor, ids: Tensor,
     return y.reshape(b, s, d)
 
 
+def _experts_held(params, cfg: ModelConfig) -> tuple[int, int] | None:
+    """The experts this rank's routed weights cover, ``(first, count)``:
+    all E under the ff split, its E/t under ``ep``; None where the
+    weights are whole (one rank, or dims the model ranks do not divide)."""
+    part = params.specs["w_gate"].part
+    if part is None:
+        return None
+    (n, index), e = part[0], cfg.moe.num_experts
+    return index * (e // n), e // n
+
+
+def _experts_on_rank(params, xe: Tensor, cfg: ModelConfig) -> Tensor:
+    """The rank's experts on their tokens: ``xe`` (n, T, d) in the
+    compute type, one row of tokens an expert; the fp32 partial (n, T, d)
+    of the rank's ff columns (all of them under ``ep``)."""
+    cd = cfg.cdtype
+    g = torch.bmm(xe, params.w_gate.to(cd))
+    u = torch.bmm(xe, params.w_up.to(cd))
+    return fp32_product(F.silu(g) * u, params.w_down.to(cd))
+
+
+def _grouped_partial(params, x: Tensor, w: Tensor, ids: Tensor,
+                     cfg: ModelConfig, first: int, count: int) -> Tensor:
+    """Capacity dispatch on a rank: experts ``first .. first + count - 1``
+    of the replicated buffer through the rank's weights, combined into
+    the (B, S, d) fp32 partial of the routed output.  Slots of other
+    ranks' experts (and dropped assignments) read as zero."""
+    b, s, d = x.shape
+    k = cfg.moe.top_k
+    cap = capacity(cfg, s)
+    slot, keep = _slots(ids, cfg)
+    buf = _dispatch(x, slot, cfg)[:, first:first + count]
+    # Expert-major rows (n, B cap, d): one batched product an expert.
+    xe = buf.transpose(0, 1).reshape(count, b * cap, d)
+    out = _experts_on_rank(params, xe, cfg).reshape(count * b * cap, d)
+    # Slot (row i, e cap + c) of the rank's expert e sits at row
+    # (e b + i) cap + c of the expert-major output.
+    local = slot - first * cap
+    mine = keep & (local >= 0) & (local < count * cap)
+    local = torch.clamp(local, 0, count * cap - 1)
+    rows = torch.arange(b, device=x.device)[:, None]
+    at = ((local // cap) * b + rows) * cap + local % cap  # (B, S k)
+    y = out.index_select(0, at.reshape(-1)).reshape(b, s * k, d)
+    y = y * (w.reshape(b, s * k, 1).to(torch.float32) * mine[..., None])
+    return y.reshape(b, s, k, d).sum(dim=2)
+
+
+def _gather_partial(params, x: Tensor, w: Tensor, ids: Tensor,
+                    cfg: ModelConfig, first: int, count: int) -> Tensor:
+    """The per-token gather on a rank: each token's top-k experts taken
+    from the rank's weights (an expert another rank holds is read at a
+    clamped index and zeroed), the (B, S, d) fp32 partial of the routed
+    output."""
+    b, s, d = x.shape
+    k = ids.shape[-1]
+    local = ids.reshape(-1) - first  # (T k,)
+    mine = (local >= 0) & (local < count)
+    local = torch.clamp(local, 0, count - 1)
+    cd = cfg.cdtype
+
+    def take(weight: Tensor) -> Tensor:  # (T k, ., .)
+        return torch.index_select(weight, 0, local).to(cd)
+
+    xq = x.reshape(b * s, 1, d).repeat_interleave(k, dim=0)  # (T k, 1, d)
+    g = torch.bmm(xq, take(params.w_gate))
+    u = torch.bmm(xq, take(params.w_up))
+    out = fp32_product(F.silu(g) * u, take(params.w_down))  # (T k, 1, d)
+    scale = w.reshape(-1).to(torch.float32) * mine
+    y = (out[:, 0] * scale[:, None]).reshape(b * s, k, d).sum(dim=1)
+    return y.reshape(b, s, d)
+
+
 def moe_ffn(params, x: Tensor, cfg: ModelConfig, *,
-            dispatch: str | None = None) -> tuple[Tensor, Tensor]:
+            dispatch: str | None = None, tp=None) -> tuple[Tensor, Tensor]:
     """Returns ``(y, aux)``.  ``dispatch`` None picks by shape: one token a
-    row gathers, longer rows go grouped."""
+    row gathers, longer rows go grouped.  ``tp`` (a model axis): the
+    rank's experts and shared columns, one all-reduce of their fp32
+    partials."""
     if dispatch is None:
         dispatch = "gather" if x.shape[1] == 1 else "grouped"
-    w, ids, aux = _route(params, x, cfg)
-    if dispatch == "grouped":
-        y = _moe_grouped(params, x, w, ids, cfg)
-    elif dispatch == "gather":
-        y = _moe_gather(params, x, w, ids, cfg)
-    else:
+    if dispatch not in ("grouped", "gather"):
         raise ValueError(f"unknown dispatch {dispatch!r}")
+    w, ids, aux = _route(params, x, cfg)
+    held = None if tp is None else _experts_held(params, cfg)
+    partial = y = None
+    if held is not None:
+        fn = _grouped_partial if dispatch == "grouped" else _gather_partial
+        partial = fn(params, x, w, ids, cfg, *held)
+    elif dispatch == "grouped":
+        y = _moe_grouped(params, x, w, ids, cfg)
+    else:
+        y = _moe_gather(params, x, w, ids, cfg)
     if cfg.moe.num_shared:
-        y = y + mlp(params.shared, x, cfg)
+        if tp is not None and is_split(params.shared):
+            shared = mlp_partial(params.shared, x, cfg)
+            partial = shared if partial is None else partial + shared
+        else:
+            shared = mlp(params.shared, x, cfg)
+            y = shared if y is None else y + shared
+    if partial is not None:
+        summed = tp.reduce_partial(partial, cfg.cdtype)
+        y = summed if y is None else y + summed
     return y, aux

@@ -1,4 +1,5 @@
-"""Tensor parallelism over a mesh's model axis, for dense-LM serving.
+"""Tensor parallelism over a mesh's model axis, for serving the dense and
+MoE families.
 
 The reference gives every model function ``rules`` and lets GSPMD split
 heads, MLP columns and the vocabulary over the ``model`` axis.  The port
@@ -12,14 +13,19 @@ the others in explicit collectives, Megatron-style:
   (``attention.head_layout``), the flash kernel on those heads; ``wo`` is
   split by rows and followed by one all-reduce;
 * the MLP's ``w_gate``/``w_up`` are split by columns and ``w_down`` by
-  rows, followed by one all-reduce.
+  rows, followed by one all-reduce;
+* an MoE layer's experts are split by their ff columns, or by expert
+  where the reference's ``_use_ep`` holds (``models.moe``); the routed
+  output's fp32 partial and the shared expert's join one all-reduce.
 
-The two row-parallel products (:meth:`TensorParallel.row_parallel`) keep
-their partial sums in fp32 through the all-reduce and round once to the
-compute type, as one rank's GEMM rounds its fp32 accumulator once: twice
-the bytes of a bf16 all-reduce, for logits closer to one rank's (on the
-H100, Llama-3-8B over 2 ranks: 0.086 from serve's at most, against 0.102
-with bf16 partial sums; PERF.md §6).
+Every split product that ends in a sum over the ranks
+(:func:`fp32_product`) keeps its partial sums in fp32 through the
+all-reduce and rounds once to the compute type
+(:meth:`TensorParallel.reduce_partial`), as one rank's GEMM rounds its
+fp32 accumulator once: twice the bytes of a bf16 all-reduce, for logits
+closer to one rank's (NVIDIA H100 80GB HBM3, 700 W, Llama-3-8B over 2
+ranks: 0.086 from serve's at most, against 0.102 with bf16 partial sums;
+PERF.md §6).
 
 Everything else (norms, RoPE, residuals, sampling) runs whole on every
 rank, on identical values.  A :class:`TensorParallel` context carries the
@@ -66,26 +72,44 @@ class TensorParallel:
         """The sum of ``x`` over the model ranks."""
         return self.comm.all_reduce(x, over="model")
 
+    def reduce_partial(self, y: torch.Tensor, dtype: torch.dtype
+                       ) -> torch.Tensor:
+        """The sum of the fp32 partial ``y`` over the model ranks, added
+        in fp32 and rounded to ``dtype`` once."""
+        return self.all_reduce(y).to(dtype)
+
     def row_parallel(self, x: torch.Tensor, w: torch.Tensor
                      ) -> torch.Tensor:
         """``x @ w`` where ``x`` holds this rank's columns and ``w`` its
         rows, summed over the model ranks: the partial products in fp32,
         added in fp32, rounded to ``x``'s type once."""
-        if x.dtype == torch.float32:
-            return self.all_reduce(x @ w)
-        flat = x.reshape(-1, x.shape[-1])
-        if flat.is_cuda:
-            y = torch.mm(flat, w, out_dtype=torch.float32)
-        else:  # the CPU has no mixed-type mm
-            y = flat.float() @ w.float()
-        return self.all_reduce(y).to(x.dtype).reshape(*x.shape[:-1],
-                                                       w.shape[-1])
+        return self.reduce_partial(fp32_product(x, w), x.dtype)
 
     def gather_last(self, x: torch.Tensor) -> torch.Tensor:
         """Every model rank's ``x`` joined along the last dim, in rank
         order (each rank holds one slice of that dim)."""
         parts = self.comm.all_gather(x, over="model")  # (t, ..., n)
         return parts.movedim(0, -2).reshape(*x.shape[:-1], -1)
+
+
+def fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` accumulated and returned in fp32, for a partial sum over
+    the model ranks: fp32 operands take the plain product; on the card
+    bf16 ones take ``torch.mm`` / ``torch.bmm`` with ``out_dtype``, and
+    the CPU, which has no mixed-type product, upcasts them.  ``w`` is 2-D
+    (``x``'s rows flattened) or, with ``x``, 3-D (a batched product)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if w.dim() == 3:
+        if x.is_cuda:
+            return torch.bmm(x, w, out_dtype=torch.float32)
+        return torch.bmm(x.float(), w.float())
+    flat = x.reshape(-1, x.shape[-1])
+    if flat.is_cuda:
+        y = torch.mm(flat, w, out_dtype=torch.float32)
+    else:
+        y = flat.float() @ w.float()
+    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 #: (config, rules, id of the mesh) -> (the mesh, kept alive, its context).
@@ -98,9 +122,11 @@ def tensor_parallel(cfg: ModelConfig, rules: ShardingRules | None
     None where the model axis has one rank (the single-device path, the
     data-parallel one).  Raises ``NotImplementedError`` naming ROADMAP.md
     for what the port does not serve over a model axis (a family other
-    than dense, expert parallelism, a cache only a sequence split could
-    place), before it touches any process group."""
-    if rules is None or rules.size(rules.tp) == rules.size(rules.sp) == 1:
+    than dense and MoE, MLA, experts the ranks do not divide, a cache only
+    a sequence split could place), before it touches any process
+    group."""
+    if rules is None or rules.size(rules.tp) == rules.size(rules.sp) \
+            == rules.size(rules.ep) == 1:
         return None
     key = (cfg, rules, id(rules.mesh))
     if key in _CONTEXTS:
@@ -109,7 +135,7 @@ def tensor_parallel(cfg: ModelConfig, rules: ShardingRules | None
     from repro_torch.models.params import named_specs
 
     axes = {"sp"}  # the decode cache, sequence-tagged in the reference
-    for _, spec in named_specs(get_model(cfg).specs()):
+    for _, spec in named_specs(get_model(cfg).specs()):  # "ep" included
         axes.update(a for a in spec.logical_axes if a is not None)
     rules.check(*sorted(axes), serving=cfg)
     if rules.mesh is None:

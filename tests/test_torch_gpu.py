@@ -2252,6 +2252,21 @@ def test_flash_bf16_at_the_families_prefill_shapes(cuda, h):
     assert row_err.max().item() <= FLASH_TOL[torch.bfloat16]
 
 
+@pytest.mark.gpu
+def test_flash_bf16_at_the_moe_model_axis_shape(cuda):
+    """qwen2-moe-a2.7b's prefill on one of 2 model ranks: 8 of its 16
+    heads, (4, 2048, 8, 128), causal, bf16: each query row within its
+    bar."""
+    q, k, v = _flash_inputs(cuda, 4, 2048, 2048, 8, 128, torch.bfloat16)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=True)
+    torch.cuda.synchronize()
+    diff = (got.float() - want).abs().amax(dim=(2, 3))
+    row_err = diff / want.abs().amax(dim=(2, 3))
+    assert row_err.max().item() <= FLASH_TOL[torch.bfloat16]
+
+
 # ---------------------------------------------------------------------------
 # The MLA, cross-attention and encoder-decoder families on the card
 # ---------------------------------------------------------------------------

@@ -726,3 +726,26 @@ def test_replayed_results_survive_the_next_admission(fake_graphs):
     svc.tick()
     for x, y in zip((first.l, first.s, first.u, first.v), kept):
         assert torch.equal(x, y)
+
+
+def test_float16_plane_is_the_references():
+    """A float16 tenant plane (the front door's other low-precision type):
+    admitted on the fp32 path, answered as the reference's service answers
+    the same float16 plane, and fingerprinted by its dtype (the same
+    values in fp32 key another lam-cache entry)."""
+    jcfg = JConfig.tuned(RANK)
+    scfg = dict(slots=2, rounds_per_tick=8, max_rounds=200)
+    ref = jsvc.RPCAService(M, N, jcfg, jsvc.RPCAServiceConfig(**scfg))
+    port = _with_reference_factors(
+        svc_mod.RPCAService(M, N, DCFConfig.tuned(RANK),
+                            svc_mod.RPCAServiceConfig(**scfg), device=CPU),
+        jcfg)
+    plane = _plane(N, seed=6).astype(np.float16)
+    got = _drain(port, [port.try_submit(torch.from_numpy(plane))])[0]
+    want = _drain(ref, [ref.try_submit(jnp.asarray(plane))])[0]
+    assert got.l.dtype == torch.float32
+    _close(got, want)
+    fp16 = svc_mod._fingerprint(torch.from_numpy(plane))
+    assert fp16 == svc_mod._fingerprint(torch.from_numpy(plane.copy()))
+    assert fp16 != svc_mod._fingerprint(
+        torch.from_numpy(plane.astype(np.float32)))

@@ -140,6 +140,90 @@ def test_masked_rounds_track_the_reference(masked_problem, case):
     assert mine.l.dtype == torch.float32 and mine.l.shape == (M, n)
 
 
+# name -> (clients, n, masked, DCFConfig overrides): a float16 plane through
+# cf and dcf, unmasked and masked (equal and ragged blocks, dense and
+# bit-packed masks).
+F16_CASES = {
+    "cf": (None, M, False, {}),
+    "dcf": (8, M, False, {}),
+    "cf_masked": (None, M, True, {}),
+    "dcf_masked": (8, M, True, dict(fused="dual")),
+    "dcf_ragged_packed": (8, 157, True, dict(fused="dual", pack_mask=True,
+                                             lam_sample=4096)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F16_CASES))
+def test_float16_rounds_track_the_reference(problem, masked_problem, case):
+    """Five rounds from the reference's problem of a float16 plane (the
+    reference stores it as given and computes in fp32; the port carries
+    it as fp32, where every float16 value is exact) end at the
+    reference's consensus U within 1e-4."""
+    clients, n, masked, overrides = F16_CASES[case]
+    p = masked_problem if masked else problem
+    cfg = (JConfig.masked(RANK, observed_frac=0.8, outer_iters=5,
+                          **overrides) if masked
+           else JConfig.tuned(RANK, outer_iters=5, **overrides))
+    m_obs = p.m_obs[:, :n].astype(jnp.float16)
+    mask = p.mask[:, :n] if masked else None
+    if clients is None:
+        ref_problem = jcf.make_problem(m_obs, cfg, jax.random.PRNGKey(0),
+                                       mask=mask)
+    else:
+        ref_problem = jdcf.make_problem(m_obs, cfg, clients,
+                                        jax.random.PRNGKey(0), mask=mask)
+    ref_data = ref_problem.m_obs if clients is None else ref_problem.blocks
+    assert ref_data.dtype == jnp.float16
+    carry, _ = jrt.run((jcf if clients is None else jdcf).make_solver(cfg),
+                       ref_problem, 5)
+    port = convert.problem_from_reference(ref_problem, "cpu")
+    assert (port.m_obs if clients is None else port.blocks).dtype \
+        == torch.float32
+    mine = (cf_pca if clients is None else dcf_pca).solve_problem(
+        port, convert.config_from_reference(cfg),
+        **({} if clients is None else {"n": n}))
+    want = np.asarray(carry.u)
+    diff = np.linalg.norm(mine.u.numpy() - want) / np.linalg.norm(want)
+    assert diff < 1e-4
+    assert mine.l.dtype == torch.float32 and mine.l.shape == (M, n)
+
+
+@pytest.fixture(scope="module")
+def float16_plane():
+    """ROADMAP Queue 3's plane: 96 x 80, r = 4, 5% spikes, in float16."""
+    p = jgenerate(jax.random.PRNGKey(3), 96, 80, 4, SPARSITY)
+    return np.asarray(p.m_obs).astype(np.float16), np.asarray(p.l0)
+
+
+@pytest.mark.parametrize("method,kw", [("cf", {}),
+                                       ("dcf", {"num_clients": 4})])
+def test_float16_plane_through_the_front_door(float16_plane, method, kw):
+    """``solve(RPCASpec(M_f16, rank=4))`` through cf and dcf: fp32 L
+    within 1e-4 (relative, Frobenius) of the reference's L from the same
+    float16 plane (both recover the low-rank part to ~3e-4; the two start
+    from their own generators' factors), where the port used to raise."""
+    m16, l0 = float16_plane
+    jres = jrpca.solve(jrpca.RPCASpec(jnp.asarray(m16), rank=4, **kw),
+                       method=method)
+    res = rpca.solve(rpca.RPCASpec(torch.from_numpy(m16), rank=4, **kw),
+                     method=method, device="cpu")
+    want = np.asarray(jres.l)
+    assert res.l.dtype == torch.float32 and res.l.shape == want.shape
+    got = res.l.numpy()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-4
+    err = np.linalg.norm(got - l0) / np.linalg.norm(l0)
+    assert err < 2 * np.linalg.norm(want - l0) / np.linalg.norm(l0)
+
+
+def test_other_data_types_are_refused_by_name():
+    """Integer data raises a TypeError naming the types the solvers take;
+    float16 no longer raises."""
+    plane = torch.ones(16, 12, dtype=torch.int32)
+    with pytest.raises(TypeError, match="float16, bfloat16, float32"):
+        rpca.solve(plane, method="cf", cfg=DCFConfig.tuned(2, outer_iters=2),
+                   device="cpu")
+
+
 def test_dual_masked_solve_recovers_like_the_reference(masked_problem):
     """A whole fused="dual" masked DCF solve from the reference's problem:
     observed completion error under the 1e-2 bar of

@@ -160,20 +160,44 @@ def test_rank_slices_are_one_ranks_weights(t):
 # ---------------------------------------------------------------------------
 # Refusals at build
 # ---------------------------------------------------------------------------
-REFUSED = ["qwen2-moe-a2.7b", "mamba2-780m", "jamba-1.5-large-398b",
-           "deepseek-v2-236b", "llama-3.2-vision-11b", "whisper-small"]
+REFUSED = ["mamba2-780m", "jamba-1.5-large-398b", "deepseek-v2-236b",
+           "llama-3.2-vision-11b", "whisper-small"]
 
 
 @pytest.mark.parametrize("arch", REFUSED)
 def test_other_families_are_refused_at_build(arch):
-    """MoE, SSM, hybrid, MLA, VLM and the encoder-decoder over model = 2
-    raise NotImplementedError naming ROADMAP.md when their parameters are
-    built (the meta device: nothing is allocated)."""
+    """SSM, hybrid, MLA (deepseek-v2's MoE with it), VLM and the
+    encoder-decoder over model = 2 raise NotImplementedError naming
+    ROADMAP.md when their parameters are built (the meta device: nothing
+    is allocated)."""
     model = get_model(configs.get_smoke_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         model.empty_params("meta", rules=_rules(2))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         model.init_cache(1, 8, "meta", rules=_rules(2))
+
+
+def test_moe_builds_over_the_model_axis(monkeypatch):
+    """qwen2-moe's smoke config builds over model = 2 on the meta device
+    (one process, no process group): the experts and the shared expert
+    split by ff columns, the router whole, the cache a rank's KV heads."""
+    from repro_torch.distributed import multihost as mh
+
+    monkeypatch.setattr(mh, "_axes_group", lambda mesh, axes: None)
+    mesh = _mesh(("data", "model"), (1, 2))
+    mesh.get_coordinate = lambda: [0, 1]
+    rules = sharding.rules_for_mesh(mesh)
+    cfg = configs.get_smoke_config("qwen2-moe-a2.7b")
+    model = get_model(cfg)
+    params = model.empty_params("meta", rules=rules)
+    ffn = params.layers[0].ffn
+    e, d, ff = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    assert ffn.w_gate.shape == (e, d, ff // 2)
+    assert ffn.w_down.shape == (e, ff // 2, d)
+    assert ffn.router.shape == (d, e)
+    assert ffn.shared.w_up.shape == (d, cfg.moe.d_ff_shared // 2)
+    k, _ = model.init_cache(1, 8, "meta", rules=rules)[0]
+    assert k.shape == (1, 8, cfg.n_kv_heads // 2, cfg.hd)
 
 
 def test_a_sequence_split_cache_is_refused_at_build():
@@ -187,14 +211,25 @@ def test_a_sequence_split_cache_is_refused_at_build():
 
 
 def test_expert_and_train_axes_are_refused():
-    """``ep`` over model = 2 raises even on the serving path, and a train
-    step over model = 2 raises at build."""
+    """``ep`` over model = 2 raises on the serving path for a config whose
+    experts do not split by expert (the reference's ``_use_ep`` False:
+    llama3-8b has none, qwen2-moe's 60 are not a multiple of TP_SIZE),
+    and passes for one whose ``_use_ep`` holds (16 experts, moe_ep);
+    a train step over model = 2 raises at build, naming item 11."""
+    import dataclasses
+
     cfg = configs.get_smoke_config("llama3-8b")
     rules = _rules(2)
     rules.check("tp", "sp", serving=cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         rules.check("ep", serving=cfg)
+    qwen = configs.get_config("qwen2-moe-a2.7b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        rules.check("ep", serving=qwen.replace(moe_ep=True))
+    moe = configs.get_smoke_config("qwen2-moe-a2.7b")
+    rules.check("tp", "sp", "ep", serving=moe.replace(
+        moe_ep=True, moe=dataclasses.replace(moe.moe, num_experts=16)))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
         make_train_step(get_model(cfg), opt.AdamWConfig(), rules)
 
 
