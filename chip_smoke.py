@@ -23,8 +23,11 @@ CUDA toolkit.  Phases, one JSON line each:
             M; dense and bit-packed masks); residual_shrink_psi at fig1
             (none, f32), d32 (dense) and d16 (none, bf16); flash_attention
             bf16 at the serve phase's shape (B=4, S=2048, H=32, d=128,
-            causal; row @tp, serve_tp's per-rank (4, 2048, 16, 128); row
-            @moe_tp, serve_moe_tp's per-rank (4, 2048, 8, 128)),
+            causal; row @tp, serve_tp's per-rank (4, 2048, 16, 128), also
+            serve_vlm_tp's self layers'; row @moe_tp, serve_moe_tp's
+            per-rank (4, 2048, 8, 128); rows @hybrid_tp and @whisper_tp,
+            serve_hybrid_tp's (4, 2048, 32, 128) and serve_encdec_tp's
+            (4, 416, 6, 64)),
             f32 at the small_lm phase's shape (2, 33, 4, 32,
             causal), at (1, 256, 4, 64, causal), f32 cross (2, 64 x 200,
             2, 64, full) and f32 at the serve_f32 phase's shape (4, 2048,
@@ -288,12 +291,13 @@ CUDA toolkit.  Phases, one JSON line each:
             layer of 16 experts of 24576; 1 flash launch): its period of 8
             layers would be ~90 GB of bf16 weights.  Every decode step
             routes, gathers its experts and updates the SSM states inside
-            the captured graph.  serve_moe keeps its prompt, tokens,
-            logits and its routing ids a layer and a step for
-            serve_moe_tp (``SERVE_TP_DIR/serve_moe.pt``), with the logits
-            of the fp32 model of the same weights fed its tokens under
-            its routing, and its own distance to them
-            (``logits_vs_fp32_model``).
+            the captured graph.  Each family's serve phase keeps its
+            prompt, tokens, logits, context and its routing ids a layer
+            and a step for its model-axis phase
+            (``SERVE_TP_DIR/<phase>.pt``), with the logits of the fp32
+            model of the same weights (upcast in place, last, freeing the
+            bf16 ones) fed its tokens under its routing, and its own
+            distance to them (``logits_vs_fp32_model``).
     serve_moe_tp qwen2-moe-a2.7b as serve_moe, over the same (1, 2) mesh
             on 2 gloo ranks sharing the card: the experts split by ff
             columns (704 of 1408 a rank), the shared expert by columns,
@@ -320,14 +324,44 @@ CUDA toolkit.  Phases, one JSON line each:
             width cut to n_layers 4 (the dense first layer and three MoE
             layers of 160 experts of 1536, top-6, 2 shared; its MLA is
             plain: 0 flash launches, so the flash-vs-plain gate compares
-            two plain prefills), llama-3.2-vision-11b whole (32 self
-            layers, 32 flash launches; 8 cross layers, plain, their gates
-            set to 0.5; a 4 x 1601 x 4096 context) and whisper-small whole
+            two plain prefills), llama-3.2-vision-11b at full width
+            and depth (40 layers, 8 groups: 32 self layers, 32 flash
+            launches; 8 cross layers, plain, their gates set to 0.5; a 4 x
+            1601 x 4096 context) and whisper-small whole
             (4 x 416 prompts, 32 new tokens; a 4 x 1500 x 768 context
             through the 12-layer encoder, plain, inside the prefill; 12
             flash launches).  Another context must move the logits.  The
             cross layers' context K/V sit in the caches, read by the
             captured decode step.
+    serve_ssm_tp, serve_hybrid_tp, serve_mla_tp, serve_vlm_tp,
+    serve_encdec_tp  right after each serve phase, its model (cut, gates
+            and context alike) over the same (1, 2) mesh on 2 gloo ranks
+            sharing the card, through serve_moe_tp's worker and gates
+            (the fp32-model logits gate, greedy tokens over the margin,
+            routing held and equal on both ranks in jamba's and
+            deepseek-v2's MoE layers, one all-reduce an MoE layer, weights
+            0.45-0.55 of the serve phase's): mamba2 on 24 of 48 SSD heads
+            a rank (B and C whole, the gated norm's sum of squares
+            all-reduced), the jamba cut on 64 of 128 SSD heads (4 of 8 B/C
+            groups) and 32 of 64 attention heads (1 flash launch at (4,
+            2048, 32, 128)), deepseek-v2 on 64 of 128 MLA heads over the
+            whole latent, llama-3.2-vision on 16 of 32 heads in its self
+            and cross layers (32 flash launches at (4, 2048, 16, 128)),
+            whisper on 6 of 12 heads in its encoder and decoder (12 flash
+            launches at (4, 416, 6, 64)).  One device computes what 2
+            ranks split by the halves that they hold (the SSD heads,
+            attention heads, MLP columns, vocabulary; not MoE experts or
+            MLA), so serve_tp, serve_ssm_tp, serve_vlm_tp and
+            serve_encdec_tp give their serve phase's logits bit for bit
+            (0.0 in forced_logits_abs_err_max).  Each line gives the
+            collectives of the prefill and of a decode step, the prefill
+            and eager
+            decode ms, tokens/s, the weights and peak a rank; decode is
+            eager because a gloo collective runs on the host and cannot be
+            captured.  A model-axis phase that fails is reported and the
+            run goes on; after its last phase it then names the failed
+            phases and exits with code 1, printing no kernels line and no
+            result.
 
 13. train_parity the smoke TinyLlama in fp32: one ``make_train_step`` step
             on the card against the same step on the CPU (loss within 1e-5
@@ -465,8 +499,20 @@ SERVE_TP_TIMEOUT = 600
 # serve_moe_tp is held to the fp32 model: within SERVE_TP_BAR of it, or
 # past it by no more than serve_moe is.  The comparison with serve_moe's
 # logits is reported beside it.
-MOE_TP_ARCH = "qwen2-moe-a2.7b"
 EP_EXPERTS, EP_BATCH, EP_PROMPT, EP_NEW, EP_TOL = 16, 2, 64, 8, 1e-4
+# The token gate of every model-axis phase: a greedy token is held to the
+# serve phase's wherever the serve phase's top-2 margin passes
+# SERVE_TP_MARGIN.  Beside it, not gated: where the fp32 model's own
+# margin passes it, how many of the rank's and of the serve phase's greedy
+# tokens differ from the fp32 model's.  mamba2-780m's 48 SSD layers in
+# bf16 lie up to 1.21 from its fp32 model on an NVIDIA H100 80GB HBM3 at
+# 700 W (mean 0.117), as the JAX reference's own bf16 does on the CPU
+# (tools/ssm_bf16_drift.py), and one bit that differs in an early layer
+# grows to that distance, so two bf16 runs that differ in their sums part
+# over the margin.  One device computes what 2 ranks split by their
+# halves (ssm._head_parts, attention._halves, mlp.mlp, layers.logits), so
+# serve_ssm_tp's logits are serve_ssm's bits (tools/tp_bits.py; PERF.md
+# §6), as are serve_tp's, serve_vlm_tp's and serve_encdec_tp's.
 # The fp32 serving path: TinyLlama-1.1B's prefill at 4 x 2048 (arXiv:
 # 2401.02385), the fp32 flash kernel's full-width shape.
 F32_ARCH, F32_NEW = "tinyllama-1.1b", 16
@@ -477,11 +523,12 @@ F32_ARCH, F32_NEW = "tinyllama-1.1b", 16
 # MLP, attention + MoE) at n_layers 2, attn_period 2.  DeepSeek-V2's 60
 # layers are ~236B parameters (~472 GB): its cut keeps the dense first
 # layer and three MoE layers (160 experts of 1536, top-6, 2 shared) at
-# n_layers 4, ~13.3B parameters.  llama-3.2-vision-11b runs whole (40
-# layers: 8 groups of 4 self and 1 cross layer) with a context of 1601
-# patches; whisper-small whole (12 encoder and 12 decoder layers) with
-# 1500 frames and 4 x 416 prompts, so that prompt and 32 new tokens fill
-# Whisper's decoder context of 448 tokens (n_text_ctx, arXiv:2212.04356).
+# n_layers 4, ~13.3B parameters.  llama-3.2-vision-11b runs whole (8
+# groups of 4 self and 1 cross layer, 40 layers) with a context of 1601
+# patches; whisper-small whole (12
+# encoder and 12 decoder layers) with 1500 frames and 4 x 416 prompts, so
+# that prompt and 32 new tokens fill Whisper's decoder context of 448
+# tokens (n_text_ctx, arXiv:2212.04356).
 WHISPER_PROMPT = 448 - SERVE_NEW
 FAMILY_SERVES = [
     ("serve_ssm", "mamba2-780m", {}, SERVE_PROMPT),
@@ -492,9 +539,19 @@ FAMILY_SERVES = [
     ("serve_vlm", "llama-3.2-vision-11b", {}, SERVE_PROMPT),
     ("serve_encdec", "whisper-small", {}, WHISPER_PROMPT),
 ]
-# The serve phases whose prompt, tokens and eager logits (and routing)
-# a model-axis phase is held to: phase -> file under SERVE_TP_DIR.
-TP_YARDSTICKS = {"serve": "serve.pt", "serve_moe": "serve_moe.pt"}
+# The serve phases whose prompt, tokens and eager logits (and routing,
+# context and, but for serve's, the fp32 model's logits) a model-axis
+# phase is held to: phase -> file under SERVE_TP_DIR.
+TP_YARDSTICKS = {name: f"{name}.pt" for name in (
+    "serve", "serve_moe", "serve_ssm", "serve_hybrid", "serve_mla",
+    "serve_vlm", "serve_encdec")}
+# Each family's model-axis phase, right after its serve phase: the same
+# config, cut and prompt over SERVE_TP_RANKS gloo ranks sharing the card,
+# fed the serve phase's tokens (and context), held to its routing and
+# gated on the fp32 model of its weights (TP_FP32_GATE), as serve_moe_tp.
+FAMILY_TP = {"serve_ssm": "serve_ssm_tp", "serve_moe": "serve_moe_tp",
+             "serve_hybrid": "serve_hybrid_tp", "serve_mla": "serve_mla_tp",
+             "serve_vlm": "serve_vlm_tp", "serve_encdec": "serve_encdec_tp"}
 # Every cross layer's gate after init_params: the reference initialises it
 # to 0, and tanh(0) = 0 would take the cross path out of the logits.
 SERVE_CROSS_GATE = 0.5
@@ -806,6 +863,15 @@ FLASH_ROWS = [
     ("flash_attention@whisper",
      (SERVE_BATCH, WHISPER_PROMPT, WHISPER_PROMPT, 12, 64), True, "bf16",
      "serve_encdec"),
+    # The same prefills on one of 2 model ranks: the jamba cut's 32 of 64
+    # heads (GQA 8: its 4 KV heads repeated) and whisper's 6 of 12.
+    # llama-3.2-vision's self layers there run @tp's shape (16 heads).
+    ("flash_attention@hybrid_tp",
+     (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 64 // SERVE_TP_RANKS, 128),
+     True, "bf16", "serve_hybrid_tp"),
+    ("flash_attention@whisper_tp",
+     (SERVE_BATCH, WHISPER_PROMPT, WHISPER_PROMPT, 12 // SERVE_TP_RANKS, 64),
+     True, "bf16", "serve_encdec_tp"),
 ]
 
 
@@ -3464,22 +3530,30 @@ class RoutingHold:
                     token_decisions=self.decisions, calls=len(self.seen))
 
 
-def fp32_model_logits(cfg, params, prompt, tokens, ids) -> "torch.Tensor":
-    """The fp32 model of a served MoE run: the same (bf16) weights, each
-    upcast where it is used, every activation and product in fp32 (TF32
-    off; the flash kernel's fp32 path), fed the run's tokens and held to
-    its routing ``ids`` (a call each): the prefill's and every decode
-    step's logits, (steps, B, V) fp32 on the host."""
+def fp32_model_logits(cfg, params, prompt, tokens, ids,
+                      ctx=None) -> "torch.Tensor":
+    """The fp32 model of a served run: the same weights, upcast to fp32 in
+    place (each bf16 tensor is freed as its copy is made, so the card
+    holds the fp32 weights alone: ~50 GB for the jamba and deepseek-v2
+    cuts), every activation and product in fp32 (TF32 off; the flash
+    kernel's fp32 path), fed the run's tokens and context and held to its
+    routing ``ids`` (a call each): the prefill's and every decode step's
+    logits, (steps, B, V) fp32 on the host.  ``params`` are fp32 after."""
     import torch
 
     from repro_torch.models import get_model
 
+    with torch.no_grad():
+        for p in params.parameters():
+            p.data = p.data.float()
+    torch.cuda.empty_cache()
     model = get_model(cfg.replace(compute_dtype="float32"))
     b, s = prompt.shape
     new = tokens.shape[1]
     with RoutingHold(ids).replay():
         caches = model.init_cache(b, s + new, prompt.device)
-        logits, _ = model.prefill(params, prompt, caches)
+        logits, _ = model.prefill(params, prompt, caches,
+                                  ctx=None if ctx is None else ctx.float())
         out = [logits.float().cpu()]
         for i in range(new - 1):
             step, _ = model.decode_step(params, tokens[:, i:i + 1], caches,
@@ -3609,7 +3683,9 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9
-    dryrun_row(name, cfg, cut, params, weights_gb, prompt_len + new_tokens)
+    param_gb = dryrun_row(name, cfg, cut, params, weights_gb,
+                          prompt_len + new_tokens)[
+        "materialised_weight_bytes"] / 1e9
     scfg = ServeConfig(max_new_tokens=new_tokens)
 
     kept = _EventTimedModel(model)
@@ -3644,24 +3720,6 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
     torch.cuda.synchronize()
     eager_step_ms = eager_timed.step_ms()
     same = bool(torch.equal(tokens, eager_tokens))
-    vs_fp32 = None
-    if yardstick is not None:  # a model-axis phase's yardstick
-        SERVE_TP_DIR.mkdir(parents=True, exist_ok=True)
-        fed = [logits.cpu()] + [x.cpu() for x in eager_timed.step_logits]
-        saved = dict(prompt=prompt.cpu(), tokens=tokens.cpu(),
-                     prefill=fed[0], steps=torch.stack(fed[1:]),
-                     routes=[ids.to(torch.int16).cpu()
-                             for ids in eager_routing.ids],
-                     weights_gb=weights_gb)
-        if cfg.moe is not None:
-            saved["fp32"] = fp32_model_logits(cfg, params, prompt, tokens,
-                                              eager_routing.ids)
-            vs_fp32 = allclose_excess(fed, saved["fp32"], SERVE_TP_BAR)
-            saved["fp32_excess"] = vs_fp32["excess"]
-        torch.save(saved, SERVE_TP_DIR / yardstick)
-        eager_timed.step_logits = []
-        del fed, saved
-    del eager_routing
     # The same weights and prompt with the config's flash switch off: the
     # plain (chunked, fp32 softmax) attention of every layer.
     plain = get_model(cfg.replace(flash_attention=False))
@@ -3686,16 +3744,34 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
         ctx_moved = _rel_diff(moved_logits, logits)
         del moved_logits
     finite = bool(torch.isfinite(logits.float()).all())
-    # Self-attention layers (a cross layer carries a gate; MLA has no wq).
-    attention_layers = sum(hasattr(layer.mixer, "wq")
-                           and not hasattr(layer, "gate")
-                           for layer in params.layers)
+    # One flash launch a self-attention layer of the decoder.
+    attention_layers = sum(m == "attn" for m, _ in model.layer_plan())
     want = {"flash_attention": attention_layers}
     in_vocab = bool((tokens >= 0).all()
                     and (tokens < padded_vocab(cfg.vocab)).all())
     replays = new_tokens - 2
     del ref_logits
     profiled = profile_run(serve)
+    vs_fp32 = None
+    if yardstick is not None:  # a model-axis phase's yardstick
+        SERVE_TP_DIR.mkdir(parents=True, exist_ok=True)
+        fed = [logits.cpu()] + [x.cpu() for x in eager_timed.step_logits]
+        eager_timed.step_logits = []
+        saved = dict(prompt=prompt.cpu(), tokens=tokens.cpu(),
+                     prefill=fed[0], steps=torch.stack(fed[1:]),
+                     routes=[ids.to(torch.int16).cpu()
+                             for ids in eager_routing.ids],
+                     ctx=None if ctx is None else ctx.cpu(),
+                     weights_gb=weights_gb)
+        if name != "serve":
+            # Last: the fp32 model takes the weights (upcast in place).
+            saved["fp32"] = fp32_model_logits(cfg, params, prompt, tokens,
+                                              eager_routing.ids, ctx)
+            vs_fp32 = allclose_excess(fed, saved["fp32"], SERVE_TP_BAR)
+            saved["fp32_excess"] = vs_fp32["excess"]
+        torch.save(saved, SERVE_TP_DIR / yardstick)
+        del fed, saved
+    del eager_routing
     gate_values = [float(g) for g in gates]
     ok = (tuple(tokens.shape) == (SERVE_BATCH, new_tokens) and in_vocab
           and finite and rel <= SERVE_LOGITS_BAR and same
@@ -3711,7 +3787,8 @@ def serve_phase(device, name: str = "serve", arch: str = SERVE_ARCH,
                ctx_tokens=None if ctx is None else ctx.shape[1],
                cross_gates=gate_values or None,
                logits_rel_moved_by_other_ctx=ctx_moved,
-               setup_s=setup_s, weights_gb=weights_gb, wall_s=wall,
+               setup_s=setup_s, weights_gb=weights_gb, param_gb=param_gb,
+               wall_s=wall,
                tokens_per_s=SERVE_BATCH * new_tokens / wall,
                prefill_ms=prefill_ms,
                decode_ms_per_step=profiled["graph_replays"]["period_ms"],
@@ -3749,7 +3826,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models import get_model
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.attention import head_layout
+from repro_torch.models.attention import head_layout, mla_heads
+from repro_torch.models.ssm import head_split
 from repro_torch.serving.engine import ServeConfig, generate
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -3759,19 +3837,37 @@ device = torch.device("cuda")
 mesh = _mh.multihost_mesh(("data", "model"), (1, env["ranks"]),
                           device=device)
 rules = rules_for_mesh(mesh)
-cfg = configs.get_config(env["arch"]).replace(flash_attention=True)
+cfg = configs.get_config(env["arch"]).replace(flash_attention=True,
+                                              **env["cut"])
 model = get_model(cfg)
 tp = model.tensor_parallel(rules)
 torch.cuda.reset_peak_memory_stats()
 t0 = time.perf_counter()
 params = model.init_params(seed=0, device=device, rules=rules)
+with torch.no_grad():
+    for layer in params.layers:
+        if hasattr(layer, "gate"):  # as the serve phase set them
+            layer.gate.fill_(env["gate"])
 torch.cuda.synchronize()
 setup_s = time.perf_counter() - t0
 weights_gb = sum(p.numel() * p.element_size()
                  for p in params.parameters()) / 1e9
+# The rank's heads: attention's (query, KV), the SSD mixer's (heads, B/C
+# groups), MLA's.
+layout = {}
+if cfg.ssm is not None:
+    ssd = head_split(cfg, tp.size, tp.index)
+    layout["ssd"] = dict(heads=ssd.heads, h0=ssd.h0, groups=ssd.groups)
+if cfg.mla is not None:
+    layout["mla"] = dict(heads=mla_heads(cfg, tp.size))
+elif cfg.family != "ssm":
+    att = head_layout(cfg, tp.size, tp.index)
+    layout["attn"] = dict(heads=att.heads, kv_heads=att.kv_heads)
 serve = torch.load(env["serve"])
 prompt = serve["prompt"].to(device)
-served = serve["tokens"].to(device)
+# The serve phase's tokens, env["new"] of them.
+served = serve["tokens"][:, :env["new"]].to(device)
+ctx = None if serve.get("ctx") is None else serve["ctx"].to(device)
 b, s = prompt.shape
 new = served.shape[1]
 
@@ -3805,22 +3901,28 @@ def moe_ffn(*args, **kw):
 moe_mod.moe_ffn = moe_ffn
 # Fed serve's tokens (this run also warms the libraries), held to its
 # routing where the model routes (chip_smoke's RoutingHold on the ids
-# serve_moe recorded): the prefill's and every decode step's logits
-# against serve's, and the greedy tokens.
+# the serve phase recorded): the prefill's and every decode step's
+# logits against the serve phase's, and the greedy tokens.  The
+# collectives of the prefill and of the decode steps apart.
 with hold.replay() if moe else contextlib.nullcontext():
     caches = model.init_cache(b, s + new, device, rules=rules)
     cache_gb = sum(x.numel() * x.element_size()
                    for c in caches for x in c) / 1e9
-    logits, _ = model.prefill(params, prompt, caches, rules=rules)
+    _mh.wire_counts(reset=True)
+    logits, _ = model.prefill(params, prompt, caches, ctx=ctx, rules=rules)
+    prefill_wire = _mh.wire_counts(reset=True)
     forced = [logits.cpu()]
     for i in range(new - 1):
         step, _ = model.decode_step(params, served[:, i:i + 1], caches,
                                     s + i, rules=rules)
         forced.append(step.cpu())
+    step_wire = _mh.wire_counts(reset=True)
 held = routing() if moe else None
-wants = [serve["prefill"]] + list(serve["steps"])
+wants = [serve["prefill"]] + list(serve["steps"][:new - 1])
 abs_err, rel_err, excess = [], [], []
 held_tokens, differ, served_argmax = 0, 0, True
+fp32_held = fp32_differ = serve_fp32_differ = 0
+fp32 = None if "fp32" not in serve else serve["fp32"][:new]
 for col, (got, want) in enumerate(zip(forced, wants, strict=True)):
     got, want = got.float(), want.float()
     diff = (got - want).abs()
@@ -3834,17 +3936,30 @@ for col, (got, want) in enumerate(zip(forced, wants, strict=True)):
     served_argmax &= bool((argmax == serve["tokens"][:, col]).all())
     held_tokens += int(sure.sum())
     differ += int((sure & (got.argmax(-1) != argmax)).sum())
+    # Where the fp32 model's own top-2 margin passes the margin, this
+    # rank's and the serve phase's greedy tokens against the fp32 model's
+    # (reported, not gated).
+    if fp32 is not None:
+        ftop = fp32[col].topk(2, dim=-1)
+        fsure = (ftop.values[:, 0] - ftop.values[:, 1]) > env["margin"]
+        fmax = ftop.indices[:, 0]
+        fp32_held += int(fsure.sum())
+        fp32_differ += int((fsure & (got.argmax(-1) != fmax)).sum())
+        serve_fp32_differ += int((fsure & (argmax != fmax)).sum())
 finite = all(bool(torch.isfinite(x.float()).all()) for x in forced)
 # Against the fp32 model of the same weights, tokens and routing, where the
-# serve phase made one (an MoE model's).
-vs_fp32 = None
-if "fp32" in serve:
-    vs_fp32 = []
-    for got, want in zip(forced, serve["fp32"], strict=True):
-        d = (got.float() - want).abs()
-        vs_fp32.append(dict(
-            excess=float((d - env["bar"] * want.abs()).max()) - env["bar"],
-            abs_max=float(d.max()), abs_mean=float(d.mean())))
+# serve phase made one (every phase's but serve's): this rank's logits and,
+# beside them, the serve phase's own.
+vs_fp32 = serve_vs_fp32 = None
+if fp32 is not None:
+    vs_fp32, serve_vs_fp32 = [], []
+    for got, ref, want in zip(forced, wants, fp32, strict=True):
+        for out, x in ((vs_fp32, got), (serve_vs_fp32, ref)):
+            d = (x.float() - want).abs()
+            out.append(dict(
+                excess=float((d - env["bar"] * want.abs()).max())
+                - env["bar"], abs_max=float(d.max()),
+                abs_mean=float(d.mean())))
 del forced, caches
 
 
@@ -3891,8 +4006,8 @@ with hold.compare() if moe else contextlib.nullcontext():
     _mh.wire_counts(reset=True)
     t0 = time.perf_counter()
     tokens, info = generate(timed, params, prompt,
-                            ServeConfig(max_new_tokens=new), rules=rules,
-                            return_info=True)
+                            ServeConfig(max_new_tokens=new), ctx=ctx,
+                            rules=rules, return_info=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: c for k, c in ops.launch_counts().items() if c}
@@ -3902,18 +4017,20 @@ free = routing() if moe else None
 ev = timed.events
 steps = len(ev) - 2
 row = dict(
-    rank=tp.index, ranks=tp.size, heads=head_layout(cfg, tp.size,
-                                                    tp.index).heads,
-    kv_heads=head_layout(cfg, tp.size, tp.index).kv_heads,
+    rank=tp.index, ranks=tp.size, layout=layout,
     setup_s=setup_s, weights_gb=weights_gb, cache_gb=cache_gb,
     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     launches=counts, flash_shapes=sorted(shapes), info=info,
     tokens=tokens.cpu().tolist(), wall_s=wall,
     prefill_ms=ev[0].elapsed_time(ev[1]),
     decode_ms_per_step=ev[1].elapsed_time(ev[-1]) / steps,
-    wire=wire, forced_abs_err=abs_err, forced_rel_err=rel_err,
+    wire=wire, prefill_wire=prefill_wire, step_wire=step_wire,
+    forced_abs_err=abs_err, forced_rel_err=rel_err,
+    serve_vs_fp32=serve_vs_fp32,
     forced_excess=excess,
     margin_held=held_tokens, margin_differ=differ,
+    fp32_tokens=dict(held=fp32_held, differ=fp32_differ,
+                     serve_differ=serve_fp32_differ),
     served_tokens_are_argmax=served_argmax, finite=finite,
     vs_fp32=vs_fp32, held_routing=held, free_routing=free,
     moe_all_reduces=sorted(set(moe_all_reduces)),
@@ -3972,40 +4089,52 @@ print("SERVE_TP " + json.dumps(row), flush=True)
 
 
 def serve_tp_phase(device, serve_row: dict, name: str = "serve_tp",
-                   arch: str = SERVE_ARCH) -> dict:
-    """``serve_tp`` and ``serve_moe_tp``: :data:`SERVE_TP_WORKER` on
-    :data:`SERVE_TP_RANKS` gloo ranks sharing the card
-    (``multihost.launch_workers``), each serving the serve phase's model
-    (``serve_row``: Llama-3-8B's serve, or qwen2-moe-a2.7b's serve_moe)
-    over a (1, 2) ("data", "model") mesh from its weights seed, fed its
-    prompt (``SERVE_TP_DIR`` / :data:`TP_YARDSTICKS`, written by it).
-    Gates: every rank's weights about half of the serve phase's, exactly
-    one flash_attention launch a layer at h/t heads in ``generate``, the
-    decode eager (gloo) and saying so, the same in-vocabulary tokens on
-    every rank; fed the serve phase's tokens (and, for an MoE model, held
-    to its routing), every step's logits within :data:`SERVE_TP_BAR` of
-    its logits and the greedy token its token wherever its top-2 margin
-    passes :data:`SERVE_TP_MARGIN`.  An MoE model also: the routing ids
-    identical on every rank at every layer and step (a hash of each
-    run's), one all-reduce an MoE layer, and the expert-parallel smoke
-    cohort (:data:`EP_EXPERTS` experts, ``moe_ep``) within
-    :data:`EP_TOL` of its single-rank run with its tokens.  The prefill
-    ms, eager decode ms a step and the collectives a prefill + decode
-    beside the serve phase's."""
+                   arch: str = SERVE_ARCH, cut: dict | None = None) -> dict:
+    """``serve_tp`` and each family's model-axis phase (:data:`FAMILY_TP`):
+    :data:`SERVE_TP_WORKER` on :data:`SERVE_TP_RANKS` gloo ranks sharing
+    the card (``multihost.launch_workers``), each serving the serve
+    phase's model (``serve_row``: ``arch`` with its ``cut``, the cross
+    gates at :data:`SERVE_CROSS_GATE`) over a (1, 2) ("data", "model")
+    mesh from its weights seed, fed its prompt and context
+    (``SERVE_TP_DIR`` / :data:`TP_YARDSTICKS`, written by it).  Gates:
+    every rank's weights about half of the serve phase's, exactly one
+    flash_attention launch a self-attention layer at h/t heads in
+    ``generate`` (none for the SSD mixer, MLA, cross-attention or the
+    whisper encoder), the decode eager (gloo) and saying so, the same
+    in-vocabulary tokens on every rank; fed the serve phase's tokens (and,
+    for an MoE model, held to its routing), every step's logits within
+    :data:`SERVE_TP_BAR` of the serve phase's logits (serve_tp) or of the
+    fp32 model of its weights, tokens and routing, or past that by no more
+    than the serve phase's own (TP_FP32_GATE: every other phase), and the
+    greedy token its token wherever its top-2 margin passes
+    :data:`SERVE_TP_MARGIN`.  An MoE model also: the routing ids identical
+    on every rank at every layer and step (a hash of each run's) and one
+    all-reduce an MoE layer; serve_moe_tp also the expert-parallel smoke
+    cohort (:data:`EP_EXPERTS` experts, ``moe_ep``) within :data:`EP_TOL`
+    of its single-rank run with its tokens.  The prefill ms, eager decode
+    ms a step, tokens/s and the collectives of the prefill and of a decode
+    step beside the serve phase's.  A failed phase is emitted with ``ok``
+    false and returned: ``main`` fails the run after its last phase."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.distributed import multihost as mh
+    from repro_torch.models import get_model
+    from repro_torch.models.attention import head_layout
     from repro_torch.models.layers import padded_vocab
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(**(cut or {}))
     moe = cfg.moe is not None
+    plan = get_model(cfg).layer_plan()
     yardstick = SERVE_TP_DIR / TP_YARDSTICKS[serve_row["phase"]]
+    prompt_len = serve_row["prompt"]
     torch.cuda.empty_cache()
-    env = dict(arch=arch, ranks=SERVE_TP_RANKS, serve=str(yardstick),
+    env = dict(arch=arch, cut=cut or {}, ranks=SERVE_TP_RANKS,
+               serve=str(yardstick), gate=SERVE_CROSS_GATE, new=SERVE_NEW,
                margin=SERVE_TP_MARGIN, bar=SERVE_TP_BAR,
                ep=dict(experts=EP_EXPERTS, batch=EP_BATCH, prompt=EP_PROMPT,
-                       new=EP_NEW, tol=EP_TOL) if moe else None)
+                       new=EP_NEW, tol=EP_TOL)
+               if name == "serve_moe_tp" else None)
     t0 = time.perf_counter()
     outs = mh.launch_workers(SERVE_TP_WORKER, num_processes=SERVE_TP_RANKS,
                              backend="gloo", timeout=SERVE_TP_TIMEOUT,
@@ -4016,36 +4145,46 @@ def serve_tp_phase(device, serve_row: dict, name: str = "serve_tp",
                    for ln in out.splitlines()
                    if ln.startswith("SERVE_TP ")),
                   key=lambda r: r["rank"])
-    heads = cfg.n_heads // SERVE_TP_RANKS
-    want = {"flash_attention": cfg.n_layers}
-    shape = [SERVE_BATCH, SERVE_PROMPT, heads, cfg.hd]
+    # One flash launch a self-attention layer of the decoder, on the
+    # rank's query heads.
+    attention_layers = sum(m == "attn" for m, _ in plan)
+    want = {"flash_attention": attention_layers} if attention_layers else {}
+    shapes = ([[SERVE_BATCH, prompt_len,
+                head_layout(cfg, SERVE_TP_RANKS, 0).heads, cfg.hd]]
+              if attention_layers else [])
     pv = padded_vocab(cfg.vocab)
     same_tokens = len({json.dumps(r["tokens"]) for r in rows}) == 1
     in_vocab = all(0 <= t < pv for r in rows for ln in r["tokens"]
                    for t in ln)
-    weight_share = [r["weights_gb"] / serve_row["weights_gb"] for r in rows]
+    # Parameter bytes against parameter bytes (the serve phase's
+    # allocator figure also holds its context and prompt).
+    weight_share = [r["weights_gb"] / serve_row["param_gb"] for r in rows]
     saved = torch.load(yardstick)
     served = saved["tokens"].tolist()
-    steps = SERVE_NEW - 1
+    new = env["new"]
+    steps = new - 1
     # The logits gate.  Without an fp32 model (serve's): every step within
-    # the bar of the serve phase's logits.  With one (serve_moe's): within
-    # the bar of the fp32 model, or past it by no more than the serve
-    # phase's own bf16 logits are; beside it the comparison with the
-    # serve phase's logits (TP_FP32_GATE).
+    # the bar of the serve phase's logits.  With one: within the bar of
+    # the fp32 model, or past it by no more than the serve phase's own
+    # bf16 logits are; beside it the comparison with the serve phase's
+    # logits (TP_FP32_GATE).
     fp32_bar = None if "fp32" not in saved else max(0.0,
                                                     saved["fp32_excess"])
 
-    def logits_ok(r):
+    def logits_gate(r) -> str | None:
+        """The clause that passes ``r``'s logits, or None."""
         if fp32_bar is None:
-            return max(r["forced_excess"]) <= 0
-        return max(x["excess"] for x in r["vs_fp32"]) <= fp32_bar
+            return "bar" if max(r["forced_excess"]) <= 0 else None
+        if max(x["excess"] for x in r["vs_fp32"]) <= fp32_bar:
+            return "fp32 model"
+        return None
 
     ok = (len(rows) == SERVE_TP_RANKS and same_tokens and in_vocab
-          and all(r["launches"] == want and r["heads"] == heads
-                  and r["flash_shapes"] == [shape]
+          and all(r["launches"] == want
+                  and r["flash_shapes"] == shapes
                   and r["info"]["decode"] == "eager"
                   and "gloo" in r["info"]["why"]
-                  and logits_ok(r)
+                  and logits_gate(r) is not None
                   and r["margin_differ"] == 0 and r["finite"]
                   and r["served_tokens_are_argmax"] for r in rows)
           and all(0.45 <= x <= 0.55 for x in weight_share))
@@ -4054,20 +4193,15 @@ def serve_tp_phase(device, serve_row: dict, name: str = "serve_tp",
     moe_fields = {}
     if moe:
         # One routing a call on both ranks, in the held run and the free
-        # one (calls: a prefill and 31 steps, 24 MoE layers each).
-        calls = cfg.n_layers * SERVE_NEW
+        # one (calls: a prefill and 31 steps, each MoE layer).
+        calls = sum(ffn == "moe" for _, ffn in plan) * new
         routing_same = all(
             len({r[run]["hash"] for r in rows}) == 1
             and all(r[run]["calls"] == calls for r in rows)
             for run in ("held_routing", "free_routing"))
         one_reduce = all(r["moe_all_reduces"] == [1]
                          and r["moe_layer_calls"] == calls for r in rows)
-        ep = [r["ep"] for r in rows]
-        ep_ok = (len({e["routing"]["hash"] for e in ep}) == 1
-                 and all(e["excess"] <= 0 and e["tokens_equal"]
-                         and e["experts_per_rank"]
-                         == EP_EXPERTS // SERVE_TP_RANKS for e in ep))
-        ok = ok and routing_same and one_reduce and ep_ok
+        ok = ok and routing_same and one_reduce
         moe_fields = dict(
             experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
             expert_ff_per_rank=cfg.moe.d_ff_expert // SERVE_TP_RANKS,
@@ -4081,17 +4215,34 @@ def serve_tp_phase(device, serve_row: dict, name: str = "serve_tp",
                                          for r in rows],
             token_decisions=r0["free_routing"]["token_decisions"],
             all_reduces_per_moe_layer=r0["moe_all_reduces"],
-            one_all_reduce_per_moe_layer=one_reduce,
-            ep_cohort=dict(arch=f"{arch} smoke", dtype="float32",
-                           experts=EP_EXPERTS, batch=EP_BATCH,
-                           prompt=EP_PROMPT, new_tokens=EP_NEW, tol=EP_TOL,
-                           per_rank=ep, ok=ep_ok))
+            one_all_reduce_per_moe_layer=one_reduce)
+    if env["ep"] is not None:
+        ep = [r["ep"] for r in rows]
+        ep_ok = (len({e["routing"]["hash"] for e in ep}) == 1
+                 and all(e["excess"] <= 0 and e["tokens_equal"]
+                         and e["experts_per_rank"]
+                         == EP_EXPERTS // SERVE_TP_RANKS for e in ep))
+        ok = ok and ep_ok
+        moe_fields["ep_cohort"] = dict(
+            arch=f"{arch} smoke", dtype="float32", experts=EP_EXPERTS,
+            batch=EP_BATCH, prompt=EP_PROMPT, new_tokens=EP_NEW, tol=EP_TOL,
+            per_rank=ep, ok=ep_ok)
+
+    def per_call(w: dict, calls: int) -> dict:
+        """A wire snapshot over ``calls`` forwards, per forward."""
+        return dict(
+            all_reduce_calls=w.get("all_reduce_calls", 0) / calls,
+            all_reduce_bytes=w.get("all_reduce_bytes", 0) / calls,
+            all_gather_bytes=w.get("all_gather_bytes", 0) / calls,
+            seconds=w.get("seconds", 0) / calls)
+
     row = dict(
-        phase=name, arch=arch, ranks=len(rows),
-        mesh={"data": 1, "model": SERVE_TP_RANKS}, backend="gloo",
-        layers=cfg.n_layers, heads_per_rank=[r["heads"] for r in rows],
-        kv_heads_per_rank=[r["kv_heads"] for r in rows],
-        batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        phase=name, arch=arch, family=cfg.family, cut=cut or None,
+        ranks=len(rows), mesh={"data": 1, "model": SERVE_TP_RANKS},
+        backend="gloo", layers=cfg.n_layers,
+        layout_per_rank=[r["layout"] for r in rows],
+        batch=SERVE_BATCH, prompt=prompt_len, new_tokens=new,
+        ctx_tokens=serve_row.get("ctx_tokens"),
         weights_gb_per_rank=[r["weights_gb"] for r in rows],
         serve_weights_gb=serve_row["weights_gb"],
         weight_share_of_serve=weight_share,
@@ -4099,6 +4250,8 @@ def serve_tp_phase(device, serve_row: dict, name: str = "serve_tp",
         peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in rows],
         setup_s_per_rank=[r["setup_s"] for r in rows], wall_s=wall,
         generate_wall_s_per_rank=[r["wall_s"] for r in rows],
+        tokens_per_s_per_rank=[SERVE_BATCH * new / r["wall_s"]
+                               for r in rows],
         prefill_ms_per_rank=[r["prefill_ms"] for r in rows],
         eager_decode_ms_per_step_per_rank=[r["decode_ms_per_step"]
                                            for r in rows],
@@ -4108,11 +4261,14 @@ def serve_tp_phase(device, serve_row: dict, name: str = "serve_tp",
         decode=r0.get("info"),
         collectives_in_generate=wire,
         all_reduce_calls_per_forward=wire.get("all_reduce_calls", 0)
-        / SERVE_NEW,
+        / new,
         collective_bytes_per_forward=(wire.get("all_reduce_bytes", 0)
                                       + wire.get("all_gather_bytes", 0))
-        / SERVE_NEW,
+        / new,
         collective_s_per_rank=[r["wire"]["seconds"] for r in rows],
+        collectives_per_prefill=per_call(r0.get("prefill_wire", {}), 1),
+        collectives_per_decode_step=per_call(r0.get("step_wire", {}),
+                                             steps),
         flash_shapes=r0.get("flash_shapes"),
         launches_per_rank=[r["launches"] for r in rows],
         expected_launches_per_rank=want,
@@ -4121,6 +4277,12 @@ def serve_tp_phase(device, serve_row: dict, name: str = "serve_tp",
         forced_allclose_excess_max=[max(r["forced_excess"]) for r in rows],
         forced_logits_abs_err_by_step=r0.get("forced_abs_err"),
         logits_gate="fp32 model" if fp32_bar is not None else name[:-3],
+        logits_gate_clause_per_rank=[logits_gate(r) for r in rows],
+        serve_vs_fp32_model_abs_max=None if fp32_bar is None
+        else max(x["abs_max"] for x in r0["serve_vs_fp32"]),
+        serve_vs_fp32_model_abs_mean=None if fp32_bar is None
+        else sum(x["abs_mean"] for x in r0["serve_vs_fp32"])
+        / len(r0["serve_vs_fp32"]),
         serve_vs_fp32_model_excess=None if fp32_bar is None
         else saved["fp32_excess"],
         forced_vs_fp32_model_excess_max=None if fp32_bar is None
@@ -4133,14 +4295,16 @@ def serve_tp_phase(device, serve_row: dict, name: str = "serve_tp",
         bar=SERVE_TP_BAR, margin=SERVE_TP_MARGIN,
         tokens_held_by_margin=[r["margin_held"] for r in rows],
         tokens_differing_where_held=[r["margin_differ"] for r in rows],
-        free_tokens_equal_serve=bool(rows) and rows[0]["tokens"] == served,
+        tokens_against_the_fp32_model_not_gated=[r["fp32_tokens"]
+                                                 for r in rows],
+        free_tokens_equal_serve=bool(rows) and rows[0]["tokens"] == [
+            ln[:new] for ln in served],
         same_tokens_on_ranks=same_tokens, decode_steps=steps, **moe_fields,
-        note="2 ranks share one card and meet through gloo on the host: "
-             "walls are correctness runs, not speed", ok=ok)
+        note="2 ranks share one card and meet through gloo on the host, "
+             "so the decode runs eagerly (a gloo collective cannot be "
+             "captured): walls are correctness runs, not speed", ok=ok)
     emit(**row)
-    if not ok:
-        raise SystemExit(f"phase {name} failed")
-    row["launches"] = rows[0]["launches"]
+    row["launches"] = rows[0]["launches"] if rows else {}
     return row
 
 
@@ -4819,9 +4983,12 @@ def main() -> int:
         phases.append(serve_phase(device, name, arch, cut=cut,
                                   prompt_len=prompt_len))
         torch.cuda.empty_cache()
-        if name == "serve_moe":
-            phases.append(serve_tp_phase(device, phases[-1], "serve_moe_tp",
-                                         MOE_TP_ARCH))
+        phases.append(serve_tp_phase(device, phases[-1], FAMILY_TP[name],
+                                     arch, cut))
+    failed = [p["phase"] for p in phases
+              if p["phase"].endswith("_tp") and not p["ok"]]
+    if failed:
+        emit(phase="model_axis_failed", failed=failed)
     phases.append(train_parity_phase(device))
     row, trained = train_phase(device)
     phases.append(row)
@@ -4830,6 +4997,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.append(train_resume_phase(device))
     phases += train_robust_phase(device)
+    if failed:
+        raise SystemExit(f"phases failed: {', '.join(failed)}")
     # Launches on the main path, each row's from the phase that gives its
     # kernel that row's operands; null where no phase does.
     for row in rows:

@@ -16,22 +16,24 @@ The port runs one process a rank (the ``torch.distributed`` harness of
 ``distributed.multihost``).  Along the data axes each rank holds its
 shard of the batch and the whole parameters, as the reference's robust
 step requires: parameters and optimizer state stay replicated, not
-ZeRO-sharded.  Along the model axis the dense and MoE families serve with
-tensor parallelism (``models.parallel``): the ``tp``-tagged weight dims
-(heads, MLP columns, the experts' ff columns, the vocabulary) are split
-by the reference's rule (``models.params.shard_specs``), the experts by
-expert (``ep``) where the reference's ``_use_ep`` holds, and the decode
-cache, which the reference splits by sequence (``sp``), is split by KV
-head, which gives the same numbers and the same 1/t of memory.
+ZeRO-sharded.  Along the model axis every LM family serves with tensor
+parallelism (``models.parallel``): the ``tp``-tagged weight dims (heads,
+the SSD mixer's inner width, MLP columns, the experts' ff columns, the
+vocabulary) are split by the reference's rule
+(``models.params.shard_specs``), the experts by expert (``ep``) where the
+reference's ``_use_ep`` holds, and the decode cache, which the reference
+splits by sequence (``sp``), is split by KV head (an SSD state by head;
+MLA's latent cache stays whole), which gives the same numbers.
 :meth:`ShardingRules.check` lets ``tp``, ``sp`` and ``ep`` over a model
 axis larger than 1 pass on that path (``serving=`` the config), and
-raises ``NotImplementedError`` naming ROADMAP.md and its item, at build,
-for everything else over such an axis: the families other than dense and
-MoE and the MLA mixer (item 13), a cache that only a sequence split could
-place (more ranks than KV heads where ``wk``/``wv`` are split; item 14),
-experts that the model ranks do not divide (item 15), and any train step
-(item 11).  :func:`constrain` is the identity wherever it does not raise:
-a rank's tensors are its own shards already.
+raises ``NotImplementedError`` naming ROADMAP.md, at build, for
+everything else over such an axis: a split that cuts a head (attention,
+SSD or MLA) or puts an SSD rank's heads across two of its B/C groups, a
+cache that only a sequence split could place (more ranks than KV heads
+where ``wk``/``wv`` are split; item 14), experts that the model ranks do
+not divide (item 15), and any train step (item 11).  :func:`constrain`
+is the identity wherever it does not raise: a rank's tensors are its own
+shards already.
 """
 from __future__ import annotations
 
@@ -96,9 +98,8 @@ class ShardingRules:
         """Raise ``NotImplementedError`` (naming ROADMAP.md) where a
         logical axis in ``axes`` would shard over a mesh axis larger than
         1 outside the data axes.  With ``serving`` a model config, ``tp``
-        and ``sp`` pass where the port serves that config over the model
-        axis (the dense and MoE families, their KV heads placed by
-        :func:`~repro_torch.models.attention.head_layout`), and ``ep``
+        and ``sp`` pass where the port places that config's heads over the
+        model axis (:func:`_check_serving`), and ``ep``
         where the config splits its experts by expert (the reference's
         ``_use_ep``) over ranks that divide them."""
         for a in axes:
@@ -116,28 +117,26 @@ class ShardingRules:
             raise NotImplementedError(
                 f"logical axis {a!r} binds mesh axis {bound!r} of size "
                 f"{ranks}: the port splits weights over a model axis only "
-                f"to serve the dense and MoE families; a train step over "
-                f"it waits for a later slice (ROADMAP.md, Queue 1, "
-                f"item 11)")
-
-
-#: The ROADMAP.md item that will bring each family over a model axis.
-_FAMILY_ITEM = {"ssm": 13, "hybrid": 13, "vlm": 13, "encdec": 13}
+                f"to serve; a train step over it waits for a later slice "
+                f"(ROADMAP.md, Queue 1, item 11)")
 
 
 def _check_serving(cfg, ranks: int) -> None:
-    """Raise unless the port serves ``cfg`` over ``ranks`` model ranks."""
-    if cfg.family not in ("dense", "moe") or cfg.mla is not None:
-        item = 13 if cfg.mla is not None else _FAMILY_ITEM[cfg.family]
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family"
-            f"{' with MLA' if cfg.mla is not None else ''} over a model "
-            f"axis of {ranks} ranks waits for a later slice of the port "
-            f"(ROADMAP.md, Queue 1, item {item}); only the dense and MoE "
-            f"families serve with tensor parallelism")
-    from repro_torch.models.attention import head_layout
+    """Raise unless the port places ``cfg``'s heads over ``ranks`` model
+    ranks: the attention layers' query and KV heads
+    (:func:`~repro_torch.models.attention.head_layout`; a family without
+    attention layers has none to place), the SSD mixer's heads and B/C
+    groups (:func:`~repro_torch.models.ssm.head_split`) and MLA's heads
+    (:func:`~repro_torch.models.attention.mla_heads`)."""
+    from repro_torch.models.attention import head_layout, mla_heads
+    from repro_torch.models.ssm import head_split
 
-    head_layout(cfg, ranks, 0)
+    if cfg.ssm is not None:
+        head_split(cfg, ranks, 0)
+    if cfg.mla is not None:
+        mla_heads(cfg, ranks)
+    elif cfg.family != "ssm":
+        head_layout(cfg, ranks, 0)
 
 
 def _check_experts(cfg, ranks: int) -> None:

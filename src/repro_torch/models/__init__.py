@@ -24,13 +24,14 @@ state into serving (or into a captured decode graph).
 ``models/__init__.py:38-42``), default None: one device, or data ranks
 that each hold the whole model.  Rules from
 ``distributed.sharding.rules_for_mesh(mesh)`` over a mesh whose ``model``
-axis has t > 1 ranks serve the dense and MoE families tensor-parallel
+axis has t > 1 ranks serve every family tensor-parallel
 (``models.parallel``): each rank holds its slices of the split weights
 (drawn, by ``init_params``, as the whole tensors one rank would draw) and
-its KV heads' cache, and every rank gets the whole logits.  Every rank of
-the mesh makes the same calls in the same order.  Anything else over such
-an axis raises ``NotImplementedError`` naming ROADMAP.md when its
-parameters are built.
+its part of the cache (its KV heads, its SSD heads, MLA's whole latent),
+and every rank gets the whole logits.  Every rank of the mesh makes the
+same calls in the same order.  What the port cannot place over such an
+axis (``ShardingRules.check``) raises ``NotImplementedError`` naming
+ROADMAP.md when its parameters are built.
 """
 from __future__ import annotations
 
@@ -52,22 +53,24 @@ class _Family(NamedTuple):
     prefill: Callable
     decode: Callable
     cache_specs: Callable
+    layer_plan: Callable
 
 
 _LM = _Family(lm.lm_specs, lm.lm_loss, lm.lm_prefill, lm.lm_decode_step,
-              lm.lm_cache_specs)
+              lm.lm_cache_specs, lm.layer_plan)
 _FAMILY = {
     "dense": _LM,
     "moe": _LM,
     "ssm": _LM,
     "hybrid": _Family(hybrid.hybrid_specs, hybrid.hybrid_loss,
                       hybrid.hybrid_prefill, hybrid.hybrid_decode_step,
-                      hybrid.hybrid_cache_specs),
+                      hybrid.hybrid_cache_specs, hybrid.layer_plan),
     "vlm": _Family(vision.vlm_specs, vision.vlm_loss, vision.vlm_prefill,
-                   vision.vlm_decode_step, vision.vlm_cache_specs),
+                   vision.vlm_decode_step, vision.vlm_cache_specs,
+                   vision.layer_plan),
     "encdec": _Family(encdec.encdec_specs, encdec.encdec_loss,
                       encdec.encdec_prefill, encdec.encdec_decode_step,
-                      encdec.encdec_cache_specs),
+                      encdec.encdec_cache_specs, encdec.layer_plan),
 }
 #: The families whose prefill (and training batch) carries a ``ctx``.
 CONTEXT_FAMILIES = ("vlm", "encdec")
@@ -84,6 +87,12 @@ class Model:
     def specs(self) -> dict:
         """The whole model's spec tree (whole shapes, logical axes)."""
         return self._fns.specs(self.cfg)
+
+    def layer_plan(self) -> lm.Plan:
+        """The (mixer, ffn) of each decoder layer in order (the encoder's
+        layers are not in it): ``attn`` a self-attention layer, the one
+        mixer that runs the flash kernel where the config asks for it."""
+        return self._fns.layer_plan(self.cfg)
 
     def tensor_parallel(self, rules=None) -> TensorParallel | None:
         """This rank's context over the rules' model axis, or None where it
@@ -114,16 +123,8 @@ class Model:
                    device: torch.device | str | None = None,
                    rules=None) -> lm.Caches:
         tp = self.tensor_parallel(rules)
-        specs = self._fns.cache_specs(self.cfg, batch, s_max,
-                                      **self._tp_kw(tp))
+        specs = self._fns.cache_specs(self.cfg, batch, s_max, tp)
         return lm.init_caches(specs, resolve_device(device))
-
-    @staticmethod
-    def _tp_kw(tp: TensorParallel | None) -> dict:
-        """The uniform-stack functions' ``tp`` argument, only where there
-        is one (the other families take none: they are refused over a
-        model axis)."""
-        return {} if tp is None else {"tp": tp}
 
     @torch.no_grad()
     def prefill(self, params, tokens, caches=None, ctx=None, rules=None):
@@ -139,7 +140,7 @@ class Model:
             caches = self.init_cache(*tokens.shape, tokens.device, rules)
         return self._fns.prefill(params, tokens, self.cfg, caches,
                                  *((ctx,) if context else ()),
-                                 **self._tp_kw(self.tensor_parallel(rules)))
+                                 tp=self.tensor_parallel(rules))
 
     @torch.no_grad()
     def decode_step(self, params, tokens, caches, pos, rules=None):
@@ -149,7 +150,7 @@ class Model:
         if not isinstance(pos, torch.Tensor):
             pos = torch.full((), pos, dtype=torch.int32, device=tokens.device)
         return self._fns.decode(params, tokens, caches, pos, self.cfg,
-                                **self._tp_kw(self.tensor_parallel(rules)))
+                                tp=self.tensor_parallel(rules))
 
     def loss(self, params, batch):
         """``(loss, {"ce", "aux"})`` of a batch of ``tokens`` and

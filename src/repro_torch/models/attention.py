@@ -26,11 +26,19 @@ by rows, so the rank's product is a partial sum, added over the model
 ranks by one all-reduce (``TensorParallel.row_parallel``).  Decode works on the rank's KV-head cache with
 no collective inside attention and the one after ``wo``.
 
+Cross-attention over a model axis is the same: K and V of the context
+from the rank's ``wk``/``wv`` columns (its cache holds its KV heads),
+``wo`` row-parallel (:func:`cross_decode` likewise).
+
 MLA (DeepSeek-V2) is plain by construction, as in the reference: training
 and prefill decode per-head K/V from the normalised latent and attend over
 query chunks with split nope/rope fp32 scores; decode absorbs ``W_uk`` into
 the query and attends over the latent cache ((B, S_max, kv_lora) and
-(B, S_max, rope_dim)), updated in place at ``pos``.
+(B, S_max, rope_dim)), updated in place at ``pos``.  Over a model axis a
+rank takes h/t heads (:func:`mla_heads`): ``wq_b``, ``wkv_b`` (so the
+absorbed ``W_uk``/``W_uv``) and ``wo`` hold its heads' columns and rows,
+while ``wq_a``, ``wkv_a`` and the norms are whole, so every rank computes
+the same latent and holds the whole latent cache; ``wo`` is row-parallel.
 """
 from __future__ import annotations
 
@@ -41,8 +49,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.layers import (
-    apply_rope, axis_if, recompute, rmsnorm, rmsnorm_spec, tp_ok,
+    apply_rope, axis_if, by_columns, by_halves, recompute, rmsnorm,
+    rmsnorm_spec, tp_ok,
 )
+from repro_torch.models.parallel import fp32_product
 from repro_torch.models.params import ParamSpec
 
 Tensor = torch.Tensor
@@ -131,12 +141,63 @@ def _layout(cfg: ModelConfig, tp) -> HeadLayout:
         cfg, tp.size, tp.index)
 
 
+def _halves(cfg: ModelConfig, tp) -> list[HeadLayout] | None:
+    """Serving on the whole heads (one device, or a rank that holds them
+    all), the layouts of the 2 ranks whose split it computes by (None
+    where the model axis ``tp`` splits ``wq``, where autograd runs, or
+    where 2 ranks would not split ``wq``).  The Q/K/V products are each
+    half's columns' (``layers.by_columns``), the plain attention runs each
+    half of the heads apart, so that its batched products have a rank's
+    shapes and so its bits, and ``wo``'s product is the sum of the halves'
+    fp32 partials, as 2 ranks add theirs: then 2 ranks give one device's
+    bits (the flash kernel's heads do not depend on each other).  In bf16
+    any bit that differs grows, layer by layer, to the logits' whole bf16
+    noise (tools/tp_bits.py)."""
+    if not by_halves() or _layout(cfg, tp).q_split:
+        return None
+    try:
+        halves = [head_layout(cfg, 2, i) for i in range(2)]
+    except NotImplementedError:  # a head or a KV group cut in two
+        return None
+    return halves if halves[0].q_split else None
+
+
+def _columns(halves: list[HeadLayout] | None, hd: int, kv: bool = False
+             ) -> list[slice] | None:
+    """The column slices of the ``halves``' query (or KV) heads, each span
+    once (two halves that read one whole KV head share it)."""
+    if halves is None:
+        return None
+    spans = []
+    for lay in halves:
+        span = (lay.kv0, lay.kv_heads) if kv else (lay.q0, lay.heads)
+        if span not in spans:
+            spans.append(span)
+    return [slice(a * hd, (a + n) * hd) for a, n in spans]
+
+
+def _apart(core, halves: list[HeadLayout] | None, q: Tensor, k: Tensor,
+           v: Tensor) -> Tensor:
+    """``core(q, k, v)`` over (B, S, H, hd) query heads and their K/V
+    (repeated to H heads): each of the ``halves`` apart, joined."""
+    if halves is None:
+        return core(q, k, v)
+    return torch.cat([core(*(t[:, :, lay.q0:lay.q0 + lay.heads]
+                             for t in (q, k, v))) for lay in halves], dim=2)
+
+
 def _out_proj(params, out: Tensor, lay: HeadLayout, cfg: ModelConfig,
-              tp) -> Tensor:
+              tp, halves: list[HeadLayout] | None = None) -> Tensor:
     """(B, S, heads * hd) @ ``wo``, summed over the model ranks where
-    ``wo`` holds the rank's rows."""
+    ``wo`` holds the rank's rows, or over the ``halves``' rows."""
     wo = params.wo.to(cfg.cdtype)
-    return tp.row_parallel(out, wo) if lay.q_split else out @ wo
+    if lay.q_split:
+        return tp.row_parallel(out, wo)
+    if halves is None:
+        return out @ wo
+    rows = [slice(h.q0 * cfg.hd, (h.q0 + h.heads) * cfg.hd) for h in halves]
+    part = [fp32_product(out[..., r].contiguous(), wo[r]) for r in rows]
+    return (part[0] + part[1]).to(cfg.cdtype)
 
 
 def _sdpa_chunk(qc: Tensor, kf: Tensor, vf: Tensor, c0: int, causal: bool,
@@ -189,14 +250,15 @@ def attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig,
     the un-repeated (B, S or T, KV, hd) K/V for the cache (the rank's KV
     heads over a model axis ``tp``).  The flash kernel runs only where
     ``allow_flash`` and ``cfg.flash_attention``."""
-    lay = _layout(cfg, tp)
+    lay, halves = _layout(cfg, tp), _halves(cfg, tp)
     hd = cfg.hd
     cd = cfg.cdtype
     kv_src = x if ctx is None else ctx
     wk, wv = _kv_weights(params, lay, cfg)
-    q = _split_heads(x @ params.wq.to(cd), lay.heads, hd)
-    k = _split_heads(kv_src @ wk.to(cd), lay.kv_heads, hd)
-    v = _split_heads(kv_src @ wv.to(cd), lay.kv_heads, hd)
+    qc, kc = _columns(halves, hd), _columns(halves, hd, kv=True)
+    q = _split_heads(by_columns(x, params.wq.to(cd), qc), lay.heads, hd)
+    k = _split_heads(by_columns(kv_src, wk.to(cd), kc), lay.kv_heads, hd)
+    v = _split_heads(by_columns(kv_src, wv.to(cd), kc), lay.kv_heads, hd)
     if ctx is None:  # RoPE only for self-attention
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -208,10 +270,11 @@ def attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig,
     if allow_flash and cfg.flash_attention:
         out = fa.flash_attention(q, k, v, causal=causal, scale=scale)
     else:
-        out = _sdpa_chunked(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
-                            scale=scale)
+        out = _apart(lambda q, k, v: _sdpa_chunked(
+            q, k, v, causal=causal, q_chunk=cfg.q_chunk, scale=scale),
+            halves, q, k, v)
     return _out_proj(params, out.reshape(b, s, lay.heads * hd), lay, cfg,
-                     tp), cache
+                     tp, halves), cache
 
 
 def attention_decode(params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
@@ -220,44 +283,65 @@ def attention_decode(params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
     ``x``'s device) against the (B, S_max, KV, hd) caches (the rank's KV
     heads over a model axis ``tp``), which it updates in place at
     ``pos``."""
-    lay = _layout(cfg, tp)
-    h, kv, hd, g = lay.heads, lay.kv_heads, cfg.hd, lay.group
+    lay, halves = _layout(cfg, tp), _halves(cfg, tp)
+    h, kv, hd = lay.heads, lay.kv_heads, cfg.hd
     cd = cfg.cdtype
     b = x.shape[0]
-    s_max = cache_k.shape[1]
     at = pos.reshape(1).to(torch.long)
     positions = at.expand(b, 1)
     wk, wv = _kv_weights(params, lay, cfg)
-    q = apply_rope(_split_heads(x @ params.wq.to(cd), h, hd), positions,
-                   cfg.rope_theta)
-    k_new = apply_rope(_split_heads(x @ wk.to(cd), kv, hd), positions,
-                       cfg.rope_theta)
-    v_new = _split_heads(x @ wv.to(cd), kv, hd)
+    qc, kc = _columns(halves, hd), _columns(halves, hd, kv=True)
+    q = apply_rope(_split_heads(by_columns(x, params.wq.to(cd), qc), h, hd),
+                   positions, cfg.rope_theta)
+    k_new = apply_rope(_split_heads(by_columns(x, wk.to(cd), kc), kv, hd),
+                       positions, cfg.rope_theta)
+    v_new = _split_heads(by_columns(x, wv.to(cd), kc), kv, hd)
     cache_k.index_copy_(1, at, k_new.to(cache_k.dtype))
     cache_v.index_copy_(1, at, v_new.to(cache_v.dtype))
+    if halves is None:
+        out = _decode_core(q, cache_k, cache_v, pos)
+    else:
+        out = torch.cat([_decode_core(
+            q[:, :, part.q0:part.q0 + part.heads],
+            *(c[:, :, part.kv0:part.kv0 + part.kv_heads]
+              for c in (cache_k, cache_v)), pos) for part in halves], dim=2)
+    return _out_proj(params, out.to(cd).reshape(b, 1, h * hd), lay, cfg, tp,
+                     halves)
 
-    qf = q.reshape(b, 1, kv, g, hd).to(torch.float32) / float(hd) ** 0.5
+
+def _decode_core(q: Tensor, cache_k: Tensor, cache_v: Tensor, pos: Tensor
+                 ) -> Tensor:
+    """One token's (B, 1, H, hd) query heads against their (B, S_max, KV,
+    hd) cache up to ``pos``, in fp32: (B, 1, H, hd)."""
+    b, _, h, hd = q.shape
+    kv = cache_k.shape[2]
+    qf = q.reshape(b, 1, kv, h // kv, hd).to(torch.float32) / float(hd) ** 0.5
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, cache_k.to(torch.float32))
-    mask = torch.arange(s_max, device=x.device) <= pos
+    mask = torch.arange(cache_k.shape[1], device=q.device) <= pos
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, cache_v.to(torch.float32))
-    return _out_proj(params, out.to(cd).reshape(b, 1, h * hd), lay, cfg, tp)
+    return out.reshape(b, 1, h, hd)
 
 
 def cross_decode(params, x: Tensor, cache_k: Tensor, cache_v: Tensor,
-                 cfg: ModelConfig) -> Tensor:
+                 cfg: ModelConfig, tp=None) -> Tensor:
     """One token (B, 1, d) against a cross layer's static (B, T, KV, hd)
-    context K/V (the reference's ``blocks._cross_decode``): plain, one
-    query chunk, no mask; the cache is only read."""
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    context K/V (the reference's ``blocks._cross_decode``; the rank's KV
+    heads over a model axis ``tp``): plain, one query chunk, no mask; the
+    cache is only read."""
+    lay, halves = _layout(cfg, tp), _halves(cfg, tp)
+    hd = cfg.hd
     cd = cfg.cdtype
     b = x.shape[0]
-    q = _split_heads(x @ params.wq.to(cd), h, hd)
-    out = _sdpa_chunked(q, repeat_kv(cache_k, h // kv),
-                        repeat_kv(cache_v, h // kv), causal=False,
-                        q_chunk=1, scale=1.0 / float(hd) ** 0.5)
-    return out.reshape(b, 1, h * hd) @ params.wo.to(cd)
+    q = _split_heads(by_columns(x, params.wq.to(cd), _columns(halves, hd)),
+                     lay.heads, hd)
+    out = _apart(lambda q, k, v: _sdpa_chunked(
+        q, k, v, causal=False, q_chunk=1, scale=1.0 / float(hd) ** 0.5),
+        halves, q, repeat_kv(cache_k, lay.group),
+        repeat_kv(cache_v, lay.group))
+    return _out_proj(params, out.reshape(b, 1, lay.heads * hd), lay, cfg,
+                     tp, halves)
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +368,31 @@ def mla_specs(cfg: ModelConfig) -> dict:
     }
 
 
+def mla_heads(cfg: ModelConfig, ranks: int = 1) -> int:
+    """The MLA heads a rank of ``ranks`` holds: h / ranks where its
+    ``wq_b``, ``wkv_b`` and ``wo`` split (by the reference's rule: their
+    head dims divide by ``ranks``), else h.  Raises
+    ``NotImplementedError`` naming ROADMAP.md where a split would cut a
+    head or leave one of them whole."""
+    mla, h = cfg.mla, cfg.n_heads
+    widths = (mla.qk_nope_dim + mla.qk_rope_dim,
+              mla.qk_nope_dim + mla.v_head_dim, mla.v_head_dim)
+    splits = {ranks > 1 and h * w % ranks == 0 for w in widths}
+    if splits == {False}:
+        return h
+    if splits != {True} or h % ranks:
+        raise NotImplementedError(
+            f"{cfg.name}: its {h} MLA heads do not split over {ranks} "
+            f"model ranks: a rank's slice of wq_b, wkv_b and wo would cut "
+            f"a head (ROADMAP.md, unported features)")
+    return h // ranks
+
+
+def _mla_split(params) -> bool:
+    """Whether this rank holds a slice of the MLA heads (``wo``'s rows)."""
+    return params.specs["wo"].part is not None
+
+
 def _mla_scale(cfg: ModelConfig) -> float:
     """1 / sqrt(nope + rope): the query's width, not ``cfg.hd``."""
     return 1.0 / float(cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim) ** 0.5
@@ -292,14 +401,16 @@ def _mla_scale(cfg: ModelConfig) -> float:
 def _mla_qkv(params, x: Tensor, positions: Tensor, cfg: ModelConfig
              ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """The shared projections: ``q_nope`` (B, S, H, nope), ``q_rope`` (B,
-    S, H, rope) rotated, the normalised latent ``c_kv`` (B, S, kv_lora)
-    and the rotated shared ``k_rope`` (B, S, rope)."""
-    mla, h = cfg.mla, cfg.n_heads
+    S, H, rope) rotated (the rank's heads: ``wq_b``'s columns), the
+    normalised latent ``c_kv`` (B, S, kv_lora) and the rotated shared
+    ``k_rope`` (B, S, rope)."""
+    mla = cfg.mla
     cd = cfg.cdtype
     b, s, _ = x.shape
     q = rmsnorm(params.q_norm, x @ params.wq_a.to(cd), cfg.norm_eps,
                 cfg.bf16_norm_grad)
-    q = (q @ params.wq_b.to(cd)).reshape(b, s, h, -1)
+    q = (q @ params.wq_b.to(cd)).reshape(
+        b, s, -1, mla.qk_nope_dim + mla.qk_rope_dim)
     q_nope, q_rope = torch.split(
         q, [mla.qk_nope_dim, mla.qk_rope_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -311,11 +422,11 @@ def _mla_qkv(params, x: Tensor, positions: Tensor, cfg: ModelConfig
 
 
 def _mla_up(params, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
-    """``wkv_b`` as (kv_lora, H, nope + v), split into ``W_uk`` (..., nope)
-    and ``W_uv`` (..., v)."""
+    """``wkv_b`` as (kv_lora, H, nope + v) (the rank's heads), split into
+    ``W_uk`` (..., nope) and ``W_uv`` (..., v)."""
     mla = cfg.mla
     wkv_b = params.wkv_b.to(cfg.cdtype).reshape(
-        mla.kv_lora_rank, cfg.n_heads, mla.qk_nope_dim + mla.v_head_dim)
+        mla.kv_lora_rank, -1, mla.qk_nope_dim + mla.v_head_dim)
     return torch.split(wkv_b, [mla.qk_nope_dim, mla.v_head_dim], dim=-1)
 
 
@@ -333,15 +444,23 @@ def _mla_chunk(qn: Tensor, qr: Tensor, kf: Tensor, rf: Tensor, vf: Tensor,
     return torch.einsum("bhqs,bshv->bqhv", probs, vf).to(qn.dtype)
 
 
-def mla_attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig
-                  ) -> tuple[Tensor, tuple[Tensor, Tensor]]:
+def _mla_out(params, out: Tensor, cfg: ModelConfig, tp) -> Tensor:
+    """(B, S, H, v) @ ``wo``, summed over the model ranks where ``wo``
+    holds the rank's heads' rows."""
+    out = out.reshape(*out.shape[:2], -1)
+    wo = params.wo.to(cfg.cdtype)
+    return tp.row_parallel(out, wo) if tp is not None and _mla_split(
+        params) else out @ wo
+
+
+def mla_attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig,
+                  tp=None) -> tuple[Tensor, tuple[Tensor, Tensor]]:
     """Training and prefill MLA over (B, S, d): per-head K/V decoded from
     the latent, query chunks of ``cfg.q_chunk`` (one chunk's (B, H, ck, S)
     fp32 scores alive at a time, recomputed in backward while autograd
-    records).  Returns ``(y, (c_kv, k_rope))``, the latent cache."""
-    mla, h = cfg.mla, cfg.n_heads
-    cd = cfg.cdtype
-    b, s, _ = x.shape
+    records).  Returns ``(y, (c_kv, k_rope))``, the latent cache (whole on
+    every rank over a model axis ``tp``)."""
+    s = x.shape[1]
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, positions, cfg)
     w_uk, w_uv = _mla_up(params, cfg)
     kf = torch.einsum("bsk,khn->bshn", c_kv, w_uk).to(torch.float32)
@@ -352,18 +471,17 @@ def mla_attention(params, x: Tensor, positions: Tensor, cfg: ModelConfig
     out = torch.cat([recompute(_mla_chunk, q_nope[:, c0:c0 + ck],
                                q_rope[:, c0:c0 + ck], kf, rf, vf, c0, scale)
                      for c0 in range(0, s, ck)], dim=1)
-    y = out.reshape(b, s, h * mla.v_head_dim) @ params.wo.to(cd)
-    return y, (c_kv, k_rope)
+    return _mla_out(params, out, cfg, tp), (c_kv, k_rope)
 
 
 def mla_attention_decode(params, x: Tensor, cache_ckv: Tensor,
-                         cache_rope: Tensor, pos: Tensor, cfg: ModelConfig
-                         ) -> Tensor:
+                         cache_rope: Tensor, pos: Tensor, cfg: ModelConfig,
+                         tp=None) -> Tensor:
     """Absorbed decode of one token (B, 1, d) at ``pos`` (a 0-d integer
     tensor on ``x``'s device): ``W_uk`` folds into the query, so the
     scores and the output are taken over the latent cache itself, which
-    is updated in place at ``pos``."""
-    mla, h = cfg.mla, cfg.n_heads
+    is updated in place at ``pos`` (over a model axis ``tp`` the rank's
+    heads, from its ``wkv_b`` columns, against the whole cache)."""
     cd = cfg.cdtype
     b = x.shape[0]
     s_max = cache_ckv.shape[1]
@@ -383,4 +501,4 @@ def mla_attention_decode(params, x: Tensor, cache_ckv: Tensor,
     probs = torch.softmax(sc, dim=-1)
     o_lat = torch.einsum("bhqs,bsk->bqhk", probs, ckv)
     out = torch.einsum("bqhk,khv->bqhv", o_lat.to(cd), w_uv)
-    return out.reshape(b, 1, h * mla.v_head_dim) @ params.wo.to(cd)
+    return _mla_out(params, out, cfg, tp)

@@ -20,12 +20,13 @@ A cross layer's cache is the context's K/V, (B, T, KV, hd) each: the
 prefill writes it, decode only reads it.  An ``add_cross`` layer's cache is
 a :class:`SelfCrossCache` of its self-attention K/V and that context K/V.
 
-Over a model axis (``tp``, a ``models.parallel.TensorParallel``) the
-dense and MoE layers (``"attn"`` with ``"mlp"`` or ``"moe"``) run
-tensor-parallel: attention on the rank's heads, the MLP on its columns
-and the MoE on its share of the experts (``models.moe``), each followed
-by one all-reduce.  The other mixers raise: their families are refused at
-build (``ShardingRules.check``).
+Over a model axis (``tp``, a ``models.parallel.TensorParallel``) every
+layer runs tensor-parallel:
+self- and cross-attention and MLA on the rank's heads, the SSD mixer on
+its heads (``models.ssm``), the MLP on its columns and the MoE on its
+share of the experts (``models.moe``), each followed by one all-reduce
+(the SSD mixer's norm adds one).  A cross layer's ``tanh(gate)`` scales
+the reduced output, as one device's.
 """
 from __future__ import annotations
 
@@ -47,8 +48,6 @@ from repro_torch.models.params import ParamSpec
 MODES = ("train", "prefill", "decode")
 MIXERS = ("attn", "mla", "ssm", "cross")
 FFNS = ("mlp", "moe", "none")
-#: The layers (mixer, ffn, add_cross) that run over a model axis.
-TP_LAYERS = (("attn", "mlp", False), ("attn", "moe", False))
 
 
 class SelfCrossCache(NamedTuple):
@@ -96,19 +95,20 @@ def _mixer(params, h: torch.Tensor, cfg: ModelConfig, mode: str, mixer: str,
     if mixer == "mla":
         if mode == "decode":
             return attn_mod.mla_attention_decode(params, h, cache[0],
-                                                 cache[1], pos, cfg), cache
-        return attn_mod.mla_attention(params, h, positions, cfg)
+                                                 cache[1], pos, cfg,
+                                                 tp), cache
+        return attn_mod.mla_attention(params, h, positions, cfg, tp)
     if mixer == "ssm":
         if mode == "decode":
-            return ssm_mod.ssd_decode(params, h, cache, cfg)
+            return ssm_mod.ssd_decode(params, h, cache, cfg, tp)
         if mode == "prefill":
-            return ssm_mod.ssd_prefill(params, h, cfg)
-        return ssm_mod.ssd(params, h, cfg), None
+            return ssm_mod.ssd_prefill(params, h, cfg, tp)
+        return ssm_mod.ssd(params, h, cfg, tp=tp), None
     if mixer == "cross":
         if mode == "decode":
             return attn_mod.cross_decode(params, h, cache[0], cache[1],
-                                         cfg), cache
-        return attn_mod.attention(params, h, positions, cfg, ctx=ctx)
+                                         cfg, tp), cache
+        return attn_mod.attention(params, h, positions, cfg, ctx=ctx, tp=tp)
     raise ValueError(f"unknown mixer {mixer!r}")
 
 
@@ -128,13 +128,9 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
     only read), in ``train`` None.  ``ctx`` (B, T, d) is the context of
     cross-attention (prefill and training); ``causal`` applies to
     self-attention.  Every norm takes ``cfg.bf16_norm_grad``.  ``tp``
-    (a model axis) serves the dense and MoE layers only."""
+    is a model axis (any mixer and FFN)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    if tp is not None and (mixer, ffn, add_cross) not in TP_LAYERS:
-        raise NotImplementedError(
-            f"a {mixer}/{ffn} layer over a model axis waits for a later "
-            f"slice of the port (ROADMAP.md, Queue 1, item 13)")
     h = rmsnorm(params.ln1, x, cfg.norm_eps, cfg.bf16_norm_grad)
     self_cache = cache[:2] if add_cross and mode == "decode" else cache
     y, new = _mixer(params.mixer, h, cfg, mode, mixer, positions, pos,
@@ -146,11 +142,11 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
         h = rmsnorm(params.ln_cross, x, cfg.norm_eps, cfg.bf16_norm_grad)
         if mode == "decode":
             y = attn_mod.cross_decode(params.cross, h, cache.cross_k,
-                                      cache.cross_v, cfg)
+                                      cache.cross_v, cfg, tp)
             new = cache
         else:
             y, kv = attn_mod.attention(params.cross, h, positions, cfg,
-                                       ctx=ctx)
+                                       ctx=ctx, tp=tp)
             new = SelfCrossCache(*new, *kv)
         x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -14,6 +14,11 @@ the reference.
 
 Parameters: ``embed``, ``encoder`` (one layer each), ``ln_enc``,
 ``layers`` (the decoder; the reference's ``decoder``) and ``ln_f``.
+
+Over a model axis (``tp``) the encoder's layers and the decoder's run on
+the rank's heads and MLP columns; each rank gets the whole encoder output
+(every layer ends in an all-reduce), and a decoder layer's cache holds the
+rank's KV heads of its self and context K/V.
 """
 from __future__ import annotations
 
@@ -43,21 +48,23 @@ def encdec_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def encdec_cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> list:
-    self_kv = lm._mixer_cache_spec(cfg, "attn", batch, s_max)
-    cross_kv = lm._mixer_cache_spec(cfg, "cross", batch, s_max)
+def encdec_cache_specs(cfg: ModelConfig, batch: int, s_max: int,
+                       tp=None) -> list:
+    self_kv = lm._mixer_cache_spec(cfg, "attn", batch, s_max, tp)
+    cross_kv = lm._mixer_cache_spec(cfg, "cross", batch, s_max, tp)
     return [blocks.SelfCrossCache(*self_kv, *cross_kv)] * cfg.n_layers
 
 
-def encode(params, ctx: Tensor, cfg: ModelConfig) -> Tensor:
+def encode(params, ctx: Tensor, cfg: ModelConfig, tp=None) -> Tensor:
     """The bidirectional encoder over frame embeddings (B, T, d), each
-    layer recomputed in backward by ``cfg.remat`` while autograd
-    records."""
+    layer recomputed in backward by ``cfg.remat`` while autograd records
+    (over a model axis ``tp``, the rank's heads and columns, inside a
+    prefill)."""
     b, t, _ = ctx.shape
     positions = torch.arange(t, device=ctx.device).expand(b, t)
     plan = [("attn", "mlp")] * cfg.encdec.n_encoder_layers
     x, _ = lm.run_train_layers(params.encoder, ctx.to(cfg.cdtype), positions,
-                               cfg, plan, causal=False)
+                               cfg, plan, causal=False, tp=tp)
     return rmsnorm(params.ln_enc, x, cfg.norm_eps, cfg.bf16_norm_grad)
 
 
@@ -68,12 +75,13 @@ def encdec_loss(params, batch: dict, cfg: ModelConfig):
 
 
 def encdec_prefill(params, tokens, cfg: ModelConfig, caches: lm.Caches,
-                   ctx):
+                   ctx, tp=None):
     return lm.plan_prefill(params, tokens, cfg, caches, layer_plan(cfg),
-                           ctx=encode(params, ctx, cfg), add_cross=True)
+                           ctx=encode(params, ctx, cfg, tp), add_cross=True,
+                           tp=tp)
 
 
 def encdec_decode_step(params, tokens, caches: lm.Caches, pos,
-                       cfg: ModelConfig):
+                       cfg: ModelConfig, tp=None):
     return lm.plan_decode_step(params, tokens, caches, pos, cfg,
-                               layer_plan(cfg), add_cross=True)
+                               layer_plan(cfg), add_cross=True, tp=tp)

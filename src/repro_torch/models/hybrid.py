@@ -7,6 +7,8 @@ the groups, one ``layer{i}`` subtree per position in the period).  The
 port keeps a flat list of layers and runs ``models/lm.py``'s loops over
 the hybrid's plan: layer ``L`` is group ``L // period``, position
 ``L % period`` (``convert.py`` maps it onto ``groups[...]["layer{i}"]``).
+Over a model axis (``tp``) the SSD, attention, MLP and MoE layers run on
+the rank's heads, columns and experts (``blocks.layer_apply``).
 """
 from __future__ import annotations
 
@@ -45,19 +47,22 @@ def hybrid_specs(cfg: ModelConfig) -> dict:
     return lm.plan_specs(cfg, layer_plan(cfg))
 
 
-def hybrid_cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> list:
-    return lm.plan_cache_specs(cfg, layer_plan(cfg), batch, s_max)
+def hybrid_cache_specs(cfg: ModelConfig, batch: int, s_max: int,
+                       tp=None) -> list:
+    return lm.plan_cache_specs(cfg, layer_plan(cfg), batch, s_max, tp)
 
 
 def hybrid_loss(params, batch: dict, cfg: ModelConfig):
     return lm.plan_loss(params, batch, cfg, layer_plan(cfg))
 
 
-def hybrid_prefill(params, tokens, cfg: ModelConfig, caches: lm.Caches):
-    return lm.plan_prefill(params, tokens, cfg, caches, layer_plan(cfg))
+def hybrid_prefill(params, tokens, cfg: ModelConfig, caches: lm.Caches,
+                   tp=None):
+    return lm.plan_prefill(params, tokens, cfg, caches, layer_plan(cfg),
+                           tp=tp)
 
 
 def hybrid_decode_step(params, tokens, caches: lm.Caches, pos,
-                       cfg: ModelConfig):
+                       cfg: ModelConfig, tp=None):
     return lm.plan_decode_step(params, tokens, caches, pos, cfg,
-                               layer_plan(cfg))
+                               layer_plan(cfg), tp=tp)

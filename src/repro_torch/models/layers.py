@@ -155,14 +155,42 @@ def unembed_matrix(params) -> Tensor:
     return params.table.T
 
 
+def by_halves() -> bool:
+    """Whether a device that holds the whole of what 2 ranks of a model
+    axis would split (one device, or a rank the split skips) computes it
+    by the halves that they hold: while serving (no autograd; training
+    keeps the reference's arithmetic and backward).  Then 2 ranks give
+    one device's bits (``models/parallel.py``)."""
+    return not torch.is_grad_enabled()
+
+
+def by_columns(x: Tensor, w: Tensor,
+               cols: list[slice] | None) -> Tensor:
+    """``x @ w``; given ``cols``, the products over those column slices of
+    ``w``, joined: what ranks that hold those columns compute, so that
+    one device computing this way has their bits (a product's bits can
+    depend on its width: on an H100 the first half of a (4, 4096) @ (4096,
+    4096) product differs in its last bits from the product with that
+    half of the columns, tools/tp_bits.py)."""
+    if cols is None:
+        return x @ w
+    return torch.cat([x @ w[:, c] for c in cols], dim=-1)
+
+
 def logits(params, x: Tensor, tp=None) -> Tensor:
     """``x @ unembed`` in ``x``'s type; over a model axis the rank's
-    vocabulary slice, gathered into the whole (padded) vocabulary."""
-    out = x @ unembed_matrix(params).to(x.dtype)
+    vocabulary slice, gathered into the whole (padded) vocabulary.  On
+    one device, serving (no autograd), by the vocabulary's halves that 2
+    ranks hold, so that they give its bits (``attention._halves``)."""
+    w = unembed_matrix(params).to(x.dtype)
     name = "unembed" if hasattr(params, "unembed") else "table"
     if _vocab_split(params, name, tp):
-        out = tp.gather_last(out)
-    return out
+        return tp.gather_last(x @ w)
+    pv = w.shape[1]
+    halves = None
+    if by_halves() and pv % 2 == 0:
+        halves = [slice(0, pv // 2), slice(pv // 2, pv)]
+    return by_columns(x, w, halves)
 
 
 def _chunk_nll(xc: Tensor, w_unembed: Tensor, lc: Tensor) -> Tensor:

@@ -29,12 +29,14 @@ is the training objective: the chunked cross-entropy of the final hidden
 states plus the routers' aux loss summed over layers, each layer
 recomputed in backward by ``cfg.remat``.
 
-Over a model axis (``tp``, a ``models.parallel.TensorParallel``; the
-dense and MoE families) the same loops run on a rank's slices: the embedding
-and the logits are vocab-parallel (``layers.embed``, ``layers.logits``),
-each layer tensor-parallel (``blocks.layer_apply``), and a rank's
-attention cache holds its KV heads (``attention.head_layout``), so
-:func:`plan_cache_specs` gives (B, S_max, KV_rank, hd).
+Over a model axis (``tp``, a ``models.parallel.TensorParallel``; every
+family) the same loops run on a rank's slices: the embedding and the
+logits are vocab-parallel (``layers.embed``, ``layers.logits``), each
+layer tensor-parallel (``blocks.layer_apply``), and a rank's cache is its
+part: an attention or cross layer's K/V its KV heads
+(``attention.head_layout``: (B, S_max or T, KV_rank, hd)), an SSD state
+its heads (``ssm.head_split``: conv (B, d_conv - 1, d_in / t + 2 G N),
+ssm (B, H / t, N, P)); MLA's latent cache is whole on every rank.
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ from repro_torch.models.layers import (
     rmsnorm_spec, unembed_matrix,
 )
 from repro_torch.models.params import ParamSpec
-from repro_torch.models.ssm import SSMState, _dims
+from repro_torch.models.ssm import SSMState, local_dims, rank_split
 
 Tensor = torch.Tensor
 Cache = Union[tuple[Tensor, Tensor], SSMState, blocks.SelfCrossCache]
@@ -109,7 +111,7 @@ def _mixer_cache_spec(cfg: ModelConfig, mixer: str, batch: int,
                           init="zeros"))
     if mixer == "ssm":
         s = cfg.ssm
-        _, heads, conv_dim = _dims(cfg)
+        _, heads, conv_dim = local_dims(cfg, rank_split(cfg, tp))
         return SSMState(
             conv=ParamSpec((batch, s.d_conv - 1, conv_dim), cd,
                            init="zeros"),
@@ -148,26 +150,30 @@ def init_caches(specs: list[tuple[ParamSpec, ...]],
 # ---------------------------------------------------------------------------
 def _train_layer(layer, x: Tensor, positions: Tensor, cfg: ModelConfig,
                  mixer: str, ffn: str, ctx: Tensor | None = None,
-                 causal: bool = True, add_cross: bool = False
+                 causal: bool = True, add_cross: bool = False, tp=None
                  ) -> tuple[Tensor, Tensor]:
     x, aux, _ = blocks.layer_apply(layer, x, cfg=cfg, mode="train",
                                    mixer=mixer, ffn=ffn,
                                    positions=positions, ctx=ctx,
-                                   causal=causal, add_cross=add_cross)
+                                   causal=causal, add_cross=add_cross,
+                                   tp=tp)
     return x, aux
 
 
 def run_train_layers(layers, x: Tensor, positions: Tensor,
                      cfg: ModelConfig, plan: Plan, *,
                      ctx: Tensor | None = None, causal: bool = True,
-                     add_cross: bool = False) -> tuple[Tensor, Tensor]:
+                     add_cross: bool = False, tp=None
+                     ) -> tuple[Tensor, Tensor]:
     """``layers`` in training mode, each recomputed in backward by
     ``cfg.remat``; ``ctx``, ``causal`` and ``add_cross`` go to every
-    layer.  Returns ``x`` and the summed aux loss."""
+    layer.  Returns ``x`` and the summed aux loss.  ``tp`` (a model axis)
+    serves the whisper encoder inside a prefill, under ``no_grad``; a
+    train step over a model axis is refused at build."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, (mixer, ffn) in zip(layers, plan, strict=True):
         x, a = blocks.remat(cfg, _train_layer, layer, x, positions, cfg,
-                            mixer, ffn, ctx, causal, add_cross)
+                            mixer, ffn, ctx, causal, add_cross, tp)
         aux = aux + a
     return x, aux
 

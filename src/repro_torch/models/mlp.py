@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import axis_if, tp_ok
+from repro_torch.models.layers import axis_if, by_halves, tp_ok
 from repro_torch.models.parallel import fp32_product
 from repro_torch.models.params import ParamSpec
 
@@ -45,6 +45,20 @@ def mlp_partial(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def mlp(params, x: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """The MLP; over a model axis the rank's partial, reduced.  Computed
+    whole and serving (no autograd), where 2 ranks would split ff, it runs
+    each half of ff apart and sums the halves' fp32 partials, as those
+    ranks compute and add theirs, so that they give its bits
+    (``layers.by_halves``)."""
     if tp is not None and is_split(params):
         return tp.reduce_partial(mlp_partial(params, x, cfg), cfg.cdtype)
-    return _hidden(params, x, cfg) @ params.w_down.to(cfg.cdtype)
+    cd = cfg.cdtype
+    w_down = params.w_down.to(cd)
+    ff = w_down.shape[0]
+    if not (by_halves() and tp_ok(ff) and ff % 2 == 0):
+        return _hidden(params, x, cfg) @ w_down
+    w_gate, w_up = params.w_gate.to(cd), params.w_up.to(cd)
+    part = [fp32_product(F.silu(x @ w_gate[:, c]) * (x @ w_up[:, c]),
+                         w_down[c])
+            for c in (slice(0, ff // 2), slice(ff // 2, ff))]
+    return (part[0] + part[1]).to(cd)

@@ -1,5 +1,5 @@
-"""Tensor parallelism over a mesh's model axis, for serving the dense and
-MoE families.
+"""Tensor parallelism over a mesh's model axis, for serving every LM
+family.
 
 The reference gives every model function ``rules`` and lets GSPMD split
 heads, MLP columns and the vocabulary over the ``model`` axis.  The port
@@ -9,9 +9,16 @@ the others in explicit collectives, Megatron-style:
 * the embedding table and the unembedding are split by vocabulary: a
   masked local lookup and one all-reduce (``layers.embed``), the logits
   of the rank's slice and one all-gather (``layers.logits``);
-* attention runs on the rank's h/t query heads and the KV heads they use
-  (``attention.head_layout``), the flash kernel on those heads; ``wo`` is
-  split by rows and followed by one all-reduce;
+* attention (self and cross) runs on the rank's h/t query heads and the
+  KV heads they use (``attention.head_layout``), self-attention's flash
+  kernel on those heads; ``wo`` is split by rows and followed by one
+  all-reduce;
+* MLA runs on the rank's h/t heads (``attention.mla_heads``) over the
+  latent every rank computes whole; ``wo`` as above;
+* the SSD mixer runs on the rank's heads of its inner width
+  (``ssm.head_split``), B and C whole; its gated RMSNorm over the whole
+  width adds the ranks' fp32 sums of squares in one all-reduce, and
+  ``out_proj`` is split by rows and followed by another;
 * the MLP's ``w_gate``/``w_up`` are split by columns and ``w_down`` by
   rows, followed by one all-reduce;
 * an MoE layer's experts are split by their ff columns, or by expert
@@ -27,8 +34,21 @@ closer to one rank's (NVIDIA H100 80GB HBM3, 700 W, Llama-3-8B over 2
 ranks: 0.086 from serve's at most, against 0.102 with bf16 partial sums;
 PERF.md §6).
 
-Everything else (norms, RoPE, residuals, sampling) runs whole on every
-rank, on identical values.  A :class:`TensorParallel` context carries the
+Everything else (the other norms, RoPE, residuals, sampling, the whisper
+encoder's output) runs whole on every rank, on identical values.
+
+One device, serving, computes what 2 ranks split by the halves that they
+hold (``ssm._head_parts``, ``attention._halves``, ``mlp.mlp``,
+``layers.logits``): each half's column products and per-head work with a
+rank's shapes, the sums over a split dim as the two halves' fp32
+partials added.  The sum of two terms does not depend on their order, so
+2 ranks give one device's bits.  In bf16 that matters: a bit that differs
+in an early layer grows to the logits' whole bf16 noise, past the greedy
+tokens' margins of mamba2-780m's 48 layers (``tools/tp_bits.py``).  The
+MoE experts and MLA are not split so: their ranks stay within bf16 noise
+of one device.
+
+A :class:`TensorParallel` context carries the
 rank's place and its collectives, which go through a
 ``multihost.MeshComm``'s ``model`` group, so its call, byte and second
 counters count them.  :func:`tensor_parallel` builds it from the
@@ -121,10 +141,10 @@ def tensor_parallel(cfg: ModelConfig, rules: ShardingRules | None
     """The context of this rank for serving ``cfg`` under ``rules``, or
     None where the model axis has one rank (the single-device path, the
     data-parallel one).  Raises ``NotImplementedError`` naming ROADMAP.md
-    for what the port does not serve over a model axis (a family other
-    than dense and MoE, MLA, experts the ranks do not divide, a cache only
-    a sequence split could place), before it touches any process
-    group."""
+    for what the port does not serve over a model axis (a split that cuts
+    a head or an SSD rank's B/C groups, experts the ranks do not divide, a
+    cache only a sequence split could place), before it touches any
+    process group."""
     if rules is None or rules.size(rules.tp) == rules.size(rules.sp) \
             == rules.size(rules.ep) == 1:
         return None

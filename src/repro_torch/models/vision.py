@@ -11,7 +11,9 @@ its layers by group (``groups``: ``k - 1`` self layers stacked under
 ``L // k``, position ``L % k``, the group's cross layer at ``k - 1``
 (``convert.py`` maps it onto ``groups[...]["self"]`` or ``["cross"]``).
 Decode passes no context: the cross layers read the context K/V that the
-prefill wrote into their caches.
+prefill wrote into their caches.  Over a model axis (``tp``) self- and
+cross-attention run on the rank's heads (a cross layer's cache holds its
+KV heads of the context) and the MLP on its columns.
 """
 from __future__ import annotations
 
@@ -39,8 +41,9 @@ def vlm_specs(cfg: ModelConfig) -> dict:
     return lm.plan_specs(cfg, layer_plan(cfg))
 
 
-def vlm_cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> list:
-    return lm.plan_cache_specs(cfg, layer_plan(cfg), batch, s_max)
+def vlm_cache_specs(cfg: ModelConfig, batch: int, s_max: int,
+                    tp=None) -> list:
+    return lm.plan_cache_specs(cfg, layer_plan(cfg), batch, s_max, tp)
 
 
 def vlm_loss(params, batch: dict, cfg: ModelConfig):
@@ -48,12 +51,13 @@ def vlm_loss(params, batch: dict, cfg: ModelConfig):
                         ctx=batch["ctx"].to(cfg.cdtype))
 
 
-def vlm_prefill(params, tokens, cfg: ModelConfig, caches: lm.Caches, ctx):
+def vlm_prefill(params, tokens, cfg: ModelConfig, caches: lm.Caches, ctx,
+                tp=None):
     return lm.plan_prefill(params, tokens, cfg, caches, layer_plan(cfg),
-                           ctx=ctx.to(cfg.cdtype))
+                           ctx=ctx.to(cfg.cdtype), tp=tp)
 
 
 def vlm_decode_step(params, tokens, caches: lm.Caches, pos,
-                    cfg: ModelConfig):
+                    cfg: ModelConfig, tp=None):
     return lm.plan_decode_step(params, tokens, caches, pos, cfg,
-                               layer_plan(cfg))
+                               layer_plan(cfg), tp=tp)

@@ -33,8 +33,9 @@ function.  Tokens stay on the device until the caller reads them.
 With the reference's ``rules`` over a mesh whose model axis has t > 1
 ranks (``sharding.rules_for_mesh``), every rank of the mesh calls
 ``generate`` with the same prompt and its own slices of the parameters
-(``Model.init_params(seed, device, rules)``): the dense and MoE
-families' prefill and decode run tensor-parallel (``models.parallel``), every rank samples
+(``Model.init_params(seed, device, rules)``), and the ``ctx`` of a
+context family: every family's prefill and decode run tensor-parallel
+(``models.parallel``), every rank samples
 from the whole logits, and every rank returns the same tokens (a
 temperature sample needs the same generator state on every rank).  The
 decode step is captured only where its collectives can be

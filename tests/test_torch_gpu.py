@@ -2051,6 +2051,222 @@ def test_two_gloo_ranks_serve_over_a_model_axis(cuda):
         assert "gloo" in r["info"]["why"]
 
 # ---------------------------------------------------------------------------
+# The SSM, hybrid, MLA, VLM and encoder-decoder families over a model axis
+# ---------------------------------------------------------------------------
+TP_FAMILY_ARCHS = ["mamba2-780m", "jamba-1.5-large-398b", "deepseek-v2-236b",
+                   "llama-3.2-vision-11b", "whisper-small"]
+_TP_FAMILY_CARD = """
+import json, os
+import torch
+from repro_torch import configs
+from repro_torch.distributed.sharding import rules_for_mesh
+from repro_torch.kernels import ops
+from repro_torch.models import get_model
+from repro_torch.serving.engine import ServeConfig, generate
+
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+env = json.loads(os.environ["TP_FAMILY_ENV"])
+rules = rules_for_mesh(_mh.multihost_mesh(("data", "model"), (1, 2),
+                                          device=dev))
+rank = _mh.MeshComm(rules.mesh, ("data",), "model").model_index
+for arch in env["archs"]:
+    cfg = configs.get_smoke_config(arch).replace(
+        param_dtype="float32", compute_dtype="float32", flash_attention=True)
+    model = get_model(cfg)
+    params = model.init_params(0, dev, rules=rules)
+    inputs = torch.load(os.path.join(env["dir"], f"{arch}.pt"))
+    with torch.no_grad():
+        for layer in params.layers:
+            if hasattr(layer, "gate"):
+                layer.gate.fill_(0.5)
+    prompt = inputs["prompt"].to(dev)
+    ctx = None if inputs["ctx"] is None else inputs["ctx"].to(dev)
+    s = prompt.shape[1]
+    caches = model.init_cache(2, s + 4, dev, rules=rules)
+    ops.reset_launch_counts()
+    logits, _ = model.prefill(params, prompt, caches, ctx=ctx, rules=rules)
+    launches = {k: c for k, c in ops.launch_counts().items() if c}
+    steps = [model.decode_step(params, inputs["decode"][:, i:i + 1].to(dev),
+                               caches, s + i, rules=rules)[0]
+             for i in range(3)]
+    tokens, info = generate(model, params, prompt,
+                            ServeConfig(max_new_tokens=6), ctx=ctx,
+                            rules=rules, return_info=True)
+    torch.save(dict(logits=logits.cpu(), steps=torch.stack(steps).cpu(),
+                    tokens=tokens.cpu(), info=info, launches=launches),
+               os.path.join(env["dir"], f"{arch}-{rank}.pt"))
+"""
+
+
+@pytest.fixture(scope="module")
+def tp_families(tmp_path_factory):
+    """{arch: (one rank's run on the card, [rank 0's, rank 1's])}: each
+    family's smoke config in fp32, the ranks one cohort of 2 gloo ranks
+    sharing the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch import configs
+    from repro_torch.distributed import multihost as mh
+    from repro_torch.kernels import _build
+    from repro_torch.models import CONTEXT_FAMILIES, get_model
+    from repro_torch.models.lm import ctx_len
+    from repro_torch.serving.engine import ServeConfig, generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    dev = torch.device("cuda")
+    tmp = tmp_path_factory.mktemp("tp_families")
+    ones = {}
+    for arch in TP_FAMILY_ARCHS:
+        cfg = configs.get_smoke_config(arch).replace(
+            param_dtype="float32", compute_dtype="float32",
+            flash_attention=True)
+        gen = torch.Generator().manual_seed(1)
+        inputs = dict(
+            prompt=torch.randint(0, cfg.vocab, (2, 24), generator=gen),
+            decode=torch.randint(0, cfg.vocab, (2, 3), generator=gen),
+            ctx=torch.randn(2, ctx_len(cfg), cfg.d_model, generator=gen)
+            if cfg.family in CONTEXT_FAMILIES else None)
+        torch.save(inputs, tmp / f"{arch}.pt")
+        model = get_model(cfg)
+        params = model.init_params(0, dev)
+        with torch.no_grad():
+            for layer in params.layers:
+                if hasattr(layer, "gate"):
+                    layer.gate.fill_(0.5)
+        prompt = inputs["prompt"].to(dev)
+        ctx = None if inputs["ctx"] is None else inputs["ctx"].to(dev)
+        caches = model.init_cache(2, 28, dev)
+        logits, _ = model.prefill(params, prompt, caches, ctx=ctx)
+        steps = [model.decode_step(params, inputs["decode"][:, i:i + 1].to(
+            dev), caches, 24 + i)[0] for i in range(3)]
+        tokens = generate(model, params, prompt, ServeConfig(max_new_tokens=6),
+                          ctx=ctx)
+        ones[arch] = dict(logits=logits.cpu(), steps=torch.stack(steps).cpu(),
+                          tokens=tokens.cpu(), cfg=cfg)
+        del params, caches
+    mh.launch_workers(_TP_FAMILY_CARD, num_processes=2, backend="gloo",
+                      timeout=600, extra_env={"TP_FAMILY_ENV": json.dumps(
+                          dict(dir=str(tmp), archs=TP_FAMILY_ARCHS))})
+    return {arch: (ones[arch], [torch.load(tmp / f"{arch}-{r}.pt")
+                                for r in range(2)])
+            for arch in TP_FAMILY_ARCHS}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TP_FAMILY_ARCHS,
+                         ids=["ssm", "hybrid", "mla", "vlm", "encdec"])
+def test_family_model_axis_matches_one_rank(tp_families, arch):
+    """Each family's smoke config in fp32 over a (1, 2) mesh, two gloo
+    ranks sharing the card, each drawing one rank's weights and keeping
+    its slices: the prefill's and 3 decode steps' logits within 1e-4 of
+    one rank's on the card, the greedy tokens the same, one flash launch
+    a self-attention layer in the prefill (none for the SSD mixer, MLA,
+    cross-attention or the encoder), the decode eager (gloo)."""
+    from repro_torch.models import get_model
+
+    one, ranks = tp_families[arch]
+    cfg = one["cfg"]
+    want = sum(m == "attn" for m, _ in get_model(cfg).layer_plan())
+    for r in ranks:
+        for got, ref in ((r["logits"], one["logits"]),
+                         (r["steps"], one["steps"])):
+            assert torch.allclose(got, ref, rtol=1e-4, atol=1e-4), (
+                (got - ref).abs().max())
+        assert torch.equal(r["tokens"], one["tokens"])
+        assert r["launches"] == ({"flash_attention": want} if want else {})
+        assert r["info"]["decode"] == "eager" and "gloo" in r["info"]["why"]
+
+
+#: Families served over 2 ranks with one device's bits, each cut in depth
+#: (every width whole): (arch, config cut).
+BITS_CUTS = [("mamba2-780m", {"n_layers": 4}), ("llama3-8b", {"n_layers": 2}),
+             ("llama-3.2-vision-11b", {"n_layers": 5}),
+             ("whisper-small", {"n_layers": 2})]
+_BITS_CARD = """
+import json, os
+import torch
+from repro_torch import configs
+from repro_torch.distributed.sharding import rules_for_mesh
+from repro_torch.models import get_model
+
+dev = torch.device("cuda")
+env = json.loads(os.environ["BITS_ENV"])
+rules = rules_for_mesh(_mh.multihost_mesh(("data", "model"), (1, 2),
+                                          device=dev))
+rank = _mh.MeshComm(rules.mesh, ("data",), "model").model_index
+model = get_model(configs.get_config(env["arch"]).replace(**env["cut"]))
+params = model.init_params(0, dev, rules=rules)
+with torch.no_grad():
+    for layer in params.layers:
+        if hasattr(layer, "gate"):
+            layer.gate.fill_(0.5)
+inputs = torch.load(os.path.join(env["dir"], "inputs.pt"))
+tokens = inputs["tokens"].to(dev)
+ctx = None if inputs["ctx"] is None else inputs["ctx"].to(dev)
+prompt, fed = tokens[:, :env["prompt"]], tokens[:, env["prompt"]:]
+caches = model.init_cache(*tokens.shape, dev, rules=rules)
+logits = [model.prefill(params, prompt, caches, ctx=ctx, rules=rules)[0]]
+for i in range(fed.shape[1]):
+    logits.append(model.decode_step(params, fed[:, i:i + 1], caches,
+                                    env["prompt"] + i, rules=rules)[0])
+torch.save(torch.stack(logits).cpu(),
+           os.path.join(env["dir"], f"rank-{rank}.pt"))
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,cut", BITS_CUTS,
+                         ids=["ssm", "dense", "vlm", "encdec"])
+def test_bf16_over_two_ranks_is_one_devices_bits(cuda, tmp_path, arch, cut):
+    """A family at full width, cut in depth, in bf16 over a (1, 2) mesh,
+    two gloo ranks sharing the card: the prefill's logits of a 300-token
+    prompt (mamba2: two chunks, the second padded) and of 3 decode steps
+    are one device's, bit for bit.  One device computes what the ranks
+    split by the halves that they hold (``ssm._head_parts``,
+    ``attention._halves``, the MLP's and the logits' halves): in bf16 any
+    bit that differs grows, layer by layer, to the logits' whole bf16
+    noise."""
+    from repro_torch import configs
+    from repro_torch.distributed import multihost as mh
+    from repro_torch.models import CONTEXT_FAMILIES, get_model
+    from repro_torch.models.lm import ctx_len
+
+    prompt, steps = 300, 3
+    model = get_model(configs.get_config(arch).replace(**cut))
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (2, prompt + steps), generator=gen)
+    ctx = (torch.randn(2, ctx_len(cfg), cfg.d_model, generator=gen).to(
+        cfg.cdtype) if cfg.family in CONTEXT_FAMILIES else None)
+    torch.save(dict(tokens=tokens, ctx=ctx), tmp_path / "inputs.pt")
+    params = model.init_params(0, cuda)
+    with torch.no_grad():
+        for layer in params.layers:
+            if hasattr(layer, "gate"):
+                layer.gate.fill_(0.5)
+    caches = model.init_cache(*tokens.shape, cuda)
+    on_card = tokens.to(cuda)
+    card_ctx = None if ctx is None else ctx.to(cuda)
+    want = [model.prefill(params, on_card[:, :prompt], caches,
+                          ctx=card_ctx)[0]]
+    for i in range(steps):
+        want.append(model.decode_step(
+            params, on_card[:, prompt + i:prompt + i + 1], caches,
+            prompt + i)[0])
+    want = torch.stack(want).cpu()
+    del params, caches
+    mh.launch_workers(_BITS_CARD, num_processes=2, backend="gloo",
+                      timeout=600, extra_env={"BITS_ENV": json.dumps(
+                          dict(dir=str(tmp_path), arch=arch, cut=cut,
+                               prompt=prompt))})
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank-{rank}.pt")
+        assert torch.equal(got, want), (got - want).abs().max()
+
+
+# ---------------------------------------------------------------------------
 # LM training: the train step, the robust aggregation, the probe
 # ---------------------------------------------------------------------------
 def _smoke_f32(**kw):

@@ -7,8 +7,9 @@ tree carries the reference's logical axes, leaf by leaf, and at t = 2 and
 ``spec_tree(..., SINGLE_POD.resolve)`` and divisibility guard
 (``repro/models/params.py:81-107``) give on a (1, t) mesh.  A rank's
 drawn weights are the slices of one rank's.  What the port does not serve
-over a model axis raises ``NotImplementedError`` naming ROADMAP.md when
-it is built.
+over a model axis (a split that cuts a head or an SSD rank's B/C groups,
+a cache only a sequence split could place, any train step) raises
+``NotImplementedError`` naming ROADMAP.md when it is built.
 
 Ranks: one cohort of 2 gloo CPU processes (``multihost.launch_workers``)
 serves two small fp32 dense configs on a (1, 2) mesh: ``split`` (d 64, 4
@@ -160,23 +161,6 @@ def test_rank_slices_are_one_ranks_weights(t):
 # ---------------------------------------------------------------------------
 # Refusals at build
 # ---------------------------------------------------------------------------
-REFUSED = ["mamba2-780m", "jamba-1.5-large-398b", "deepseek-v2-236b",
-           "llama-3.2-vision-11b", "whisper-small"]
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_other_families_are_refused_at_build(arch):
-    """SSM, hybrid, MLA (deepseek-v2's MoE with it), VLM and the
-    encoder-decoder over model = 2 raise NotImplementedError naming
-    ROADMAP.md when their parameters are built (the meta device: nothing
-    is allocated)."""
-    model = get_model(configs.get_smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.empty_params("meta", rules=_rules(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.init_cache(1, 8, "meta", rules=_rules(2))
-
-
 def test_moe_builds_over_the_model_axis(monkeypatch):
     """qwen2-moe's smoke config builds over model = 2 on the meta device
     (one process, no process group): the experts and the shared expert
@@ -208,6 +192,40 @@ def test_a_sequence_split_cache_is_refused_at_build():
         d_model=64, n_heads=4, n_kv_heads=1, head_dim=16)
     with pytest.raises(NotImplementedError, match="sequence split.*ROADMAP"):
         get_model(cfg).empty_params("meta", rules=_rules(2))
+    # The VLM's self and cross layers likewise: 2 KV heads over 4 ranks.
+    vlm = configs.get_smoke_config("llama-3.2-vision-11b")
+    with pytest.raises(NotImplementedError, match="sequence split.*item 14"):
+        get_model(vlm).empty_params("meta", rules=_rules(4))
+
+
+#: A split that cuts a head or an SSD rank's B/C groups: (arch, config
+#: overrides, SSD overrides, model ranks).
+CUTS = {
+    # 4 SSD heads of 64 (d_in 256) over 8 ranks: 32 channels a rank.
+    "ssd_head": ("mamba2-780m", {}, {}, 8),
+    # 6 SSD heads of 32 in 3 groups of 2 over 2 ranks: 3 heads a rank.
+    "ssd_groups": ("mamba2-780m", {"d_model": 96},
+                   {"head_dim": 32, "n_groups": 3}, 2),
+    # 4 MLA heads over 8 ranks: wq_b's 192 columns split, 24 a rank.
+    "mla_head": ("deepseek-v2-236b", {}, {}, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(CUTS))
+def test_a_head_or_group_cut_is_refused_at_build(case):
+    """A split of the SSD mixer's inner width that cuts a head or puts a
+    rank's heads across part of a B/C group, and a split of MLA's heads
+    that cuts one, raise NotImplementedError naming ROADMAP.md when the
+    parameters are built (the meta device: nothing is allocated)."""
+    import dataclasses
+
+    arch, kw, ssm_kw, ranks = CUTS[case]
+    cfg = configs.get_smoke_config(arch).replace(**kw)
+    if ssm_kw:
+        cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, **ssm_kw))
+    what = "B/C groups" if case == "ssd_groups" else "cut a head"
+    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):
+        get_model(cfg).empty_params("meta", rules=_rules(ranks))
 
 
 def test_expert_and_train_axes_are_refused():
@@ -229,8 +247,17 @@ def test_expert_and_train_axes_are_refused():
     moe = configs.get_smoke_config("qwen2-moe-a2.7b")
     rules.check("tp", "sp", "ep", serving=moe.replace(
         moe_ep=True, moe=dataclasses.replace(moe.moe, num_experts=16)))
+    jamba = configs.get_smoke_config("jamba-1.5-large-398b")
+    rules.check("tp", "sp", serving=jamba)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 15"):
+        rules.check("ep", serving=jamba)
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
         make_train_step(get_model(cfg), opt.AdamWConfig(), rules)
+    # Every family serves over the model axis; none trains over it.
+    for arch in ("mamba2-780m", "whisper-small"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
+            make_train_step(get_model(configs.get_smoke_config(arch)),
+                            opt.AdamWConfig(), rules)
 
 
 # ---------------------------------------------------------------------------
